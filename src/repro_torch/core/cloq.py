@@ -1,0 +1,78 @@
+"""CLoQ (Theorem 3.1): closed-form calibrated LoRA initialization.
+
+PyTorch twin of the single-device functions of ``repro.core.cloq``.  Given
+the regularized calibration Gram ``H = X^T X + lambda*I`` and the
+quantization residual ``dW = W - Q``, the optimal rank-r adapters
+minimizing ``|| X (A B^T - dW) ||_F^2`` are any factorization of
+``R^{-1} LR_r(R dW)`` where ``R = S_H^{1/2} U_H^T`` is the non-symmetric
+root of ``H`` (H = R^T R) and ``LR_r`` the best rank-r approximation.
+
+Splits of ``A B^T = R^{-1} U_{:r} S_{:r} V_{:r}^T`` (paper Table 7):
+    "paper" : A = R^{-1} U S,      B = V        (default)
+    "bsigma": A = R^{-1} U,        B = V S
+    "sqrt"  : A = R^{-1} U S^1/2,  B = V S^1/2
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+SPLITS = ("paper", "bsigma", "sqrt")
+
+
+def regularize_gram(H: Tensor, lambda_frac: float = 0.01) -> Tensor:
+    m = H.shape[0]
+    lam = lambda_frac * torch.trace(H) / m
+    return H + (lam + 1e-8) * torch.eye(m, dtype=H.dtype, device=H.device)
+
+
+def gram_root(H: Tensor, eps: float = 1e-10):
+    """Non-symmetric root R = S^{1/2} U^T with H = R^T R, plus its inverse.
+    Eigenvalues are floored at ``eps * max_eig`` (pseudo-inverse path for a
+    rank-deficient H)."""
+    H = H.float()
+    evals, evecs = torch.linalg.eigh(H)
+    floor = eps * evals[-1].clamp_min(1e-30)
+    sq = torch.sqrt(torch.maximum(evals, floor))
+    R = sq[:, None] * evecs.T
+    Rinv = evecs * (1.0 / sq)[None, :]
+    return R, Rinv
+
+
+def split_factors(RinvU: Tensor, S: Tensor, V: Tensor, split: str):
+    if split == "paper":
+        return RinvU * S[None, :], V
+    if split == "bsigma":
+        return RinvU, V * S[None, :]
+    if split == "sqrt":
+        rt = torch.sqrt(S)
+        return RinvU * rt[None, :], V * rt[None, :]
+    raise ValueError(f"unknown split {split!r}; options {SPLITS}")
+
+
+def cloq_init(H: Tensor, dW: Tensor, rank: int, split: str = "paper"):
+    """Closed-form (A (m,r), B (n,r)) minimizing ||X (A B^T - dW)||_F^2.
+    ``H`` must already be regularized (Algorithm 1 input)."""
+    dW = dW.float()
+    R, Rinv = gram_root(H)
+    U, S, Vh = torch.linalg.svd(R @ dW, full_matrices=False)
+    r = rank
+    return split_factors(Rinv @ U[:, :r], S[:r], Vh[:r, :].T, split)
+
+
+def lowrank_objective(H: Tensor, dW: Tensor, A: Tensor, B: Tensor) -> float:
+    """||X (A B^T - dW)||_F given H = X^T X."""
+    D = A @ B.T - dW
+    v = torch.einsum("ij,ik,kj->", D, H, D)
+    return float(torch.sqrt(v.clamp_min(0.0)))
+
+
+def discrepancy_norms(H: Tensor, Q: Tensor, A: Tensor, B: Tensor, W: Tensor):
+    """Paper Fig. 2 quantities: ||X(Q + AB^T - W)|| in Frobenius and spectral
+    norm (spectral computed on R D, since ||XD||_2 = ||R D||_2)."""
+    D = Q + A @ B.T - W
+    R, _ = gram_root(H)
+    RD = R @ D
+    return (float(torch.linalg.norm(RD)),
+            float(torch.linalg.matrix_norm(RD, ord=2)))

@@ -1,0 +1,120 @@
+"""OPTQ/GPTQ layer-wise post-training quantization in PyTorch.
+
+PyTorch twin of the single-device functions of ``repro.core.optq``.
+Solves ``min_{Q in grid} ||X (Q - W)||_F^2`` with the blocked Cholesky
+error-compensation sweep of Frantar et al. (2022) in the ``y = X @ W``
+convention: ``W`` is ``(m, n)``, the sweep runs over the input dim ``m``
+(rows), and all ``n`` output columns are compensated jointly.  Static
+per-group grids are computed up front from the (MagR-preprocessed)
+weights.  The row sweep is plain eager PyTorch, a few small launches per
+row.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.quantizer import QuantConfig, quant_params, stable_round
+
+Tensor = torch.Tensor
+
+
+def dampen(H: Tensor, lambda_frac: float) -> Tensor:
+    m = H.shape[0]
+    lam = lambda_frac * torch.trace(H) / m
+    return H + (lam + 1e-8) * torch.eye(m, dtype=H.dtype, device=H.device)
+
+
+def inv_cholesky_upper(H: Tensor) -> Tensor:
+    """Upper-triangular U with H^{-1} = U^T @ U (the factor GPTQ's sweep
+    consumes row by row)."""
+    m = H.shape[0]
+    L = torch.linalg.cholesky(H)
+    eye = torch.eye(m, dtype=H.dtype, device=H.device)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    Hinv = Linv.T @ Linv
+    return torch.linalg.cholesky(Hinv).T
+
+
+def _optq_core(W: Tensor, H: Tensor, srow: Tensor, zrow: Tensor, *,
+               bits: int, block_size: int, act_order: bool):
+    """Blocked GPTQ sweep.  ``srow``/``zrow`` are per-row (m, n) grids.
+    Requires ``m % block_size == 0``.  Returns (Qd f32, Qc uint8)."""
+    m, n = W.shape
+    bs = block_size
+    if act_order:
+        perm = torch.argsort(-torch.diag(H), stable=True)
+        inv_perm = torch.argsort(perm, stable=True)
+        W, H = W[perm], H[perm][:, perm]
+        srow, zrow = srow[perm], zrow[perm]
+
+    U = inv_cholesky_upper(H)
+    dU = torch.diag(U)
+    maxq = 2.0 ** bits - 1.0
+    Wc = W.clone()
+    Qd = torch.empty_like(W)
+    Qc = torch.empty((m, n), dtype=torch.uint8, device=W.device)
+    for start in range(0, m, bs):
+        stop = start + bs
+        Wb = Wc[start:stop].clone()
+        Ubb = U[start:stop, start:stop]
+        Err = torch.empty((bs, n), dtype=W.dtype, device=W.device)
+        for i in range(bs):
+            r = start + i
+            s_i, z_i = srow[r], zrow[r]
+            q = (stable_round(Wb[i] / s_i) + z_i).clamp(0.0, maxq)
+            dq = (q - z_i) * s_i
+            err = (Wb[i] - dq) / dU[r]
+            Wb[i + 1:] -= Ubb[i, i + 1:, None] * err[None, :]
+            Qd[r] = dq
+            Qc[r] = q.to(torch.uint8)
+            Err[i] = err
+        # lazy tail update for rows >= stop
+        if stop < m:
+            Wc[stop:] -= U[start:stop, stop:].T @ Err
+    if act_order:
+        Qd, Qc = Qd[inv_perm], Qc[inv_perm]
+    return Qd, Qc
+
+
+def _per_row_grids(scales: Tensor, zeros: Tensor, m: int,
+                   group_size: int | None):
+    g = m if group_size is None else int(group_size)
+    return (scales.repeat_interleave(g, dim=0),
+            zeros.repeat_interleave(g, dim=0))
+
+
+def pick_block(m: int, block_size: int) -> int:
+    """Largest divisor of ``m`` that is <= ``block_size`` (sweep block)."""
+    if m % block_size == 0:
+        return block_size
+    for b in range(min(block_size, m), 0, -1):
+        if m % b == 0:
+            return b
+    return m
+
+
+def optq_quantize(W: Tensor, H: Tensor, cfg: QuantConfig,
+                  scales: Tensor | None = None, zeros: Tensor | None = None):
+    """OPTQ sweep.  Returns (Q_dequant (m,n) f32, codes uint8, scales, zeros).
+
+    ``H`` is the *undamped* Gram; damping is applied here.  Grids are
+    static per group, computed from ``W`` unless provided."""
+    bs = pick_block(W.shape[0], cfg.block_size)
+    if bs != cfg.block_size:
+        cfg = dataclasses.replace(cfg, block_size=bs)
+    W = W.float()
+    H = dampen(H.float(), cfg.lambda_frac)
+    if scales is None or zeros is None:
+        scales, zeros = quant_params(W, cfg.bits, cfg.group_size)
+    srow, zrow = _per_row_grids(scales, zeros, W.shape[0], cfg.group_size)
+    Qd, Qc = _optq_core(W, H, srow, zrow, bits=cfg.bits,
+                        block_size=cfg.block_size, act_order=cfg.act_order)
+    return Qd, Qc, scales, zeros
+
+
+def gram_error(H: Tensor, D: Tensor) -> float:
+    """sqrt(Tr(D^T H D)) = ||X D||_F given H = X^T X."""
+    v = torch.einsum("ij,ik,kj->", D, H, D)
+    return float(torch.sqrt(v.clamp_min(0.0)))

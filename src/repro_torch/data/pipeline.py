@@ -1,0 +1,75 @@
+"""Deterministic, resumable token pipeline.  Twin of ``repro.data.pipeline``.
+
+The synthetic corpus is a seeded Zipf-unigram + affine-Markov mixture and a
+pure function of ``(seed, step)``, drawn with numpy exactly as the JAX
+package draws it, so a batch is byte-identical in both packages.  Batches
+are CPU tensors; callers move them to their device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class DataConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    kind: str = "lm"              # only "lm" is ported
+    enc_len: int = 0
+    n_prefix: int = 0
+    d_model: int = 0
+    markov_p: float = 0.7         # P(next token = affine map of current)
+    zipf_a: float = 1.3
+
+
+class TokenStream:
+    """Deterministic resumable iterator of training batches."""
+
+    def __init__(self, cfg: DataConfig, step: int = 0):
+        if cfg.kind != "lm":
+            raise NotImplementedError(
+                f"data kind {cfg.kind!r} is not ported yet (see ROADMAP.md)")
+        self.cfg = cfg
+        self.step = int(step)
+        ranks = np.arange(1, cfg.vocab + 1, dtype=np.float64)
+        probs = ranks ** (-cfg.zipf_a)
+        self._zipf = probs / probs.sum()
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "seed": self.cfg.seed}
+
+    def load_state_dict(self, st: dict) -> None:
+        if st["seed"] != self.cfg.seed:
+            raise ValueError("data seed mismatch on restore")
+        self.step = int(st["step"])
+
+    def _tokens(self, rng: np.random.Generator, b: int, s: int) -> np.ndarray:
+        cfg = self.cfg
+        first = rng.choice(cfg.vocab, size=(b,), p=self._zipf)
+        toks = np.empty((b, s), np.int64)
+        toks[:, 0] = first
+        a_coef = 31
+        b_coef = 7
+        for t in range(1, s):
+            markov = (a_coef * toks[:, t - 1] + b_coef) % cfg.vocab
+            fresh = rng.choice(cfg.vocab, size=(b,), p=self._zipf)
+            use_markov = rng.random(b) < cfg.markov_p
+            toks[:, t] = np.where(use_markov, markov, fresh)
+        return toks.astype(np.int32)
+
+    def next_batch(self) -> dict:
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed << 20) ^ self.step)
+        self.step += 1
+        toks = self._tokens(rng, cfg.global_batch, cfg.seq_len + 1)
+        return {"tokens": torch.from_numpy(np.ascontiguousarray(toks[:, :-1])),
+                "labels": torch.from_numpy(np.ascontiguousarray(toks[:, 1:]))}
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()

@@ -1,0 +1,186 @@
+"""GQA attention with RoPE, optional qk-norm, sliding window and KV-cache
+decode.  PyTorch twin of ``repro.models.attention`` (self-attention only).
+Shapes: x (B, S, D); heads laid out as (B, S, H, hd).  Softmax in f32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models.modules import (QSpec, linear_apply, linear_init,
+                                        rmsnorm_apply, rmsnorm_init)
+from repro_torch.utils import scope
+
+Tensor = torch.Tensor
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int | None = None
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    sliding_window: int | None = None   # None = full attention
+    causal: bool = True
+    bias: bool = False                  # qwen1.5-style qkv bias
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x (B, S, H, hd); positions (B, S) or (S,)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs                # (B,S,hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig, *, dtype=torch.bfloat16,
+              lora_rank: int = 0, device=None) -> dict:
+    hd = cfg.hd
+    kw = dict(dtype=dtype, lora_rank=lora_rank, device=device)
+    p = {
+        "q": linear_init(gen, cfg.d_model, cfg.n_heads * hd, bias=cfg.bias,
+                         **kw),
+        "k": linear_init(gen, cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.bias,
+                         **kw),
+        "v": linear_init(gen, cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.bias,
+                         **kw),
+        "o": linear_init(gen, cfg.n_heads * hd, cfg.d_model, **kw),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, device)
+        p["k_norm"] = rmsnorm_init(hd, dtype, device)
+    return p
+
+
+def _project_qkv(p, cfg: AttnConfig, x: Tensor, positions: Tensor,
+                 qspec: QSpec | None, rope: bool = True):
+    B, S, _ = x.shape
+    hd = cfg.hd
+    with scope("q"):
+        q = linear_apply(p["q"], x, qspec).reshape(B, S, cfg.n_heads, hd)
+    with scope("k"):
+        k = linear_apply(p["k"], x, qspec).reshape(B, S, cfg.n_kv_heads, hd)
+    with scope("v"):
+        v = linear_apply(p["v"], x, qspec).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q)
+        k = rmsnorm_apply(p["k_norm"], k)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor | None) -> Tensor:
+    """q (B,Sq,Hq,hd), k/v (B,Sk,Hkv,hd); GQA via head grouping; f32 out."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, rep, hd)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
+                          k.float()) / math.sqrt(hd)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v.float())
+    return out.reshape(B, Sq, Hq, hd)
+
+
+def causal_mask(Sq: int, Sk: int, window: int | None = None,
+                offset: int = 0, device=None) -> Tensor:
+    """(1,1,1,Sq,Sk) boolean mask; offset = absolute position of query 0."""
+    qpos = torch.arange(Sq, device=device)[:, None] + offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m[None, None, None, :, :]
+
+
+def attn_apply(p, cfg: AttnConfig, x: Tensor, *, qspec: QSpec | None = None,
+               positions: Tensor | None = None) -> Tensor:
+    """Full (training / prefill) self-attention."""
+    B, S, _ = x.shape
+    positions = (torch.arange(S, device=x.device) if positions is None
+                 else positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, qspec)
+    mask = (causal_mask(S, S, cfg.sliding_window, device=x.device)
+            if cfg.causal else None)
+    out = _sdpa(q, k, v, mask)
+    with scope("o"):
+        return linear_apply(p["o"], out.reshape(B, S, -1).to(x.dtype), qspec)
+
+
+def attn_decode(p, cfg: AttnConfig, x: Tensor, cache: dict, *,
+                qspec: QSpec | None = None) -> tuple[Tensor, dict]:
+    """Single-token decode.  cache = {"k": (B,T,Hkv,hd), "v": ..., "idx"}.
+
+    ``idx`` is a 0-d integer tensor (every row at the same position) or a
+    (B,) vector (each row writes, ropes and masks at its own position).
+    The new K/V rows are written into ``cache["k"]``/``cache["v"]`` in
+    place (the JAX twin returns updated copies; writing in place saves a
+    copy of the cache per layer and step), and the same tensors are
+    returned.
+
+    With ``qspec.use_kernel`` (full attention only) the masked softmax runs
+    through the flash-attention kernel's per-sequence ``lengths`` operand
+    (``idx + 1``) instead of the dense mask — same math.  With a sliding
+    window the cache is a ring buffer of size window."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError("decode processes one token")
+    idx = cache["idx"]
+    vec = idx.dim() == 1
+    positions = idx[:, None] if vec else idx.reshape(1, 1).expand(B, 1)
+    q, k, v = _project_qkv(p, cfg, x, positions, qspec)
+    K, V = cache["k"], cache["v"]
+    T = K.shape[1]
+    slot = torch.remainder(idx, T) if cfg.sliding_window else idx
+    if vec:
+        rows = torch.arange(B, device=x.device)
+        K[rows, slot.long()] = k[:, 0].to(K.dtype)
+        V[rows, slot.long()] = v[:, 0].to(V.dtype)
+    else:
+        at = slot.reshape(1).long()
+        K.index_copy_(1, at, k.to(K.dtype))
+        V.index_copy_(1, at, v.to(V.dtype))
+    if qspec is not None and qspec.use_kernel and not cfg.sliding_window:
+        from repro_torch.kernels import ops as kops
+        counts = (idx + 1) if vec else (idx + 1).reshape(1).expand(B)
+        out = kops.flash_attention(
+            q.transpose(1, 2), K.transpose(1, 2), V.transpose(1, 2),
+            causal=False,
+            lengths=counts.to(torch.int32).contiguous()).transpose(1, 2)
+    else:
+        kpos = torch.arange(T, device=x.device)
+        pos = idx[:, None] if vec else idx
+        if cfg.sliding_window:
+            valid = (kpos <= torch.clamp(pos, max=T - 1)) | (pos >= T)
+        else:
+            valid = kpos <= pos
+        mask = (valid[:, None, None, None, :] if valid.dim() == 2
+                else valid[None, None, None, None, :])
+        out = _sdpa(q, K, V, mask)
+    with scope("o"):
+        y = linear_apply(p["o"], out.reshape(B, 1, -1).to(x.dtype), qspec)
+    return y, {"k": K, "v": V, "idx": idx + 1}

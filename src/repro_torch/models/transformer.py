@@ -1,0 +1,198 @@
+"""Dense decoder-only model: config, init, forward and KV-cache decode.
+
+PyTorch twin of the dense branch of ``repro.models.transformer``.  Block
+params are either scan-stacked (every leaf under ``blocks`` has a leading
+layer axis, as the JAX package stacks them for ``lax.scan``) or eager
+(``blocks.<i>.…``); the layer loop is a Python loop over either layout.
+Other families (MoE, SSM, hybrid, enc-dec) are not ported yet
+(``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models.attention import (AttnConfig, attn_apply,
+                                          attn_decode, attn_init)
+from repro_torch.models.mlp import swiglu_apply, swiglu_init
+from repro_torch.models.modules import (QSpec, embedding_apply,
+                                        embedding_init, linear_init,
+                                        lm_head_apply, rmsnorm_apply,
+                                        rmsnorm_init)
+from repro_torch.models.parallel import LOCAL, PContext
+from repro_torch.utils import resolve_device, scope
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # only "dense" is ported
+    n_layers: int
+    d_model: int
+    vocab: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    head_dim: int | None = None
+    qk_norm: bool = False
+    attn_bias: bool = False
+    rope_theta: float = 1e6
+    tie_embeddings: bool = False
+    vocab_pad_multiple: int = 1   # pad embedding/head rows
+    quant: QSpec | None = None
+    lora_rank: int = 0            # LoRA on dense weights
+    scan_layers: bool = True
+    dtype: Any = torch.bfloat16
+
+    def attn_cfg(self, causal=True, window=None) -> AttnConfig:
+        return AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
+                          self.head_dim, self.qk_norm, self.rope_theta,
+                          window, causal, self.attn_bias)
+
+    @property
+    def vocab_padded(self) -> int:
+        m = self.vocab_pad_multiple
+        return -(-self.vocab // m) * m
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet; only "
+            "'dense' is (see ROADMAP.md)")
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    r = cfg.lora_rank
+    return {"ln1": rmsnorm_init(cfg.d_model, cfg.dtype, device),
+            "attn": attn_init(gen, cfg.attn_cfg(), dtype=cfg.dtype,
+                              lora_rank=r, device=device),
+            "ln2": rmsnorm_init(cfg.d_model, cfg.dtype, device),
+            "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
+                               lora_rank=r, device=device)}
+
+
+def stack_layers(layers: list[dict]) -> dict:
+    """Stack per-layer param dicts leaf by leaf (leading layer axis)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([l[k] for l in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def layer_params(blocks: dict, i: int) -> dict:
+    """Layer ``i`` of stacked block params, as views."""
+    if isinstance(blocks, dict):
+        return {k: layer_params(v, i) for k, v in blocks.items()}
+    return blocks[i]
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: str | torch.device | None = None) -> dict:
+    """Random params with the JAX package's shapes, dtypes and scales, drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA
+    unless given).  The draws differ from ``jax.random``'s."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    vp = cfg.vocab_padded
+    p: dict = {"embed": embedding_init(gen, vp, cfg.d_model, cfg.dtype, dev),
+               "final_norm": rmsnorm_init(cfg.d_model, cfg.dtype, dev)}
+    if not cfg.tie_embeddings:
+        p["head"] = linear_init(gen, cfg.d_model, vp, dtype=cfg.dtype,
+                                device=dev)
+    layers = [_block_init(gen, cfg, dev) for _ in range(cfg.n_layers)]
+    p["blocks"] = (stack_layers(layers) if cfg.scan_layers
+                   else {str(i): l for i, l in enumerate(layers)})
+    return p
+
+
+def _block_apply(p, cfg: ModelConfig, x: Tensor) -> Tensor:
+    q = cfg.quant
+    with scope("attn"):
+        x = x + attn_apply(p["attn"], cfg.attn_cfg(),
+                           rmsnorm_apply(p["ln1"], x), qspec=q)
+    with scope("mlp"):
+        x = x + swiglu_apply(p["mlp"], rmsnorm_apply(p["ln2"], x), q)
+    return x
+
+
+def n_stacked(blocks: dict) -> int:
+    """Layer count of stacked block params (their leading axis)."""
+    while isinstance(blocks, dict):
+        blocks = next(iter(blocks.values()))
+    return blocks.shape[0]
+
+
+def _layers(blocks: dict, cfg: ModelConfig):
+    """(name, params) of each layer in order, for either layout."""
+    if cfg.scan_layers:
+        return [(str(i), layer_params(blocks, i))
+                for i in range(n_stacked(blocks))]
+    return [(i, blocks[i]) for i in sorted(blocks, key=int)]
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            pctx: PContext = LOCAL, return_hidden: bool = False):
+    """Training/prefill forward.  batch: tokens (B, S) int.  Returns
+    (logits (B, S, V), aux) — or (hidden (B, S, D), aux) with
+    ``return_hidden``.  ``aux`` is a zero f32 scalar (no MoE loss)."""
+    _check_family(cfg)
+    x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
+    for i, bp in _layers(params["blocks"], cfg):
+        if cfg.scan_layers:
+            x = _block_apply(bp, cfg, x)
+        else:
+            with scope(f"blocks.{i}"):
+                x = _block_apply(bp, cfg, x)
+    x = rmsnorm_apply(params["final_norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    head = params.get("head", params["embed"])
+    return lm_head_apply(head, x), aux
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                      dtype=None, device: str | torch.device | None = None
+                      ) -> dict:
+    """KV caches for one-token-at-a-time decode with context ``cache_len``."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    hd = cfg.head_dim or (cfg.d_model // max(cfg.n_heads, 1))
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "idx": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
+                *, pctx: PContext = LOCAL) -> tuple[Tensor, dict]:
+    """One decode step.  tokens (B, 1) int.  Returns (logits (B, V), cache).
+
+    The new K/V rows are written into ``cache["k"]``/``cache["v"]`` in
+    place (see ``attn_decode``); the returned cache holds the same tensors
+    and ``idx + 1``."""
+    _check_family(cfg)
+    x = embedding_apply(params["embed"], tokens).to(cfg.dtype)
+    q = cfg.quant
+    idx = cache["idx"]
+    acfg = cfg.attn_cfg()
+    for i, bp in _layers(params["blocks"], cfg):
+        li = int(i)
+        h = rmsnorm_apply(bp["ln1"], x)
+        y, _ = attn_decode(bp["attn"], acfg, h,
+                           {"k": cache["k"][li], "v": cache["v"][li],
+                            "idx": idx}, qspec=q)
+        x = x + y
+        x = x + swiglu_apply(bp["mlp"], rmsnorm_apply(bp["ln2"], x), q)
+    x = rmsnorm_apply(params["final_norm"], x)
+    head = params.get("head", params["embed"])
+    logits = lm_head_apply(head, x)[:, 0, :]
+    return logits, dict(cache, idx=idx + 1)

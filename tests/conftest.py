@@ -24,3 +24,7 @@ def pytest_configure(config):
         "serving: multi-tenant serving engine (repro.serve) — parity "
         "oracle + scheduler property tests; runs on CPU in the default "
         "suite (interpret-mode kernels, no backend gates)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a hand-written CUDA kernel of repro_torch on an NVIDIA "
+        "GPU; skipped (inside the test) on hosts without CUDA")
