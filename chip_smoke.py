@@ -7,35 +7,59 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
 one JSON line each:
 
 1. device  — the card's name and power limit (``nvidia-smi``).
-2. build   — both CUDA kernels compiled from ``src/repro_torch/kernels/
-   csrc`` with ``nvcc`` (into the git-ignored ``build/``), with seconds.
+2. build   — the four CUDA kernels compiled from ``src/repro_torch/
+   kernels/csrc`` with ``nvcc`` (into the git-ignored ``build/``), with
+   seconds and the ``ptxas`` register and spill report.
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes and at a sweep of others, with
+   at its main path's shapes and at a sweep of others, with
    ``torch.cuda.synchronize()`` after each launch; then the kernel, the
-   plain version and one PyTorch library call timed over one decode
-   step's worth of calls (CUDA graphs replayed between CUDA events), and
-   the least time the card could take for the same work.
+   plain version and one PyTorch library call timed over one step's worth
+   of calls (CUDA graphs replayed between CUDA events), and the least time
+   the card could take for the same work.  ``dequant_matmul`` and
+   ``flash_attention`` are timed over one decode step, ``gram`` over one
+   calibration batch of the fine-tuning run and ``dequant_matmul_lora``
+   over one training forward.
 4. parity  — the smoke model quantized on the card and decoded with the
    kernels and with the plain path: logits agree and tokens are equal.
-5. serve   — ``repro_torch.launch.serve`` on qwen3-1.7b at full width with
+5. train_parity — the smoke model quantized on the card takes 3 LoRA steps
+   twice from the same params and batches, through the kernels (``gram``
+   in calibration, fused ``dequant_matmul_lora``) and plain: per-step
+   losses agree; and the fused op's backward (dx, dA, dB) agrees with
+   autograd through the plain version at a training shape.
+6. train   — ``repro_torch.launch.train`` on qwen3-1.7b at full width and
+   all 28 layers (CLoQ 4-bit, group 64, rank 64, calibration 4 x 8 x 128
+   tokens, batch 8, sequence 128, 4 LoRA steps).  The launch counters are
+   reset just before and read just after; ``gram`` and
+   ``dequant_matmul_lora`` must match the calibration and step counts.
+   Quantize seconds, step seconds, tokens/s, peak memory and the losses.
+   Then train_profile: two more steps under ``torch.profiler`` (step
+   time, device busy and idle share, top kernels).
+7. serve   — ``repro_torch.launch.serve`` on qwen3-1.7b at full width with
    the CLI's full-size settings (CLoQ 4-bit, group 64, rank 64, 2 x 64
    calibration tokens, batch 4, 8 requests x 16 tokens, cache 128),
-   ``--layers`` deep (all 28 by default).  Both kernels' launch counters
-   are reset just before and read just after; each must be > 0.
-6. profile — a few more decode steps of the served model under
+   ``--layers`` deep (all 28 by default).  Counters reset just before and
+   read just after; ``dequant_matmul``, ``flash_attention`` and ``gram``
+   must each be > 0.
+8. profile — a few more decode steps of the served model under
    ``torch.profiler``: step time, device busy and idle share, top kernels.
 
-Then the kernel table as one JSON line, the ``nvidia-smi`` name and power
-limit line, and last ``{"ok": true, "device": {...}}``.  Any failed check
-exits non-zero without the ``ok`` line, as does a host without CUDA or a
-directory without the repository's ``src/repro_torch``.
+Then the kernel table as one JSON line (each kernel's launches from the
+path that runs it: train for ``gram`` and ``dequant_matmul_lora``, serve
+for the others), the ``nvidia-smi`` name and power limit line, and last
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+without the ``ok`` line, as does a host without CUDA or a directory
+without the repository's ``src/repro_torch``.
 
 TF32 is switched off for matmuls and cuDNN, so f32 references are f32.
+Bounds: bytes over 3.35 TB/s against operations over the peak rate of the
+inputs' type on the H100 SXM (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
+f32 outside them), the larger of the two.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,8 +68,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOPS = 67e12               # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM, dense bf16 tensor cores
+# the JAX package's kernel tolerances (tests/test_kernels.py)
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}        # dequant
 TOL_ATTN = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)}   # flash
+TOL_GRAM = {"float32": (1e-4, 1e-2), "bfloat16": (2e-2, 2e-1)}   # gram
 
 # the serving path's quantized linears per layer: (K, N) of q, k, v, o,
 # gate, up, down at qwen3-1.7b's widths
@@ -72,6 +99,17 @@ def smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float, flops_per_s: float) -> dict:
+    """The least time for the work: the larger of bytes over HBM rate and
+    operations over ``flops_per_s``; the f32 CUDA-core figure beside."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "flops_rate": flops_per_s, "f32_cuda_core_ms": 1e3 * max(
+                t_bytes, flops / F32_FLOPS)}
 
 
 def within(a, b, tol) -> tuple[bool, float]:
@@ -188,11 +226,9 @@ def time_dequant(torch, dev, layers: int = 28) -> dict:
     ms = time_graph(torch, kernel)
     plain_ms = time_graph(torch, plain)
     library_ms = time_graph(torch, library)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "calls": len(sets), "bytes": nbytes, "flops": flops}
+            "library": "torch.matmul on the weight pre-dequantized to bf16",
+            **bound(nbytes, flops, BF16_FLOPS), "calls": len(sets)}
 
 
 # ---------------------------------------------------------------------------
@@ -295,11 +331,184 @@ def time_flash(torch, dev, layers: int = 28) -> dict:
     ms = time_graph(torch, kernel)
     plain_ms = time_graph(torch, plain)
     library_ms = time_graph(torch, library)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "calls": len(sets), "bytes": nbytes, "flops": flops}
+            "library": "scaled_dot_product_attention with the same mask",
+            **bound(nbytes, flops, BF16_FLOPS), "calls": len(sets)}
+
+
+# ---------------------------------------------------------------------------
+# gram
+# ---------------------------------------------------------------------------
+
+# the fine-tuning run's calibration: T = 8 x 128 tokens a batch; per layer
+# the inputs of q, k, v, o, gate, up (D = 2048) and down (D = 6144)
+TRAIN_TOKENS = 8 * 128
+GRAM_DIMS = (2048,) * 6 + (6144,)
+
+
+def check_gram(torch, dev) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gram import gram_cuda
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    main = [(TRAIN_TOKENS, D, dt) for D in (2048, 6144)
+            for dt in (torch.bfloat16, torch.float32)]
+    sweep = [(T, D, dt) for T, D in ((1, 64), (1, 50), (37, 50), (300, 130),
+                                     (129, 65), (1000, 2047), (64, 1))
+             for dt in (torch.float32, torch.bfloat16)]
+    main_err = 0.0
+    for i, (T, D, dt) in enumerate(main + sweep):
+        x = torch.randn((T, D), generator=gen, device=dev).to(dt)
+        h = gram_cuda(x)
+        torch.cuda.synchronize()
+        h_ref = ref.gram_ref(x)
+        torch.cuda.synchronize()
+        ok, err = within(h, h_ref, TOL_GRAM[str(dt).split(".")[-1]])
+        if not ok or not torch.equal(h, h.T):
+            raise Failed(f"gram T={T} D={D} {dt}: max err {err}, symmetric "
+                         f"{bool(torch.equal(h, h.T))}")
+        if i < len(main) and dt == torch.bfloat16:
+            main_err = max(main_err, err)
+    return {"cases": len(main) + len(sweep), "max_abs_err": main_err}
+
+
+def time_gram(torch, dev, layers: int = 28) -> dict:
+    """One calibration batch's Gram calls: 7 x ``layers`` at T = 1024,
+    bf16, as ``GramStore.add`` makes them (q, k and v see the same x)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gram import gram_cuda
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    T = TRAIN_TOKENS
+    sets, nbytes, flops = [], 0, 0
+    for _ in range(layers):
+        xs = {D: torch.randn((T, D), generator=gen,
+                             device=dev).to(torch.bfloat16)
+              for D in set(GRAM_DIMS)}
+        for D in GRAM_DIMS:
+            sets.append(xs[D])
+            nbytes += T * D * 2 + D * D * 4
+            flops += 2 * T * D * D          # the full product
+
+    def kernel():
+        for x in sets:
+            gram_cuda(x)
+
+    def plain():
+        for x in sets:
+            ref.gram_ref(x)
+
+    def library():                  # GramStore.add before the kernel
+        for x in sets:
+            torch.matmul(x.float().T, x.float())
+
+    ms = time_graph(torch, kernel)
+    plain_ms = time_graph(torch, plain)
+    library_ms = time_graph(torch, library)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "f32 torch.matmul(x.float().T, x.float())",
+            **bound(nbytes, flops, BF16_FLOPS), "calls": len(sets)}
+
+
+# ---------------------------------------------------------------------------
+# dequant_matmul_lora
+# ---------------------------------------------------------------------------
+
+
+def _lora_operands(torch, M, K, N, bits, g, r, dt, dev, gen):
+    packed, s, z = _quantized(torch, K, N, bits, g, dev, gen)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+    a = (torch.randn((K, r), generator=gen, device=dev) / K ** 0.5).to(dt)
+    b = (torch.randn((N, r), generator=gen, device=dev) * 0.1).to(dt)
+    return x, packed, s, z, a, b
+
+
+def check_lora(torch, dev) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_lora_cuda
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    main = [(TRAIN_TOKENS, K, N, 4, 64, 64, dt) for K, N in
+            sorted(set(QWEN_LINEARS)) for dt in (torch.bfloat16,
+                                                 torch.float32)]
+    sweep = [(M, K, N, bits, g, r, dt)
+             for bits in (2, 4, 8) for M in (1, 4, 1000, 1024)
+             for r in (8, 64) for dt in (torch.float32, torch.bfloat16)
+             for K, N, g in ((256, 200, 32), (384, 130, 64), (96, 40, 48))]
+    main_err = 0.0
+    for i, (M, K, N, bits, g, r, dt) in enumerate(main + sweep):
+        x, packed, s, z, a, b = _lora_operands(torch, M, K, N, bits, g, r,
+                                               dt, dev, gen)
+        y = dequant_matmul_lora_cuda(x, packed, s, z, a, b, bits=bits,
+                                     group_size=g)
+        torch.cuda.synchronize()
+        y_ref = ref.dequant_matmul_lora_ref(x, packed, s, z, a, b,
+                                            bits=bits, group_size=g)
+        torch.cuda.synchronize()
+        ok, err = within(y, y_ref, TOL[str(dt).split(".")[-1]])
+        if not ok:
+            raise Failed(f"dequant_matmul_lora M={M} K={K} N={N} bits={bits}"
+                         f" g={g} r={r} {dt}: max err {err}")
+        if i < len(main) and dt == torch.bfloat16:
+            main_err = max(main_err, err)
+    return {"cases": len(main) + len(sweep), "max_abs_err": main_err}
+
+
+def time_lora(torch, dev, layers: int = 28) -> dict:
+    """One training forward's fused calls: 7 linears x ``layers`` at
+    M = 1024, bf16, 4-bit, group 64, rank 64, each on its own weights."""
+    from repro_torch.core.quantizer import dequantize_int, unpack_codes
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_lora_cuda
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    M, bits, g, r = TRAIN_TOKENS, 4, 64, 64
+    bf = torch.bfloat16
+    xs = {K: torch.randn((M, K), generator=gen, device=dev).to(bf)
+          for K in {K for K, _ in QWEN_LINEARS}}
+    sets, nbytes, flops, lora_flops = [], 0, 0, 0
+    for _ in range(layers):
+        for K, N in QWEN_LINEARS:
+            packed = torch.randint(0, 256, (K // 2, N), generator=gen,
+                                   device=dev, dtype=torch.uint8)
+            s = torch.rand((K // g, N), generator=gen, device=dev) * 1e-2
+            z = torch.randint(0, 16, (K // g, N), generator=gen,
+                              device=dev).float()
+            a = (torch.randn((K, r), generator=gen, device=dev)
+                 / K ** 0.5).to(bf)
+            b = (torch.randn((N, r), generator=gen, device=dev)
+                 * 0.1).to(bf)
+            sets.append((xs[K], packed, s, z, a, b))
+            nbytes += (M * K * 2 + K * N // 2 + 2 * (K // g) * N * 4
+                       + (K + N) * r * 2 + M * N * 2)
+            flops += 2 * M * K * N + 2 * M * r * (K + N)
+            # x @ A recomputed by every 128-column tile (left out of bound)
+            lora_flops += (-(-N // 128) - 1) * 2 * M * K * r
+    dense = [dequantize_int(unpack_codes(p, bits, x.shape[1]), s, z, g,
+                            dtype=bf) for x, p, s, z, _, _ in sets]
+
+    def kernel():
+        for x, p, s, z, a, b in sets:
+            dequant_matmul_lora_cuda(x, p, s, z, a, b, bits=bits,
+                                     group_size=g)
+
+    def plain():
+        for x, p, s, z, a, b in sets:
+            ref.dequant_matmul_lora_ref(x, p, s, z, a, b, bits=bits,
+                                        group_size=g)
+
+    def library():
+        for (x, _, _, _, a, b), w in zip(sets, dense):
+            torch.matmul(x, w) + torch.matmul(torch.matmul(x, a), b.T)
+
+    ms = time_graph(torch, kernel, reps=5)
+    plain_ms = time_graph(torch, plain, reps=5)
+    library_ms = time_graph(torch, library, reps=5)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "cuBLAS bf16 on the weight pre-dequantized to bf16: "
+                       "x@W + (x@A)@B^T",
+            **bound(nbytes, flops, BF16_FLOPS), "calls": len(sets),
+            "recompute_flops": lora_flops}
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +550,128 @@ def parity(torch, dev) -> dict:
     return {"steps": 8, "max_logit_err": err, "tokens_equal": same}
 
 
+def train_parity(torch, dev) -> dict:
+    """The smoke model (f32) quantized on the card takes 3 LoRA steps twice
+    from the same params and batches: calibration and training through the
+    kernels (``use_kernel`` + ``fused_lora``; ``gram`` in calibration) and
+    through the plain path.  Losses agree within rtol 1e-4 and gradient
+    norms within 1e-3 (f32 sums in another order, through AdamW updates
+    that amplify noise-level gradient signs).  Then the fused op's backward
+    at a training shape (M = 1024, K = N = 2048, r = 64, bf16) against
+    autograd through the plain version, within the bf16 tolerance 2e-2."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import build_state, make_train_step
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import OptConfig
+    cfg = get_smoke_config("qwen3-1.7b")
+    params = init_params(cfg, seed=0, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)
+    calib = [TokenStream(dcfg).next_batch() for _ in range(2)]
+    recipe = QuantRecipe.single("cloq", QSpec(bits=4, group_size=16, rank=8))
+    ops.reset_launch_counts()
+    qparams, qcfg, _ = quantize_model(params, cfg, calib, recipe=recipe)
+    grams = ops.launch_counts()["gram"]
+    ocfg = OptConfig(lr=1e-3, total_steps=3)
+    runs = {}
+    for kernels in (True, False):
+        c = dataclasses.replace(qcfg, quant=dataclasses.replace(
+            qcfg.quant, use_kernel=kernels, fused_lora=kernels))
+        state = build_state(qparams, ocfg)
+        step = make_train_step(c, ocfg)
+        stream = TokenStream(dataclasses.replace(dcfg, seed=1))
+        ops.reset_launch_counts()
+        losses, gnorms = [], []
+        for _ in range(3):
+            state, m = step(state, stream.next_batch())
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        runs[kernels] = (losses, gnorms, ops.launch_counts())
+    (lk, gk, ck), (lp, gp, cp) = runs[True], runs[False]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    gn_err = max(abs(a - b) / abs(b) for a, b in zip(gk, gp))
+    if grams <= 0 or ck["dequant_matmul_lora"] != 3 * 7 * cfg.n_layers or \
+            cp["dequant_matmul_lora"] or loss_err > 1e-4 or gn_err > 1e-3:
+        raise Failed(f"train parity: kernel losses {lk} plain {lp}, grad "
+                     f"norms {gk} / {gp}, gram launches {grams}, fused "
+                     f"launches {ck} / {cp}")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    bf = torch.bfloat16
+    x, packed, s, z, a, b = _lora_operands(torch, TRAIN_TOKENS, 2048, 2048,
+                                           4, 64, 64, bf, dev, gen)
+    g = torch.randn((TRAIN_TOKENS, 2048), generator=gen, device=dev).to(bf)
+    grads = []
+    for fn in (ops.dequant_matmul_lora, ref.dequant_matmul_lora_ref):
+        xs, as_, bs = (t.clone().requires_grad_(True) for t in (x, a, b))
+        y = fn(xs, packed, s, z, as_, bs, bits=4, group_size=64)
+        grads.append(torch.autograd.grad(y, (xs, as_, bs), g))
+    torch.cuda.synchronize()
+    grad_err = {}
+    for name, got, want in zip(("dx", "dA", "dB"), *grads):
+        ok, err = within(got, want, TOL["bfloat16"])
+        grad_err[name] = err
+        if not ok:
+            raise Failed(f"fused backward {name}: max err {err}")
+    return {"steps": 3, "losses_kernel": lk, "losses_plain": lp,
+            "loss_rel_err": loss_err, "grad_norm_rel_err": gn_err,
+            "calib_gram_launches": grams,
+            "fused_launches": ck["dequant_matmul_lora"],
+            "backward_max_abs_err": grad_err}
+
+
+def train_phase(torch, dev, steps: int = 4):
+    """``repro_torch.launch.train`` at full width and depth.  Returns the
+    phase line, the run's result and its parsed arguments."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.utils import tree_paths
+    argv = ["--arch", "qwen3-1.7b", "--method", "cloq", "--bits", "4",
+            "--group-size", "64", "--rank", "64", "--calib-batches", "4",
+            "--batch", "8", "--seq-len", "128", "--steps", str(steps),
+            "--seed", "0", "--device", str(dev)]
+    args = train.build_parser().parse_args(argv)
+    cfg = get_config("qwen3-1.7b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = train.run(args, cfg)
+    counts = ops.launch_counts()
+    L = cfg.n_layers
+    step_s = res["step_s"]
+    tokens = args.batch * args.seq_len
+    n_lora = sum(1 for p, v in tree_paths(res["state"]["train"]).items()
+                 if p.endswith("lora_a") and v.numel())
+    out = {"layers": L, "argv": argv, "quantize_s": res["quantize_s"],
+           "step_s": step_s, "tokens_per_step": tokens,
+           "train_tok_s": tokens * len(step_s) / sum(step_s),
+           "train_tok_s_after_first": tokens * (len(step_s) - 1)
+           / sum(step_s[1:]),
+           "losses": res["losses"], "grad_norms": res["grad_norms"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": counts, "lora_sites": n_lora}
+    want = {"gram": 7 * L * args.calib_batches,
+            "dequant_matmul_lora": 7 * L * steps}
+    if any(counts[k] != v for k, v in want.items()):
+        raise Failed(f"train path launches {counts}, expected {want}")
+    if not all(math.isfinite(v) for v in res["losses"] + res["grad_norms"]):
+        raise Failed(f"train losses not finite: {out}")
+    if n_lora != 7:
+        raise Failed(f"train state holds {n_lora} stacked LoRA sites, not 7")
+    return out, res, args
+
+
+# the kernels the serve path runs: its quantized linears carry LoRA but
+# decode adds it unfused, and its calibration runs through gram
+SERVE_KERNELS = ("dequant_matmul", "flash_attention", "gram")
+
+
 def serve_phase(torch, dev, layers: int) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -371,7 +702,7 @@ def serve_phase(torch, dev, layers: int) -> tuple[dict, dict]:
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "launches": counts, "logits_finite": s["all_finite"],
            "nonfinite": bad}
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in SERVE_KERNELS) <= 0:
         raise Failed(f"a kernel was not launched on the serve path: {counts}")
     if bad or not s["all_finite"] or s["requests_done"] != 8 or \
             n_quant != 7:
@@ -379,21 +710,18 @@ def serve_phase(torch, dev, layers: int) -> tuple[dict, dict]:
     return out, res
 
 
-def profile_decode(torch, dev, res) -> dict:
-    """Where a decode step's time goes: the served model decodes 4 requests
-    x 8 tokens under ``torch.profiler``.  Device busy time is the sum of
-    the device-side events' (kernels', copies') times — one stream, so
-    they do not overlap; operator-level events, which also carry the time
-    of the kernels they launch, are left out so nothing counts twice."""
+def _profiled(torch, run) -> tuple[float, float, list]:
+    """``run()`` (which returns its own synced wall seconds) under
+    ``torch.profiler``: (wall s, device busy s, top device events).
+    Device busy time is the sum of the device-side events' (kernels',
+    copies') times — one stream, so they do not overlap; operator-level
+    events, which also carry the time of the kernels they launch, are left
+    out so nothing counts twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch import serve
-    kw = dict(batch=4, cache_len=128, requests=4, max_new=8, seed=1,
-              device=dev)
-    serve.serve_fixed_slots(res["params"], res["cfg"], **kw)     # warm
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        s = serve.serve_fixed_slots(res["params"], res["cfg"], **kw)
+        wall = run()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -403,13 +731,61 @@ def profile_decode(torch, dev, res) -> dict:
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    return {"steps": s["steps"], "wall_s": s["seconds"],
-            "step_ms": 1e3 * s["seconds"] / s["steps"],
+    return wall, busy, [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]
+
+
+def _profile_line(steps: int, wall: float, busy: float, top: list) -> dict:
+    return {"steps": steps, "wall_s": wall, "step_ms": 1e3 * wall / steps,
             "device_busy_s": busy,
-            "device_idle_share": (1 - busy / s["seconds"]) if busy else None,
-            "top_kernels_ms_per_step": [
-                [e.key[:60], dev_us(e) / 1e3 / s["steps"], e.count]
-                for e in top]}
+            "device_idle_share": (1 - busy / wall) if busy else None,
+            "top_kernels_ms_per_step": [[k, ms / steps, n]
+                                        for k, ms, n in top]}
+
+
+def profile_decode(torch, dev, res) -> dict:
+    """Where a decode step's time goes: the served model decodes 4 requests
+    x 8 tokens under ``torch.profiler``."""
+    from repro_torch.launch import serve
+    kw = dict(batch=4, cache_len=128, requests=4, max_new=8, seed=1,
+              device=dev)
+    serve.serve_fixed_slots(res["params"], res["cfg"], **kw)     # warm
+    out = {}
+
+    def run():
+        out.update(serve.serve_fixed_slots(res["params"], res["cfg"], **kw))
+        return out["seconds"]
+
+    wall, busy, top = _profiled(torch, run)
+    return _profile_line(out["steps"], wall, busy, top)
+
+
+def profile_train(torch, dev, res, args, steps: int = 2) -> dict:
+    """Where a train step's time goes: the fine-tuned full-width model
+    takes ``steps`` more LoRA steps (after one warm step) under
+    ``torch.profiler``, each ended by a device synchronize."""
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import OptConfig
+    cfg = res["cfg"]
+    ocfg = OptConfig(lr=args.lr, trainable="lora", total_steps=args.steps,
+                     schedule=args.schedule)
+    step = make_train_step(cfg, ocfg)
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                                    global_batch=args.batch,
+                                    seed=args.seed + 1))
+    state = {"s": step(res["state"], stream.next_batch())[0]}     # warm
+    batches = [stream.next_batch() for _ in range(steps)]
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        for b in batches:
+            state["s"], _ = step(state["s"], b)
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, busy, top = _profiled(torch, run)
+    return _profile_line(steps, wall, busy, top)
 
 
 def main(argv=None) -> int:
@@ -442,23 +818,44 @@ def main(argv=None) -> int:
         from repro_torch.kernels import build
         t0 = time.perf_counter()
         logs = build.build_all()
-        ptxas = [ln.strip() for log in logs.values()
-                 for ln in log.splitlines() if "registers" in ln]
+        ptxas = {src: [ln.split(":", 1)[-1].strip()
+                       for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln]
+                 for src, log in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "dir": str(build.build_dir().relative_to(ROOT)),
-              "sources": list(build.SOURCES), "ptxas": ptxas[:12]})
+              "sources": list(build.SOURCES), "ptxas": ptxas})
 
         phase = "kernels"
         dq = check_dequant(torch, dev)
         fa = check_flash(torch, dev)
+        gr = check_gram(torch, dev)
+        lo = check_lora(torch, dev)
         dq_t = time_dequant(torch, dev)
         fa_t = time_flash(torch, dev)
+        gr_t = time_gram(torch, dev)
+        lo_t = time_lora(torch, dev)
         emit({"phase": "kernels", "dequant_matmul": {**dq, **dq_t},
               "flash_attention": {**fa, **fa_t},
               "work": "one 28-layer qwen3-1.7b decode step at batch 4"})
+        emit({"phase": "kernels", "gram": {**gr, **gr_t},
+              "dequant_matmul_lora": {**lo, **lo_t},
+              "work": "one 28-layer qwen3-1.7b calibration batch (gram) "
+                      "and training forward (dequant_matmul_lora) at batch "
+                      "8 x 128"})
 
         phase = "parity"
         emit({"phase": "parity", **parity(torch, dev)})
+        phase = "train_parity"
+        emit({"phase": "train_parity", **train_parity(torch, dev)})
+
+        phase = "train"
+        tr, res, args = train_phase(torch, dev)
+        emit({"phase": "train", **tr})
+        phase = "train_profile"
+        emit({"phase": "train_profile",
+              **profile_train(torch, dev, res, args)})
+        del res
 
         phase = "serve"
         sv, res = serve_phase(torch, dev, a.layers)
@@ -470,15 +867,20 @@ def main(argv=None) -> int:
         emit({"phase": phase, "ok": False, "error": str(e)})
         return 1
 
-    launches = sv["launches"]
     table = []
-    for name, chk, tm, src, tpu in (
-            ("dequant_matmul", dq, dq_t,
+    for name, chk, tm, launches, src, tpu in (
+            ("dequant_matmul", dq, dq_t, sv["launches"],
              "src/repro_torch/kernels/csrc/dequant_matmul.cu",
              "src/repro/kernels/dequant_matmul.py:73"),
-            ("flash_attention", fa, fa_t,
+            ("flash_attention", fa, fa_t, sv["launches"],
              "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:94")):
+             "src/repro/kernels/flash_attention.py:94"),
+            ("dequant_matmul_lora", lo, lo_t, tr["launches"],
+             "src/repro_torch/kernels/csrc/dequant_matmul_lora.cu",
+             "src/repro/kernels/dequant_matmul.py:134"),
+            ("gram", gr, gr_t, tr["launches"],
+             "src/repro_torch/kernels/csrc/gram.cu",
+             "src/repro/kernels/gram.py:41")):
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": tpu, "launches": launches[name],
                       "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],

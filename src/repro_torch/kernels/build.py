@@ -21,7 +21,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dequant_matmul.cu", "flash_attention.cu")
+SOURCES = ("dequant_matmul.cu", "dequant_matmul_lora.cu", "flash_attention.cu",
+           "gram.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,28 +4,40 @@ The device decides: a CPU tensor goes to the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor goes to the hand-written
 kernel, for every shape, or the wrapper raises.  Nothing falls back from a
 CUDA tensor to the plain version.
+
+``dequant_matmul`` and ``dequant_matmul_lora`` are differentiable
+(``torch.autograd.Function``): the forward dispatches by device, the
+backward is plain PyTorch on either device, as in the JAX package, where
+these gradients are autodiff of XLA dots outside any Pallas kernel.  The
+packed base gets no gradient.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantizer import dequantize_int, unpack_codes
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import dequant_matmul as _dqmm
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import gram as _gram
 
 Tensor = torch.Tensor
 
-KERNELS = {"dequant_matmul": _dqmm, "flash_attention": _flash}
+# kernel name -> (module, name of its launch counter)
+KERNELS = {"dequant_matmul": (_dqmm, "launches"),
+           "dequant_matmul_lora": (_dqmm, "lora_launches"),
+           "flash_attention": (_flash, "launches"),
+           "gram": (_gram, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def _plain(t: Tensor) -> bool:
@@ -36,13 +48,91 @@ def _plain(t: Tensor) -> bool:
     return True
 
 
+def _dequantized(packed: Tensor, scales: Tensor, zeros: Tensor, bits: int,
+                 group_size: int | None, K: int) -> Tensor:
+    """The (K, N) weight in f32, by the plain unpack and dequantize."""
+    return dequantize_int(unpack_codes(packed, bits, K), scales, zeros,
+                          group_size, dtype=torch.float32)
+
+
+class _DequantMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, packed, scales, zeros, bits, group_size):
+        ctx.save_for_backward(packed, scales, zeros)
+        ctx.bits, ctx.group_size, ctx.x_shape = bits, group_size, x.shape
+        if _plain(x):
+            return ref.dequant_matmul_ref(x, packed, scales, zeros,
+                                          bits=bits, group_size=group_size)
+        return _dqmm.dequant_matmul_cuda(x, packed, scales, zeros, bits=bits,
+                                         group_size=group_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, scales, zeros = ctx.saved_tensors
+        K = ctx.x_shape[-1]
+        w = _dequantized(packed, scales, zeros, ctx.bits, ctx.group_size, K)
+        dx = (g.float() @ w.T).to(g.dtype).reshape(ctx.x_shape)
+        return dx, None, None, None, None, None
+
+
+class _DequantMatmulLora(torch.autograd.Function):
+    """y = x @ Wq + (x @ A) @ B^T; gradients in f32, cast to each input's
+    dtype: with xa = x @ A (recomputed) and gB = g @ B,
+    dB = g^T @ xa, dA = x^T @ gB, dx = g @ Wq^T + gB @ A^T."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scales, zeros, lora_a, lora_b, bits,
+                group_size):
+        ctx.save_for_backward(x, packed, scales, zeros, lora_a, lora_b)
+        ctx.bits, ctx.group_size = bits, group_size
+        if _plain(x):
+            return ref.dequant_matmul_lora_ref(
+                x, packed, scales, zeros, lora_a, lora_b, bits=bits,
+                group_size=group_size)
+        return _dqmm.dequant_matmul_lora_cuda(
+            x, packed, scales, zeros, lora_a, lora_b, bits=bits,
+            group_size=group_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, packed, scales, zeros, a, b = ctx.saved_tensors
+        K = x.shape[-1]
+        x2 = x.reshape(-1, K).float()
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        a32 = a.float()
+        gb = g2 @ b.float()
+        dx = da = db = None
+        if ctx.needs_input_grad[0]:
+            w = _dequantized(packed, scales, zeros, ctx.bits, ctx.group_size,
+                             K)
+            dx = (g2 @ w.T + gb @ a32.T).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[4]:
+            da = (x2.T @ gb).to(a.dtype)
+        if ctx.needs_input_grad[5]:
+            db = (g2.T @ (x2 @ a32)).to(b.dtype)
+        return dx, None, None, None, da, db, None, None
+
+
 def dequant_matmul(x: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
                    *, bits: int, group_size: int | None) -> Tensor:
-    if _plain(x):
-        return ref.dequant_matmul_ref(x, packed, scales, zeros, bits=bits,
-                                      group_size=group_size)
-    return _dqmm.dequant_matmul_cuda(x, packed, scales, zeros, bits=bits,
-                                     group_size=group_size)
+    return _DequantMatmul.apply(x, packed, scales, zeros, bits, group_size)
+
+
+def dequant_matmul_lora(x: Tensor, packed: Tensor, scales: Tensor,
+                        zeros: Tensor, lora_a: Tensor, lora_b: Tensor, *,
+                        bits: int, group_size: int | None) -> Tensor:
+    """Fused ``x @ Wq + (x @ lora_a) @ lora_b^T``; lora_a (K, r), lora_b
+    (N, r).  Differentiable in x, lora_a and lora_b."""
+    return _DequantMatmulLora.apply(x, packed, scales, zeros, lora_a, lora_b,
+                                    bits, group_size)
+
+
+def gram(x: Tensor) -> Tensor:
+    """H = X^T X in f32 for x (..., D) flattened to (T, D)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if _plain(x2):
+        return ref.gram_ref(x2)
+    return _gram.gram_cuda(x2.contiguous())
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,

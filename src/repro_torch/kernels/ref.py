@@ -29,6 +29,24 @@ def dequant_matmul_ref(x: Tensor, packed: Tensor, scales: Tensor,
     return (x.float() @ w).to(x.dtype)
 
 
+def dequant_matmul_lora_ref(x: Tensor, packed: Tensor, scales: Tensor,
+                            zeros: Tensor, lora_a: Tensor, lora_b: Tensor, *,
+                            bits: int, group_size: int | None) -> Tensor:
+    """y = x @ Wq + (x @ A) @ B^T.  lora_a (K, r), lora_b (N, r).  The base
+    product and the LoRA term are each taken in f32 and added in f32; the
+    sum is cast to x.dtype.  Differentiable by autograd in x, A and B."""
+    base = dequant_matmul_ref(x, packed, scales, zeros, bits=bits,
+                              group_size=group_size).float()
+    xa = x.float() @ lora_a.float()
+    return (base + xa @ lora_b.float().T).to(x.dtype)
+
+
+def gram_ref(x: Tensor) -> Tensor:
+    """H = X^T X in f32.  x (T, D) of any float type, upcast first."""
+    x32 = x.float()
+    return x32.T @ x32
+
+
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
                         causal: bool = True,
                         lengths: Tensor | None = None) -> Tensor:

@@ -1,10 +1,106 @@
-"""Step builders shared by the launchers.  Twin of the decode part of
-``repro.launch.steps`` (the training and dry-run builders are later slices
-of the port)."""
+"""Step builders shared by the launchers.  Twin of the training and decode
+parts of ``repro.launch.steps`` (the dry-run builders are a later slice of
+the port).
+
+``make_train_step`` builds the LoRA fine-tuning step: frozen quantized base
+plus trainable adapters, AdamW and an LR schedule, with optional
+microbatch gradient accumulation.  Gradients come from
+``torch.autograd.grad`` on the trainable leaves only.
+"""
 from __future__ import annotations
 
-from repro_torch.models.parallel import PContext
-from repro_torch.models.transformer import ModelConfig, decode_step
+import torch
+
+from repro_torch.models.parallel import LOCAL, PContext
+from repro_torch.models.transformer import ModelConfig, decode_step, loss_fn
+from repro_torch.optim import (OptConfig, adamw_init, adamw_update,
+                               make_schedule, merge_params, partition_params,
+                               trainable_mask, tree_leaves, tree_map)
+from repro_torch.utils import set_path, tree_paths
+
+# quantized/structural leaves never trained even in "all" mode
+_NEVER_TRAIN = ("qcodes", "scales", "zeros", "absmax")
+
+
+def full_trainable_mask(params, mode: str):
+    mask = trainable_mask(params, mode)
+    out: dict = {}
+    for pth, m in tree_paths(mask).items():
+        if pth.rsplit(".", 1)[-1] in _NEVER_TRAIN:
+            m = False
+        set_path(out, pth, m)
+    return out
+
+
+def build_state(params, ocfg: OptConfig) -> dict:
+    mask = full_trainable_mask(params, ocfg.trainable)
+    train_p, frozen_p = partition_params(params, mask)
+    return {"train": train_p, "frozen": frozen_p, "opt": adamw_init(train_p)}
+
+
+def _device_of(tree) -> torch.device:
+    for leaf in tree_leaves(tree):
+        if leaf.numel():
+            return leaf.device
+    return torch.device("cpu")
+
+
+def _value_and_grad(cfg: ModelConfig, pctx: PContext, train: dict,
+                    frozen: dict, batch: dict):
+    """(loss, ce, aux), grads of ``train`` (each in its leaf's dtype; a leaf
+    the loss does not reach gets zeros)."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), train)
+    with torch.enable_grad():
+        loss, (ce, aux) = loss_fn(merge_params(live, frozen), cfg, batch,
+                                  pctx=pctx)
+        leaves = tree_leaves(live)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_id = {id(t): (torch.zeros_like(t) if g is None else g)
+             for t, g in zip(leaves, gs)}
+    grads = tree_map(lambda t: by_id[id(t)], live)
+    return (loss.detach(), ce.detach(), aux.detach()), grads
+
+
+def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
+                    pctx: PContext = LOCAL):
+    """step(state, batch) -> (new_state, metrics).  ``batch`` holds
+    ``tokens``/``labels`` (B, S) on any device; they are moved to the
+    params' device.  With ``ocfg.microbatch`` = k > 1 the batch is split
+    into k microbatches along B whose f32 gradients and losses are
+    averaged; the backward of one ends before the next starts."""
+    schedule = make_schedule(ocfg.schedule, ocfg.lr, ocfg.total_steps,
+                             ocfg.warmup_frac)
+    k = max(ocfg.microbatch, 1)
+
+    def train_step(state, batch):
+        dev = _device_of(state["frozen"])
+        batch = {n: torch.as_tensor(v).to(dev) for n, v in batch.items()}
+        if k > 1:
+            acc = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                                 device=t.device),
+                           state["train"])
+            sums = [torch.zeros((), dtype=torch.float32, device=dev)
+                    for _ in range(3)]
+            for i in range(k):
+                b = {n: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
+                     for n, v in batch.items()}
+                vals, g = _value_and_grad(cfg, pctx, state["train"],
+                                          state["frozen"], b)
+                acc = tree_map(lambda a, gi: a + gi, acc, g)
+                sums = [s + v.float() for s, v in zip(sums, vals)]
+            grads = tree_map(lambda a: a / k, acc)
+            loss, ce, aux = (s / k for s in sums)
+        else:
+            (loss, ce, aux), grads = _value_and_grad(
+                cfg, pctx, state["train"], state["frozen"], batch)
+        with torch.no_grad():
+            new_tp, new_opt, m = adamw_update(grads, state["opt"],
+                                              state["train"], ocfg, schedule)
+        metrics = {"loss": loss, "ce": ce, "aux": aux, **m}
+        return {"train": new_tp, "frozen": state["frozen"],
+                "opt": new_opt}, metrics
+
+    return train_step
 
 
 def make_decode_step(cfg: ModelConfig, pctx: PContext):

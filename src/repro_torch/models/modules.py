@@ -30,6 +30,10 @@ class QSpec:
     method: str = "cloq"          # cloq | loftq | rtn | gptq | qlora(nf4)
     split: str = "paper"
     use_kernel: bool = False      # CUDA dequant-matmul + flash-decode kernels
+    # with use_kernel: packed-INT linears with 2-D LoRA run the fused
+    # dequant_matmul_lora kernel (fine-tuning); a routing flag, not part of
+    # a recipe, so recipe JSON leaves it out
+    fused_lora: bool = False
 
 
 def _randn(gen: torch.Generator, shape, device) -> Tensor:
@@ -72,10 +76,22 @@ def _group_of(meta: Tensor, m: int) -> int:
 def linear_apply(p: dict, x: Tensor, qspec: QSpec | None = None) -> Tensor:
     """y = x @ W (+ LoRA path + bias).  W may be dense or packed-quantized;
     each quantized site dequantizes from its own stored shapes, and
-    ``qspec.use_kernel`` only gates the kernel path."""
+    ``qspec.use_kernel`` only gates the kernel path.  With ``use_kernel``
+    and ``fused_lora``, a packed-INT site with 2-D LoRA runs the base and
+    the LoRA term in one fused kernel (same math as the unfused path)."""
     record_activation(current_scope(), x)
     m = x.shape[-1]
-    if "qcodes" in p:
+    fused = (qspec is not None and qspec.use_kernel and qspec.fused_lora
+             and "qcodes" in p and "absmax" not in p
+             and "lora_a" in p and p["lora_a"].dim() == 2)
+    if fused:
+        from repro_torch.kernels import ops as kops
+        y = kops.dequant_matmul_lora(
+            x, p["qcodes"], p["scales"], p["zeros"], p["lora_a"].to(x.dtype),
+            p["lora_b"].to(x.dtype),
+            bits=packed_bits(p["qcodes"].shape[-2], m),
+            group_size=_group_of(p["scales"], m))
+    elif "qcodes" in p:
         if qspec is None:
             raise ValueError("quantized params need a QSpec")
         if "absmax" in p:                      # NF4 (QLoRA baseline)
@@ -98,7 +114,7 @@ def linear_apply(p: dict, x: Tensor, qspec: QSpec | None = None) -> Tensor:
                 y = x @ w
     else:
         y = x @ p["w"].to(x.dtype)
-    if "lora_a" in p:
+    if "lora_a" in p and not fused:
         a = p["lora_a"].to(x.dtype)
         b = p["lora_b"].to(x.dtype)
         if a.dim() == 3:

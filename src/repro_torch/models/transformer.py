@@ -1,4 +1,4 @@
-"""Dense decoder-only model: config, init, forward and KV-cache decode.
+"""Dense decoder-only model: config, init, forward, loss and KV-cache decode.
 
 PyTorch twin of the dense branch of ``repro.models.transformer``.  Block
 params are either scan-stacked (every leaf under ``blocks`` has a leading
@@ -47,6 +47,7 @@ class ModelConfig:
     lora_rank: int = 0            # LoRA on dense weights
     scan_layers: bool = True
     dtype: Any = torch.bfloat16
+    loss_chunk: int = 0           # >0: CE loss computed over seq chunks
 
     def attn_cfg(self, causal=True, window=None) -> AttnConfig:
         return AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
@@ -156,6 +157,42 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         return x, aux
     head = params.get("head", params["embed"])
     return lm_head_apply(head, x), aux
+
+
+def _ce(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """(sum of log-likelihoods over labels >= 0, count of such labels)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return (ll * mask).sum(), mask.sum()
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            pctx: PContext = LOCAL) -> tuple[Tensor, tuple[Tensor, Tensor]]:
+    """Mean next-token cross-entropy.  Returns (loss + 0.01 * aux,
+    (loss, aux)), as the JAX twin.  With ``cfg.loss_chunk`` = C, where C
+    divides the sequence length S and S > C, the head and log-softmax run
+    over sequence chunks of C and the full (B, S, V) f32 logits never
+    exist."""
+    labels = batch["labels"]
+    C = cfg.loss_chunk
+    if C and labels.shape[1] % C == 0 and labels.shape[1] > C:
+        hidden, aux = forward(params, cfg, batch, pctx=pctx,
+                              return_hidden=True)
+        head = params.get("head", params["embed"])
+        tot_s = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        tot_c = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(hidden.shape[1] // C):
+            s, c = _ce(lm_head_apply(head, hidden[:, i * C:(i + 1) * C]),
+                       labels[:, i * C:(i + 1) * C])
+            tot_s = tot_s + s
+            tot_c = tot_c + c
+        loss = -tot_s / torch.clamp(tot_c, min=1.0)
+    else:
+        logits, aux = forward(params, cfg, batch, pctx=pctx)
+        s, c = _ce(logits, labels)
+        loss = -s / torch.clamp(c, min=1.0)
+    return loss + 0.01 * aux, (loss, aux)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,

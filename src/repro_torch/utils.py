@@ -3,6 +3,7 @@ helpers.  PyTorch twin of ``repro.utils``."""
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Any, Iterator
 
@@ -69,9 +70,12 @@ class GramStore:
         self.counts: dict[str, int] = {}
 
     def add(self, path: str, x: Tensor) -> None:
-        x2 = x.float().reshape(-1, x.shape[-1])
-        h = x2.T @ x2
-        cnt = x2.shape[0]
+        """H += X^T X through the ``gram`` kernel wrapper: the plain version
+        for a CPU tensor, the CUDA kernel for a CUDA one (which takes x in
+        its own dtype and upcasts inside)."""
+        from repro_torch.kernels import ops
+        h = ops.gram(x)
+        cnt = math.prod(x.shape[:-1])
         if path in self.grams:
             self.grams[path] = self.grams[path] + h
             self.counts[path] += cnt

@@ -4,9 +4,11 @@ file imports neither ``jax`` nor ``repro``, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances are the JAX package's kernel tolerances: dequant-matmul 2e-4
-in f32 and 2e-2 in bf16 (``tests/test_kernels.py:12-14``), flash
-attention 1e-4 in f32 and 5e-2 in bf16 (``tests/test_kernels.py:85-98``).
+Tolerances are the JAX package's kernel tolerances: dequant-matmul and
+its fused LoRA variant 2e-4 in f32 and 2e-2 in bf16
+(``tests/test_kernels.py:12-14``), flash attention 1e-4 in f32 and 5e-2
+in bf16 (``tests/test_kernels.py:85-98``), gram rtol 1e-4 / atol 1e-2 in
+f32 and 2e-2 / 2e-1 in bf16 (``tests/test_kernels.py::test_gram``).
 """
 import numpy as np
 import pytest
@@ -100,11 +102,79 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype, layout):
                                       lengths=lengths), **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1024, 2048), (1024, 6144), (1, 64),
+                                   (37, 50), (300, 130), (128, 2048)])
+def test_gram_kernel_matches_plain(cuda, dtype, shape):
+    x = torch.randn(*shape, device=cuda).to(dtype)
+    h = ops.gram(x)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=2e-2, atol=2e-1) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-2))
+    hr = ref.gram_ref(x)
+    _close(h, hr, **tol)
+    assert torch.equal(h, h.T)          # the mirror of each tile
+    assert torch.equal(h, ops.gram(x))  # deterministic
+
+
+def _lora_case(cuda, M, K, N, g, bits, r, dtype):
+    codes, s, z = quantize_int(torch.randn(K, N, device=cuda) * 0.02, bits, g)
+    x = torch.randn(M, K, device=cuda).to(dtype)
+    a = (torch.randn(K, r, device=cuda) / K ** 0.5).to(dtype)
+    b = (torch.randn(N, r, device=cuda) * 0.1).to(dtype)
+    return x, pack_codes(codes, bits), s, z, a, b
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1024, 2048, 1024, 64, 64),
+                                   (1024, 6144, 2048, 64, 64),
+                                   (1, 256, 200, 32, 8), (4, 384, 128, 64, 64),
+                                   (1000, 96, 130, 48, 8),
+                                   (70, 512, 384, 128, 128),
+                                   (9, 64, 40, 16, 0)])
+def test_dequant_matmul_lora_kernel_matches_plain(cuda, bits, dtype, shape):
+    M, K, N, g, r = shape
+    x, packed, s, z, a, b = _lora_case(cuda, M, K, N, g, bits, r, dtype)
+    y = ops.dequant_matmul_lora(x, packed, s, z, a, b, bits=bits,
+                                group_size=g)
+    torch.cuda.synchronize()
+    _close(y, ref.dequant_matmul_lora_ref(x, packed, s, z, a, b, bits=bits,
+                                          group_size=g), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_lora_backward_on_card(cuda, dtype):
+    """The Function's dx/dA/dB on the card against autograd through the
+    plain version: f32 1e-4 (other summation order at K = 2048), bf16
+    2e-2 (the plain version rounds each path's dx to bf16 first)."""
+    x, packed, s, z, a, b = _lora_case(cuda, 1024, 2048, 1024, 64, 4, 64,
+                                       dtype)
+    g = torch.randn(1024, 1024, device=cuda).to(dtype)
+    grads = []
+    for fn in (ops.dequant_matmul_lora, ref.dequant_matmul_lora_ref):
+        xs, as_, bs = (t.clone().requires_grad_(True) for t in (x, a, b))
+        y = fn(xs, packed, s, z, as_, bs, bits=4, group_size=64)
+        grads.append(torch.autograd.grad(y, (xs, as_, bs), g))
+    torch.cuda.synchronize()
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    for got, want in zip(*grads):
+        _close(got, want, **tol)
+
+
 def test_launch_counts_follow_launches(cuda):
     ops.reset_launch_counts()
     codes, s, z = quantize_int(torch.randn(64, 32, device=cuda), 4, 16)
-    ops.dequant_matmul(torch.randn(2, 64, device=cuda), pack_codes(codes, 4),
-                       s, z, bits=4, group_size=16)
+    x = torch.randn(2, 64, device=cuda)
+    ops.dequant_matmul(x, pack_codes(codes, 4), s, z, bits=4, group_size=16)
+    ops.dequant_matmul_lora(x, pack_codes(codes, 4), s, z,
+                            torch.randn(64, 8, device=cuda),
+                            torch.randn(32, 8, device=cuda), bits=4,
+                            group_size=16)
+    ops.gram(x)
     q = torch.randn(1, 2, 1, 16, device=cuda)
     ops.flash_attention(q, q, q, causal=False)
-    assert ops.launch_counts() == {"dequant_matmul": 1, "flash_attention": 1}
+    assert ops.launch_counts() == {"dequant_matmul": 1,
+                                   "dequant_matmul_lora": 1,
+                                   "flash_attention": 1, "gram": 1}

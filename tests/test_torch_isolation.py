@@ -62,6 +62,7 @@ cache = init_decode_cache(cfg, 2, 8, device="cpu")
 logits, cache = decode_step(params, cfg, cache, torch.tensor([[1], [2]]))
 assert logits.shape == (2, cfg.vocab_padded) and int(cache["idx"]) == 1
 import repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels.ops
+import repro_torch.launch.train
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
 print("ok")
@@ -84,7 +85,9 @@ class _StubFn:
 class _StubLib:
     def __init__(self, rc):
         self.dqmm_launch = _StubFn(rc)
+        self.dqmm_lora_launch = _StubFn(rc)
         self.flash_attention_launch = _StubFn(rc)
+        self.gram_launch = _StubFn(rc)
 
 
 @pytest.fixture
@@ -103,6 +106,14 @@ def _operands():
     return (x, packed, s, z), (q, k, k)
 
 
+def _lora():
+    return torch.randn(64, 8), torch.randn(48, 8)
+
+
+ALL_KERNELS = ("dequant_matmul", "dequant_matmul_lora", "flash_attention",
+               "gram")
+
+
 def test_cuda_branch_raises_on_kernel_error(as_if_cuda, monkeypatch):
     lib = _StubLib(rc=700)          # cudaErrorIllegalAddress
     monkeypatch.setattr(build, "load", lambda source: lib)
@@ -113,13 +124,20 @@ def test_cuda_branch_raises_on_kernel_error(as_if_cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         ops.flash_attention(*fa, causal=False,
                             lengths=torch.tensor([8, 3], dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ops.dequant_matmul_lora(*dq, *_lora(), bits=4, group_size=16)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ops.gram(dq[0])
     assert lib.dqmm_launch.calls == lib.flash_attention_launch.calls == 1
-    assert ops.launch_counts() == {"dequant_matmul": 0, "flash_attention": 0}
+    assert lib.dqmm_lora_launch.calls == lib.gram_launch.calls == 1
+    assert ops.launch_counts() == dict.fromkeys(ALL_KERNELS, 0)
     ok = _StubLib(rc=0)
     monkeypatch.setattr(build, "load", lambda source: ok)
     ops.dequant_matmul(*dq, bits=4, group_size=16)
     ops.flash_attention(*fa)
-    assert ops.launch_counts() == {"dequant_matmul": 1, "flash_attention": 1}
+    ops.dequant_matmul_lora(*dq, *_lora(), bits=4, group_size=16)
+    ops.gram(dq[0])
+    assert ops.launch_counts() == dict.fromkeys(ALL_KERNELS, 1)
     ops.reset_launch_counts()
 
 
@@ -137,6 +155,10 @@ def test_cuda_branch_raises_when_build_fails(as_if_cuda, monkeypatch,
         ops.dequant_matmul(*dq, bits=4, group_size=16)
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.flash_attention(*fa)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.dequant_matmul_lora(*dq, *_lora(), bits=4, group_size=16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.gram(dq[0])
 
 
 def test_cuda_branch_validates_operands(as_if_cuda, monkeypatch):
@@ -153,6 +175,18 @@ def test_cuda_branch_validates_operands(as_if_cuda, monkeypatch):
     k_t = torch.randn(2, 2, 16, 8).transpose(2, 3)     # last dim strided
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q, k_t, k_t)
+    a, b = _lora()
+    with pytest.raises(ValueError, match="lora_a"):
+        ops.dequant_matmul_lora(x, packed, s, z, a[:32], b, bits=4,
+                                group_size=16)
+    with pytest.raises(ValueError, match="rank"):
+        ops.dequant_matmul_lora(x, packed, s, z, torch.randn(64, 129),
+                                torch.randn(48, 129), bits=4, group_size=16)
+    with pytest.raises(TypeError, match="lora_b"):
+        ops.dequant_matmul_lora(x, packed, s, z, a, b.bfloat16(), bits=4,
+                                group_size=16)
+    with pytest.raises(TypeError):
+        ops.gram(x.double())
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

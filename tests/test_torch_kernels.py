@@ -2,11 +2,14 @@
 
 On the CPU: the plain versions in ``repro_torch.kernels.ref`` against the
 JAX package's kernels run as ``tests/test_kernels.py`` runs them (Pallas
-in interpret mode), with that file's tolerances — dequant-matmul 2e-4 in
-f32 and 2e-2 in bf16 (``test_kernels.py:12-14``), flash attention 1e-4 in
-f32 and 5e-2 in bf16 (``test_kernels.py:85-98``) — and the ``ops``
-wrappers' CPU dispatch.  The CUDA kernels themselves are held against the
-plain versions in ``tests/test_torch_cuda.py``, on the card.
+in interpret mode), with that file's tolerances — dequant-matmul (fused
+LoRA variant included) 2e-4 in f32 and 2e-2 in bf16
+(``test_kernels.py:12-14``), flash attention 1e-4 in f32 and 5e-2 in bf16
+(``test_kernels.py:85-98``), gram as ``test_kernels.py::test_gram`` — the
+``ops`` wrappers' CPU dispatch, and the differentiable wrappers' backward
+against autograd through the plain versions.  The CUDA kernels themselves
+are held against the plain versions in ``tests/test_torch_cuda.py``, on
+the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -96,6 +99,10 @@ def test_flash_attention_ref_matches_jax_bf16():
     np.testing.assert_allclose(to_np(ot), to_np(oj), rtol=5e-2, atol=5e-2)
 
 
+NO_LAUNCHES = {"dequant_matmul": 0, "dequant_matmul_lora": 0,
+               "flash_attention": 0, "gram": 0}
+
+
 def test_ops_dispatch_cpu_takes_plain_version():
     packed, s, z = _packed(64, 32, 4, 16)
     x = torch.from_numpy(RNG.normal(size=(3, 64)).astype(np.float32))
@@ -111,7 +118,7 @@ def test_ops_dispatch_cpu_takes_plain_version():
     assert torch.equal(
         ops.flash_attention(q, k, k, causal=False, lengths=lengths),
         ref.flash_attention_ref(q, k, k, causal=False, lengths=lengths))
-    assert ops.launch_counts() == {"dequant_matmul": 0, "flash_attention": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_ops_rejects_other_devices():
@@ -120,3 +127,107 @@ def test_ops_rejects_other_devices():
         ops.dequant_matmul(x, x, x, x, bits=4, group_size=16)
     with pytest.raises(ValueError, match="device"):
         ops.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="device"):
+        ops.gram(x)
+    with pytest.raises(ValueError, match="device"):
+        ops.dequant_matmul_lora(x, x, x, x, x, x, bits=4, group_size=16)
+
+
+# gram: the JAX kernel's tolerances (tests/test_kernels.py::test_gram),
+# f32 rtol 1e-4 / atol 1e-2, bf16 rtol 2e-2 / atol 2e-1.  (256, 128) runs
+# the Pallas body (D % 128 = 0, T % 8 = 0); (37, 50) takes the JAX
+# wrapper's plain fallback.
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(256, 128), (37, 50)])
+def test_gram_ref_matches_jax(dtype, shape):
+    T, D = shape
+    x = RNG.normal(size=(T, D)).astype(np.float32)
+    hj = jops.gram(jnp.asarray(x, _jdt(dtype)))
+    ht = ref.gram_ref(torch.from_numpy(x).to(_tdt(dtype)))
+    assert ht.dtype == torch.float32 and ht.shape == (D, D)
+    tol = (dict(rtol=2e-2, atol=2e-1) if dtype == "bf16"
+           else dict(rtol=1e-4, atol=1e-2))
+    np.testing.assert_allclose(to_np(ht), to_np(hj), **tol)
+
+
+# dequant_matmul_lora: M % 8 = 0 and N % 128 = 0 run the Pallas body of
+# the fused kernel; the ragged case takes the JAX wrapper's plain
+# fallback.  Tolerances as dequant_matmul's (test_kernels.py:12-14).
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("rank", [8, 64])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(16, 256, 128, 64), (5, 48, 40, 16)])
+def test_dequant_matmul_lora_ref_matches_jax(dtype, rank, bits, shape):
+    M, K, N, g = shape
+    packed, s, z = _packed(K, N, bits, g)
+    x = RNG.normal(size=(M, K)).astype(np.float32)
+    a = (RNG.normal(size=(K, rank)) * 0.1).astype(np.float32)
+    b = (RNG.normal(size=(N, rank)) * 0.1).astype(np.float32)
+    jd, td = _jdt(dtype), _tdt(dtype)
+    yj = jops.dequant_matmul(jnp.asarray(x, jd), jnp.asarray(packed),
+                             jnp.asarray(s), jnp.asarray(z), bits=bits,
+                             group_size=g, lora_a=jnp.asarray(a, jd),
+                             lora_b=jnp.asarray(b, jd))
+    yt = ref.dequant_matmul_lora_ref(
+        torch.from_numpy(x).to(td), torch.from_numpy(packed),
+        torch.from_numpy(s), torch.from_numpy(z),
+        torch.from_numpy(a).to(td), torch.from_numpy(b).to(td), bits=bits,
+        group_size=g)
+    assert yt.dtype == td and yt.shape == (M, N)
+    np.testing.assert_allclose(to_np(yt), to_np(yj), **_tol(dtype))
+
+
+def _lora_operands(M=6, K=64, N=40, r=8, bits=4, g=16, dtype=torch.float32):
+    packed, s, z = _packed(K, N, bits, g)
+    x = torch.from_numpy(RNG.normal(size=(2, M // 2, K)).astype(np.float32))
+    a = torch.from_numpy((RNG.normal(size=(K, r)) * 0.1).astype(np.float32))
+    b = torch.from_numpy((RNG.normal(size=(N, r)) * 0.1).astype(np.float32))
+    return (x.to(dtype), torch.from_numpy(packed), torch.from_numpy(s),
+            torch.from_numpy(z), a.to(dtype), b.to(dtype))
+
+
+def test_ops_dispatch_cpu_new_wrappers_take_plain_version():
+    ops.reset_launch_counts()
+    x = torch.from_numpy(RNG.normal(size=(2, 5, 24)).astype(np.float32))
+    assert torch.equal(ops.gram(x), ref.gram_ref(x.reshape(10, 24)))
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(ops.gram(xb), ref.gram_ref(xb.reshape(10, 24)))
+    x, packed, s, z, a, b = _lora_operands()
+    y = ops.dequant_matmul_lora(x, packed, s, z, a, b, bits=4, group_size=16)
+    assert y.shape == (2, 3, 40)
+    assert torch.equal(y, ref.dequant_matmul_lora_ref(
+        x, packed, s, z, a, b, bits=4, group_size=16))
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_lora_function_grads_match_autograd(dtype):
+    """The Function's hand-written backward against autograd through the
+    plain version: f32 within 1e-5 (same products, other summation
+    order); bf16 within 2e-2 (the plain version rounds each of the two
+    paths' dx to bf16 before adding them, the Function adds in f32)."""
+    x, packed, s, z, a, b = _lora_operands(dtype=dtype)
+    g = torch.from_numpy(RNG.normal(size=(2, 3, 40)).astype(np.float32))
+    g = g.to(dtype)
+    grads = []
+    for fn in (ops.dequant_matmul_lora, ref.dequant_matmul_lora_ref):
+        xs, as_, bs = (t.clone().requires_grad_(True) for t in (x, a, b))
+        y = fn(xs, packed, s, z, as_, bs, bits=4, group_size=16)
+        grads.append(torch.autograd.grad(y, (xs, as_, bs), g))
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-5, atol=1e-5))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype == dtype
+        np.testing.assert_allclose(to_np(got), to_np(want), **tol)
+
+
+def test_dequant_matmul_function_grad_matches_autograd():
+    x, packed, s, z, _, _ = _lora_operands()
+    g = torch.from_numpy(RNG.normal(size=(2, 3, 40)).astype(np.float32))
+    dx = []
+    for fn in (ops.dequant_matmul, ref.dequant_matmul_ref):
+        xs = x.clone().requires_grad_(True)
+        y = fn(xs, packed, s, z, bits=4, group_size=16)
+        dx.append(torch.autograd.grad(y, xs, g)[0])
+    np.testing.assert_allclose(to_np(dx[0]), to_np(dx[1]), rtol=1e-5,
+                               atol=1e-5)

@@ -81,6 +81,19 @@ def test_linear_apply_branches(case, kernel):
     np.testing.assert_allclose(to_np(yt), to_np(yj), **TOL)
 
 
+@pytest.mark.parametrize("case", sorted(LINEAR_CASES))
+def test_linear_apply_fused_lora_matches_jax(case):
+    """``QSpec.fused_lora`` routes packed-INT sites with 2-D LoRA through
+    the fused wrapper; every branch still matches the JAX package's
+    (unfused) ``linear_apply``."""
+    pj, pt = _both(LINEAR_CASES[case]())
+    x = _np(2, 5, 64)
+    yj = jmod.linear_apply(pj, jnp.asarray(x), jmod.QSpec(use_kernel=True))
+    yt = tmod.linear_apply(pt, torch.from_numpy(x),
+                           tmod.QSpec(use_kernel=True, fused_lora=True))
+    np.testing.assert_allclose(to_np(yt), to_np(yj), **TOL)
+
+
 def test_norms_embedding_head_mlp():
     x = _np(2, 3, 64)
     p = {"scale": _np(64) + 1.0, "bias": _np(64)}

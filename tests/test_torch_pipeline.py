@@ -48,6 +48,14 @@ from repro_torch.utils import tree_paths as tpaths
 from tests.torch_parity import configs, jax_to_numpy, port_params, to_np
 
 
+def _qspec_fields(q) -> dict:
+    """A QSpec's fields without the port's ``fused_lora`` (a kernel-routing
+    flag the JAX QSpec does not have)."""
+    d = dataclasses.asdict(q)
+    d.pop("fused_lora", None)
+    return d
+
+
 @pytest.mark.parametrize("seed,step", [(0, 0), (3, 5)])
 def test_token_stream_byte_identical(seed, step):
     kw = dict(vocab=512, seq_len=24, global_batch=3, seed=seed)
@@ -71,7 +79,7 @@ def test_recipe_resolution_and_json():
     for p in paths:
         sj, st = rj.resolve_one(p), rt.resolve_one(p)
         assert (sj.method, sj.skip) == (st.method, st.skip)
-        assert dataclasses.asdict(sj.qspec) == dataclasses.asdict(st.qspec)
+        assert _qspec_fields(sj.qspec) == _qspec_fields(st.qspec)
     assert rt.to_dict() == rj.to_dict()
     assert tr.QuantRecipe.from_dict(json.loads(json.dumps(rt.to_dict()))) \
         == rt
@@ -135,6 +143,36 @@ def test_run_calibration_grams():
         assert st.counts[p] == sj.counts[p]
 
 
+def test_gram_store_goes_through_the_gram_wrapper(monkeypatch):
+    """``GramStore.add`` hands x to ``ops.gram`` in its own dtype (the CUDA
+    kernel upcasts inside) and sums what it returns; on the CPU that is
+    the plain version, equal to the JAX store's f32 ``x2.T @ x2``."""
+    from repro.utils import GramStore as JStore
+    from repro_torch.kernels import ops
+    from repro_torch.utils import GramStore as TStore
+    seen = []
+    real = ops.gram
+
+    def spy(x):
+        seen.append(x.dtype)
+        return real(x)
+
+    monkeypatch.setattr(ops, "gram", spy)
+    xs = [np.random.default_rng(i).normal(size=(2, 7, 24)).astype(np.float32)
+          for i in range(2)]
+    js, ts = JStore(), TStore()
+    for x in xs:
+        js.add("a", jnp.asarray(x))
+        ts.add("a", torch.from_numpy(x).to(torch.bfloat16))
+    assert seen == [torch.bfloat16] * 2 and ts.counts["a"] == 28
+    jb = JStore()
+    for x in xs:
+        jb.add("a", jnp.asarray(x, jnp.bfloat16))
+    np.testing.assert_allclose(to_np(ts.gram("a")), np.asarray(jb.gram("a")),
+                               rtol=1e-5, atol=1e-5)
+    assert js.counts["a"] == ts.counts["a"]
+
+
 def _qd(leaf: dict, m: int) -> np.ndarray:
     bits = jmod.packed_bits(leaf["qcodes"].shape[-2], m)
     g = m // leaf["scales"].shape[-2]
@@ -155,8 +193,7 @@ def test_quantize_model_sequential_matches_jax():
     qt, cfgq_t, store = tp.quantize_model(
         pt, cfg_t, ct, recipe=tr.QuantRecipe.single(
             "cloq", tmod.QSpec(**qspec)), engine="sequential")
-    assert dataclasses.asdict(cfgq_t.quant) == dataclasses.asdict(
-        cfgq_j.quant)
+    assert _qspec_fields(cfgq_t.quant) == _qspec_fields(cfgq_j.quant)
     lj, lt = jpaths(jax_to_numpy(qj)), {k: to_np(v) for k, v in
                                         tpaths(qt).items()}
     assert sorted(lj) == sorted(lt)
