@@ -18,7 +18,10 @@ one JSON line each:
    the card could take for the same work.  ``dequant_matmul`` and
    ``flash_attention`` are timed over one decode step, ``gram`` over one
    calibration batch of the fine-tuning run and ``dequant_matmul_lora``
-   over one training forward.
+   over one training forward.  Then lora_route: the two routes
+   ``linear_apply`` can take for a quantized linear with LoRA on the
+   kernel path (fused kernel; ``dequant_matmul`` plus unfused LoRA) timed
+   at 4 to 1024 rows, which sets ``ops.FUSED_LORA_MIN_ROWS``.
 4. parity  — the smoke model quantized on the card and decoded with the
    kernels and with the plain path: logits agree and tokens are equal.
 5. train_parity — the smoke model quantized on the card takes 3 LoRA steps
@@ -388,7 +391,7 @@ def time_gram(torch, dev, layers: int = 28) -> dict:
         for D in GRAM_DIMS:
             sets.append(xs[D])
             nbytes += T * D * 2 + D * D * 4
-            flops += 2 * T * D * D          # the full product
+            flops += T * D * (D + 1)        # H is symmetric: i <= j only
 
     def kernel():
         for x in sets:
@@ -511,6 +514,64 @@ def time_lora(torch, dev, layers: int = 28) -> dict:
             "recompute_flops": lora_flops}
 
 
+LORA_ROUTE_ROWS = (4, 16, 64, 128, 256, 512, 1024)
+
+
+def time_lora_routes(torch, dev, layers: int = 28) -> dict:
+    """The two routes ``linear_apply`` can take on the kernel path for a
+    packed-INT linear with LoRA, each timed over the 7 linears x ``layers``
+    (bf16, 4-bit, group 64, rank 64, each on its own weights) at each row
+    count of ``LORA_ROUTE_ROWS``: the fused kernel, and ``dequant_matmul``
+    plus the unfused LoRA term ``(x@A)@B^T``.  ``ops.FUSED_LORA_MIN_ROWS``
+    is set from this; ``agrees`` says whether it splits these row counts
+    where the faster route changes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import (dequant_matmul_cuda,
+                                                    dequant_matmul_lora_cuda)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    bits, g, r = 4, 64, 64
+    bf = torch.bfloat16
+    sets = []
+    for _ in range(layers):
+        for K, N in QWEN_LINEARS:
+            packed = torch.randint(0, 256, (K // 2, N), generator=gen,
+                                   device=dev, dtype=torch.uint8)
+            s = torch.rand((K // g, N), generator=gen, device=dev) * 1e-2
+            z = torch.randint(0, 16, (K // g, N), generator=gen,
+                              device=dev).float()
+            a = (torch.randn((K, r), generator=gen, device=dev)
+                 / K ** 0.5).to(bf)
+            b = (torch.randn((N, r), generator=gen, device=dev) * 0.1).to(bf)
+            sets.append((packed, s, z, a, b))
+    rows = {}
+    for M in LORA_ROUTE_ROWS:
+        xs = {K: torch.randn((M, K), generator=gen, device=dev).to(bf)
+              for K in {K for K, _ in QWEN_LINEARS}}
+
+        def fused():
+            for p, s, z, a, b in sets:
+                x = xs[p.shape[0] * 2]
+                dequant_matmul_lora_cuda(x, p, s, z, a, b, bits=bits,
+                                         group_size=g)
+
+        def unfused():
+            for p, s, z, a, b in sets:
+                x = xs[p.shape[0] * 2]
+                y = dequant_matmul_cuda(x, p, s, z, bits=bits, group_size=g)
+                y + (x @ a) @ b.T
+
+        reps = 5 if M >= 256 else 20
+        rows[M] = {"fused_ms": time_graph(torch, fused, reps=reps),
+                   "unfused_ms": time_graph(torch, unfused, reps=reps)}
+        del xs
+    cut = ops.FUSED_LORA_MIN_ROWS
+    agrees = all((v["fused_ms"] < v["unfused_ms"]) == (M >= cut)
+                 for M, v in rows.items())
+    return {"min_rows": cut, "agrees": agrees, "calls": len(sets),
+            "rows": {str(M): v for M, v in rows.items()}}
+
+
 # ---------------------------------------------------------------------------
 # model phases
 # ---------------------------------------------------------------------------
@@ -553,7 +614,8 @@ def parity(torch, dev) -> dict:
 def train_parity(torch, dev) -> dict:
     """The smoke model (f32) quantized on the card takes 3 LoRA steps twice
     from the same params and batches: calibration and training through the
-    kernels (``use_kernel`` + ``fused_lora``; ``gram`` in calibration) and
+    kernels (``use_kernel``: ``gram`` in calibration, the fused
+    ``dequant_matmul_lora`` for the batch's 512 rows) and
     through the plain path.  Losses agree within rtol 1e-4 and gradient
     norms within 1e-3 (f32 sums in another order, through AdamW updates
     that amplify noise-level gradient signs).  Then the fused op's backward
@@ -571,7 +633,7 @@ def train_parity(torch, dev) -> dict:
     from repro_torch.optim import OptConfig
     cfg = get_smoke_config("qwen3-1.7b")
     params = init_params(cfg, seed=0, device=dev)
-    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8, seed=0)
     calib = [TokenStream(dcfg).next_batch() for _ in range(2)]
     recipe = QuantRecipe.single("cloq", QSpec(bits=4, group_size=16, rank=8))
     ops.reset_launch_counts()
@@ -581,7 +643,7 @@ def train_parity(torch, dev) -> dict:
     runs = {}
     for kernels in (True, False):
         c = dataclasses.replace(qcfg, quant=dataclasses.replace(
-            qcfg.quant, use_kernel=kernels, fused_lora=kernels))
+            qcfg.quant, use_kernel=kernels))
         state = build_state(qparams, ocfg)
         step = make_train_step(c, ocfg)
         stream = TokenStream(dataclasses.replace(dcfg, seed=1))
@@ -667,8 +729,9 @@ def train_phase(torch, dev, steps: int = 4):
     return out, res, args
 
 
-# the kernels the serve path runs: its quantized linears carry LoRA but
-# decode adds it unfused, and its calibration runs through gram
+# the kernels the serve path runs: its quantized linears carry LoRA, but
+# decode's 4 rows are below ops.FUSED_LORA_MIN_ROWS, so LoRA is added
+# unfused; its calibration runs through gram
 SERVE_KERNELS = ("dequant_matmul", "flash_attention", "gram")
 
 
@@ -843,6 +906,7 @@ def main(argv=None) -> int:
               "work": "one 28-layer qwen3-1.7b calibration batch (gram) "
                       "and training forward (dequant_matmul_lora) at batch "
                       "8 x 128"})
+        emit({"phase": "lora_route", **time_lora_routes(torch, dev)})
 
         phase = "parity"
         emit({"phase": "parity", **parity(torch, dev)})

@@ -108,12 +108,8 @@ class QuantRecipe:
             if r.regex:
                 d["regex"] = True
             rules.append(d)
-        # fused_lora routes kernels on a device; it is not part of a plan,
-        # and leaving it out keeps the JSON the JAX package's format
-        qspec = dataclasses.asdict(self.qspec)
-        qspec.pop("fused_lora")
-        return {"version": 1, "method": self.method, "qspec": qspec,
-                "rules": rules}
+        return {"version": 1, "method": self.method,
+                "qspec": dataclasses.asdict(self.qspec), "rules": rules}
 
     @classmethod
     def from_dict(cls, d: dict) -> "QuantRecipe":

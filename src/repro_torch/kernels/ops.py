@@ -6,10 +6,11 @@ kernel, for every shape, or the wrapper raises.  Nothing falls back from a
 CUDA tensor to the plain version.
 
 ``dequant_matmul`` and ``dequant_matmul_lora`` are differentiable
-(``torch.autograd.Function``): the forward dispatches by device, the
-backward is plain PyTorch on either device, as in the JAX package, where
-these gradients are autodiff of XLA dots outside any Pallas kernel.  The
-packed base gets no gradient.
+(``torch.autograd.Function``) when a gradient is asked for: the forward
+dispatches by device, the backward is plain PyTorch on either device, as in
+the JAX package, where these gradients are autodiff of XLA dots outside any
+Pallas kernel.  The packed base gets no gradient.  Without a gradient (the
+serve path) they call the forward directly.
 """
 from __future__ import annotations
 
@@ -28,6 +29,13 @@ KERNELS = {"dequant_matmul": (_dqmm, "launches"),
            "dequant_matmul_lora": (_dqmm, "lora_launches"),
            "flash_attention": (_flash, "launches"),
            "gram": (_gram, "launches")}
+
+# rows of x from which a packed-INT linear with 2-D LoRA runs the fused
+# dequant_matmul_lora kernel rather than dequant_matmul plus the unfused
+# LoRA term: on an H100 the fused kernel is the faster route at 512 rows
+# and above, the unfused one at 256 and below (chip_smoke.py,
+# ``lora_route``); decode (4 rows) stays unfused, training (1024) fuses
+FUSED_LORA_MIN_ROWS = 512
 
 
 def launch_counts() -> dict[str, int]:
@@ -55,16 +63,35 @@ def _dequantized(packed: Tensor, scales: Tensor, zeros: Tensor, bits: int,
                           group_size, dtype=torch.float32)
 
 
+def _dequant_matmul(x, packed, scales, zeros, bits, group_size):
+    if _plain(x):
+        return ref.dequant_matmul_ref(x, packed, scales, zeros, bits=bits,
+                                      group_size=group_size)
+    return _dqmm.dequant_matmul_cuda(x, packed, scales, zeros, bits=bits,
+                                     group_size=group_size)
+
+
+def _dequant_matmul_lora(x, packed, scales, zeros, lora_a, lora_b, bits,
+                         group_size):
+    if _plain(x):
+        return ref.dequant_matmul_lora_ref(x, packed, scales, zeros, lora_a,
+                                           lora_b, bits=bits,
+                                           group_size=group_size)
+    return _dqmm.dequant_matmul_lora_cuda(x, packed, scales, zeros, lora_a,
+                                          lora_b, bits=bits,
+                                          group_size=group_size)
+
+
+def _wants_grad(*ts: Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 class _DequantMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, packed, scales, zeros, bits, group_size):
         ctx.save_for_backward(packed, scales, zeros)
         ctx.bits, ctx.group_size, ctx.x_shape = bits, group_size, x.shape
-        if _plain(x):
-            return ref.dequant_matmul_ref(x, packed, scales, zeros,
-                                          bits=bits, group_size=group_size)
-        return _dqmm.dequant_matmul_cuda(x, packed, scales, zeros, bits=bits,
-                                         group_size=group_size)
+        return _dequant_matmul(x, packed, scales, zeros, bits, group_size)
 
     @staticmethod
     def backward(ctx, g):
@@ -85,13 +112,8 @@ class _DequantMatmulLora(torch.autograd.Function):
                 group_size):
         ctx.save_for_backward(x, packed, scales, zeros, lora_a, lora_b)
         ctx.bits, ctx.group_size = bits, group_size
-        if _plain(x):
-            return ref.dequant_matmul_lora_ref(
-                x, packed, scales, zeros, lora_a, lora_b, bits=bits,
-                group_size=group_size)
-        return _dqmm.dequant_matmul_lora_cuda(
-            x, packed, scales, zeros, lora_a, lora_b, bits=bits,
-            group_size=group_size)
+        return _dequant_matmul_lora(x, packed, scales, zeros, lora_a, lora_b,
+                                    bits, group_size)
 
     @staticmethod
     def backward(ctx, g):
@@ -115,7 +137,10 @@ class _DequantMatmulLora(torch.autograd.Function):
 
 def dequant_matmul(x: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
                    *, bits: int, group_size: int | None) -> Tensor:
-    return _DequantMatmul.apply(x, packed, scales, zeros, bits, group_size)
+    if _wants_grad(x):
+        return _DequantMatmul.apply(x, packed, scales, zeros, bits,
+                                    group_size)
+    return _dequant_matmul(x, packed, scales, zeros, bits, group_size)
 
 
 def dequant_matmul_lora(x: Tensor, packed: Tensor, scales: Tensor,
@@ -123,8 +148,11 @@ def dequant_matmul_lora(x: Tensor, packed: Tensor, scales: Tensor,
                         bits: int, group_size: int | None) -> Tensor:
     """Fused ``x @ Wq + (x @ lora_a) @ lora_b^T``; lora_a (K, r), lora_b
     (N, r).  Differentiable in x, lora_a and lora_b."""
-    return _DequantMatmulLora.apply(x, packed, scales, zeros, lora_a, lora_b,
-                                    bits, group_size)
+    if _wants_grad(x, lora_a, lora_b):
+        return _DequantMatmulLora.apply(x, packed, scales, zeros, lora_a,
+                                        lora_b, bits, group_size)
+    return _dequant_matmul_lora(x, packed, scales, zeros, lora_a, lora_b,
+                                bits, group_size)
 
 
 def gram(x: Tensor) -> Tensor:

@@ -12,7 +12,8 @@ linear (``QuantRecipe.single`` from ``--method/--bits/--group-size/--rank/
 the LoRA adapters only (everything, with ``--method none``) for
 ``--steps`` steps.  On a CUDA device calibration runs through the ``gram``
 kernel and every quantized linear's forward through the fused
-``dequant_matmul_lora`` kernel (``QSpec.use_kernel`` and ``fused_lora``).
+``dequant_matmul_lora`` kernel (``QSpec.use_kernel``; a training batch has
+more rows than ``kernels.ops.FUSED_LORA_MIN_ROWS``).
 
 Each step's time is taken on the host clock around a step that ends in a
 device synchronize.  Checkpointing and resume, the quantization journal,
@@ -158,7 +159,7 @@ def run(args, cfg=None) -> dict:
              default=f"{recipe.method}/{recipe.qspec.bits}b", s=quantize_s)
         if device.type == "cuda":
             cfg = dataclasses.replace(cfg, quant=dataclasses.replace(
-                cfg.quant, use_kernel=True, fused_lora=True))
+                cfg.quant, use_kernel=True))
         trainable = "lora"
     else:
         trainable = "all"

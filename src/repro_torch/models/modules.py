@@ -30,10 +30,6 @@ class QSpec:
     method: str = "cloq"          # cloq | loftq | rtn | gptq | qlora(nf4)
     split: str = "paper"
     use_kernel: bool = False      # CUDA dequant-matmul + flash-decode kernels
-    # with use_kernel: packed-INT linears with 2-D LoRA run the fused
-    # dequant_matmul_lora kernel (fine-tuning); a routing flag, not part of
-    # a recipe, so recipe JSON leaves it out
-    fused_lora: bool = False
 
 
 def _randn(gen: torch.Generator, shape, device) -> Tensor:
@@ -76,22 +72,14 @@ def _group_of(meta: Tensor, m: int) -> int:
 def linear_apply(p: dict, x: Tensor, qspec: QSpec | None = None) -> Tensor:
     """y = x @ W (+ LoRA path + bias).  W may be dense or packed-quantized;
     each quantized site dequantizes from its own stored shapes, and
-    ``qspec.use_kernel`` only gates the kernel path.  With ``use_kernel``
-    and ``fused_lora``, a packed-INT site with 2-D LoRA runs the base and
-    the LoRA term in one fused kernel (same math as the unfused path)."""
+    ``qspec.use_kernel`` only gates the kernel path.  On the kernel path a
+    packed-INT site with 2-D LoRA and at least ``FUSED_LORA_MIN_ROWS`` rows
+    of x (fine-tuning, not decode) runs the base and the LoRA term in one
+    fused kernel (same math as the unfused path)."""
     record_activation(current_scope(), x)
     m = x.shape[-1]
-    fused = (qspec is not None and qspec.use_kernel and qspec.fused_lora
-             and "qcodes" in p and "absmax" not in p
-             and "lora_a" in p and p["lora_a"].dim() == 2)
-    if fused:
-        from repro_torch.kernels import ops as kops
-        y = kops.dequant_matmul_lora(
-            x, p["qcodes"], p["scales"], p["zeros"], p["lora_a"].to(x.dtype),
-            p["lora_b"].to(x.dtype),
-            bits=packed_bits(p["qcodes"].shape[-2], m),
-            group_size=_group_of(p["scales"], m))
-    elif "qcodes" in p:
+    fused = False
+    if "qcodes" in p:
         if qspec is None:
             raise ValueError("quantized params need a QSpec")
         if "absmax" in p:                      # NF4 (QLoRA baseline)
@@ -104,6 +92,14 @@ def linear_apply(p: dict, x: Tensor, qspec: QSpec | None = None) -> Tensor:
             group = _group_of(p["scales"], m)
             if qspec.use_kernel:
                 from repro_torch.kernels import ops as kops
+                fused = ("lora_a" in p and p["lora_a"].dim() == 2 and
+                         x.numel() // m >= kops.FUSED_LORA_MIN_ROWS)
+            if fused:
+                y = kops.dequant_matmul_lora(
+                    x, p["qcodes"], p["scales"], p["zeros"],
+                    p["lora_a"].to(x.dtype), p["lora_b"].to(x.dtype),
+                    bits=bits, group_size=group)
+            elif qspec.use_kernel:
                 y = kops.dequant_matmul(x, p["qcodes"], p["scales"],
                                         p["zeros"], bits=bits,
                                         group_size=group)

@@ -231,3 +231,23 @@ def test_dequant_matmul_function_grad_matches_autograd():
         dx.append(torch.autograd.grad(y, xs, g)[0])
     np.testing.assert_allclose(to_np(dx[0]), to_np(dx[1]), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_wrappers_take_the_function_only_when_a_gradient_is_asked():
+    """Without a gradient (decode) the wrappers call the forward directly;
+    with one, the autograd Function carries it."""
+    from torch.autograd.function import BackwardCFunction
+    x, packed, s, z, a, b = _lora_operands()
+    for name, rest in (("dequant_matmul", ()), ("dequant_matmul_lora", (a, b))):
+        fn = getattr(ops, name)
+        assert fn(x, packed, s, z, *rest, bits=4, group_size=16).grad_fn \
+            is None
+        xs = x.clone().requires_grad_(True)
+        with torch.no_grad():
+            assert fn(xs, packed, s, z, *rest, bits=4,
+                      group_size=16).grad_fn is None
+        y = fn(xs, packed, s, z, *rest, bits=4, group_size=16)
+        assert isinstance(y.grad_fn, BackwardCFunction)
+    y = ops.dequant_matmul_lora(x, packed, s, z, a.clone().requires_grad_(),
+                                b, bits=4, group_size=16)
+    assert isinstance(y.grad_fn, BackwardCFunction)

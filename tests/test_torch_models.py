@@ -82,16 +82,28 @@ def test_linear_apply_branches(case, kernel):
 
 
 @pytest.mark.parametrize("case", sorted(LINEAR_CASES))
-def test_linear_apply_fused_lora_matches_jax(case):
-    """``QSpec.fused_lora`` routes packed-INT sites with 2-D LoRA through
-    the fused wrapper; every branch still matches the JAX package's
-    (unfused) ``linear_apply``."""
+def test_linear_apply_fused_lora_matches_jax(case, monkeypatch):
+    """On the kernel path, packed-INT sites with 2-D LoRA and at least
+    ``FUSED_LORA_MIN_ROWS`` rows of x go through the fused wrapper; every
+    branch still matches the JAX package's (unfused) ``linear_apply``."""
+    from repro_torch.kernels import ops as kops
+    calls = []
+    real = kops.dequant_matmul_lora
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(kops, "dequant_matmul_lora", spy)
     pj, pt = _both(LINEAR_CASES[case]())
-    x = _np(2, 5, 64)
+    x = _np(2, -(-kops.FUSED_LORA_MIN_ROWS // 2), 64)
     yj = jmod.linear_apply(pj, jnp.asarray(x), jmod.QSpec(use_kernel=True))
     yt = tmod.linear_apply(pt, torch.from_numpy(x),
-                           tmod.QSpec(use_kernel=True, fused_lora=True))
+                           tmod.QSpec(use_kernel=True))
     np.testing.assert_allclose(to_np(yt), to_np(yj), **TOL)
+    fusable = ("qcodes" in pt and "absmax" not in pt and "lora_a" in pt
+               and pt["lora_a"].dim() == 2)
+    assert len(calls) == int(fusable)
 
 
 def test_norms_embedding_head_mlp():

@@ -48,14 +48,6 @@ from repro_torch.utils import tree_paths as tpaths
 from tests.torch_parity import configs, jax_to_numpy, port_params, to_np
 
 
-def _qspec_fields(q) -> dict:
-    """A QSpec's fields without the port's ``fused_lora`` (a kernel-routing
-    flag the JAX QSpec does not have)."""
-    d = dataclasses.asdict(q)
-    d.pop("fused_lora", None)
-    return d
-
-
 @pytest.mark.parametrize("seed,step", [(0, 0), (3, 5)])
 def test_token_stream_byte_identical(seed, step):
     kw = dict(vocab=512, seq_len=24, global_batch=3, seed=seed)
@@ -79,7 +71,7 @@ def test_recipe_resolution_and_json():
     for p in paths:
         sj, st = rj.resolve_one(p), rt.resolve_one(p)
         assert (sj.method, sj.skip) == (st.method, st.skip)
-        assert _qspec_fields(sj.qspec) == _qspec_fields(st.qspec)
+        assert dataclasses.asdict(sj.qspec) == dataclasses.asdict(st.qspec)
     assert rt.to_dict() == rj.to_dict()
     assert tr.QuantRecipe.from_dict(json.loads(json.dumps(rt.to_dict()))) \
         == rt
@@ -193,7 +185,8 @@ def test_quantize_model_sequential_matches_jax():
     qt, cfgq_t, store = tp.quantize_model(
         pt, cfg_t, ct, recipe=tr.QuantRecipe.single(
             "cloq", tmod.QSpec(**qspec)), engine="sequential")
-    assert _qspec_fields(cfgq_t.quant) == _qspec_fields(cfgq_j.quant)
+    assert dataclasses.asdict(cfgq_t.quant) == dataclasses.asdict(
+        cfgq_j.quant)
     lj, lt = jpaths(jax_to_numpy(qj)), {k: to_np(v) for k, v in
                                         tpaths(qt).items()}
     assert sorted(lj) == sorted(lt)

@@ -277,12 +277,16 @@ def test_microbatch_two_matches_one(quantized):
                                    to_np(leaf), rtol=1e-5, atol=1e-6)
 
 
-def test_fused_lora_matches_unfused(quantized):
+def test_fused_lora_matches_unfused(quantized, monkeypatch):
+    """The kernel path (fused, as a training batch's 128 rows take it) and
+    the plain unfused path give the same trajectory."""
     _, _, qt, cfg_t = quantized
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(ops, "FUSED_LORA_MIN_ROWS", 128)
     runs = []
     for fused in (False, True):
         cfg = dataclasses.replace(cfg_t, quant=dataclasses.replace(
-            cfg_t.quant, use_kernel=fused, fused_lora=fused))
+            cfg_t.quant, use_kernel=fused))
         runs.append(_port_steps(qt, cfg, topt.OptConfig(lr=1e-3,
                                                         total_steps=3), 3))
     (su, mu), (sf, mf) = runs
@@ -306,13 +310,19 @@ def test_fused_lora_routes_through_the_fused_wrapper(quantized, monkeypatch):
 
     monkeypatch.setattr(ops, "dequant_matmul_lora", spy)
     cfg = dataclasses.replace(cfg_t, quant=dataclasses.replace(
-        cfg_t.quant, use_kernel=True, fused_lora=True))
-    b = _tbatch(cfg.vocab, 16, 2, 0).next_batch()
+        cfg_t.quant, use_kernel=True))
+    b = _tbatch(cfg.vocab, 16, 2, 0).next_batch()      # 32 rows of x
+    monkeypatch.setattr(ops, "FUSED_LORA_MIN_ROWS", 32)
     tt.loss_fn(qt, cfg, b)
     assert len(calls) == 7 * cfg.n_layers
+    assert all(s[:-1].numel() == 32 for s in calls)
     calls.clear()
+    monkeypatch.setattr(ops, "FUSED_LORA_MIN_ROWS", 33)
+    tt.loss_fn(qt, cfg, b)
+    assert not calls
+    monkeypatch.setattr(ops, "FUSED_LORA_MIN_ROWS", 32)
     tt.loss_fn(qt, dataclasses.replace(cfg, quant=dataclasses.replace(
-        cfg.quant, fused_lora=False)), b)
+        cfg.quant, use_kernel=False)), b)
     assert not calls
 
 
