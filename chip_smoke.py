@@ -12,16 +12,18 @@ one JSON line each:
    seconds and the ``ptxas`` register and spill report.
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes and at a sweep of others, with
-   ``torch.cuda.synchronize()`` after each launch; then the kernel, the
-   plain version and one PyTorch library call timed over one step's worth
-   of calls (CUDA graphs replayed between CUDA events), and the least time
-   the card could take for the same work.  ``dequant_matmul`` and
-   ``flash_attention`` are timed over one decode step, ``gram`` over one
-   calibration batch of the fine-tuning run and ``dequant_matmul_lora``
-   over one training forward.  Then lora_route: the two routes
-   ``linear_apply`` can take for a quantized linear with LoRA on the
-   kernel path (fused kernel; ``dequant_matmul`` plus unfused LoRA) timed
-   at 4 to 1024 rows, which sets ``ops.FUSED_LORA_MIN_ROWS``.
+   ``torch.cuda.synchronize()`` after each launch (``dequant_matmul_lora``
+   on all three of its routes, each case's route and error on a
+   ``lora_cases`` line, the train shapes run twice for equal bits); then
+   the kernel, the plain version and one PyTorch library call timed over
+   one step's worth of calls (CUDA graphs replayed between CUDA events),
+   and the least time the card could take for the same work.
+   ``dequant_matmul`` and ``flash_attention`` are timed over one decode
+   step, ``gram`` over one calibration batch of the fine-tuning run and
+   ``dequant_matmul_lora`` over one training forward.  Then lora_route:
+   the two routes ``linear_apply`` can take for a quantized linear with
+   LoRA on the kernel path (fused kernel; ``dequant_matmul`` plus unfused
+   LoRA) timed at 4 to 1024 rows, which sets ``ops.FUSED_LORA_MIN_ROWS``.
 4. parity  — the smoke model quantized on the card and decoded with the
    kernels and with the plain path: logits agree and tokens are equal.
 5. train_parity — the smoke model quantized on the card takes 3 LoRA steps
@@ -426,50 +428,83 @@ def _lora_operands(torch, M, K, N, bits, g, r, dt, dev, gen):
     return x, packed, s, z, a, b
 
 
-def check_lora(torch, dev) -> dict:
+# check_lora's sweep: every route (wgmma where TMA can address the
+# operands, mma where it cannot: N % 16, group 48 or 8; fma for f32), row
+# counts at and around the 128-row tile edge, N not a multiple of the
+# tile, ranks 0 to 128 and K = 6144
+LORA_SWEEP_ROWS = (1, 4, 127, 128, 129, 1000, 1024, 4096)
+LORA_SWEEP_SHAPES = ((2048, 1024, 64), (6144, 2048, 64), (2048, 6144, 32),
+                     (1024, 2048, 128), (256, 130, 32), (384, 200, 64),
+                     (96, 40, 48), (512, 1024, 8))
+LORA_SWEEP_BITS_RANKS = ((4, 0), (4, 8), (4, 64), (4, 128), (2, 8), (2, 64),
+                         (8, 8), (8, 64))
+
+
+def check_lora(torch, dev) -> tuple[dict, list]:
+    """The fused kernel against its plain version: the train shapes (run
+    twice: the same bits both times) and the sweep.  Returns the summary
+    and one ``[M, K, N, bits, g, r, dtype, route, max_abs_err]`` a case."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dequant_matmul import dequant_matmul_lora_cuda
+    from repro_torch.kernels.dequant_matmul import (dequant_matmul_lora_cuda,
+                                                    lora_plan_for)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     main = [(TRAIN_TOKENS, K, N, 4, 64, 64, dt) for K, N in
             sorted(set(QWEN_LINEARS)) for dt in (torch.bfloat16,
                                                  torch.float32)]
     sweep = [(M, K, N, bits, g, r, dt)
-             for bits in (2, 4, 8) for M in (1, 4, 1000, 1024)
-             for r in (8, 64) for dt in (torch.float32, torch.bfloat16)
-             for K, N, g in ((256, 200, 32), (384, 130, 64), (96, 40, 48))]
-    main_err = 0.0
+             for M in LORA_SWEEP_ROWS for K, N, g in LORA_SWEEP_SHAPES
+             for bits, r in LORA_SWEEP_BITS_RANKS
+             for dt in (torch.bfloat16, torch.float32)]
+    main_err, cases, routes = 0.0, [], {}
     for i, (M, K, N, bits, g, r, dt) in enumerate(main + sweep):
         x, packed, s, z, a, b = _lora_operands(torch, M, K, N, bits, g, r,
                                                dt, dev, gen)
+        route = lora_plan_for(x, packed, s, z, a, b, g).route
         y = dequant_matmul_lora_cuda(x, packed, s, z, a, b, bits=bits,
                                      group_size=g)
         torch.cuda.synchronize()
         y_ref = ref.dequant_matmul_lora_ref(x, packed, s, z, a, b,
                                             bits=bits, group_size=g)
         torch.cuda.synchronize()
-        ok, err = within(y, y_ref, TOL[str(dt).split(".")[-1]])
+        dname = str(dt).split(".")[-1]
+        ok, err = within(y, y_ref, TOL[dname])
+        what = (f"dequant_matmul_lora M={M} K={K} N={N} bits={bits} g={g} "
+                f"r={r} {dname} ({route})")
         if not ok:
-            raise Failed(f"dequant_matmul_lora M={M} K={K} N={N} bits={bits}"
-                         f" g={g} r={r} {dt}: max err {err}")
-        if i < len(main) and dt == torch.bfloat16:
-            main_err = max(main_err, err)
-    return {"cases": len(main) + len(sweep), "max_abs_err": main_err}
+            raise Failed(f"{what}: max err {err}")
+        if i < len(main):
+            again = dequant_matmul_lora_cuda(x, packed, s, z, a, b,
+                                             bits=bits, group_size=g)
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                raise Failed(f"{what}: two runs differ")
+            if dt == torch.bfloat16:
+                main_err = max(main_err, err)
+        routes[route] = routes.get(route, 0) + 1
+        cases.append([M, K, N, bits, g, r, dname, route, err])
+    if set(routes) != {"wgmma", "mma", "fma"}:
+        raise Failed(f"dequant_matmul_lora sweep missed a route: {routes}")
+    return ({"cases": len(cases), "routes": routes, "max_abs_err": main_err,
+             "deterministic": True}, cases)
 
 
 def time_lora(torch, dev, layers: int = 28) -> dict:
     """One training forward's fused calls: 7 linears x ``layers`` at
-    M = 1024, bf16, 4-bit, group 64, rank 64, each on its own weights."""
+    M = 1024, bf16, 4-bit, group 64, rank 64, each on its own weights;
+    with each shape's route and tiling (``plans``)."""
+    import dataclasses
     from repro_torch.core.quantizer import dequantize_int, unpack_codes
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dequant_matmul import dequant_matmul_lora_cuda
+    from repro_torch.kernels.dequant_matmul import (dequant_matmul_lora_cuda,
+                                                    lora_plan_for)
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     M, bits, g, r = TRAIN_TOKENS, 4, 64, 64
     bf = torch.bfloat16
     xs = {K: torch.randn((M, K), generator=gen, device=dev).to(bf)
           for K in {K for K, _ in QWEN_LINEARS}}
-    sets, nbytes, flops, lora_flops = [], 0, 0, 0
+    sets, nbytes, flops, lora_flops, plans = [], 0, 0, 0, {}
     for _ in range(layers):
         for K, N in QWEN_LINEARS:
             packed = torch.randint(0, 256, (K // 2, N), generator=gen,
@@ -482,11 +517,14 @@ def time_lora(torch, dev, layers: int = 28) -> dict:
             b = (torch.randn((N, r), generator=gen, device=dev)
                  * 0.1).to(bf)
             sets.append((xs[K], packed, s, z, a, b))
+            plans.setdefault(f"{K}x{N}", dataclasses.asdict(
+                lora_plan_for(xs[K], packed, s, z, a, b, g)))
             nbytes += (M * K * 2 + K * N // 2 + 2 * (K // g) * N * 4
                        + (K + N) * r * 2 + M * N * 2)
             flops += 2 * M * K * N + 2 * M * r * (K + N)
-            # x @ A recomputed by every 128-column tile (left out of bound)
-            lora_flops += (-(-N // 128) - 1) * 2 * M * K * r
+            # the wgmma route runs (x @ A) @ B^T as [hi | lo] @ [B^T; B^T]
+            # (2 * M * N * r more products, left out of the bound)
+            lora_flops += 2 * M * N * r
     dense = [dequantize_int(unpack_codes(p, bits, x.shape[1]), s, z, g,
                             dtype=bf) for x, p, s, z, _, _ in sets]
 
@@ -507,11 +545,14 @@ def time_lora(torch, dev, layers: int = 28) -> dict:
     ms = time_graph(torch, kernel, reps=5)
     plain_ms = time_graph(torch, plain, reps=5)
     library_ms = time_graph(torch, library, reps=5)
+    b = bound(nbytes, flops, BF16_FLOPS)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "cuBLAS bf16 on the weight pre-dequantized to bf16: "
                        "x@W + (x@A)@B^T",
-            **bound(nbytes, flops, BF16_FLOPS), "calls": len(sets),
-            "recompute_flops": lora_flops}
+            **b, "calls": len(sets), "tflops": flops / ms / 1e9,
+            "bound_share": b["bound_ms"] / ms, "hi_lo_extra_flops": lora_flops,
+            "plans": plans}
+
 
 
 LORA_ROUTE_ROWS = (4, 16, 64, 128, 256, 512, 1024)
@@ -524,7 +565,9 @@ def time_lora_routes(torch, dev, layers: int = 28) -> dict:
     count of ``LORA_ROUTE_ROWS``: the fused kernel, and ``dequant_matmul``
     plus the unfused LoRA term ``(x@A)@B^T``.  ``ops.FUSED_LORA_MIN_ROWS``
     is set from this; ``agrees`` says whether it splits these row counts
-    where the faster route changes."""
+    where the faster route changes.  On an H100 80GB HBM3 at 700 W the
+    fused kernel is the faster route from 64 rows, the unfused one at 16
+    rows and below."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.dequant_matmul import (dequant_matmul_cuda,
                                                     dequant_matmul_lora_cuda)
@@ -893,7 +936,7 @@ def main(argv=None) -> int:
         dq = check_dequant(torch, dev)
         fa = check_flash(torch, dev)
         gr = check_gram(torch, dev)
-        lo = check_lora(torch, dev)
+        lo, lo_cases = check_lora(torch, dev)
         dq_t = time_dequant(torch, dev)
         fa_t = time_flash(torch, dev)
         gr_t = time_gram(torch, dev)
@@ -906,6 +949,9 @@ def main(argv=None) -> int:
               "work": "one 28-layer qwen3-1.7b calibration batch (gram) "
                       "and training forward (dequant_matmul_lora) at batch "
                       "8 x 128"})
+        emit({"phase": "kernels", "lora_cases": lo_cases,
+              "fields": ["M", "K", "N", "bits", "g", "r", "dtype", "route",
+                         "max_abs_err"]})
         emit({"phase": "lora_route", **time_lora_routes(torch, dev)})
 
         phase = "parity"

@@ -3,59 +3,69 @@
 //
 // Replaces the Pallas TPU kernel `dequant_matmul_lora` in
 // src/repro/kernels/dequant_matmul.py (`_kernel_lora`): the base product and
-// x @ A accumulated in f32 in one sweep over K, the LoRA term added after
-// the sweep, output in x's type.
+// x @ A accumulated in f32 over K, the LoRA term added, output in x's type.
 //
 // What bounds it on the H100: operations.  In LoRA fine-tuning the forward
 // of every quantized linear has M = 1024 tokens (batch 8 x 128), so each
 // packed weight byte feeds 2 * 1024 multiply-adds per code; one training
-// forward of Qwen3-1.7B is about 3.0 TFLOP against under 4 GB of traffic.
-// What the design does about it: it tiles M as well as N, so every
-// dequantized weight value is reused by 64 rows of x from shared memory
-// (the decode kernel in dequant_matmul.cu takes at most 8 rows and would
-// stream the weight 128 times at this M), and it runs the products where
-// the card's operations are:
-//  * bf16 x (the training path): mma.sync m16n8k16 on the tensor cores,
-//    bf16 operands and f32 sums.  x and A are bf16 already, so x @ A is
-//    exact products summed in f32; the weight is dequantized in f32 and
-//    rounded to bf16 once, which the reference's bf16 tolerance (2e-2)
-//    admits.
-//  * f32 x: f32 FMAs on the CUDA cores (67 TFLOP/s), the only way to the
-//    reference's f32 tolerance (2e-4) with no TF32; each thread keeps a
-//    4 x 8 register micro-tile so two 16-byte shared-memory reads feed 32
-//    FMAs.
-// Like the TPU kernel, each N tile recomputes its rows' x @ A
-// (N/128 * 2*M*K*r extra operations, half the base work at r = 64).
+// forward of Qwen3-1.7B is 3.03 TFLOP against 3.3 GB of traffic, 3.06 ms at
+// the bf16 tensor-core rate.  Three kernels, chosen by shape (`lora_plan`
+// in kernels/dequant_matmul.py is the rule; the entry point re-checks it):
 //
-// Design, both paths:
-//  * One block of 256 threads per 64 x 128 output tile.  The K sweep runs
-//    in chunks of 32: the x chunk is staged (transposed for f32), the weight
-//    chunk is unpacked and dequantized once into shared memory ((c - z) * s
-//    in f32, scale and zero fetched at group boundaries only; stored by
-//    column in bf16 for the mma path), and the A chunk is staged beside it.
-//  * f32: thread (ty, tx) owns rows 4ty..4ty+3, columns 4tx..4tx+3 and
-//    64+4tx..64+4tx+3, and x @ A for its 4 rows at ranks tx, tx+16, ...
-//    bf16: warp w owns the 32 x 32 piece (w % 2, w / 2) of the tile
-//    (2 x 4 mma tiles), and x @ A for rows 16 (w % 4) .. + 16 at the
-//    8-rank tiles w / 4, w / 4 + 2, ...
-//  * What holds the bf16 path back is memory latency, not the tensor
-//    cores: a chunk's products take a few hundred cycles, its loads far
-//    more.  So each thread loads the next chunk's x, A, packed words,
-//    scale and zero into registers, all at once, before the current
-//    chunk's products, and up to rank 64 two blocks share an SM.  A deeper
-//    pipeline (cp.async or TMA stages, wgmma) is the next step.
-//  * After the sweep x @ A and the B tile go through shared memory in f32
-//    (ranks outermost) and each thread adds sum_r xa[m][r] * B[n][r] to
-//    its base sums, in rank order, with f32 FMAs.
-//  * No atomics and a fixed summation order: the same bits on every run.
-// Every M >= 1, ragged N and K, bits in {2, 4, 8} (3-bit codes are stored
-// raw and arrive as 8), any group size dividing K, and ranks 0..128 are
-// taken.
+//  * wgmma: bf16 x, and every base and row stride TMA can address (K % 8,
+//    N % 16, r % 8, a group of 16 or 32 or a multiple of 64, 16-byte
+//    aligned bases).  The training path.
+//    - x @ A once per row, not once per column tile: a prologue
+//      (`xa_kernel`, mma.sync, bf16 products exact in f32 sums) splits K
+//      over a cluster of up to 8 blocks, adds the partial sums in block
+//      order through distributed shared memory, and writes xa as
+//      hi = bf16(xa) and lo = bf16(xa - hi).  The main kernel is launched
+//      programmatically dependent on it and waits only before its first
+//      LoRA stage, so its launch and first weight stages overlap the
+//      prologue's tail.
+//    - The LoRA term on the tensor cores: [hi | lo] (M x 2r) is appended to
+//      x's K sweep against [B^T; B^T] (B is bf16 and K-major already), so it
+//      lands in the same wgmma accumulators; xa keeps about 16 bits.
+//    - Persistent blocks, one per SM, walking 128 x BN output tiles
+//      (BN = 128, or 64 where 128 would leave SMs idle), K in stages of 64.
+//      Warp 12 keeps a ring of x tiles (128 x 64, 128-byte swizzle; for the
+//      LoRA stages [hi | lo]) in flight with TMA; warp 13 a deeper ring of
+//      packed codes with their scales and zeros, and each tile's B.
+//    - wgmma reads B from shared memory in bf16, so a dequantizing
+//      warpgroup (warps 8-11) turns each stage's codes into a swizzled bf16
+//      tile ((code - z) * s in f32, rounded once; no I2F: a code becomes a
+//      float by OR-ing it into the mantissa of 2^23) in a ring of 4, while
+//      two warpgroups (warps 0-7) run wgmma m64nBNk16 on 64 rows each,
+//      one stage's wgmmas in flight while the next is issued.  Each
+//      dequantized weight feeds all 128 rows of the tile.
+//    - The sums leave through shared memory in coalesced 16-byte stores.
+//    - What holds it back now is shared memory: per stage the wgmmas read
+//      the x tile and (once per warpgroup) the B tile, TMA writes x and
+//      the codes, the dequantize writes B; the dequantizing warpgroup's
+//      time per stage does not fall with more threads.
+//  * mma: bf16 x that TMA cannot address.  64 x 128 tiles of 256 threads,
+//    mma.sync m16n8k16, each chunk's operands loaded into registers one
+//    32-row chunk ahead, x @ A in the same sweep, the LoRA term in f32 FMAs.
+//  * fma: f32 x.  f32 FMAs on the CUDA cores (67 TFLOP/s), the only way to
+//    the reference's f32 tolerance (2e-4) with no TF32; 4 x 8 register
+//    micro-tiles, the same tiles and sweep as mma.
+// No atomics and a fixed summation order on every route: the same bits on
+// every run.  Every M >= 1, ragged N and K, bits in {2, 4, 8} (3-bit codes
+// are stored raw and arrive as 8), any group size dividing K, and ranks
+// 0..128 are taken, by one route or another.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int BM = 64;          // rows of x per block
 constexpr int BN = 128;         // output columns per block
@@ -619,27 +629,770 @@ int mma_by_bits(int bits, int rt, const void* x, const void* packed, const void*
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 input that TMA can address: x @ A once, then TMA + wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- x @ A prologue ---------------------------------------------------------
+
+constexpr int XA_BM = 64;         // rows of x a block
+constexpr int XA_BK = 64;         // K rows a staged chunk
+constexpr int XA_THREADS = 128;   // 4 warps, 16 rows each
+constexpr int XA_STAGES = 5;      // cp.async ring: a split's chunks all in flight
+constexpr int XA_XS = XA_BK + 8;  // row stride (bf16) of a staged x chunk
+
+__host__ __device__ constexpr int xa_a_stride(int rt) { return 16 * rt + 8; }
+__host__ __device__ constexpr int xa_stage_elems(int rt) {
+  return XA_BM * XA_XS + XA_BK * xa_a_stride(rt);
+}
+
+// 16 bytes global -> shared, zero-filled when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// xa for 64 rows of x: block y of a cluster of gridDim.y blocks sums the
+// K rows [y * chunk, + chunk), warp w rows 16w..16w+15 at all 16 * RT
+// ranks; the cluster then adds its partial sums through distributed
+// shared memory in block order (block y reduces an eighth of the rows) and
+// writes hl (2M, r) bf16: rows [0, M) hi = bf16(xa), rows [M, 2M)
+// lo = bf16(xa - hi).
+template <int RT>
+__global__ void __launch_bounds__(XA_THREADS)
+xa_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
+          bf16* __restrict__ hl, int M, int K, int r, int chunk) {
+  constexpr int RP = 16 * RT;
+  constexpr int AS = xa_a_stride(RT);
+  extern __shared__ __align__(16) unsigned char xa_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(xa_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.x * XA_BM;
+  const int kbeg = blockIdx.y * chunk;
+  const int kend = min(K, kbeg + chunk);
+  // the main kernel may start now; it waits for this grid's xa itself
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int nk = (kend - kbeg + XA_BK - 1) / XA_BK;
+
+  float acc[2 * RT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * RT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  auto load = [&](int c) {
+    bf16* xs = sm + (c % XA_STAGES) * xa_stage_elems(RT);
+    bf16* as = xs + XA_BM * XA_XS;
+    const int k0 = kbeg + c * XA_BK;
+    for (int i = tid; i < XA_BM * (XA_BK / 8); i += XA_THREADS) {
+      const int m = i / (XA_BK / 8), kc = (i % (XA_BK / 8)) * 8;
+      const bool ok = m0 + m < M && k0 + kc < kend;
+      cp_async16(xs + m * XA_XS + kc, ok ? x + (size_t)(m0 + m) * K + k0 + kc : x, ok);
+    }
+    for (int i = tid; i < XA_BK * (RP / 8); i += XA_THREADS) {
+      const int kk = i / (RP / 8), rc = (i % (RP / 8)) * 8;
+      const bool ok = k0 + kk < kend && rc < r;
+      cp_async16(as + kk * AS + rc, ok ? a + (size_t)(k0 + kk) * r + rc : a, ok);
+    }
+  };
+
+#pragma unroll
+  for (int c = 0; c < XA_STAGES - 1; ++c) {
+    if (c < nk) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<XA_STAGES - 2>();  // this thread's part of chunk c is in
+    __syncthreads();                 // everyone's is, and chunk c-1 is done
+    if (c + XA_STAGES - 1 < nk) load(c + XA_STAGES - 1);
+    cp_async_commit();
+    const bf16* xs = sm + (c % XA_STAGES) * xa_stage_elems(RT);
+    const bf16* as = xs + XA_BM * XA_XS;
+#pragma unroll
+    for (int kk = 0; kk < XA_BK; kk += 16) {
+      uint32_t af[4];
+      ldsm_x4(af, xs + (16 * warp + (lane & 15)) * XA_XS + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        uint32_t bfr[4];
+        ldsm_x4_t(bfr, as + (kk + (lane & 15)) * AS + 16 * j + (lane >> 4) * 8);
+        mma_bf16(acc[2 * j], af, bfr);
+        mma_bf16(acc[2 * j + 1], af, bfr + 2);
+      }
+    }
+  }
+
+  // this block's partial sums, [64][RP] f32, over its staging buffers
+  cp_async_wait<0>();
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(xa_raw);
+  const int g = lane >> 2, cq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * RT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      part[(16 * warp + g + 8 * (e >> 1)) * RP + 8 * j + 2 * cq + (e & 1)] = acc[j][e];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = gridDim.y;
+  const int rows = (XA_BM + splits - 1) / splits;
+  const int mlo = blockIdx.y * rows;
+  for (int e = tid; e < rows * r; e += XA_THREADS) {
+    const int m = mlo + e / r, rr = e % r;
+    if (m >= XA_BM || m0 + m >= M) continue;
+    float v = 0.f;
+    for (int s = 0; s < splits; ++s) v += cluster.map_shared_rank(part, s)[m * RP + rr];
+    const bf16 h = __float2bfloat16(v);
+    hl[(size_t)(m0 + m) * r + rr] = h;
+    hl[(size_t)(M + m0 + m) * r + rr] = __float2bfloat16(v - __bfloat162float(h));
+  }
+  cluster.sync();  // no block leaves while another reads its partial sums
+}
+
+// --- TMA, mbarrier and wgmma ------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// spin until the barrier's phase of this parity completes; a wait that
+// outlasts any real stage by far traps rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 26)) asm volatile("trap;\n");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+// the box of `map` at (c0 inner, c1 outer) into shared memory at dst
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_warpgroups_sync() {  // warps 0-7
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads across wgmma issue/wait
+template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// descriptor of a K-major bf16 tile in shared memory, rows of 64 values
+// (128 bytes) under the 128-byte swizzle, 8-row groups 1024 bytes apart;
+// the tile starts 1024-byte aligned and +2 steps 16 K columns (32 bytes)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// d = a (64 x 16) @ b (16 x 128) + (scale_d ? d : 0), both K-major in shared memory (128-byte
+// swizzle), bf16 operands, f32 sums in the warpgroup's registers
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d = a (64 x 16) @ b (16 x 64) + (scale_d ? d : 0), both K-major in shared memory (128-byte
+// swizzle), bf16 operands, f32 sums in the warpgroup's registers
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_bn<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  wgmma_n128(d, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_bn<64>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  wgmma_n64(d, da, db, scale_d);
+}
+
+// --- the main kernel --------------------------------------------------------
+
+constexpr int WG_BM = 128;          // rows of x a tile: two warpgroups of 64
+constexpr int WG_BK = 64;           // K rows a stage: one swizzled 128-byte row
+constexpr int WG_CONSUMERS = 256;   // two warpgroups run the wgmmas,
+constexpr int WG_DEQUANT = 128;     // one dequantizes,
+constexpr int WG_THREADS = WG_CONSUMERS + WG_DEQUANT + 64;  // two warps load
+constexpr int X_BYTES = WG_BM * WG_BK * 2;     // an x (or [hi | lo]) tile
+constexpr int WG_DQ = 4;            // dequantized B tiles
+constexpr int MAX_SROWS = WG_BK / 16;          // group >= 16: scale rows a stage
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block can have
+
+// The shared memory of one (BITS, BN) instance, from 1024-byte alignment:
+// the x ring (XS tiles), the weight ring (WS slots of codes, scales and
+// zeros), the ring of WG_DQ dequantized B tiles, the tile's LoRA B (two
+// 64-rank chunks; the epilogue's staging after the LoRA stages), then the
+// barriers.  x and B tiles come back when the wgmmas that read them are
+// done; weight slots as soon as they are dequantized, so that ring runs
+// further ahead.
+template <int BITS, int BN> struct WgLayout {
+  static constexpr int PER = BITS == 2 ? 4 : (BITS == 4 ? 2 : 1);
+  static constexpr int B_BYTES = BN * WG_BK * 2;            // a B tile
+  static constexpr int CODE_BYTES = BN * WG_BK / PER;
+  static constexpr int SC = CODE_BYTES;                     // scales in a slot
+  static constexpr int ZR = SC + BN * MAX_SROWS * 4;        // zeros in a slot
+  static constexpr int W_BYTES = (ZR + BN * MAX_SROWS * 4 + 1023) / 1024 * 1024;
+  static constexpr int XS = BN == 128 ? 4 : 8;
+  static constexpr int FIXED = 1024 + 512 + XS * X_BYTES + (WG_DQ + 2) * B_BYTES;
+  static constexpr int WS_FIT = (SMEM_LIMIT - FIXED) / W_BYTES;
+  static constexpr int WS = WS_FIT < 8 ? WS_FIT : 8;
+  static constexpr int X_OFF = 0;
+  static constexpr int W_OFF = X_OFF + XS * X_BYTES;
+  static constexpr int DQ_OFF = W_OFF + WS * W_BYTES;
+  static constexpr int LB_OFF = DQ_OFF + WG_DQ * B_BYTES;
+  static constexpr int BAR_OFF = LB_OFF + 2 * B_BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 512;
+  static_assert(WS >= 3 && SMEM <= SMEM_LIMIT, "shared memory");
+};
+
+// one stage's packed codes (64 K rows x BN columns, scales and zeros
+// beside) dequantized into the K-major swizzled bf16 tile wgmma reads as
+// B, in 256 units of CPT = BN/32 columns by 8 K rows; this thread takes
+// units u0 + k * (256 / U), k < U, all loads first.  Unit u (w = u / 32,
+// l = u % 32) takes columns l*CPT .. +CPT and K rows 8kg .. 8kg+7,
+// kg = (w + l/2) % 8, so each quarter-warp's 16-byte stores land in 8
+// distinct bank groups and its code loads in distinct banks.
+// (code - z) * s in f32, rounded to bf16 once.  A code becomes a float by
+// OR-ing it into the mantissa of 2^23 (no I2F); where z is an integer, as
+// quantize_int's zeros are, code - z is that float minus (2^23 + z), one
+// exact FADD, else two.
+template <int BITS, int BN, int U>
+__device__ __forceinline__ void dequant_stage(const unsigned char* slot, unsigned char* dq,
+                                              int group, int u0) {
+  using L = WgLayout<BITS, BN>;
+  constexpr int PER = L::PER;
+  constexpr uint32_t MASK = BITS == 8 ? 0xFFu : ((1u << BITS) - 1u);
+  constexpr int CPT = BN / 32;
+  constexpr int ROWS = 8 / PER;  // packed rows that hold 8 K rows
+  constexpr float TWO23 = 8388608.f;
+  float s[U][CPT], z[U][CPT];
+  uint32_t w[U][ROWS];
+  int kg[U], n0[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const int u = u0 + k * (256 / U);
+    const int lane = u & 31, warp = u >> 5;
+    kg[k] = (warp + (lane >> 1)) & 7;
+    n0[k] = lane * CPT;
+    const int srow = group >= WG_BK ? 0 : (8 * kg[k]) / group;
+    const float* sc = reinterpret_cast<const float*>(slot + L::SC) + srow * BN + n0[k];
+    const float* zr = reinterpret_cast<const float*>(slot + L::ZR) + srow * BN + n0[k];
+    if constexpr (CPT == 4) {
+      const float4 sv = *reinterpret_cast<const float4*>(sc);
+      const float4 zv = *reinterpret_cast<const float4*>(zr);
+      s[k][0] = sv.x; s[k][1] = sv.y; s[k][2] = sv.z; s[k][3] = sv.w;
+      z[k][0] = zv.x; z[k][1] = zv.y; z[k][2] = zv.z; z[k][3] = zv.w;
+#pragma unroll
+      for (int p = 0; p < ROWS; ++p)
+        w[k][p] = *reinterpret_cast<const uint32_t*>(slot + (kg[k] * ROWS + p) * BN + n0[k]);
+    } else {
+      const float2 sv = *reinterpret_cast<const float2*>(sc);
+      const float2 zv = *reinterpret_cast<const float2*>(zr);
+      s[k][0] = sv.x; s[k][1] = sv.y;
+      z[k][0] = zv.x; z[k][1] = zv.y;
+#pragma unroll
+      for (int p = 0; p < ROWS; ++p)
+        w[k][p] = *reinterpret_cast<const uint16_t*>(slot + (kg[k] * ROWS + p) * BN + n0[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    bool whole = true;  // every zero of the unit an integer below 2^22
+    float zb[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      zb[c] = TWO23 + z[k][c];
+      whole = whole && zb[c] - TWO23 == z[k][c] && fabsf(z[k][c]) < 4194304.f;
+    }
+    auto unit = [&](auto fast) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        float v[8];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t code = (w[k][kk / PER] >> (8 * c + BITS * (kk % PER))) & MASK;
+          const float f = __uint_as_float(0x4B000000u | code);  // 2^23 + code
+          v[kk] = (decltype(fast)::value ? f - zb[c] : (f - TWO23) - z[k][c]) * s[k][c];
+        }
+        const int n = n0[k] + c;
+        *reinterpret_cast<uint4*>(dq + n * 128 + ((kg[k] ^ (n & 7)) << 4)) =
+            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                       pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+      }
+    };
+    if (whole) {
+      unit(std::true_type{});
+    } else {
+      unit(std::false_type{});
+    }
+  }
+}
+
+// Persistent: block b walks tiles b, b + gridDim.x, ... of 128 x BN
+// (row tile fastest, so the blocks in flight share weight tiles in L2).
+// Each tile is a sweep of kt = ceil(K/64) weight stages and 2 * ceil(r/64)
+// LoRA stages ([hi | lo] against [B^T; B^T]); the stage counters run on
+// across tiles, so every ring does too.  Warps 0-7 run the wgmmas, 8-11
+// dequantize, 12 loads the x ring, 13 the weight ring and each tile's
+// LoRA B.  Every wgmma and every read of the accumulators stays out of
+// divergent code (ptxas serializes the wgmmas otherwise).
+template <int BITS, int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_p,
+                       const __grid_constant__ CUtensorMap tm_s,
+                       const __grid_constant__ CUtensorMap tm_z,
+                       const __grid_constant__ CUtensorMap tm_xa,
+                       const __grid_constant__ CUtensorMap tm_b,
+                       bf16* __restrict__ out, int M, int K, int N, int group, int r) {
+  using L = WgLayout<BITS, BN>;
+  constexpr int XS = L::XS, WS = L::WS;
+  constexpr int NACC = BN / 2;  // m64nBN f32 accumulators a thread
+  constexpr int MMA_WARPS = WG_CONSUMERS / 32, DQ_WARPS = WG_DEQUANT / 32;
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  unsigned char* base = wg_raw + ((1024 - (smem_u32(wg_raw) & 1023)) & 1023);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* xempty = xfull + XS;
+  uint64_t* wfull = xempty + XS;
+  uint64_t* wempty = wfull + WS;
+  uint64_t* dqfull = wempty + WS;
+  uint64_t* dqempty = dqfull + WG_DQ;
+  uint64_t* lbfull = dqempty + WG_DQ;
+  uint64_t* lbempty = lbfull + 1;
+  auto x_tile = [&](int i) { return base + L::X_OFF + (i % XS) * X_BYTES; };
+  auto w_slot = [&](int j) { return base + L::W_OFF + (j % WS) * L::W_BYTES; };
+  auto dq_tile = [&](int j) { return base + L::DQ_OFF + (j % WG_DQ) * L::B_BYTES; };
+  unsigned char* lb = base + L::LB_OFF;
+
+  const int kt = (K + WG_BK - 1) / WG_BK;
+  const int rt = (r + WG_BK - 1) / WG_BK;
+  const int st = kt + 2 * rt;
+  const int tiles_m = (M + WG_BM - 1) / WG_BM;
+  const int tiles = tiles_m * ((N + BN - 1) / BN);
+  const int srows = group >= WG_BK ? 1 : WG_BK / group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < XS; ++s) {
+      mbar_init(&xfull[s], 1);
+      mbar_init(&xempty[s], MMA_WARPS);
+    }
+    for (int s = 0; s < WS; ++s) {
+      mbar_init(&wfull[s], 1);
+      mbar_init(&wempty[s], DQ_WARPS);
+    }
+    for (int s = 0; s < WG_DQ; ++s) {
+      mbar_init(&dqfull[s], DQ_WARPS);
+      mbar_init(&dqempty[s], MMA_WARPS);
+    }
+    mbar_init(lbfull, 1);
+    mbar_init(lbempty, MMA_WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= MMA_WARPS + DQ_WARPS) {  // loaders: one thread of each warp
+    if (lane != 0) return;
+    const bool x_loader = warp == MMA_WARPS + DQ_WARPS;
+    int i = 0, j = 0, q = 0;  // stages, weight stages, tiles issued
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++q) {
+      const int m0 = (t % tiles_m) * WG_BM, n0 = (t / tiles_m) * BN;
+      if (x_loader) {  // x tiles, then [hi | lo]: hi rank chunks, then lo
+        for (int ks = 0; ks < st; ++ks, ++i) {
+          uint64_t* bar = &xfull[i % XS];
+          if (i >= XS) mbar_wait(&xempty[i % XS], ((i / XS) - 1) & 1);
+          mbar_expect_tx(bar, X_BYTES);
+          if (ks < kt) {
+            tma_load(x_tile(i), &tm_x, bar, ks * WG_BK, m0);
+          } else {
+            const int l = ks - kt;
+            // the first [hi | lo] load waits for the x @ A prologue's grid
+            if (l == 0 && q == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+            tma_load(x_tile(i), &tm_xa, bar, (l % rt) * WG_BK, (l / rt) * M + m0);
+          }
+        }
+      } else {  // codes, scales and zeros; then the tile's LoRA B
+        for (int ks = 0; ks < kt; ++ks, ++j) {
+          uint64_t* bar = &wfull[j % WS];
+          if (j >= WS) mbar_wait(&wempty[j % WS], ((j / WS) - 1) & 1);
+          mbar_expect_tx(bar, L::CODE_BYTES + 2 * BN * srows * 4);
+          const int srow = ks * WG_BK / group;
+          tma_load(w_slot(j), &tm_p, bar, n0, ks * WG_BK / L::PER);
+          tma_load(w_slot(j) + L::SC, &tm_s, bar, n0, srow);
+          tma_load(w_slot(j) + L::ZR, &tm_z, bar, n0, srow);
+        }
+        if (rt > 0) {
+          if (q > 0) mbar_wait(lbempty, (q - 1) & 1);
+          mbar_expect_tx(lbfull, rt * L::B_BYTES);
+          for (int c = 0; c < rt; ++c)
+            tma_load(lb + c * L::B_BYTES, &tm_b, lbfull, c * WG_BK, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  if (warp >= MMA_WARPS) {  // the dequantizing warpgroup
+    const int dt = threadIdx.x - WG_CONSUMERS;
+    const int stages = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * kt;
+    for (int j = 0; j < stages; ++j) {
+      mbar_wait(&wfull[j % WS], (j / WS) & 1);
+      if (j >= WG_DQ) mbar_wait(&dqempty[j % WG_DQ], ((j / WG_DQ) - 1) & 1);
+      dequant_stage<BITS, BN, 256 / WG_DEQUANT>(w_slot(j), dq_tile(j), group, dt);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&dqfull[j % WG_DQ]);
+        mbar_arrive(&wempty[j % WS]);
+      }
+    }
+    return;
+  }
+
+  // wgmma warpgroups: wg owns rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = threadIdx.x >> 7;
+  float acc[NACC];
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+  int i = 0, j = 0, q = 0;  // stages, weight stages, tiles
+  int px = -1, pj = -1;     // the previous stage's x and B tiles, to hand back
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++q) {
+    for (int ks = 0; ks < st; ++ks, ++i) {
+      mbar_wait(&xfull[i % XS], (i / XS) & 1);
+      const unsigned char* b_tile;
+      if (ks < kt) {
+        mbar_wait(&dqfull[j % WG_DQ], (j / WG_DQ) & 1);
+        b_tile = dq_tile(j);
+      } else {
+        if (ks == kt) mbar_wait(lbfull, q & 1);
+        b_tile = lb + ((ks - kt) % rt) * L::B_BYTES;
+      }
+      const uint64_t da = sw128_desc(x_tile(i) + wg * (X_BYTES / 2));
+      const uint64_t db = sw128_desc(b_tile);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)  // a tile's first product overwrites
+        wgmma_bn<BN>(acc, da + 2 * kk, db + 2 * kk, ks > 0 || kk > 0);
+      wgmma_commit();
+      fence_acc(acc);
+      // stage i's wgmmas run on into stage i+1; stage i-1's are done
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (lane == 0 && px >= 0) {
+        mbar_arrive(&xempty[px % XS]);
+        if (pj >= 0) mbar_arrive(&dqempty[pj % WG_DQ]);
+      }
+      px = i;
+      pj = ks < kt ? j++ : -1;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) {
+      mbar_arrive(&xempty[px % XS]);
+      if (pj >= 0) mbar_arrive(&dqempty[pj % WG_DQ]);
+    }
+    px = pj = -1;
+    // the sums in bf16 through the LoRA B tiles, once both warpgroups'
+    // wgmmas are done with them (one per warpgroup, 16-byte chunks
+    // XOR-swizzled by row), then out in coalesced 16-byte stores
+    mma_warpgroups_sync();
+    unsigned char* stage = lb + wg * L::B_BYTES;
+    const int g = lane >> 2, cq = lane & 3;
+    const int r0 = (warp & 3) * 16 + g;
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(stage + row * (BN * 2) +
+                                           ((jn ^ (row & 7)) << 4) + cq * 4) =
+            __floats2bfloat162_rn(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
+      }
+    asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+    const int m0 = (t % tiles_m) * WG_BM + wg * 64, n0 = (t / tiles_m) * BN;
+    for (int c = threadIdx.x & 127; c < 64 * (BN / 8); c += 128) {
+      const int row = c / (BN / 8), ch = c % (BN / 8);
+      const uint4 v = *reinterpret_cast<const uint4*>(stage + row * (BN * 2) +
+                                                      ((ch ^ (row & 7)) << 4));
+      if (m0 + row < M && n0 + 8 * ch < N)
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + row) * N + n0 + 8 * ch) = v;
+    }
+    // the staging is read; the next tile's LoRA B may land there (and the
+    // next tile's sums are staged only after its own LoRA stages)
+    asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+    if (rt > 0 && lane == 0) mbar_arrive(lbempty);
+  }
+}
+
+// --- host side --------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D row-major tensor (outer x inner, rows row_bytes apart) read in
+// boxes of outer_box x inner_box; out-of-range elements read as zero.
+// Returns 0, or ENCODE_FAILED + the driver's CUresult.
+constexpr int ENCODE_FAILED = 10000;
+int make_map(CUtensorMap* m, CUtensorMapDataType dt, const void* ptr, uint64_t inner,
+             uint64_t outer, uint64_t row_bytes, uint32_t inner_box, uint32_t outer_box,
+             CUtensorMapSwizzle sw) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return ENCODE_FAILED;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {inner_box, outer_box};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult rc = enc(m, dt, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)rc;
+}
+
+template <int RT>
+int launch_xa(const void* x, const void* a, void* hl, int M, int K, int r, int splits,
+              int chunk, cudaStream_t s) {
+  const int bytes = XA_STAGES * xa_stage_elems(RT) * 2;
+  auto kern = xa_kernel<RT>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + XA_BM - 1) / XA_BM, splits);
+  cfg.blockDim = dim3(XA_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<const bf16*>(x),
+                                 static_cast<const bf16*>(a), static_cast<bf16*>(hl), M,
+                                 K, r, chunk);
+}
+
+template <int BITS, int BN>
+int launch_wgmma(const void* x, const void* packed, const void* scales, const void* zeros,
+                 const void* b, const void* hl, void* out, int M, int K, int N, int group,
+                 int r, int grid, cudaStream_t s) {
+  constexpr int PER = BITS == 2 ? 4 : (BITS == 4 ? 2 : 1);
+  const int srows = group >= WG_BK ? 1 : WG_BK / group;
+  CUtensorMap mx, mp, ms, mz, mxa, mb;
+  memset(&mxa, 0, sizeof(mxa));
+  memset(&mb, 0, sizeof(mb));
+  int rc = make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2ull * K, WG_BK, WG_BM,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!rc) rc = make_map(&mp, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, N, K / PER, N, BN,
+                         WG_BK / PER, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!rc) rc = make_map(&ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, N, K / group,
+                         4ull * N, BN, srows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!rc) rc = make_map(&mz, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, zeros, N, K / group,
+                         4ull * N, BN, srows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!rc && r > 0)
+    rc = make_map(&mxa, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, hl, r, 2ull * M, 2ull * r,
+                  WG_BK, WG_BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!rc && r > 0)
+    rc = make_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, r, N, 2ull * r, WG_BK, BN,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  auto kern = dqmm_lora_wgmma_kernel<BITS, BN>;
+  constexpr int smem = WgLayout<BITS, BN>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;  // overlap the
+  attr[0].val.programmaticStreamSerializationAllowed = r > 0;          // prologue's tail
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, mx, mp, ms, mz, mxa, mb, static_cast<bf16*>(out),
+                                 M, K, N, group, r);
+}
+
+int wgmma_by_bits(int bits, int bn, const void* x, const void* packed, const void* scales,
+                  const void* zeros, const void* b, const void* hl, void* out, int M, int K,
+                  int N, int group, int r, int grid, cudaStream_t s) {
+#define DQ_WG(B, T)                                                                  \
+  if (bits == B && bn == T)                                                          \
+    return launch_wgmma<B, T>(x, packed, scales, zeros, b, hl, out, M, K, N, group, r, \
+                              grid, s);
+  DQ_WG(2, 128) DQ_WG(4, 128) DQ_WG(8, 128) DQ_WG(2, 64) DQ_WG(4, 64) DQ_WG(8, 64)
+#undef DQ_WG
+  return (int)cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// the shapes and pointers the wgmma route can address (lora_plan's rule)
+bool wgmma_ok(const void* x, const void* packed, const void* scales, const void* zeros,
+              const void* a, const void* b, int K, int N, int group, int r) {
+  return K % 8 == 0 && N % 16 == 0 && r % 8 == 0 && group % 16 == 0 &&
+         (group % WG_BK == 0 || WG_BK % group == 0) && aligned16(x) && aligned16(packed) &&
+         aligned16(scales) && aligned16(zeros) && (r == 0 || (aligned16(a) && aligned16(b)));
+}
+
+int xa_by_rank(int rt, const void* x, const void* a, void* hl, int M, int K, int r,
+               int splits, int chunk, cudaStream_t s) {
+  switch (rt) {
+    case 1: return launch_xa<1>(x, a, hl, M, K, r, splits, chunk, s);
+    case 2: return launch_xa<2>(x, a, hl, M, K, r, splits, chunk, s);
+    case 4: return launch_xa<4>(x, a, hl, M, K, r, splits, chunk, s);
+    case 8: return launch_xa<8>(x, a, hl, M, K, r, splits, chunk, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// x (M, K), lora_a (K, r), lora_b (N, r) and out (M, N), all f32 or all
-// bf16 (x_is_bf16); packed (K*bits/8, N) uint8; scales/zeros (K/group, N)
-// f32.  All contiguous.  0 <= r <= 128.  Returns 0 or a cudaError_t code.
+// x (M, K), lora_a (K, r), lora_b (N, r) and out (M, N), all f32 (route
+// 0) or all bf16 (routes 1 and 2); packed (K*bits/8, N) uint8;
+// scales/zeros (K/group, N) f32.  All contiguous.  0 <= r <= 128.
+// Routes, as kernels/dequant_matmul.py `lora_plan` picks them:
+//   0 fma:   f32 FMAs on the CUDA cores, 64 x 128 tiles;
+//   1 mma:   mma.sync, 64 x 128 tiles;
+//   2 wgmma: the x @ A prologue, K cut into xa_splits <= 8 ranges of
+//            xa_chunk rows summed by a cluster, into xa_hl (2M, r) bf16;
+//            then `grid` persistent blocks over 128 x bn tiles (bn 64 or
+//            128).  The shapes and pointers must pass wgmma_ok.
+// Returns 0, a cudaError_t code, or 10000 + the CUresult of a tensor map
+// that could not be encoded.
 extern "C" int dqmm_lora_launch(const void* x, const void* packed, const void* scales,
                                 const void* zeros, const void* lora_a,
-                                const void* lora_b, void* out, int M, int K, int N,
-                                int bits, int group, int r, int x_is_bf16,
+                                const void* lora_b, void* out, void* xa_hl,
+                                int M, int K, int N, int bits, int group, int r,
+                                int route, int bn, int grid, int xa_splits, int xa_chunk,
                                 void* stream) {
   const int per = bits == 2 ? 4 : (bits == 4 ? 2 : 1);
   if (M < 1 || K < 1 || N < 1 || group < 1 || K % group || K % per || r < 0 ||
-      r > 16 * MAX_RPT || (M + BM - 1) / BM > 65535)
+      r > 16 * MAX_RPT)
     return (int)cudaErrorInvalidValue;
   const int need = r <= 16 ? 1 : (r <= 32 ? 2 : (r <= 64 ? 4 : 8));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = x_is_bf16
-      ? mma_by_bits(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M, K, N,
-                    group, r, s)
-      : by_bits<float>(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M,
-                       K, N, group, r, s);
+  int rc;
+  if (route == 2) {
+    if (!wgmma_ok(x, packed, scales, zeros, lora_a, lora_b, K, N, group, r) || grid < 1 ||
+        (r > 0 && (!xa_hl || !aligned16(xa_hl) || xa_splits < 1 || xa_splits > 8 ||
+                   xa_chunk < 1 || xa_chunk % XA_BK ||
+                   (long long)xa_splits * xa_chunk < K)))
+      return (int)cudaErrorInvalidValue;
+    rc = r > 0 ? xa_by_rank(need, x, lora_a, xa_hl, M, K, r, xa_splits, xa_chunk, s) : 0;
+    if (!rc)
+      rc = wgmma_by_bits(bits, bn, x, packed, scales, zeros, lora_b, xa_hl, out, M, K, N,
+                         group, r, grid, s);
+  } else if (route == 0 || route == 1) {
+    if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+    rc = route == 1
+        ? mma_by_bits(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M, K, N,
+                      group, r, s)
+        : by_bits<float>(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M, K,
+                         N, group, r, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

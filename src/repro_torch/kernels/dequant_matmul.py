@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -25,7 +26,15 @@ LORA_SOURCE = "dequant_matmul_lora.cu"
 _UNIT = 128          # K rows per staged unit (csrc: UNIT)
 _BLOCKS_PER_SM = 4   # grid target: about this many blocks per SM
 MAX_LORA_RANK = 128  # csrc/dequant_matmul_lora.cu: 16 * MAX_RPT
-_LORA_BM = 64        # rows of x per block of the fused kernel (csrc: BM)
+# csrc/dequant_matmul_lora.cu: the fma and mma kernels' 64 x 128 tiles (BM,
+# BN; one grid row of blocks per 64 rows of x), the wgmma kernel's 128-row
+# tiles and 64-row K stages (WG_BM, WG_BK), the x @ A prologue's 64-row
+# blocks (XA_BM)
+_SYNC_TILE = (64, 128)
+_WG_BM, _WG_BK, _XA_BM = 128, 64, 64
+_XA_MAX_SPLITS = 8   # the prologue's cluster: at most 8 blocks (portable)
+_MAX_GRID_ROWS = 65535
+LORA_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}   # csrc: route
 
 # launches of each CUDA kernel; reset and read by callers that need to show
 # a path went through it
@@ -33,7 +42,7 @@ launches = 0
 lora_launches = 0
 
 _argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-_lora_argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_lora_argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                   + [ctypes.c_void_p])
 
 
@@ -66,6 +75,80 @@ def plan_grid(M: int, K: int, N: int, cpt: int,
     want = max(1, min(units, -(-_BLOCKS_PER_SM * n_sm // blocks)))
     ups = -(-units // want)
     return bm, -(-units // ups), ups
+
+
+@dataclass(frozen=True)
+class LoraPlan:
+    """How the fused kernel runs one call: ``route`` ("wgmma", "mma" or
+    "fma"), ``bm`` x ``bn`` output tiles, ``tiles`` of them over ``grid``
+    blocks (the wgmma route's blocks are persistent and loop over tiles),
+    and the x @ A prologue's K split: ``xa_splits`` ranges of ``xa_chunk``
+    rows (wgmma route only)."""
+    route: str
+    bm: int
+    bn: int
+    tiles: int
+    grid: int
+    xa_splits: int = 0
+    xa_chunk: int = 0
+
+
+def tma_addressable(K: int, N: int, r: int, group: int,
+                    aligned: bool) -> bool:
+    """Whether TMA can address every operand of the wgmma route: 16-byte
+    row strides (K % 8, N % 16, r % 8), a group that tiles the 64-row
+    stages (16 or 32, or a multiple of 64), and 16-byte aligned bases
+    (``aligned``).  The entry point checks the same."""
+    return (K % 8 == 0 and N % 16 == 0 and r % 8 == 0 and group % 16 == 0
+            and (group % _WG_BK == 0 or _WG_BK % group == 0) and aligned)
+
+
+def _fill(tiles: int, n_sm: int) -> float:
+    """Share of the SM slots that ``tiles`` persistent tiles keep busy."""
+    return tiles / (-(-tiles // n_sm) * n_sm)
+
+
+def lora_plan(M: int, K: int, N: int, r: int, group: int, *, bf16: bool,
+              aligned: bool, n_sm: int) -> LoraPlan:
+    """The route and tiling of ``dequant_matmul_lora_cuda`` for x (M, K),
+    N output columns, rank r and the quantization group, chosen by shape.
+
+    f32 x takes the fma route (the only one within the f32 tolerance); bf16
+    x takes wgmma where :func:`tma_addressable`, else mma.  The wgmma tiles
+    are 128 x 128, or 128 x 64 where that fills clearly more of the
+    ``n_sm`` SMs (Qwen3-1.7B's k/v projections at 1024 rows: 128 tiles,
+    not 64); one persistent block per SM.  The x @ A prologue splits K
+    over a cluster of up to 8 blocks, so that about one block an SM
+    runs."""
+    if not bf16 or not tma_addressable(K, N, r, group, aligned):
+        bm, bn = _SYNC_TILE
+        rows = -(-M // bm)
+        if rows > _MAX_GRID_ROWS:
+            raise ValueError(f"dequant_matmul_lora: {M} rows of x are too "
+                             f"many for the {'mma' if bf16 else 'fma'} "
+                             "route's grid")
+        tiles = rows * -(-N // bn)
+        return LoraPlan("mma" if bf16 else "fma", bm, bn, tiles, tiles)
+    rows = -(-M // _WG_BM)
+    bn = 64 if (_fill(rows * -(-N // 64), n_sm)
+                > _fill(rows * -(-N // 128), n_sm) + 0.1) else 128
+    tiles = rows * -(-N // bn)
+    chunks = -(-K // _WG_BK)
+    want = max(1, min(chunks, _XA_MAX_SPLITS, -(-n_sm // -(-M // _XA_BM))))
+    per = -(-chunks // want)
+    return LoraPlan("wgmma", _WG_BM, bn, tiles, min(tiles, n_sm),
+                    -(-chunks // per), per * _WG_BK)
+
+
+def lora_plan_for(x2: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
+                  lora_a: Tensor, lora_b: Tensor, group: int) -> LoraPlan:
+    """:func:`lora_plan` for these operands (x2 is (M, K)) on their card."""
+    (M, K), r = x2.shape, lora_a.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, packed, scales, zeros)
+                  + ((lora_a, lora_b) if r else ()))
+    return lora_plan(M, K, packed.shape[-1], r, group,
+                     bf16=x2.dtype == torch.bfloat16, aligned=aligned,
+                     n_sm=build.sm_count(x2.device))
 
 
 def _columns_per_thread(N: int, packed: Tensor, scales: Tensor,
@@ -171,16 +254,19 @@ def dequant_matmul_lora_cuda(x: Tensor, packed: Tensor, scales: Tensor,
                          f"{tuple(lora_a.shape)}, {tuple(lora_b.shape)}")
     if r > MAX_LORA_RANK:
         raise ValueError(f"{what}: rank {r} > {MAX_LORA_RANK}")
-    if -(-M // _LORA_BM) > 65535:
-        raise ValueError(f"{what}: {M} rows of x are too many")
     lead = x.shape[:-1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
+    plan = lora_plan_for(x2, packed, scales, zeros, lora_a, lora_b, g)
+    hl = None
+    if plan.route == "wgmma" and r:     # the prologue's x @ A as hi / lo
+        hl = torch.empty((2 * M, r), dtype=torch.bfloat16, device=x.device)
     rc = _lora_lib()(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                      zeros.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
-                     out.data_ptr(), M, K, N, bits, g, r,
-                     int(x.dtype == torch.bfloat16),
+                     out.data_ptr(), None if hl is None else hl.data_ptr(),
+                     M, K, N, bits, g, r, LORA_ROUTES[plan.route], plan.bn,
+                     plan.grid, plan.xa_splits, plan.xa_chunk,
                      build.stream_handle(x.device))
     build.check(rc, f"{what} launch")
     lora_launches += 1

@@ -32,10 +32,10 @@ KERNELS = {"dequant_matmul": (_dqmm, "launches"),
 
 # rows of x from which a packed-INT linear with 2-D LoRA runs the fused
 # dequant_matmul_lora kernel rather than dequant_matmul plus the unfused
-# LoRA term: on an H100 the fused kernel is the faster route at 512 rows
-# and above, the unfused one at 256 and below (chip_smoke.py,
+# LoRA term: on an H100 the fused kernel is the faster route at 64 rows
+# and above, the unfused one at 16 and below (chip_smoke.py,
 # ``lora_route``); decode (4 rows) stays unfused, training (1024) fuses
-FUSED_LORA_MIN_ROWS = 512
+FUSED_LORA_MIN_ROWS = 64
 
 
 def launch_counts() -> dict[str, int]:

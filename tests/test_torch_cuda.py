@@ -125,6 +125,10 @@ def _lora_case(cuda, M, K, N, g, bits, r, dtype):
     return x, pack_codes(codes, bits), s, z, a, b
 
 
+# (M, K, N, g, r): bf16 takes the TMA + wgmma route where TMA can address
+# the operands and mma.sync where it cannot (N % 16, r % 8, group 48 or
+# 8), f32 the CUDA-core route; rows around the 128-row tile, N not a
+# multiple of the tile, ranks 0 to 128, K = 6144
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1024, 2048, 1024, 64, 64),
@@ -132,7 +136,15 @@ def _lora_case(cuda, M, K, N, g, bits, r, dtype):
                                    (1, 256, 200, 32, 8), (4, 384, 128, 64, 64),
                                    (1000, 96, 130, 48, 8),
                                    (70, 512, 384, 128, 128),
-                                   (9, 64, 40, 16, 0)])
+                                   (9, 64, 40, 16, 0),
+                                   (127, 2048, 2048, 64, 64),
+                                   (128, 2048, 6144, 32, 128),
+                                   (129, 6144, 2048, 64, 8),
+                                   (4096, 2048, 1024, 64, 0),
+                                   (1000, 1024, 130, 128, 64),
+                                   (4, 2048, 200, 64, 64),
+                                   (1024, 512, 1024, 8, 64),
+                                   (256, 512, 1024, 64, 12)])
 def test_dequant_matmul_lora_kernel_matches_plain(cuda, bits, dtype, shape):
     M, K, N, g, r = shape
     x, packed, s, z, a, b = _lora_case(cuda, M, K, N, g, bits, r, dtype)
@@ -141,6 +153,30 @@ def test_dequant_matmul_lora_kernel_matches_plain(cuda, bits, dtype, shape):
     torch.cuda.synchronize()
     _close(y, ref.dequant_matmul_lora_ref(x, packed, s, z, a, b, bits=bits,
                                           group_size=g), **_tol(dtype))
+
+
+@pytest.mark.parametrize("case", [((1024, 2048, 2048, 64, 64), "wgmma"),
+                                  ((1024, 2048, 1024, 64, 64), "wgmma"),
+                                  ((129, 6144, 2048, 32, 128), "wgmma"),
+                                  ((1000, 256, 130, 32, 64), "mma"),
+                                  ((1024, 512, 1024, 8, 64), "mma")])
+def test_dequant_matmul_lora_route_and_same_bits(cuda, case):
+    """bf16 takes the route ``lora_plan`` names, and two runs give the same
+    bits (no atomics, a fixed summation order)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dequant_matmul import lora_plan
+    (M, K, N, g, r), route = case
+    x, packed, s, z, a, b = _lora_case(cuda, M, K, N, g, 4, r,
+                                       torch.bfloat16)
+    assert lora_plan(M, K, N, r, g, bf16=True, aligned=True,
+                     n_sm=build.sm_count(x.device)).route == route
+    y = ops.dequant_matmul_lora(x, packed, s, z, a, b, bits=4, group_size=g)
+    y2 = ops.dequant_matmul_lora(x, packed, s, z, a, b, bits=4, group_size=g)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    want = ref.dequant_matmul_lora_ref(x, packed, s, z, a, b, bits=4,
+                                       group_size=g)
+    _close(y, want, **_tol(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

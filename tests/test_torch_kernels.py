@@ -251,3 +251,56 @@ def test_wrappers_take_the_function_only_when_a_gradient_is_asked():
     y = ops.dequant_matmul_lora(x, packed, s, z, a.clone().requires_grad_(),
                                 b, bits=4, group_size=16)
     assert isinstance(y.grad_fn, BackwardCFunction)
+
+
+# the fused kernel's route and tiling, a plain function of the shape: every
+# Qwen3-1.7B linear at the training batch's 1024 rows takes the TMA + wgmma
+# kernel with its persistent blocks filling an H100's 132 SMs (the k/v
+# projections in 128 tiles of 128 x 64); what TMA cannot address takes the
+# mma.sync kernel, and f32 the CUDA-core one
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 1024), (2048, 6144),
+                                 (6144, 2048)])
+def test_lora_plan_qwen_linears_take_wgmma(K, N):
+    from repro_torch.kernels.dequant_matmul import lora_plan
+    p = lora_plan(1024, K, N, 64, 64, bf16=True, aligned=True,
+                  n_sm=H100_SMS)
+    assert p.route == "wgmma" and p.bm == 128 and p.bn in (64, 128)
+    assert p.tiles == -(-1024 // p.bm) * -(-N // p.bn)
+    assert p.grid == min(p.tiles, H100_SMS)     # persistent: one a SM
+    assert p.tiles >= 128                       # 97% of the SMs or more
+    assert p.xa_splits * p.xa_chunk >= K > (p.xa_splits - 1) * p.xa_chunk
+    assert p.xa_chunk % 64 == 0
+    assert p.xa_splits == 8             # 16 x 8 prologue blocks
+
+
+@pytest.mark.parametrize("M,K,N,r,g,aligned", [
+    (1000, 256, 130, 64, 32, True),    # N % 16 != 0
+    (4, 384, 200, 8, 64, True),        # N % 16 != 0
+    (1000, 96, 40, 8, 48, True),       # N % 16 != 0, group 48
+    (1024, 2048, 2048, 12, 64, True),  # r % 8 != 0
+    (1024, 2048, 2048, 64, 48, True),  # group neither divides nor tiles 64
+    (1024, 2048, 2048, 64, 8, True),   # group 8: 8 scale rows a stage
+    (1024, 2052, 2048, 64, 4, True),   # K % 8 != 0, group 4
+    (1024, 2048, 2048, 64, 64, False),  # a base not 16-byte aligned
+])
+def test_lora_plan_ragged_shapes_take_mma(M, K, N, r, g, aligned):
+    from repro_torch.kernels.dequant_matmul import lora_plan
+    p = lora_plan(M, K, N, r, g, bf16=True, aligned=aligned, n_sm=H100_SMS)
+    assert (p.route, p.bm, p.bn) == ("mma", 64, 128)
+    assert p.grid == p.tiles == -(-M // 64) * -(-N // 128)
+    f = lora_plan(M, K, N, r, g, bf16=False, aligned=aligned, n_sm=H100_SMS)
+    assert f.route == "fma" and f.grid == p.grid
+
+
+def test_lora_plan_grid_rows():
+    """The 64-row grid of the mma and fma kernels caps M at 65535 * 64;
+    the persistent wgmma grid does not."""
+    from repro_torch.kernels.dequant_matmul import lora_plan
+    big = 65535 * 64 + 1
+    with pytest.raises(ValueError, match="too many"):
+        lora_plan(big, 64, 130, 8, 64, bf16=True, aligned=True, n_sm=132)
+    p = lora_plan(big, 64, 128, 8, 64, bf16=True, aligned=True, n_sm=132)
+    assert p.route == "wgmma" and p.grid == 132
