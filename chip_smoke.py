@@ -12,15 +12,21 @@ one JSON line each:
    seconds and the ``ptxas`` register and spill report.
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes and at a sweep of others, with
-   ``torch.cuda.synchronize()`` after each launch (``dequant_matmul_lora``
-   on all three of its routes, each case's route and error on a
-   ``lora_cases`` line, the train shapes run twice for equal bits); then
-   the kernel, the plain version and one PyTorch library call timed over
-   one step's worth of calls (CUDA graphs replayed between CUDA events),
-   and the least time the card could take for the same work.
-   ``dequant_matmul`` and ``flash_attention`` are timed over one decode
-   step, ``gram`` over one calibration batch of the fine-tuning run and
-   ``dequant_matmul_lora`` over one training forward.  Then lora_route:
+   ``torch.cuda.synchronize()`` after each launch, on every route its plan
+   function picks, each case's route and error on a ``dequant_cases``,
+   ``flash_cases`` or ``lora_cases`` line; the decode and train shapes run
+   twice for equal bits.  Then the kernel, the plain version and one
+   PyTorch library call timed over one step's worth of calls (CUDA graphs
+   replayed between CUDA events), the least time the card could take for
+   the same work and, for the decode kernels, the bytes/s reached and
+   their share of 3.35 TB/s.  ``dequant_matmul`` and ``flash_attention``
+   are timed over one decode step (``flash_attention`` also over a
+   4096-key cache, where it moves bytes rather than waits), ``gram`` over
+   one calibration batch of the fine-tuning run and
+   ``dequant_matmul_lora`` over one training forward.  dequant_splits: the
+   tensor-core route of ``dequant_matmul`` at 1 to 8 blocks a cluster for
+   each Qwen3-1.7B linear, the data behind ``dqmm_plan``'s split.  Then
+   lora_route:
    the two routes ``linear_apply`` can take for a quantized linear with
    LoRA on the kernel path (fused kernel; ``dequant_matmul`` plus unfused
    LoRA) timed at 4 to 1024 rows, which sets ``ops.FUSED_LORA_MIN_ROWS``.
@@ -46,7 +52,8 @@ one JSON line each:
    read just after; ``dequant_matmul``, ``flash_attention`` and ``gram``
    must each be > 0.
 8. profile — a few more decode steps of the served model under
-   ``torch.profiler``: step time, device busy and idle share, top kernels.
+   ``torch.profiler``: step time, device busy time a step and idle share,
+   top kernels.
 
 Then the kernel table as one JSON line (each kernel's launches from the
 path that runs it: train for ``gram`` and ``dequant_matmul_lora``, serve
@@ -159,34 +166,70 @@ def _quantized(torch, K, N, bits, g, dev, gen):
     return pack_codes(codes, bits), s, z
 
 
-def check_dequant(torch, dev) -> dict:
+# check_dequant's decode cases (bf16, the tensor-core route): 1 to 8 rows at
+# every Qwen3-1.7B linear, run twice for equal bits; then K not a multiple
+# of the 256-row stage, groups 32, 128 and 256, every width
+DEQUANT_DECODE_ROWS = (1, 3, 4, 8)
+DEQUANT_ODD = ((4, 2112, 256, 64), (3, 192, 384, 32), (8, 2048, 1024, 32),
+               (4, 2048, 1024, 128), (1, 6144, 128, 128), (5, 1024, 512, 256))
+
+
+def check_dequant(torch, dev) -> tuple[dict, list]:
+    """The kernel against its plain version: the decode cases (each run
+    twice: the same bits both times), the odd shapes and the sweep (f32,
+    ragged N and more than 8 rows take the CUDA-core route).  Returns the
+    summary and one ``[M, K, N, bits, g, dtype, route, max_abs_err]`` a
+    case."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.kernels.dequant_matmul import (dequant_matmul_cuda,
+                                                    plan_for)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    main_err, cases = 0.0, 0
-    main = [(4, K, N, 4, 64, torch.bfloat16) for K, N in
-            sorted(set(QWEN_LINEARS))]
+    main = [(M, K, N, 4, 64, torch.bfloat16) for M in DEQUANT_DECODE_ROWS
+            for K, N in sorted(set(QWEN_LINEARS))]
+    odd = [(M, K, N, bits, g, torch.bfloat16) for bits in (2, 4, 8)
+           for M, K, N, g in DEQUANT_ODD]
     sweep = [(M, K, N, bits, g, dt)
              for bits in (2, 4, 8) for M in (1, 3, 8, 128)
              for dt in (torch.float32, torch.bfloat16)
              for K, N, g in ((256, 200, 32), (384, 128, 64))]
-    for i, (M, K, N, bits, g, dt) in enumerate(main + sweep):
+    main_err, cases, routes = 0.0, [], {}
+    for i, (M, K, N, bits, g, dt) in enumerate(main + odd + sweep):
         packed, s, z = _quantized(torch, K, N, bits, g, dev, gen)
         x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+        route = plan_for(x, packed, s, z, g).route
         y = dequant_matmul_cuda(x, packed, s, z, bits=bits, group_size=g)
         torch.cuda.synchronize()
         y_ref = ref.dequant_matmul_ref(x, packed, s, z, bits=bits,
                                        group_size=g)
         torch.cuda.synchronize()
-        ok, err = within(y, y_ref, TOL[str(dt).split(".")[-1]])
+        dname = str(dt).split(".")[-1]
+        ok, err = within(y, y_ref, TOL[dname])
+        what = (f"dequant_matmul M={M} K={K} N={N} bits={bits} g={g} "
+                f"{dname} ({route})")
         if not ok:
-            raise Failed(f"dequant_matmul M={M} K={K} N={N} bits={bits} "
-                         f"g={g} {dt}: max err {err}")
+            raise Failed(f"{what}: max err {err}")
+        if i < len(main) + len(odd) and route != "mma":
+            raise Failed(f"{what}: not on the tensor-core route")
         if i < len(main):
+            again = dequant_matmul_cuda(x, packed, s, z, bits=bits,
+                                        group_size=g)
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                raise Failed(f"{what}: two runs differ")
             main_err = max(main_err, err)
-        cases += 1
-    return {"cases": cases, "max_abs_err": main_err}
+        routes[route] = routes.get(route, 0) + 1
+        cases.append([M, K, N, bits, g, dname, route, err])
+    if set(routes) != {"mma", "fma"}:
+        raise Failed(f"dequant_matmul cases missed a route: {routes}")
+    return ({"cases": len(cases), "routes": routes, "max_abs_err": main_err,
+             "deterministic": True}, cases)
+
+
+def _rate(nbytes: float, ms: float) -> dict:
+    """Achieved bytes/s of a timed run and its share of the HBM rate."""
+    gbs = nbytes / ms / 1e6
+    return {"gb_per_s": gbs, "hbm_share": gbs * 1e9 / HBM_BYTES_PER_S}
 
 
 def time_dequant(torch, dev, layers: int = 28) -> dict:
@@ -233,7 +276,52 @@ def time_dequant(torch, dev, layers: int = 28) -> dict:
     library_ms = time_graph(torch, library)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.matmul on the weight pre-dequantized to bf16",
-            **bound(nbytes, flops, BF16_FLOPS), "calls": len(sets)}
+            **bound(nbytes, flops, BF16_FLOPS), **_rate(nbytes, ms),
+            "calls": len(sets)}
+
+
+DEQUANT_SPLITS = (1, 2, 4, 8)
+
+
+def time_dequant_splits(torch, dev, calls: int = 28) -> dict:
+    """The tensor-core route's K split, the data behind ``dqmm_plan``'s
+    choice: each Qwen3-1.7B linear at M = 4 (bf16, 4-bit, group 64, each
+    call on its own weights) timed at 1, 2, 4 and 8 blocks a cluster, with
+    the split the plan picks and the fastest."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import dequant_matmul as dq
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    M, g, fn = 4, 64, dq._lib()
+    rows = {}
+    for K, N in sorted(set(QWEN_LINEARS)):
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        sets = [(torch.randint(0, 256, (K // 2, N), generator=gen,
+                               device=dev, dtype=torch.uint8),
+                 torch.rand((K // g, N), generator=gen, device=dev) * 1e-2,
+                 torch.randint(0, 16, (K // g, N), generator=gen,
+                               device=dev).float()) for _ in range(calls)]
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+        stages = -(-K // 256)
+        row = {}
+        for want in DEQUANT_SPLITS:
+            sps = -(-stages // want)
+            splits = -(-stages // sps)
+
+            def run(splits=splits, sps=sps):
+                for p, s, z in sets:
+                    build.check(fn(x.data_ptr(), p.data_ptr(), s.data_ptr(),
+                                   z.data_ptr(), out.data_ptr(), None, M, K,
+                                   N, 4, g, dq.DQMM_ROUTES["mma"], 0, 0,
+                                   splits, sps, 1,
+                                   build.stream_handle(dev)),
+                             "dequant_matmul launch")
+            row[str(splits)] = 1e3 * time_graph(torch, run) / calls
+        plan = dq.dqmm_plan(M, K, N, g, bf16=True, aligned=True, cpt=4,
+                            n_sm=build.sm_count(dev))
+        rows[f"{K}x{N}"] = {"us_by_splits": row, "plan": plan.splits,
+                            "fastest": int(min(row, key=row.get))}
+    return {"calls": calls, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -241,9 +329,24 @@ def time_dequant(torch, dev, layers: int = 28) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_flash(torch, dev) -> dict:
+# check_flash's decode cases at the path's widths (B 4, Hq 16, Hkv 8,
+# d 128, one query row, through the cache's transpose): caches of 1 to 4096
+# keys, lengths of 1 and of the cache, and lengths on the split boundaries
+# (flash_plan's chunks: 32 keys up to a 128-key cache, 1024 at 4096)
+FLASH_DECODE = ((1, (1, 1, 1, 1)), (127, (127, 1, 64, 96)),
+                (128, (128, 32, 64, 1)), (128, (33, 31, 96, 97)),
+                (4096, (4096, 3072, 1024, 1)), (4096, (2048, 1025, 1023, 4095)))
+
+
+def check_flash(torch, dev) -> tuple[dict, list]:
+    """The kernel against its plain version: the path's case, prefill and
+    odd shapes (the tiled route), then the decode cases in bf16 (the mma
+    route) and f32 (the split route), each run twice for equal bits.  Returns the summary
+    and one ``[B, Hq, Hkv, Sq, Sk, d, causal, dtype, route, max_abs_err]``
+    a case."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     plan_for)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     # (B, Hq, Hkv, Sq, Sk, d, causal, lengths, dtype, through_cache)
@@ -254,8 +357,10 @@ def check_flash(torch, dev) -> dict:
         (2, 4, 2, 1, 64, 16, False, (13, 64), torch.float32, True),
         (1, 8, 2, 384, 384, 64, False, None, torch.float32, False),
         (2, 2, 1, 100, 160, 96, True, (160, 50), torch.float32, False),
-    ]
-    main_err = 0.0
+    ] + [(4, 16, 8, 1, Sk, 128, False, lens, dt, True)
+         for Sk, lens in FLASH_DECODE
+         for dt in (torch.bfloat16, torch.float32)]
+    main_err, out, routes = 0.0, [], {}
     for i, (B, Hq, Hkv, Sq, Sk, d, causal, lens, dt, cached) in \
             enumerate(cases):
         q = torch.randn((B, Hq, Sq, d), generator=gen, device=dev).to(dt)
@@ -269,18 +374,34 @@ def check_flash(torch, dev) -> dict:
             v = torch.randn((B, Hkv, Sk, d), generator=gen, device=dev).to(dt)
         lengths = (None if lens is None else
                    torch.tensor(lens, dtype=torch.int32, device=dev))
+        route = plan_for(q, k, v).route
         o = flash_attention_cuda(q, k, v, causal=causal, lengths=lengths)
         torch.cuda.synchronize()
         o_ref = ref.flash_attention_ref(q, k, v, causal=causal,
                                         lengths=lengths)
         torch.cuda.synchronize()
-        ok, err = within(o, o_ref, TOL_ATTN[str(dt).split(".")[-1]])
+        dname = str(dt).split(".")[-1]
+        ok, err = within(o, o_ref, TOL_ATTN[dname])
+        what = (f"flash_attention case {i} {(B, Hq, Hkv, Sq, Sk, d)} "
+                f"lengths={lens} causal={causal} {dname} ({route})")
         if not ok:
-            raise Failed(f"flash_attention case {i} {(B, Hq, Hkv, Sq, Sk, d)}"
-                         f" causal={causal} {dt}: max err {err}")
+            raise Failed(f"{what}: max err {err}")
+        if Sq == 1 and cached:
+            if route not in ("mma", "split"):
+                raise Failed(f"{what}: keys not split over a cluster")
+            again = flash_attention_cuda(q, k, v, causal=causal,
+                                         lengths=lengths)
+            torch.cuda.synchronize()
+            if not torch.equal(o, again):
+                raise Failed(f"{what}: two runs differ")
         if i == 0:
             main_err = err
-    return {"cases": len(cases), "max_abs_err": main_err}
+        routes[route] = routes.get(route, 0) + 1
+        out.append([B, Hq, Hkv, Sq, Sk, d, causal, dname, route, err])
+    if set(routes) != {"mma", "split", "tiled"}:
+        raise Failed(f"flash_attention cases missed a route: {routes}")
+    return ({"cases": len(cases), "routes": routes, "max_abs_err": main_err,
+             "deterministic": True}, out)
 
 
 def _sdpa(torch, q, k, v, mask):
@@ -295,16 +416,17 @@ def _sdpa(torch, q, k, v, mask):
             attn_mask=mask)
 
 
-def time_flash(torch, dev, layers: int = 28) -> dict:
+def time_flash(torch, dev, layers: int = 28, T: int = 128,
+               lens: tuple = (128, 97, 40, 1)) -> dict:
     """One decode step's attention calls: ``layers`` calls at B = 4, Hq = 16,
-    Hkv = 8, Sq = 1, cache 128, d = 128, bf16, mixed lengths, each on its
-    own KV cache read through the decode path's transpose."""
+    Hkv = 8, Sq = 1, a cache of ``T`` keys, d = 128, bf16, mixed lengths,
+    each on its own KV cache read through the decode path's transpose.
+    Bytes are the keys and values the lengths reach, q and the output."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    B, Hq, Hkv, T, d = 4, 16, 8, 128, 128
-    lens = (128, 97, 40, 1)
+    B, Hq, Hkv, d = 4, 16, 8, 128
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[
         :, None, None, :]
@@ -338,7 +460,9 @@ def time_flash(torch, dev, layers: int = 28) -> dict:
     library_ms = time_graph(torch, library)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention with the same mask",
-            **bound(nbytes, flops, BF16_FLOPS), "calls": len(sets)}
+            **bound(nbytes, flops, BF16_FLOPS), **_rate(nbytes, ms),
+            "calls": len(sets), "cache": T, "lengths": list(lens),
+            "cache_gb": layers * 2 * B * T * Hkv * d * 2 / 1e9}
 
 
 # ---------------------------------------------------------------------------
@@ -843,6 +967,7 @@ def _profiled(torch, run) -> tuple[float, float, list]:
 def _profile_line(steps: int, wall: float, busy: float, top: list) -> dict:
     return {"steps": steps, "wall_s": wall, "step_ms": 1e3 * wall / steps,
             "device_busy_s": busy,
+            "device_busy_ms_per_step": 1e3 * busy / steps,
             "device_idle_share": (1 - busy / wall) if busy else None,
             "top_kernels_ms_per_step": [[k, ms / steps, n]
                                         for k, ms, n in top]}
@@ -933,17 +1058,27 @@ def main(argv=None) -> int:
               "sources": list(build.SOURCES), "ptxas": ptxas})
 
         phase = "kernels"
-        dq = check_dequant(torch, dev)
-        fa = check_flash(torch, dev)
+        dq, dq_cases = check_dequant(torch, dev)
+        fa, fa_cases = check_flash(torch, dev)
         gr = check_gram(torch, dev)
         lo, lo_cases = check_lora(torch, dev)
         dq_t = time_dequant(torch, dev)
         fa_t = time_flash(torch, dev)
+        fa_long = time_flash(torch, dev, T=4096, lens=(4096, 3072, 1024, 1))
         gr_t = time_gram(torch, dev)
         lo_t = time_lora(torch, dev)
         emit({"phase": "kernels", "dequant_matmul": {**dq, **dq_t},
               "flash_attention": {**fa, **fa_t},
-              "work": "one 28-layer qwen3-1.7b decode step at batch 4"})
+              "flash_attention_cache_4096": fa_long,
+              "work": "one 28-layer qwen3-1.7b decode step at batch 4 "
+                      "(flash_attention also at a 4096-key cache)"})
+        emit({"phase": "kernels", "dequant_cases": dq_cases,
+              "fields": ["M", "K", "N", "bits", "g", "dtype", "route",
+                         "max_abs_err"]})
+        emit({"phase": "kernels", "flash_cases": fa_cases,
+              "fields": ["B", "Hq", "Hkv", "Sq", "Sk", "d", "causal", "dtype",
+                         "route", "max_abs_err"]})
+        emit({"phase": "dequant_splits", **time_dequant_splits(torch, dev)})
         emit({"phase": "kernels", "gram": {**gr, **gr_t},
               "dequant_matmul_lora": {**lo, **lo_t},
               "work": "one 28-layer qwen3-1.7b calibration batch (gram) "

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.pipeline import to_eager_params, to_scan_params
 from repro_torch.models.transformer import ModelConfig
+from repro_torch.utils import resolve_device
 
 Tensor = torch.Tensor
 
@@ -37,8 +38,10 @@ def _map(tree, device):
 
 
 def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
-                    device: str | torch.device = "cpu") -> dict:
-    """Map a JAX param tree, exported as numpy, onto ``device``.
+                    device: str | torch.device | None = None) -> dict:
+    """Map a JAX param tree, exported as numpy, onto ``device``: CUDA
+    unless the caller asks for another (``utils.resolve_device``; raises
+    on a host without CUDA rather than build the model on the CPU).
 
     dtypes: every leaf keeps its dtype.  A bf16 leaf may come as an
     ``ml_dtypes`` bfloat16 array (what ``np.asarray`` of a JAX bf16 array
@@ -46,7 +49,7 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
     leaf already widened to float32 by the caller stays float32.  The
     layout follows ``cfg.scan_layers``: scan-stacked blocks are unstacked
     for an eager config and per-layer blocks stacked for a scan config."""
-    params = _map(tree_of_numpy, torch.device(device))
+    params = _map(tree_of_numpy, resolve_device(device))
     blocks = params.get("blocks", {})
     eager = bool(blocks) and all(k.isdigit() for k in blocks)
     if cfg.scan_layers and eager:

@@ -8,9 +8,46 @@
 //
 // What bounds it on the H100: bytes.  In serving decode (Sq = 1) every key
 // and value is used by Hq / Hkv query rows only, two FMAs per element, so
-// the K and V reads are the whole cost.
+// the K and V reads are the whole cost.  At a short cache the bytes take
+// well under a microsecond, and latency (launch, one load round trip, the
+// final combine) is what is left.
 //
-// Design (simple first):
+// Three routes; `flash_plan` in kernels/flash_attention.py picks one and
+// the entry point checks its numbers again.
+//
+// split and mma (Sq = 1, 16-byte loads possible; mma, the decode path's
+// route, for bf16 with d of 64 or 128, split for the rest):
+//  * The keys of each (batch, KV head) are split over the `splits` blocks
+//    of a thread-block cluster, `chunk` keys each (a multiple of 32), so
+//    that about one block runs per SM however few (batch, KV head) pairs
+//    there are.  The split comes from Sk and the grid, never from the
+//    values in `lengths` (reading them on the host would sync the stream).
+//    A block whose range lies past lengths[b] loads nothing and takes part
+//    with m = -inf, l = 0.
+//  * A block holds one warp per query row of the KV head's query heads
+//    (hpb of them), times `kw` key groups: warp (h, g) scores keys
+//    [32 g, 32 g + 32) of every tile of 32 kw keys, lane j key j, and keeps
+//    its own running max, sum and output row (lane j owns elements
+//    [DPL j, DPL j + DPL)).
+//  * K and V tiles move with cp.async into a ring of STAGES stages kept in
+//    the input type (rows padded by 16 bytes: conflict-free row reads), so
+//    the next tiles' loads overlap this tile's scores and softmax; one
+//    __syncthreads a tile.  Keys past the range are never loaded and never
+//    read, so nothing is zeroed.
+//  * The partial (m, l, acc) of every warp is left in shared memory and
+//    the cluster adds them through distributed shared memory, in rank
+//    order and key-group order (block r finishes a 1/splits share of the
+//    output): one launch, no atomics, no scratch, the same bits every run.
+//  * mma: the same clusters, ring and combine, but one warp holds every
+//    query row of the KV head (up to 16: the rows of an m16n8k16 tile)
+//    and walks every 32-key tile, q K^T and P V as mma.sync (bf16
+//    operands, f32 sums), the online softmax in f32 on the S fragments
+//    and P rounded to bf16 for P V; three more warps only load, and two
+//    such small blocks fit an SM.  On the CUDA cores each key costs a lane
+//    about 20 instructions for each query row, which bounds a 4096-key
+//    cache.
+//
+// tiled (every other shape: prefill, causal Sq > 1, unaligned views):
 //  * One block per (batch, KV head, query tile).  It holds the query rows
 //    of every query head that reads its KV head (up to 16 rows, one warp
 //    each), so each K and V element is read from device memory once per
@@ -27,12 +64,18 @@
 //  * The key loop ends at min(Sk, lengths[b]) for the block and, under the
 //    causal mask, at each row's own position: masked keys are never
 //    loaded, which gives the reference's exact zero weight for them.
-//  * Inputs may be strided views (the decode cache is read through a
-//    transpose); only the last dimension must be contiguous.
+//
+// Inputs may be strided views (the decode cache is read through a
+// transpose); only the last dimension must be contiguous.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -201,6 +244,584 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --- split route: Sq = 1, keys split over a cluster --------------------------
+
+constexpr int STAGES = 3;           // cp.async ring depth
+constexpr int MAX_SPLITS = 8;       // portable cluster size
+constexpr int SPLIT_KEYS = 32;      // keys a warp scores per tile (one a lane)
+constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block may use
+constexpr int MAX_PARTS = 16;       // partials a query row combines: splits * kw
+
+// shared memory of the split route: the K/V ring, the scaled q rows,
+// every warp's partial (m, l, pad, pad, acc[D]) and the combine's weights
+__host__ __device__ constexpr int split_ldr(int es, int D) { return D + 16 / es; }
+__host__ __device__ constexpr int split_smem(int es, int D, int hpb, int kw) {
+  return STAGES * SPLIT_KEYS * kw * 2 * split_ldr(es, D) * es + hpb * D * 4 +
+         kw * hpb * (D + 4) * 4 + ROWS * (MAX_PARTS + 1) * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// N elements at p (N-element aligned) widened to f32
+template <int N> __device__ __forceinline__ void load_f32(const float* p, float* o) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      o[i] = t.x; o[i + 1] = t.y; o[i + 2] = t.z; o[i + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    o[0] = t.x; o[1] = t.y;
+  } else {
+    o[0] = *p;
+  }
+}
+__device__ __forceinline__ void widen2(uint32_t w, float* o) {
+  // a bf16 is the high half of the f32 with the same value
+  o[0] = __uint_as_float(w << 16);
+  o[1] = __uint_as_float(w & 0xFFFF0000u);
+}
+template <int N> __device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* o) {
+  if constexpr (N == 8) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    widen2(t.x, o); widen2(t.y, o + 2); widen2(t.z, o + 4); widen2(t.w, o + 6);
+  } else if constexpr (N == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    widen2(t.x, o); widen2(t.y, o + 2);
+  } else if constexpr (N == 2) {
+    widen2(*reinterpret_cast<const uint32_t*>(p), o);
+  } else {
+    o[0] = __bfloat162float(*p);
+  }
+}
+
+// Every warp's partial (m, l, acc) of a query row lies in its block's
+// shared memory at part[(key group * hpb + row) * ps]: the cluster adds
+// them in rank order, then key-group order.  Block `rank` writes a
+// 1/splits share of the nrows x d outputs at `out`.
+template <typename T>
+__device__ __forceinline__ void combine_partials(cg::cluster_group& cluster, float* part,
+                                                 float* wts, T* out, int rank, int splits,
+                                                 int kw, int hpb, int nrows, int d, int ps) {
+  cluster.sync();
+  // per query row: each partial's weight exp(m_i - M) and 1 / sum l_i w_i,
+  // partials in rank order, then key-group order
+  const int nparts = splits * kw;
+  if (threadIdx.x < nrows) {
+    const int r = threadIdx.x;
+    float m[MAX_PARTS], l[MAX_PARTS];
+#pragma unroll
+    for (int i = 0; i < MAX_PARTS; ++i) {
+      const float* pp = cluster.map_shared_rank(part, i < nparts ? i / kw : 0) +
+                        ((i % kw) * hpb + r) * ps;
+      m[i] = i < nparts ? pp[0] : -INFINITY;
+      l[i] = i < nparts ? pp[1] : 0.f;
+    }
+    float M = m[0];
+#pragma unroll
+    for (int i = 1; i < MAX_PARTS; ++i) M = fmaxf(M, m[i]);
+    float L = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_PARTS; ++i) {
+      const float w = expf(m[i] - M);  // 0 for an empty partial
+      wts[r * MAX_PARTS + i] = w;
+      L = fmaf(l[i], w, L);
+    }
+    wts[ROWS * MAX_PARTS + r] = 1.f / fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  const int total = nrows * d;
+  const int share = (total + splits - 1) / splits;
+  const int hi = min(total, (rank + 1) * share);
+  for (int i = rank * share + threadIdx.x; i < hi; i += blockDim.x) {
+    const int r = i / d;
+    const int e = i - r * d;
+    float a[MAX_PARTS];  // every partial's element, loads all in flight
+#pragma unroll
+    for (int j = 0; j < MAX_PARTS; ++j)
+      a[j] = j < nparts ? cluster.map_shared_rank(part, j / kw)[((j % kw) * hpb + r) * ps + 4 + e]
+                        : 0.f;
+    float acc_e = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAX_PARTS; ++j) acc_e = fmaf(a[j], wts[r * MAX_PARTS + j], acc_e);
+    out[(size_t)r * d + e] = from_f32<T>(acc_e * wts[ROWS * MAX_PARTS + r]);
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
+// grid (splits, B * Hkv * head groups), clusters of `splits` blocks along x;
+// block: warp w is query row w % hpb of the block's heads, key group w / hpb
+template <typename T, int DPL>
+__global__ void __launch_bounds__(ROWS * 32)
+flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ lengths,
+                   T* __restrict__ out, int Hq, int Hkv, int Sk, int d,
+                   Strides sq, Strides sk, Strides sv, int hpb, int kw, int chunk,
+                   int causal, float scale) {
+  constexpr int D = DPL * 32;
+  constexpr int VEC = 16 / sizeof(T);       // elements per 16-byte load
+  constexpr int LDR = split_ldr(sizeof(T), D);
+  constexpr int PS = D + 4;                 // floats per partial
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int TK = SPLIT_KEYS * kw;           // keys a tile
+  const int stage = TK * 2 * LDR;           // elements a stage (K then V)
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* qs = reinterpret_cast<float*>(ring + STAGES * stage);
+  float* part = qs + hpb * D;
+  float* wts = part + kw * hpb * PS;        // [ROWS][MAX_PARTS] weights, then 1/l
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int splits = (int)gridDim.x;        // the cluster spans x
+  const int rep = Hq / Hkv;
+  const int n_hgroups = (rep + hpb - 1) / hpb;
+  int y = blockIdx.y;
+  const int hg = y % n_hgroups;
+  y /= n_hgroups;
+  const int kvh = y % Hkv;
+  const int b = y / Hkv;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int h_local = warp % hpb;
+  const int kg = warp / hpb;
+  const int nrows = min(hpb, rep - hg * hpb);  // query heads of this block
+  const bool row_valid = h_local < nrows;
+  const int h0 = kvh * rep + hg * hpb;
+
+  int kend = Sk;
+  if (lengths != nullptr) kend = min(kend, lengths[b]);
+  if (causal) kend = min(kend, 1);            // query 0 sees key 0 only
+  const int k_lo = rank * chunk;
+  const int k_hi = min(kend, k_lo + chunk);
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + TK - 1) / TK : 0;
+
+  for (int i = threadIdx.x; i < nrows * d; i += blockDim.x) {
+    const int r = i / d;
+    const int e = i - r * d;
+    qs[r * D + e] = to_f32(q[b * sq.b + (h0 + r) * sq.h + e]) * scale;
+  }
+
+  const T* kbase = k + b * sk.b + kvh * sk.h;
+  const T* vbase = v + b * sv.b + kvh * sv.h;
+  const int per_row = d / VEC;
+  auto load = [&](int c) {
+    T* ks = ring + (c % STAGES) * stage;
+    T* vs = ks + TK * LDR;
+    const int t0 = k_lo + c * TK;
+    const int tn = min(TK, k_hi - t0);
+    for (int i = threadIdx.x; i < tn * per_row; i += blockDim.x) {
+      const int j = i / per_row;
+      const int e = (i - j * per_row) * VEC;
+      cp_async16(ks + j * LDR + e, kbase + (t0 + j) * sk.s + e);
+      cp_async16(vs + j * LDR + e, vbase + (t0 + j) * sv.s + e);
+    }
+  };
+
+  float acc[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+  float m_run = -INFINITY;
+  float l_run = 0.f;
+  const bool owns = lane * DPL < d;          // this lane's output elements
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < ntiles) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < ntiles; ++c) {
+    cp_async_wait<STAGES - 2>();  // this thread's part of tile c is in
+    __syncthreads();              // everyone's is, and tile c - 1 is done
+    if (c + STAGES - 1 < ntiles) load(c + STAGES - 1);
+    cp_async_commit();
+    const T* ks = ring + (c % STAGES) * stage + kg * SPLIT_KEYS * LDR;
+    const T* vs = ks + TK * LDR;
+    const int jn = min(SPLIT_KEYS, k_hi - (k_lo + c * TK + kg * SPLIT_KEYS));
+    if (!row_valid || jn <= 0) continue;     // warp-uniform
+    float sc = -INFINITY;
+    if (lane < jn) {
+      const T* kr = ks + lane * LDR;
+      const float* qr = qs + h_local * D;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+      for (int e = 0; e < d; e += VEC) {
+        float kv[VEC];
+        load_f32<VEC>(kr + e, kv);
+#pragma unroll
+        for (int i = 0; i < VEC; i += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + e + i);
+          a0 = fmaf(qv.x, kv[i], a0);
+          a1 = fmaf(qv.y, kv[i + 1], a1);
+          a2 = fmaf(qv.z, kv[i + 2], a2);
+          a3 = fmaf(qv.w, kv[i + 3], a3);
+        }
+      }
+      sc = (a0 + a1) + (a2 + a3);
+    }
+    float m_tile = sc;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, off));
+    const float m_new = fmaxf(m_run, m_tile);
+    const float p = lane < jn ? expf(sc - m_new) : 0.f;
+    float p_sum = p;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
+    const float alpha = expf(m_run - m_new);
+    l_run = l_run * alpha + p_sum;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
+    for (int j = 0; j < jn; ++j) {
+      const float pj = __shfl_sync(0xffffffffu, p, j);
+      if (owns) {
+        float vv[DPL];
+        load_f32<DPL>(vs + j * LDR + lane * DPL, vv);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, vv[i], acc[i]);
+      }
+    }
+    m_run = m_new;
+  }
+  cp_async_wait<0>();
+
+  // every warp's partial into shared memory, then the cluster's combine
+  if (row_valid) {
+    float* pp = part + (kg * hpb + h_local) * PS;
+    if (lane == 0) {
+      pp[0] = m_run;
+      pp[1] = l_run;
+    }
+    if (owns)
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) pp[4 + lane * DPL + i] = acc[i];
+  }
+  combine_partials(cluster, part, wts, out + ((size_t)b * Hq + h0) * d, rank, splits,
+                   kw, hpb, nrows, d, PS);
+}
+
+// --- split route on the tensor cores: bf16, d of 64 or 128 -----------------
+
+constexpr int MMA_STAGES = 3;       // cp.async ring depth of the mma route
+
+// shared memory of the tensor-core split route: the K/V ring, the block's
+// query rows as a 16-row bf16 tile, the partials and the combine's weights
+__host__ __device__ constexpr int mma_smem(int D, int hpb) {
+  return MMA_STAGES * SPLIT_KEYS * 2 * split_ldr(2, D) * 2 + ROWS * split_ldr(2, D) * 2 +
+         hpb * (D + 4) * 4 + ROWS * (MAX_PARTS + 1) * 4;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ void cp_async16_zero(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, 0;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// As flash_split_kernel, but warp 0 takes every query row of the KV head
+// (up to 16, the rows of an m16n8k16 tile) for every 32-key tile: S = q K^T
+// and O += P V run as mma.sync with f32 sums, the online softmax in f32 on
+// the S fragments (P rounded to bf16 for P V, as FlashAttention does).
+// Three more warps only load; a block is small, so two fit an SM.
+template <int D>
+__global__ void __launch_bounds__(4 * 32)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+                 __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Sk, Strides sq,
+                 Strides sk, Strides sv, int hpb, int chunk, int causal, float scale) {
+  typedef __nv_bfloat16 bf16;
+  constexpr int LDR = split_ldr(2, D);     // bf16 row stride: + 16 bytes
+  constexpr int PS = D + 4;
+  constexpr int KS = D / 16;               // k steps of q K^T
+  constexpr int NT = D / 8;                // n tiles of P V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int TK = SPLIT_KEYS;           // keys a tile
+  constexpr int stage = TK * 2 * LDR;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qs = ring + MMA_STAGES * stage;    // [ROWS][LDR], rows past nrows zero
+  float* part = reinterpret_cast<float*>(qs + ROWS * LDR);
+  float* wts = part + hpb * PS;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int splits = (int)gridDim.x;
+  const int rep = Hq / Hkv;
+  const int n_hgroups = (rep + hpb - 1) / hpb;
+  int y = blockIdx.y;
+  const int hg = y % n_hgroups;
+  y /= n_hgroups;
+  const int kvh = y % Hkv;
+  const int b = y / Hkv;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nrows = min(hpb, rep - hg * hpb);
+  const int h0 = kvh * rep + hg * hpb;
+
+  int kend = Sk;
+  if (lengths != nullptr) kend = min(kend, lengths[b]);
+  if (causal) kend = min(kend, 1);
+  const int k_lo = rank * chunk;
+  const int k_hi = min(kend, k_lo + chunk);
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + TK - 1) / TK : 0;
+
+  for (int i = threadIdx.x; i < ROWS * D; i += blockDim.x) {
+    const int r = i / D, e = i - r * D;
+    qs[r * LDR + e] = r < nrows ? q[b * sq.b + (h0 + r) * sq.h + e] : __float2bfloat16(0.f);
+  }
+
+  const bf16* kbase = k + b * sk.b + kvh * sk.h;
+  const bf16* vbase = v + b * sv.b + kvh * sv.h;
+  constexpr int PER_ROW = D / 8;
+  auto load = [&](int c) {
+    bf16* ks = ring + (c % MMA_STAGES) * stage;
+    bf16* vs = ks + TK * LDR;
+    const int t0 = k_lo + c * TK;
+    const int tn = min(TK, k_hi - t0);
+    for (int i = threadIdx.x; i < TK * PER_ROW; i += blockDim.x) {
+      const int j = i / PER_ROW;
+      const int e = (i - j * PER_ROW) * 8;
+      if (j < tn) {
+        cp_async16(ks + j * LDR + e, kbase + (t0 + j) * sk.s + e);
+        cp_async16(vs + j * LDR + e, vbase + (t0 + j) * sv.s + e);
+      } else {
+        // V rows past the range are zeros: P is 0 there, and 0 * garbage
+        // could be NaN.  K rows past it are masked in S.
+        cp_async16_zero(vs + j * LDR + e, vbase);
+      }
+    }
+  };
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  float l_run[2] = {0.f, 0.f};
+
+#pragma unroll
+  for (int c = 0; c < MMA_STAGES - 1; ++c) {
+    if (c < ntiles) load(c);
+    cp_async_commit();
+  }
+  __syncthreads();  // the q tile
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(qa[ks], qs + ((lane >> 3) & 1) * 8 * LDR + (lane & 7) * LDR + ks * 16 +
+                        (lane >> 4) * 8);
+
+  for (int c = 0; c < ntiles; ++c) {
+    cp_async_wait<MMA_STAGES - 2>();
+    __syncthreads();
+    if (c + MMA_STAGES - 1 < ntiles) load(c + MMA_STAGES - 1);
+    cp_async_commit();
+    const bf16* ks = ring + (c % MMA_STAGES) * stage;
+    const bf16* vs = ks + TK * LDR;
+    const int jn = min(TK, k_hi - (k_lo + c * TK));
+    if (warp != 0) continue;  // the other warps only load
+    // S = q K^T: 4 tiles of 8 keys
+    float sc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; n += 2)
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        uint32_t kb[4];  // B of key tiles n and n + 1, dims 16 s .. 16 s + 15
+        ldsm_x4(kb, ks + ((n + (lane >> 4)) * 8 + (lane & 7)) * LDR + s * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[n], qa[s], kb);
+        mma_bf16(sc[n + 1], qa[s], kb + 2);
+      }
+    // online softmax over this warp's keys, rows g (e = 0, 1) and g + 8
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n * 8 + 2 * t + (e & 1);
+        sc[n][e] = key < jn ? sc[n][e] * scale : -INFINITY;
+        mt[e >> 1] = fmaxf(mt[e >> 1], sc[n][e]);
+      }
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m_run[r], mt[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = expf(sc[n][e] - m_run[e >> 1]);
+        psum[e >> 1] += sc[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + psum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+    }
+    // O += P V: 2 steps of 16 keys; S's fragments of key tiles 2s, 2s + 1
+    // are P's A fragment
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * s][0], sc[2 * s][1]),
+                              pack_bf16(sc[2 * s][2], sc[2 * s][3]),
+                              pack_bf16(sc[2 * s + 1][0], sc[2 * s + 1][1]),
+                              pack_bf16(sc[2 * s + 1][2], sc[2 * s + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t vb[4];  // B of dim tiles n and n + 1, keys 16 s .. 16 s + 15
+        ldsm_x4_t(vb, vs + (s * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDR +
+                          (n + (lane >> 4)) * 8);
+        mma_bf16(o[n], pa, vb);
+        mma_bf16(o[n + 1], pa, vb + 2);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // this warp's partials (rows g, g + 8 of the block's query rows)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    if (warp != 0 || row >= nrows) continue;
+    float* pp = part + row * PS;
+    if (t == 0) {
+      pp[0] = m_run[r];
+      pp[1] = l_run[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      pp[4 + n * 8 + 2 * t] = o[n][2 * r];
+      pp[4 + n * 8 + 2 * t + 1] = o[n][2 * r + 1];
+    }
+  }
+  combine_partials(cluster, part, wts, out + ((size_t)b * Hq + h0) * D, rank, splits, 1,
+                   hpb, nrows, D, PS);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const int* lengths, void* out,
+               int B, int Hq, int Hkv, int Sk, Strides sq, Strides sk, Strides sv,
+               int causal, float scale, int splits, int chunk, cudaStream_t stream) {
+  const int rep = Hq / Hkv;
+  const int hpb = rep < ROWS ? rep : ROWS;
+  const int smem = mma_smem(D, hpb);
+  if (splits < 1 || splits > MAX_SPLITS || chunk < 1 || chunk % SPLIT_KEYS ||
+      (long long)(splits - 1) * chunk >= Sk || (long long)splits * chunk < Sk ||
+      smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_mma_kernel<D>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, B * Hkv * ((rep + hpb - 1) / hpb));
+  cfg.blockDim = dim3(MIN_WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  typedef __nv_bfloat16 bf16;
+  return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<const bf16*>(q),
+                                 static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                                 lengths, static_cast<bf16*>(out), Hq, Hkv, Sk, sq, sk, sv,
+                                 hpb, chunk, causal, scale);
+}
+
+template <typename T, int DPL>
+int launch_split(const void* q, const void* k, const void* v, const int* lengths,
+                 void* out, int B, int Hq, int Hkv, int Sk, int d, Strides sq,
+                 Strides sk, Strides sv, int causal, float scale, int splits,
+                 int chunk, int kw, cudaStream_t stream) {
+  const int rep = Hq / Hkv;
+  const int hpb = rep < ROWS ? rep : ROWS;
+  const int smem = split_smem(sizeof(T), DPL * 32, hpb, kw);
+  if (splits < 1 || splits > MAX_SPLITS || chunk < 1 || chunk % SPLIT_KEYS ||
+      (long long)(splits - 1) * chunk >= Sk || (long long)splits * chunk < Sk ||
+      !(kw == 1 || kw == 2 || kw == 4) || hpb * kw > ROWS || smem > SMEM_MAX ||
+      splits * kw > MAX_PARTS ||
+      d % DPL)
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_split_kernel<T, DPL>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, B * Hkv * ((rep + hpb - 1) / hpb));
+  cfg.blockDim = dim3(hpb * kw * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
+                                 static_cast<const T*>(k), static_cast<const T*>(v),
+                                 lengths, static_cast<T*>(out), Hq, Hkv, Sk, d, sq, sk,
+                                 sv, hpb, kw, chunk, causal, scale);
+}
+
 template <typename T, int DPL>
 void launch(const void* q, const void* k, const void* v, const int* lengths,
             void* out, int B, int Hq, int Hkv, int Sq, int Sk, int d,
@@ -220,17 +841,43 @@ void launch(const void* q, const void* k, const void* v, const int* lengths,
       Sk, d, sq, sk, sv, heads_per_block, bq, causal, scale, vec);
 }
 
+template <typename T, int DPL>
+int route(const void* q, const void* k, const void* v, const int* lengths, void* out,
+          int B, int Hq, int Hkv, int Sq, int Sk, int d, Strides sq, Strides sk,
+          Strides sv, int causal, float scale, int vec, int splits, int chunk, int kw,
+          int mma, cudaStream_t stream) {
+  if (splits == 0) {
+    launch<T, DPL>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal,
+                   scale, vec, stream);
+    return 0;
+  }
+  if (Sq != 1 || !vec) return (int)cudaErrorInvalidValue;
+  if (mma) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value && (DPL == 2 || DPL == 4)) {
+      if (d != DPL * 32) return (int)cudaErrorInvalidValue;
+      return launch_mma<DPL * 32>(q, k, v, lengths, out, B, Hq, Hkv, Sk, sq, sk, sv, causal,
+                                  scale, splits, chunk, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_split<T, DPL>(q, k, v, lengths, out, B, Hq, Hkv, Sk, d, sq, sk, sv,
+                              causal, scale, splits, chunk, kw, stream);
+}
+
 template <typename T>
 int by_width(const void* q, const void* k, const void* v, const int* lengths,
              void* out, int B, int Hq, int Hkv, int Sq, int Sk, int d,
              Strides sq, Strides sk, Strides sv, int causal, float scale,
-             int vec, cudaStream_t stream) {
-  if (d <= 32) launch<T, 1>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, stream);
-  else if (d <= 64) launch<T, 2>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, stream);
-  else if (d <= 128) launch<T, 4>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, stream);
-  else if (d <= 256) launch<T, 8>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, stream);
-  else return (int)cudaErrorInvalidValue;
-  return 0;
+             int vec, int splits, int chunk, int kw, int mma, cudaStream_t stream) {
+#define FA_ROUTE(DPL)                                                              \
+  return route<T, DPL>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, \
+                       causal, scale, vec, splits, chunk, kw, mma, stream)
+  if (d <= 32) FA_ROUTE(1);
+  if (d <= 64) FA_ROUTE(2);
+  if (d <= 128) FA_ROUTE(4);
+  if (d <= 256) FA_ROUTE(8);
+#undef FA_ROUTE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -239,21 +886,25 @@ int by_width(const void* q, const void* k, const void* v, const int* lengths,
 // three dimensions and a contiguous last one; lengths (B,) int32 or null;
 // out (B, Hq, Sq, d) contiguous in q's type.  vec != 0 promises that k and
 // v are 16-byte aligned and d and their strides are multiples of 16 bytes.
-// Returns 0 or a cudaError_t.
+// splits == 0 takes the tiled route; splits >= 1 the split route (Sq = 1,
+// vec): clusters of `splits` blocks, `chunk` keys a block, `kw` key groups
+// a block; or, when mma != 0 (bf16, d of 64 or 128, kw unused), the same
+// split on the tensor cores (kernels/flash_attention.py, flash_plan).  Returns 0 or a
+// cudaError_t.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths, void* out,
     int B, int Hq, int Hkv, int Sq, int Sk, int d, long long sqb,
     long long sqh, long long sqs, long long skb, long long skh, long long sks,
     long long svb, long long svh, long long svs, int causal, float scale,
-    int vec, int is_bf16, void* stream) {
+    int vec, int is_bf16, int splits, int chunk, int kw, int mma, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sk < 1 || d < 1)
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs};
   const int* lens = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = is_bf16
-      ? by_width<__nv_bfloat16>(q, k, v, lens, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, s)
-      : by_width<float>(q, k, v, lens, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, s);
+      ? by_width<__nv_bfloat16>(q, k, v, lens, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, splits, chunk, kw, mma, s)
+      : by_width<float>(q, k, v, lens, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, splits, chunk, kw, mma, s);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,9 @@ dequant_matmul`` and ``dequant_matmul_lora``; the kernels themselves are
 ``csrc/dequant_matmul.cu`` (decode-shaped: few rows, bound by bytes) and
 ``csrc/dequant_matmul_lora.cu`` (training-shaped: M and N tiled, bound by
 operations); their headers say what bounds each and how it is laid out.
-This module checks the operands, sizes the grid, allocates the output and
-scratch, and launches on PyTorch's current stream.
+This module checks the operands, picks each kernel's route and tiling
+(:func:`dqmm_plan`, :func:`lora_plan`), allocates the output and scratch,
+and launches on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -24,7 +25,12 @@ Tensor = torch.Tensor
 SOURCE = "dequant_matmul.cu"
 LORA_SOURCE = "dequant_matmul_lora.cu"
 _UNIT = 128          # K rows per staged unit (csrc: UNIT)
-_BLOCKS_PER_SM = 4   # grid target: about this many blocks per SM
+_BLOCKS_PER_SM = 4   # fma route's grid target: about this many blocks an SM
+# csrc/dequant_matmul.cu, mma route: output columns a block, K rows a
+# stage, rows of x at most, cluster size at most (portable)
+_MMA_BN, _MMA_BK, _MMA_MAX_M, _MMA_MAX_SPLITS = 128, 256, 8, 8
+_MMA_GRID_SHARE = 0.625  # the mma route's grid: about this share of the SMs
+DQMM_ROUTES = {"fma": 0, "mma": 1}     # csrc: route
 MAX_LORA_RANK = 128  # csrc/dequant_matmul_lora.cu: 16 * MAX_RPT
 # csrc/dequant_matmul_lora.cu: the fma and mma kernels' 64 x 128 tiles (BM,
 # BN; one grid row of blocks per 64 rows of x), the wgmma kernel's 128-row
@@ -41,7 +47,7 @@ LORA_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}   # csrc: route
 launches = 0
 lora_launches = 0
 
-_argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 _lora_argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                   + [ctypes.c_void_p])
 
@@ -65,16 +71,69 @@ def _rows_per_block(M: int) -> int:
     return 8 if M >= 8 else 1 << (M - 1).bit_length()
 
 
-def plan_grid(M: int, K: int, N: int, cpt: int,
-              n_sm: int) -> tuple[int, int, int]:
-    """(rows of x per block, K splits, 128-row units per split) for a grid
-    of about four blocks per SM."""
+@dataclass(frozen=True)
+class DqmmPlan:
+    """How ``dequant_matmul_cuda`` runs one call.  ``route`` "mma" (bf16 x
+    of at most 8 rows, operands TMA can address: tensor cores, K split over
+    a cluster of ``splits`` blocks of ``per_split`` stages of 256 rows,
+    one launch) or "fma" (CUDA cores, ``bm`` rows of x and ``cpt`` columns of
+    a thread a block, K split over the grid in ``splits`` ranges of
+    ``per_split`` 128-row units, partial sums added by a second launch
+    when ``splits`` > 1); ``blocks`` in the (first) grid, ``launches`` a
+    call."""
+    route: str
+    splits: int
+    per_split: int
+    blocks: int
+    launches: int
+    bm: int = 0
+    cpt: int = 0
+
+
+def mma_addressable(M: int, K: int, N: int, group: int,
+                    aligned: bool) -> bool:
+    """Whether the mma route takes these operands: at most 8 rows of x,
+    16-byte row strides for TMA (K % 8 for x, N % 16 for the codes), a
+    group that is a multiple of 32 and tiles the 256-row stages (divides
+    256 or is a multiple of it), 16-byte aligned bases (``aligned``).  The
+    entry point checks the same."""
+    return (M <= _MMA_MAX_M and K % 8 == 0 and N % 16 == 0
+            and group % 32 == 0
+            and (_MMA_BK % group == 0 or group % _MMA_BK == 0) and aligned)
+
+
+def dqmm_plan(M: int, K: int, N: int, group: int, *, bf16: bool,
+              aligned: bool, cpt: int, n_sm: int) -> DqmmPlan:
+    """The route and tiling of ``dequant_matmul_cuda`` for x (M, K) and N
+    output columns on a card of ``n_sm`` SMs; ``cpt`` is the fma route's
+    columns a thread (:func:`_columns_per_thread`).
+
+    bf16 x that :func:`mma_addressable` takes runs on the tensor cores in
+    one launch: 128-column tiles, each split over K into as many cluster
+    blocks (at most 8, at least one 256-row stage a block) as make about
+    5/8 of ``n_sm`` blocks in all: on an H100 that split was the fastest
+    of 1, 2, 4 and 8 at each Qwen3-1.7B linear (``chip_smoke.py``
+    ``dequant_splits``); more blocks cost more in the cluster's combine
+    and in sharing SMs than they gain in loads in flight.  Everything
+    else (f32 x, which must stay f32 within 2e-4; more than 8 rows; ragged
+    N; other groups) takes the fma route: about four blocks an SM, K split
+    over the grid."""
+    if bf16 and mma_addressable(M, K, N, group, aligned):
+        stages = -(-K // _MMA_BK)
+        tiles = -(-N // _MMA_BN)
+        want = max(1, min(_MMA_MAX_SPLITS, stages,
+                          round(_MMA_GRID_SHARE * n_sm / tiles)))
+        sps = -(-stages // want)
+        splits = -(-stages // sps)
+        return DqmmPlan("mma", splits, sps, splits * tiles, 1)
     bm = _rows_per_block(M)
     units = -(-K // _UNIT)
     blocks = -(-N // (32 * cpt)) * -(-M // bm)
     want = max(1, min(units, -(-_BLOCKS_PER_SM * n_sm // blocks)))
     ups = -(-units // want)
-    return bm, -(-units // ups), ups
+    splits = -(-units // ups)
+    return DqmmPlan("fma", splits, ups, blocks * splits,
+                    2 if splits > 1 else 1, bm, cpt)
 
 
 @dataclass(frozen=True)
@@ -160,6 +219,17 @@ def _columns_per_thread(N: int, packed: Tensor, scales: Tensor,
     return 4 if wide else 1
 
 
+def plan_for(x2: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
+             group: int) -> DqmmPlan:
+    """:func:`dqmm_plan` for these operands (x2 is (M, K)) on their card."""
+    (M, K), N = x2.shape, packed.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, packed, scales, zeros))
+    return dqmm_plan(M, K, N, group, bf16=x2.dtype == torch.bfloat16,
+                     aligned=aligned,
+                     cpt=_columns_per_thread(N, packed, scales, zeros),
+                     n_sm=build.sm_count(x2.device))
+
+
 def _check_operands(what: str, x: Tensor, packed: Tensor, scales: Tensor,
                     zeros: Tensor, bits: int, group_size: int | None,
                     lora: tuple[tuple[str, Tensor], ...] = ()
@@ -218,16 +288,16 @@ def dequant_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
-    cpt = _columns_per_thread(N, packed, scales, zeros)
-    bm, splits, ups = plan_grid(M, K, N, cpt, build.sm_count(x.device))
-    partial = (torch.empty((splits, M, N), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
+    plan = plan_for(x2, packed, scales, zeros, g)
+    partial = (torch.empty((plan.splits, M, N), dtype=torch.float32,
+                           device=x.device) if plan.launches > 1 else None)
     fn = _lib()
     rc = fn(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
             zeros.data_ptr(), out.data_ptr(),
             None if partial is None else partial.data_ptr(),
-            M, K, N, bits, g, bm, cpt, splits, ups,
-            int(x.dtype == torch.bfloat16), build.stream_handle(x.device))
+            M, K, N, bits, g, DQMM_ROUTES[plan.route], plan.bm, plan.cpt,
+            plan.splits, plan.per_split, int(x.dtype == torch.bfloat16),
+            build.stream_handle(x.device))
     build.check(rc, "dequant_matmul launch")
     launches += 1
     return out.reshape(*lead, N)

@@ -3,14 +3,15 @@
 Port of the Pallas TPU kernel ``repro.kernels.flash_attention.
 flash_attention``; the kernel itself is ``csrc/flash_attention.cu`` (its
 header says what bounds it and how it is laid out).  This module checks
-the operands, allocates the output and launches on PyTorch's current
-stream.  q, k and v may be strided views as long as their last dimension
-is contiguous, so the decode path passes the KV cache through a transpose
-without copying it.
+the operands, picks the route (:func:`flash_plan`), allocates the output
+and launches on PyTorch's current stream.  q, k and v may be strided
+views as long as their last dimension is contiguous, so the decode path
+passes the KV cache through a transpose without copying it.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -20,6 +21,12 @@ Tensor = torch.Tensor
 
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 256
+# csrc/flash_attention.cu: query rows (warps) a block at most, the split
+# route's cluster size at most (portable), keys a warp scores per tile,
+# ring stages, the shared memory a block may use and the partials a query
+# row combines at most (splits x key groups)
+_ROWS, _MAX_SPLITS, _SPLIT_KEYS, _STAGES = 16, 8, 32, 3
+_SMEM_MAX, _MAX_PARTS = 232448, 16
 
 # launches of the CUDA kernel; reset and read by callers that need to show
 # a path went through it
@@ -27,8 +34,85 @@ launches = 0
 
 _argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
-             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """How the kernel runs one call: ``route`` "mma" or "split" (Sq = 1:
+    the keys of each (batch, KV head) split over a cluster of ``splits``
+    blocks, ``chunk`` keys each, ``kw`` key groups of warps a block; "mma"
+    scores and sums on the tensor cores, "split" on the CUDA cores) or
+    "tiled" (one block per (batch, KV head, query tile)); ``blocks`` in
+    the grid.  Every route is one launch."""
+    route: str
+    blocks: int
+    splits: int = 0
+    chunk: int = 0
+    kw: int = 0
+    launches: int = 1
+
+
+def _split_smem(elem: int, d: int, hpb: int, kw: int) -> int:
+    """csrc: split_smem, for the head dim padded to a power of two >= 32."""
+    D = max(32, 1 << (d - 1).bit_length())
+    ldr = D + 16 // elem
+    return (_STAGES * _SPLIT_KEYS * kw * 2 * ldr * elem + hpb * D * 4
+            + kw * hpb * (D + 4) * 4 + _ROWS * (_MAX_PARTS + 1) * 4)
+
+
+def flash_plan(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, d: int, *,
+               elem: int, vec: bool, n_sm: int) -> FlashPlan:
+    """The route and split of :func:`flash_attention_cuda` for these
+    shapes, ``elem``-byte elements and ``vec`` (16-byte loads possible,
+    :func:`_vector_loads`) on a card of ``n_sm`` SMs.
+
+    A single query row (decode) with 16-byte loads splits each (batch, KV
+    head)'s keys over a cluster of ``splits`` blocks, ``chunk`` keys each
+    (a multiple of 32), never from ``lengths``.  bf16 with d of 64 or 128
+    takes the mma route: one warp a block holds every query row of the KV
+    head on the tensor cores, three more load, and the split aims at two
+    blocks an SM.  The rest takes the split route: a warp a query row on
+    the CUDA cores, ``kw`` key groups of warps sharing each tile (one per
+    32 keys of the range, up to 4, within 16 partials a query row and
+    shared memory), about one block an SM.  On an H100 these were the
+    fastest of 4 or 8 splits and 1, 2 or 4 key groups at 128- and
+    4096-key caches.  Everything else takes the tiled route."""
+    rep = Hq // Hkv
+    hpb = min(rep, _ROWS)
+    groups = B * Hkv * -(-rep // hpb)
+    D = max(32, 1 << (d - 1).bit_length())
+    if Sq != 1 or not vec or d % (D // 32):
+        bq = min(_ROWS // hpb, Sq)
+        return FlashPlan("tiled", -(-Sq // bq) * groups)
+    mma = elem == 2 and d in (64, 128)
+    # about one block an SM (two on the mma route, whose blocks are small)
+    want = max(1, min(_MAX_SPLITS, (2 if mma else 1) * n_sm // groups,
+                      -(-Sk // _SPLIT_KEYS)))
+    chunk = -(-(-(-Sk // want)) // _SPLIT_KEYS) * _SPLIT_KEYS
+    splits = -(-Sk // chunk)
+    if mma:
+        # tensor cores: one warp takes every query row of the KV head and
+        # every tile; three more only load
+        return FlashPlan("mma", splits * groups, splits, chunk, 1)
+    # CUDA cores: a warp a query row; key groups: one per 32 keys of a
+    # block's range, up to 8 warps a block, 16 partials a query row and
+    # what shared memory holds
+    kw = min(4, max(1, 8 // hpb), -(-chunk // _SPLIT_KEYS),
+             _MAX_PARTS // splits)
+    kw = 1 << (kw.bit_length() - 1)     # 1, 2 or 4
+    while kw > 1 and _split_smem(elem, d, hpb, kw) > _SMEM_MAX:
+        kw //= 2
+    return FlashPlan("split", splits * groups, splits, chunk, kw)
+
+
+def plan_for(q: Tensor, k: Tensor, v: Tensor) -> FlashPlan:
+    """:func:`flash_plan` for these operands on their card."""
+    B, Hq, Sq, d = q.shape
+    return flash_plan(B, Hq, k.shape[1], Sq, k.shape[2], d,
+                      elem=q.element_size(), vec=_vector_loads(k, v),
+                      n_sm=build.sm_count(q.device))
 
 
 def _vector_loads(k: Tensor, v: Tensor) -> bool:
@@ -85,6 +169,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                 not lengths.is_contiguous():
             raise ValueError("flash_attention: lengths must be (B,) int32")
     out = torch.empty((B, Hq, Sq, d), dtype=q.dtype, device=q.device)
+    plan = plan_for(q, k, v)
     fn = _lib()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lengths is None else lengths.data_ptr(), out.data_ptr(),
@@ -93,7 +178,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             int(causal), 1.0 / d ** 0.5, int(_vector_loads(k, v)),
-            int(q.dtype == torch.bfloat16), build.stream_handle(q.device))
+            int(q.dtype == torch.bfloat16), plan.splits, plan.chunk, plan.kw,
+            int(plan.route == "mma"), build.stream_handle(q.device))
     build.check(rc, "flash_attention launch")
     launches += 1
     return out

@@ -214,3 +214,155 @@ def test_launch_counts_follow_launches(cuda):
     assert ops.launch_counts() == {"dequant_matmul": 1,
                                    "dequant_matmul_lora": 1,
                                    "flash_attention": 1, "gram": 1}
+
+
+# the decode routes, each one launch a call: dequant_matmul's tensor-core
+# route (bf16, M <= 8) and flash_attention's keys split over a cluster
+# (Sq = 1; on the tensor cores in bf16, the CUDA cores in f32)
+QWEN_LINEARS = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048)]
+
+
+def _device_kernels(fn, calls):
+    """Names of the device kernels ``calls`` runs of ``fn`` launch, with
+    their counts (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def _dq_operands(cuda, M, K, N, bits, g):
+    codes, s, z = quantize_int(torch.randn(K, N, device=cuda) * 0.02, bits, g)
+    x = torch.randn(M, K, device=cuda).to(torch.bfloat16)
+    return x, pack_codes(codes, bits), s, z
+
+
+@pytest.mark.parametrize("M", [1, 3, 4, 8])
+@pytest.mark.parametrize("K,N", QWEN_LINEARS)
+def test_dequant_matmul_decode_route_at_qwen_linears(cuda, M, K, N):
+    """bf16 at every Qwen3-1.7B linear and 1 to 8 rows: the mma route,
+    within 2e-2 of the plain version, the same bits on two runs."""
+    from repro_torch.kernels.dequant_matmul import plan_for
+    x, packed, s, z = _dq_operands(cuda, M, K, N, 4, 64)
+    assert plan_for(x, packed, s, z, 64).route == "mma"
+    y = ops.dequant_matmul(x, packed, s, z, bits=4, group_size=64)
+    y2 = ops.dequant_matmul(x, packed, s, z, bits=4, group_size=64)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    _close(y, ref.dequant_matmul_ref(x, packed, s, z, bits=4, group_size=64),
+           **_tol(torch.bfloat16))
+
+
+# (M, K, N, g): K not a multiple of the 128-row stage, groups 32 and 128
+# (and 256, which spans stages), N one tile or several
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(4, 2112, 256, 64), (3, 192, 384, 32),
+                                   (8, 2048, 1024, 32), (4, 2048, 1024, 128),
+                                   (1, 6144, 128, 128), (5, 1024, 512, 256),
+                                   (2, 96, 16, 32)])
+def test_dequant_matmul_decode_route_odd_shapes(cuda, bits, shape):
+    from repro_torch.kernels.dequant_matmul import plan_for
+    M, K, N, g = shape
+    x, packed, s, z = _dq_operands(cuda, M, K, N, bits, g)
+    assert plan_for(x, packed, s, z, g).route == "mma"
+    y = ops.dequant_matmul(x, packed, s, z, bits=bits, group_size=g)
+    torch.cuda.synchronize()
+    _close(y, ref.dequant_matmul_ref(x, packed, s, z, bits=bits,
+                                     group_size=g), **_tol(torch.bfloat16))
+
+
+def test_dequant_matmul_decode_route_is_one_launch(cuda):
+    """One device kernel a call on the mma route, and no partial-sum
+    reduction; the launch counter follows the calls."""
+    x, packed, s, z = _dq_operands(cuda, 4, 6144, 2048, 4, 64)
+    ops.reset_launch_counts()
+    counts = _device_kernels(
+        lambda: ops.dequant_matmul(x, packed, s, z, bits=4, group_size=64), 5)
+    assert ops.launch_counts()["dequant_matmul"] == 6
+    kernels = {k: v for k, v in counts.items() if "dqmm" in k}
+    assert len(kernels) == 1 and "mma" in next(iter(kernels)), counts
+    assert next(iter(kernels.values())) == 5
+    assert not any("reduce" in k for k in counts), counts
+
+
+def _cache_kv(cuda, B, Sk, Hkv, d, dtype):
+    return (torch.randn(B, Sk, Hkv, d, device=cuda).to(dtype).transpose(1, 2)
+            for _ in range(2))
+
+
+# Sk and lengths: 1 and Sk itself, and lengths on the split boundaries
+# (flash_plan's chunk: 32 keys at Sk <= 128 on 132 SMs, 1024 at 4096)
+@pytest.mark.parametrize("Sk,lens", [(1, (1, 1, 1, 1)),
+                                     (127, (127, 1, 64, 96)),
+                                     (128, (128, 32, 64, 1)),
+                                     (128, (33, 31, 96, 97)),
+                                     (4096, (4096, 3072, 1024, 1)),
+                                     (4096, (2048, 1025, 1023, 4095))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_split_route(cuda, Sk, lens, dtype):
+    """Sq = 1 through the KV cache's transpose: keys split over a cluster,
+    on the tensor cores in bf16 and on the CUDA cores in f32, within the
+    reference tolerance, the same bits on two runs."""
+    from repro_torch.kernels.flash_attention import plan_for
+    B, Hq, Hkv, d = 4, 16, 8, 128
+    q = torch.randn(B, Hq, 1, d, device=cuda).to(dtype)
+    k, v = _cache_kv(cuda, B, Sk, Hkv, d, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    plan = plan_for(q, k, v)
+    assert plan.route == ("mma" if dtype == torch.bfloat16 else "split")
+    assert plan.splits * plan.chunk >= Sk
+    o = ops.flash_attention(q, k, v, causal=False, lengths=lengths)
+    o2 = ops.flash_attention(q, k, v, causal=False, lengths=lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    tol = (dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    _close(o, ref.flash_attention_ref(q, k, v, causal=False,
+                                      lengths=lengths), **tol)
+
+
+def test_flash_attention_split_route_is_one_launch(cuda):
+    B, Hq, Hkv, d, Sk = 4, 16, 8, 128, 4096
+    q = torch.randn(B, Hq, 1, d, device=cuda).to(torch.bfloat16)
+    k, v = _cache_kv(cuda, B, Sk, Hkv, d, torch.bfloat16)
+    lengths = torch.tensor((4096, 3072, 1024, 1), dtype=torch.int32,
+                           device=cuda)
+    counts = _device_kernels(
+        lambda: ops.flash_attention(q, k, v, causal=False, lengths=lengths), 5)
+    kernels = {k: n for k, n in counts.items() if "flash" in k}
+    assert len(kernels) == 1 and "mma" in next(iter(kernels)), counts
+    assert next(iter(kernels.values())) == 5
+
+
+# one query row at other head layouts: all query heads on one KV head (16
+# rows of the tensor-core tile, and 32: two head groups), one query head
+# a KV head, d 64, no lengths, the causal mask (query 0 sees key 0 only)
+@pytest.mark.parametrize("case", [(2, 16, 1, 300, 128, (300, 7), False),
+                                  (1, 32, 1, 64, 64, (50,), False),
+                                  (3, 4, 4, 1000, 64, (1000, 1, 513), False),
+                                  (2, 8, 2, 96, 128, None, False),
+                                  (2, 8, 2, 96, 128, (96, 5), True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_split_route_head_layouts(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import plan_for
+    B, Hq, Hkv, Sk, d, lens, causal = case
+    q = torch.randn(B, Hq, 1, d, device=cuda).to(dtype)
+    k, v = _cache_kv(cuda, B, Sk, Hkv, d, dtype)
+    lengths = (None if lens is None
+               else torch.tensor(lens, dtype=torch.int32, device=cuda))
+    assert plan_for(q, k, v).route == ("mma" if dtype == torch.bfloat16
+                                       else "split")
+    o = ops.flash_attention(q, k, v, causal=causal, lengths=lengths)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    _close(o, ref.flash_attention_ref(q, k, v, causal=causal,
+                                      lengths=lengths), **tol)

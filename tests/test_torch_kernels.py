@@ -304,3 +304,79 @@ def test_lora_plan_grid_rows():
         lora_plan(big, 64, 130, 8, 64, bf16=True, aligned=True, n_sm=132)
     p = lora_plan(big, 64, 128, 8, 64, bf16=True, aligned=True, n_sm=132)
     assert p.route == "wgmma" and p.grid == 132
+
+
+# the decode kernels' routes, plain functions of the shape.  dequant_matmul
+# at decode (bf16, 4 rows, every Qwen3-1.7B linear): the tensor-core route,
+# one launch, a portable cluster, about 5/8 of an H100's SMs (the split
+# measured fastest there); what TMA cannot address, f32 and more than 8
+# rows: the CUDA-core route with its K split over the grid
+QWEN_LINEARS = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048)]
+
+
+@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("K,N", QWEN_LINEARS)
+def test_dqmm_plan_decode_shapes_take_mma(M, K, N):
+    from repro_torch.kernels.dequant_matmul import dqmm_plan
+    p = dqmm_plan(M, K, N, 64, bf16=True, aligned=True, cpt=4,
+                  n_sm=H100_SMS)
+    stages = -(-K // 256)
+    assert p.route == "mma" and p.launches == 1
+    assert 1 <= p.splits <= 8 and p.bm == 0
+    assert p.splits * p.per_split >= stages > (p.splits - 1) * p.per_split
+    assert p.blocks == p.splits * -(-N // 128)
+    assert 0.45 * H100_SMS <= p.blocks <= 0.75 * H100_SMS
+
+
+@pytest.mark.parametrize("M,K,N,g,bf16,aligned", [
+    (4, 2048, 200, 64, True, True),     # N % 16 != 0
+    (4, 2052, 2048, 4, True, True),     # K % 8 != 0, group 4
+    (4, 2048, 2048, 16, True, True),    # group 16 < 32
+    (4, 2304, 2048, 384, True, True),   # group 384 does not tile 256 rows
+    (4, 2048, 2048, 64, True, False),   # a base not 16-byte aligned
+    (9, 2048, 2048, 64, True, True),    # more than 8 rows
+    (4, 2048, 2048, 64, False, True),   # f32 x stays on CUDA cores
+])
+def test_dqmm_plan_other_shapes_take_fma(M, K, N, g, bf16, aligned):
+    from repro_torch.kernels.dequant_matmul import dqmm_plan
+    p = dqmm_plan(M, K, N, g, bf16=bf16, aligned=aligned, cpt=4,
+                  n_sm=H100_SMS)
+    assert p.route == "fma" and p.bm in (1, 2, 4, 8)
+    units = -(-K // 128)
+    assert p.splits * p.per_split >= units > (p.splits - 1) * p.per_split
+    assert p.launches == (2 if p.splits > 1 else 1)
+
+
+# flash_attention at decode (B 4, Hq 16, Hkv 8, d 128, one query row): the
+# keys of each (batch, KV head) split over a cluster of 4, 128 blocks of an
+# H100's 132; chunks of 32 keys or more; bf16 on the tensor cores, f32 on
+# the CUDA cores
+@pytest.mark.parametrize("Sk", [1, 127, 128, 4096])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_flash_plan_decode_splits_keys_over_a_cluster(Sk, elem):
+    from repro_torch.kernels.flash_attention import flash_plan
+    p = flash_plan(4, 16, 8, 1, Sk, 128, elem=elem, vec=True,
+                   n_sm=H100_SMS)
+    assert p.route == ("mma" if elem == 2 else "split") and p.launches == 1
+    assert 1 <= p.splits <= 8 and p.chunk % 32 == 0
+    assert p.splits * p.chunk >= Sk > (p.splits - 1) * p.chunk
+    assert p.splits * p.kw <= 16
+    # a split per 32-key chunk up to 4 blocks an (batch, KV head), 128 of
+    # 132 SMs; at 4096 keys the mma route's small blocks go to 8 (two an
+    # SM), the CUDA-core route's stay at 4 with 2 key groups (4 in bf16 is
+    # too much shared memory for f32)
+    assert p.splits == min(8 if (elem == 2 and Sk > 128) else 4,
+                           -(-Sk // 32))
+    assert p.blocks == 32 * p.splits
+    assert p.kw == (1 if elem == 2 or Sk <= 128 else 2)
+
+
+@pytest.mark.parametrize("shape,vec", [
+    ((1, 16, 8, 256, 256, 128), True),   # prefill: many query rows
+    ((4, 16, 8, 1, 128, 128), False),    # a view 16-byte loads cannot read
+    ((2, 4, 2, 1, 64, 196), True),       # d not a multiple of d / 32 lanes
+])
+def test_flash_plan_other_shapes_take_tiled(shape, vec):
+    from repro_torch.kernels.flash_attention import flash_plan
+    p = flash_plan(*shape, elem=4, vec=vec, n_sm=H100_SMS)
+    assert p.route == "tiled" and p.launches == 1 and p.splits == 0

@@ -109,12 +109,26 @@ def test_convert_bf16_exact():
     cfg_j, cfg_t = configs()
     tree = {"embed": {"w": a}, "blocks": {"0": {"x": {"w": a}}}}
     out = convert.params_from_jax(tree, dataclasses.replace(
-        cfg_t, scan_layers=False))
+        cfg_t, scan_layers=False), device="cpu")
     assert out["embed"]["w"].dtype == torch.bfloat16
     np.testing.assert_array_equal(out["embed"]["w"].view(torch.int16).numpy(),
                                   a.view(np.int16))
-    stacked = convert.params_from_jax(tree, cfg_t)
+    stacked = convert.params_from_jax(tree, cfg_t, device="cpu")
     assert tuple(stacked["blocks"]["x"]["w"].shape) == (1, 4, 6)
+
+
+def test_convert_device_defaults_to_cuda(monkeypatch):
+    """Without a device the carry resolves to CUDA and raises on a host
+    without it; ``device="cpu"`` builds on the CPU."""
+    a = np.ones((2, 3), np.float32)
+    tree = {"embed": {"w": a}, "blocks": {"0": {"x": {"w": a}}}}
+    _, cfg_t = configs()
+    cfg_t = dataclasses.replace(cfg_t, scan_layers=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_jax(tree, cfg_t)
+    out = convert.params_from_jax(tree, cfg_t, device="cpu")
+    assert out["embed"]["w"].device.type == "cpu"
 
 
 def _calib(vocab, seed=0):
