@@ -159,10 +159,14 @@ def time_graph(torch, fn, reps: int = 20) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _quantized(torch, K, N, bits, g, dev, gen):
+def _quantized(torch, K, N, bits, g, dev, gen, any_zero: bool = False):
     from repro_torch.core.quantizer import pack_codes, quantize_int
     W = torch.randn((K, N), generator=gen, device=dev) * 0.02
     codes, s, z = quantize_int(W, bits, g)
+    if any_zero:    # shift each zero by U(-0.5, 0.5), some by -2^bits
+        z = z + torch.rand(z.shape, generator=gen, device=dev) - 0.5
+        z = z - (1 << bits) * (torch.rand(z.shape, generator=gen,
+                                          device=dev) < 0.25)
     return pack_codes(codes, bits), s, z
 
 
@@ -172,14 +176,18 @@ def _quantized(torch, K, N, bits, g, dev, gen):
 DEQUANT_DECODE_ROWS = (1, 3, 4, 8)
 DEQUANT_ODD = ((4, 2112, 256, 64), (3, 192, 384, 32), (8, 2048, 1024, 32),
                (4, 2048, 1024, 128), (1, 6144, 128, 128), (5, 1024, 512, 256))
+# zeros that are not whole numbers, or lie outside the codes' range (a
+# checkpoint from another quantizer): both routes take any f32 zero
+DEQUANT_ANY_ZERO = ((4, 2048, 1024, 64), (9, 384, 256, 32))
 
 
 def check_dequant(torch, dev) -> tuple[dict, list]:
     """The kernel against its plain version: the decode cases (each run
-    twice: the same bits both times), the odd shapes and the sweep (f32,
-    ragged N and more than 8 rows take the CUDA-core route).  Returns the
-    summary and one ``[M, K, N, bits, g, dtype, route, max_abs_err]`` a
-    case."""
+    twice: the same bits both times), the odd shapes, the sweep (f32,
+    ragged N and more than 8 rows take the CUDA-core route) and zeros that
+    are not whole or lie outside the codes' range, on both routes.  Returns
+    the summary and one ``[M, K, N, bits, g, dtype, route, max_abs_err,
+    any_zero]`` a case."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_matmul import (dequant_matmul_cuda,
                                                     plan_for)
@@ -193,9 +201,14 @@ def check_dequant(torch, dev) -> tuple[dict, list]:
              for bits in (2, 4, 8) for M in (1, 3, 8, 128)
              for dt in (torch.float32, torch.bfloat16)
              for K, N, g in ((256, 200, 32), (384, 128, 64))]
+    any_zero = [(M, K, N, bits, g, dt) for bits in (2, 4, 8)
+                for M, K, N, g in DEQUANT_ANY_ZERO
+                for dt in (torch.float32, torch.bfloat16)]
     main_err, cases, routes = 0.0, [], {}
-    for i, (M, K, N, bits, g, dt) in enumerate(main + odd + sweep):
-        packed, s, z = _quantized(torch, K, N, bits, g, dev, gen)
+    first_any = len(main) + len(odd) + len(sweep)
+    for i, (M, K, N, bits, g, dt) in enumerate(main + odd + sweep + any_zero):
+        packed, s, z = _quantized(torch, K, N, bits, g, dev, gen,
+                                  any_zero=i >= first_any)
         x = torch.randn((M, K), generator=gen, device=dev).to(dt)
         route = plan_for(x, packed, s, z, g).route
         y = dequant_matmul_cuda(x, packed, s, z, bits=bits, group_size=g)
@@ -206,7 +219,7 @@ def check_dequant(torch, dev) -> tuple[dict, list]:
         dname = str(dt).split(".")[-1]
         ok, err = within(y, y_ref, TOL[dname])
         what = (f"dequant_matmul M={M} K={K} N={N} bits={bits} g={g} "
-                f"{dname} ({route})")
+                f"{dname} ({route}{', any zero' if i >= first_any else ''})")
         if not ok:
             raise Failed(f"{what}: max err {err}")
         if i < len(main) + len(odd) and route != "mma":
@@ -219,7 +232,8 @@ def check_dequant(torch, dev) -> tuple[dict, list]:
                 raise Failed(f"{what}: two runs differ")
             main_err = max(main_err, err)
         routes[route] = routes.get(route, 0) + 1
-        cases.append([M, K, N, bits, g, dname, route, err])
+        cases.append([M, K, N, bits, g, dname, route, err,
+                      i >= first_any])
     if set(routes) != {"mma", "fma"}:
         raise Failed(f"dequant_matmul cases missed a route: {routes}")
     return ({"cases": len(cases), "routes": routes, "max_abs_err": main_err,
@@ -286,13 +300,13 @@ DEQUANT_SPLITS = (1, 2, 4, 8)
 def time_dequant_splits(torch, dev, calls: int = 28) -> dict:
     """The tensor-core route's K split, the data behind ``dqmm_plan``'s
     choice: each Qwen3-1.7B linear at M = 4 (bf16, 4-bit, group 64, each
-    call on its own weights) timed at 1, 2, 4 and 8 blocks a cluster, with
-    the split the plan picks and the fastest."""
+    call on its own weights) timed at 1, 2, 4 and 8 blocks a cluster (and
+    the plan's own split), with the split the plan picks and the fastest."""
     from repro_torch.kernels import build
     from repro_torch.kernels import dequant_matmul as dq
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    M, g, fn = 4, 64, dq._lib()
+    M, g = 4, 64
     rows = {}
     for K, N in sorted(set(QWEN_LINEARS)):
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -301,25 +315,18 @@ def time_dequant_splits(torch, dev, calls: int = 28) -> dict:
                  torch.rand((K // g, N), generator=gen, device=dev) * 1e-2,
                  torch.randint(0, 16, (K // g, N), generator=gen,
                                device=dev).float()) for _ in range(calls)]
-        out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-        stages = -(-K // 256)
+        picked = dq.plan_for(x, *sets[0], g)
         row = {}
-        for want in DEQUANT_SPLITS:
-            sps = -(-stages // want)
-            splits = -(-stages // sps)
+        for want in sorted(set(DEQUANT_SPLITS) | {picked.splits}):
+            plan = dq.dqmm_plan(M, K, N, g, bf16=True, aligned=True, cpt=4,
+                                n_sm=build.sm_count(dev), splits=want)
 
-            def run(splits=splits, sps=sps):
+            def run(plan=plan):
                 for p, s, z in sets:
-                    build.check(fn(x.data_ptr(), p.data_ptr(), s.data_ptr(),
-                                   z.data_ptr(), out.data_ptr(), None, M, K,
-                                   N, 4, g, dq.DQMM_ROUTES["mma"], 0, 0,
-                                   splits, sps, 1,
-                                   build.stream_handle(dev)),
-                             "dequant_matmul launch")
-            row[str(splits)] = 1e3 * time_graph(torch, run) / calls
-        plan = dq.dqmm_plan(M, K, N, g, bf16=True, aligned=True, cpt=4,
-                            n_sm=build.sm_count(dev))
-        rows[f"{K}x{N}"] = {"us_by_splits": row, "plan": plan.splits,
+                    dq.dequant_matmul_cuda(x, p, s, z, bits=4, group_size=g,
+                                           plan=plan)
+            row[str(plan.splits)] = 1e3 * time_graph(torch, run) / calls
+        rows[f"{K}x{N}"] = {"us_by_splits": row, "plan": picked.splits,
                             "fastest": int(min(row, key=row.get))}
     return {"calls": calls, "rows": rows}
 
@@ -336,14 +343,21 @@ def time_dequant_splits(torch, dev, calls: int = 28) -> dict:
 FLASH_DECODE = ((1, (1, 1, 1, 1)), (127, (127, 1, 64, 96)),
                 (128, (128, 32, 64, 1)), (128, (33, 31, 96, 97)),
                 (4096, (4096, 3072, 1024, 1)), (4096, (2048, 1025, 1023, 4095)))
+# q's scale in the bf16 decode cases.  With q and k N(0, 1) the logits are
+# N(0, 1), the softmax is nearly flat and an output is about sqrt(e / n):
+# 0.026 at 4096 keys, below the 5e-2 limit itself, so a split's partial
+# could go missing unseen.  At 4x the logits are N(0, 16): a few keys
+# carry each row, the outputs are O(1) and a lost partial shows.  The f32
+# cases stay flat: their 1e-4 limit sees every key.
+FLASH_Q_PEAK = 4.0
 
 
 def check_flash(torch, dev) -> tuple[dict, list]:
     """The kernel against its plain version: the path's case, prefill and
     odd shapes (the tiled route), then the decode cases in bf16 (the mma
-    route) and f32 (the split route), each run twice for equal bits.  Returns the summary
-    and one ``[B, Hq, Hkv, Sq, Sk, d, causal, dtype, route, max_abs_err]``
-    a case."""
+    route, q scaled by ``FLASH_Q_PEAK``) and f32 (the split route), each
+    run twice for equal bits.  Returns the summary and one ``[B, Hq, Hkv,
+    Sq, Sk, d, causal, dtype, route, max_abs_err, max_abs_ref]`` a case."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      plan_for)
@@ -360,10 +374,14 @@ def check_flash(torch, dev) -> tuple[dict, list]:
     ] + [(4, 16, 8, 1, Sk, 128, False, lens, dt, True)
          for Sk, lens in FLASH_DECODE
          for dt in (torch.bfloat16, torch.float32)]
+    decode = len(cases) - 2 * len(FLASH_DECODE)
     main_err, out, routes = 0.0, [], {}
     for i, (B, Hq, Hkv, Sq, Sk, d, causal, lens, dt, cached) in \
             enumerate(cases):
-        q = torch.randn((B, Hq, Sq, d), generator=gen, device=dev).to(dt)
+        q = torch.randn((B, Hq, Sq, d), generator=gen, device=dev)
+        if i >= decode and dt == torch.bfloat16:
+            q = q * FLASH_Q_PEAK
+        q = q.to(dt)
         if cached:      # decode layout: (B, Sk, Hkv, d) read transposed
             k = torch.randn((B, Sk, Hkv, d), generator=gen,
                             device=dev).to(dt).transpose(1, 2)
@@ -397,7 +415,8 @@ def check_flash(torch, dev) -> tuple[dict, list]:
         if i == 0:
             main_err = err
         routes[route] = routes.get(route, 0) + 1
-        out.append([B, Hq, Hkv, Sq, Sk, d, causal, dname, route, err])
+        out.append([B, Hq, Hkv, Sq, Sk, d, causal, dname, route, err,
+                    float(o_ref.float().abs().max())])
     if set(routes) != {"mma", "split", "tiled"}:
         raise Failed(f"flash_attention cases missed a route: {routes}")
     return ({"cases": len(cases), "routes": routes, "max_abs_err": main_err,
@@ -1074,10 +1093,10 @@ def main(argv=None) -> int:
                       "(flash_attention also at a 4096-key cache)"})
         emit({"phase": "kernels", "dequant_cases": dq_cases,
               "fields": ["M", "K", "N", "bits", "g", "dtype", "route",
-                         "max_abs_err"]})
+                         "max_abs_err", "any_zero"]})
         emit({"phase": "kernels", "flash_cases": fa_cases,
               "fields": ["B", "Hq", "Hkv", "Sq", "Sk", "d", "causal", "dtype",
-                         "route", "max_abs_err"]})
+                         "route", "max_abs_err", "max_abs_ref"]})
         emit({"phase": "dequant_splits", **time_dequant_splits(torch, dev)})
         emit({"phase": "kernels", "gram": {**gr, **gr_t},
               "dequant_matmul_lora": {**lo, **lo_t},

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,6 +29,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+_CONST = re.compile(r"^constexpr int (\w+) = ([\w ()+*/-]+);", re.M)
+
+
+def constants(source: str) -> dict[str, int]:
+    """The file-scope ``constexpr int`` constants of a source in ``csrc/``,
+    so that a plan function reads the kernel's tile sizes and limits from
+    the one place they are defined.  A constant may use earlier ones."""
+    out: dict[str, int] = {}
+    for name, expr in _CONST.findall((CSRC / source).read_text()):
+        out[name] = int(eval(expr.replace("/", "//"),  # noqa: S307
+                             {"__builtins__": {}}, dict(out)))
+    return out
 
 
 def build_root() -> Path:

@@ -32,21 +32,23 @@
 //    one: a block sets up its barriers while the previous kernel ends.
 //  * Eight consumer warps each take 32 of a stage's K rows (inside one
 //    group: the group is a multiple of 32) and run mma.sync m16n8k16 with
-//    code - z as A, built in registers, and x as B (8 columns: the rows of
-//    x).  code - z is an integer of at most 8 bits, exact in bf16, and so
-//    is every product, so the f32 sums of x @ (codes - z) over a group are
-//    exact up to order; each group's sums are then scaled by s in f32,
-//    once a column.  The result is as accurate as the reference's f32
-//    weight.  A 2- or 4-bit pair costs three instructions: a byte permute
-//    that puts the two codes in the halves of a bf16 pair, an AND/OR that
-//    masks them into the mantissa of 128, and a bf16 pair subtract of
-//    128 + z (8-bit: the code into 2^23's mantissa, an f32 subtract each,
-//    one pair conversion).  The CUDA-core route spends about 8 f32
-//    instructions a code at M = 4.  The A fragment's k order is chosen so
-//    that a lane reads its codes as 16-byte rows 2t and 2t+1 of an 8-row
-//    atom (conflict-free under the swizzle) and the two k-adjacent codes
-//    of a pair sit in one byte (2, 4 bits) or in adjacent rows (8 bits);
-//    x's B fragment follows the same order.
+//    the codes as A, built in registers, and x as B (8 columns: the rows of
+//    x).  A is 128 + code at 2 and 4 bits and code at 8 bits: integers
+//    bf16 holds exactly, so every product is exact.  One more mma a step,
+//    with an all-ones A, gives each row's sum of x over the same K rows;
+//    each group's sums then become x @ (codes - z) by one f32 FMA a column,
+//    sum - (128 + z) * sum(x) (z * sum(x) at 8 bits), and are scaled by s
+//    in f32.  Any f32 zero is taken, whole or not.  The result is as accurate as the reference's
+//    f32 weight.  A 2- or 4-bit pair costs two instructions: a byte permute
+//    that puts the two codes in the halves of a bf16 pair and an AND/OR
+//    that masks them into the mantissa of 128 (8-bit: the code into 2^23's
+//    mantissa, an f32 subtract each, one pair conversion).  The CUDA-core
+//    route spends about 8 f32 instructions a code at M = 4.  The A
+//    fragment's k order is chosen so that a lane reads its codes as
+//    16-byte rows 2t and 2t+1 of an 8-row atom (conflict-free under the
+//    swizzle) and the two k-adjacent codes of a pair sit in one byte (2, 4
+//    bits) or in adjacent rows (8 bits); x's B fragment follows the same
+//    order.
 //  * The K split gives about 5/8 of the SMs a block (dqmm_plan).  What
 //    a call costs on an H100 beyond its bytes: a fixed few microseconds of
 //    launch, first loads and the cluster's combine, then the consumers'
@@ -66,6 +68,8 @@
 //    wrapper from M) as f32 register accumulators; each 128-row unit of x is
 //    staged in shared memory, transposed so the BM values of one k are
 //    contiguous, and read as a broadcast.
+//  * A weight is (code - zi) * s - (z - zi) * s with zi = rint(z): the
+//    first factor exact, one FMA, so any f32 zero is taken.
 //  * The four warps' sums are added through shared memory in a fixed order.
 //    A decode-sized M and N give too few blocks to fill 132 SMs, so the
 //    units are also split over gridDim.z: each split writes an f32 partial,
@@ -128,17 +132,26 @@ template <int CPT> __device__ __forceinline__ uint32_t load_word(const uint8_t* 
   else return *p;
 }
 
+// a group's scale s, zb = 2^23 + rint(z) and nf = -(z - rint(z)) * s: a
+// code's weight (2^23 + code - zb) * s + nf is (code - z) * s for any z
+__device__ __forceinline__ void split_zero(float s, float z, float& zb, float& nf) {
+  const float zi = rintf(z);
+  zb = MAGIC + zi;
+  nf = -(z - zi) * s;
+}
 template <int CPT> __device__ __forceinline__ void load_group(
     const float* __restrict__ scales, const float* __restrict__ zeros,
-    size_t at, float* s, float* zb) {
+    size_t at, float* s, float* zb, float* nf) {
   if constexpr (CPT == 4) {
     const float4 a = *reinterpret_cast<const float4*>(scales + at);
     const float4 b = *reinterpret_cast<const float4*>(zeros + at);
     s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
-    zb[0] = MAGIC + b.x; zb[1] = MAGIC + b.y; zb[2] = MAGIC + b.z; zb[3] = MAGIC + b.w;
+    const float z[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) split_zero(s[c], z[c], zb[c], nf[c]);
   } else {
     s[0] = scales[at];
-    zb[0] = MAGIC + zeros[at];
+    split_zero(s[0], zeros[at], zb[0], nf[0]);
   }
 }
 
@@ -192,8 +205,8 @@ dqmm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
       words[i] = i < nprow ? load_word<CPT>(wp + (size_t)i * N) : 0u;
     int gi = (k0 + ks0) / group;
     int next_boundary = (gi + 1) * group;
-    float s[CPT], zb[CPT];  // zb = 2^23 + z, see the header
-    load_group<CPT>(scales, zeros, (size_t)gi * N + n0, s, zb);
+    float s[CPT], zb[CPT], nf[CPT];  // see split_zero
+    load_group<CPT>(scales, zeros, (size_t)gi * N + n0, s, zb, nf);
 #pragma unroll
     for (int i = 0; i < NW; ++i) {
       if (i >= nprow) break;
@@ -203,14 +216,14 @@ dqmm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
         if (k0 + kk == next_boundary) {
           ++gi;
           next_boundary += group;
-          load_group<CPT>(scales, zeros, (size_t)gi * N + n0, s, zb);
+          load_group<CPT>(scales, zeros, (size_t)gi * N + n0, s, zb, nf);
         }
         float xv[BM];
         load_row<BM>(&xs[kk][0], xv);
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const uint32_t code = (words[i] >> (8 * c + BITS * j)) & MASK;
-          const float w = (__uint_as_float(MAGIC_BITS | code) - zb[c]) * s[c];
+          const float w = fmaf(__uint_as_float(MAGIC_BITS | code) - zb[c], s[c], nf[c]);
 #pragma unroll
           for (int r = 0; r < BM; ++r) acc[r][c] = fmaf(xv[r], w, acc[r][c]);
         }
@@ -258,6 +271,8 @@ constexpr int MMA_BN = 128;         // output columns a block (one swizzled row)
 constexpr int MMA_WARPS = 8;        // consumer warps
 constexpr int MMA_THREADS = (MMA_WARPS + 1) * 32;  // and one producer warp
 constexpr int MMA_MAX_SPLITS = 8;   // cluster size (portable)
+constexpr int MMA_BK = 256;         // K rows a stage, every width
+constexpr int MMA_MAX_M = 8;        // rows of x at most (B's 8 columns)
 
 // A consumer warp takes 32 K rows of a stage (inside one group): one
 // 8-row swizzle atom of packed rows at 2 bits (a lane reads rows 2t and
@@ -280,7 +295,7 @@ template <int BITS> struct MmaLayout {
   static constexpr int SMEM = 1024 + STAGES * STAGE + PART + 2 * STAGES * 8;
   static_assert(STAGE % 1024 == 0, "stages keep the 128-byte swizzle's alignment");
   static_assert(MMA_WARPS * 8 * MMA_BN * 4 <= STAGES * STAGE, "warp sums fit the ring");
-  static_assert(BK == 256, "one stage shape for every width");
+  static_assert(BK == MMA_BK, "one stage shape for every width");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -342,22 +357,18 @@ __device__ __forceinline__ void mma_bf16_zero(float* d, const uint32_t* a, const
 __device__ __forceinline__ float code_f(uint32_t w, int i) {
   return __uint_as_float(__byte_perm(w, MAGIC_BITS, 0x7440 | i));
 }
-// code - z of two codes (2^23 + code less zb = 2^23 + z, exact) as a bf16
-// pair, first low: integers of at most 8 bits, so exact in bf16
-__device__ __forceinline__ uint32_t deq2(float c0, float c1, float zb) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(c0 - zb, c1 - zb);
+// two 8-bit codes (as 2^23 + code) as a bf16 pair, first low: integers
+// of at most 8 bits, so exact in bf16
+__device__ __forceinline__ uint32_t code2(float c0, float c1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(c0 - MAGIC, c1 - MAGIC);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 // 2- and 4-bit codes: byte i of `lo` and of `hi` (each code in the low
 // bits of its byte, above it garbage that `mask` clears) into the low and
-// high halves, OR-ed into the mantissa of the bf16 128, less the pair
-// zz = (128 + z, 128 + z): code - z, exact
+// high halves, OR-ed into the mantissa of the bf16 128: 128 + code, exact
 __device__ __forceinline__ uint32_t pair_bf16(uint32_t lo, uint32_t hi, int i,
-                                              uint32_t mask, uint32_t zz) {
-  const uint32_t t = (__byte_perm(lo, hi, i | ((4 + i) << 8)) & mask) | 0x43004300u;
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&t),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&zz));
-  return *reinterpret_cast<const uint32_t*>(&d);
+                                              uint32_t mask) {
+  return (__byte_perm(lo, hi, i | ((4 + i) << 8)) & mask) | 0x43004300u;
 }
 // row r (stage-local) of the swizzled packed tile, this lane's 16 columns
 __device__ __forceinline__ void load_row(const unsigned char* p, int r, int g, uint32_t* w) {
@@ -369,12 +380,17 @@ template <int N> __device__ __forceinline__ void shifted(const uint32_t* w, uint
   for (int q = 0; q < 4; ++q) o[q] = w[q] >> N;
 }
 
-// One 16-deep step of x @ (codes - z) into d (FIRST: afresh).  Tile j's A
-// rows g and g + 8 are this lane's columns 16 g + 2 j and + 1; `pairs(j, a)`
-// builds its A fragment: k slots (2t, 2t+1) of both columns, then
-// (2t+8, 2t+9).  B is x at the same k.
+// One 16-deep step of x @ A into d and of x's row sums into sx (FIRST:
+// afresh).  Tile j's A rows g and g + 8 are this lane's columns 16 g + 2 j
+// and + 1; `pairs(j, a)` builds its A fragment: k slots (2t, 2t+1) of both
+// columns, then (2t+8, 2t+9).  B is x at the same k; sx[0] and sx[1] are
+// the sums of x's rows 2t and 2t+1 (an all-ones A).
 template <bool FIRST, typename F>
-__device__ __forceinline__ void mma_step(float (&d)[8][4], const uint32_t* b, F pairs) {
+__device__ __forceinline__ void mma_step(float (&d)[8][4], float (&sx)[4], const uint32_t* b,
+                                         F pairs) {
+  const uint32_t ones[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};
+  if constexpr (FIRST) mma_bf16_zero(sx, ones, b);
+  else mma_bf16(sx, ones, b);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     uint32_t a[4];
@@ -459,22 +475,19 @@ dqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_p,
       const float* srow = reinterpret_cast<const float*>(st + L::PBYTES + L::XBYTES) +
                           grow * MMA_BN + 16 * g;
       const float* zrow = srow + L::SBYTES / 4;
-      float sc[16];
-      uint32_t zz[16];  // 2^23 + z (8-bit), or the bf16 pair 128 + z
+      // A holds code + OFF; x @ (codes - z) = x @ A - (OFF + z) sum(x)
+      constexpr float OFF = BITS == 8 ? 0.f : 128.f;
+      float sc[16], nz[16];  // s, and -(OFF + z)
 #pragma unroll
       for (int c = 0; c < 16; c += 4) {
         const float4 a = *reinterpret_cast<const float4*>(srow + c);
         const float4 z = *reinterpret_cast<const float4*>(zrow + c);
         sc[c] = a.x; sc[c + 1] = a.y; sc[c + 2] = a.z; sc[c + 3] = a.w;
-        const float zv[4] = {z.x, z.y, z.z, z.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t zb = __float_as_uint(MAGIC + zv[e]);  // low byte: z
-          zz[c + e] = BITS == 8 ? zb : __byte_perm(zb, 0x43u, 0x4040);
-        }
+        nz[c] = -(OFF + z.x); nz[c + 1] = -(OFF + z.y);
+        nz[c + 2] = -(OFF + z.z); nz[c + 3] = -(OFF + z.w);
       }
       const uint32_t* xs = reinterpret_cast<const uint32_t*>(st + L::PBYTES) + g * (L::BK / 2);
-      float grp[8][4];  // x @ (codes - z) over this warp's K rows
+      float grp[8][4], sx[4];  // x @ A and x's row sums over this warp's K rows
       if constexpr (BITS == 4) {
         // rows 2t, 2t+1 of each of the warp's two atoms hold k 4t .. 4t+3
         // of that atom: a step each
@@ -488,14 +501,14 @@ dqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_p,
           shifted<4>(wb, wb4);
           const uint32_t b[2] = {xs[ra], xs[ra + 1]};  // k 2ra .. 2ra + 3
           auto pairs = [&](int j, uint32_t* a) {
-            const int q = j >> 1, i0 = 2 * (j & 1), c0 = 2 * j;
-            a[0] = pair_bf16(wa[q], wa4[q], i0, 0x000F000Fu, zz[c0]);
-            a[1] = pair_bf16(wa[q], wa4[q], i0 + 1, 0x000F000Fu, zz[c0 + 1]);
-            a[2] = pair_bf16(wb[q], wb4[q], i0, 0x000F000Fu, zz[c0]);
-            a[3] = pair_bf16(wb[q], wb4[q], i0 + 1, 0x000F000Fu, zz[c0 + 1]);
+            const int q = j >> 1, i0 = 2 * (j & 1);
+            a[0] = pair_bf16(wa[q], wa4[q], i0, 0x000F000Fu);
+            a[1] = pair_bf16(wa[q], wa4[q], i0 + 1, 0x000F000Fu);
+            a[2] = pair_bf16(wb[q], wb4[q], i0, 0x000F000Fu);
+            a[3] = pair_bf16(wb[q], wb4[q], i0 + 1, 0x000F000Fu);
           };
-          if (u == 0) mma_step<true>(grp, b, pairs);
-          else mma_step<false>(grp, b, pairs);
+          if (u == 0) mma_step<true>(grp, sx, b, pairs);
+          else mma_step<false>(grp, sx, b, pairs);
         }
       } else if constexpr (BITS == 2) {
         // row 2t of the warp's atom holds k 8t .. 8t+3 (one step), row
@@ -510,14 +523,14 @@ dqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_p,
           shifted<6>(w, w6);
           const uint32_t b[2] = {xs[2 * r], xs[2 * r + 1]};  // k 4r .. 4r + 3
           auto pairs = [&](int j, uint32_t* a) {
-            const int q = j >> 1, i0 = 2 * (j & 1), c0 = 2 * j;
-            a[0] = pair_bf16(w[q], w2[q], i0, 0x00030003u, zz[c0]);
-            a[1] = pair_bf16(w[q], w2[q], i0 + 1, 0x00030003u, zz[c0 + 1]);
-            a[2] = pair_bf16(w4[q], w6[q], i0, 0x00030003u, zz[c0]);
-            a[3] = pair_bf16(w4[q], w6[q], i0 + 1, 0x00030003u, zz[c0 + 1]);
+            const int q = j >> 1, i0 = 2 * (j & 1);
+            a[0] = pair_bf16(w[q], w2[q], i0, 0x00030003u);
+            a[1] = pair_bf16(w[q], w2[q], i0 + 1, 0x00030003u);
+            a[2] = pair_bf16(w4[q], w6[q], i0, 0x00030003u);
+            a[3] = pair_bf16(w4[q], w6[q], i0 + 1, 0x00030003u);
           };
-          if (h == 0) mma_step<true>(grp, b, pairs);
-          else mma_step<false>(grp, b, pairs);
+          if (h == 0) mma_step<true>(grp, sx, b, pairs);
+          else mma_step<false>(grp, sx, b, pairs);
         }
       } else {
         // rows 2t, 2t+1 of each of the warp's four atoms hold k 2t, 2t+1
@@ -532,26 +545,27 @@ dqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_p,
           load_row(st, r1 + 1, g, b1);
           const uint32_t b[2] = {xs[r0 / 2], xs[r1 / 2]};
           auto pairs = [&](int j, uint32_t* a) {
-            const int q = j >> 1, i0 = 2 * (j & 1), c0 = 2 * j;
-            const float z0 = __uint_as_float(zz[c0]), z1 = __uint_as_float(zz[c0 + 1]);
-            a[0] = deq2(code_f(a0[q], i0), code_f(a1[q], i0), z0);
-            a[1] = deq2(code_f(a0[q], i0 + 1), code_f(a1[q], i0 + 1), z1);
-            a[2] = deq2(code_f(b0[q], i0), code_f(b1[q], i0), z0);
-            a[3] = deq2(code_f(b0[q], i0 + 1), code_f(b1[q], i0 + 1), z1);
+            const int q = j >> 1, i0 = 2 * (j & 1);
+            a[0] = code2(code_f(a0[q], i0), code_f(a1[q], i0));
+            a[1] = code2(code_f(a0[q], i0 + 1), code_f(a1[q], i0 + 1));
+            a[2] = code2(code_f(b0[q], i0), code_f(b1[q], i0));
+            a[3] = code2(code_f(b0[q], i0 + 1), code_f(b1[q], i0 + 1));
           };
-          if (u == 0) mma_step<true>(grp, b, pairs);
-          else mma_step<false>(grp, b, pairs);
+          if (u == 0) mma_step<true>(grp, sx, b, pairs);
+          else mma_step<false>(grp, sx, b, pairs);
         }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[slot]);
-      // the group's scale, once a column (d0, d1: column 2j; d2, d3: 2j+1)
+      // the group's zero and scale, once a column (d0, d1: column 2j;
+      // d2, d3: 2j+1; d0, d2: x's row 2t, d1, d3: 2t+1), the zero's term
+      // taken off in one rounding
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        acc[j][0] = fmaf(grp[j][0], sc[2 * j], acc[j][0]);
-        acc[j][1] = fmaf(grp[j][1], sc[2 * j], acc[j][1]);
-        acc[j][2] = fmaf(grp[j][2], sc[2 * j + 1], acc[j][2]);
-        acc[j][3] = fmaf(grp[j][3], sc[2 * j + 1], acc[j][3]);
+        acc[j][0] = fmaf(fmaf(nz[2 * j], sx[0], grp[j][0]), sc[2 * j], acc[j][0]);
+        acc[j][1] = fmaf(fmaf(nz[2 * j], sx[1], grp[j][1]), sc[2 * j], acc[j][1]);
+        acc[j][2] = fmaf(fmaf(nz[2 * j + 1], sx[0], grp[j][2]), sc[2 * j + 1], acc[j][2]);
+        acc[j][3] = fmaf(fmaf(nz[2 * j + 1], sx[1], grp[j][3]), sc[2 * j + 1], acc[j][3]);
       }
     }
   }
@@ -643,9 +657,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // the shapes and pointers the mma route takes (dqmm_plan's rule)
 bool mma_addressable(const void* x, const void* packed, const void* scales,
                      const void* zeros, int M, int K, int N, int bits, int group) {
-  const int bk = MmaLayout<4>::BK;  // the same for every width
-  return M <= 8 && K % 8 == 0 && N % 16 == 0 && group % 32 == 0 &&
-         (bk % group == 0 || group % bk == 0) && aligned16(x) &&
+  return M <= MMA_MAX_M && K % 8 == 0 && N % 16 == 0 && group % 32 == 0 &&
+         (MMA_BK % group == 0 || group % MMA_BK == 0) && aligned16(x) &&
          aligned16(packed) && aligned16(scales) && aligned16(zeros);
 }
 

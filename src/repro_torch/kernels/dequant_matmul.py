@@ -24,11 +24,13 @@ Tensor = torch.Tensor
 
 SOURCE = "dequant_matmul.cu"
 LORA_SOURCE = "dequant_matmul_lora.cu"
-_UNIT = 128          # K rows per staged unit (csrc: UNIT)
+_C = build.constants(SOURCE)
+_UNIT = _C["UNIT"]   # fma route: K rows per staged unit
 _BLOCKS_PER_SM = 4   # fma route's grid target: about this many blocks an SM
-# csrc/dequant_matmul.cu, mma route: output columns a block, K rows a
-# stage, rows of x at most, cluster size at most (portable)
-_MMA_BN, _MMA_BK, _MMA_MAX_M, _MMA_MAX_SPLITS = 128, 256, 8, 8
+# mma route: output columns a block, K rows a stage, rows of x at most,
+# cluster size at most (portable)
+_MMA_BN, _MMA_BK = _C["MMA_BN"], _C["MMA_BK"]
+_MMA_MAX_M, _MMA_MAX_SPLITS = _C["MMA_MAX_M"], _C["MMA_MAX_SPLITS"]
 _MMA_GRID_SHARE = 0.625  # the mma route's grid: about this share of the SMs
 DQMM_ROUTES = {"fma": 0, "mma": 1}     # csrc: route
 MAX_LORA_RANK = 128  # csrc/dequant_matmul_lora.cu: 16 * MAX_RPT
@@ -103,26 +105,31 @@ def mma_addressable(M: int, K: int, N: int, group: int,
 
 
 def dqmm_plan(M: int, K: int, N: int, group: int, *, bf16: bool,
-              aligned: bool, cpt: int, n_sm: int) -> DqmmPlan:
+              aligned: bool, cpt: int, n_sm: int,
+              splits: int | None = None) -> DqmmPlan:
     """The route and tiling of ``dequant_matmul_cuda`` for x (M, K) and N
     output columns on a card of ``n_sm`` SMs; ``cpt`` is the fma route's
     columns a thread (:func:`_columns_per_thread`).
 
     bf16 x that :func:`mma_addressable` takes runs on the tensor cores in
-    one launch: 128-column tiles, each split over K into as many cluster
-    blocks (at most 8, at least one 256-row stage a block) as make about
-    5/8 of ``n_sm`` blocks in all: on an H100 that split was the fastest
-    of 1, 2, 4 and 8 at each Qwen3-1.7B linear (``chip_smoke.py``
-    ``dequant_splits``); more blocks cost more in the cluster's combine
-    and in sharing SMs than they gain in loads in flight.  Everything
-    else (f32 x, which must stay f32 within 2e-4; more than 8 rows; ragged
-    N; other groups) takes the fma route: about four blocks an SM, K split
-    over the grid."""
+    one launch: 128-column tiles, each split over K into cluster blocks (at
+    most 8, at least one 256-row stage a block), a power of two nearest
+    (in ratio) to 5/8 of ``n_sm`` blocks in all: on an H100 that split was
+    the fastest of 1, 2, 4 and 8 at each Qwen3-1.7B linear
+    (``chip_smoke.py`` ``dequant_splits``); more blocks cost more in the
+    cluster's combine and in sharing SMs than they gain in loads in
+    flight.  ``splits`` asks for that many blocks a cluster instead (the
+    ``dequant_splits`` timing).  Any f32 zero is taken, on both routes.
+    Everything else (f32 x, which must stay f32 within 2e-4; more than 8
+    rows; ragged N; other groups) takes the fma route: about four blocks
+    an SM, K split over the grid."""
     if bf16 and mma_addressable(M, K, N, group, aligned):
         stages = -(-K // _MMA_BK)
         tiles = -(-N // _MMA_BN)
-        want = max(1, min(_MMA_MAX_SPLITS, stages,
-                          round(_MMA_GRID_SHARE * n_sm / tiles)))
+        if splits is None:
+            splits = 2 ** max(0, math.floor(
+                math.log2(_MMA_GRID_SHARE * n_sm / tiles) + 0.5))
+        want = max(1, min(_MMA_MAX_SPLITS, stages, splits))
         sps = -(-stages // want)
         splits = -(-stages // sps)
         return DqmmPlan("mma", splits, sps, splits * tiles, 1)
@@ -275,11 +282,13 @@ def _check_operands(what: str, x: Tensor, packed: Tensor, scales: Tensor,
 
 
 def dequant_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
-                        zeros: Tensor, *, bits: int,
-                        group_size: int | None) -> Tensor:
+                        zeros: Tensor, *, bits: int, group_size: int | None,
+                        plan: DqmmPlan | None = None) -> Tensor:
     """Launch the kernel.  x (..., K) f32 or bf16 on a CUDA device; packed
     (K*bits/8, N) uint8 for bits 2/4 (K, N) for 8; scales/zeros
-    (K/g, N) f32.  Raises on anything the kernel does not take."""
+    (K/g, N) f32, any values.  ``plan`` replaces :func:`plan_for`'s (to
+    time another split); the entry point checks it.  Raises on anything
+    the kernel does not take."""
     global launches
     x2, M, N, g = _check_operands("dequant_matmul", x, packed, scales, zeros,
                                   bits, group_size)
@@ -288,7 +297,8 @@ def dequant_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
-    plan = plan_for(x2, packed, scales, zeros, g)
+    if plan is None:
+        plan = plan_for(x2, packed, scales, zeros, g)
     partial = (torch.empty((plan.splits, M, N), dtype=torch.float32,
                            device=x.device) if plan.launches > 1 else None)
     fn = _lib()

@@ -21,12 +21,14 @@ Tensor = torch.Tensor
 
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 256
-# csrc/flash_attention.cu: query rows (warps) a block at most, the split
-# route's cluster size at most (portable), keys a warp scores per tile,
-# ring stages, the shared memory a block may use and the partials a query
-# row combines at most (splits x key groups)
-_ROWS, _MAX_SPLITS, _SPLIT_KEYS, _STAGES = 16, 8, 32, 3
-_SMEM_MAX, _MAX_PARTS = 232448, 16
+# the kernel's query rows (warps) a block at most, the split route's cluster
+# size at most (portable), keys a warp scores per tile, ring stages, the
+# shared memory a block may use and the partials a query row combines at
+# most (splits x key groups)
+_C = build.constants(SOURCE)
+_ROWS, _MAX_SPLITS, _SPLIT_KEYS, _STAGES = (
+    _C["ROWS"], _C["MAX_SPLITS"], _C["SPLIT_KEYS"], _C["STAGES"])
+_SMEM_MAX, _MAX_PARTS = _C["SMEM_MAX"], _C["MAX_PARTS"]
 
 # launches of the CUDA kernel; reset and read by callers that need to show
 # a path went through it

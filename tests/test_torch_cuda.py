@@ -239,9 +239,9 @@ def _device_kernels(fn, calls):
     return counts
 
 
-def _dq_operands(cuda, M, K, N, bits, g):
+def _dq_operands(cuda, M, K, N, bits, g, dtype=torch.bfloat16):
     codes, s, z = quantize_int(torch.randn(K, N, device=cuda) * 0.02, bits, g)
-    x = torch.randn(M, K, device=cuda).to(torch.bfloat16)
+    x = torch.randn(M, K, device=cuda).to(dtype)
     return x, pack_codes(codes, bits), s, z
 
 
@@ -279,6 +279,26 @@ def test_dequant_matmul_decode_route_odd_shapes(cuda, bits, shape):
                                      group_size=g), **_tol(torch.bfloat16))
 
 
+# zeros a quantizer other than the port's may write: not whole numbers,
+# negative, past the codes' range; both routes take any f32 zero
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,dtype,route", [(4, torch.bfloat16, "mma"),
+                                           (9, torch.bfloat16, "fma"),
+                                           (4, torch.float32, "fma")])
+def test_dequant_matmul_takes_any_zero(cuda, bits, M, dtype, route):
+    from repro_torch.kernels.dequant_matmul import plan_for
+    K, N, g = 2048, 1024, 64
+    x, packed, s, z = _dq_operands(cuda, M, K, N, bits, g, dtype)
+    z = z + torch.rand_like(z) - 0.5
+    z = z - (1 << bits) * (torch.rand_like(z) < 0.25) \
+        + 300.0 * (torch.rand_like(z) < 0.05)
+    assert plan_for(x, packed, s, z, g).route == route
+    y = ops.dequant_matmul(x, packed, s, z, bits=bits, group_size=g)
+    torch.cuda.synchronize()
+    _close(y, ref.dequant_matmul_ref(x, packed, s, z, bits=bits,
+                                     group_size=g), **_tol(dtype))
+
+
 def test_dequant_matmul_decode_route_is_one_launch(cuda):
     """One device kernel a call on the mma route, and no partial-sum
     reduction; the launch counter follows the calls."""
@@ -298,6 +318,15 @@ def _cache_kv(cuda, B, Sk, Hkv, d, dtype):
             for _ in range(2))
 
 
+def _decode_q(cuda, B, Hq, d, dtype):
+    """One query row a head.  bf16 q is scaled by 4: N(0, 16) logits put
+    each row's weight on a few keys, so the outputs are O(1) against the
+    5e-2 limit (at N(0, 1) logits a 4096-key output is about 0.026, and a
+    lost split would pass).  f32 stays flat: 1e-4 sees every key."""
+    q = torch.randn(B, Hq, 1, d, device=cuda)
+    return (q * 4.0 if dtype == torch.bfloat16 else q).to(dtype)
+
+
 # Sk and lengths: 1 and Sk itself, and lengths on the split boundaries
 # (flash_plan's chunk: 32 keys at Sk <= 128 on 132 SMs, 1024 at 4096)
 @pytest.mark.parametrize("Sk,lens", [(1, (1, 1, 1, 1)),
@@ -313,7 +342,7 @@ def test_flash_attention_split_route(cuda, Sk, lens, dtype):
     reference tolerance, the same bits on two runs."""
     from repro_torch.kernels.flash_attention import plan_for
     B, Hq, Hkv, d = 4, 16, 8, 128
-    q = torch.randn(B, Hq, 1, d, device=cuda).to(dtype)
+    q = _decode_q(cuda, B, Hq, d, dtype)
     k, v = _cache_kv(cuda, B, Sk, Hkv, d, dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     plan = plan_for(q, k, v)
@@ -354,7 +383,7 @@ def test_flash_attention_split_route_is_one_launch(cuda):
 def test_flash_attention_split_route_head_layouts(cuda, case, dtype):
     from repro_torch.kernels.flash_attention import plan_for
     B, Hq, Hkv, Sk, d, lens, causal = case
-    q = torch.randn(B, Hq, 1, d, device=cuda).to(dtype)
+    q = _decode_q(cuda, B, Hq, d, dtype)
     k, v = _cache_kv(cuda, B, Sk, Hkv, d, dtype)
     lengths = (None if lens is None
                else torch.tensor(lens, dtype=torch.int32, device=cuda))

@@ -27,7 +27,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert len(files) > 20
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_fault_check.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

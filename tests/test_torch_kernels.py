@@ -328,6 +328,36 @@ def test_dqmm_plan_decode_shapes_take_mma(M, K, N):
     assert 0.45 * H100_SMS <= p.blocks <= 0.75 * H100_SMS
 
 
+# the split the plan picks at each linear: the power of two nearest 5/8 of
+# the SMs, the fastest of 1, 2, 4 and 8 at each on an H100 (chip_smoke.py's
+# dequant_splits line); a requested split is taken as far as K allows
+@pytest.mark.parametrize("K,N,splits", [(2048, 1024, 8), (2048, 2048, 4),
+                                        (2048, 6144, 2), (6144, 2048, 4)])
+def test_dqmm_plan_split_at_qwen_linears(K, N, splits):
+    from repro_torch.kernels.dequant_matmul import dqmm_plan
+    kw = dict(bf16=True, aligned=True, cpt=4, n_sm=H100_SMS)
+    assert dqmm_plan(4, K, N, 64, **kw).splits == splits
+    for want in (1, 2, 4, 8):
+        p = dqmm_plan(4, K, N, 64, splits=want, **kw)
+        assert p.route == "mma" and p.splits == want
+        assert p.splits * p.per_split >= K // 256
+    assert dqmm_plan(4, 256, N, 64, splits=8, **kw).splits == 1
+
+
+def test_plan_constants_come_from_the_sources():
+    """The plan functions read the kernels' tile sizes and limits from the
+    CUDA sources, where the entry points check them again."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import flash_attention as fa
+    c = build.constants("dequant_matmul.cu")
+    assert (dq._UNIT, dq._MMA_BN, dq._MMA_BK, dq._MMA_MAX_M,
+            dq._MMA_MAX_SPLITS) == (128, 128, 256, 8, 8)
+    assert c["UNIT"] == c["NWARP"] * c["KS"]
+    assert (fa._ROWS, fa._MAX_SPLITS, fa._SPLIT_KEYS, fa._STAGES,
+            fa._SMEM_MAX, fa._MAX_PARTS) == (16, 8, 32, 3, 232448, 16)
+
+
 @pytest.mark.parametrize("M,K,N,g,bf16,aligned", [
     (4, 2048, 200, 64, True, True),     # N % 16 != 0
     (4, 2052, 2048, 4, True, True),     # K % 8 != 0, group 4
@@ -380,3 +410,22 @@ def test_flash_plan_other_shapes_take_tiled(shape, vec):
     from repro_torch.kernels.flash_attention import flash_plan
     p = flash_plan(*shape, elem=4, vec=vec, n_sm=H100_SMS)
     assert p.route == "tiled" and p.launches == 1 and p.splits == 0
+
+
+def test_fault_check_plants_one_fault():
+    """chip_fault_check.py's planted fault (the attention combine leaves
+    out the last rank's partial) still finds its one line in the kernel."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "chip_fault_check", root / "chip_fault_check.py")
+    fc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fc)
+    sound = (root / fc.KERNEL).read_text()
+    fault = fc.plant_fault(sound)
+    changed = [(a, b) for a, b in zip(sound.splitlines(), fault.splitlines())
+               if a != b]
+    assert len(changed) == 1 and fc.FAULT in changed[0][1]
+    with pytest.raises(ValueError):
+        fc.plant_fault(fault)
