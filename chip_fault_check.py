@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Planted-fault check of ``chip_smoke.py``'s bf16 decode attention cases.
+"""Planted-fault check of ``chip_smoke.py``'s bf16 decode attention cases
+and its gram cases.
 
     python3 chip_fault_check.py
 
 Run from the root of a checkout on a machine with one NVIDIA GPU.  It
-copies ``src/repro_torch`` into the git-ignored ``build/fault_copy/``,
-plants one fault in the copy's ``flash_attention.cu`` (the cluster's
-combine leaves out the last rank's partial softmax), and runs the bf16
-decode cases of ``check_flash`` (``chip_smoke.FLASH_DECODE``, keys split
-over a cluster) on the real sources and on the copy, each in its own
-process, at q scale 1 and at ``chip_smoke.FLASH_Q_PEAK``.  One JSON line a
-case: tree, q scale, cache, lengths, the plan's splits, whether the
-5e-2 check passes, the error and the reference's largest output.
+copies ``src/repro_torch`` into the git-ignored ``build/fault_copy/`` and
+plants two faults in the copy:
 
-Exits 0 when every case passes on the real sources and the check fails
-on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, i.e. when
-``check_flash``'s limit can see a lost split; the last line says which.
+* ``flash_attention.cu``: the cluster's combine leaves out the last rank's
+  partial softmax.  The bf16 decode cases of ``check_flash``
+  (``chip_smoke.FLASH_DECODE``, keys split over a cluster) run at q scale
+  1 and at ``chip_smoke.FLASH_Q_PEAK``.
+* ``gram.cu``: the tensor-core route loads the last token stage of every
+  tile from the stage before it, so the last 64 tokens are lost and the
+  64 before them count twice.  The bf16 cases of ``check_gram`` that take
+  the tensor-core route (the calibration shapes and
+  ``chip_smoke.GRAM_WGMMA``) run at the bf16 and the f32 tolerance.
+
+Each set runs on the real sources and on the copy, each tree in its own
+process.  One JSON line a case: tree, kernel, shape, the plan's split or
+route, whether the checks pass, the error and the reference's largest
+value.
+
+Exits 0 when every case passes on the real sources, the attention check
+fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, and the
+gram check fails on the copy in every case with more than one token
+stage; the last line says which.
 """
 from __future__ import annotations
 
@@ -31,25 +42,36 @@ KERNEL = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
 # the combine's count of partials; the fault drops the last rank's
 SOUND = "const int nparts = splits * kw;"
 FAULT = "const int nparts = (splits > 1 ? splits - 1 : 1) * kw;"
+GRAM_KERNEL = Path("src/repro_torch/kernels/csrc/gram.cu")
+# the first token of a stage's loads; the fault loads the last stage's
+# from the stage before it
+GRAM_SOUND = "const int t0 = ks * WG_BK;"
+GRAM_FAULT = "const int t0 = (ks + 1 == kt && ks > 0 ? ks - 1 : ks) * WG_BK;"
+
+
+def _plant(text: str, sound: str, fault: str, where: Path) -> str:
+    if text.count(sound) != 1:
+        raise ValueError(f"{where}: expected one line {sound!r}")
+    return text.replace(sound, fault)
 
 
 def plant_fault(text: str) -> str:
-    """The kernel source with the fault in place of the sound line."""
-    if text.count(SOUND) != 1:
-        raise ValueError(f"{KERNEL}: expected one line {SOUND!r}")
-    return text.replace(SOUND, FAULT)
+    """The attention kernel's source with its fault in place of the sound
+    line."""
+    return _plant(text, SOUND, FAULT, KERNEL)
 
 
-def run_cases(tree: Path) -> list[dict]:
-    """The bf16 decode cases on the sources under ``tree``."""
-    sys.path.insert(0, str(tree / "src"))
-    import torch
+def plant_gram_fault(text: str) -> str:
+    """The gram kernel's source with its fault in place of the sound
+    line."""
+    return _plant(text, GRAM_SOUND, GRAM_FAULT, GRAM_KERNEL)
 
-    import chip_smoke as cs
+
+def flash_cases(torch, cs, dev) -> list[dict]:
+    """The bf16 decode attention cases on the sources imported."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      plan_for)
-    dev = torch.device("cuda", 0)
     B, Hq, Hkv, d = 4, 16, 8, 128
     out = []
     for scale in (1.0, cs.FLASH_Q_PEAK):
@@ -65,11 +87,46 @@ def run_cases(tree: Path) -> list[dict]:
             o_ref = ref.flash_attention_ref(q, k, v, causal=False,
                                             lengths=lengths)
             ok, err = cs.within(o, o_ref, cs.TOL_ATTN["bfloat16"])
-            out.append({"q_scale": scale, "Sk": Sk, "lengths": list(lens),
+            out.append({"kernel": "flash_attention", "q_scale": scale,
+                        "Sk": Sk, "lengths": list(lens),
                         "splits": plan_for(q, k, v).splits, "passes": ok,
                         "max_abs_err": err,
                         "max_abs_ref": float(o_ref.float().abs().max())})
     return out
+
+
+def gram_cases(torch, cs, dev) -> list[dict]:
+    """The bf16 gram cases of the tensor-core route on the sources
+    imported."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gram import gram_cuda, plan_for
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    shapes = [(cs.TRAIN_TOKENS, D) for D in (2048, 6144)] + list(cs.GRAM_WGMMA)
+    out = []
+    for T, D in shapes:
+        x = torch.randn((T, D), generator=gen, device=dev).to(torch.bfloat16)
+        h = gram_cuda(x)
+        h_ref = ref.gram_ref(x)
+        ok, err = cs.within(h, h_ref, cs.TOL_GRAM["bfloat16"])
+        ok32 = cs.within(h, h_ref, cs.TOL_GRAM["float32"])[0]
+        out.append({"kernel": "gram", "T": T, "D": D,
+                    "route": plan_for(x).route,
+                    "passes": ok and bool(torch.equal(h, h.T)),
+                    "passes_f32_tol": ok32, "max_abs_err": err,
+                    "max_abs_ref": float(h_ref.abs().max())})
+    return out
+
+
+def run_cases(tree: Path) -> list[dict]:
+    """Both sets of cases on the sources under ``tree``."""
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+
+    import chip_smoke as cs
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
 
 
 def main() -> int:
@@ -81,14 +138,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: CUDA is not available", file=sys.stderr)
         return 1
-    if not (ROOT / KERNEL).is_file():
-        print(f"chip_fault_check: no {KERNEL} beside {__file__}",
-              file=sys.stderr)
+    if not (ROOT / KERNEL).is_file() or not (ROOT / GRAM_KERNEL).is_file():
+        print(f"chip_fault_check: no {KERNEL} or {GRAM_KERNEL} beside "
+              f"{__file__}", file=sys.stderr)
         return 1
     shutil.rmtree(COPY, ignore_errors=True)
     shutil.copytree(ROOT / "src" / "repro_torch", COPY / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     (COPY / KERNEL).write_text(plant_fault((ROOT / KERNEL).read_text()))
+    (COPY / GRAM_KERNEL).write_text(
+        plant_gram_fault((ROOT / GRAM_KERNEL).read_text()))
     rows = {}
     for name, tree in (("sources", ROOT), ("fault", COPY)):
         proc = subprocess.run([sys.executable, __file__, "--tree", str(tree)],
@@ -101,11 +160,16 @@ def main() -> int:
         for row in rows[name]:
             print(json.dumps({"tree": name, **row}), flush=True)
     import chip_smoke as cs
-    sound = all(r["passes"] for r in rows["sources"])
-    seen = all(not r["passes"] for r in rows["fault"]
-               if r["q_scale"] == cs.FLASH_Q_PEAK and r["Sk"] == 4096)
-    print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": seen}))
-    return 0 if sound and seen else 1
+    sound = all(r["passes"] and r.get("passes_f32_tol", True)
+                for r in rows["sources"])
+    flash_seen = all(not r["passes"] for r in rows["fault"]
+                     if r["kernel"] == "flash_attention"
+                     and r["q_scale"] == cs.FLASH_Q_PEAK and r["Sk"] == 4096)
+    gram_seen = all(not r["passes"] for r in rows["fault"]
+                    if r["kernel"] == "gram" and r["T"] > 64)
+    print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
+                      "gram_fault_caught": gram_seen}))
+    return 0 if sound and flash_seen and gram_seen else 1
 
 
 if __name__ == "__main__":

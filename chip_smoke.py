@@ -14,8 +14,9 @@ one JSON line each:
    at its main path's shapes and at a sweep of others, with
    ``torch.cuda.synchronize()`` after each launch, on every route its plan
    function picks, each case's route and error on a ``dequant_cases``,
-   ``flash_cases`` or ``lora_cases`` line; the decode and train shapes run
-   twice for equal bits.  Then the kernel, the plain version and one
+   ``flash_cases``, ``gram_cases`` or ``lora_cases`` line; the decode and
+   train shapes run twice for equal bits, and ``gram``'s tensor-core
+   cases must also meet the f32 tolerance (exact products).  Then the kernel, the plain version and one
    PyTorch library call timed over one step's worth of calls (CUDA graphs
    replayed between CUDA events), the least time the card could take for
    the same work and, for the decode kernels, the bytes/s reached and
@@ -25,8 +26,10 @@ one JSON line each:
    one calibration batch of the fine-tuning run and
    ``dequant_matmul_lora`` over one training forward.  dequant_splits: the
    tensor-core route of ``dequant_matmul`` at 1 to 8 blocks a cluster for
-   each Qwen3-1.7B linear, the data behind ``dqmm_plan``'s split.  Then
-   lora_route:
+   each Qwen3-1.7B linear, the data behind ``dqmm_plan``'s split.
+   gram_tiles: ``gram``'s tensor-core route at each calibration width with
+   1/4 to all of the SMs' worth of persistent blocks, the data behind
+   ``gram_plan``'s grid.  Then lora_route:
    the two routes ``linear_apply`` can take for a quantized linear with
    LoRA on the kernel path (fused kernel; ``dequant_matmul`` plus unfused
    LoRA) timed at 4 to 1024 rows, which sets ``ops.FUSED_LORA_MIN_ROWS``.
@@ -494,39 +497,72 @@ TRAIN_TOKENS = 8 * 128
 GRAM_DIMS = (2048,) * 6 + (6144,)
 
 
-def check_gram(torch, dev) -> dict:
+# check_gram's cases for the tensor-core route beyond the main ones: T
+# ragged around the 64-token stage and past it, D cut inside a 128-column
+# tile (136, 2056: 8 columns into the last one; 8: one tile mostly past D)
+GRAM_WGMMA = ((1, 2048), (63, 136), (65, 2056), (1000, 2056), (4096, 136),
+              (129, 8), (1000, 6144))
+
+
+def check_gram(torch, dev) -> tuple[dict, list]:
+    """The kernel against its plain version: the main cases (T = 1024, D =
+    2048 and 6144, bf16 run twice for equal bits, and f32), the
+    tensor-core route's ragged cases and the sweep (f32 and D % 8 != 0
+    take the CUDA-core route).  Every case exactly symmetric; the bf16
+    cases on the wgmma route also within the f32 tolerance (their products
+    are exact, so a lost token stage or a wrong swizzle cannot hide in
+    the bf16 one).  Returns the summary and one ``[T, D, dtype, route,
+    max_abs_err, max_abs_ref, within_f32_tol]`` a case."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.gram import gram_cuda
+    from repro_torch.kernels.gram import gram_cuda, plan_for
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     main = [(TRAIN_TOKENS, D, dt) for D in (2048, 6144)
             for dt in (torch.bfloat16, torch.float32)]
+    wgmma = [(T, D, torch.bfloat16) for T, D in GRAM_WGMMA]
     sweep = [(T, D, dt) for T, D in ((1, 64), (1, 50), (37, 50), (300, 130),
                                      (129, 65), (1000, 2047), (64, 1))
              for dt in (torch.float32, torch.bfloat16)]
-    main_err = 0.0
-    for i, (T, D, dt) in enumerate(main + sweep):
+    main_err, cases, routes = 0.0, [], {}
+    for i, (T, D, dt) in enumerate(main + wgmma + sweep):
         x = torch.randn((T, D), generator=gen, device=dev).to(dt)
+        route = plan_for(x).route
         h = gram_cuda(x)
         torch.cuda.synchronize()
         h_ref = ref.gram_ref(x)
         torch.cuda.synchronize()
-        ok, err = within(h, h_ref, TOL_GRAM[str(dt).split(".")[-1]])
+        dname = str(dt).split(".")[-1]
+        ok, err = within(h, h_ref, TOL_GRAM[dname])
+        ok32 = within(h, h_ref, TOL_GRAM["float32"])[0]
+        what = f"gram T={T} D={D} {dname} ({route})"
         if not ok or not torch.equal(h, h.T):
-            raise Failed(f"gram T={T} D={D} {dt}: max err {err}, symmetric "
+            raise Failed(f"{what}: max err {err}, symmetric "
                          f"{bool(torch.equal(h, h.T))}")
+        if route == "wgmma" and not ok32:
+            raise Failed(f"{what}: max err {err} outside the f32 tolerance "
+                         "(exact products)")
+        if dt == torch.bfloat16 and i < len(main) + len(wgmma) and \
+                route != "wgmma":
+            raise Failed(f"{what}: not on the tensor-core route")
         if i < len(main) and dt == torch.bfloat16:
+            again = gram_cuda(x)
+            torch.cuda.synchronize()
+            if not torch.equal(h, again):
+                raise Failed(f"{what}: two runs differ")
             main_err = max(main_err, err)
-    return {"cases": len(main) + len(sweep), "max_abs_err": main_err}
+        routes[route] = routes.get(route, 0) + 1
+        cases.append([T, D, dname, route, err,
+                      float(h_ref.abs().max()), ok32])
+    if set(routes) != {"wgmma", "fma"}:
+        raise Failed(f"gram cases missed a route: {routes}")
+    return ({"cases": len(cases), "routes": routes, "max_abs_err": main_err,
+             "deterministic": True}, cases)
 
 
-def time_gram(torch, dev, layers: int = 28) -> dict:
-    """One calibration batch's Gram calls: 7 x ``layers`` at T = 1024,
-    bf16, as ``GramStore.add`` makes them (q, k and v see the same x)."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.gram import gram_cuda
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(6)
+def _gram_sets(torch, dev, gen, layers: int):
+    """One calibration batch's Gram operands: 7 x ``layers`` at T = 1024,
+    bf16, as ``GramStore.add`` makes them (q, k and v see the same x, as do
+    gate and up), with their bytes and operations."""
     T = TRAIN_TOKENS
     sets, nbytes, flops = [], 0, 0
     for _ in range(layers):
@@ -537,6 +573,21 @@ def time_gram(torch, dev, layers: int = 28) -> dict:
             sets.append(xs[D])
             nbytes += T * D * 2 + D * D * 4
             flops += T * D * (D + 1)        # H is symmetric: i <= j only
+    return sets, nbytes, flops
+
+
+def time_gram(torch, dev, layers: int = 28) -> dict:
+    """One calibration batch's Gram calls (:func:`_gram_sets`): the kernel,
+    the plain version and the bf16 library call that computes the same
+    function (bf16 products, f32 sums and output, the whole square), with
+    the f32 matmul ``GramStore.add`` ran before the kernel beside it; the
+    plan at each D, TFLOP/s on the triangle and the share of the bound."""
+    import dataclasses
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gram import gram_cuda, plan_for
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    sets, nbytes, flops = _gram_sets(torch, dev, gen, layers)
 
     def kernel():
         for x in sets:
@@ -546,16 +597,66 @@ def time_gram(torch, dev, layers: int = 28) -> dict:
         for x in sets:
             ref.gram_ref(x)
 
-    def library():                  # GramStore.add before the kernel
+    def library():
+        for x in sets:
+            torch.mm(x.T, x, out_dtype=torch.float32)
+
+    def library_f32():
         for x in sets:
             torch.matmul(x.float().T, x.float())
 
     ms = time_graph(torch, kernel)
     plain_ms = time_graph(torch, plain)
     library_ms = time_graph(torch, library)
+    library_f32_ms = time_graph(torch, library_f32)
+    b = bound(nbytes, flops, BF16_FLOPS)
+    plans = {str(D): dataclasses.asdict(plan_for(x))
+             for D, x in ((2048, sets[0]), (6144, sets[6]))}
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "f32 torch.matmul(x.float().T, x.float())",
-            **bound(nbytes, flops, BF16_FLOPS), "calls": len(sets)}
+            "library": "torch.mm(x.T, x, out_dtype=torch.float32): bf16 "
+                       "products, f32 sums, the whole square",
+            "library_f32_ms": library_f32_ms,
+            "library_f32": "f32 torch.matmul(x.float().T, x.float())",
+            **b, "calls": len(sets), "tflops": flops / ms / 1e9,
+            "bound_share": b["bound_ms"] / ms, "plans": plans}
+
+
+GRAM_GRIDS = (33, 66, 99, 132)
+
+
+def time_gram_tiles(torch, dev, calls: int = 28) -> dict:
+    """The data behind ``gram_plan``'s grid: the tensor-core route at each
+    calibration width (T = 1024, bf16, each call on its own x) with 1/4 to
+    all of the SMs' worth of persistent blocks (``GRAM_GRIDS``) and the
+    plan's own: microseconds a call, each grid's microseconds a tile a
+    block (time over the rounds of tiles a block walks), the plan's grid
+    and the fastest."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gram as gm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    n_sm = build.sm_count(dev)
+    rows = {}
+    for D in sorted(set(GRAM_DIMS)):
+        xs = [torch.randn((TRAIN_TOKENS, D), generator=gen,
+                          device=dev).to(torch.bfloat16)
+              for _ in range(calls)]
+        picked = gm.plan_for(xs[0])
+        us, per_tile = {}, {}
+        for want in sorted(set(GRAM_GRIDS) | {picked.grid}):
+            plan = gm.gram_plan(TRAIN_TOKENS, D, bf16=True, aligned=True,
+                                n_sm=n_sm, grid=want)
+
+            def run(plan=plan):
+                for x in xs:
+                    gm.gram_cuda(x, plan=plan)
+            us[str(plan.grid)] = 1e3 * time_graph(torch, run) / calls
+            per_tile[str(plan.grid)] = us[str(plan.grid)] / \
+                -(-plan.tiles // plan.grid)
+        rows[str(D)] = {"tiles": picked.tiles, "us_by_grid": us,
+                        "us_a_tile_round": per_tile, "plan": picked.grid,
+                        "fastest": int(min(us, key=us.get))}
+    return {"calls": calls, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1079,7 +1180,7 @@ def main(argv=None) -> int:
         phase = "kernels"
         dq, dq_cases = check_dequant(torch, dev)
         fa, fa_cases = check_flash(torch, dev)
-        gr = check_gram(torch, dev)
+        gr, gr_cases = check_gram(torch, dev)
         lo, lo_cases = check_lora(torch, dev)
         dq_t = time_dequant(torch, dev)
         fa_t = time_flash(torch, dev)
@@ -1098,6 +1199,10 @@ def main(argv=None) -> int:
               "fields": ["B", "Hq", "Hkv", "Sq", "Sk", "d", "causal", "dtype",
                          "route", "max_abs_err", "max_abs_ref"]})
         emit({"phase": "dequant_splits", **time_dequant_splits(torch, dev)})
+        emit({"phase": "kernels", "gram_cases": gr_cases,
+              "fields": ["T", "D", "dtype", "route", "max_abs_err",
+                         "max_abs_ref", "within_f32_tol"]})
+        emit({"phase": "gram_tiles", **time_gram_tiles(torch, dev)})
         emit({"phase": "kernels", "gram": {**gr, **gr_t},
               "dequant_matmul_lora": {**lo, **lo_t},
               "work": "one 28-layer qwen3-1.7b calibration batch (gram) "

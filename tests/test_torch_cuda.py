@@ -117,6 +117,34 @@ def test_gram_kernel_matches_plain(cuda, dtype, shape):
     assert torch.equal(h, ops.gram(x))  # deterministic
 
 
+# the wgmma route of gram: ragged T (1, around the 64-token stage, 1000)
+# and D (8: one tile mostly past D; 136 and 2056: a 128-column tile cut at
+# 8; 2048 and 6144, the calibration widths), both token splits.  Its
+# products are exact in f32, so it must meet the f32 tolerance too: that
+# is the check a dropped token stage or a wrong swizzle cannot pass.
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 1000, 1024, 4096])
+@pytest.mark.parametrize("D", [8, 136, 2048, 2056, 6144])
+def test_gram_wgmma_route(cuda, T, D):
+    from repro_torch.kernels.gram import plan_for
+    x = torch.randn(T, D, device=cuda).to(torch.bfloat16)
+    plan = plan_for(x)
+    assert plan.route == "wgmma"
+    counts = _device_kernels(lambda: ops.gram(x), 3)
+    if not counts:  # the profiler kept no device event at all: once more
+        counts = _device_kernels(lambda: ops.gram(x), 3)
+    kernels = {k: n for k, n in counts.items() if "gram" in k}
+    assert len(kernels) == 1 and "wgmma" in next(iter(kernels)), counts
+    assert next(iter(kernels.values())) == 3    # one kernel a call
+    h = ops.gram(x)
+    h2 = ops.gram(x)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h.T)
+    assert torch.equal(h, h2)
+    hr = ref.gram_ref(x)
+    _close(h, hr, rtol=2e-2, atol=2e-1)
+    _close(h, hr, rtol=1e-4, atol=1e-2)
+
+
 def _lora_case(cuda, M, K, N, g, bits, r, dtype):
     codes, s, z = quantize_int(torch.randn(K, N, device=cuda) * 0.02, bits, g)
     x = torch.randn(M, K, device=cuda).to(dtype)

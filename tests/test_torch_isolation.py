@@ -1,8 +1,8 @@
 """The port stands alone and never falls back from the card.
 
-* No file of ``src/repro_torch`` and not ``chip_smoke.py`` imports ``jax``,
-  ``jaxlib`` or ``repro`` (AST scan), and a fresh interpreter runs a CPU
-  decode step with ``jax`` never loaded.
+* No file of ``src/repro_torch`` and none of the ``chip_*.py`` scripts
+  imports ``jax``, ``jaxlib`` or ``repro`` (AST scan), and a fresh
+  interpreter runs a CPU decode step with ``jax`` never loaded.
 * The CUDA branch of each ``ops`` wrapper raises when the kernel library
   reports an error or cannot be built; it never returns the plain
   version.  No CUDA tensor can exist on this host, so the device test and
@@ -27,7 +27,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert len(files) > 20
-    return files + [REPO / "chip_smoke.py", REPO / "chip_fault_check.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_fault_check.py",
+                    REPO / "chip_gram_losses.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -412,6 +412,63 @@ def test_flash_plan_other_shapes_take_tiled(shape, vec):
     assert p.route == "tiled" and p.launches == 1 and p.splits == 0
 
 
+# gram: bf16 x that TMA can address takes the tensor cores (128 x 128
+# tiles of the upper triangle, persistent blocks, one an SM as far as
+# there are tiles: 136 at D = 2048, 1176 at 6144, whatever T is); f32 and
+# what TMA cannot address take the CUDA-core route over 64 x 64 tiles
+@pytest.mark.parametrize("T", [1024, 128])
+@pytest.mark.parametrize("D", [2048, 6144])
+def test_gram_plan_qwen_shapes_take_wgmma(T, D):
+    from repro_torch.kernels.gram import gram_plan
+    p = gram_plan(T, D, bf16=True, aligned=True, n_sm=H100_SMS)
+    nb = D // 128
+    assert (p.route, p.tile) == ("wgmma", 128)
+    assert p.tiles == nb * (nb + 1) // 2 == {2048: 136, 6144: 1176}[D]
+    assert p.grid == H100_SMS
+    assert gram_plan(T, D, bf16=True, aligned=True, n_sm=H100_SMS,
+                     grid=33).grid == 33
+
+
+@pytest.mark.parametrize("D,tiles", [(8, 1), (136, 3), (1032, 45)])
+def test_gram_plan_grid_is_at_most_a_block_a_tile(D, tiles):
+    from repro_torch.kernels.gram import gram_plan
+    for grid in (None, 500):
+        p = gram_plan(1, D, bf16=True, aligned=True, n_sm=H100_SMS,
+                      grid=grid)
+        assert p.route == "wgmma" and p.tiles == p.grid == tiles
+
+
+@pytest.mark.parametrize("T,D,bf16,aligned", [
+    (1024, 2048, False, True),   # f32: its rtol 1e-4 rules out plain TF32
+    (1024, 6144, False, True),
+    (37, 50, True, True),        # D % 8 != 0: no 16-byte row stride
+    (300, 130, True, True),
+    (1000, 2047, True, True),
+    (1024, 2048, True, False),   # a base not 16-byte aligned
+])
+def test_gram_plan_f32_and_unaddressable_take_fma(T, D, bf16, aligned):
+    from repro_torch.kernels.gram import gram_plan
+    p = gram_plan(T, D, bf16=bf16, aligned=aligned, n_sm=H100_SMS)
+    nb = -(-D // 64)
+    assert (p.route, p.tile) == ("fma", 64)
+    assert p.grid == p.tiles == nb * nb
+
+
+def test_gram_plan_constants_come_from_the_source():
+    """gram_plan reads both routes' tile edges from gram.cu, where the
+    entry point checks the plan again; the wgmma route's ring and staging
+    fit a block's shared memory."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gram
+    c = build.constants("gram.cu")
+    assert (gram._TILE, gram._WG_TILE) == (c["TILE"], c["WG_TILE"]) \
+        == (64, 128)
+    assert c["STAGE_BYTES"] == 2 * 128 * c["WG_BK"] * 2
+    assert c["WG_SMEM"] == (1024 + c["WG_STAGES"] * c["STAGE_BYTES"]
+                            + 128 * 128 * 4 + 128)
+    assert c["WG_SMEM"] <= c["WG_SMEM_LIMIT"] == 232448
+
+
 def test_fault_check_plants_one_fault():
     """chip_fault_check.py's planted fault (the attention combine leaves
     out the last rank's partial) still finds its one line in the kernel."""
@@ -429,3 +486,24 @@ def test_fault_check_plants_one_fault():
     assert len(changed) == 1 and fc.FAULT in changed[0][1]
     with pytest.raises(ValueError):
         fc.plant_fault(fault)
+
+
+def test_fault_check_plants_the_gram_fault():
+    """chip_fault_check.py's planted gram fault (the last token stage of
+    each tile loaded from the stage before it) finds its one line in the
+    kernel, and the check names it among what it must catch."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "chip_fault_check", root / "chip_fault_check.py")
+    fc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fc)
+    sound = (root / fc.GRAM_KERNEL).read_text()
+    fault = fc.plant_gram_fault(sound)
+    changed = [(a, b) for a, b in zip(sound.splitlines(), fault.splitlines())
+               if a != b]
+    assert len(changed) == 1 and fc.GRAM_FAULT in changed[0][1]
+    assert "ks * WG_BK" in changed[0][0]
+    with pytest.raises(ValueError):
+        fc.plant_gram_fault(fault)
