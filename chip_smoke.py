@@ -42,25 +42,42 @@ one JSON line each:
    autograd through the plain version at a training shape.
 6. train   — ``repro_torch.launch.train`` on qwen3-1.7b at full width and
    all 28 layers (CLoQ 4-bit, group 64, rank 64, calibration 4 x 8 x 128
-   tokens, batch 8, sequence 128, 4 LoRA steps).  The launch counters are
-   reset just before and read just after; ``gram`` and
-   ``dequant_matmul_lora`` must match the calibration and step counts.
-   Quantize seconds, step seconds, tokens/s, peak memory and the losses.
-   Then train_profile: two more steps under ``torch.profiler`` (step
-   time, device busy and idle share, top kernels).
+   tokens, batch 8, sequence 128, 4 LoRA steps), saving its state with
+   ``--ckpt-dir`` under the git-ignored ``build/chip_smoke/``.  The
+   launch counters are reset just before and read just after; ``gram``
+   and ``dequant_matmul_lora`` must match the calibration and step
+   counts, and step 4 must be saved.  Quantize seconds, step seconds,
+   tokens/s, peak memory, the losses and the saved step.  Then
+   train_profile: two more steps under ``torch.profiler`` (step time,
+   device busy and idle share, top kernels).
 7. serve   — ``repro_torch.launch.serve`` on qwen3-1.7b at full width with
    the CLI's full-size settings (CLoQ 4-bit, group 64, rank 64, 2 x 64
-   calibration tokens, batch 4, 8 requests x 16 tokens, cache 128),
-   ``--layers`` deep (all 28 by default).  Counters reset just before and
-   read just after; ``dequant_matmul``, ``flash_attention`` and ``gram``
-   must each be > 0.
-8. profile — a few more decode steps of the served model under
-   ``torch.profiler``: step time, device busy time a step and idle share,
-   top kernels.
+   calibration tokens, cache 128), through its route for such a model,
+   the multi-tenant engine: ``--tenants 4 --ranks 64,16 --batch 4
+   --page-size 8``, 8 requests x 16 tokens, and ``--adapter tuned=`` the
+   train phase's checkpoint; ``--layers`` deep (all 28 by default; a cut
+   depth serves no ``tuned``, whose adapters have 28 layers).  Each rank
+   bucket's decode step is captured as a CUDA graph.  Counters reset
+   just before and read just after: ``dequant_matmul`` and
+   ``flash_attention`` must count 7 and 1 a layer for every bucket decode
+   (replays counted as their captured launches), ``gram`` > 0; the
+   ``serve.*`` counters must show 8 requests finished with 16 tokens
+   each; both rank buckets must decode and ``tuned`` must be served.
+8. serve_graph — on the served params, the engine with its steps eager
+   and captured, and the fixed-slot loop (batch 4, 8 requests x 16
+   tokens) eager and captured: equal greedy tokens for each pair, the
+   fixed-slot loop counting 6272 ``dequant_matmul`` and 896
+   ``flash_attention`` launches both ways; slot tokens/s of each run.
+9. profile — the fixed-slot loop and the engine, each eager and
+   captured (after a warm run of each), under ``torch.profiler``
+   recording the device's events only: step
+   time (also the median of the steps' own host times), device busy time
+   a step and idle share, top kernels.
 
 Then the kernel table as one JSON line (each kernel's launches from the
-path that runs it: train for ``gram`` and ``dequant_matmul_lora``, serve
-for the others), the ``nvidia-smi`` name and power limit line, and last
+path that runs it: train for ``gram`` and ``dequant_matmul_lora``, the
+engine serve for the others), the ``nvidia-smi`` name and power limit
+line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without the ``ok`` line, as does a host without CUDA or a directory
 without the repository's ``src/repro_torch``.
@@ -94,6 +111,10 @@ TOL_GRAM = {"float32": (1e-4, 1e-2), "bfloat16": (2e-2, 2e-1)}   # gram
 QWEN_LINEARS = ((2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048),
                 (2048, 6144), (2048, 6144), (6144, 2048))
 
+
+# where the train phase saves its state and the serve phase loads the
+# ``tuned`` tenant from (git-ignored)
+CKPT_DIR = ROOT / "build" / "chip_smoke" / "train_ckpt"
 
 T0 = time.perf_counter()
 
@@ -982,10 +1003,13 @@ def train_phase(torch, dev, steps: int = 4):
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.utils import tree_paths
+    import shutil
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     argv = ["--arch", "qwen3-1.7b", "--method", "cloq", "--bits", "4",
             "--group-size", "64", "--rank", "64", "--calib-batches", "4",
             "--batch", "8", "--seq-len", "128", "--steps", str(steps),
-            "--seed", "0", "--device", str(dev)]
+            "--seed", "0", "--device", str(dev),
+            "--ckpt-dir", str(CKPT_DIR)]
     args = train.build_parser().parse_args(argv)
     cfg = get_config("qwen3-1.7b")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1004,7 +1028,13 @@ def train_phase(torch, dev, steps: int = 4):
            / sum(step_s[1:]),
            "losses": res["losses"], "grad_norms": res["grad_norms"],
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "launches": counts, "lora_sites": n_lora}
+           "launches": counts, "lora_sites": n_lora,
+           "ckpt_dir": str(CKPT_DIR.relative_to(ROOT)),
+           "ckpt_step": res["ckpt_step"],
+           "ckpt_gb": sum(f.stat().st_size for f in CKPT_DIR.rglob("*")
+                          if f.is_file()) / 1e9}
+    if res["ckpt_step"] != steps:
+        raise Failed(f"train saved step {res['ckpt_step']}, not {steps}")
     want = {"gram": 7 * L * args.calib_batches,
             "dequant_matmul_lora": 7 * L * steps}
     if any(counts[k] != v for k, v in want.items()):
@@ -1020,16 +1050,36 @@ def train_phase(torch, dev, steps: int = 4):
 # decode's 4 rows are below ops.FUSED_LORA_MIN_ROWS, so LoRA is added
 # unfused; its calibration runs through gram
 SERVE_KERNELS = ("dequant_matmul", "flash_attention", "gram")
+SERVE_RANKS = (64, 16)
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _engine_step_ms(s: dict) -> dict:
+    """Median host ms of the engine's steps, by bucket decodes a step."""
+    by: dict = {}
+    for t, n in zip(s["step_s"], s["step_decodes"]):
+        by.setdefault(n, []).append(t)
+    return {n: 1e3 * _median(ts) for n, ts in sorted(by.items())}
 
 
 def serve_phase(torch, dev, layers: int) -> tuple[dict, dict]:
+    """The serve CLI's engine route at full width (see the module doc)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.utils import assert_finite, tree_paths, tree_size_bytes
+    tuned = layers == 28
     argv = ["--arch", "qwen3-1.7b", "--method", "cloq", "--bits", "4",
             "--batch", "4", "--requests", "8", "--max-new", "16",
-            "--cache-len", "128", "--seed", "0", "--device", str(dev)]
+            "--cache-len", "128", "--page-size", "8", "--tenants", "4",
+            "--ranks", ",".join(map(str, SERVE_RANKS)), "--seed", "0",
+            "--device", str(dev)]
+    if tuned:
+        argv += ["--adapter", f"tuned={CKPT_DIR}"]
     args = serve.build_parser().parse_args(argv)
     cfg = get_config("qwen3-1.7b", n_layers=layers)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1044,32 +1094,139 @@ def serve_phase(torch, dev, layers: int) -> tuple[dict, dict]:
         bad = [str(e)]
     n_quant = sum(1 for p in tree_paths(res["params"]) if
                   p.endswith(".qcodes"))
-    out = {"layers": layers, "argv": argv, "quantize_s": res["quantize_s"],
-           "decode_s": s["seconds"], "decode_steps": s["steps"],
-           "decode_tok_s": s["tok_s"], "requests_done": s["requests_done"],
+    eng = res["engine"]
+    decodes = sum(s["decodes"].values())
+    captured = {r: {"calls": c.calls, "eager_warmup": c.warmup,
+                    "replays": c.calls - c.warmup,
+                    "launches_a_replay": c.launches}
+                for r, c in eng._captured.items()}
+    served = {}
+    for t, o in zip(s["tenant_of"], s["outputs"]):
+        served.setdefault(t, []).append(len(o))
+    out = {"layers": layers, "argv": argv, "route": res["route"],
+           "quantize_s": res["quantize_s"], "decode_s": s["seconds"],
+           "engine_steps": s["steps"], "decodes": s["decodes"],
+           "tokens": s["tokens"], "tok_s": s["tok_s"],
+           "slot_tokens": s["slot_tokens"], "slot_tok_s": s["slot_tok_s"],
+           "step_ms_median": 1e3 * _median(s["step_s"]),
+           "step_ms_median_by_decodes": _engine_step_ms(s),
+           "step_ms_first": 1e3 * s["step_s"][0],
+           "p50_request_ms": s["p50_ms"], "requests_done": s["requests_done"],
+           "tenants": res["tenants"], "rank_buckets": s["rank_buckets"],
+           "tokens_by_tenant": served, "captured": captured,
            "quantized_linears": n_quant,
            "param_gb": tree_size_bytes(res["params"]) / 1e9,
+           "adapter_gb": sum(tree_size_bytes(res["registry"].stacks(r))
+                             for r in res["registry"].ranks()) / 1e9,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "launches": counts, "logits_finite": s["all_finite"],
-           "nonfinite": bad}
-    if min(counts[k] for k in SERVE_KERNELS) <= 0:
-        raise Failed(f"a kernel was not launched on the serve path: {counts}")
-    if bad or not s["all_finite"] or s["requests_done"] != 8 or \
-            n_quant != 7:
+           "launches": counts, "nonfinite": bad}
+    per = {"dequant_matmul": 7 * layers, "flash_attention": layers}
+    want = {k: v * decodes for k, v in per.items()}
+    if res["route"] != "engine" or any(counts[k] != v
+                                       for k, v in want.items()) or \
+            min(counts[k] for k in SERVE_KERNELS) <= 0:
+        raise Failed(f"serve path launches {counts}, expected {want} over "
+                     f"{decodes} bucket decodes ({res['route']} route)")
+    # each bucket's first decode runs eagerly, each later one replays its
+    # graph, which counts the launches captured in it
+    replayed = {k: sum(c["replays"] * c["launches_a_replay"][k]
+                       for c in captured.values()) for k in per}
+    eager = {k: sum(c["eager_warmup"] for c in captured.values()) * v
+             for k, v in per.items()}
+    out["launches_replayed"] = replayed
+    if set(captured) != set(SERVE_RANKS) or any(
+            c["launches_a_replay"][k] != v for c in captured.values()
+            for k, v in per.items()) or any(
+            replayed[k] + eager[k] != want[k] for k in want):
+        raise Failed(f"replays do not account for the launches: captured "
+                     f"{captured}, replayed {replayed}, want {want}")
+    if set(s["decodes"]) != set(SERVE_RANKS):
+        raise Failed(f"not every rank bucket decoded: {s['decodes']}")
+    if s["requests_done"] != 8 or s["requests"] != 8 or \
+            s["tokens"] != 8 * 16 or any(n != 16 for v in served.values()
+                                         for n in v):
+        raise Failed(f"serve.* counters / tokens wrong: {out}")
+    if tuned and (res["tenants"][-1] != "tuned" or not served.get("tuned")):
+        raise Failed(f"the loaded tenant was not served: {served}")
+    if bad or n_quant != 7:
         raise Failed(f"serve output wrong: {out}")
     return out, res
 
 
-def _profiled(torch, run) -> tuple[float, float, list]:
+def serve_graph(torch, dev, res) -> dict:
+    """Captured against eager decode on the served params: the engine (8
+    requests x 16 tokens over the serve phase's tenants) and the
+    fixed-slot loop (batch 4, 8 requests x 16 tokens, cache 128), each
+    run eagerly and then captured; greedy tokens equal within each pair.
+    Slot tokens/s of each whole run (a captured run includes its
+    captures) and of its median step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import ServeEngine
+    params, cfg = res["params"], res["cfg"]
+    out, runs = {}, {}
+    for graph in (False, True):
+        eng = ServeEngine(params, cfg, res["registry"], page_size=8,
+                          max_len=128, bucket_capacity=4, use_kernel=True,
+                          graph=graph)
+        ops.reset_launch_counts()
+        s = serve.serve_engine(eng, res["tenants"], requests=8,
+                               max_new=16, seed=0)
+        name = "engine_" + ("captured" if graph else "eager")
+        runs[name] = s["outputs"]
+        slots = s["slot_tokens"] / len(s["step_s"])
+        out[name] = {"slot_tok_s": s["slot_tok_s"], "tok_s": s["tok_s"],
+                     "seconds": s["seconds"], "engine_steps": s["steps"],
+                     "decodes": s["decodes"],
+                     "step_ms_median": 1e3 * _median(s["step_s"]),
+                     "step_ms_median_by_decodes": _engine_step_ms(s),
+                     "slot_tok_s_median_step": slots / _median(s["step_s"]),
+                     "launches": ops.launch_counts()}
+        del eng
+    for graph in (False, True):
+        ops.reset_launch_counts()
+        s = serve.serve_fixed_slots(params, cfg, batch=4, cache_len=128,
+                                    requests=8, max_new=16, seed=0,
+                                    device=dev, graph=graph)
+        name = "fixed_slots_" + ("captured" if graph else "eager")
+        runs[name] = [o.tolist() for o in s["outputs"]]
+        out[name] = {"slot_tok_s": s["tok_s"], "seconds": s["seconds"],
+                     "steps": s["steps"],
+                     "step_ms_median": 1e3 * _median(s["step_s"]),
+                     "slot_tok_s_median_step": 4 / _median(s["step_s"]),
+                     "launches": ops.launch_counts(),
+                     "logits_finite": s["all_finite"]}
+    torch.cuda.synchronize()
+    for loop in ("engine", "fixed_slots"):
+        same = runs[f"{loop}_eager"] == runs[f"{loop}_captured"]
+        out[f"{loop}_tokens_equal"] = same
+        if not same:
+            raise Failed(f"{loop}: captured decode's tokens differ from the "
+                         f"eager decode's: {runs}")
+    want = {"dequant_matmul": 7 * cfg.n_layers * 32,
+            "flash_attention": cfg.n_layers * 32}
+    for name in ("fixed_slots_eager", "fixed_slots_captured"):
+        got = {k: out[name]["launches"][k] for k in want}
+        if got != want or not out[name]["logits_finite"]:
+            raise Failed(f"{name}: launches {got}, expected {want}")
+    return out
+
+
+def _profiled(torch, run, cpu_events: bool = True
+              ) -> tuple[float, float, list]:
     """``run()`` (which returns its own synced wall seconds) under
     ``torch.profiler``: (wall s, device busy s, top device events).
     Device busy time is the sum of the device-side events' (kernels',
-    copies') times — one stream, so they do not overlap; operator-level
-    events, which also carry the time of the kernels they launch, are left
-    out so nothing counts twice."""
+    copies') times — one stream at a time, so they do not overlap;
+    operator-level events, which also carry the time of the kernels they
+    launch, are left out so nothing counts twice.  ``cpu_events=False``
+    records the device's events only: the decode profiles run thousands
+    of operators a step, and recording and summing them on the host takes
+    minutes without changing the device's times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = ([ProfilerActivity.CPU] if cpu_events else []) + [
+        ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         wall = run()
 
@@ -1093,21 +1250,64 @@ def _profile_line(steps: int, wall: float, busy: float, top: list) -> dict:
                                         for k, ms, n in top]}
 
 
+def _decode_profile_line(steps, wall, busy, top, step_s) -> dict:
+    line = _profile_line(steps, wall, busy, top)
+    med = _median(step_s)
+    line.update(step_ms_median=1e3 * med,
+                device_idle_share_median_step=(1 - busy / steps / med)
+                if busy else None)
+    return line
+
+
 def profile_decode(torch, dev, res) -> dict:
-    """Where a decode step's time goes: the served model decodes 4 requests
-    x 8 tokens under ``torch.profiler``."""
+    """Where a decode step's time goes, under ``torch.profiler``: the
+    fixed-slot loop (batch 4, 8 requests x 16 tokens) and the engine (the
+    serve phase's tenants, 8 requests x 16 tokens), each eager and
+    captured, each after a warm run of the same.  The captured fixed-slot
+    run captures inside the window (its first step eager, the capture
+    once); the engine's buckets were captured in its warm run."""
     from repro_torch.launch import serve
-    kw = dict(batch=4, cache_len=128, requests=4, max_new=8, seed=1,
+    from repro_torch.serve import ServeEngine
+    params, cfg = res["params"], res["cfg"]
+    kw = dict(batch=4, cache_len=128, requests=8, max_new=16, seed=1,
               device=dev)
-    serve.serve_fixed_slots(res["params"], res["cfg"], **kw)     # warm
     out = {}
+    for graph in (False, True):
+        serve.serve_fixed_slots(params, cfg, graph=graph, **kw)     # warm
+        got = {}
 
-    def run():
-        out.update(serve.serve_fixed_slots(res["params"], res["cfg"], **kw))
-        return out["seconds"]
+        def run():
+            got.update(serve.serve_fixed_slots(params, cfg, graph=graph,
+                                               **kw))
+            return got["seconds"]
 
-    wall, busy, top = _profiled(torch, run)
-    return _profile_line(out["steps"], wall, busy, top)
+        wall, busy, top = _profiled(torch, run, cpu_events=False)
+        out["fixed_slots_" + ("captured" if graph else "eager")] = \
+            _decode_profile_line(got["steps"], wall, busy, top,
+                                 got["step_s"])
+    for graph in (False, True):
+        eng = ServeEngine(params, cfg, res["registry"], page_size=8,
+                          max_len=128, bucket_capacity=4, use_kernel=True,
+                          graph=graph)
+        serve.serve_engine(eng, res["tenants"], requests=8, max_new=16,
+                           seed=1)                                   # warm
+        got = {}
+
+        def run():
+            got.update(serve.serve_engine(eng, res["tenants"], requests=8,
+                                          max_new=16, seed=1))
+            return got["seconds"]
+
+        wall, busy, top = _profiled(torch, run, cpu_events=False)
+        line = _decode_profile_line(got["steps"], wall, busy, top,
+                                    got["step_s"])
+        line["decodes"] = got["decodes"]
+        line["step_ms_median_by_decodes"] = _engine_step_ms(got)
+        line["device_busy_ms_per_decode"] = 1e3 * busy / sum(
+            got["decodes"].values())
+        out["engine_" + ("captured" if graph else "eager")] = line
+        del eng
+    return out
 
 
 def profile_train(torch, dev, res, args, steps: int = 2) -> dict:
@@ -1229,6 +1429,8 @@ def main(argv=None) -> int:
         phase = "serve"
         sv, res = serve_phase(torch, dev, a.layers)
         emit({"phase": "serve", **sv})
+        phase = "serve_graph"
+        emit({"phase": "serve_graph", **serve_graph(torch, dev, res)})
         phase = "profile"
         emit({"phase": "profile", **profile_decode(torch, dev, res)})
         del res

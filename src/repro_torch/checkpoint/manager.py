@@ -1,0 +1,248 @@
+"""Checkpoints: atomic, checksummed, retained, optionally written in the
+background.  Twin of ``repro.checkpoint.manager``, with the same format on
+disk, so a checkpoint written by either package restores in the other bit
+for bit:
+
+* ``<dir>/step_XXXXXXXX/arrays.npz`` holds every leaf keyed by its dot
+  path, in its own dtype; a bf16 leaf is stored as its uint16 bits under
+  the key ``<path>__bf16__``;
+* ``<dir>/step_XXXXXXXX/meta.json`` holds the step, the save time, the
+  caller's extra metadata (the train CLI puts the data stream's state
+  there) and a crc32 of each stored array; it is written last and fsynced,
+  so a step directory with a ``meta.json`` is complete;
+* a step is written under ``<dir>/tmp/`` and renamed into place in one
+  step; an older step of the same number is moved aside first;
+* :class:`CheckpointManager` keeps the newest ``keep`` steps and every
+  step that carries the :data:`PIN_MARKER` file (the preemption save).
+
+Leaves may be torch tensors on any device or numpy arrays; they are
+restored as CPU torch tensors, bf16 as ``torch.bfloat16``.  Not ported yet
+(``ROADMAP.md``): the bucket manifest and ``manifest_shardings`` (they
+need the batched planner and the distributed layer), ``QuantJournal``, and
+the fault-injection hook after a commit.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+import zlib
+
+import numpy as np
+import torch
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import names as obs_names
+from repro_torch.utils import set_path, tree_paths
+
+_BF16_TAG = "__bf16__"
+
+# in-progress and superseded step directories live under <dir>/tmp/
+_TMP_SUBDIR = "tmp"
+
+# marker file: a pinned step (e.g. the preemption checkpoint) that the
+# retention GC never collects
+PIN_MARKER = "PINNED"
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as a host numpy array; bf16 as its uint16 bits."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":       # an ml_dtypes array
+        return arr.view(np.uint16)
+    return arr
+
+
+def _is_bf16(leaf) -> bool:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype == torch.bfloat16
+    return np.asarray(leaf).dtype.name == "bfloat16"
+
+
+def _to_host(tree) -> dict[str, np.ndarray]:
+    out = {}
+    for path, leaf in tree_paths(tree).items():
+        out[path + _BF16_TAG if _is_bf16(leaf) else path] = _host(leaf)
+    return out
+
+
+def _crc(arr: np.ndarray) -> int:
+    return int(zlib.crc32(np.ascontiguousarray(arr).tobytes()))
+
+
+def _leaf_checksums(host: dict[str, np.ndarray]) -> dict[str, int]:
+    """crc32 of each stored array's bytes, verified by :func:`restore_tree`
+    so a flipped or truncated leaf fails, naming the leaf."""
+    return {k: _crc(v) for k, v in host.items()}
+
+
+def save_tree(tree, directory: str, step: int, extra_meta: dict | None = None,
+              background: bool = False,
+              pin: bool = False) -> threading.Thread | None:
+    """Write a snapshot of ``tree`` as step ``step`` of ``directory``.
+    Returns the writer thread if ``background`` (the copy to the host
+    happens before this returns either way).
+
+    Everything lands in ``<dir>/tmp/`` first (arrays, then ``meta.json``,
+    fsynced) and the finished directory is renamed into place; a step of
+    the same number is moved aside into ``tmp/`` first and deleted after,
+    so a reader never sees a half-written or half-deleted step.  ``pin``
+    puts a :data:`PIN_MARKER` file in the step so that
+    :class:`CheckpointManager`'s retention never collects it."""
+    os.makedirs(directory, exist_ok=True)
+    obs_metrics.counter(obs_names.CKPT_SAVES).inc()
+    host = _to_host(tree)
+    meta = {"step": int(step), "time": time.time()}
+    meta.update(extra_meta or {})
+    meta["checksums"] = _leaf_checksums(host)
+
+    def write():
+        tmproot = os.path.join(directory, _TMP_SUBDIR)
+        os.makedirs(tmproot, exist_ok=True)
+        tag = f"{step}.{os.getpid()}.{threading.get_native_id()}"
+        tmp = os.path.join(tmproot, f"new.{tag}")
+        final = os.path.join(directory, f"step_{step:08d}")
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "arrays.npz"), **host)
+        if pin:
+            with open(os.path.join(tmp, PIN_MARKER), "w"):
+                pass
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            stale = os.path.join(tmproot, f"stale.{tag}")
+            os.rename(final, stale)
+            os.rename(tmp, final)
+            shutil.rmtree(stale, ignore_errors=True)
+        else:
+            os.rename(tmp, final)
+
+    if background:
+        t = threading.Thread(target=write, daemon=True)
+        t.start()
+        return t
+    write()
+    return None
+
+
+def list_steps(directory: str) -> list[int]:
+    """Complete checkpoint steps under ``directory``, sorted (a step
+    directory without ``meta.json`` is ignored; writes in progress live in
+    ``tmp/``)."""
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and os.path.isfile(
+                os.path.join(directory, name, "meta.json")):
+            steps.append(int(name[len("step_"):]))
+    return sorted(steps)
+
+
+def _tensor(arr: np.ndarray, bf16: bool) -> torch.Tensor:
+    if bf16:
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def restore_tree(directory: str, step: int | None = None, *,
+                 device: str | torch.device | None = None):
+    """Load ``(tree, meta)`` of step ``step`` (the newest if None).  Leaves
+    are torch tensors on the CPU, or on ``device`` when given.  Raises
+    ValueError naming the leaf when a stored array fails its crc32 or
+    cannot be read, and FileNotFoundError when there is no complete
+    step."""
+    steps = list_steps(directory)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    step = steps[-1] if step is None else step
+    obs_metrics.counter(obs_names.CKPT_RESTORES).inc()
+    path = os.path.join(directory, f"step_{step:08d}")
+    shard = os.path.join(path, "arrays.npz")
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    checksums = meta.get("checksums", {})
+    try:
+        data = np.load(shard)
+        files = data.files
+    except Exception as e:
+        raise ValueError(
+            f"checkpoint shard {shard} is unreadable (truncated or "
+            f"corrupt archive): {e!r} — delete step_{step:08d} and restore "
+            "an earlier step") from e
+    tree: dict = {}
+    for key in files:
+        bf16 = key.endswith(_BF16_TAG)
+        leaf_name = key[: -len(_BF16_TAG)] if bf16 else key
+        try:
+            arr = data[key]
+        except Exception as e:
+            raise ValueError(
+                f"leaf {leaf_name!r} in {shard} is unreadable (shard "
+                f"truncated mid-member): {e!r} — delete step_{step:08d} "
+                "and restore an earlier step") from e
+        if key in checksums and _crc(arr) != checksums[key]:
+            raise ValueError(
+                f"checksum mismatch for leaf {leaf_name!r} in {shard} — "
+                "the shard is corrupt (bit rot or torn write); delete "
+                f"step_{step:08d} and restore an earlier step")
+        t = _tensor(arr, bf16)
+        set_path(tree, leaf_name, t if device is None else t.to(device))
+    return tree, meta
+
+
+class CheckpointManager:
+    """Saves every ``every`` steps (or when forced), keeps the newest
+    ``keep`` steps and every pinned one; with ``async_write`` the file
+    write runs on a thread that the next save, a restore or :meth:`wait`
+    joins."""
+
+    def __init__(self, directory: str, keep: int = 3, every: int = 100,
+                 async_write: bool = True):
+        self.directory = directory
+        self.keep = keep
+        self.every = every
+        self.async_write = async_write
+        self._thread: threading.Thread | None = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def maybe_save(self, step: int, tree, extra_meta: dict | None = None,
+                   force: bool = False, pin: bool = False) -> bool:
+        if not force and (self.every <= 0 or step % self.every != 0):
+            return False
+        self.wait()
+        self._thread = save_tree(tree, self.directory, step, extra_meta,
+                                 background=self.async_write, pin=pin)
+        self._gc()
+        return True
+
+    def latest_step(self) -> int | None:
+        steps = list_steps(self.directory)
+        return steps[-1] if steps else None
+
+    def restore(self, step: int | None = None, *,
+                device: str | torch.device | None = None):
+        self.wait()
+        return restore_tree(self.directory, step, device=device)
+
+    def _gc(self) -> None:
+        steps = list_steps(self.directory)
+        for s in steps[: -self.keep]:
+            path = os.path.join(self.directory, f"step_{s:08d}")
+            if os.path.exists(os.path.join(path, PIN_MARKER)):
+                continue
+            shutil.rmtree(path, ignore_errors=True)

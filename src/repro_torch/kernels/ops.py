@@ -14,6 +14,9 @@ serve path) they call the forward directly.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 from repro_torch.core.quantizer import dequantize_int, unpack_codes
@@ -39,13 +42,38 @@ FUSED_LORA_MIN_ROWS = 64
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset."""
+    """Launches of each CUDA kernel since the last reset, replays of
+    captured CUDA graphs included (:func:`add_replayed`)."""
     return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for mod, attr in KERNELS.values():
         setattr(mod, attr, 0)
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[dict[str, int]]:
+    """Around a CUDA graph capture: yields a dict that holds, on exit, the
+    launches each wrapper recorded into the graph, and takes them back out
+    of :func:`launch_counts` (a capture runs nothing).  Each replay of the
+    graph then adds them with :func:`add_replayed`."""
+    before = launch_counts()
+    got: dict[str, int] = {}
+    try:
+        yield got
+    finally:
+        after = launch_counts()
+        got.update({k: after[k] - before[k] for k in after})
+        for name, (mod, attr) in KERNELS.items():
+            setattr(mod, attr, before[name])
+
+
+def add_replayed(counts: dict[str, int]) -> None:
+    """Count one replay of a graph that holds ``counts`` launches."""
+    for name, n in counts.items():
+        mod, attr = KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
 
 
 def _plain(t: Tensor) -> bool:

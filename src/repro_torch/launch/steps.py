@@ -6,10 +6,19 @@ the port).
 plus trainable adapters, AdamW and an LR schedule, with optional
 microbatch gradient accumulation.  Gradients come from
 ``torch.autograd.grad`` on the trainable leaves only.
+
+:class:`CapturedStep` is the port's counterpart of ``jax.jit`` for a
+decode step on the card: the step captured once as a CUDA graph and
+replayed, so that the host issues one launch a step instead of every
+operator's.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+from repro_torch.kernels import ops
 
 from repro_torch.models.parallel import LOCAL, PContext
 from repro_torch.models.transformer import ModelConfig, decode_step, loss_fn
@@ -108,3 +117,90 @@ def make_decode_step(cfg: ModelConfig, pctx: PContext):
         return decode_step(params, cfg, cache, tokens, pctx=pctx)
 
     return step
+
+
+def resolve_graph(graph: bool | None, device: torch.device) -> bool:
+    """Whether a decode step runs as a :class:`CapturedStep`: ``graph``,
+    or on a CUDA device when None.  True on another device raises."""
+    if graph is None:
+        return device.type == "cuda"
+    if graph and device.type != "cuda":
+        raise ValueError("graph=True needs a CUDA device (on the CPU the "
+                         "step runs eagerly)")
+    return graph
+
+
+def _tensors(out) -> list[torch.Tensor]:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for t in out if isinstance(t, torch.Tensor)]
+
+
+class CapturedStep:
+    """``fn(*inputs)`` captured as one CUDA graph over static input buffers.
+
+    The first call runs ``fn`` eagerly on a side stream (the libraries'
+    and kernels' first-use set-up happens there) and returns its outputs.  The next call captures ``fn`` on that stream over copies of
+    its inputs, and it and every later call copy their inputs into those
+    buffers and replay the graph.  What a replay returns is the graph's
+    static outputs: the next call overwrites them, so the caller reads or
+    copies them out before it.  Everything else ``fn`` reads (params,
+    caches, KV pools, adapter stacks) is captured at its address: it must
+    stay there, and may be written in place between calls.
+
+    Inputs are CUDA tensors that keep their shapes and dtypes from call to
+    call.  The kernels' launch counters count a replay as the launches
+    captured in the graph (``ops.captured_launches``, ``ops.add_replayed``).
+    A failed capture or replay raises; nothing falls back to the eager
+    step.  ``launches`` holds the captured launches once captured."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.warmup = 1         # eager calls before the capture
+        self.calls = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.inputs: tuple[torch.Tensor, ...] = ()
+        self.outputs = None
+        self.launches: dict[str, int] = {}
+        self._stream: torch.cuda.Stream | None = None
+
+    def __call__(self, *inputs: torch.Tensor):
+        if not inputs or not all(isinstance(t, torch.Tensor) and t.is_cuda
+                                 for t in inputs):
+            raise ValueError("CapturedStep takes CUDA tensors; on the CPU "
+                             "the step runs eagerly")
+        dev = inputs[0].device
+        cur = torch.cuda.current_stream(dev)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        if self.graph is None and self.calls < self.warmup:
+            self.calls += 1
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                out = self.fn(*inputs)
+            cur.wait_stream(self._stream)
+            for t in _tensors(out):
+                t.record_stream(cur)
+            return out
+        if self.graph is None:
+            self._capture(inputs)
+        else:
+            for buf, t in zip(self.inputs, inputs, strict=True):
+                if buf.shape != t.shape or buf.dtype != t.dtype:
+                    raise ValueError(
+                        f"CapturedStep: input {tuple(t.shape)} {t.dtype} "
+                        f"does not match the captured {tuple(buf.shape)} "
+                        f"{buf.dtype}")
+                buf.copy_(t, non_blocking=True)
+        self.graph.replay()
+        ops.add_replayed(self.launches)
+        self.calls += 1
+        return self.outputs
+
+    def _capture(self, inputs: tuple[torch.Tensor, ...]) -> None:
+        self.inputs = tuple(t.clone() for t in inputs)
+        g = torch.cuda.CUDAGraph()
+        with ops.captured_launches() as launched:
+            with torch.cuda.graph(g, stream=self._stream):
+                self.outputs = self.fn(*self.inputs)
+        self.graph, self.launches = g, launched

@@ -16,9 +16,13 @@ kernel and every quantized linear's forward through the fused
 more rows than ``kernels.ops.FUSED_LORA_MIN_ROWS``).
 
 Each step's time is taken on the host clock around a step that ends in a
-device synchronize.  Checkpointing and resume, the quantization journal,
-bit allocation, the compile cache, the cost model and tracing are not
-ported yet (``ROADMAP.md``); their flags raise.
+device synchronize.  With ``--ckpt-dir`` the train state and the data
+stream's position are saved every ``--ckpt-every`` steps and at the end
+(``repro_torch.checkpoint``, the JAX package's format), and on SIGTERM or
+SIGINT after the step in flight, pinned; ``--resume`` continues from the
+newest step there.  The quantization journal, bit allocation, the compile
+cache, the cost model and tracing are not ported yet (``ROADMAP.md``);
+their flags raise.
 """
 from __future__ import annotations
 
@@ -26,12 +30,14 @@ import argparse
 import dataclasses
 import json
 import math
+import signal
 import statistics
 import sys
 import time
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.pipeline import quantize_model
 from repro_torch.core.recipe import QuantRecipe, load_plan
@@ -40,11 +46,13 @@ from repro_torch.launch.steps import build_state, make_train_step
 from repro_torch.models.modules import QSpec
 from repro_torch.models.parallel import LOCAL
 from repro_torch.models.transformer import init_params
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import names as obs_names
 from repro_torch.optim import OptConfig, merge_params
 from repro_torch.utils import resolve_device
 
 # flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"ckpt_dir": "", "resume": False, "resume_quant": "",
+_NOT_PORTED = {"resume_quant": "",
                "compile_cache": "", "cost_cal": "", "auto_allocate": False,
                "budget_mb": 0.0, "trace_out": "", "metrics_out": ""}
 
@@ -74,13 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrain-steps", type=int, default=0,
                    help="optional full-precision warm start (smoke demos)")
     p.add_argument("--straggler-factor", type=float, default=3.0)
+    p.add_argument("--ckpt-dir", default="")
     p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without it)")
     # JAX CLI flags of subsystems not ported yet (rejected unless default)
-    p.add_argument("--ckpt-dir", default="")
-    p.add_argument("--resume", action="store_true")
     p.add_argument("--resume-quant", default="")
     p.add_argument("--compile-cache", default="")
     p.add_argument("--cost-cal", default="")
@@ -96,8 +104,8 @@ def _check_ported(args) -> None:
              if getattr(args, k) != default]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: checkpointing, the quantization journal, "
-            "bit allocation, the compile cache, the cost model and tracing "
+            f"{', '.join(given)}: the quantization journal, bit allocation, "
+            "the compile cache, the cost model and tracing "
             "are not ported to repro_torch yet (see ROADMAP.md)")
 
 
@@ -115,8 +123,30 @@ def _log(event: str, **kv) -> None:
 def run(args, cfg=None) -> dict:
     """Build, quantize and fine-tune as the CLI does.  ``cfg`` overrides the
     config chosen from ``--arch``/``--smoke`` (e.g. a depth-cut one).
-    Returns the final ``state`` and ``cfg``, ``quantize_s``, and per step
-    ``losses``, ``grad_norms`` and ``step_s``."""
+    Returns the final ``state`` and ``cfg``, ``quantize_s``, the first
+    step run (``start_step``: > 0 after a resume), per step run
+    ``losses``, ``grad_norms`` and ``step_s``, the newest saved step
+    (``ckpt_step``, None without ``--ckpt-dir``) and whether a signal
+    stopped the run (``preempted``).
+
+    SIGTERM and SIGINT set a flag that ends the run after the step in
+    flight, with a pinned save when checkpointing; the previous handlers
+    are restored on return."""
+    stop = {"flag": False}
+
+    def on_signal(signum, frame):
+        stop["flag"] = True
+
+    prev = {sig: signal.signal(sig, on_signal)
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        return _run(args, cfg, stop)
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+
+
+def _run(args, cfg, stop: dict) -> dict:
     _check_ported(args)
     device = resolve_device(args.device)
     if cfg is None:
@@ -169,15 +199,34 @@ def run(args, cfg=None) -> dict:
     state = build_state(params, ocfg)
     del params
     step_fn = make_train_step(cfg, ocfg, LOCAL)
+
+    ckpt = None
+    start_step = 0
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, keep=3, every=args.ckpt_every)
+        if args.resume and ckpt.latest_step() is not None:
+            state, meta = ckpt.restore(device=device)
+            stream.load_state_dict(meta["data"])
+            start_step = meta["step"]
+            _log("resume", step=start_step)
+
+    def save(step: int, **kw) -> None:
+        ckpt.maybe_save(step, state, {"data": stream.state_dict(),
+                                      "step": step}, **kw)
+
+    step_hist = obs_metrics.histogram(obs_names.TRAIN_STEP_TIME)
+    step_count = obs_metrics.counter(obs_names.TRAIN_STEPS)
     losses, gnorms, times = [], [], []
-    metrics = None
-    for step in range(args.steps):
+    preempted = False
+    for step in range(start_step, args.steps):
         batch = stream.next_batch()
         _sync(device)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         _sync(device)
         dt = time.perf_counter() - t0
+        step_hist.observe(dt)
+        step_count.inc()
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
         if len(times) >= 5:
@@ -188,13 +237,31 @@ def run(args, cfg=None) -> dict:
         if step % 10 == 0 or step == args.steps - 1:
             _log("step", i=step, loss=losses[-1], lr=float(metrics["lr"]),
                  gnorm=gnorms[-1], ms=dt * 1e3)
+        if ckpt is not None:
+            save(step + 1)
+        if stop["flag"]:
+            _log("preempt", step=step + 1)
+            preempted = True
+            if ckpt is not None:
+                # pinned: retention never collects the preemption save
+                save(step + 1, force=True, pin=True)
+            break
+    else:
+        if ckpt is not None:
+            save(args.steps, force=True)
+    if ckpt is not None:
+        ckpt.wait()
     return {"cfg": cfg, "state": state, "quantize_s": quantize_s,
-            "losses": losses, "grad_norms": gnorms, "step_s": times}
+            "start_step": start_step, "losses": losses, "grad_norms": gnorms,
+            "step_s": times, "preempted": preempted,
+            "ckpt_step": None if ckpt is None else ckpt.latest_step()}
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     res = run(args)
+    if res["preempted"]:
+        return 0
     final = res["losses"][-1] if res["losses"] else float("nan")
     print("[done] " + json.dumps({"final_loss": final}), flush=True)
     return 0 if all(map(math.isfinite, res["losses"])) else 1

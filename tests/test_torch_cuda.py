@@ -423,3 +423,165 @@ def test_flash_attention_split_route_head_layouts(cuda, case, dtype):
            else dict(rtol=1e-4, atol=1e-4))
     _close(o, ref.flash_attention_ref(q, k, v, causal=causal,
                                       lengths=lengths), **tol)
+
+
+# -- decode steps captured as CUDA graphs -----------------------------------
+# The smoke model as it is (f32: the CUDA-core routes) and widened to bf16
+# with head dim 64 and group 64 (the decode routes on the tensor cores,
+# clusters and dependent launches), CLoQ-quantized on the card.
+
+_GRAPH_MODELS = {"f32": {}, "bf16": dict(dtype=torch.bfloat16, d_model=256,
+                                         head_dim=64, d_ff=512)}
+
+
+def _graph_model(cuda, which):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.transformer import init_params
+    cfg = get_smoke_config("qwen3-1.7b", **_GRAPH_MODELS[which])
+    params = init_params(cfg, seed=0, device=cuda)
+    calib = [TokenStream(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                    global_batch=2, seed=0)).next_batch()]
+    g = 16 if which == "f32" else 64
+    qp, qcfg, _ = quantize_model(params, cfg, calib,
+                                 recipe=QuantRecipe.single(
+                                     "cloq", QSpec(bits=4, group_size=g,
+                                                   rank=8)))
+    return qp, dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+
+
+def _graph_registry(qp, ranks=(8, 4)):
+    from repro_torch.serve import AdapterRegistry, adapters_from_tree
+    from repro_torch.serve.registry import synthesize_adapters
+    reg = AdapterRegistry.from_model(qp, capacity=4)
+    base = adapters_from_tree(qp)
+    for i in range(4):
+        reg.register(f"t{i}", synthesize_adapters(base, ranks[i % 2],
+                                                  seed=10 + i))
+    return reg
+
+
+_REQS = [(f"t{i % 4}", [3 + i, 7], 6 + i % 3) for i in range(7)]
+
+
+@pytest.mark.parametrize("which", sorted(_GRAPH_MODELS))
+def test_captured_engine_gives_the_eager_tokens(cuda, which):
+    """The engine with each rank bucket's step captured gives the eager
+    engine's tokens, and counts the same launches."""
+    from repro_torch.serve import ServeEngine, run_workload
+    qp, qcfg = _graph_model(cuda, which)
+    reg = _graph_registry(qp)
+    runs = {}
+    for graph in (False, True):
+        eng = ServeEngine(qp, qcfg, reg, page_size=4, max_len=24,
+                          use_kernel=True, graph=graph)
+        ops.reset_launch_counts()
+        runs[graph] = (run_workload(eng, _REQS), ops.launch_counts(),
+                       dict(eng.decodes))
+    assert runs[True] == runs[False]
+    out, counts, decodes = runs[True]
+    assert set(decodes) == {4, 8}
+    per = 7 * qcfg.n_layers
+    assert counts["dequant_matmul"] == per * sum(decodes.values())
+    assert counts["flash_attention"] == qcfg.n_layers * sum(decodes.values())
+    assert all(len(out[i]) == _REQS[i][2] for i in range(len(_REQS)))
+
+
+@pytest.mark.parametrize("which", sorted(_GRAPH_MODELS))
+def test_captured_fixed_slots_give_the_eager_tokens(cuda, which):
+    from repro_torch.launch import serve
+    qp, qcfg = _graph_model(cuda, which)
+    runs = {}
+    for graph in (False, True):
+        ops.reset_launch_counts()
+        res = serve.serve_fixed_slots(qp, qcfg, batch=4, cache_len=32,
+                                      requests=8, max_new=8, seed=0,
+                                      device=cuda, graph=graph,
+                                      keep_logits=True)
+        runs[graph] = (res, ops.launch_counts())
+    (eager, ce), (capt, cc) = runs[False], runs[True]
+    assert cc == ce and ce["dequant_matmul"] == 7 * qcfg.n_layers * 16
+    assert capt["steps"] == eager["steps"] == 16 and capt["all_finite"]
+    for a, b in zip(capt["outputs"], eager["outputs"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(np.stack(capt["logits"]),
+                                  np.stack(eager["logits"]))
+
+
+def test_hot_swap_after_capture_reaches_the_next_replay(cuda):
+    """A swap written into a rank bucket's stacks after its step was
+    captured is seen by the next replay, with no new capture: the tokens
+    are those of an eager engine over the swapped registry."""
+    from repro_torch.serve import (ServeEngine, adapters_from_tree,
+                                   run_workload)
+    from repro_torch.serve.registry import synthesize_adapters
+    qp, qcfg = _graph_model(cuda, "bf16")
+    reg = _graph_registry(qp)
+    eng = ServeEngine(qp, qcfg, reg, page_size=4, max_len=24,
+                      use_kernel=True, graph=True)
+    first = run_workload(eng, [("t0", [5], 6)])[0]
+    graph = eng._captured[8].graph
+    assert graph is not None
+    reg.swap("t0", synthesize_adapters(adapters_from_tree(qp), 8, seed=99))
+    after = run_workload(eng, [("t0", [5], 6)])[0]
+    assert eng._captured[8].graph is graph
+    eager = ServeEngine(qp, qcfg, reg, page_size=4, max_len=24,
+                        use_kernel=True, graph=False)
+    assert after == run_workload(eager, [("t0", [5], 6)])[0]
+    assert after != first
+
+
+def test_replay_adds_the_captured_launches(cuda):
+    from repro_torch.launch.steps import CapturedStep
+    x, packed, s, z = _dq_operands(cuda, 4, 256, 128, 4, 64)
+    q = torch.randn(1, 2, 1, 64, device=cuda)
+
+    def fn(xin):
+        y = ops.dequant_matmul(xin, packed, s, z, bits=4, group_size=64)
+        y = ops.dequant_matmul(xin * 2, packed, s, z, bits=4, group_size=64)
+        return y, ops.flash_attention(q, q, q, causal=False)
+
+    step = CapturedStep(fn)
+    ops.reset_launch_counts()
+    eager = step(x)[0].clone()                 # warm-up: runs eagerly
+    assert ops.launch_counts()["dequant_matmul"] == 2
+    outs = [step(x)[0].clone() for _ in range(3)]   # capture + replays
+    assert step.launches["dequant_matmul"] == 2
+    assert step.launches["flash_attention"] == 1
+    assert ops.launch_counts()["dequant_matmul"] == 8
+    assert ops.launch_counts()["flash_attention"] == 4
+    for o in outs:
+        assert torch.equal(o, eager)
+    y = step(x * 0)[0]
+    assert not y.any()
+    with pytest.raises(ValueError, match="captured"):
+        step(x[:2])
+
+
+def test_capture_failure_raises(cuda):
+    """A step that cannot be captured (it synchronizes the host) raises at
+    capture, takes back the launches it recorded, and never runs
+    eagerly in its place."""
+    from repro_torch.launch.steps import CapturedStep
+    x, packed, s, z = _dq_operands(cuda, 4, 256, 128, 4, 64)
+    calls = []
+
+    def fn(xin):
+        calls.append(1)
+        y = ops.dequant_matmul(xin, packed, s, z, bits=4, group_size=64)
+        return y * float(y.abs().max())       # a host sync
+
+    step = CapturedStep(fn)
+    step(x)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        step(x)
+    assert step.graph is None
+    assert ops.launch_counts()["dequant_matmul"] == 0
+    assert len(calls) == 2
+    torch.cuda.synchronize()

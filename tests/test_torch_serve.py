@@ -104,17 +104,34 @@ def test_slice_greedy_tokens_match_jax(quantized, kernel):
 
 
 def test_serve_cli_on_cpu(capsys):
+    """A CLoQ model has adapter sites, so the CLI takes the multi-tenant
+    engine's route (as the JAX CLI does): 4 one-token requests of 4 new
+    tokens, one at each of the 4 default tenants' slots of one rank-8
+    bucket, decode together.  ``--method none`` keeps the fixed-slot
+    loop."""
     rc = serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                      "--requests", "4", "--max-new", "4", "--kernel"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "[serve] requests=4/4 steps=4 tokens=16 " in out
+    assert "tenants=4 rank_buckets=8 " in out
+    rc = serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                     "--requests", "4", "--max-new", "4", "--method", "none"])
     assert rc == 0
     assert "[serve] requests=4/4 steps=4 slot_tokens=16" in \
         capsys.readouterr().out
 
 
 def test_serve_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
-                    "--tenants", "2"])
+    for flag in (["--compile-cache", "x"], ["--cost-cal", "c.json"],
+                 ["--trace-out", "t.json"], ["--metrics-out", "m.json"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                        "--tenants", "2", *flag])
+    ported = serve.build_parser().parse_args(
+        ["--arch", "qwen3-1.7b", "--tenants", "2", "--ranks", "8,4",
+         "--adapter", "a=d", "--page-size", "4"])
+    serve._check_ported(ported)
     with pytest.raises(KeyError):
         serve.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu"])
     with pytest.raises(ValueError, match="cache-len"):

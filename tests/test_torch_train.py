@@ -350,13 +350,22 @@ def test_train_cli_full_finetune_without_quantization():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--ckpt-dir", "x"], ["--resume"], ["--resume-quant", "x"],
+    ["--resume-quant", "x", "--ckpt-dir", "y"], ["--resume", "--cost-cal",
+                                                 "auto"],
+    ["--resume-quant", "x"],
     ["--compile-cache", "x"], ["--cost-cal", "auto"], ["--auto-allocate"],
     ["--budget-mb", "5"], ["--trace-out", "t.json"], ["--metrics-out", "m"]])
 def test_train_rejects_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Each flag of a subsystem not ported raises, also beside the ported
+    checkpoint flags, and names only the unported flags."""
+    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                      *flag])
+    named = str(e.value).split(":")[0].split(", ")
+    assert named and "--ckpt-dir" not in named and "--resume" not in named
+    ttrain._check_ported(ttrain.build_parser().parse_args(
+        ["--arch", "qwen3-1.7b", "--ckpt-dir", "y", "--resume",
+         "--ckpt-every", "3"]))
 
 
 def test_train_rejects_unported_methods_and_needs_cuda(monkeypatch):
