@@ -40,17 +40,40 @@ one JSON line each:
    in calibration, fused ``dequant_matmul_lora``) and plain: per-step
    losses agree; and the fused op's backward (dx, dA, dB) agrees with
    autograd through the plain version at a training shape.
-6. train   — ``repro_torch.launch.train`` on qwen3-1.7b at full width and
+6. engines — the quantization engines on qwen3-1.7b at full width,
+   ``ENGINE_LAYERS`` (2) deep, f32, CLoQ 4-bit, group 64, rank 64:
+   ``engine="sequential"`` then ``"batched"`` (4 buckets), every site
+   compared in the terms of the reference's batched-vs-sequential oracle
+   beside the sequential engine against itself with every Gram entry one
+   ulp off; held: scales, zeros and the calibrated objective
+   ``gram_error`` within 1e-3 relative, code flips within 0.005 or twice
+   the one-ulp run's on the site (``A @ B^T`` reported: one ulp moves it
+   ~50% at this width); seconds and peak memory per engine.  quantize_split: the CLoQ stack of one full-depth
+   bucket (gate+up, 56 x 2048 x 6144; down, 28 x 6144 x 2048; random
+   weights and Grams) split into MagR, the OPTQ sweep and ``eigh``/``svd``
+   with CUDA events.  health: the batched engine with ``gram_nan``
+   injected at ``blocks.0.attn.q``: all leaves finite, that site healed
+   by the identity Gram, every other leaf bit-identical to the clean
+   batched run.  journal: a journaled batched run stopped after bucket 0
+   raises ``QuantPreempted``; the rerun restores bucket 0 and its leaves
+   are bit-identical to the uninterrupted run.  methods:
+   ``repro_torch.launch.train`` with gptq, loftq, qlora and rtn at full
+   width, 2 layers, 2 steps (calibration 2 x 8 x 128): finite losses,
+   ``gram`` 7 a layer a calibration batch, ``dequant_matmul_lora`` 7 a
+   layer a step (0 for NF4 ``qlora``), ``B == 0`` at init but for loftq.
+7. train   — ``repro_torch.launch.train`` on qwen3-1.7b at full width and
    all 28 layers (CLoQ 4-bit, group 64, rank 64, calibration 4 x 8 x 128
-   tokens, batch 8, sequence 128, 4 LoRA steps), saving its state with
-   ``--ckpt-dir`` under the git-ignored ``build/chip_smoke/``.  The
-   launch counters are reset just before and read just after; ``gram``
-   and ``dequant_matmul_lora`` must match the calibration and step
-   counts, and step 4 must be saved.  Quantize seconds, step seconds,
+   tokens, batch 8, sequence 128, 4 LoRA steps; the batched engine, the
+   CLI's default), saving its state with ``--ckpt-dir`` under the
+   git-ignored ``build/chip_smoke/``.  The launch counters are reset just
+   before and read just after; ``gram`` and ``dequant_matmul_lora`` must
+   match the calibration and step counts, step 4 must be saved, the
+   losses must be within 1e-2 relative of ``REF_LOSSES`` and the health
+   guards must report no fallback.  Quantize seconds, step seconds,
    tokens/s, peak memory, the losses and the saved step.  Then
    train_profile: two more steps under ``torch.profiler`` (step time,
    device busy and idle share, top kernels).
-7. serve   — ``repro_torch.launch.serve`` on qwen3-1.7b at full width with
+8. serve   — ``repro_torch.launch.serve`` on qwen3-1.7b at full width with
    the CLI's full-size settings (CLoQ 4-bit, group 64, rank 64, 2 x 64
    calibration tokens, cache 128), through its route for such a model,
    the multi-tenant engine: ``--tenants 4 --ranks 64,16 --batch 4
@@ -63,12 +86,12 @@ one JSON line each:
    (replays counted as their captured launches), ``gram`` > 0; the
    ``serve.*`` counters must show 8 requests finished with 16 tokens
    each; both rank buckets must decode and ``tuned`` must be served.
-8. serve_graph — on the served params, the engine with its steps eager
+9. serve_graph — on the served params, the engine with its steps eager
    and captured, and the fixed-slot loop (batch 4, 8 requests x 16
    tokens) eager and captured: equal greedy tokens for each pair, the
    fixed-slot loop counting 6272 ``dequant_matmul`` and 896
    ``flash_attention`` launches both ways; slot tokens/s of each run.
-9. profile — the fixed-slot loop and the engine, each eager and
+10. profile — the fixed-slot loop and the engine, each eager and
    captured (after a warm run of each), under ``torch.profiler``
    recording the device's events only: step
    time (also the median of the steps' own host times), device busy time
@@ -996,6 +1019,362 @@ def train_parity(torch, dev) -> dict:
             "backward_max_abs_err": grad_err}
 
 
+# ---------------------------------------------------------------------------
+# quantization engine phases (full width, ENGINE_LAYERS deep)
+# ---------------------------------------------------------------------------
+
+ENGINE_LAYERS = 2
+ENGINE_TARGET = "blocks.0.attn.q"     # the site the health phase corrupts
+# the reference's batched-vs-sequential oracle (tests/test_batched.py)
+FLIP_BUDGET = 0.005
+REL_FRO = 1e-3
+# on the card a one-ulp change of every Gram entry flips up to 5% of a
+# site's codes in the sequential engine itself (OPTQ's error feedback
+# carries a near-tie flip down its column; PERF.md section 6), so the
+# engines' codes are held to twice that, site by site
+NUDGE_FACTOR = 2.0
+# the train phase's losses as recorded in PERF.md (ROADMAP section 3): a
+# wrong base moves them by far more than 1e-2; summation orders by under
+# ~2e-3
+REF_LOSSES = (12.411189, 11.932083, 11.835666, 11.706970)
+LOSS_LIMIT = 1e-2
+BASELINES = ("gptq", "loftq", "qlora", "rtn")
+# the full-depth buckets whose quantize time quantize_split splits:
+# name -> (sites L, in-features m, out-features n)
+SPLIT_BUCKETS = {"gate_up": (56, 2048, 6144), "down": (28, 6144, 2048)}
+
+
+def _engine_model(torch, dev):
+    """Qwen3-1.7B at full width, ENGINE_LAYERS deep, f32 (the engines'
+    f32 factors reach the leaves uncast), random weights from seed 0;
+    calibration 2 x 8 x 128 tokens; CLoQ 4-bit, group 64, rank 64."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("qwen3-1.7b", n_layers=ENGINE_LAYERS,
+                     dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                    global_batch=8, seed=0))
+    calib = [stream.next_batch() for _ in range(2)]
+    recipe = QuantRecipe.single("cloq", QSpec(bits=4, group_size=64,
+                                              rank=64))
+    return cfg, params, calib, recipe
+
+
+def _quantize_eager(torch, dev, model, **kw):
+    """``quantize_model`` on the engine model: (eager flat leaves, store,
+    report, seconds, peak GB, progress lines)."""
+    from repro_torch.core.health import HealthReport
+    from repro_torch.core.pipeline import quantize_model, to_eager_params
+    from repro_torch.utils import tree_paths
+    cfg, params, calib, recipe = model
+    report = kw.pop("report", None) or HealthReport()
+    msgs: list[str] = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    qp, qcfg, store = quantize_model(params, cfg, calib, recipe=recipe,
+                                     report=report, progress=msgs.append,
+                                     **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (tree_paths(to_eager_params(qp, qcfg)), store, report, dt,
+            torch.cuda.max_memory_allocated(dev) / 1e9, msgs)
+
+
+def _rel(torch, a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.norm(a - b) / (torch.linalg.norm(b) + 1e-12))
+
+
+def _site_recon(torch, leaves: dict, m: int):
+    from repro_torch.core.quantizer import dequantize_int, unpack_codes
+    codes = unpack_codes(leaves["qcodes"], 4, m)
+    return codes, dequantize_int(codes, leaves["scales"], leaves["zeros"],
+                                 64) + leaves["lora_a"] @ leaves["lora_b"].T
+
+
+def _site_diff(torch, got: dict, want: dict, W, H) -> dict:
+    """One site's leaves against another run's, in the terms of the
+    reference's batched-vs-sequential oracle."""
+    from repro_torch.core.optq import gram_error
+    m = W.shape[0]
+    cg, rg = _site_recon(torch, got, m)
+    cw, rw = _site_recon(torch, want, m)
+    ge_g, ge_w = gram_error(H, W - rg), gram_error(H, W - rw)
+    return {"code_flips": float((cg != cw).float().mean()),
+            "scales": _rel(torch, got["scales"], want["scales"]),
+            "zeros": _rel(torch, got["zeros"], want["zeros"]),
+            "lora_ab": _rel(torch, got["lora_a"] @ got["lora_b"].T,
+                            want["lora_a"] @ want["lora_b"].T),
+            "gram_error": abs(ge_g - ge_w) / max(ge_w, 1e-6)}
+
+
+def engines_phase(torch, dev) -> tuple[dict, dict]:
+    """The engine model quantized by the sequential and then the batched
+    engine, each site compared in the terms of the reference's
+    batched-vs-sequential oracle (code flip fraction, relative Frobenius
+    error of scales, zeros and ``A @ B^T``, relative error of the
+    calibrated objective ``gram_error``), beside the same comparison of
+    the sequential engine against itself with every Gram entry moved by
+    one ulp (``nudge``: how far summation order alone can move a site).
+    Held: the objective, scales and zeros within 1e-3; on each site, code
+    flips within the flip budget or twice the nudge's flips there,
+    whichever is larger; 4 buckets; both runs clean under the health
+    guards."""
+    from repro_torch.core.batched import task_key
+    from repro_torch.core.pipeline import (_quantize_one,
+                                           quantizable_linear_paths,
+                                           to_eager_params)
+    from repro_torch.utils import get_path
+    model = _engine_model(torch, dev)
+    cfg, params, recipe = model[0], model[1], model[3]
+    eparams = to_eager_params(params, cfg)
+    runs = {e: _quantize_eager(torch, dev, model, engine=e)
+            for e in ("sequential", "batched")}
+    flat_s, store = runs["sequential"][0], runs["sequential"][1]
+    flat_b = runs["batched"][0]
+    keys = ("qcodes", "scales", "zeros", "lora_a", "lora_b")
+    sites = quantizable_linear_paths(eparams)
+    per_site, worst = {}, {"batched": {}, "nudge": {}}
+    with torch.no_grad():
+        for i, site in enumerate(sites):
+            W = get_path(eparams, site)["w"].float()
+            H = store.grams[site]
+            ls = {k: flat_s[f"{site}.{k}"] for k in keys}
+            nudged = _quantize_one(
+                W, torch.nextafter(H, torch.full_like(H, float("inf"))),
+                recipe.qspec, "cloq", task_key(0, i))
+            per_site[site] = {
+                "batched": _site_diff(torch, {k: flat_b[f"{site}.{k}"]
+                                              for k in keys}, ls, W, H),
+                "nudge": _site_diff(torch, nudged, ls, W, H)}
+            for pair, d in per_site[site].items():
+                for k, v in d.items():
+                    worst[pair][k] = max(worst[pair].get(k, 0.0), v)
+    out = {"layers": ENGINE_LAYERS, "sites": len(sites),
+           "buckets": sum(1 for ln in runs["batched"][5]
+                          if ln.startswith("[bucket]")),
+           "bucket_lines": runs["batched"][5],
+           "quantize_s": {e: r[3] for e, r in runs.items()},
+           "peak_mem_gb": {e: r[4] for e, r in runs.items()},
+           "health": {e: r[2].counts() for e, r in runs.items()},
+           "checked": {e: r[2].checked for e, r in runs.items()},
+           "worst": worst, "per_site": per_site,
+           "limits": {"code_flips": FLIP_BUDGET, "rel": REL_FRO}}
+    # codes: the reference's flip budget, or what one ulp of the Gram does
+    # to the sequential engine on the same site (NUDGE_FACTOR x), whichever
+    # is larger; A @ B^T is reported, not held: one ulp moves it ~50%
+    out["code_flip_limit"] = {
+        site: max(FLIP_BUDGET, NUDGE_FACTOR * d["nudge"]["code_flips"])
+        for site, d in per_site.items()}
+    flips = [site for site, d in per_site.items()
+             if d["batched"]["code_flips"] > out["code_flip_limit"][site]]
+    held = ("scales", "zeros", "gram_error")
+    if flips or any(worst["batched"][k] > REL_FRO for k in held) or \
+            out["buckets"] != 4 or any(out["health"].values()) or \
+            out["checked"] != {"sequential": 14, "batched": 14}:
+        raise Failed(f"engines disagree or are unhealthy (code flips past "
+                     f"the limit at {flips}): {out}")
+    return out, {"model": model, "clean": flat_b}
+
+
+def _assert_finite_leaves(torch, flat: dict, what: str) -> None:
+    for p, v in flat.items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise Failed(f"{what}: non-finite leaf {p}")
+
+
+def _same_leaves(torch, got: dict, want: dict, skip: str | None = None):
+    """Paths whose leaves differ in any bit (``skip``'s prefix left out)."""
+    if set(got) != set(want):
+        return sorted(set(got) ^ set(want))
+    return [p for p in want if not (skip and p.startswith(skip + "."))
+            and not torch.equal(got[p], want[p])]
+
+
+def health_phase(torch, dev, eng: dict) -> dict:
+    """The batched engine under ``gram_nan`` at the site ENGINE_TARGET:
+    every leaf finite, that site healed by the identity Gram with an
+    accepted ladder, every other leaf bit-identical to the engines phase's
+    clean batched run."""
+    from repro_torch.core import faults
+    with faults.inject("gram_nan", match=ENGINE_TARGET):
+        flat, _, report, dt, peak, _ = _quantize_eager(torch, dev,
+                                                       eng["model"])
+    _assert_finite_leaves(torch, flat, "health")
+    rec = report.records.get(ENGINE_TARGET)
+    moved = _same_leaves(torch, flat, eng["clean"], skip=ENGINE_TARGET)
+    out = {"fault": "gram_nan", "site": ENGINE_TARGET, "quantize_s": dt,
+           "peak_mem_gb": peak, "counts": report.counts(), "record": rec,
+           "other_leaves_moved": moved,
+           "site_leaves_moved": [p for p in flat if p.startswith(
+               ENGINE_TARGET + ".") and not torch.equal(
+               flat[p], eng["clean"][p])]}
+    if rec is None or rec["status"] != "recovered_identity_gram" or \
+            not rec["ladder"] or not rec["ladder"][-1]["accepted"] or \
+            report.counts() != {"recovered_identity_gram": 1} or moved:
+        raise Failed(f"health phase: {out}")
+    return out
+
+
+def journal_phase(torch, dev, eng: dict) -> dict:
+    """A journaled batched run stopped after bucket 0, then rerun: the
+    stop raises ``QuantPreempted``, the rerun restores bucket 0 from the
+    journal (``journal.restored_buckets`` counts 1), and its leaves are
+    bit-identical to the engines phase's uninterrupted run."""
+    import shutil
+    from repro_torch.core.health import QuantPreempted
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import names as obs_names
+    jd = ROOT / "build" / "chip_smoke" / "journal"
+    shutil.rmtree(jd, ignore_errors=True)
+    try:
+        _quantize_eager(torch, dev, eng["model"], journal_dir=str(jd),
+                        should_stop=lambda: True)
+        raise Failed("journal: should_stop did not preempt the run")
+    except QuantPreempted as e:
+        stopped_after = e.bucket
+    restored = obs_metrics.counter(obs_names.JOURNAL_RESTORED)
+    before = restored.value
+    flat, _, report, dt, peak, msgs = _quantize_eager(
+        torch, dev, eng["model"], journal_dir=str(jd))
+    moved = _same_leaves(torch, flat, eng["clean"])
+    out = {"stopped_after_bucket": stopped_after,
+           "restored_buckets": restored.value - before,
+           "events": report.events, "rerun_s": dt, "peak_mem_gb": peak,
+           "health_json": (jd / "health.json").is_file(),
+           "leaves_moved": moved, "bucket_lines": msgs}
+    if stopped_after != 0 or out["restored_buckets"] != 1 or moved or \
+            not out["health_json"]:
+        raise Failed(f"journal phase: {out}")
+    return out
+
+
+def quantize_split(torch, dev) -> dict:
+    """Where one full-depth bucket's quantize time goes: the CLoQ stack of
+    ``batched.run_bucket`` on Qwen3-1.7B's gate+up bucket (56 x 2048 x
+    6144) and its down bucket (28 x 6144 x 2048), with random weights and
+    Grams of 4096 random tokens, split into MagR, the OPTQ sweep, and the
+    Gram root's ``eigh`` with the residual's ``svd``, each timed with CUDA
+    events (and on the host clock) in one pass."""
+    from repro_torch.core import linalg
+    from repro_torch.core.batched import make_spec, spec_qcfg
+    from repro_torch.core.cloq import gram_root, regularize_gram
+    from repro_torch.core.magr import magr_alpha, magr_preprocess
+    from repro_torch.core.optq import optq_quantize_core
+    from repro_torch.models.modules import QSpec
+    out = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for name, (L, m, n) in SPLIT_BUCKETS.items():
+        spec = make_spec(m, n, QSpec(bits=4, group_size=64, rank=64),
+                         "cloq", True)
+        Ws = torch.randn((L, m, n), generator=gen, device=dev) * 0.02
+        Hs = torch.empty((L, m, m), device=dev)
+        for i in range(L):
+            X = torch.randn((4096, m), generator=gen, device=dev)
+            torch.matmul(X.T, X, out=Hs[i])
+        del X
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        host = [time.perf_counter()]
+        ev[0].record()
+        Wp = magr_preprocess(Ws, Hs, alpha=magr_alpha(Hs, m),
+                             iters=spec.magr_iters)
+        ev[1].record()
+        host.append(time.perf_counter())
+        Qd, Qc, s, z = optq_quantize_core(Wp, Hs, spec_qcfg(spec))
+        ev[2].record()
+        host.append(time.perf_counter())
+        del Wp
+        R, Rinv = gram_root(regularize_gram(Hs, spec.lambda_frac))
+        U, S, Vh = linalg.svd(R @ (Ws - Qd))
+        A = (Rinv @ U[..., :64]) * S[..., None, :64]
+        ev[3].record()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter())
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        out[name] = {"L": L, "m": m, "n": n,
+                     "magr_ms": ms[0], "optq_sweep_ms": ms[1],
+                     "eigh_svd_ms": ms[2],
+                     "host_s": [host[i + 1] - host[i] for i in range(3)],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                     / 1e9,
+                     "finite": bool(torch.isfinite(A).all()) and
+                     bool(torch.isfinite(Qd).all())}
+        del Ws, Hs, Qd, Qc, s, z, R, Rinv, U, S, Vh, A
+        torch.cuda.empty_cache()
+        if not out[name]["finite"]:
+            raise Failed(f"quantize split: non-finite factors: {out}")
+    return out
+
+
+def methods_phase(torch, dev, steps: int = 2) -> dict:
+    """``repro_torch.launch.train`` for each baseline at full width and
+    ENGINE_LAYERS deep (4-bit, group 64, rank 64; qlora NF4 group 64),
+    calibration 2 x 8 x 128, 2 steps at 8 x 128: finite losses, ``gram``
+    launches 7 a layer a calibration batch for every method,
+    ``dequant_matmul_lora`` 7 a layer a step for the INT methods and 0
+    for qlora, ``B == 0`` at init for gptq, qlora and rtn."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.utils import tree_paths
+    real = train.quantize_model
+    out = {}
+    for method in BASELINES:
+        argv = ["--arch", "qwen3-1.7b", "--method", method, "--bits", "4",
+                "--group-size", "64", "--rank", "64", "--calib-batches",
+                "2", "--batch", "8", "--seq-len", "128", "--steps",
+                str(steps), "--seed", "0", "--device", str(dev)]
+        args = train.build_parser().parse_args(argv)
+        cfg = get_config("qwen3-1.7b", n_layers=ENGINE_LAYERS)
+        init: dict = {}
+
+        def spy(*a, **kw):
+            res = real(*a, **kw)
+            init.update(b_max=max(float(v.abs().max())
+                                  for p, v in tree_paths(res[0]).items()
+                                  if p.endswith("lora_b")),
+                        absmax=any(p.endswith("absmax")
+                                   for p in tree_paths(res[0])))
+            return res
+
+        train.quantize_model = spy
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            res = train.run(args, cfg)
+            counts = ops.launch_counts()
+        finally:
+            train.quantize_model = real
+        L = ENGINE_LAYERS
+        want = {"gram": 7 * L * args.calib_batches,
+                "dequant_matmul_lora": 0 if method == "qlora"
+                else 7 * L * steps}
+        line = {"quantize_s": res["quantize_s"], "losses": res["losses"],
+                "grad_norms": res["grad_norms"], "step_s": res["step_s"],
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "launches": counts, "launches_expected": want,
+                "init_lora_b_max_abs": init.get("b_max"),
+                "nf4": init.get("absmax"),
+                "health": res["health"].counts()}
+        out[method] = line
+        if any(counts[k] != v for k, v in want.items()) or \
+                not all(map(math.isfinite, res["losses"])) or \
+                len(res["losses"]) != steps or line["health"] or \
+                (method != "loftq") != (init.get("b_max") == 0.0) or \
+                (method == "qlora") != init.get("absmax"):
+            raise Failed(f"methods phase, {method}: {line}")
+        del res
+    return out
+
+
 def train_phase(torch, dev, steps: int = 4):
     """``repro_torch.launch.train`` at full width and depth.  Returns the
     phase line, the run's result and its parsed arguments."""
@@ -1029,6 +1408,11 @@ def train_phase(torch, dev, steps: int = 4):
            "losses": res["losses"], "grad_norms": res["grad_norms"],
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "launches": counts, "lora_sites": n_lora,
+           "loss_rel_diff_vs_ref": max(
+               abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                   REF_LOSSES)),
+           "health": res["health"].counts(),
+           "health_checked": res["health"].checked,
            "ckpt_dir": str(CKPT_DIR.relative_to(ROOT)),
            "ckpt_step": res["ckpt_step"],
            "ckpt_gb": sum(f.stat().st_size for f in CKPT_DIR.rglob("*")
@@ -1043,6 +1427,12 @@ def train_phase(torch, dev, steps: int = 4):
         raise Failed(f"train losses not finite: {out}")
     if n_lora != 7:
         raise Failed(f"train state holds {n_lora} stacked LoRA sites, not 7")
+    if out["loss_rel_diff_vs_ref"] > LOSS_LIMIT:
+        raise Failed(f"train losses {res['losses']} are more than "
+                     f"{LOSS_LIMIT} off the recorded {REF_LOSSES}")
+    if out["health"] or out["health_checked"] != 7 * L:
+        raise Failed(f"a clean run reported fallbacks: {out['health']}, "
+                     f"{out['health_checked']} slices checked")
     return out, res, args
 
 
@@ -1417,6 +1807,19 @@ def main(argv=None) -> int:
         emit({"phase": "parity", **parity(torch, dev)})
         phase = "train_parity"
         emit({"phase": "train_parity", **train_parity(torch, dev)})
+
+        phase = "engines"
+        en, eng = engines_phase(torch, dev)
+        emit({"phase": "engines", **en})
+        phase = "quantize_split"
+        emit({"phase": "quantize_split", **quantize_split(torch, dev)})
+        phase = "health"
+        emit({"phase": "health", **health_phase(torch, dev, eng)})
+        phase = "journal"
+        emit({"phase": "journal", **journal_phase(torch, dev, eng)})
+        del eng
+        phase = "methods"
+        emit({"phase": "methods", **methods_phase(torch, dev)})
 
         phase = "train"
         tr, res, args = train_phase(torch, dev)

@@ -1,0 +1,459 @@
+"""Batched layer-wise quantization engine: shape-bucketed stacks of layers.
+
+PyTorch twin of the single-device part of ``repro.core.batched``.  The
+per-layer MagR -> OPTQ -> CLoQ stack (and the LoftQ/QLoRA/RTN/GPTQ-LoRA
+baselines) is closed-form, so nothing in it is sequential across layers.
+Run layer by layer, a model's quantization pays one sweep of small
+launches, one ``eigh`` and one ``svd`` per linear; this module runs them a
+bucket at a time:
+
+1.  **Planner** (:func:`plan_buckets`): every quantization site is a
+    :class:`LayerTask`.  Tasks are grouped into buckets keyed by
+    :class:`BucketSpec`: ``(m, n, method, bits, group_size, rank, split,
+    block_size, ...)``, from each task's resolved per-site spec
+    (``LayerTask.site``) or the global pair.  Everything shape- or
+    branch-like (OPTQ's sweep block via :func:`repro_torch.core.optq.
+    pick_block`, the MagR gate ``bits <= 4``) is resolved here.  On
+    Qwen3-1.7B's 28 layers that gives four buckets: q and o (2048 x 2048,
+    56 sites), k and v (2048 x 1024, 56), gate and up (2048 x 6144, 56),
+    down (6144 x 2048, 28).
+
+2.  **Executor** (:func:`run_bucket` / :func:`quantize_layer_batch`): each
+    bucket stacks its ``(W, H)`` pairs to ``(L, m, n)`` / ``(L, m, m)`` and
+    runs the method's stack once over the whole stack: every op of the
+    OPTQ row sweep covers the row of all ``L`` matrices, MagR and the tail
+    updates are batched products, and ``eigh``/``svd`` factor the stack in
+    one call each.  Random LoRA inits come from one ``torch.Generator`` a
+    task, seeded from ``(seed, site index)`` (:func:`task_key`), so the
+    batched and sequential engines draw the same bits.
+
+3.  **Runtime**: the health check of every finished bucket and the
+    degradation ladder for failing slices (:mod:`repro_torch.core.health`),
+    the quantization journal (:class:`repro_torch.checkpoint.manager.
+    QuantJournal`) that makes a run resumable at bucket boundaries, and the
+    fault-injection points they are tested with
+    (:mod:`repro_torch.core.faults`).
+
+Bits: the stacked products, reductions and factorizations may sum in
+another order than the 2-D calls (on the CPU they happen not to; on the
+H100 they do), and OPTQ's error feedback carries a near-tie flip down
+its column, so the engines agree as closely as a one-ulp change of the
+Gram lets one engine agree with itself: on Qwen3-1.7B at full width on
+the H100 that is up to 5% of a site's codes, with the calibrated
+objective within 1e-3 (``PERF.md``).  Within one engine a slice's
+result does not depend on the other slices of its bucket.
+
+Not ported yet (``ROADMAP.md``): the mesh (``mesh=``), the cost model
+(``cost_model=``), the compile cache (``compile_cache=``), the sensitivity
+sweep (``evaluate_layer_batch``) and stacked MoE expert sites; asking for
+them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import TYPE_CHECKING, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.cloq import cloq_init, regularize_gram
+from repro_torch.core.loftq import (gptq_lora_init, lora_normal, loftq_init,
+                                    qlora_init)
+from repro_torch.core.magr import magr_alpha, magr_preprocess
+from repro_torch.core.optq import optq_quantize_core, pick_block
+from repro_torch.core.quantizer import (QuantConfig, dequantize_int,
+                                        pack_codes, quantize_int)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import names as obs_names
+
+if TYPE_CHECKING:
+    from repro_torch.core.recipe import SiteSpec
+
+Tensor = torch.Tensor
+
+# methods whose base quantization consumes a calibration Gram
+GRAM_METHODS = ("cloq", "gptq")
+
+# methods whose LoRA init draws a random A (B = 0)
+_RANDOM_A_METHODS = ("gptq", "qlora", "rtn")
+
+_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketSpec:
+    """Static signature of one bucket.  Hashable: the bucket key."""
+    m: int
+    n: int
+    method: str
+    bits: int
+    group_size: int | None
+    rank: int
+    split: str
+    block_size: int          # OPTQ sweep block, already a divisor of m
+    act_order: bool
+    lambda_frac: float
+    magr: bool               # MagR gate (bits <= 4), resolved at plan time
+    magr_iters: int
+    has_gram: bool
+    n_shards: int = 1        # column shards (always 1: no mesh yet)
+    # "replicated" (one stacked call) or "sequential" (one call a slice)
+    exec_path: str = "replicated"
+
+
+@dataclasses.dataclass
+class LayerTask:
+    """One quantization site: a 2-D weight, its Gram and the seed of its
+    random LoRA init (:func:`task_key`)."""
+    path: str                # lin path in the param tree
+    expert: int | None       # index into a stacked (E, m, n) weight
+    W: Tensor                # (m, n)
+    H: Tensor | None         # (m, m) calibration Gram
+    key: int                 # seed of the task's torch.Generator
+    site: "SiteSpec | None" = None   # resolved per-site spec (optional)
+
+
+def task_key(seed: int, index: int) -> int:
+    """The seed of site ``index``'s generator (its position among the
+    model's quantizable paths, skipped sites included), from the run's
+    ``seed``: one stream a site, the same in every engine."""
+    return int(np.random.SeedSequence([seed, index]).generate_state(
+        1, np.uint64)[0] & np.uint64(2 ** 63 - 1))
+
+
+def _draw_a(keys: list[int], m: int, rank: int,
+            device: torch.device) -> Tensor:
+    """The stacked random LoRA ``A`` of a bucket: one ``(m, rank)`` draw
+    from each task's own generator."""
+    out = []
+    for k in keys:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(k)
+        out.append(lora_normal(gen, m, rank, device))
+    return torch.stack(out)
+
+
+def task_site(t: LayerTask, qspec=None, method: str | None = None):
+    """A task's effective ``(qspec, method)``: its resolved site spec when
+    present, else the global fallback pair."""
+    if t.site is not None:
+        return t.site.qspec, t.site.method
+    if qspec is None or method is None:
+        raise ValueError(
+            f"task {t.path!r} carries no resolved SiteSpec and no global "
+            "(qspec, method) fallback was given")
+    return qspec, method
+
+
+def make_spec(m: int, n: int, qspec, method: str, has_gram: bool,
+              base: QuantConfig | None = None, *,
+              mesh=None) -> BucketSpec:
+    """Resolve all static/branching decisions for one (shape, method)."""
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
+    base = base or QuantConfig(bits=qspec.bits, group_size=qspec.group_size)
+    return BucketSpec(
+        m=m, n=n, method=method, bits=qspec.bits,
+        group_size=qspec.group_size, rank=qspec.rank, split=qspec.split,
+        block_size=pick_block(m, base.block_size),
+        act_order=base.act_order, lambda_frac=base.lambda_frac,
+        magr=(method == "cloq" and qspec.bits <= 4),
+        magr_iters=base.magr_iters,
+        has_gram=has_gram and method in GRAM_METHODS)
+
+
+def spec_qcfg(spec: BucketSpec) -> QuantConfig:
+    """The :class:`QuantConfig` a plan-time :class:`BucketSpec` stands for
+    (single source of truth for the mapping)."""
+    return QuantConfig(bits=spec.bits, group_size=spec.group_size,
+                       block_size=spec.block_size, act_order=spec.act_order,
+                       lambda_frac=spec.lambda_frac)
+
+
+def _quantize_core(W: Tensor, H: Tensor | None, A0: Tensor | None,
+                   spec: BucketSpec) -> tuple[dict, Tensor]:
+    """The method stack on one weight ``(m, n)`` or a bucket's stack ``(L,
+    m, n)`` (Grams ``(L, m, m)``, random ``A0 (L, m, r)``).  Returns
+    ``(leaves, Qd)``: f32 factors, packed codes, and the dequantized
+    base."""
+    qcfg = spec_qcfg(spec)
+    W = W.float()
+    m, n = spec.m, spec.n
+    if spec.method == "cloq":
+        H = H.float()
+        Wp = (magr_preprocess(W, H, alpha=magr_alpha(H, m),
+                              iters=spec.magr_iters) if spec.magr else W)
+        Qd, Qc, s, z = optq_quantize_core(Wp, H, qcfg)
+        del Wp
+        # spec.lambda_frac regularizes both the OPTQ damping (via qcfg) and
+        # the CLoQ Gram root, so the ladder's re-damp rung reaches both
+        A, B = cloq_init(regularize_gram(H, spec.lambda_frac), W - Qd,
+                         spec.rank, spec.split)
+        return {"qcodes": pack_codes(Qc, spec.bits), "scales": s, "zeros": z,
+                "lora_a": A, "lora_b": B}, Qd
+    if spec.method == "gptq":
+        Qd, Qc, s, z = optq_quantize_core(W, H.float(), qcfg)
+        A, B = gptq_lora_init(A0, n)
+        return {"qcodes": pack_codes(Qc, spec.bits), "scales": s, "zeros": z,
+                "lora_a": A, "lora_b": B}, Qd
+    if spec.method == "loftq":
+        Qd, A, B, (codes, s, z) = loftq_init(W, qcfg, spec.rank, iters=5)
+        return {"qcodes": pack_codes(codes, spec.bits), "scales": s,
+                "zeros": z, "lora_a": A, "lora_b": B}, Qd
+    if spec.method == "qlora":
+        Qd, A, B, (codes, absmax) = qlora_init(W, qcfg, A0)
+        return {"qcodes": pack_codes(codes, 4), "absmax": absmax,
+                "lora_a": A, "lora_b": B}, Qd
+    if spec.method == "rtn":
+        codes, s, z = quantize_int(W, spec.bits, spec.group_size)
+        Qd = dequantize_int(codes, s, z, spec.group_size)
+        A, B = gptq_lora_init(A0, n)
+        return {"qcodes": pack_codes(codes, spec.bits), "scales": s,
+                "zeros": z, "lora_a": A, "lora_b": B}, Qd
+    raise ValueError(f"unknown method {spec.method}")
+
+
+def _random_a(keys: list[int], spec: BucketSpec,
+              device: torch.device) -> Tensor | None:
+    if spec.method not in _RANDOM_A_METHODS:
+        return None
+    return _draw_a(keys, spec.m, spec.rank, device)
+
+
+def quantize_single_deq(W: Tensor, H: Tensor | None, key: int,
+                        spec: BucketSpec) -> tuple[dict, Tensor]:
+    """One site ``W (m, n)`` with its Gram (``None`` for data-free
+    methods) and generator seed: ``(leaves, Qd)``, ``Qd`` the dequantized
+    base.  The sequential engine's and the health ladder's core."""
+    A0 = _random_a([key], spec, W.device)
+    return _quantize_core(W, H, None if A0 is None else A0[0], spec)
+
+
+def quantize_single(W: Tensor, H: Tensor | None, key: int,
+                    spec: BucketSpec) -> dict:
+    """The leaf dict of :func:`quantize_single_deq`."""
+    return quantize_single_deq(W, H, key, spec)[0]
+
+
+def eval_single(W: Tensor, H: Tensor | None, key: int,
+                spec: BucketSpec) -> Tensor:
+    """Calibration-weighted proxy error of quantizing this site with
+    ``spec``: ``tr(E^T H E)``, ``E = W - Q - A B^T`` (the unweighted
+    ``||E||_F^2`` when the spec carries no Gram)."""
+    leaves, Qd = quantize_single_deq(W, H, key, spec)
+    E = W.float() - Qd - leaves["lora_a"] @ leaves["lora_b"].mT
+    if spec.has_gram:
+        return torch.einsum("ij,ik,kj->", E, H.float(), E)
+    return (E * E).sum()
+
+
+def run_bucket(Ws: Tensor, Hs: Tensor | None, keys: list[int],
+               spec: BucketSpec) -> dict:
+    """One bucket in one stacked call: ``Ws (L, m, n)``, ``Hs (L, m, m)``
+    (``None`` for data-free methods), one generator seed a task.  Returns
+    the stacked leaves (leading dim ``L``)."""
+    A0 = _random_a(keys, spec, Ws.device)
+    return _quantize_core(Ws, Hs, A0, spec)[0]
+
+
+def run_bucket_sequential(Ws: Tensor, Hs: Tensor | None, keys: list[int],
+                          spec: BucketSpec) -> dict:
+    """One bucket a slice at a time, outputs stacked to
+    :func:`run_bucket`'s layout: ``L`` calls of the single-site core, peak
+    memory ``1/L`` of the stacked call."""
+    outs = [quantize_single(Ws[j], None if Hs is None else Hs[j], keys[j],
+                            requeue_spec(spec))
+            for j in range(Ws.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def requeue_spec(spec: BucketSpec) -> BucketSpec:
+    """The spec a fresh single-slice plan would give this bucket: what the
+    health ladder requeues a failing slice under."""
+    return dataclasses.replace(spec, n_shards=1, exec_path="replicated")
+
+
+def plan_buckets(tasks: list[LayerTask], qspec=None,
+                 method: str | None = None, base: QuantConfig | None = None,
+                 *, mesh=None,
+                 cost_model=None) -> dict[BucketSpec, list[int]]:
+    """Group task indices by bucket signature (insertion-ordered).  Tasks
+    carrying a resolved ``site`` bucket by their own spec; the rest by the
+    global ``(qspec, method)``.  Raises ``ValueError`` when a
+    Gram-consuming method has no Gram."""
+    if cost_model is not None:
+        raise NotImplementedError(f"cost_model= {_NOT_PORTED}")
+    buckets: dict[BucketSpec, list[int]] = {}
+    for i, t in enumerate(tasks):
+        t_qspec, t_method = task_site(t, qspec, method)
+        m, n = t.W.shape
+        has_gram = t.H is not None
+        if t_method in GRAM_METHODS and not has_gram:
+            raise ValueError(
+                f"method {t_method!r} needs a calibration Gram for {t.path}"
+                f"{'' if t.expert is None else f'[expert {t.expert}]'}")
+        spec = make_spec(m, n, t_qspec, t_method, has_gram, base, mesh=mesh)
+        buckets.setdefault(spec, []).append(i)
+    return buckets
+
+
+def plan_manifest(tasks: list[LayerTask],
+                  buckets: dict[BucketSpec, list[int]],
+                  axis: str = "model") -> dict:
+    """One planner run as JSON-able data: every bucket's spec and the task
+    -> bucket assignment (the reference's bucket manifest format)."""
+    return {
+        "version": 1,
+        "axis": axis,
+        "buckets": [
+            {"spec": dataclasses.asdict(spec),
+             "tasks": [{"path": tasks[i].path, "expert": tasks[i].expert}
+                       for i in idxs]}
+            for spec, idxs in buckets.items()],
+    }
+
+
+def _stage_bucket(tasks: list[LayerTask], idxs: list[int],
+                  spec: BucketSpec):
+    """Stack one bucket's ``(W, H)`` pairs as f32 on their device; the
+    generator seeds stay a list."""
+    Ws = torch.stack([tasks[i].W.float() for i in idxs])
+    Hs = None
+    if spec.has_gram:
+        Hs = torch.stack([tasks[i].H.float() for i in idxs])
+    return Ws, Hs, [tasks[i].key for i in idxs]
+
+
+def _event(event: str, **fields) -> str:
+    return " ".join([f"[{event}]"] + [f"{k}={v}" for k, v in fields.items()])
+
+
+def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
+                         method: str | None = None,
+                         base: QuantConfig | None = None,
+                         progress: Callable[[str], None] | None = None,
+                         *, mesh=None, axis: str = "model",
+                         stream: bool = True, policy=None, report=None,
+                         journal=None,
+                         should_stop: Callable[[], bool] | None = None,
+                         cost_model=None, compile_cache=None
+                         ) -> list[dict | None]:
+    """Quantize all ``tasks`` bucket by bucket.
+
+    ``stream`` (default on): bucket ``k``'s work is enqueued and bucket
+    ``k+1``'s stack is staged before the host waits on anything of bucket
+    ``k``; ``stream=False`` synchronizes the device after each bucket.
+    Both run the same operations on the same inputs, so they give the same
+    bits.  ``policy`` (a :class:`repro_torch.core.health.HealthPolicy`):
+    when enabled, every finished bucket is checked and failing slices walk
+    the degradation ladder (``None`` results are sites left dense);
+    ``report`` collects the ladder records (made here when ``policy`` is
+    on without one).  ``journal`` (a ``QuantJournal``): every finished
+    bucket is committed before the next one's results land, and buckets
+    whose committed entry matches this plan are restored instead of
+    computed.  ``should_stop`` is polled at every bucket boundary after
+    the commit; True raises :class:`repro_torch.core.health.
+    QuantPreempted`.  ``progress`` gets one ``[bucket]`` line a bucket.
+
+    Returns one leaf dict per task, in task order."""
+    from repro_torch.core import faults, health
+
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
+    if compile_cache is not None:
+        raise NotImplementedError(f"compile_cache= {_NOT_PORTED}")
+    buckets = plan_buckets(tasks, qspec, method, base, cost_model=cost_model)
+    results: list[dict | None] = [None] * len(tasks)
+    items = list(buckets.items())
+    guarded = policy is not None and policy.enabled
+    if guarded and report is None:
+        report = health.HealthReport()
+
+    # journal resume: buckets whose committed entry matches this plan
+    # (spec + ordered task ids); stale entries are recomputed
+    loaded: dict[int, list] = {}
+    if journal is not None:
+        for b, (spec, idxs) in enumerate(items):
+            task_ids = [[tasks[i].path, tasks[i].expert] for i in idxs]
+            entry = journal.load_bucket(b, dataclasses.asdict(spec),
+                                        task_ids,
+                                        device=tasks[idxs[0]].W.device)
+            if entry is None:
+                continue
+            loaded[b] = entry[0]
+            obs_metrics.counter(obs_names.JOURNAL_RESTORED).inc()
+            obs_metrics.counter(obs_names.JOURNAL_SKIPPED_TASKS).inc(
+                len(idxs))
+            if report is not None:
+                report.records.update(entry[1])
+                report.event(f"bucket {b} restored from journal "
+                             f"({len(idxs)} slices skipped)")
+
+    def dispatch(b: int, staged) -> dict:
+        spec, idxs = items[b]
+        Ws, Hs, keys = staged
+        if spec.exec_path == "sequential":
+            out = run_bucket_sequential(Ws, Hs, keys, spec)
+        else:
+            out = run_bucket(Ws, Hs, keys, spec)
+        obs_metrics.counter(obs_names.QUANT_BUCKETS).inc()
+        obs_metrics.counter(obs_names.QUANT_TASKS).inc(len(idxs))
+        obs_metrics.counter(obs_names.QUANT_PATH + spec.exec_path).inc()
+        if progress:
+            g = "col" if spec.group_size is None else spec.group_size
+            progress(_event(
+                "bucket", i=b,
+                spec=f"{spec.method}/{spec.bits}b/g{g}/r{spec.rank}",
+                shape=f"{spec.m}x{spec.n}", layers=len(idxs),
+                path=spec.exec_path, shards=spec.n_shards))
+        return out
+
+    staged = None
+    for b in range(len(items)):
+        spec, idxs = items[b]
+        if b in loaded:
+            staged = None
+            if progress:
+                progress(_event("bucket", i=b, restored="journal",
+                                layers=len(idxs)))
+            for j, i in enumerate(idxs):
+                results[i] = loaded[b][j]
+            continue
+        cur = staged if staged is not None else _stage_bucket(tasks, idxs,
+                                                              spec)
+        out = dispatch(b, cur)
+        staged = None
+        if stream and b + 1 < len(items) and (b + 1) not in loaded:
+            # stage bucket b+1 before anything waits on bucket b
+            staged = _stage_bucket(tasks, items[b + 1][1], items[b + 1][0])
+        elif not stream and cur[0].is_cuda:
+            torch.cuda.synchronize(cur[0].device)
+        for j, i in enumerate(idxs):
+            results[i] = {k: v[j] for k, v in out.items()}
+        if guarded:
+            ok = health.check_bucket(cur[0], out, spec, policy)
+            report.checked += len(idxs)
+            obs_metrics.counter(obs_names.HEALTH_CHECKED).inc(len(idxs))
+            for j, i in enumerate(idxs):
+                if not ok[j]:
+                    t = tasks[i]
+                    results[i] = health.heal_task(t.W, t.H, t.key, spec,
+                                                  policy, report, t.path,
+                                                  t.expert)
+        del cur, out
+        if journal is not None:
+            hrecs = {}
+            if report is not None:
+                for i in idxs:
+                    sk = health.HealthReport.site_key(tasks[i].path,
+                                                      tasks[i].expert)
+                    if sk in report.records:
+                        hrecs[sk] = report.records[sk]
+            journal.commit_bucket(
+                b, dataclasses.asdict(spec),
+                [[tasks[i].path, tasks[i].expert] for i in idxs],
+                [results[i] for i in idxs], health_records=hrecs)
+        faults.maybe_kill("kill_between_buckets", b)
+        if should_stop is not None and should_stop():
+            raise health.QuantPreempted(b)
+    return results

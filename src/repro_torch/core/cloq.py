@@ -16,49 +16,55 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import linalg
+
 Tensor = torch.Tensor
 
 SPLITS = ("paper", "bsigma", "sqrt")
 
 
 def regularize_gram(H: Tensor, lambda_frac: float = 0.01) -> Tensor:
-    m = H.shape[0]
-    lam = lambda_frac * torch.trace(H) / m
-    return H + (lam + 1e-8) * torch.eye(m, dtype=H.dtype, device=H.device)
+    m = H.shape[-1]
+    lam = lambda_frac * linalg.trace(H) / m
+    eye = torch.eye(m, dtype=H.dtype, device=H.device)
+    return H + (lam + 1e-8)[..., None, None] * eye
 
 
 def gram_root(H: Tensor, eps: float = 1e-10):
-    """Non-symmetric root R = S^{1/2} U^T with H = R^T R, plus its inverse.
-    Eigenvalues are floored at ``eps * max_eig`` (pseudo-inverse path for a
-    rank-deficient H)."""
+    """Non-symmetric root R = S^{1/2} U^T with H = R^T R, plus its inverse,
+    for each matrix of ``(..., m, m)``.  Eigenvalues are floored at ``eps *
+    max_eig`` (pseudo-inverse path for a rank-deficient H)."""
     H = H.float()
-    evals, evecs = torch.linalg.eigh(H)
-    floor = eps * evals[-1].clamp_min(1e-30)
+    evals, evecs = linalg.eigh(H)
+    floor = eps * evals[..., -1:].clamp_min(1e-30)
     sq = torch.sqrt(torch.maximum(evals, floor))
-    R = sq[:, None] * evecs.T
-    Rinv = evecs * (1.0 / sq)[None, :]
+    R = sq[..., :, None] * evecs.mT
+    Rinv = evecs * (1.0 / sq)[..., None, :]
     return R, Rinv
 
 
 def split_factors(RinvU: Tensor, S: Tensor, V: Tensor, split: str):
     if split == "paper":
-        return RinvU * S[None, :], V
+        return RinvU * S[..., None, :], V
     if split == "bsigma":
-        return RinvU, V * S[None, :]
+        return RinvU, V * S[..., None, :]
     if split == "sqrt":
         rt = torch.sqrt(S)
-        return RinvU * rt[None, :], V * rt[None, :]
+        return RinvU * rt[..., None, :], V * rt[..., None, :]
     raise ValueError(f"unknown split {split!r}; options {SPLITS}")
 
 
 def cloq_init(H: Tensor, dW: Tensor, rank: int, split: str = "paper"):
-    """Closed-form (A (m,r), B (n,r)) minimizing ||X (A B^T - dW)||_F^2.
-    ``H`` must already be regularized (Algorithm 1 input)."""
+    """Closed-form (A (m,r), B (n,r)) minimizing ||X (A B^T - dW)||_F^2,
+    or one pair per matrix of a bucket's stack ``(L, m, n)``.  ``H`` must
+    already be regularized (Algorithm 1 input)."""
     dW = dW.float()
     R, Rinv = gram_root(H)
-    U, S, Vh = torch.linalg.svd(R @ dW, full_matrices=False)
+    U, S, Vh = linalg.svd(R @ dW)
+    del R
     r = rank
-    return split_factors(Rinv @ U[:, :r], S[:r], Vh[:r, :].T, split)
+    return split_factors(Rinv @ U[..., :r], S[..., :r], Vh[..., :r, :].mT,
+                         split)
 
 
 def lowrank_objective(H: Tensor, dW: Tensor, A: Tensor, B: Tensor) -> float:

@@ -1,36 +1,52 @@
-"""End-to-end model quantization + LoRA initialization (sequential engine).
+"""End-to-end model quantization + LoRA initialization.
 
-PyTorch twin of the sequential engine of ``repro.core.pipeline``.
+PyTorch twin of ``repro.core.pipeline`` for dense models on one device.
 ``quantize_model`` converts a dense param tree into the paper's deployment
 form: every block linear replaced by {qcodes, scales, zeros, lora_a,
-lora_b}, the base quantized by MagR -> OPTQ against calibration Grams and
-the adapters initialized by CLoQ's closed form.
+lora_b} ({qcodes, absmax, ...} for NF4 ``qlora``), the base quantized by
+the site's method (CLoQ: MagR -> OPTQ against calibration Grams, adapters
+by CLoQ's closed form; or the baselines GPTQ-LoRA, LoftQ, QLoRA, RTN).
 
 Calibration runs the model with per-layer params (``scan_layers=False``)
 so the name-scope capture hooks key every Gram by its linear's path.
 
-Ported so far: method ``cloq`` with ``engine="sequential"``.  The batched
-engine, the other methods, the health guards, fault hooks, journal and
-obs spans are later slices of the port (``ROADMAP.md``); asking for them
-raises ``NotImplementedError``.
+Engines
+-------
+``engine="batched"`` (default) is :mod:`repro_torch.core.batched`: the
+sites are grouped into buckets of one shape and spec, and each bucket runs
+as one stacked call.  ``engine="sequential"`` quantizes one linear at a
+time; it is the parity oracle.  Both draw each site's random LoRA init
+from the site's own generator (``batched.task_key(seed, site index)``) and
+read every Gram through the same fault hook (:func:`_site_gram`), and the
+health guards (``HealthPolicy()``, on unless turned off) check every site
+and heal a failing one through the same single-site core in both, so a
+healed site is bit-identical across engines.  ``journal_dir=`` makes a
+batched run resumable at bucket boundaries.
+
+Not ported yet (``ROADMAP.md``): the mesh, the cost model, the compile
+cache, bit allocation, the quantization manifests, and MoE, weight-shared
+and cross-attention sites; asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Callable, Iterable
 
 import torch
 
-from repro_torch.core.cloq import cloq_init, regularize_gram
-from repro_torch.core.magr import magr_alpha, magr_preprocess
-from repro_torch.core.optq import optq_quantize
-from repro_torch.core.quantizer import QuantConfig, pack_codes
+from repro_torch.core import faults, health
+from repro_torch.core.batched import (LayerTask, make_spec,
+                                      quantize_layer_batch, quantize_single,
+                                      task_key)
 from repro_torch.core.recipe import QuantRecipe, SiteSpec
 from repro_torch.models.modules import QSpec
 from repro_torch.models.transformer import (ModelConfig, forward,
                                             layer_params, n_stacked,
                                             stack_layers)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import names as obs_names
 from repro_torch.utils import (GramStore, capture_grams, get_path, set_path,
                                tree_paths)
 
@@ -39,12 +55,7 @@ Tensor = torch.Tensor
 # param paths NOT quantized even though they hold a 2-D "w"
 _SKIP_SUFFIXES = ("embed.w", "head.w", "router.w")
 
-_PORTED_METHODS = ("cloq",)
 _NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
-
-
-def qspec_to_qcfg(q: QSpec) -> QuantConfig:
-    return QuantConfig(bits=q.bits, group_size=q.group_size)
 
 
 def to_eager_params(params: dict, cfg: ModelConfig) -> dict:
@@ -92,10 +103,17 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 
 
 def run_calibration(params: dict, cfg: ModelConfig,
-                    batches: Iterable[dict]) -> GramStore:
+                    batches: Iterable[dict], *,
+                    report: "health.HealthReport | None" = None
+                    ) -> GramStore:
     """Per-layer forward passes accumulating per-linear Grams (f32, on the
-    params' device).  A batch whose Grams come out non-finite is skipped
-    with a warning; when every batch is skipped it raises."""
+    params' device).
+
+    Each batch accumulates into its own scratch store and is merged only
+    when every Gram update it made is finite; a batch with non-finite
+    activations is skipped and logged (``report.event`` and a
+    ``RuntimeWarning``), a dropped one is logged.  Raises when batches were
+    given but every one was skipped or dropped."""
     eager_cfg = dataclasses.replace(cfg, scan_layers=False, quant=None)
     eparams = to_eager_params(params, cfg)
     device = params["embed"]["w"].device
@@ -104,43 +122,51 @@ def run_calibration(params: dict, cfg: ModelConfig,
     with torch.no_grad():
         for i, batch in enumerate(batches):
             n_in += 1
+            batch = faults.corrupt_batch(i, batch)    # calib_nan/calib_drop
+            if batch is faults.DROPPED:
+                obs_metrics.counter(obs_names.CALIB_BATCHES_SKIPPED).inc()
+                if report is not None:
+                    report.event(f"calibration batch {i} dropped")
+                continue
             scratch = GramStore()
             with capture_grams(scratch):
                 forward(eparams, eager_cfg, _to_device(batch, device))
+            faults.poison_grams(i, scratch)           # calib_nan (post)
             if not scratch.all_finite():
-                warnings.warn(f"calibration batch {i} produced non-finite "
-                              "activations — batch skipped", RuntimeWarning,
-                              stacklevel=2)
+                obs_metrics.counter(obs_names.CALIB_BATCHES_SKIPPED).inc()
+                msg = (f"calibration batch {i} produced non-finite "
+                       "activations — batch skipped")
+                warnings.warn(msg, RuntimeWarning, stacklevel=2)
+                if report is not None:
+                    report.event(msg)
                 continue
             store.merge(scratch)
             n_used += 1
+            obs_metrics.counter(obs_names.CALIB_BATCHES_USED).inc()
     if n_in and not n_used:
         raise RuntimeError(
             f"calibration produced a zero-sample GramStore: all {n_in} "
-            "batches were skipped (non-finite activations)")
+            "batches were skipped (non-finite activations) or dropped — "
+            "fix the calibration data, or use a data-free method")
     return store
 
 
-def _quantize_one(W: Tensor, H: Tensor | None, qspec: QSpec,
-                  method: str) -> dict:
-    """Quantize one (m, n) weight with MagR -> OPTQ -> CLoQ.  Returns the
-    new leaves {qcodes, scales, zeros, lora_a, lora_b} (f32 factors)."""
-    if method not in _PORTED_METHODS:
-        raise NotImplementedError(f"method {method!r} {_NOT_PORTED}")
-    if H is None:
-        raise ValueError("cloq needs calibration Grams")
-    qcfg = qspec_to_qcfg(qspec)
-    m = W.shape[0]
-    W = W.float()
-    H = H.float()
-    Wp = (magr_preprocess(W, H, alpha=magr_alpha(H, m), iters=20)
-          if qspec.bits <= 4 else W)
-    Qd, Qc, s, z = optq_quantize(Wp, H, qcfg)
-    # one lambda_frac governs OPTQ's damping and CLoQ's regularization
-    A, B = cloq_init(regularize_gram(H, qcfg.lambda_frac), W - Qd,
-                     qspec.rank, qspec.split)
-    return {"qcodes": pack_codes(Qc, qspec.bits), "scales": s, "zeros": z,
-            "lora_a": A, "lora_b": B}
+def _site_gram(store: GramStore, path: str) -> Tensor | None:
+    """A site's Gram through the fault-injection hook
+    (:func:`repro_torch.core.faults.corrupt_gram`): both engines read every
+    Gram here, so an armed ``gram_*`` injection corrupts the same site in
+    each."""
+    return faults.corrupt_gram(path, store.grams.get(path))
+
+
+def _quantize_one(W: Tensor, H: Tensor | None, qspec: QSpec, method: str,
+                  key: int) -> dict:
+    """Quantize one (m, n) weight with ``method``.  Returns the new leaves
+    (f32 factors); ``key`` seeds the random LoRA init of gptq/qlora/rtn."""
+    if method in ("cloq", "gptq") and H is None:
+        raise ValueError(f"{method} needs calibration Grams")
+    spec = make_spec(W.shape[0], W.shape[1], qspec, method, H is not None)
+    return quantize_single(W, H, key, spec)
 
 
 def _cast_for_model(leaves: dict, dtype) -> dict:
@@ -148,12 +174,41 @@ def _cast_for_model(leaves: dict, dtype) -> dict:
             for k, v in leaves.items()}
 
 
+def _dense_site(lin_path: str, W: Tensor) -> None:
+    if W.dim() != 2 or lin_path.startswith(("shared.", "cross.")):
+        raise NotImplementedError(
+            f"{lin_path}: stacked-expert and weight-shared sites "
+            f"{_NOT_PORTED}")
+
+
 def _quantize_model_sequential(eparams: dict, store: GramStore,
-                               sites: dict[str, SiteSpec], cfg: ModelConfig,
-                               new_params: dict,
-                               progress: Callable[[str], None] | None
-                               ) -> None:
+                               sites: dict[str, SiteSpec], seed: int,
+                               cfg: ModelConfig, new_params: dict,
+                               progress: Callable[[str], None] | None, *,
+                               policy=None, report=None, journal=None,
+                               should_stop=None) -> None:
+    assert journal is None, "quantize_model rejects journal+sequential"
+    guarded = policy is not None and policy.enabled
+    if guarded and report is None:
+        report = health.HealthReport()
+
+    def guard(W, H, leaves, key, site, path):
+        """Per-layer check and ladder: the batched engine's criterion,
+        oracle and (W, H, key, spec)."""
+        if not guarded:
+            return leaves
+        spec = make_spec(W.shape[0], W.shape[1], site.qspec, site.method,
+                         H is not None)
+        report.checked += 1
+        obs_metrics.counter(obs_names.HEALTH_CHECKED).inc()
+        if health.check_single(W, leaves, spec, policy):
+            return leaves
+        return health.heal_task(W, H, key, spec, policy, report, path)
+
     for i, lin_path in enumerate(quantizable_linear_paths(eparams)):
+        # one key a quantizable path, skipped sites included, so keys do
+        # not depend on the recipe's skip rules and match the batched engine
+        key = task_key(seed, i)
         site = sites[lin_path]
         if site.skip:
             if progress:
@@ -162,19 +217,63 @@ def _quantize_model_sequential(eparams: dict, store: GramStore,
         qspec, method = site.qspec, site.method
         lin = dict(get_path(eparams, lin_path))
         W = lin.pop("w")
-        if W.dim() != 2 or lin_path.startswith(("shared.", "cross.")):
-            raise NotImplementedError(
-                f"{lin_path}: stacked-expert and weight-shared sites "
-                f"{_NOT_PORTED}")
+        _dense_site(lin_path, W)
         if progress:
             progress(f"[{i}] {lin_path} {tuple(W.shape)} "
                      f"{method}/{qspec.bits}b/r{qspec.rank}")
+        H = _site_gram(store, lin_path)
         with torch.no_grad():
-            newlin = _quantize_one(W, store.grams.get(lin_path), qspec,
-                                   method)
+            newlin = _quantize_one(W, H, qspec, method, key)
+            newlin = guard(W, H, newlin, key, site, lin_path)
+        if newlin is None:
+            continue                           # degraded to dense: keep w
         keep = dict(lin)                          # bias etc.
         keep.update(_cast_for_model(newlin, cfg.dtype))
         set_path(new_params, lin_path, keep)
+
+
+def _gather_tasks(eparams: dict, store: GramStore,
+                  sites: dict[str, SiteSpec], seed: int):
+    """Every non-skipped site as a :class:`LayerTask` carrying its resolved
+    spec, keyed like the sequential loop (skipped sites take a key but give
+    no task).  Returns (tasks, [(path, other leaves)] in task order)."""
+    tasks: list[LayerTask] = []
+    keeps: list[tuple[str, dict]] = []
+    for i, lin_path in enumerate(quantizable_linear_paths(eparams)):
+        site = sites[lin_path]
+        if site.skip:
+            continue
+        lin = dict(get_path(eparams, lin_path))
+        W = lin.pop("w")
+        _dense_site(lin_path, W)
+        tasks.append(LayerTask(lin_path, None, W, _site_gram(store, lin_path),
+                               task_key(seed, i), site=site))
+        keeps.append((lin_path, lin))
+    return tasks, keeps
+
+
+def _quantize_model_batched(eparams: dict, store: GramStore,
+                            sites: dict[str, SiteSpec], seed: int,
+                            cfg: ModelConfig, new_params: dict,
+                            progress: Callable[[str], None] | None, *,
+                            policy=None, report=None, journal=None,
+                            should_stop=None) -> None:
+    tasks, keeps = _gather_tasks(eparams, store, sites, seed)
+    with torch.no_grad():
+        results = quantize_layer_batch(tasks, progress=progress,
+                                       policy=policy, report=report,
+                                       journal=journal,
+                                       should_stop=should_stop)
+    for (path, lin), res in zip(keeps, results):
+        if res is None:
+            continue                          # degraded to dense: keep w
+        keep = dict(lin)                          # bias etc.
+        keep.update(_cast_for_model(res, cfg.dtype))
+        set_path(new_params, path, keep)
+
+
+_ENGINES = {"batched": _quantize_model_batched,
+            "sequential": _quantize_model_sequential}
 
 
 def _check_scan_uniform(sites: dict[str, SiteSpec], cfg: ModelConfig) -> None:
@@ -215,35 +314,68 @@ def _tree_copy(tree):
 def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
                    *, recipe: QuantRecipe | None = None,
                    method: str | None = None, qspec: QSpec | None = None,
-                   seed: int = 0, engine: str = "sequential",
-                   progress: Callable[[str], None] | None = None):
+                   seed: int = 0, engine: str = "batched",
+                   progress: Callable[[str], None] | None = None,
+                   mesh=None, policy: "health.HealthPolicy | None" = None,
+                   report: "health.HealthReport | None" = None,
+                   journal_dir: str | None = None,
+                   should_stop: Callable[[], bool] | None = None,
+                   cost_model=None, compile_cache=None):
     """Quantize all block linears of ``params`` on their device.
 
     ``recipe`` declares per-site plans (first-match-wins rules over eager
     param paths, see :mod:`repro_torch.core.recipe`); the ``(method,
-    qspec)`` pair is the zero-rule recipe.  ``seed`` is accepted for
-    signature parity (cloq draws no random numbers).
+    qspec)`` pair is the zero-rule recipe.  ``seed`` seeds each site's
+    random LoRA init (gptq, qlora, rtn).  ``engine`` is ``"batched"``
+    (default) or ``"sequential"``; both give the same leaves up to OPTQ
+    near-ties.
+
+    ``policy`` (:class:`repro_torch.core.health.HealthPolicy`) is on by
+    default: every site is checked and a failing one walks the degradation
+    ladder instead of landing as NaN leaves; ``HealthPolicy(enabled=False)``
+    turns it off.  ``report`` collects the ladder records and run events
+    (one is made when omitted).  ``journal_dir`` (batched engine only):
+    every finished bucket is committed to a
+    :class:`repro_torch.checkpoint.manager.QuantJournal` there, a rerun of
+    the same plan restores the committed buckets bit-identical, and the
+    report is saved as ``<journal_dir>/health.json``.  ``should_stop`` is
+    polled at every bucket boundary; True raises
+    :class:`repro_torch.core.health.QuantPreempted`.  ``mesh``,
+    ``cost_model`` and ``compile_cache`` are not ported and raise.
 
     Returns (new_params in the input (scan/eager) layout, new_cfg with
     ``quant=`` set to the recipe's default qspec, gram_store).  Skipped
-    sites keep their dense ``w`` leaf."""
-    if engine != "sequential":
-        raise NotImplementedError(f"engine {engine!r} {_NOT_PORTED}; use "
-                                  "engine='sequential'")
+    sites, and sites the ladder left dense, keep their dense ``w`` leaf."""
+    if engine not in _ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; options "
+                         f"{tuple(_ENGINES)}")
+    for name, value in (("mesh", mesh), ("cost_model", cost_model),
+                        ("compile_cache", compile_cache)):
+        if value is not None:
+            raise NotImplementedError(f"{name}= {_NOT_PORTED}")
+    if journal_dir is not None and engine != "batched":
+        raise ValueError("journaled (resumable) quantization requires the "
+                         "batched engine's bucket streaming; use "
+                         "engine='batched' or drop journal_dir=")
+    policy = health.HealthPolicy() if policy is None else policy
+    report = health.HealthReport() if report is None else report
+    journal = None
+    if journal_dir is not None:
+        from repro_torch.checkpoint.manager import QuantJournal
+        journal = QuantJournal(journal_dir)
     recipe = _coerce_recipe(recipe, method, qspec, cfg)
     eparams = to_eager_params(params, cfg)
     sites = recipe.resolve(quantizable_linear_paths(eparams))
-    for path, site in sites.items():
-        if not site.skip and site.method not in _PORTED_METHODS:
-            raise NotImplementedError(
-                f"{path}: method {site.method!r} {_NOT_PORTED}")
     _check_scan_uniform(sites, cfg)
     store = run_calibration(eparams, dataclasses.replace(cfg,
                                                          scan_layers=False),
-                            calib_batches)
+                            calib_batches, report=report)
     new_params = _tree_copy(eparams)
-    _quantize_model_sequential(eparams, store, sites, cfg, new_params,
-                               progress)
+    _ENGINES[engine](eparams, store, sites, seed, cfg, new_params, progress,
+                     policy=policy, report=report, journal=journal,
+                     should_stop=should_stop)
+    if journal_dir is not None:
+        report.save(os.path.join(journal_dir, "health.json"))
     new_cfg = dataclasses.replace(cfg, quant=recipe.qspec)
     if cfg.scan_layers:
         new_params = to_scan_params(new_params, cfg)

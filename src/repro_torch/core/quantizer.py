@@ -2,7 +2,9 @@
 
 PyTorch twin of ``repro.core.quantizer``; every function computes the same
 values on the same inputs (codes, scales, zeros and packed bytes are
-bit-exact against the JAX package).
+bit-exact against the JAX package).  Each also takes a leading stack of
+weights ``(L, m, n)`` (one bucket of the batched engine) and treats every
+slice as the 2-D call would.
 
 Conventions
 -----------
@@ -70,18 +72,18 @@ def stable_round(x: Tensor) -> Tensor:
 
 
 def _group_reshape(w: Tensor, group_size: int | None):
-    m, n = w.shape
+    *lead, m, n = w.shape
     g = m if group_size is None else int(group_size)
     if m % g:
         raise ValueError(f"in-features {m} not divisible by group {g}")
-    return w.reshape(m // g, g, n), g
+    return w.reshape(*lead, m // g, g, n), g
 
 
 def quant_params(w: Tensor, bits: int, group_size: int | None = 64):
     """Asymmetric min/max scale+zero per group. Returns (scales, zeros)."""
     wg, _ = _group_reshape(w.float(), group_size)
-    wmin = wg.amin(dim=1).clamp_max(0.0)
-    wmax = wg.amax(dim=1).clamp_min(0.0)
+    wmin = wg.amin(dim=-2).clamp_max(0.0)
+    wmax = wg.amax(dim=-2).clamp_min(0.0)
     scale = ((wmax - wmin) / (2 ** bits - 1)).clamp_min(1e-9)
     zero = stable_round(-wmin / scale).clamp(0, 2 ** bits - 1)
     return scale, zero
@@ -94,18 +96,16 @@ def quantize_int(w: Tensor, bits: int, group_size: int | None = 64,
     if scales is None or zeros is None:
         scales, zeros = quant_params(w, bits, group_size)
     wg, _ = _group_reshape(w, group_size)
-    q = (stable_round(wg / scales[:, None, :]) + zeros[:, None, :]).clamp(
+    q = (stable_round(wg / scales[..., None, :]) + zeros[..., None, :]).clamp(
         0, 2 ** bits - 1)
     return q.reshape(w.shape).to(torch.uint8), scales, zeros
 
 
 def dequantize_int(codes: Tensor, scales: Tensor, zeros: Tensor,
                    group_size: int | None = 64, dtype=torch.float32) -> Tensor:
-    m, n = codes.shape
-    g = m if group_size is None else int(group_size)
-    cg = codes.reshape(m // g, g, n).float()
-    w = (cg - zeros[:, None, :]) * scales[:, None, :]
-    return w.reshape(m, n).to(dtype)
+    cg, _ = _group_reshape(codes.float(), group_size)
+    w = (cg - zeros[..., None, :]) * scales[..., None, :]
+    return w.reshape(codes.shape).to(dtype)
 
 
 # -------------------------- bit packing -----------------------------------
@@ -123,13 +123,14 @@ def pack_codes(codes: Tensor, bits: int) -> Tensor:
     per = _pack_factor(bits)
     if per is None:
         return codes
-    m, n = codes.shape
+    *lead, m, n = codes.shape
     if m % per:
         raise ValueError(f"rows {m} not divisible by pack factor {per}")
-    c = codes.reshape(m // per, per, n)
-    word = torch.zeros((m // per, n), dtype=torch.uint8, device=codes.device)
+    c = codes.reshape(*lead, m // per, per, n)
+    word = torch.zeros((*lead, m // per, n), dtype=torch.uint8,
+                       device=codes.device)
     for j in range(per):
-        word = word | (c[:, j, :] << (bits * j))
+        word = word | (c[..., j, :] << (bits * j))
     return word
 
 
@@ -139,7 +140,8 @@ def unpack_codes(packed: Tensor, bits: int, m: int) -> Tensor:
         return packed
     mask = 2 ** bits - 1
     parts = [(packed >> (bits * j)) & mask for j in range(per)]
-    return torch.stack(parts, dim=1).reshape(m, packed.shape[-1])
+    return torch.stack(parts, dim=-2).reshape(*packed.shape[:-2], m,
+                                              packed.shape[-1])
 
 
 # ----------------------------- NF4 -----------------------------------------
@@ -148,23 +150,38 @@ def unpack_codes(packed: Tensor, bits: int, m: int) -> Tensor:
 def quantize_nf4(w: Tensor, group_size: int | None = 64):
     """NF4 (QLoRA): absmax-normalized nearest-level codes per group.
 
-    Returns (codes uint8 (m,n) in [0,16), absmax (m/g, n))."""
+    Returns (codes uint8 (m,n) in [0,16), absmax (m/g, n)).  The nearest
+    level is the first of the closest (``argmin``'s tie rule), found level
+    by level so that a bucket's stack needs no 16-wide distance tensor."""
     w = w.float()
     wg, _ = _group_reshape(w, group_size)
-    absmax = wg.abs().amax(dim=1).clamp_min(1e-9)
-    norm = wg / absmax[:, None, :]
-    dist = (norm[..., None] - nf4_levels(w.device)).abs()      # (G,g,n,16)
-    codes = dist.argmin(dim=-1).to(torch.uint8)
+    absmax = wg.abs().amax(dim=-2).clamp_min(1e-9)
+    norm = wg / absmax[..., None, :]
+    levels = nf4_levels(w.device)
+    best = (norm - levels[0]).abs()
+    codes = torch.zeros(norm.shape, dtype=torch.uint8, device=w.device)
+    for i in range(1, len(NF4_LEVELS)):
+        d = (norm - levels[i]).abs()
+        closer = d < best
+        best = torch.where(closer, d, best)
+        codes.masked_fill_(closer, i)
     return codes.reshape(w.shape), absmax
 
 
 def dequantize_nf4(codes: Tensor, absmax: Tensor,
                    group_size: int | None = 64, dtype=torch.float32) -> Tensor:
-    m, n = codes.shape
-    g = m if group_size is None else int(group_size)
-    cg = codes.reshape(m // g, g, n).long()
-    w = nf4_levels(codes.device)[cg] * absmax[:, None, :]
-    return w.reshape(m, n).to(dtype)
+    cg, _ = _group_reshape(codes.long(), group_size)
+    w = nf4_levels(codes.device)[cg] * absmax[..., None, :]
+    return w.reshape(codes.shape).to(dtype)
+
+
+def rtn(w: Tensor, cfg: QuantConfig) -> Tensor:
+    """Round-to-nearest dequantized weights (data-free baseline)."""
+    if cfg.fmt == "nf4":
+        codes, absmax = quantize_nf4(w, cfg.group_size)
+        return dequantize_nf4(codes, absmax, cfg.group_size)
+    codes, s, z = quantize_int(w, cfg.bits, cfg.group_size)
+    return dequantize_int(codes, s, z, cfg.group_size)
 
 
 def quant_state_size_bytes(m: int, n: int, cfg: QuantConfig) -> int:

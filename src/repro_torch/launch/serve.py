@@ -1,15 +1,16 @@
-"""Serving CLI: CLoQ-quantize a model, then serve it greedily.
+"""Serving CLI: quantize a model, then serve it greedily.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --requests 8 --max-new 16 --batch 4 --cache-len 128 \\
         --tenants 4 --ranks 64,16 [--adapter NAME=DIR]
 
 Twin of ``repro.launch.serve``: the same flags plus ``--device`` (CUDA
-unless ``--device cpu``).  It quantizes as the JAX CLI does (calibration on
+unless ``--device cpu``).  It quantizes as the JAX CLI does, through
+``quantize_model``'s batched engine with any ``--method`` (calibration on
 2 x 64 tokens; group 64 and rank 64 at full size, 16 and 8 with
-``--smoke``) and routes as it does:
+``--smoke``), and routes as it does:
 
-* a dense scan model with LoRA adapter sites (every CLoQ-quantized one)
+* a dense scan model with LoRA adapter sites (every quantized one)
   is served by the multi-tenant :class:`repro_torch.serve.ServeEngine`:
   ``--tenants`` synthetic tenants over the ``--ranks`` buckets (the JAX
   CLI's ``synthesize_adapters``), plus one tenant per ``--adapter

@@ -1,4 +1,4 @@
-"""Fine-tuning CLI: quantize a model with CLoQ, then train its LoRA adapters.
+"""Fine-tuning CLI: quantize a model, then train its LoRA adapters.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --bits 4 --group-size 64 --rank 64 --steps 100
@@ -8,19 +8,26 @@ unless ``--device cpu``).  It builds the model from ``--seed``, optionally
 pre-trains it in full precision (``--pretrain-steps``), calibrates on
 ``--calib-batches`` batches of the training stream, quantizes every block
 linear (``QuantRecipe.single`` from ``--method/--bits/--group-size/--rank/
---split``, or ``--recipe``; sequential engine, method ``cloq``), and trains
-the LoRA adapters only (everything, with ``--method none``) for
-``--steps`` steps.  On a CUDA device calibration runs through the ``gram``
-kernel and every quantized linear's forward through the fused
-``dequant_matmul_lora`` kernel (``QSpec.use_kernel``; a training batch has
-more rows than ``kernels.ops.FUSED_LORA_MIN_ROWS``).
+--split``, or ``--recipe``; any of the five methods cloq, gptq, loftq,
+qlora and rtn, through the batched engine with the health guards on, whose
+summary it prints), and trains the LoRA adapters only (everything, with
+``--method none``) for ``--steps`` steps.  On a CUDA device calibration
+runs through the ``gram`` kernel and the forward of every INT-quantized
+linear through the fused ``dequant_matmul_lora`` kernel
+(``QSpec.use_kernel``; a training batch has more rows than
+``kernels.ops.FUSED_LORA_MIN_ROWS``); NF4 (``qlora``) sites dequantize in
+plain PyTorch.
 
 Each step's time is taken on the host clock around a step that ends in a
 device synchronize.  With ``--ckpt-dir`` the train state and the data
 stream's position are saved every ``--ckpt-every`` steps and at the end
 (``repro_torch.checkpoint``, the JAX package's format), and on SIGTERM or
 SIGINT after the step in flight, pinned; ``--resume`` continues from the
-newest step there.  The quantization journal, bit allocation, the compile
+newest step there.  With ``--resume-quant DIR`` every finished bucket of
+the quantization is journaled in DIR (and the health report saved as
+DIR/health.json); SIGTERM or SIGINT during quantization stops it at the
+next bucket boundary with exit code 0, and a rerun with the same DIR
+restores the committed buckets bit-identical.  Bit allocation, the compile
 cache, the cost model and tracing are not ported yet (``ROADMAP.md``);
 their flags raise.
 """
@@ -39,6 +46,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.health import HealthReport, QuantPreempted
 from repro_torch.core.pipeline import quantize_model
 from repro_torch.core.recipe import QuantRecipe, load_plan
 from repro_torch.data import DataConfig, TokenStream
@@ -52,8 +60,7 @@ from repro_torch.optim import OptConfig, merge_params
 from repro_torch.utils import resolve_device
 
 # flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"resume_quant": "",
-               "compile_cache": "", "cost_cal": "", "auto_allocate": False,
+_NOT_PORTED = {"compile_cache": "", "cost_cal": "", "auto_allocate": False,
                "budget_mb": 0.0, "trace_out": "", "metrics_out": ""}
 
 
@@ -88,8 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without it)")
+    p.add_argument("--resume-quant", default="", metavar="DIR",
+                   help="journal the quantization's buckets in DIR and "
+                        "resume from the ones committed there")
     # JAX CLI flags of subsystems not ported yet (rejected unless default)
-    p.add_argument("--resume-quant", default="")
     p.add_argument("--compile-cache", default="")
     p.add_argument("--cost-cal", default="")
     p.add_argument("--auto-allocate", action="store_true")
@@ -104,9 +113,9 @@ def _check_ported(args) -> None:
              if getattr(args, k) != default]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: the quantization journal, bit allocation, "
-            "the compile cache, the cost model and tracing "
-            "are not ported to repro_torch yet (see ROADMAP.md)")
+            f"{', '.join(given)}: bit allocation, the compile cache, the "
+            "cost model and tracing are not ported to repro_torch yet (see "
+            "ROADMAP.md)")
 
 
 def _sync(device: torch.device) -> None:
@@ -123,15 +132,18 @@ def _log(event: str, **kv) -> None:
 def run(args, cfg=None) -> dict:
     """Build, quantize and fine-tune as the CLI does.  ``cfg`` overrides the
     config chosen from ``--arch``/``--smoke`` (e.g. a depth-cut one).
-    Returns the final ``state`` and ``cfg``, ``quantize_s``, the first
-    step run (``start_step``: > 0 after a resume), per step run
+    Returns the final ``state`` and ``cfg``, ``quantize_s``, the
+    quantization's ``health`` report (None with ``--method none``), the
+    first step run (``start_step``: > 0 after a resume), per step run
     ``losses``, ``grad_norms`` and ``step_s``, the newest saved step
     (``ckpt_step``, None without ``--ckpt-dir``) and whether a signal
-    stopped the run (``preempted``).
+    stopped the run (``preempted``; ``state`` is None when it stopped the
+    quantization).
 
-    SIGTERM and SIGINT set a flag that ends the run after the step in
-    flight, with a pinned save when checkpointing; the previous handlers
-    are restored on return."""
+    SIGTERM and SIGINT, from before quantization on, set a flag that ends
+    the run after the step in flight, with a pinned save when
+    checkpointing, or with ``--resume-quant`` at the quantization's next
+    bucket boundary; the previous handlers are restored on return."""
     stop = {"flag": False}
 
     def on_signal(signum, frame):
@@ -178,15 +190,31 @@ def _run(args, cfg, stop: dict) -> dict:
                                rank=args.rank, method=args.method,
                                split=args.split))
     quantize_s = 0.0
+    report = None
     if recipe is not None:
         calib = [stream.next_batch() for _ in range(args.calib_batches)]
+        journal_dir = args.resume_quant or None
+        report = HealthReport()
         _sync(device)
         t0 = time.perf_counter()
-        params, cfg, _ = quantize_model(params, cfg, calib, recipe=recipe)
+        try:
+            params, cfg, _ = quantize_model(
+                params, cfg, calib, recipe=recipe,
+                report=report, journal_dir=journal_dir,
+                should_stop=(lambda: stop["flag"]) if journal_dir else None)
+        except QuantPreempted as e:
+            print(f"[preempt-quant] signal received — buckets 0..{e.bucket} "
+                  f"committed to {journal_dir}; rerun with the same "
+                  "--resume-quant to continue", flush=True)
+            return {"cfg": cfg, "state": None, "quantize_s": 0.0,
+                    "health": report, "start_step": 0, "losses": [],
+                    "grad_norms": [], "step_s": [], "preempted": True,
+                    "ckpt_step": None}
         _sync(device)
         quantize_s = time.perf_counter() - t0
         _log("quantize", rules=len(recipe.rules),
              default=f"{recipe.method}/{recipe.qspec.bits}b", s=quantize_s)
+        print(f"[quantize] {report.summary()}", flush=True)
         if device.type == "cuda":
             cfg = dataclasses.replace(cfg, quant=dataclasses.replace(
                 cfg.quant, use_kernel=True))
@@ -252,7 +280,7 @@ def _run(args, cfg, stop: dict) -> dict:
     if ckpt is not None:
         ckpt.wait()
     return {"cfg": cfg, "state": state, "quantize_s": quantize_s,
-            "start_step": start_step, "losses": losses, "grad_norms": gnorms,
+            "health": report, "start_step": start_step, "losses": losses, "grad_norms": gnorms,
             "step_s": times, "preempted": preempted,
             "ckpt_step": None if ckpt is None else ckpt.latest_step()}
 

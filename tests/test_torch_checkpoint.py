@@ -224,3 +224,155 @@ def test_train_checkpoint_reads_in_jax(tmp_path):
         np.testing.assert_array_equal(_bits(leaf), _bits(port[p]),
                                       err_msg=p)
     assert "train.blocks.attn.q.lora_a" in tree_paths(tree)
+
+
+# ---------------------------------------------------------------------------
+# The quantization journal (resumable batched quantization).
+# ---------------------------------------------------------------------------
+
+
+def _quant_setup():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.transformer import init_params
+    cfg = get_smoke_config("qwen3-1.7b")
+    params = init_params(cfg, seed=0, device="cpu")
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                    global_batch=2, seed=0))
+    calib = [stream.next_batch() for _ in range(2)]
+    recipe = QuantRecipe.single("cloq", QSpec(bits=4, group_size=16, rank=4))
+    return cfg, params, calib, recipe
+
+
+def _quantize(**kw):
+    from repro_torch.core.pipeline import quantize_model
+    cfg, params, calib, recipe = _quant_setup()
+    recipe = kw.pop("recipe", recipe)
+    qp, _, _ = quantize_model(params, cfg, calib, recipe=recipe, **kw)
+    return qp
+
+
+@pytest.mark.fault
+def test_journal_preempt_resume_bit_identical(tmp_path):
+    """``should_stop`` at the first bucket boundary raises QuantPreempted
+    with bucket 0 committed; the rerun restores it and gives the tree of
+    an uninterrupted run bit for bit; the health report lands in the
+    journal directory."""
+    from repro_torch.core.health import HealthReport, QuantPreempted
+    jd = str(tmp_path / "journal")
+    with pytest.raises(QuantPreempted) as ei:
+        _quantize(journal_dir=jd, should_stop=lambda: True)
+    assert ei.value.bucket == 0
+    assert tmanager.QuantJournal(jd).buckets() == [0]
+    restored = t_metrics.counter(t_names.JOURNAL_RESTORED)
+    before = restored.value
+    report = HealthReport()
+    resumed = _quantize(journal_dir=jd, report=report)
+    assert restored.value - before == 1
+    assert any("restored from journal" in e for e in report.events)
+    assert tmanager.QuantJournal(jd).buckets() == [0, 1, 2, 3]
+    with open(os.path.join(jd, "health.json")) as f:
+        assert json.load(f)["checked"] == 14 - 4     # bucket 0 restored
+    _same_bits(resumed, _quantize())
+
+
+@pytest.mark.fault
+def test_stale_or_foreign_journal_is_recomputed(tmp_path):
+    """Entries from another plan (here another rank) or a torn entry are
+    ignored and their buckets recomputed; the result is a fresh run's."""
+    from repro_torch.core import faults
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.models.modules import QSpec
+    jd = str(tmp_path / "journal")
+    _quantize(journal_dir=jd, recipe=QuantRecipe.single(
+        "cloq", QSpec(bits=4, group_size=16, rank=8)))
+    restored = t_metrics.counter(t_names.JOURNAL_RESTORED)
+    before = restored.value
+    _same_bits(_quantize(journal_dir=jd), _quantize())
+    assert restored.value == before
+    faults.truncate_file(os.path.join(jd, "step_00000002", "arrays.npz"))
+    journal = tmanager.QuantJournal(jd)
+    assert journal.load_bucket(2, {}, []) is None
+    before = restored.value
+    _same_bits(_quantize(journal_dir=jd), _quantize())
+    assert restored.value - before == 3        # buckets 0, 1 and 3
+
+
+@pytest.mark.fault
+def test_journal_format_is_the_references(tmp_path):
+    """A bucket the port commits is read by the JAX package's journal under
+    the same fingerprint (the spec as the JAX planner resolves it), leaves
+    bit-equal."""
+    import dataclasses
+
+    from repro.checkpoint.manager import QuantJournal as JaxJournal
+    from repro.core.batched import make_spec as jax_make_spec
+    from repro.models.modules import QSpec as JQSpec
+    jd = str(tmp_path / "journal")
+    _quantize(journal_dir=jd)
+    meta = json.load(open(os.path.join(jd, "step_00000000", "meta.json")))
+    ids = [["blocks.0.attn.k", None], ["blocks.0.attn.v", None],
+           ["blocks.1.attn.k", None], ["blocks.1.attn.v", None]]
+    spec = dataclasses.asdict(jax_make_spec(
+        64, 32, JQSpec(bits=4, group_size=16, rank=4), "cloq", True))
+    got = JaxJournal(jd).load_bucket(0, spec, ids)
+    assert got is not None and meta["dense"] == []
+    mine = tmanager.QuantJournal(jd).load_bucket(0, spec, ids)
+    for a, b in zip(got[0], mine[0]):
+        _same_bits(b, a)
+
+
+@pytest.mark.fault
+def test_shard_truncate_injection_point(tmp_path):
+    """``shard_truncate`` tears the shard through ``save_tree``'s own
+    post-commit hook, targeted by step."""
+    from repro_torch.core import faults
+    with faults.inject("shard_truncate", match="1"):
+        save_tree(_numpy_tree(), str(tmp_path), 1)
+        save_tree(_numpy_tree(), str(tmp_path), 2)
+    with pytest.raises(ValueError, match="truncated|corrupt"):
+        restore_tree(str(tmp_path), 1)
+    _same_bits(restore_tree(str(tmp_path), 2)[0], _numpy_tree())
+
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+@pytest.mark.fault
+def test_kill_between_buckets_then_resume(tmp_path):
+    """SIGKILL right after bucket 1's journal commit kills the train CLI
+    mid-quantization; buckets 0 and 1 survive, and a rerun with the same
+    ``--resume-quant`` ends with the final loss of an uninterrupted run in
+    a fresh journal."""
+    import subprocess
+    import sys
+    jd = str(tmp_path / "journal")
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen3-1.7b", "--smoke", "--device", "cpu", "--method", "cloq",
+            "--bits", "4", "--group-size", "16", "--rank", "4", "--steps",
+            "3", "--seq-len", "32", "--batch", "2", "--calib-batches", "1",
+            "--resume-quant", jd]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_FAULTS", None)
+    killed = subprocess.run(
+        args, env=dict(env, REPRO_FAULTS="kill_between_buckets=1"),
+        capture_output=True, text=True, timeout=300)
+    assert killed.returncode == -signal.SIGKILL, killed.stdout + \
+        killed.stderr
+    assert tmanager.QuantJournal(jd).buckets() == [0, 1]
+    resumed = subprocess.run(args, env=env, capture_output=True, text=True,
+                             timeout=300)
+    assert resumed.returncode == 0, resumed.stdout + resumed.stderr
+    fresh_args = list(args)
+    fresh_args[-1] = str(tmp_path / "fresh")
+    fresh = subprocess.run(fresh_args, env=env, capture_output=True,
+                           text=True, timeout=300)
+    assert fresh.returncode == 0, fresh.stdout + fresh.stderr
+
+    def final_loss(out):
+        line = [ln for ln in out.splitlines() if ln.startswith("[done]")][-1]
+        return json.loads(line[len("[done]"):].strip())["final_loss"]
+
+    assert final_loss(resumed.stdout) == final_loss(fresh.stdout)

@@ -3,8 +3,8 @@
 Tolerances and their sources:
   * TokenStream batches: byte-identical (both draw with numpy);
   * calibration Grams: rtol 1e-4 (f32 forward, another summation order);
-  * quantize_model(engine="sequential") against the JAX engine with the
-    health guards off: codes >= 99.9% equal over the model and Qd within
+  * quantize_model(engine="sequential") against the JAX engine (the
+    port's health guards on, the reference's off): codes >= 99.9% equal over the model and Qd within
     atol 2e-4 (``tests/test_distributed.py:89-90``) wherever the codes
     agree; scales within rtol 1e-6 (MagR ran on Grams that differ in the
     last bits), zero points equal.  A code differs only where OPTQ's pre-round value lands within
@@ -247,12 +247,20 @@ def test_quantize_model_sequential_matches_jax():
 
 
 def test_quantize_model_rejects_unported():
+    """What is still not ported raises before calibration: the mesh, the
+    cost model and the compile cache; a journal needs the batched engine.
+    A recipe that skips every site leaves the model dense."""
     cfg_j, cfg_t, pj, pt = _model()
     _, ct = _calib(cfg_t.vocab)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.quantize_model(pt, cfg_t, ct, engine="batched")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.quantize_model(pt, cfg_t, ct, method="rtn")
+    for kw in (dict(mesh=object()), dict(cost_model="auto"),
+               dict(compile_cache="cache")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tp.quantize_model(pt, cfg_t, ct, **kw)
+    with pytest.raises(ValueError, match="batched"):
+        tp.quantize_model(pt, cfg_t, ct, engine="sequential",
+                          journal_dir="j")
+    with pytest.raises(ValueError, match="engine"):
+        tp.quantize_model(pt, cfg_t, ct, engine="bogus")
     skip_all = tr.QuantRecipe(rules=(tr.SiteRule("*", skip=True),))
     qt, _, _ = tp.quantize_model(pt, cfg_t, ct, recipe=skip_all)
     assert not any(p.endswith("qcodes") for p in tpaths(qt))

@@ -17,6 +17,8 @@ Tolerances and their reasons:
     (the same f32 sums, split or ordered differently).
 """
 import dataclasses
+import os
+import signal
 
 import jax
 import jax.numpy as jnp
@@ -350,29 +352,104 @@ def test_train_cli_full_finetune_without_quantization():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resume-quant", "x", "--ckpt-dir", "y"], ["--resume", "--cost-cal",
-                                                 "auto"],
-    ["--resume-quant", "x"],
+    ["--auto-allocate", "--ckpt-dir", "y"], ["--resume", "--cost-cal",
+                                             "auto"],
+    ["--resume-quant", "x", "--trace-out", "t.json"],
     ["--compile-cache", "x"], ["--cost-cal", "auto"], ["--auto-allocate"],
     ["--budget-mb", "5"], ["--trace-out", "t.json"], ["--metrics-out", "m"]])
 def test_train_rejects_what_is_not_ported(flag):
     """Each flag of a subsystem not ported raises, also beside the ported
-    checkpoint flags, and names only the unported flags."""
+    checkpoint and journal flags, and names only the unported flags."""
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                      *flag])
     named = str(e.value).split(":")[0].split(", ")
-    assert named and "--ckpt-dir" not in named and "--resume" not in named
+    assert named and not {"--ckpt-dir", "--resume", "--resume-quant"} & \
+        set(named)
     ttrain._check_ported(ttrain.build_parser().parse_args(
         ["--arch", "qwen3-1.7b", "--ckpt-dir", "y", "--resume",
-         "--ckpt-every", "3"]))
+         "--ckpt-every", "3", "--resume-quant", "q"]))
 
 
 def test_train_rejects_unported_methods_and_needs_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every method the JAX CLI offers runs (below); any other is refused
+    before anything is built, and the CLI needs CUDA unless the CPU is
+    asked for."""
+    with pytest.raises(SystemExit):
         ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
-                     "--method", "gptq", "--steps", "1", "--batch", "2",
-                     "--seq-len", "16", "--calib-batches", "1"])
+                     "--method", "apiq", "--steps", "1"])
+    assert ttrain.build_parser().parse_args(
+        ["--arch", "a"]).method == "cloq"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.main(["--arch", "qwen3-1.7b", "--smoke"])
+
+
+TRAIN_SMOKE = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+               "--steps", "2", "--batch", "2", "--seq-len", "16",
+               "--calib-batches", "1"]
+
+
+@pytest.mark.parametrize("method", ["cloq", "gptq", "loftq", "qlora", "rtn"])
+def test_train_cli_each_method(method, capsys):
+    """``python -m repro_torch.launch.train --method M`` quantizes through
+    the batched engine with the health guards on (their summary printed)
+    and fine-tunes with finite losses; gptq, qlora and rtn start from
+    ``B == 0``, qlora stores NF4 codes."""
+    from repro_torch.core import pipeline
+    seen = {}
+    real = pipeline.quantize_model
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        seen["tree"] = tpaths(out[0])
+        seen["engine"] = kw.get("engine", "batched")
+        return out
+
+    ttrain.quantize_model, keep = spy, ttrain.quantize_model
+    try:
+        rc = ttrain.main(TRAIN_SMOKE + ["--method", method])
+    finally:
+        ttrain.quantize_model = keep
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert f"default={method}/4b" in out and '[done] {"final_loss": ' in out
+    assert "[quantize] health: 14 slices checked, all clean" in out
+    assert seen["engine"] == "batched"
+    tree = seen["tree"]
+    b = [v for p, v in tree.items() if p.endswith("lora_b")]
+    assert len(b) == 7
+    assert all(not v.any() for v in b) == (method != "cloq" and
+                                           method != "loftq")
+    assert any(p.endswith("absmax") for p in tree) == (method == "qlora")
+
+
+def test_train_cli_resume_quant(tmp_path, monkeypatch, capsys):
+    """SIGTERM during quantization with ``--resume-quant``: the engine stops
+    at the next bucket boundary, the CLI warns and exits 0; the rerun with
+    the same directory restores the committed bucket and trains to the
+    losses of a run that was never stopped."""
+    jd = str(tmp_path / "q")
+    argv = TRAIN_SMOKE + ["--resume-quant", jd]
+    real = ttrain.quantize_model
+
+    def stopping(*a, **kw):
+        stop = kw["should_stop"]
+
+        def should_stop():
+            signal.raise_signal(signal.SIGTERM)
+            return stop()
+        return real(*a, **dict(kw, should_stop=should_stop))
+
+    monkeypatch.setattr(ttrain, "quantize_model", stopping)
+    assert ttrain.main(argv) == 0
+    assert "[preempt-quant] signal received — buckets 0..0 committed" in \
+        capsys.readouterr().out
+    monkeypatch.setattr(ttrain, "quantize_model", real)
+    resumed = ttrain.run(ttrain.build_parser().parse_args(argv))
+    assert any("restored from journal" in e for e in
+               resumed["health"].events)
+    fresh = ttrain.run(ttrain.build_parser().parse_args(TRAIN_SMOKE))
+    assert resumed["losses"] == fresh["losses"]
+    assert resumed["grad_norms"] == fresh["grad_norms"]
+    assert os.path.isfile(os.path.join(jd, "health.json"))
