@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--layers L]
+    python3 chip_smoke.py [--layers L] [--moe-layers L]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
 one JSON line each:
@@ -11,7 +11,8 @@ one JSON line each:
    kernels/csrc`` with ``nvcc`` (into the git-ignored ``build/``), with
    seconds and the ``ptxas`` register and spill report.
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at its main path's shapes and at a sweep of others, with
+   at its main path's shapes (Qwen3-1.7B's and every other ported
+   config's, MoE expert slices included) and at a sweep of others, with
    ``torch.cuda.synchronize()`` after each launch, on every route its plan
    function picks, each case's route and error on a ``dequant_cases``,
    ``flash_cases``, ``gram_cases`` or ``lora_cases`` line; the decode and
@@ -48,10 +49,16 @@ one JSON line each:
    ulp off; held: scales, zeros and the calibrated objective
    ``gram_error`` within 1e-3 relative, code flips within 0.005 or twice
    the one-ulp run's on the site (``A @ B^T`` reported: one ulp moves it
-   ~50% at this width); seconds and peak memory per engine.  quantize_split: the CLoQ stack of one full-depth
+   ~50% at this width); seconds and peak memory per engine; then the
+   batched engine once more with every bucket cut into one-slice chunks
+   (``chunked``), held to the same limits.  quantize_split: the CLoQ
+   stack of one full-depth
    bucket (gate+up, 56 x 2048 x 6144; down, 28 x 6144 x 2048; random
    weights and Grams) split into MagR, the OPTQ sweep and ``eigh``/``svd``
-   with CUDA events.  health: the batched engine with ``gram_nan``
+   with CUDA events, and ``slice_factor``: the batched engine's peak
+   memory a slice over its f32 W and H bytes at five slice shapes (at
+   most ``batched.SLICE_WORK_FACTOR``, which sizes a bucket's chunks).
+   health: the batched engine with ``gram_nan``
    injected at ``blocks.0.attn.q``: all leaves finite, that site healed
    by the identity Gram, every other leaf bit-identical to the clean
    batched run.  journal: a journaled batched run stopped after bucket 0
@@ -96,10 +103,32 @@ one JSON line each:
    recording the device's events only: step
    time (also the median of the steps' own host times), device busy time
    a step and idle share, top kernels.
+11. moe — OLMoE-1B-7B at full width (d_model 2048, 64 experts top-8,
+   expert d_ff 1024, vocab 50304, bf16), ``--moe-layers`` deep (2 by
+   default, cut from 16): the train CLI's path (CLoQ 4-bit g64 r64,
+   calibration 2 x 8 x 128, 3 steps at 8 x 128), the same steps on the
+   plain path from the same quantized params and batches, then the
+   engine route on the quantized params (ranks 64 and 16, 4 tenants, 8
+   one-token requests x 16 tokens) eager and captured.  Quantize seconds,
+   each bucket's slices and chunks, peak memory, losses and their largest
+   relative difference from the plain path's (held to 1e-2), step seconds
+   and tokens/s, engine slot tokens/s, launches, the share of routed token
+   slots dropped at capacity; held: an empty health report, captured
+   tokens equal to eager ones, every kernel's launches.
+12. configs — Qwen3-4B, CodeQwen1.5-7B, MiniCPM-2B (CLoQ 4-bit g64 r64)
+   and Qwen3-30B-A3B (RTN: its experts' Grams are not read) at full
+   width, 1 layer each: the train CLI's path (2 steps), then the engine
+   (4 requests x 8 tokens) eager and captured.  Quantize seconds, peak
+   memory, the routes each kernel took, the largest difference of kernel
+   against plain decode logits; held: captured tokens equal to eager
+   ones, finite losses, an empty health report, the launches.
 
-Then the kernel table as one JSON line (each kernel's launches from the
-path that runs it: train for ``gram`` and ``dequant_matmul_lora``, the
-engine serve for the others), the ``nvidia-smi`` name and power limit
+``--moe-layers`` at another depth than 2 (``--moe-layers 16``: the
+full-depth check) runs the device and build phases and the moe phase
+alone.  Otherwise the kernel table follows as one JSON line (each
+kernel's launches from the path that runs it: train for ``gram`` and
+``dequant_matmul_lora``, the engine serve for the others; and from the
+moe phase's, ``launches_moe``), the ``nvidia-smi`` name and power limit
 line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without the ``ok`` line, as does a host without CUDA or a directory
@@ -133,6 +162,42 @@ TOL_GRAM = {"float32": (1e-4, 1e-2), "bfloat16": (2e-2, 2e-1)}   # gram
 # gate, up, down at qwen3-1.7b's widths
 QWEN_LINEARS = ((2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048),
                 (2048, 6144), (2048, 6144), (6144, 2048))
+
+
+# the configs slice 8 adds, each at its published widths
+NEW_CONFIGS = ("qwen3-4b", "codeqwen1.5-7b", "minicpm-2b", "olmoe-1b-7b",
+               "qwen3-moe-30b-a3b")
+
+
+def config_shapes(c) -> dict:
+    """The kernel shapes of one layer of the model config ``c``:
+    ``linears`` (K, N) of its quantized 2-D linears (q, k, v, o and, for
+    dense, gate/up and down), ``heads`` (Hq, Hkv, d) and ``grams`` the
+    calibration widths D (and, for MoE, the expert slices')."""
+    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    linears = {(c.d_model, q), (c.d_model, kv), (q, c.d_model)}
+    grams = {c.d_model, q}
+    if c.family == "dense":
+        linears |= {(c.d_model, c.d_ff), (c.d_ff, c.d_model)}
+        grams.add(c.d_ff)
+    else:
+        grams.add(c.d_ff_expert)
+    return {"linears": sorted(linears), "heads": (c.n_heads, c.n_kv_heads,
+                                                  c.head_dim),
+            "grams": sorted(grams)}
+
+
+def new_shapes(key: str) -> list:
+    """``config_shapes(...)[key]`` over NEW_CONFIGS at their published
+    widths, each shape once."""
+    from repro_torch.configs import get_config
+    out = []
+    for name in NEW_CONFIGS:
+        v = config_shapes(get_config(name))[key]
+        for x in (v if isinstance(v, list) else [v]):
+            if x not in out:
+                out.append(x)
+    return out
 
 
 # where the train phase saves its state and the serve phase loads the
@@ -229,7 +294,8 @@ DEQUANT_ANY_ZERO = ((4, 2048, 1024, 64), (9, 384, 256, 32))
 
 
 def check_dequant(torch, dev) -> tuple[dict, list]:
-    """The kernel against its plain version: the decode cases (each run
+    """The kernel against its plain version: the decode cases (Qwen3-1.7B's
+    linears at 1 to 8 rows, the other configs' at 1 and 4; each run
     twice: the same bits both times), the odd shapes, the sweep (f32,
     ragged N and more than 8 rows take the CUDA-core route) and zeros that
     are not whole or lie outside the codes' range, on both routes.  Returns
@@ -241,7 +307,10 @@ def check_dequant(torch, dev) -> tuple[dict, list]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     main = [(M, K, N, 4, 64, torch.bfloat16) for M in DEQUANT_DECODE_ROWS
-            for K, N in sorted(set(QWEN_LINEARS))]
+            for K, N in sorted(set(QWEN_LINEARS))] + [
+        (M, K, N, 4, 64, torch.bfloat16) for M in (1, 4)
+        for K, N in new_shapes("linears")
+        if (K, N) not in QWEN_LINEARS]
     odd = [(M, K, N, bits, g, torch.bfloat16) for bits in (2, 4, 8)
            for M, K, N, g in DEQUANT_ODD]
     sweep = [(M, K, N, bits, g, dt)
@@ -402,8 +471,9 @@ FLASH_Q_PEAK = 4.0
 def check_flash(torch, dev) -> tuple[dict, list]:
     """The kernel against its plain version: the path's case, prefill and
     odd shapes (the tiled route), then the decode cases in bf16 (the mma
-    route, q scaled by ``FLASH_Q_PEAK``) and f32 (the split route), each
-    run twice for equal bits.  Returns the summary and one ``[B, Hq, Hkv,
+    route, q scaled by ``FLASH_Q_PEAK``) and f32 (the split route), at
+    Qwen3-1.7B's heads and at the other configs', each run twice for
+    equal bits.  Returns the summary and one ``[B, Hq, Hkv,
     Sq, Sk, d, causal, dtype, route, max_abs_err, max_abs_ref]`` a case."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -418,10 +488,16 @@ def check_flash(torch, dev) -> tuple[dict, list]:
         (2, 4, 2, 1, 64, 16, False, (13, 64), torch.float32, True),
         (1, 8, 2, 384, 384, 64, False, None, torch.float32, False),
         (2, 2, 1, 100, 160, 96, True, (160, 50), torch.float32, False),
-    ] + [(4, 16, 8, 1, Sk, 128, False, lens, dt, True)
-         for Sk, lens in FLASH_DECODE
-         for dt in (torch.bfloat16, torch.float32)]
-    decode = len(cases) - 2 * len(FLASH_DECODE)
+    ]
+    decode = len(cases)
+    cases += [(4, 16, 8, 1, Sk, 128, False, lens, dt, True)
+              for Sk, lens in FLASH_DECODE
+              for dt in (torch.bfloat16, torch.float32)]
+    # the other configs' heads (MHA, GQA group 8, head dim 64) at a
+    # 128-key cache
+    cases += [(4, Hq, Hkv, 1, 128, d, False, (128, 97, 40, 1), dt, True)
+              for Hq, Hkv, d in new_shapes("heads")
+              for dt in (torch.bfloat16, torch.float32)]
     main_err, out, routes = 0.0, [], {}
     for i, (B, Hq, Hkv, Sq, Sk, d, causal, lens, dt, cached) in \
             enumerate(cases):
@@ -548,10 +624,17 @@ GRAM_WGMMA = ((1, 2048), (63, 136), (65, 2056), (1000, 2056), (4096, 136),
               (129, 8), (1000, 6144))
 
 
+# MoE expert slices (C, D) of a calibration batch of 8 x 128 tokens:
+# OLMoE's (C = 1024 x 8 x 1.25 / 64 = 160, D 2048 and 1024) and
+# Qwen3-30B-A3B's (C = 80 of 128 experts, D 2048 and 768)
+GRAM_EXPERT_SLICES = ((160, 2048), (160, 1024), (80, 2048), (80, 768))
+
+
 def check_gram(torch, dev) -> tuple[dict, list]:
     """The kernel against its plain version: the main cases (T = 1024, D =
     2048 and 6144, bf16 run twice for equal bits, and f32), the
-    tensor-core route's ragged cases and the sweep (f32 and D % 8 != 0
+    tensor-core route's ragged cases, the other configs' widths and MoE
+    expert slices, and the sweep (f32 and D % 8 != 0
     take the CUDA-core route).  Every case exactly symmetric; the bf16
     cases on the wgmma route also within the f32 tolerance (their products
     are exact, so a lost token stage or a wrong swizzle cannot hide in
@@ -563,7 +646,10 @@ def check_gram(torch, dev) -> tuple[dict, list]:
     gen.manual_seed(5)
     main = [(TRAIN_TOKENS, D, dt) for D in (2048, 6144)
             for dt in (torch.bfloat16, torch.float32)]
-    wgmma = [(T, D, torch.bfloat16) for T, D in GRAM_WGMMA]
+    wgmma = [(T, D, torch.bfloat16) for T, D in GRAM_WGMMA] + [
+        (TRAIN_TOKENS, D, torch.bfloat16) for D in new_shapes("grams")
+        if D not in GRAM_DIMS] + [
+        (T, D, torch.bfloat16) for T, D in GRAM_EXPERT_SLICES]
     sweep = [(T, D, dt) for T, D in ((1, 64), (1, 50), (37, 50), (300, 130),
                                      (129, 65), (1000, 2047), (64, 1))
              for dt in (torch.float32, torch.bfloat16)]
@@ -729,7 +815,8 @@ LORA_SWEEP_BITS_RANKS = ((4, 0), (4, 8), (4, 64), (4, 128), (2, 8), (2, 64),
 
 
 def check_lora(torch, dev) -> tuple[dict, list]:
-    """The fused kernel against its plain version: the train shapes (run
+    """The fused kernel against its plain version: the train shapes
+    (Qwen3-1.7B's linears in bf16 and f32, the other configs' in bf16; run
     twice: the same bits both times) and the sweep.  Returns the summary
     and one ``[M, K, N, bits, g, r, dtype, route, max_abs_err]`` a case."""
     from repro_torch.kernels import ref
@@ -739,7 +826,9 @@ def check_lora(torch, dev) -> tuple[dict, list]:
     gen.manual_seed(7)
     main = [(TRAIN_TOKENS, K, N, 4, 64, 64, dt) for K, N in
             sorted(set(QWEN_LINEARS)) for dt in (torch.bfloat16,
-                                                 torch.float32)]
+                                                 torch.float32)] + [
+        (TRAIN_TOKENS, K, N, 4, 64, 64, torch.bfloat16)
+        for K, N in new_shapes("linears") if (K, N) not in QWEN_LINEARS]
     sweep = [(M, K, N, bits, g, r, dt)
              for M in LORA_SWEEP_ROWS for K, N, g in LORA_SWEEP_SHAPES
              for bits, r in LORA_SWEEP_BITS_RANKS
@@ -1024,6 +1113,9 @@ def train_parity(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 ENGINE_LAYERS = 2
+# slices a chunk in the engines phase's chunked run: one, so that each of
+# the 2-layer model's buckets (4, 4, 4 and 2 slices) runs in as many chunks
+ENGINE_CHUNK = 1
 ENGINE_TARGET = "blocks.0.attn.q"     # the site the health phase corrupts
 # the reference's batched-vs-sequential oracle (tests/test_batched.py)
 FLIP_BUDGET = 0.005
@@ -1085,6 +1177,31 @@ def _quantize_eager(torch, dev, model, **kw):
             torch.cuda.max_memory_allocated(dev) / 1e9, msgs)
 
 
+def _quantize_chunked(torch, dev, model, chunk: int, **kw):
+    """``_quantize_eager`` through the batched engine with every bucket
+    run in chunks of ``chunk`` slices (``quantize_layer_batch``'s
+    ``chunk``, which the pipeline does not expose)."""
+    import functools
+    from repro_torch.core import pipeline
+    real = pipeline.quantize_layer_batch
+    pipeline.quantize_layer_batch = functools.partial(real, chunk=chunk)
+    try:
+        return _quantize_eager(torch, dev, model, engine="batched", **kw)
+    finally:
+        pipeline.quantize_layer_batch = real
+
+
+def _bucket_chunks(lines: list) -> list:
+    """[slices, chunks, slices a chunk] of each ``[bucket]`` line."""
+    out = []
+    for ln in lines:
+        if ln.startswith("[bucket]") and "chunks=" in ln:
+            f = dict(kv.split("=", 1) for kv in ln.split()[1:] if "=" in kv)
+            out.append([int(f["layers"]), int(f["chunks"]),
+                        int(f["chunk"])])
+    return out
+
+
 def _rel(torch, a, b) -> float:
     a, b = a.double(), b.double()
     return float(torch.linalg.norm(a - b) / (torch.linalg.norm(b) + 1e-12))
@@ -1124,7 +1241,10 @@ def engines_phase(torch, dev) -> tuple[dict, dict]:
     Held: the objective, scales and zeros within 1e-3; on each site, code
     flips within the flip budget or twice the nudge's flips there,
     whichever is larger; 4 buckets; both runs clean under the health
-    guards."""
+    guards.  Then ``chunked``: the batched engine once more with every
+    bucket cut into chunks of ``ENGINE_CHUNK`` slices (4, 4, 4 and 2
+    chunks), held to the same limits against the sequential engine, with
+    whether its bits equal the one-call batched run's."""
     from repro_torch.core.batched import task_key
     from repro_torch.core.pipeline import (_quantize_one,
                                            quantizable_linear_paths,
@@ -1135,11 +1255,12 @@ def engines_phase(torch, dev) -> tuple[dict, dict]:
     eparams = to_eager_params(params, cfg)
     runs = {e: _quantize_eager(torch, dev, model, engine=e)
             for e in ("sequential", "batched")}
+    runs["chunked"] = _quantize_chunked(torch, dev, model, ENGINE_CHUNK)
     flat_s, store = runs["sequential"][0], runs["sequential"][1]
-    flat_b = runs["batched"][0]
+    flat_b, flat_c = runs["batched"][0], runs["chunked"][0]
     keys = ("qcodes", "scales", "zeros", "lora_a", "lora_b")
     sites = quantizable_linear_paths(eparams)
-    per_site, worst = {}, {"batched": {}, "nudge": {}}
+    per_site, worst = {}, {"batched": {}, "chunked": {}, "nudge": {}}
     with torch.no_grad():
         for i, site in enumerate(sites):
             W = get_path(eparams, site)["w"].float()
@@ -1150,6 +1271,8 @@ def engines_phase(torch, dev) -> tuple[dict, dict]:
                 recipe.qspec, "cloq", task_key(0, i))
             per_site[site] = {
                 "batched": _site_diff(torch, {k: flat_b[f"{site}.{k}"]
+                                              for k in keys}, ls, W, H),
+                "chunked": _site_diff(torch, {k: flat_c[f"{site}.{k}"]
                                               for k in keys}, ls, W, H),
                 "nudge": _site_diff(torch, nudged, ls, W, H)}
             for pair, d in per_site[site].items():
@@ -1164,19 +1287,28 @@ def engines_phase(torch, dev) -> tuple[dict, dict]:
            "health": {e: r[2].counts() for e, r in runs.items()},
            "checked": {e: r[2].checked for e, r in runs.items()},
            "worst": worst, "per_site": per_site,
-           "limits": {"code_flips": FLIP_BUDGET, "rel": REL_FRO}}
+           "limits": {"code_flips": FLIP_BUDGET, "rel": REL_FRO},
+           "chunked": {"chunk": ENGINE_CHUNK,
+                       "buckets": _bucket_chunks(runs["chunked"][5]),
+                       "same_bits_as_batched":
+                           not _same_leaves(torch, flat_c, flat_b)}}
     # codes: the reference's flip budget, or what one ulp of the Gram does
     # to the sequential engine on the same site (NUDGE_FACTOR x), whichever
     # is larger; A @ B^T is reported, not held: one ulp moves it ~50%
     out["code_flip_limit"] = {
         site: max(FLIP_BUDGET, NUDGE_FACTOR * d["nudge"]["code_flips"])
         for site, d in per_site.items()}
-    flips = [site for site, d in per_site.items()
-             if d["batched"]["code_flips"] > out["code_flip_limit"][site]]
+    flips = [(run, site) for site, d in per_site.items()
+             for run in ("batched", "chunked")
+             if d[run]["code_flips"] > out["code_flip_limit"][site]]
     held = ("scales", "zeros", "gram_error")
-    if flips or any(worst["batched"][k] > REL_FRO for k in held) or \
+    if flips or any(worst[run][k] > REL_FRO for k in held
+                    for run in ("batched", "chunked")) or \
             out["buckets"] != 4 or any(out["health"].values()) or \
-            out["checked"] != {"sequential": 14, "batched": 14}:
+            out["checked"] != {"sequential": 14, "batched": 14,
+                               "chunked": 14} or \
+            sorted(out["chunked"]["buckets"]) != [[2, 2, 1], [4, 4, 1],
+                                                  [4, 4, 1], [4, 4, 1]]:
         raise Failed(f"engines disagree or are unhealthy (code flips past "
                      f"the limit at {flips}): {out}")
     return out, {"model": model, "clean": flat_b}
@@ -1312,6 +1444,52 @@ def quantize_split(torch, dev) -> dict:
         if not out[name]["finite"]:
             raise Failed(f"quantize split: non-finite factors: {out}")
     return out
+
+
+# (m, n) of the slices whose working set slice_factors measures:
+# Qwen3-1.7B's gate/up and down, OLMoE-1B-7B's attention and expert slices
+SLICE_SHAPES = ((2048, 6144), (6144, 2048), (2048, 2048), (2048, 1024),
+                (1024, 2048))
+
+
+def slice_factors(torch, dev, L: int = 4) -> dict:
+    """The batched engine's working set a slice, the data behind
+    ``batched.SLICE_WORK_FACTOR``: ``run_bucket`` (CLoQ 4-bit g64 r64) on
+    ``L`` random slices of each of SLICE_SHAPES (Grams of 4096 random
+    tokens), its peak memory above what was allocated before the stack
+    was staged, over ``L`` x the slice's f32 W and H bytes.  Held: no
+    shape's factor above ``SLICE_WORK_FACTOR``."""
+    from repro_torch.core.batched import (SLICE_WORK_FACTOR, make_spec,
+                                          run_bucket, slice_bytes, task_key)
+    from repro_torch.models.modules import QSpec
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    out = {}
+    for m, n in SLICE_SHAPES:
+        spec = make_spec(m, n, QSpec(bits=4, group_size=64, rank=64),
+                         "cloq", True)
+        Ws = torch.randn((L, m, n), generator=gen, device=dev) * 0.02
+        Hs = torch.empty((L, m, m), device=dev)
+        for i in range(L):
+            X = torch.randn((4096, m), generator=gen, device=dev)
+            torch.matmul(X.T, X, out=Hs[i])
+        del X
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev) - L * slice_bytes(spec)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = run_bucket(Ws, Hs, [task_key(0, i) for i in range(L)], spec)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        out[f"{m}x{n}"] = (peak - base) / (L * slice_bytes(spec))
+        del Ws, Hs, res
+        torch.cuda.empty_cache()
+    line = {"L": L, "factor": out, "max": max(out.values()),
+            "SLICE_WORK_FACTOR": SLICE_WORK_FACTOR}
+    if line["max"] > SLICE_WORK_FACTOR:
+        raise Failed(f"a slice's working set exceeds SLICE_WORK_FACTOR: "
+                     f"{line}")
+    return line
 
 
 def methods_phase(torch, dev, steps: int = 2) -> dict:
@@ -1729,11 +1907,347 @@ def profile_train(torch, dev, res, args, steps: int = 2) -> dict:
     return _profile_line(steps, wall, busy, top)
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the MoE family and the other dense configs at full width
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 2          # OLMoE-1B-7B's 16 cut so that the script fits
+MOE_STEPS = 3
+# the kernels the MoE path runs on its attention sites (the expert
+# products are plain einsums, as the JAX package's)
+MOE_KERNELS = ("gram", "dequant_matmul_lora", "dequant_matmul",
+               "flash_attention")
+# the dense configs quantized by CLoQ, and Qwen3-30B-A3B by RTN (no Gram
+# is read: one card cannot hold its experts' Grams at full depth)
+CONFIG_RUNS = (("qwen3-4b", "cloq"), ("codeqwen1.5-7b", "cloq"),
+               ("minicpm-2b", "cloq"), ("qwen3-moe-30b-a3b", "rtn"))
+
+
+def _spied_train(torch, train, args, cfg) -> tuple[dict, dict]:
+    """``train.run(args, cfg)`` keeping what ``quantize_model`` returned
+    (the quantized params before fine-tuning, their config), its
+    ``[bucket]`` lines and ``memory``: the device memory allocated and
+    the peak so far (GB) at each bucket's end and when it returns."""
+    real = train.quantize_model
+    got: dict = {"lines": [], "memory": []}
+
+    def mark(event: str) -> None:
+        got["memory"].append([event, torch.cuda.memory_allocated() / 1e9,
+                              torch.cuda.max_memory_allocated() / 1e9])
+
+    def progress(line: str) -> None:
+        got["lines"].append(line)
+        mark(line.split()[1])
+
+    def spy(*a, **kw):
+        kw["progress"] = progress
+        mark("start")
+        res = real(*a, **kw)
+        mark("quantized")
+        got.update(params=res[0], cfg=res[1])
+        return res
+
+    train.quantize_model = spy
+    try:
+        return train.run(args, cfg), got
+    finally:
+        train.quantize_model = real
+
+
+def _plain_losses(torch, dev, args, qparams, qcfg, steps: int) -> list:
+    """The train CLI's steps replayed on the same quantized params and
+    batches (the stream past its calibration batches) with every kernel
+    off: the plain path's losses."""
+    import dataclasses
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch.steps import build_state, make_train_step
+    from repro_torch.optim import OptConfig
+    cfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=False))
+    ocfg = OptConfig(lr=args.lr, trainable="lora", total_steps=args.steps,
+                     schedule=args.schedule)
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                                    global_batch=args.batch,
+                                    seed=args.seed))
+    for _ in range(args.calib_batches):
+        stream.next_batch()
+    state, step = build_state(qparams, ocfg), make_train_step(cfg, ocfg)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, stream.next_batch())
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def _serve_both(torch, dev, arch, qparams, qcfg, *, ranks, tenants,
+                requests, max_new) -> dict:
+    """The serve CLI's engine route on ``qparams`` (registry and tenants
+    as ``serve.build_registry`` makes them), run eagerly and then with
+    each rank bucket's decode captured: tokens, slot tokens/s and the
+    launches of each run."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import ServeEngine
+    sargs = serve.build_parser().parse_args(
+        ["--arch", arch, "--batch", "4", "--tenants", str(tenants),
+         "--ranks", ",".join(map(str, ranks)), "--seed", "0",
+         "--device", str(dev)])
+    registry, names = serve.build_registry(sargs, qparams)
+    cfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+    out = {}
+    for graph in (False, True):
+        eng = ServeEngine(qparams, cfg, registry, page_size=8, max_len=128,
+                          bucket_capacity=4, use_kernel=True, graph=graph)
+        ops.reset_launch_counts()
+        s = serve.serve_engine(eng, names, requests=requests,
+                               max_new=max_new, seed=0)
+        out["captured" if graph else "eager"] = {
+            "outputs": s["outputs"], "slot_tok_s": s["slot_tok_s"],
+            "tok_s": s["tok_s"], "seconds": s["seconds"],
+            "step_ms_median": 1e3 * _median(s["step_s"]),
+            "decodes": s["decodes"], "requests_done": s["requests_done"],
+            "launches": ops.launch_counts(),
+            "captured": sorted(eng._captured)}
+        del eng
+    out["tokens_equal"] = out["eager"]["outputs"] == \
+        out["captured"]["outputs"]
+    return out
+
+
+def _sites_2d(cfg) -> int:
+    """Quantized 2-D linears a layer (the kernels' sites)."""
+    return 7 if cfg.family == "dense" else 4
+
+
+def _gram_sites(cfg) -> int:
+    """``gram`` launches a layer a calibration batch."""
+    return 7 if cfg.family == "dense" else 4 + 3 * cfg.n_experts
+
+
+def moe_phase(torch, dev, layers: int) -> dict:
+    """OLMoE-1B-7B at full width (d_model 2048, 64 experts top-8, expert
+    d_ff 1024, vocab 50304, bf16), ``layers`` deep: the train CLI's path
+    (CLoQ 4-bit g64 r64, calibration 2 x 8 x 128 tokens, 3 steps at 8 x
+    128), its losses against the plain path's on the same quantized
+    params and batches, then the engine route on the quantized params
+    (ranks 64 and 16, 4 tenants, 8 one-token requests x 16 tokens) eager
+    and captured.  Held: finite losses within 1e-2 of the plain path's,
+    an empty health report, captured tokens equal to eager ones, every
+    request served, and each kernel's launches (4 attention linears a
+    layer; ``gram`` 4 + 3 x 64 a layer a calibration batch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    argv = ["--arch", "olmoe-1b-7b", "--method", "cloq", "--bits", "4",
+            "--group-size", "64", "--rank", "64", "--calib-batches", "2",
+            "--batch", "8", "--seq-len", "128", "--steps", str(MOE_STEPS),
+            "--seed", "0", "--device", str(dev)]
+    args = train.build_parser().parse_args(argv)
+    cfg = get_config("olmoe-1b-7b", n_layers=layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    with moe.record_drops() as drops:
+        res, got = _spied_train(torch, train, args, cfg)
+    counts = ops.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    dropped = sum(int(d) for d, _ in drops)
+    routed = sum(n for _, n in drops)
+    qparams, qcfg = got["params"], got["cfg"]
+    plain = _plain_losses(torch, dev, args, qparams, qcfg, MOE_STEPS)
+    del res["state"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    sv = _serve_both(torch, dev, "olmoe-1b-7b", qparams, qcfg,
+                     ranks=SERVE_RANKS, tenants=4, requests=8, max_new=16)
+    step_s, tokens = res["step_s"], args.batch * args.seq_len
+    L = layers
+    want_train = {"gram": _gram_sites(cfg) * L * args.calib_batches,
+                  "dequant_matmul_lora": _sites_2d(cfg) * L * MOE_STEPS,
+                  "dequant_matmul": 0, "flash_attention": 0}
+    cap = sv["captured"]
+    decodes = sum(cap["decodes"].values())
+    want_serve = {"dequant_matmul": _sites_2d(cfg) * L * decodes,
+                  "flash_attention": L * decodes}
+    out = {"layers": L, "reduced": {"n_layers": [16, L]}, "argv": argv,
+           "quantize_s": res["quantize_s"],
+           "buckets": _bucket_chunks(got["lines"]),
+           "bucket_lines": got["lines"], "memory_gb": got["memory"],
+           "peak_mem_gb": {"train": train_peak,
+                           "serve": torch.cuda.max_memory_allocated(dev)
+                           / 1e9},
+           "losses": res["losses"], "losses_plain": plain,
+           "loss_rel_diff_vs_plain": max(abs(a - b) / abs(b) for a, b in
+                                         zip(res["losses"], plain)),
+           "grad_norms": res["grad_norms"], "step_s": step_s,
+           "train_tok_s": tokens * len(step_s) / sum(step_s),
+           "captured_tokens_equal": sv["tokens_equal"],
+           "launches": {"train": counts, "serve_captured": cap["launches"],
+                        "serve_eager": sv["eager"]["launches"]},
+           "dropped_share": dropped / max(routed, 1),
+           "routed_slots": routed,
+           "health": res["health"].counts(),
+           "health_events": res["health"].events,
+           "health_checked": res["health"].checked}
+    out["engine"] = {k: {f: sv[k][f] for f in
+                         ("slot_tok_s", "tok_s", "seconds",
+                          "step_ms_median", "decodes", "captured")}
+                     for k in ("eager", "captured")}
+    bad = []
+    if not all(math.isfinite(v) for v in res["losses"] + plain):
+        bad.append("losses not finite")
+    if out["loss_rel_diff_vs_plain"] > LOSS_LIMIT:
+        bad.append(f"losses more than {LOSS_LIMIT} off the plain path's")
+    if out["health"] or out["health_events"] or \
+            out["health_checked"] != L * (4 + 3 * cfg.n_experts):
+        bad.append("health report not empty")
+    if any(counts[k] != v for k, v in want_train.items()):
+        bad.append(f"train launches, expected {want_train}")
+    if any(cap["launches"][k] != v for k, v in want_serve.items()) or \
+            cap["captured"] != sorted(SERVE_RANKS):
+        bad.append(f"serve launches, expected {want_serve}")
+    if not sv["tokens_equal"]:
+        bad.append("captured tokens differ from eager ones")
+    if cap["requests_done"] != 8 or any(len(o) != 16
+                                        for o in cap["outputs"]):
+        bad.append("not every request served")
+    if bad:
+        raise Failed(f"moe phase: {bad}: {out}")
+    return out
+
+
+def _kernel_routes(torch, dev, params, cfg) -> dict:
+    """The routes the kernels take on one layer of ``params``: each
+    quantized 2-D linear's decode (4 rows) and fused train (1024 rows)
+    route, the decode attention's and each calibration width's Gram."""
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gram as gm
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.utils import get_path, tree_paths
+    lp = layer_params(params["blocks"], 0)
+    bf = torch.bfloat16
+    routes = {}
+    for path, leaf in tree_paths(lp).items():
+        if not path.endswith(".qcodes") or leaf.dim() != 2:
+            continue
+        node = get_path(lp, path[:-len(".qcodes")])
+        K = node["lora_a"].shape[0]
+        g = K // node["scales"].shape[0]
+        x4 = torch.zeros((4, K), dtype=bf, device=dev)
+        xt = torch.zeros((TRAIN_TOKENS, K), dtype=bf, device=dev)
+        a, b = node["lora_a"].to(bf), node["lora_b"].to(bf)
+        routes[path[:-len(".qcodes")]] = [
+            dq.plan_for(x4, leaf, node["scales"], node["zeros"], g).route,
+            dq.lora_plan_for(xt, leaf, node["scales"], node["zeros"], a, b,
+                             g).route]
+    Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.zeros((4, 1, Hq, d), dtype=bf, device=dev).transpose(1, 2)
+    kv = torch.zeros((4, 128, Hkv, d), dtype=bf, device=dev).transpose(1, 2)
+    routes["flash_attention"] = fa.plan_for(q, kv, kv).route
+    for D in config_shapes(cfg)["grams"]:
+        routes[f"gram_{D}"] = gm.plan_for(torch.zeros(
+            (TRAIN_TOKENS, D), dtype=bf, device=dev)).route
+    return routes
+
+
+def _kernel_vs_plain_logits(torch, dev, params, cfg, steps: int = 4):
+    """Largest |logit| difference of kernel against plain decode over
+    ``steps`` greedy steps at batch 4 from the same caches and tokens."""
+    import dataclasses
+    from repro_torch.models.transformer import (decode_step,
+                                                init_decode_cache)
+    cfgs = [dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, use_kernel=k)) for k in (True, False)]
+    caches = [init_decode_cache(c, 4, 16, device=dev) for c in cfgs]
+    tok = torch.tensor([[3], [17], [101], [400]], device=dev)
+    err = 0.0
+    with torch.no_grad():
+        for _ in range(steps):
+            out = []
+            for i, c in enumerate(cfgs):
+                logits, caches[i] = decode_step(params, c, caches[i], tok)
+                out.append(logits.float())
+            err = max(err, float((out[0] - out[1]).abs().max()))
+            tok = out[0].argmax(-1, keepdim=True)
+    return err
+
+
+def configs_phase(torch, dev) -> dict:
+    """Each of CONFIG_RUNS at full width, 1 layer: the train CLI's path (4
+    bits, group 64, rank 64, calibration 1 x 8 x 128, 2 steps at 8 x 128),
+    then its serving route on the quantized params (the engine, 4 tenants
+    at rank 64, 4 one-token requests x 8 tokens) eager and captured.  Per
+    config: quantize seconds, peak memory, the routes its kernels took,
+    the largest difference of kernel against plain decode logits.  Held:
+    finite losses, an empty health report, the kernels' launches,
+    captured tokens equal to eager ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    out = {}
+    for arch, method in CONFIG_RUNS:
+        argv = ["--arch", arch, "--method", method, "--bits", "4",
+                "--group-size", "64", "--rank", "64", "--calib-batches",
+                "1", "--batch", "8", "--seq-len", "128", "--steps", "2",
+                "--seed", "0", "--device", str(dev)]
+        args = train.build_parser().parse_args(argv)
+        cfg = get_config(arch, n_layers=1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        res, got = _spied_train(torch, train, args, cfg)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        del res["state"]
+        qparams, qcfg = got["params"], got["cfg"]
+        sv = _serve_both(torch, dev, arch, qparams, qcfg, ranks=(64,),
+                         tenants=4, requests=4, max_new=8)
+        cap = sv["captured"]
+        decodes = sum(cap["decodes"].values())
+        want = {"gram": _gram_sites(cfg) * args.calib_batches,
+                "dequant_matmul_lora": _sites_2d(cfg) * 2}
+        line = {"layers": 1, "method": method,
+                "reduced": {"n_layers": [get_config(arch).n_layers, 1]},
+                "quantize_s": res["quantize_s"],
+                "buckets": _bucket_chunks(got["lines"]),
+                "peak_mem_gb": peak, "losses": res["losses"],
+                "step_s": res["step_s"],
+                "routes": _kernel_routes(torch, dev, qparams, qcfg),
+                "kernel_vs_plain_max_abs_logit": _kernel_vs_plain_logits(
+                    torch, dev, qparams, qcfg),
+                "captured_tokens_equal": sv["tokens_equal"],
+                "slot_tok_s": {k: sv[k]["slot_tok_s"]
+                               for k in ("eager", "captured")},
+                "launches": {"train": counts,
+                             "serve_captured": cap["launches"]},
+                "health": res["health"].counts()}
+        out[arch] = line
+        if not all(map(math.isfinite, res["losses"])) or line["health"] or \
+                res["health"].events or \
+                any(counts[k] != v for k, v in want.items()) or \
+                cap["launches"]["dequant_matmul"] != \
+                _sites_2d(cfg) * decodes or \
+                cap["launches"]["flash_attention"] != decodes or \
+                not sv["tokens_equal"] or \
+                any(len(o) != 8 for o in cap["outputs"]):
+            raise Failed(f"configs phase, {arch} (launches expected "
+                         f"{want}): {line}")
+        del res, got, qparams, sv
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="depth of the served qwen3-1.7b (widths are never "
                          "cut)")
+    ap.add_argument("--moe-layers", type=int, default=MOE_LAYERS,
+                    help=f"depth of OLMoE-1B-7B in the moe phase "
+                         f"({MOE_LAYERS}); any other depth runs the device "
+                         "and build phases and the moe phase alone (the "
+                         "full-depth check: --moe-layers 16)")
     a = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1766,6 +2280,15 @@ def main(argv=None) -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "dir": str(build.build_dir().relative_to(ROOT)),
               "sources": list(build.SOURCES), "ptxas": ptxas})
+
+        if a.moe_layers != MOE_LAYERS:
+            phase = "moe"
+            emit({"phase": "moe", **moe_phase(torch, dev, a.moe_layers)})
+            print(card, flush=True)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}})
+            return 0
 
         phase = "kernels"
         dq, dq_cases = check_dequant(torch, dev)
@@ -1812,7 +2335,8 @@ def main(argv=None) -> int:
         en, eng = engines_phase(torch, dev)
         emit({"phase": "engines", **en})
         phase = "quantize_split"
-        emit({"phase": "quantize_split", **quantize_split(torch, dev)})
+        emit({"phase": "quantize_split", **quantize_split(torch, dev),
+              "slice_factor": slice_factors(torch, dev)})
         phase = "health"
         emit({"phase": "health", **health_phase(torch, dev, eng)})
         phase = "journal"
@@ -1837,26 +2361,36 @@ def main(argv=None) -> int:
         phase = "profile"
         emit({"phase": "profile", **profile_decode(torch, dev, res)})
         del res
+        torch.cuda.empty_cache()
+
+        phase = "moe"
+        mo = moe_phase(torch, dev, a.moe_layers)
+        emit({"phase": "moe", **mo})
+        phase = "configs"
+        emit({"phase": "configs", **configs_phase(torch, dev)})
     except Failed as e:
         emit({"phase": phase, "ok": False, "error": str(e)})
         return 1
 
     table = []
-    for name, chk, tm, launches, src, tpu in (
-            ("dequant_matmul", dq, dq_t, sv["launches"],
+    moe_serve, moe_train = (mo["launches"]["serve_captured"],
+                            mo["launches"]["train"])
+    for name, chk, tm, launches, moe_launches, src, tpu in (
+            ("dequant_matmul", dq, dq_t, sv["launches"], moe_serve,
              "src/repro_torch/kernels/csrc/dequant_matmul.cu",
              "src/repro/kernels/dequant_matmul.py:73"),
-            ("flash_attention", fa, fa_t, sv["launches"],
+            ("flash_attention", fa, fa_t, sv["launches"], moe_serve,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:94"),
-            ("dequant_matmul_lora", lo, lo_t, tr["launches"],
+            ("dequant_matmul_lora", lo, lo_t, tr["launches"], moe_train,
              "src/repro_torch/kernels/csrc/dequant_matmul_lora.cu",
              "src/repro/kernels/dequant_matmul.py:134"),
-            ("gram", gr, gr_t, tr["launches"],
+            ("gram", gr, gr_t, tr["launches"], moe_train,
              "src/repro_torch/kernels/csrc/gram.cu",
              "src/repro/kernels/gram.py:41")):
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": tpu, "launches": launches[name],
+                      "launches_moe": moe_launches[name],
                       "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],
                       "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                       "bound_by": tm["bound_by"],

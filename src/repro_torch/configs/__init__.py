@@ -1,22 +1,34 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config``.
 
 Every module defines ``config()`` (the published configuration) and
-``smoke_config()`` (a reduced same-family variant for CPU tests).  Only the
-dense Qwen3 family is ported so far; the other architectures of
-``repro.configs`` are listed in ``ROADMAP.md``.
+``smoke_config()`` (a reduced same-family variant for CPU tests).  The
+dense and MoE families are ported; the other architectures of
+``repro.configs`` (SSM, hybrid, enc-dec, VLM) are listed in
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
+# the reference's order (repro.configs.ARCH_IDS), ported entries only
 ARCH_IDS = [
+    "qwen3_moe_30b_a3b",
+    "olmoe_1b_7b",
+    "qwen3_4b",
+    "codeqwen15_7b",
     "qwen3_1p7b",
+    "minicpm_2b",
 ]
 
 # dashes-to-underscores aliases matching the assignment sheet names
 ALIASES = {
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen3-4b": "qwen3_4b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
     "qwen3-1.7b": "qwen3_1p7b",
+    "minicpm-2b": "minicpm_2b",
 }
 
 

@@ -3,7 +3,9 @@
 The port keys its params by the same dot paths as the JAX tree
 (``blocks.<i>.attn.q.qcodes`` eager, ``blocks.attn.q.qcodes`` with a
 leading layer axis when scan-stacked), so the carry is a leaf-by-leaf
-map.  The caller exports the JAX tree to numpy first (for example
+map; MoE trees carry their f32 router and their expert stacks ``(E, m,
+n)`` (``(L, E, m, n)`` scan-stacked), packed expert leaves with their
+leading ``E``.  The caller exports the JAX tree to numpy first (for example
 ``jax.tree.map(np.asarray, params)``); this module imports neither ``jax``
 nor the JAX package.
 """

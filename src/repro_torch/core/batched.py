@@ -16,16 +16,25 @@ bucket at a time:
     pick_block`, the MagR gate ``bits <= 4``) is resolved here.  On
     Qwen3-1.7B's 28 layers that gives four buckets: q and o (2048 x 2048,
     56 sites), k and v (2048 x 1024, 56), gate and up (2048 x 6144, 56),
-    down (6144 x 2048, 28).
+    down (6144 x 2048, 28).  Each expert of a stacked MoE site is a task
+    of its own (``LayerTask.expert``), so an expert stack is a natural
+    bucket: OLMoE-1B-7B's 16 layers give 2048 gate and up slices of 2048
+    x 1024 in one bucket.
 
 2.  **Executor** (:func:`run_bucket` / :func:`quantize_layer_batch`): each
     bucket stacks its ``(W, H)`` pairs to ``(L, m, n)`` / ``(L, m, m)`` and
     runs the method's stack once over the whole stack: every op of the
     OPTQ row sweep covers the row of all ``L`` matrices, MagR and the tail
     updates are batched products, and ``eigh``/``svd`` factor the stack in
-    one call each.  Random LoRA inits come from one ``torch.Generator`` a
-    task, seeded from ``(seed, site index)`` (:func:`task_key`), so the
-    batched and sequential engines draw the same bits.
+    one call each.  A bucket whose working set would not fit the card is
+    staged and run in consecutive chunks (:func:`chunk_size`, from the
+    memory free before each chunk), each one such call, the results joined
+    in task order; the bucket stays the unit of the plan, the journal and
+    the health report.  Random LoRA
+    inits come from one ``torch.Generator`` a task, seeded from ``(seed,
+    site index)`` (an expert's from ``(seed, site index, expert)``,
+    :func:`task_key`), so the batched and sequential engines draw the same
+    bits.
 
 3.  **Runtime**: the health check of every finished bucket and the
     degradation ladder for failing slices (:mod:`repro_torch.core.health`),
@@ -41,12 +50,16 @@ its column, so the engines agree as closely as a one-ulp change of the
 Gram lets one engine agree with itself: on Qwen3-1.7B at full width on
 the H100 that is up to 5% of a site's codes, with the calibrated
 objective within 1e-3 (``PERF.md``).  Within one engine a slice's
-result does not depend on the other slices of its bucket.
+result depends on the other slices of its bucket only through summation
+order: a bucket run in chunks (stacked calls of other lengths) gives the
+bits of one call at the CPU tests' shapes, and is held to the engines'
+oracle on the card (``chip_smoke.py``, ``engines``).
 
 Not ported yet (``ROADMAP.md``): the mesh (``mesh=``), the cost model
-(``cost_model=``), the compile cache (``compile_cache=``), the sensitivity
-sweep (``evaluate_layer_batch``) and stacked MoE expert sites; asking for
-them raises ``NotImplementedError``.
+(``cost_model=``), the compile cache (``compile_cache=``) and the
+sensitivity sweep (``evaluate_layer_batch``); asking for them raises
+``NotImplementedError``.  The reference has no chunks: it sends a bucket
+that would not fit to its sequential path through the cost model.
 """
 from __future__ import annotations
 
@@ -103,8 +116,9 @@ class BucketSpec:
 
 @dataclasses.dataclass
 class LayerTask:
-    """One quantization site: a 2-D weight, its Gram and the seed of its
-    random LoRA init (:func:`task_key`)."""
+    """One quantization site (or one expert of a stacked site): a 2-D
+    weight, its Gram and the seed of its random LoRA init
+    (:func:`task_key`)."""
     path: str                # lin path in the param tree
     expert: int | None       # index into a stacked (E, m, n) weight
     W: Tensor                # (m, n)
@@ -113,11 +127,13 @@ class LayerTask:
     site: "SiteSpec | None" = None   # resolved per-site spec (optional)
 
 
-def task_key(seed: int, index: int) -> int:
+def task_key(seed: int, index: int, expert: int | None = None) -> int:
     """The seed of site ``index``'s generator (its position among the
     model's quantizable paths, skipped sites included), from the run's
-    ``seed``: one stream a site, the same in every engine."""
-    return int(np.random.SeedSequence([seed, index]).generate_state(
+    ``seed``, and of its expert ``expert`` for a stacked site: one stream a
+    site or expert, the same in every engine."""
+    entropy = [seed, index] + ([] if expert is None else [expert])
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0] & np.uint64(2 ** 63 - 1))
 
 
@@ -175,7 +191,16 @@ def _quantize_core(W: Tensor, H: Tensor | None, A0: Tensor | None,
     """The method stack on one weight ``(m, n)`` or a bucket's stack ``(L,
     m, n)`` (Grams ``(L, m, m)``, random ``A0 (L, m, r)``).  Returns
     ``(leaves, Qd)``: f32 factors, packed codes, and the dequantized
-    base."""
+    base.  Every leaf is a tensor of its own: a factor left as a view of
+    an SVD's output (CLoQ's ``B``) would keep the whole output alive for as
+    long as the engine holds the slice's leaves (4-8 MB a slice for an
+    OLMoE-1B-7B expert, against 2 MB of leaves)."""
+    leaves, Qd = _method_stack(W, H, A0, spec)
+    return {k: v.contiguous() for k, v in leaves.items()}, Qd
+
+
+def _method_stack(W: Tensor, H: Tensor | None, A0: Tensor | None,
+                  spec: BucketSpec) -> tuple[dict, Tensor]:
     qcfg = spec_qcfg(spec)
     W = W.float()
     m, n = spec.m, spec.n
@@ -324,6 +349,45 @@ def _stage_bucket(tasks: list[LayerTask], idxs: list[int],
     return Ws, Hs, [tasks[i].key for i in idxs]
 
 
+# a slice's peak working set in a stacked call, as a multiple of its f32
+# W and H bytes (the staged stack, MagR's and OPTQ's copies, the Gram root
+# and the SVD's factors): 5.5-6.4 on an H100 at 4 slices a call
+# (chip_smoke.py, the quantize_split line's slice_factor; PERF.md), with
+# room for the staging's transient copies
+SLICE_WORK_FACTOR = 8.0
+# device memory left free when a bucket is cut into chunks
+CHUNK_MARGIN_BYTES = 2 << 30
+
+
+def slice_bytes(spec: BucketSpec) -> int:
+    """f32 bytes of one slice's staged ``W`` and ``H``."""
+    return 4 * (spec.m * spec.n + (spec.m * spec.m if spec.has_gram else 0))
+
+
+def free_bytes(device: torch.device) -> int:
+    """Device memory a new allocation can take: the free memory
+    ``mem_get_info`` reports and what PyTorch's caching allocator holds
+    unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def chunk_size(spec: BucketSpec, n_slices: int, device: torch.device,
+               chunk: int | None = None) -> int:
+    """Slices a stacked call of this bucket takes: ``chunk`` when given,
+    all of them on a device other than CUDA, else as many as
+    ``SLICE_WORK_FACTOR`` x :func:`slice_bytes` fit in
+    :func:`free_bytes` less ``CHUNK_MARGIN_BYTES`` (at least one)."""
+    if chunk is not None:
+        return max(1, min(int(chunk), n_slices))
+    if device.type != "cuda":
+        return n_slices
+    room = free_bytes(device) - CHUNK_MARGIN_BYTES
+    fit = int(room // (SLICE_WORK_FACTOR * slice_bytes(spec)))
+    return max(1, min(n_slices, fit))
+
+
 def _event(event: str, **fields) -> str:
     return " ".join([f"[{event}]"] + [f"{k}={v}" for k, v in fields.items()])
 
@@ -336,24 +400,29 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
                          stream: bool = True, policy=None, report=None,
                          journal=None,
                          should_stop: Callable[[], bool] | None = None,
-                         cost_model=None, compile_cache=None
-                         ) -> list[dict | None]:
+                         cost_model=None, compile_cache=None,
+                         chunk: int | None = None) -> list[dict | None]:
     """Quantize all ``tasks`` bucket by bucket.
 
-    ``stream`` (default on): bucket ``k``'s work is enqueued and bucket
-    ``k+1``'s stack is staged before the host waits on anything of bucket
-    ``k``; ``stream=False`` synchronizes the device after each bucket.
-    Both run the same operations on the same inputs, so they give the same
-    bits.  ``policy`` (a :class:`repro_torch.core.health.HealthPolicy`):
-    when enabled, every finished bucket is checked and failing slices walk
-    the degradation ladder (``None`` results are sites left dense);
-    ``report`` collects the ladder records (made here when ``policy`` is
-    on without one).  ``journal`` (a ``QuantJournal``): every finished
-    bucket is committed before the next one's results land, and buckets
-    whose committed entry matches this plan are restored instead of
-    computed.  ``should_stop`` is polled at every bucket boundary after
-    the commit; True raises :class:`repro_torch.core.health.
-    QuantPreempted`.  ``progress`` gets one ``[bucket]`` line a bucket.
+    Each bucket runs in consecutive chunks of :func:`chunk_size` slices,
+    sized before each chunk from the memory then free (one chunk when the
+    bucket fits the card, always on the CPU; ``chunk`` forces that many
+    slices a chunk), each chunk staged and run as one stacked call.
+    ``stream`` (default on): the next bucket's first chunk is staged
+    before the host waits on anything of this bucket's last;
+    ``stream=False`` synchronizes the device after each chunk.  Streaming
+    runs the same operations on the same inputs, so it gives the same
+    bits; chunks may sum in another order (module doc).  ``policy`` (a
+    :class:`repro_torch.core.health.HealthPolicy`): when enabled, every
+    finished chunk is checked and failing slices walk the degradation
+    ladder (``None`` results are sites left dense); ``report`` collects the ladder records (made here when
+    ``policy`` is on without one).  ``journal`` (a ``QuantJournal``): every
+    finished bucket is committed before the next one's results land, and
+    buckets whose committed entry matches this plan are restored instead
+    of computed (the entry does not depend on the chunks).
+    ``should_stop`` is polled at every bucket boundary after the commit;
+    True raises :class:`repro_torch.core.health.QuantPreempted`.
+    ``progress`` gets one ``[bucket]`` line a bucket.
 
     Returns one leaf dict per task, in task order."""
     from repro_torch.core import faults, health
@@ -389,13 +458,67 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
                 report.event(f"bucket {b} restored from journal "
                              f"({len(idxs)} slices skipped)")
 
-    def dispatch(b: int, staged) -> dict:
-        spec, idxs = items[b]
+    def run(spec: BucketSpec, staged) -> dict:
         Ws, Hs, keys = staged
         if spec.exec_path == "sequential":
-            out = run_bucket_sequential(Ws, Hs, keys, spec)
-        else:
-            out = run_bucket(Ws, Hs, keys, spec)
+            return run_bucket_sequential(Ws, Hs, keys, spec)
+        return run_bucket(Ws, Hs, keys, spec)
+
+    def size_of(b: int, left: int) -> int:
+        """Slices of bucket ``b``'s next chunk, ``left`` still to run: the
+        memory is read afresh, as the finished chunks' leaves stay."""
+        spec, idxs = items[b]
+        return chunk_size(spec, left, tasks[idxs[0]].W.device, chunk)
+
+    # (bucket, chunk size, its first chunk staged ahead)
+    ahead: tuple[int, int, tuple] | None = None
+    for b in range(len(items)):
+        spec, idxs = items[b]
+        if b in loaded:
+            ahead = None
+            if progress:
+                progress(_event("bucket", i=b, restored="journal",
+                                layers=len(idxs)))
+            for j, i in enumerate(idxs):
+                results[i] = loaded[b][j]
+            continue
+        sizes: list[int] = []
+        while sum(sizes) < len(idxs):
+            pos = sum(sizes)
+            if pos == 0 and ahead is not None and ahead[0] == b:
+                size, cur = ahead[1], ahead[2]
+            else:
+                size = size_of(b, len(idxs) - pos)
+                cur = _stage_bucket(tasks, idxs[pos:pos + size], spec)
+            cidxs = idxs[pos:pos + size]
+            sizes.append(size)
+            ahead = None
+            out = run(spec, cur)
+            last = sum(sizes) == len(idxs)
+            if stream and last and b + 1 < len(items) and \
+                    (b + 1) not in loaded:
+                # stage bucket b+1's first chunk before anything waits on
+                # this one
+                nspec, nidxs = items[b + 1]
+                nsize = size_of(b + 1, len(nidxs))
+                ahead = (b + 1, nsize,
+                         _stage_bucket(tasks, nidxs[:nsize], nspec))
+            elif not stream and cur[0].is_cuda:
+                torch.cuda.synchronize(cur[0].device)
+            for j, i in enumerate(cidxs):
+                results[i] = {k: v[j] for k, v in out.items()}
+            if guarded:
+                ok = health.check_bucket(cur[0], out, spec, policy)
+                report.checked += len(cidxs)
+                obs_metrics.counter(obs_names.HEALTH_CHECKED).inc(
+                    len(cidxs))
+                for j, i in enumerate(cidxs):
+                    if not ok[j]:
+                        t = tasks[i]
+                        results[i] = health.heal_task(
+                            t.W, t.H, t.key, spec, policy, report, t.path,
+                            t.expert)
+            del cur, out
         obs_metrics.counter(obs_names.QUANT_BUCKETS).inc()
         obs_metrics.counter(obs_names.QUANT_TASKS).inc(len(idxs))
         obs_metrics.counter(obs_names.QUANT_PATH + spec.exec_path).inc()
@@ -405,42 +528,8 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
                 "bucket", i=b,
                 spec=f"{spec.method}/{spec.bits}b/g{g}/r{spec.rank}",
                 shape=f"{spec.m}x{spec.n}", layers=len(idxs),
-                path=spec.exec_path, shards=spec.n_shards))
-        return out
-
-    staged = None
-    for b in range(len(items)):
-        spec, idxs = items[b]
-        if b in loaded:
-            staged = None
-            if progress:
-                progress(_event("bucket", i=b, restored="journal",
-                                layers=len(idxs)))
-            for j, i in enumerate(idxs):
-                results[i] = loaded[b][j]
-            continue
-        cur = staged if staged is not None else _stage_bucket(tasks, idxs,
-                                                              spec)
-        out = dispatch(b, cur)
-        staged = None
-        if stream and b + 1 < len(items) and (b + 1) not in loaded:
-            # stage bucket b+1 before anything waits on bucket b
-            staged = _stage_bucket(tasks, items[b + 1][1], items[b + 1][0])
-        elif not stream and cur[0].is_cuda:
-            torch.cuda.synchronize(cur[0].device)
-        for j, i in enumerate(idxs):
-            results[i] = {k: v[j] for k, v in out.items()}
-        if guarded:
-            ok = health.check_bucket(cur[0], out, spec, policy)
-            report.checked += len(idxs)
-            obs_metrics.counter(obs_names.HEALTH_CHECKED).inc(len(idxs))
-            for j, i in enumerate(idxs):
-                if not ok[j]:
-                    t = tasks[i]
-                    results[i] = health.heal_task(t.W, t.H, t.key, spec,
-                                                  policy, report, t.path,
-                                                  t.expert)
-        del cur, out
+                path=spec.exec_path, shards=spec.n_shards,
+                chunks=len(sizes), chunk=max(sizes)))
         if journal is not None:
             hrecs = {}
             if report is not None:

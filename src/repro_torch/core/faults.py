@@ -22,7 +22,7 @@ Injection points
     fails but the first re-damp rung recovers.
 ``calib_nan``
     One calibration batch's float inputs are NaN-filled before the forward
-    and its Gram updates after it.  Target: batch index.
+    and its recorded activations after it.  Target: batch index.
 ``calib_drop``
     Drop one calibration batch.  Target: batch index.
 ``shard_truncate``
@@ -177,13 +177,13 @@ def corrupt_batch(index: int, batch: dict):
 
 
 def poison_grams(index: int, store) -> None:
-    """Post-forward hook paired with ``calib_nan``: NaN-fill the scratch
-    Gram store of batch ``index`` (what a non-finite forward would leave,
-    whether or not the batch had float leaves)."""
+    """Post-forward hook paired with ``calib_nan``: NaN-fill the
+    activations batch ``index`` recorded (its ``utils.ActivationLog``:
+    what a non-finite forward would leave, whether or not the batch had
+    float leaves)."""
     if active("calib_nan", index) is None:
         return
-    for path in store.grams:
-        store.grams[path] = torch.full_like(store.grams[path], float("nan"))
+    store.poison()
 
 
 def truncate_file(path: str, keep_fraction: float = 0.5) -> None:

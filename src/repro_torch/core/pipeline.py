@@ -1,6 +1,7 @@
 """End-to-end model quantization + LoRA initialization.
 
-PyTorch twin of ``repro.core.pipeline`` for dense models on one device.
+PyTorch twin of ``repro.core.pipeline`` for dense and MoE models on one
+device.
 ``quantize_model`` converts a dense param tree into the paper's deployment
 form: every block linear replaced by {qcodes, scales, zeros, lora_a,
 lora_b} ({qcodes, absmax, ...} for NF4 ``qlora``), the base quantized by
@@ -8,7 +9,11 @@ the site's method (CLoQ: MagR -> OPTQ against calibration Grams, adapters
 by CLoQ's closed form; or the baselines GPTQ-LoRA, LoftQ, QLoRA, RTN).
 
 Calibration runs the model with per-layer params (``scan_layers=False``)
-so the name-scope capture hooks key every Gram by its linear's path.
+so the name-scope capture hooks key every Gram by its linear's path; a
+stacked MoE expert site ``(E, m, n)`` gets one Gram an expert,
+``(E, m, m)``, and each expert slice is quantized as a site of its own
+(its health record keyed ``path[e]``).  An expert the health ladder leaves
+dense leaves its whole stacked site dense: the site is one leaf tree.
 
 Engines
 -------
@@ -16,16 +21,17 @@ Engines
 sites are grouped into buckets of one shape and spec, and each bucket runs
 as one stacked call.  ``engine="sequential"`` quantizes one linear at a
 time; it is the parity oracle.  Both draw each site's random LoRA init
-from the site's own generator (``batched.task_key(seed, site index)``) and
-read every Gram through the same fault hook (:func:`_site_gram`), and the
+from the site's own generator (``batched.task_key(seed, site index)``, an
+expert's from ``(seed, site index, expert)``) and read every Gram through
+the same fault hooks (:func:`_site_gram`, :func:`_expert_grams`), and the
 health guards (``HealthPolicy()``, on unless turned off) check every site
 and heal a failing one through the same single-site core in both, so a
 healed site is bit-identical across engines.  ``journal_dir=`` makes a
 batched run resumable at bucket boundaries.
 
 Not ported yet (``ROADMAP.md``): the mesh, the cost model, the compile
-cache, bit allocation, the quantization manifests, and MoE, weight-shared
-and cross-attention sites; asking for them raises ``NotImplementedError``.
+cache, bit allocation, the quantization manifests, and weight-shared and
+cross-attention sites; asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,8 +53,8 @@ from repro_torch.models.transformer import (ModelConfig, forward,
                                             stack_layers)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
-from repro_torch.utils import (GramStore, capture_grams, get_path, set_path,
-                               tree_paths)
+from repro_torch.utils import (ActivationLog, GramStore, capture_grams,
+                               get_path, set_path, tree_paths)
 
 Tensor = torch.Tensor
 
@@ -109,8 +115,11 @@ def run_calibration(params: dict, cfg: ModelConfig,
     """Per-layer forward passes accumulating per-linear Grams (f32, on the
     params' device).
 
-    Each batch accumulates into its own scratch store and is merged only
-    when every Gram update it made is finite; a batch with non-finite
+    Each batch's activations are recorded (:class:`repro_torch.utils.
+    ActivationLog`) and its Grams added to the store only when every one
+    of them is finite, as a per-batch scratch store would be merged, but
+    one Gram at a time: a MoE model's expert Grams (OLMoE-1B-7B: 39.7 GB
+    at 16 layers) are held once, not twice.  A batch with non-finite
     activations is skipped and logged (``report.event`` and a
     ``RuntimeWarning``), a dropped one is logged.  Raises when batches were
     given but every one was skipped or dropped."""
@@ -128,11 +137,11 @@ def run_calibration(params: dict, cfg: ModelConfig,
                 if report is not None:
                     report.event(f"calibration batch {i} dropped")
                 continue
-            scratch = GramStore()
-            with capture_grams(scratch):
+            log = ActivationLog()
+            with capture_grams(log):
                 forward(eparams, eager_cfg, _to_device(batch, device))
-            faults.poison_grams(i, scratch)           # calib_nan (post)
-            if not scratch.all_finite():
+            faults.poison_grams(i, log)               # calib_nan (post)
+            if not log.grams_finite():
                 obs_metrics.counter(obs_names.CALIB_BATCHES_SKIPPED).inc()
                 msg = (f"calibration batch {i} produced non-finite "
                        "activations — batch skipped")
@@ -140,7 +149,8 @@ def run_calibration(params: dict, cfg: ModelConfig,
                 if report is not None:
                     report.event(msg)
                 continue
-            store.merge(scratch)
+            log.merge_into(store)
+            del log
             n_used += 1
             obs_metrics.counter(obs_names.CALIB_BATCHES_USED).inc()
     if n_in and not n_used:
@@ -159,6 +169,22 @@ def _site_gram(store: GramStore, path: str) -> Tensor | None:
     return faults.corrupt_gram(path, store.grams.get(path))
 
 
+def _expert_grams(store: GramStore, path: str,
+                  n_experts: int) -> list[Tensor | None]:
+    """The ``(m, m)`` Gram of each expert of a stacked site, through the
+    fault hook: an injection matching ``path`` corrupts every expert's (as
+    in the JAX twin), else one matching the expert's own key ``path[e]``
+    (``HealthReport.site_key``) corrupts that expert's alone."""
+    raw = store.grams.get(path)
+    if raw is None:
+        return [None] * n_experts
+    H = _site_gram(store, path)
+    if H is not raw:
+        return list(H)
+    return [faults.corrupt_gram(health.HealthReport.site_key(path, e), raw[e])
+            for e in range(n_experts)]
+
+
 def _quantize_one(W: Tensor, H: Tensor | None, qspec: QSpec, method: str,
                   key: int) -> dict:
     """Quantize one (m, n) weight with ``method``.  Returns the new leaves
@@ -174,11 +200,22 @@ def _cast_for_model(leaves: dict, dtype) -> dict:
             for k, v in leaves.items()}
 
 
-def _dense_site(lin_path: str, W: Tensor) -> None:
-    if W.dim() != 2 or lin_path.startswith(("shared.", "cross.")):
+def _ported_site(lin_path: str) -> None:
+    if lin_path.startswith(("shared.", "cross.")):
         raise NotImplementedError(
-            f"{lin_path}: stacked-expert and weight-shared sites "
+            f"{lin_path}: weight-shared and cross-attention sites "
             f"{_NOT_PORTED}")
+
+
+def _stacked_dense_event(report, path: str) -> None:
+    """The JAX twin's event for an expert left dense by the ladder."""
+    if report is not None:
+        report.event(f"{path}: expert degraded to dense — whole stacked "
+                     "site left dense")
+
+
+def _stack_experts(outs: list[dict]) -> dict:
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def _quantize_model_sequential(eparams: dict, store: GramStore,
@@ -192,7 +229,7 @@ def _quantize_model_sequential(eparams: dict, store: GramStore,
     if guarded and report is None:
         report = health.HealthReport()
 
-    def guard(W, H, leaves, key, site, path):
+    def guard(W, H, leaves, key, site, path, expert=None):
         """Per-layer check and ladder: the batched engine's criterion,
         oracle and (W, H, key, spec)."""
         if not guarded:
@@ -203,12 +240,10 @@ def _quantize_model_sequential(eparams: dict, store: GramStore,
         obs_metrics.counter(obs_names.HEALTH_CHECKED).inc()
         if health.check_single(W, leaves, spec, policy):
             return leaves
-        return health.heal_task(W, H, key, spec, policy, report, path)
+        return health.heal_task(W, H, key, spec, policy, report, path,
+                                expert)
 
     for i, lin_path in enumerate(quantizable_linear_paths(eparams)):
-        # one key a quantizable path, skipped sites included, so keys do
-        # not depend on the recipe's skip rules and match the batched engine
-        key = task_key(seed, i)
         site = sites[lin_path]
         if site.skip:
             if progress:
@@ -217,14 +252,31 @@ def _quantize_model_sequential(eparams: dict, store: GramStore,
         qspec, method = site.qspec, site.method
         lin = dict(get_path(eparams, lin_path))
         W = lin.pop("w")
-        _dense_site(lin_path, W)
+        _ported_site(lin_path)
         if progress:
             progress(f"[{i}] {lin_path} {tuple(W.shape)} "
                      f"{method}/{qspec.bits}b/r{qspec.rank}")
-        H = _site_gram(store, lin_path)
+        # one key a quantizable path (an expert's from it), skipped sites
+        # included, so keys do not depend on the recipe's skip rules and
+        # match the batched engine
         with torch.no_grad():
-            newlin = _quantize_one(W, H, qspec, method, key)
-            newlin = guard(W, H, newlin, key, site, lin_path)
+            if W.dim() == 3:                   # stacked MoE experts
+                Hs = _expert_grams(store, lin_path, W.shape[0])
+                outs = []
+                for e in range(W.shape[0]):
+                    key = task_key(seed, i, e)
+                    lv = _quantize_one(W[e], Hs[e], qspec, method, key)
+                    outs.append(guard(W[e], Hs[e], lv, key, site, lin_path,
+                                      e))
+                if any(o is None for o in outs):
+                    _stacked_dense_event(report, lin_path)
+                    continue
+                newlin = _stack_experts(outs)
+            else:
+                key = task_key(seed, i)
+                H = _site_gram(store, lin_path)
+                newlin = _quantize_one(W, H, qspec, method, key)
+                newlin = guard(W, H, newlin, key, site, lin_path)
         if newlin is None:
             continue                           # degraded to dense: keep w
         keep = dict(lin)                          # bias etc.
@@ -234,22 +286,33 @@ def _quantize_model_sequential(eparams: dict, store: GramStore,
 
 def _gather_tasks(eparams: dict, store: GramStore,
                   sites: dict[str, SiteSpec], seed: int):
-    """Every non-skipped site as a :class:`LayerTask` carrying its resolved
+    """Every non-skipped site as :class:`LayerTask`s carrying its resolved
     spec, keyed like the sequential loop (skipped sites take a key but give
-    no task).  Returns (tasks, [(path, other leaves)] in task order)."""
+    no task): one task a 2-D site, one an expert of a stacked site.
+    Returns (tasks, [(path, other leaves, its task indices)] in task
+    order)."""
     tasks: list[LayerTask] = []
-    keeps: list[tuple[str, dict]] = []
+    groups: list[tuple[str, dict, list[int]]] = []
     for i, lin_path in enumerate(quantizable_linear_paths(eparams)):
         site = sites[lin_path]
         if site.skip:
             continue
         lin = dict(get_path(eparams, lin_path))
         W = lin.pop("w")
-        _dense_site(lin_path, W)
-        tasks.append(LayerTask(lin_path, None, W, _site_gram(store, lin_path),
-                               task_key(seed, i), site=site))
-        keeps.append((lin_path, lin))
-    return tasks, keeps
+        _ported_site(lin_path)
+        if W.dim() == 3:            # stacked MoE experts: a natural bucket
+            Hs = _expert_grams(store, lin_path, W.shape[0])
+            idxs = list(range(len(tasks), len(tasks) + W.shape[0]))
+            tasks.extend(LayerTask(lin_path, e, W[e], Hs[e],
+                                   task_key(seed, i, e), site=site)
+                         for e in range(W.shape[0]))
+        else:
+            idxs = [len(tasks)]
+            tasks.append(LayerTask(lin_path, None, W,
+                                   _site_gram(store, lin_path),
+                                   task_key(seed, i), site=site))
+        groups.append((lin_path, lin, idxs))
+    return tasks, groups
 
 
 def _quantize_model_batched(eparams: dict, store: GramStore,
@@ -258,15 +321,22 @@ def _quantize_model_batched(eparams: dict, store: GramStore,
                             progress: Callable[[str], None] | None, *,
                             policy=None, report=None, journal=None,
                             should_stop=None) -> None:
-    tasks, keeps = _gather_tasks(eparams, store, sites, seed)
+    tasks, groups = _gather_tasks(eparams, store, sites, seed)
     with torch.no_grad():
         results = quantize_layer_batch(tasks, progress=progress,
                                        policy=policy, report=report,
                                        journal=journal,
                                        should_stop=should_stop)
-    for (path, lin), res in zip(keeps, results):
-        if res is None:
+    for path, lin, idxs in groups:
+        outs = [results[i] for i in idxs]
+        for i in idxs:                 # a finished chunk's leaves are freed
+            results[i] = None          # once all of its sites are stacked
+        if any(o is None for o in outs):
+            if tasks[idxs[0]].expert is not None:
+                _stacked_dense_event(report, path)
             continue                          # degraded to dense: keep w
+        res = (outs[0] if tasks[idxs[0]].expert is None
+               else _stack_experts(outs))
         keep = dict(lin)                          # bias etc.
         keep.update(_cast_for_model(res, cfg.dtype))
         set_path(new_params, path, keep)

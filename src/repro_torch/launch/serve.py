@@ -4,14 +4,20 @@
         --requests 8 --max-new 16 --batch 4 --cache-len 128 \\
         --tenants 4 --ranks 64,16 [--adapter NAME=DIR]
 
+``--arch``: the dense ``qwen3-1.7b``, ``qwen3-4b``, ``codeqwen1.5-7b`` and
+``minicpm-2b``, or the MoE ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``
+(``repro_torch.configs``).
+
 Twin of ``repro.launch.serve``: the same flags plus ``--device`` (CUDA
 unless ``--device cpu``).  It quantizes as the JAX CLI does, through
 ``quantize_model``'s batched engine with any ``--method`` (calibration on
 2 x 64 tokens; group 64 and rank 64 at full size, 16 and 8 with
 ``--smoke``), and routes as it does:
 
-* a dense scan model with LoRA adapter sites (every quantized one)
-  is served by the multi-tenant :class:`repro_torch.serve.ServeEngine`:
+* a dense or MoE scan model with LoRA adapter sites (every quantized
+  one; a MoE model's tenants adapt its attention, its experts keep the
+  base's CLoQ adapters) is served by the multi-tenant
+  :class:`repro_torch.serve.ServeEngine`:
   ``--tenants`` synthetic tenants over the ``--ranks`` buckets (the JAX
   CLI's ``synthesize_adapters``), plus one tenant per ``--adapter
   NAME=DIR`` loaded from a checkpoint (the train CLI's ``--ckpt-dir``),
@@ -320,7 +326,7 @@ def run(args, cfg=None) -> dict:
             cfg, quant=dataclasses.replace(cfg.quant, use_kernel=True))
     out = {"cfg": cfg, "params": params, "quantize_s": quantize_s,
            "route": "fixed_slots", "registry": None, "tenants": []}
-    if cfg.family == "dense" and cfg.scan_layers:
+    if cfg.family in ("dense", "moe") and cfg.scan_layers:
         registry, tenants = build_registry(args, params)
         if registry is not None:
             engine = ServeEngine(params, cfg, registry,

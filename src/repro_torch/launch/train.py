@@ -3,20 +3,26 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --bits 4 --group-size 64 --rank 64 --steps 100
 
+``--arch``: the dense ``qwen3-1.7b``, ``qwen3-4b``, ``codeqwen1.5-7b`` and
+``minicpm-2b``, or the MoE ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``
+(``repro_torch.configs``).
+
 Twin of ``repro.launch.train``: the same flags plus ``--device`` (CUDA
 unless ``--device cpu``).  It builds the model from ``--seed``, optionally
 pre-trains it in full precision (``--pretrain-steps``), calibrates on
 ``--calib-batches`` batches of the training stream, quantizes every block
-linear (``QuantRecipe.single`` from ``--method/--bits/--group-size/--rank/
---split``, or ``--recipe``; any of the five methods cloq, gptq, loftq,
+linear and expert stack (``QuantRecipe.single`` from ``--method/--bits/
+--group-size/--rank/--split``, or ``--recipe``; any of the five methods
+cloq, gptq, loftq,
 qlora and rtn, through the batched engine with the health guards on, whose
 summary it prints), and trains the LoRA adapters only (everything, with
 ``--method none``) for ``--steps`` steps.  On a CUDA device calibration
 runs through the ``gram`` kernel and the forward of every INT-quantized
 linear through the fused ``dequant_matmul_lora`` kernel
 (``QSpec.use_kernel``; a training batch has more rows than
-``kernels.ops.FUSED_LORA_MIN_ROWS``); NF4 (``qlora``) sites dequantize in
-plain PyTorch.
+``kernels.ops.FUSED_LORA_MIN_ROWS``); NF4 (``qlora``) sites and MoE expert
+stacks dequantize in plain PyTorch, as the JAX package's do outside any
+Pallas kernel.
 
 Each step's time is taken on the host clock around a step that ends in a
 device synchronize.  With ``--ckpt-dir`` the train state and the data

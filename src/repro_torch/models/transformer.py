@@ -1,11 +1,11 @@
-"""Dense decoder-only model: config, init, forward, loss and KV-cache decode.
+"""Decoder-only model: config, init, forward, loss and KV-cache decode.
 
-PyTorch twin of the dense branch of ``repro.models.transformer``.  Block
-params are either scan-stacked (every leaf under ``blocks`` has a leading
-layer axis, as the JAX package stacks them for ``lax.scan``) or eager
-(``blocks.<i>.…``); the layer loop is a Python loop over either layout.
-Other families (MoE, SSM, hybrid, enc-dec) are not ported yet
-(``ROADMAP.md``).
+PyTorch twin of the dense and MoE branches of ``repro.models.transformer``.
+Block params are either scan-stacked (every leaf under ``blocks`` has a
+leading layer axis, as the JAX package stacks them for ``lax.scan``; MoE
+expert stacks are ``(L, E, m, n)``) or eager (``blocks.<i>.…``); the
+layer loop is a Python loop over either layout.  Other families (SSM,
+hybrid, enc-dec, VLM) are not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from repro_torch.models.attention import (AttnConfig, attn_apply,
                                           attn_decode, attn_init)
 from repro_torch.models.mlp import swiglu_apply, swiglu_init
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 from repro_torch.models.modules import (QSpec, embedding_apply,
                                         embedding_init, linear_init,
                                         lm_head_apply, rmsnorm_apply,
@@ -30,7 +31,7 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # only "dense" is ported
+    family: str                   # "dense" or "moe" are ported
     n_layers: int
     d_model: int
     vocab: int
@@ -42,6 +43,11 @@ class ModelConfig:
     attn_bias: bool = False
     rope_theta: float = 1e6
     tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
     vocab_pad_multiple: int = 1   # pad embedding/head rows
     quant: QSpec | None = None
     lora_rank: int = 0            # LoRA on dense weights
@@ -54,27 +60,39 @@ class ModelConfig:
                           self.head_dim, self.qk_norm, self.rope_theta,
                           window, causal, self.attn_bias)
 
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(self.n_experts, self.top_k, self.d_model,
+                         self.d_ff_expert, self.capacity_factor)
+
     @property
     def vocab_padded(self) -> int:
         m = self.vocab_pad_multiple
         return -(-self.vocab // m) * m
 
 
+FAMILIES = ("dense", "moe")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet; only "
-            "'dense' is (see ROADMAP.md)")
+            f"family {cfg.family!r} is not ported to repro_torch yet; "
+            f"{FAMILIES} are (see ROADMAP.md)")
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     r = cfg.lora_rank
-    return {"ln1": rmsnorm_init(cfg.d_model, cfg.dtype, device),
-            "attn": attn_init(gen, cfg.attn_cfg(), dtype=cfg.dtype,
-                              lora_rank=r, device=device),
-            "ln2": rmsnorm_init(cfg.d_model, cfg.dtype, device),
-            "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
-                               lora_rank=r, device=device)}
+    p = {"ln1": rmsnorm_init(cfg.d_model, cfg.dtype, device),
+         "attn": attn_init(gen, cfg.attn_cfg(), dtype=cfg.dtype,
+                           lora_rank=r, device=device),
+         "ln2": rmsnorm_init(cfg.d_model, cfg.dtype, device)}
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, cfg.moe_cfg(), dtype=cfg.dtype,
+                            lora_rank=r, device=device)
+    else:
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
+                               lora_rank=r, device=device)
+    return p
 
 
 def stack_layers(layers: list[dict]) -> dict:
@@ -113,14 +131,30 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return p
 
 
-def _block_apply(p, cfg: ModelConfig, x: Tensor) -> Tensor:
+def _block_apply(p, cfg: ModelConfig, x: Tensor,
+                 pctx: PContext = LOCAL) -> tuple[Tensor, Tensor | None]:
+    """Returns (y, aux_loss): the MoE block's aux loss, None for dense."""
     q = cfg.quant
     with scope("attn"):
         x = x + attn_apply(p["attn"], cfg.attn_cfg(),
                            rmsnorm_apply(p["ln1"], x), qspec=q)
+    if cfg.family == "moe":
+        with scope("moe"):
+            y, aux = moe_apply(p["moe"], cfg.moe_cfg(),
+                               rmsnorm_apply(p["ln2"], x), qspec=q,
+                               pctx=pctx)
+        return x + y, aux
     with scope("mlp"):
         x = x + swiglu_apply(p["mlp"], rmsnorm_apply(p["ln2"], x), q)
-    return x
+    return x, None
+
+
+def _ffn_decode(bp: dict, cfg: ModelConfig, h: Tensor,
+                pctx: PContext) -> Tensor:
+    if cfg.family == "moe":
+        return moe_apply(bp["moe"], cfg.moe_cfg(), h, qspec=cfg.quant,
+                         pctx=pctx)[0]
+    return swiglu_apply(bp["mlp"], h, cfg.quant)
 
 
 def n_stacked(blocks: dict) -> int:
@@ -142,17 +176,20 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             pctx: PContext = LOCAL, return_hidden: bool = False):
     """Training/prefill forward.  batch: tokens (B, S) int.  Returns
     (logits (B, S, V), aux) — or (hidden (B, S, D), aux) with
-    ``return_hidden``.  ``aux`` is a zero f32 scalar (no MoE loss)."""
+    ``return_hidden``.  ``aux`` is the f32 sum of the MoE layers' load
+    balance losses (zero for a dense model)."""
     _check_family(cfg)
     x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, bp in _layers(params["blocks"], cfg):
         if cfg.scan_layers:
-            x = _block_apply(bp, cfg, x)
+            x, a = _block_apply(bp, cfg, x, pctx)
         else:
             with scope(f"blocks.{i}"):
-                x = _block_apply(bp, cfg, x)
+                x, a = _block_apply(bp, cfg, x, pctx)
+        if a is not None:
+            aux = aux + a
     x = rmsnorm_apply(params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     head = params.get("head", params["embed"])
@@ -228,7 +265,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
                            {"k": cache["k"][li], "v": cache["v"][li],
                             "idx": idx}, qspec=q)
         x = x + y
-        x = x + swiglu_apply(bp["mlp"], rmsnorm_apply(bp["ln2"], x), q)
+        x = x + _ffn_decode(bp, cfg, rmsnorm_apply(bp["ln2"], x), pctx)
     x = rmsnorm_apply(params["final_norm"], x)
     head = params.get("head", params["embed"])
     logits = lm_head_apply(head, x)[:, 0, :]

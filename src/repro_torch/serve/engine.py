@@ -26,8 +26,13 @@ requests (different tenants, ranks, progress) share one device call.
 Every op in the step is row-independent for ``dense`` models and stale
 page content gets exactly zero softmax weight, so replaying one request
 alone through the same step gives its batched tokens
-(``tests/test_torch_serving.py``).  Span tracing and the persisted
-compile cache of the JAX twin are not ported yet (``ROADMAP.md``).
+(``tests/test_torch_serving.py``).  MoE models serve through the same
+step (tenants adapt the attention sites; the experts keep the base's
+adapters), but capacity-based routing mixes a bucket's rows, so that
+oracle holds for ``dense`` only, as in the JAX twin; the MoE dispatch
+reads nothing on the host, so its step is captured as well.  Span
+tracing and the persisted compile cache of the JAX twin are not ported
+yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 

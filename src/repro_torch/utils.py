@@ -63,19 +63,21 @@ def current_scope() -> str:
 
 
 class GramStore:
-    """Accumulates per-layer Gram matrices H = sum_batches X^T X (f32)."""
+    """Accumulates per-layer Gram matrices H = sum_batches X^T X (f32).
+
+    ``keep_leading=True`` (MoE expert buffers shaped (E, C, D)) keeps the
+    leading dim and accumulates one Gram per expert: H (E, D, D)."""
 
     def __init__(self) -> None:
         self.grams: dict[str, Tensor] = {}
         self.counts: dict[str, int] = {}
 
-    def add(self, path: str, x: Tensor) -> None:
-        """H += X^T X through the ``gram`` kernel wrapper: the plain version
-        for a CPU tensor, the CUDA kernel for a CUDA one (which takes x in
-        its own dtype and upcasts inside)."""
-        from repro_torch.kernels import ops
-        h = ops.gram(x)
-        cnt = math.prod(x.shape[:-1])
+    def add(self, path: str, x: Tensor, keep_leading: bool = False) -> None:
+        """H += X^T X (:func:`gram_of`)."""
+        self.accumulate(path, *gram_of(x, keep_leading))
+
+    def accumulate(self, path: str, h: Tensor, cnt: int) -> None:
+        """H += h, a Gram of ``cnt`` rows."""
         if path in self.grams:
             self.grams[path] = self.grams[path] + h
             self.counts[path] += cnt
@@ -104,6 +106,84 @@ class GramStore:
         return all(bool(torch.isfinite(g).all()) for g in self.grams.values())
 
 
+def gram_of(x: Tensor, keep_leading: bool = False) -> tuple[Tensor, int]:
+    """(X^T X in f32, rows) through the ``gram`` kernel wrapper: the plain
+    version for a CPU tensor, the CUDA kernel for a CUDA one (which takes x
+    in its own dtype and upcasts inside).  With ``keep_leading`` one call a
+    leading slice ``x[e]`` (C, D), stacked to (E, D, D): each expert's Gram
+    exactly symmetric, as a 2-D site's."""
+    from repro_torch.kernels import ops
+    if keep_leading:
+        x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+        return (torch.stack([ops.gram(x3[e]) for e in range(x3.shape[0])]),
+                x3.shape[1])
+    return ops.gram(x), math.prod(x.shape[:-1])
+
+
+# a bound below f32's largest value (3.4e38): activations at most ``a``
+# in size over ``T`` rows give Gram entries of at most ``T a^2``, so with
+# ``T a^2`` under it no Gram of the batch can overflow
+_F32_SAFE = 1e38
+
+
+class ActivationLog:
+    """A capture target holding each recorded activation of one
+    calibration batch (references, no copies) instead of its Grams.
+
+    :meth:`merge_into` adds the batch's Grams into a :class:`GramStore`
+    path by path, each the same sum a per-batch scratch ``GramStore``
+    would hold, so the batch costs one Gram at a time on top of the store
+    rather than a second copy of every Gram.  :meth:`grams_finite` decides
+    whether every Gram of the batch is finite: from the activations' size
+    where that bounds the sums (one host sync), else by computing them."""
+
+    def __init__(self) -> None:
+        self.entries: list[tuple[str, Tensor, bool]] = []
+
+    def add(self, path: str, x: Tensor, keep_leading: bool = False) -> None:
+        self.entries.append((path, x, keep_leading))
+
+    def poison(self) -> None:
+        """NaN-fill every recorded activation (the calibration fault
+        hook): every Gram of the batch is then non-finite."""
+        self.entries = [(p, torch.full_like(x, float("nan")), k)
+                        for p, x, k in self.entries]
+
+    def grams(self) -> Iterator[tuple[str, Tensor, int]]:
+        """(path, the batch's Gram, rows) a path, in first-record order;
+        a path recorded twice sums its Grams in record order."""
+        by_path: dict[str, list] = {}
+        for p, x, k in self.entries:
+            by_path.setdefault(p, []).append((x, k))
+        for p, recs in by_path.items():
+            h, cnt = gram_of(*recs[0])
+            for x, k in recs[1:]:
+                h2, c2 = gram_of(x, k)
+                h, cnt = h + h2, cnt + c2
+            yield p, h, cnt
+
+    def grams_finite(self) -> bool:
+        """Whether every Gram of the batch is finite.  A non-finite
+        activation makes its Gram non-finite; finite ones at most ``a`` in
+        size over at most ``T`` rows bound every entry by ``T a^2``, so
+        below ``_F32_SAFE`` no Gram is computed; else each is."""
+        if not self.entries:
+            return True
+        amax = torch.stack([x.abs().amax().float()
+                            for _, x, _ in self.entries])
+        rows = max(x.numel() // x.shape[-1] for _, x, _ in self.entries)
+        top = float(amax.max())
+        if not math.isfinite(top):
+            return False
+        if top * top * rows < _F32_SAFE:
+            return True
+        return all(bool(torch.isfinite(h).all()) for _, h, _ in self.grams())
+
+    def merge_into(self, store: GramStore) -> None:
+        for p, h, cnt in self.grams():
+            store.accumulate(p, h, cnt)
+
+
 def _capture_store() -> GramStore | None:
     return getattr(_state, "capture", None)
 
@@ -118,11 +198,12 @@ def capture_grams(store: GramStore) -> Iterator[GramStore]:
         _state.capture = prev
 
 
-def record_activation(path: str, x: Tensor) -> None:
+def record_activation(path: str, x: Tensor,
+                      keep_leading: bool = False) -> None:
     store = _capture_store()
     if store is None:
         return
-    store.add(path, x.detach())
+    store.add(path, x.detach(), keep_leading=keep_leading)
 
 
 # ---------------------------------------------------------------------------

@@ -306,3 +306,88 @@ def test_plan_manifest_is_the_references():
     bt, bj = tb.plan_buckets(tasks_t), jb.plan_buckets(tasks_j)
     assert len(bt) == 4 and list(bt.values()) == list(bj.values())
     assert tb.plan_manifest(tasks_t, bt) == jb.plan_manifest(tasks_j, bj)
+
+
+def _bucket_tasks(kind: str, n=6, m=32, k=24):
+    """One bucket of ``n`` slices: 2-D sites, or the experts of one stacked
+    site (``expert`` set, keys from (seed, site, expert))."""
+    Ws, Hs = _layers(n, m, k, seed=4)
+    if kind == "dense":
+        return _tasks(Ws, Hs)
+    W = torch.from_numpy(np.stack(Ws))
+    H = torch.from_numpy(np.stack(Hs))
+    return [tb.LayerTask("blocks.0.moe.up", e, W[e], H[e],
+                         tb.task_key(0, 3, e)) for e in range(n)]
+
+
+def _same(a: list, b: list) -> None:
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert set(x) == set(y)
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["dense", "expert"])
+def test_chunked_bucket_gives_the_same_bits(kind, n_chunks):
+    """A bucket of 6 slices run in 1, 2 or 3 chunks (``chunk`` 6, 3, 2):
+    bit-identical leaves to the whole-bucket call, one progress line a
+    bucket that names the chunks, every slice health-checked."""
+    from repro_torch.core.health import HealthPolicy as TPolicy
+    from repro_torch.core.health import HealthReport
+    qspec = tmod.QSpec(bits=4, group_size=16, rank=4)
+    tasks = _bucket_tasks(kind)
+    whole = tb.quantize_layer_batch(tasks, qspec, "cloq")
+    msgs, report = [], HealthReport()
+    got = tb.quantize_layer_batch(tasks, qspec, "cloq", chunk=6 // n_chunks,
+                                  progress=msgs.append, policy=TPolicy(),
+                                  report=report)
+    _same(got, whole)
+    assert len(msgs) == 1 and f"chunks={n_chunks} " in msgs[0] + " "
+    assert report.checked == 6 and not report.counts()
+
+
+def test_chunk_size_fits_free_memory(monkeypatch):
+    """The chunk rule: all slices off CUDA; a forced ``chunk`` capped at
+    the bucket; on CUDA as many slices as ``SLICE_WORK_FACTOR`` x the
+    slice's f32 W and H bytes fit in the free memory less the margin, at
+    least one."""
+    spec = tb.make_spec(2048, 1024, tmod.QSpec(bits=4, group_size=64,
+                                               rank=64), "cloq", True)
+    per = tb.SLICE_WORK_FACTOR * tb.slice_bytes(spec)
+    assert tb.slice_bytes(spec) == 4 * (2048 * 1024 + 2048 * 2048)
+    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
+    assert tb.chunk_size(spec, 300, cpu) == 300
+    assert tb.chunk_size(spec, 300, cpu, chunk=7) == 7
+    assert tb.chunk_size(spec, 5, cuda, chunk=7) == 5
+    for free, want in ((tb.CHUNK_MARGIN_BYTES + 40.5 * per, 40),
+                       (tb.CHUNK_MARGIN_BYTES + 1e15, 300),
+                       (tb.CHUNK_MARGIN_BYTES // 2, 1)):
+        monkeypatch.setattr(tb, "free_bytes", lambda dev, f=free: int(f))
+        assert tb.chunk_size(spec, 300, cuda) == want
+    rtn = tb.make_spec(2048, 1024, tmod.QSpec(), "rtn", False)
+    assert tb.slice_bytes(rtn) == 4 * 2048 * 1024
+
+
+def test_journal_resumes_across_chunk_sizes(tmp_path):
+    """A journal written with one slice a chunk, stopped after bucket 0,
+    restores that bucket under chunks of 2 (its entry does not depend on
+    the chunks); the result is an uninterrupted run's, bit for bit."""
+    from repro_torch.checkpoint.manager import QuantJournal
+    from repro_torch.core.health import QuantPreempted
+    qspec = tmod.QSpec(bits=4, group_size=16, rank=4)
+    tasks = _bucket_tasks("dense", n=4) + _tasks(*_layers(3, 16, 8, seed=5))
+    want = tb.quantize_layer_batch(tasks, qspec, "cloq")
+    jd = str(tmp_path / "journal")
+    with pytest.raises(QuantPreempted):
+        tb.quantize_layer_batch(tasks, qspec, "cloq", chunk=1,
+                                journal=QuantJournal(jd),
+                                should_stop=lambda: True)
+    assert QuantJournal(jd).buckets() == [0]
+    msgs = []
+    got = tb.quantize_layer_batch(tasks, qspec, "cloq", chunk=2,
+                                  journal=QuantJournal(jd),
+                                  progress=msgs.append)
+    _same(got, want)
+    assert "restored=journal" in msgs[0] and "chunks=2" in msgs[1]

@@ -663,3 +663,173 @@ def test_streamed_and_serialized_buckets_give_the_same_bits(cuda):
         for x, y in zip(a, b):
             for k in x:
                 assert torch.equal(x[k], y[k]), (method, k)
+
+
+# -- the other configs' kernel shapes, and the MoE decode ---------------------
+
+
+def _config_linears(name):
+    """(K, N) of each quantized 2-D linear of one layer of a ported config
+    at its published widths (q, k, v, o and, for dense, gate/up, down)."""
+    from repro_torch.configs import get_config
+    c = get_config(name)
+    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    out = {(c.d_model, q), (c.d_model, kv), (q, c.d_model)}
+    if c.family == "dense":
+        out |= {(c.d_model, c.d_ff), (c.d_ff, c.d_model)}
+    return sorted(out)
+
+
+NEW_CONFIGS = ("qwen3-4b", "codeqwen1.5-7b", "minicpm-2b", "olmoe-1b-7b",
+               "qwen3-moe-30b-a3b")
+NEW_LINEARS = sorted({kn for c in NEW_CONFIGS for kn in _config_linears(c)})
+
+
+def _randn(gen, *shape):
+    """N(0, 1) f32 from ``gen``: these tests draw from their own generator,
+    as the default one cannot be used after a capture that raised
+    (``test_capture_failure_raises``)."""
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+@pytest.fixture
+def gen(cuda):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    return g
+
+
+@pytest.mark.parametrize("K,N", NEW_LINEARS)
+def test_new_config_linears_on_the_decode_and_train_routes(gen, K, N):
+    """Each linear of the new configs at full width, bf16, 4-bit, group
+    64: the decode kernel at 4 rows on the tensor-core route (K split over
+    a cluster; CodeQwen's K = 13440 is 210 groups) and the fused kernel at
+    1024 rows, rank 64, on the wgmma route, both within the bf16
+    tolerance of their plain versions."""
+    from repro_torch.kernels.dequant_matmul import lora_plan_for, plan_for
+    codes, s, z = quantize_int(_randn(gen, K, N) * 0.02, 4, 64)
+    packed = pack_codes(codes, 4)
+    x = _randn(gen, 4, K).to(torch.bfloat16)
+    assert plan_for(x, packed, s, z, 64).route == "mma"
+    y = ops.dequant_matmul(x, packed, s, z, bits=4, group_size=64)
+    _close(y, ref.dequant_matmul_ref(x, packed, s, z, bits=4, group_size=64),
+           **_tol(torch.bfloat16))
+    xt = _randn(gen, 1024, K).to(torch.bfloat16)
+    a = (_randn(gen, K, 64) / K ** 0.5).to(torch.bfloat16)
+    b = (_randn(gen, N, 64) * 0.1).to(torch.bfloat16)
+    assert lora_plan_for(xt, packed, s, z, a, b, 64).route == "wgmma"
+    y = ops.dequant_matmul_lora(xt, packed, s, z, a, b, bits=4,
+                                group_size=64)
+    _close(y, ref.dequant_matmul_lora_ref(xt, packed, s, z, a, b, bits=4,
+                                          group_size=64),
+           **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("Hq,Hkv,d", [(16, 16, 128), (32, 32, 128),
+                                      (36, 36, 64), (32, 4, 128),
+                                      (32, 8, 128)])
+def test_new_config_decode_attention(gen, Hq, Hkv, d):
+    """Decode attention at the new configs' heads (MHA, GQA group 8, head
+    dim 64) through the cache's transpose: the mma route in bf16 (q scaled
+    by 4, as chip_smoke's decode cases), the split route in f32."""
+    from repro_torch.kernels.flash_attention import plan_for
+    lengths = torch.tensor([128, 97, 40, 1], dtype=torch.int32,
+                           device=gen.device)
+    for dtype, route, tol in ((torch.bfloat16, "mma", 5e-2),
+                              (torch.float32, "split", 1e-4)):
+        q = (_randn(gen, 4, 1, Hq, d) * 4).to(dtype)
+        k = _randn(gen, 4, 128, Hkv, d).to(dtype)
+        v = _randn(gen, 4, 128, Hkv, d).to(dtype)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        assert plan_for(q, k, v).route == route
+        o = ops.flash_attention(q, k, v, causal=False, lengths=lengths)
+        _close(o, ref.flash_attention_ref(q, k, v, causal=False,
+                                          lengths=lengths),
+               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("T,D", [(1024, 2304), (1024, 2560), (1024, 4096),
+                                 (1024, 5760), (1024, 9728), (1024, 13440),
+                                 (160, 2048), (160, 1024), (20, 768)])
+def test_new_config_grams(gen, T, D):
+    """The Gram at the new configs' calibration widths and at MoE expert
+    slices (C = 160 rows at 8 x 128 tokens, top-8 of 64): the wgmma route,
+    exactly symmetric, within the f32 tolerance (exact bf16 products)."""
+    from repro_torch.kernels.gram import plan_for
+    x = _randn(gen, T, D).to(torch.bfloat16)
+    assert plan_for(x).route == "wgmma"
+    h = ops.gram(x)
+    assert torch.equal(h, h.T)
+    _close(h, ref.gram_ref(x), rtol=1e-4, atol=1e-2)
+
+
+def _moe_model(cuda):
+    """The OLMoE smoke model widened to bf16 with head dim 64 and group 64
+    (the decode routes on the tensor cores), CLoQ-quantized on the card."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.transformer import init_params
+    cfg = get_smoke_config("olmoe-1b-7b", dtype=torch.bfloat16, d_model=256,
+                           head_dim=64, d_ff_expert=128, n_experts=8)
+    params = init_params(cfg, seed=0, device=cuda)
+    calib = [TokenStream(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                    global_batch=2, seed=0)).next_batch()]
+    qp, qcfg, _ = quantize_model(params, cfg, calib,
+                                 recipe=QuantRecipe.single(
+                                     "cloq", QSpec(bits=4, group_size=64,
+                                                   rank=8)))
+    return qp, dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+
+
+def test_captured_moe_engine_gives_the_eager_tokens(cuda):
+    """The MoE model served by the engine with each rank bucket's decode
+    captured gives the eager engine's tokens (the dispatch, the capacity
+    drops and the combine included), with 4 attention linears and one
+    attention call a layer a decode through the kernels."""
+    from repro_torch.serve import ServeEngine, run_workload
+    qp, qcfg = _moe_model(cuda)
+    reg = _graph_registry(qp)
+    assert sorted(reg.sites()) == ["attn.k", "attn.o", "attn.q", "attn.v"]
+    runs = {}
+    for graph in (False, True):
+        eng = ServeEngine(qp, qcfg, reg, page_size=4, max_len=24,
+                          use_kernel=True, graph=graph)
+        ops.reset_launch_counts()
+        runs[graph] = (run_workload(eng, _REQS), ops.launch_counts(),
+                       dict(eng.decodes))
+    assert runs[True] == runs[False]
+    out, counts, decodes = runs[True]
+    assert counts["dequant_matmul"] == 4 * qcfg.n_layers * sum(
+        decodes.values())
+    assert counts["flash_attention"] == qcfg.n_layers * sum(decodes.values())
+    assert all(len(out[i]) == _REQS[i][2] for i in range(len(_REQS)))
+
+
+def test_moe_dispatch_captures_without_a_host_sync(cuda):
+    """``moe_apply`` (route, sort, capacity buffer, experts, combine) on a
+    quantized expert stack captured as a CUDA graph: the capture succeeds
+    (a host sync would raise) and replays give the eager bits, which two
+    eager runs also give (no atomics in the combine)."""
+    from repro_torch.launch.steps import CapturedStep
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.transformer import layer_params
+    qp, qcfg = _moe_model(cuda)
+    tree = layer_params(qp["blocks"]["moe"], 0)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    x = _randn(gen, 4, 1, qcfg.d_model).to(torch.bfloat16)
+    with torch.no_grad():
+        eager = moe_apply(tree, qcfg.moe_cfg(), x, qspec=qcfg.quant)[0]
+        again = moe_apply(tree, qcfg.moe_cfg(), x, qspec=qcfg.quant)[0]
+        step = CapturedStep(lambda xin: moe_apply(tree, qcfg.moe_cfg(), xin,
+                                                  qspec=qcfg.quant)[0])
+        outs = [step(x).clone() for _ in range(3)]
+    assert step.graph is not None
+    assert torch.equal(eager, again)
+    for o in outs:
+        assert torch.equal(o, eager)

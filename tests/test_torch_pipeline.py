@@ -264,3 +264,61 @@ def test_quantize_model_rejects_unported():
     skip_all = tr.QuantRecipe(rules=(tr.SiteRule("*", skip=True),))
     qt, _, _ = tp.quantize_model(pt, cfg_t, ct, recipe=skip_all)
     assert not any(p.endswith("qcodes") for p in tpaths(qt))
+
+
+def test_stacked_expert_sites_are_quantization_sites():
+    """Stacked MoE expert weights (E, m, n) are quantization sites like the
+    2-D linears (the router is not); weight-shared and cross-attention
+    sites still raise as not ported."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_smoke_config("olmoe-1b-7b", scan_layers=False)
+    params = init_params(cfg, seed=0, device="cpu")
+    paths = tp.quantizable_linear_paths(params)
+    assert len(paths) == 2 * (4 + 3)
+    assert "blocks.1.moe.down" in paths and not any("router" in p
+                                                    for p in paths)
+    assert get_path(params, "blocks.1.moe.down")["w"].dim() == 3
+    for p in paths:
+        tp._ported_site(p)
+    for p in ("shared.block.attn.q", "cross.0.xattn.q"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tp._ported_site(p)
+
+
+@pytest.mark.parametrize("case", ["normal", "huge", "overflow", "nan"])
+def test_activation_log_merges_as_a_scratch_store(case):
+    """Calibration records a batch's activations and adds its Grams one at
+    a time: the store ends bit-equal to merging a per-batch scratch
+    ``GramStore`` (a path recorded twice, an expert buffer), and the
+    batch counts as finite exactly when every scratch Gram is: huge but
+    finite activations (past the size bound, so the Grams are computed),
+    activations whose Gram overflows f32, a NaN."""
+    from repro_torch.utils import ActivationLog, GramStore
+    rng = np.random.default_rng(11)
+    xs = [("a", rng.normal(size=(2, 5, 8)), False),
+          ("e", rng.normal(size=(3, 4, 8)), True),
+          ("a", rng.normal(size=(10, 8)), False)]
+    scale = {"normal": 1.0, "huge": 1e18, "overflow": 1e20,
+             "nan": 1.0}[case]
+    recs = [(p, torch.from_numpy(x.astype(np.float32)) * scale, k)
+            for p, x, k in xs]
+    if case == "nan":
+        recs[1][1][0, 0, 0] = float("nan")
+    scratch, log = GramStore(), ActivationLog()
+    for p, x, k in recs:
+        scratch.add(p, x, keep_leading=k)
+        log.add(p, x, keep_leading=k)
+    assert log.grams_finite() == scratch.all_finite() == \
+        (case in ("normal", "huge"))
+    base = GramStore()
+    base.add("a", torch.ones(3, 8))
+    want, got = GramStore(), GramStore()
+    for s in (want, got):
+        s.merge(base)
+    want.merge(scratch)
+    log.merge_into(got)
+    assert want.counts == got.counts == {"a": 23, "e": 4}
+    for p in want.grams:
+        torch.testing.assert_close(got.grams[p], want.grams[p], rtol=0,
+                                   atol=0, equal_nan=True)
