@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--layers L] [--moe-layers L]
+    python3 chip_smoke.py [--layers L] [--moe-layers L] [--hybrid-layers L]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
 one JSON line each:
@@ -12,7 +12,8 @@ one JSON line each:
    seconds and the ``ptxas`` register and spill report.
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes (Qwen3-1.7B's and every other ported
-   config's, MoE expert slices included) and at a sweep of others, with
+   config's, MoE expert slices and the SSM families' narrow outputs
+   included) and at a sweep of others, with
    ``torch.cuda.synchronize()`` after each launch, on every route its plan
    function picks, each case's route and error on a ``dequant_cases``,
    ``flash_cases``, ``gram_cases`` or ``lora_cases`` line; the decode and
@@ -122,13 +123,39 @@ one JSON line each:
    memory, the routes each kernel took, the largest difference of kernel
    against plain decode logits; held: captured tokens equal to eager
    ones, finite losses, an empty health report, the launches.
+13. ssm — Mamba2-370M (all 48 layers, d_model 1024, state 128) and
+   Zamba2-7B (d_model 3584, the shared attention + MLP block with d_ff
+   14336 after every 6 Mamba layers), ``--hybrid-layers`` deep (15 by
+   default, cut from 81: two shared-block sites and 3 remainder layers,
+   the published 81 = 13 x 6 + 3's tail), at full width, bf16: the train
+   CLI's path (CLoQ 4-bit g64 r64, calibration 2 x 8 x 128, 3 steps at 8
+   x 128), the same steps on the plain path from the same quantized params
+   and batches, then the serve CLI's route for these families, the
+   fixed-slot loop (batch 4, 8 requests x 16 tokens, cache 128), eager and
+   captured.  Quantize seconds, buckets and chunks, memory and host
+   seconds at each bucket's end, peak memory, losses, step seconds and
+   tokens/s, slot tokens/s eager and captured, the routes each kernel
+   took, the largest difference of kernel against plain decode logits,
+   the launches; for Zamba2, each shared linear's per-site objective
+   matrix (site s's regularized Gram against each site's ``A @ B^T``).
+   Held: losses finite and within 1e-2 of the plain path's, an empty
+   health report, captured tokens equal to eager ones, ``gram`` (5 a
+   Mamba layer + 7 a site) x calibration batches, ``dequant_matmul_lora``
+   the same a step, ``dequant_matmul`` the same a decode step,
+   ``flash_attention`` none (the shared block's windowed ring decodes in
+   plain PyTorch, as in the JAX package), and each site's adapter at
+   least as good on its own Gram as the other's (x (1 + 1e-4)), the two
+   sites' ``A @ B^T`` more than 1e-2 apart.
 
 ``--moe-layers`` at another depth than 2 (``--moe-layers 16``: the
 full-depth check) runs the device and build phases and the moe phase
-alone.  Otherwise the kernel table follows as one JSON line (each
-kernel's launches from the path that runs it: train for ``gram`` and
-``dequant_matmul_lora``, the engine serve for the others; and from the
-moe phase's, ``launches_moe``), the ``nvidia-smi`` name and power limit
+alone; ``--hybrid-layers`` at another depth than 15 (at least 12;
+``--hybrid-layers 81``: the full-depth check) the device and build phases
+and the ssm phase alone.  Otherwise the kernel table follows as one JSON
+line (each kernel's launches from the path that runs it: train for
+``gram`` and ``dequant_matmul_lora``, the engine serve for the others;
+from the moe phase's, ``launches_moe``; and from the ssm phase's, both
+models summed, ``launches_ssm``), the ``nvidia-smi`` name and power limit
 line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without the ``ok`` line, as does a host without CUDA or a directory
@@ -164,26 +191,38 @@ QWEN_LINEARS = ((2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048),
                 (2048, 6144), (2048, 6144), (6144, 2048))
 
 
-# the configs slice 8 adds, each at its published widths
+# the configs slices 8 and 9 add, each at its published widths
 NEW_CONFIGS = ("qwen3-4b", "codeqwen1.5-7b", "minicpm-2b", "olmoe-1b-7b",
-               "qwen3-moe-30b-a3b")
+               "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b")
 
 
 def config_shapes(c) -> dict:
-    """The kernel shapes of one layer of the model config ``c``:
-    ``linears`` (K, N) of its quantized 2-D linears (q, k, v, o and, for
-    dense, gate/up and down), ``heads`` (Hq, Hkv, d) and ``grams`` the
-    calibration widths D (and, for MoE, the expert slices')."""
-    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
-    linears = {(c.d_model, q), (c.d_model, kv), (q, c.d_model)}
-    grams = {c.d_model, q}
-    if c.family == "dense":
-        linears |= {(c.d_model, c.d_ff), (c.d_ff, c.d_model)}
-        grams.add(c.d_ff)
-    else:
-        grams.add(c.d_ff_expert)
-    return {"linears": sorted(linears), "heads": (c.n_heads, c.n_kv_heads,
-                                                  c.head_dim),
+    """The kernel shapes of one layer of the model config ``c`` (and of a
+    hybrid's shared block): ``linears`` (K, N) of its quantized 2-D
+    linears (attention's q, k, v, o; dense and shared gate/up and down;
+    Mamba's z/x, bc, dt and out projections), ``heads`` (Hq, Hkv, d) of
+    the decode attention the flash kernel runs (None for SSM and hybrid:
+    the hybrid's windowed ring decodes in plain PyTorch, as in the JAX
+    package) and ``grams`` the calibration widths D (and, for MoE, the
+    expert slices')."""
+    linears, grams, heads = set(), set(), None
+    if c.family in ("ssm", "hybrid"):
+        s = c.ssm_cfg()
+        linears |= {(c.d_model, s.d_inner), (c.d_model, s.d_bc),
+                    (c.d_model, s.n_heads), (s.d_inner, c.d_model)}
+        grams |= {c.d_model, s.d_inner}
+    if c.family != "ssm":
+        q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+        linears |= {(c.d_model, q), (c.d_model, kv), (q, c.d_model)}
+        grams |= {c.d_model, q}
+        if c.family == "moe":
+            grams.add(c.d_ff_expert)
+        else:
+            linears |= {(c.d_model, c.d_ff), (c.d_ff, c.d_model)}
+            grams.add(c.d_ff)
+        if c.family != "hybrid":
+            heads = (c.n_heads, c.n_kv_heads, c.head_dim)
+    return {"linears": sorted(linears), "heads": heads,
             "grams": sorted(grams)}
 
 
@@ -195,7 +234,7 @@ def new_shapes(key: str) -> list:
     for name in NEW_CONFIGS:
         v = config_shapes(get_config(name))[key]
         for x in (v if isinstance(v, list) else [v]):
-            if x not in out:
+            if x is not None and x not in out:
                 out.append(x)
     return out
 
@@ -816,8 +855,9 @@ LORA_SWEEP_BITS_RANKS = ((4, 0), (4, 8), (4, 64), (4, 128), (2, 8), (2, 64),
 
 def check_lora(torch, dev) -> tuple[dict, list]:
     """The fused kernel against its plain version: the train shapes
-    (Qwen3-1.7B's linears in bf16 and f32, the other configs' in bf16; run
-    twice: the same bits both times) and the sweep.  Returns the summary
+    (Qwen3-1.7B's linears in bf16 and f32, the other configs' in bf16 at
+    rank 64, or N where CLoQ cuts the rank to N (Mamba2's dt_proj: 32);
+    run twice: the same bits both times) and the sweep.  Returns the summary
     and one ``[M, K, N, bits, g, r, dtype, route, max_abs_err]`` a case."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_matmul import (dequant_matmul_lora_cuda,
@@ -827,7 +867,7 @@ def check_lora(torch, dev) -> tuple[dict, list]:
     main = [(TRAIN_TOKENS, K, N, 4, 64, 64, dt) for K, N in
             sorted(set(QWEN_LINEARS)) for dt in (torch.bfloat16,
                                                  torch.float32)] + [
-        (TRAIN_TOKENS, K, N, 4, 64, 64, torch.bfloat16)
+        (TRAIN_TOKENS, K, N, 4, 64, min(64, N), torch.bfloat16)
         for K, N in new_shapes("linears") if (K, N) not in QWEN_LINEARS]
     sweep = [(M, K, N, bits, g, r, dt)
              for M in LORA_SWEEP_ROWS for K, N, g in LORA_SWEEP_SHAPES
@@ -1923,17 +1963,24 @@ CONFIG_RUNS = (("qwen3-4b", "cloq"), ("codeqwen1.5-7b", "cloq"),
                ("minicpm-2b", "cloq"), ("qwen3-moe-30b-a3b", "rtn"))
 
 
-def _spied_train(torch, train, args, cfg) -> tuple[dict, dict]:
+def _spied_train(torch, train, args, cfg, inspect=None) -> tuple[dict, dict]:
     """``train.run(args, cfg)`` keeping what ``quantize_model`` returned
     (the quantized params before fine-tuning, their config), its
     ``[bucket]`` lines and ``memory``: the device memory allocated and
-    the peak so far (GB) at each bucket's end and when it returns."""
+    the peak so far (GB) and the seconds since the start at each bucket's
+    end and when it returns.
+    ``inspect(params, qparams, qcfg, store)``, given, runs on the dense
+    params, the quantized ones and the Grams as ``quantize_model``
+    returns, its result kept as ``inspected``; the Grams are dropped
+    then (the CLI does not keep them either)."""
     real = train.quantize_model
     got: dict = {"lines": [], "memory": []}
+    t0 = time.perf_counter()
 
     def mark(event: str) -> None:
         got["memory"].append([event, torch.cuda.memory_allocated() / 1e9,
-                              torch.cuda.max_memory_allocated() / 1e9])
+                              torch.cuda.max_memory_allocated() / 1e9,
+                              time.perf_counter() - t0])
 
     def progress(line: str) -> None:
         got["lines"].append(line)
@@ -1945,7 +1992,9 @@ def _spied_train(torch, train, args, cfg) -> tuple[dict, dict]:
         res = real(*a, **kw)
         mark("quantized")
         got.update(params=res[0], cfg=res[1])
-        return res
+        if inspect is not None:
+            got["inspected"] = inspect(a[0], res[0], res[1], res[2])
+        return res[0], res[1], None
 
     train.quantize_model = spy
     try:
@@ -2118,15 +2167,20 @@ def moe_phase(torch, dev, layers: int) -> dict:
 
 
 def _kernel_routes(torch, dev, params, cfg) -> dict:
-    """The routes the kernels take on one layer of ``params``: each
-    quantized 2-D linear's decode (4 rows) and fused train (1024 rows)
-    route, the decode attention's and each calibration width's Gram."""
+    """The routes the kernels take on one layer of ``params`` (and on a
+    hybrid's shared block, with site 0's adapters): each quantized 2-D
+    linear's decode (4 rows) and fused train (1024 rows) route, the decode
+    attention's (where the flash kernel runs it) and each calibration
+    width's Gram."""
     from repro_torch.kernels import dequant_matmul as dq
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram as gm
-    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.transformer import _with_site_lora, layer_params
     from repro_torch.utils import get_path, tree_paths
-    lp = layer_params(params["blocks"], 0)
+    lp = {"blocks": {"0": layer_params(params["blocks"], 0)}}
+    if "shared" in params:
+        sh = params["shared"]
+        lp["shared"] = _with_site_lora(sh["block"], sh["site_lora"], 0)
     bf = torch.bfloat16
     routes = {}
     for path, leaf in tree_paths(lp).items():
@@ -2142,10 +2196,14 @@ def _kernel_routes(torch, dev, params, cfg) -> dict:
             dq.plan_for(x4, leaf, node["scales"], node["zeros"], g).route,
             dq.lora_plan_for(xt, leaf, node["scales"], node["zeros"], a, b,
                              g).route]
-    Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = torch.zeros((4, 1, Hq, d), dtype=bf, device=dev).transpose(1, 2)
-    kv = torch.zeros((4, 128, Hkv, d), dtype=bf, device=dev).transpose(1, 2)
-    routes["flash_attention"] = fa.plan_for(q, kv, kv).route
+    heads = config_shapes(cfg)["heads"]
+    if heads is not None:
+        Hq, Hkv, d = heads
+        q = torch.zeros((4, 1, Hq, d), dtype=bf,
+                        device=dev).transpose(1, 2)
+        kv = torch.zeros((4, 128, Hkv, d), dtype=bf,
+                         device=dev).transpose(1, 2)
+        routes["flash_attention"] = fa.plan_for(q, kv, kv).route
     for D in config_shapes(cfg)["grams"]:
         routes[f"gram_{D}"] = gm.plan_for(torch.zeros(
             (TRAIN_TOKENS, D), dtype=bf, device=dev)).route
@@ -2238,6 +2296,188 @@ def configs_phase(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the SSM and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_LAYERS = 15      # Zamba2-7B's 81 cut: 2 shared-block sites + 3 layers
+MAMBA_LAYERS = 48       # Mamba2-370M's full depth
+SSM_STEPS = 3
+SITE_SLACK = 1e-4       # own-Gram objective against the other site's adapter
+SITE_DIFF = 1e-2        # least relative difference of two sites' A @ B^T
+
+
+def _model_sites(cfg) -> int:
+    """Quantized linear applications of a model: 5 a Mamba layer, 7 a
+    shared-block site (``gram`` and kernel launches a pass)."""
+    return 5 * cfg.n_layers + 7 * cfg.n_hybrid_sites
+
+
+def _site_objectives(torch, dense, qparams, qcfg, store) -> dict:
+    """Per shared linear: ``objective[s][t]`` = ||X_s (A_t B_t^T - dW)||_F
+    over site s's regularized Gram (the CLoQ objective site s's adapter
+    minimizes), ``dW = W - Q`` of the pooled-Gram base, and the relative
+    difference of the two first sites' ``A @ B^T``."""
+    from repro_torch.core.cloq import regularize_gram
+    from repro_torch.core.quantizer import dequantize_int, unpack_codes
+    q, out = qcfg.quant, {}
+    for key, ad in sorted(qparams["shared"]["site_lora"].items()):
+        mod, lin = key.split("_", 1)
+        base = qparams["shared"]["block"][mod][lin]
+        W = dense["shared"]["block"][mod][lin]["w"].float()
+        m = W.shape[0]
+        dW = W - dequantize_int(unpack_codes(base["qcodes"], q.bits, m),
+                                base["scales"], base["zeros"], q.group_size)
+        S = ad["lora_a"].shape[0]
+        if S < 2:
+            raise Failed("the per-site check needs two shared-block sites")
+        prods = [ad["lora_a"][t].float() @ ad["lora_b"][t].float().T
+                 for t in range(S)]
+        obj = []
+        for s_ in range(S):
+            H = regularize_gram(
+                store.grams[f"sites.{s_}.shared.{mod}.{lin}"].float())
+            row = []
+            for P in prods:
+                D = P - dW
+                row.append(float(torch.sqrt((D * (H @ D)).sum())))
+            obj.append(row)
+            del H
+        out[f"{mod}.{lin}"] = {"objective": obj, "ab_rel_diff": _rel(
+            torch, prods[0], prods[1])}
+    return out
+
+
+def ssm_run(torch, dev, arch: str, layers: int) -> dict:
+    """``arch`` at full width, ``layers`` deep: the train CLI's path (CLoQ
+    4-bit g64 r64, calibration 2 x 8 x 128 tokens, 3 steps at 8 x 128),
+    its losses against the plain path's on the same quantized params and
+    batches, then the serve CLI's route for the family, the fixed-slot
+    loop (batch 4, 8 requests x 16 tokens, cache 128) eager and captured.
+    Held: finite losses within 1e-2 of the plain path's, an empty health
+    report, captured tokens equal to eager ones, every kernel's launches
+    (``gram`` and the kernels a linear: 5 a Mamba layer, 7 a shared-block
+    site; ``flash_attention`` none) and, for a hybrid, each site's
+    adapter at least as good on its own Gram as the other site's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    argv = ["--arch", arch, "--method", "cloq", "--bits", "4",
+            "--group-size", "64", "--rank", "64", "--calib-batches", "2",
+            "--batch", "8", "--seq-len", "128", "--steps", str(SSM_STEPS),
+            "--seed", "0", "--device", str(dev)]
+    args = train.build_parser().parse_args(argv)
+    cfg = get_config(arch, n_layers=layers)
+    hybrid = cfg.family == "hybrid"
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res, got = _spied_train(
+        torch, train, args, cfg,
+        inspect=(lambda *a: _site_objectives(torch, *a)) if hybrid else None)
+    counts = ops.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    qparams, qcfg = got["params"], got["cfg"]
+    plain = _plain_losses(torch, dev, args, qparams, qcfg, SSM_STEPS)
+    del res["state"]
+    torch.cuda.empty_cache()
+    routes = _kernel_routes(torch, dev, qparams, qcfg)
+    logit_err = _kernel_vs_plain_logits(torch, dev, qparams, qcfg)
+    kcfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for graph in (False, True):
+        ops.reset_launch_counts()
+        sv = serve.serve_fixed_slots(qparams, kcfg, batch=4, cache_len=128,
+                                     requests=8, max_new=16, seed=0,
+                                     device=dev, graph=graph)
+        runs["captured" if graph else "eager"] = {
+            "outputs": [o.tolist() for o in sv["outputs"]],
+            "slot_tok_s": sv["tok_s"], "seconds": sv["seconds"],
+            "steps": sv["steps"], "requests_done": sv["requests_done"],
+            "step_ms_median": 1e3 * _median(sv["step_s"]),
+            "slot_tok_s_median_step": 4 / _median(sv["step_s"]),
+            "logits_finite": sv["all_finite"],
+            "launches": ops.launch_counts()}
+    n = _model_sites(cfg)
+    decodes = runs["captured"]["steps"]
+    want_train = {"gram": n * args.calib_batches,
+                  "dequant_matmul_lora": n * SSM_STEPS,
+                  "dequant_matmul": 0, "flash_attention": 0}
+    want_serve = {"gram": 0, "dequant_matmul_lora": 0,
+                  "dequant_matmul": n * decodes, "flash_attention": 0}
+    step_s, tokens = res["step_s"], args.batch * args.seq_len
+    out = {"layers": layers, "argv": argv,
+           "sites": {"mamba_layers": layers,
+                     "shared_sites": cfg.n_hybrid_sites},
+           "quantize_s": res["quantize_s"],
+           "buckets": _bucket_chunks(got["lines"]),
+           "bucket_lines": got["lines"], "memory_gb": got["memory"],
+           "peak_mem_gb": {"train": train_peak,
+                           "serve": torch.cuda.max_memory_allocated(dev)
+                           / 1e9},
+           "losses": res["losses"], "losses_plain": plain,
+           "loss_rel_diff_vs_plain": max(abs(a - b) / abs(b) for a, b in
+                                         zip(res["losses"], plain)),
+           "grad_norms": res["grad_norms"], "step_s": step_s,
+           "train_tok_s": tokens * len(step_s) / sum(step_s),
+           "routes": routes, "kernel_vs_plain_max_abs_logit": logit_err,
+           "fixed_slots": {k: {f: v for f, v in r.items() if f != "outputs"}
+                           for k, r in runs.items()},
+           "captured_tokens_equal":
+               runs["eager"]["outputs"] == runs["captured"]["outputs"],
+           "launches": {"train": counts,
+                        "serve_captured": runs["captured"]["launches"],
+                        "serve_eager": runs["eager"]["launches"]},
+           "health": res["health"].counts(),
+           "health_events": res["health"].events,
+           "health_checked": res["health"].checked}
+    full = get_config(arch).n_layers
+    if layers != full:
+        out["reduced"] = {"n_layers": [full, layers]}
+    bad = []
+    if not all(math.isfinite(v) for v in res["losses"] + plain):
+        bad.append("losses not finite")
+    if out["loss_rel_diff_vs_plain"] > LOSS_LIMIT:
+        bad.append(f"losses more than {LOSS_LIMIT} off the plain path's")
+    if out["health"] or out["health_events"] or out["health_checked"] != \
+            5 * layers + (7 if hybrid else 0):
+        bad.append("health report not empty")
+    if any(counts[k] != v for k, v in want_train.items()):
+        bad.append(f"train launches, expected {want_train}")
+    for k, r in runs.items():
+        if any(r["launches"][n_] != v for n_, v in want_serve.items()):
+            bad.append(f"serve {k} launches, expected {want_serve}")
+        if r["requests_done"] != 8 or not r["logits_finite"]:
+            bad.append(f"serve {k}: not every request served finite")
+    if not out["captured_tokens_equal"]:
+        bad.append("captured tokens differ from eager ones")
+    if hybrid:
+        sites = got["inspected"]
+        out["site_adapters"] = sites
+        for lin, v in sites.items():
+            o = v["objective"]
+            if any(o[s_][s_] > o[s_][t] * (1 + SITE_SLACK)
+                   for s_ in range(len(o)) for t in range(len(o))) or \
+                    not v["ab_rel_diff"] > SITE_DIFF:
+                bad.append(f"shared {lin}: per-site adapters {v}")
+    if bad:
+        raise Failed(f"ssm phase, {arch}: {bad}: {out}")
+    return out
+
+
+def ssm_phase(torch, dev, hybrid_layers: int) -> dict:
+    """Mamba2-370M (all 48 layers) and Zamba2-7B (``hybrid_layers``) deep
+    through :func:`ssm_run`."""
+    out = {}
+    for arch, layers in (("mamba2-370m", MAMBA_LAYERS),
+                         ("zamba2-7b", hybrid_layers)):
+        out[arch] = ssm_run(torch, dev, arch, layers)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -2248,6 +2488,12 @@ def main(argv=None) -> int:
                          f"({MOE_LAYERS}); any other depth runs the device "
                          "and build phases and the moe phase alone (the "
                          "full-depth check: --moe-layers 16)")
+    ap.add_argument("--hybrid-layers", type=int, default=HYBRID_LAYERS,
+                    help=f"depth of Zamba2-7B in the ssm phase "
+                         f"({HYBRID_LAYERS}, at least 12: two sites); any "
+                         "other depth runs the device and build phases and "
+                         "the ssm phase alone (the full-depth check: "
+                         "--hybrid-layers 81)")
     a = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2281,9 +2527,14 @@ def main(argv=None) -> int:
               "dir": str(build.build_dir().relative_to(ROOT)),
               "sources": list(build.SOURCES), "ptxas": ptxas})
 
-        if a.moe_layers != MOE_LAYERS:
-            phase = "moe"
-            emit({"phase": "moe", **moe_phase(torch, dev, a.moe_layers)})
+        if a.moe_layers != MOE_LAYERS or a.hybrid_layers != HYBRID_LAYERS:
+            if a.moe_layers != MOE_LAYERS:
+                phase = "moe"
+                emit({"phase": "moe", **moe_phase(torch, dev, a.moe_layers)})
+            if a.hybrid_layers != HYBRID_LAYERS:
+                phase = "ssm"
+                emit({"phase": "ssm",
+                      **ssm_phase(torch, dev, a.hybrid_layers)})
             print(card, flush=True)
             emit({"ok": True, "device": {
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2368,6 +2619,9 @@ def main(argv=None) -> int:
         emit({"phase": "moe", **mo})
         phase = "configs"
         emit({"phase": "configs", **configs_phase(torch, dev)})
+        phase = "ssm"
+        ss = ssm_phase(torch, dev, a.hybrid_layers)
+        emit({"phase": "ssm", **ss})
     except Failed as e:
         emit({"phase": phase, "ok": False, "error": str(e)})
         return 1
@@ -2375,22 +2629,31 @@ def main(argv=None) -> int:
     table = []
     moe_serve, moe_train = (mo["launches"]["serve_captured"],
                             mo["launches"]["train"])
-    for name, chk, tm, launches, moe_launches, src, tpu in (
+    ssm_serve, ssm_train = ({k: sum(r["launches"][run][k]
+                                    for r in ss.values())
+                             for k in ("gram", "dequant_matmul_lora",
+                                       "dequant_matmul", "flash_attention")}
+                            for run in ("serve_captured", "train"))
+    for name, chk, tm, launches, moe_launches, ssm_launches, src, tpu in (
             ("dequant_matmul", dq, dq_t, sv["launches"], moe_serve,
+             ssm_serve,
              "src/repro_torch/kernels/csrc/dequant_matmul.cu",
              "src/repro/kernels/dequant_matmul.py:73"),
             ("flash_attention", fa, fa_t, sv["launches"], moe_serve,
+             ssm_serve,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:94"),
             ("dequant_matmul_lora", lo, lo_t, tr["launches"], moe_train,
+             ssm_train,
              "src/repro_torch/kernels/csrc/dequant_matmul_lora.cu",
              "src/repro/kernels/dequant_matmul.py:134"),
-            ("gram", gr, gr_t, tr["launches"], moe_train,
+            ("gram", gr, gr_t, tr["launches"], moe_train, ssm_train,
              "src/repro_torch/kernels/csrc/gram.cu",
              "src/repro/kernels/gram.py:41")):
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": tpu, "launches": launches[name],
                       "launches_moe": moe_launches[name],
+                      "launches_ssm": ssm_launches[name],
                       "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],
                       "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                       "bound_by": tm["bound_by"],

@@ -2,9 +2,8 @@
 
 Every module defines ``config()`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).  The
-dense and MoE families are ported; the other architectures of
-``repro.configs`` (SSM, hybrid, enc-dec, VLM) are listed in
-``ROADMAP.md``.
+dense, MoE, SSM and hybrid families are ported; the other architectures
+of ``repro.configs`` (enc-dec, VLM) are listed in ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -19,6 +18,8 @@ ARCH_IDS = [
     "codeqwen15_7b",
     "qwen3_1p7b",
     "minicpm_2b",
+    "zamba2_7b",
+    "mamba2_370m",
 ]
 
 # dashes-to-underscores aliases matching the assignment sheet names
@@ -29,6 +30,8 @@ ALIASES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
     "qwen3-1.7b": "qwen3_1p7b",
     "minicpm-2b": "minicpm_2b",
+    "zamba2-7b": "zamba2_7b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 

@@ -5,7 +5,10 @@ The port keys its params by the same dot paths as the JAX tree
 leading layer axis when scan-stacked), so the carry is a leaf-by-leaf
 map; MoE trees carry their f32 router and their expert stacks ``(E, m,
 n)`` (``(L, E, m, n)`` scan-stacked), packed expert leaves with their
-leading ``E``.  The caller exports the JAX tree to numpy first (for example
+leading ``E``; SSM blocks their f32 ``a_log``, ``d`` and ``dt_bias`` and
+their ``conv_*`` leaves; a hybrid tree its ``shared.block`` and the
+per-site ``shared.site_lora`` stacks ``(S, m, r)``, which are not
+layer-stacked and carry unchanged in either layout.  The caller exports the JAX tree to numpy first (for example
 ``jax.tree.map(np.asarray, params)``); this module imports neither ``jax``
 nor the JAX package.
 """

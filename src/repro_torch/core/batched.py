@@ -378,11 +378,16 @@ def chunk_size(spec: BucketSpec, n_slices: int, device: torch.device,
     """Slices a stacked call of this bucket takes: ``chunk`` when given,
     all of them on a device other than CUDA, else as many as
     ``SLICE_WORK_FACTOR`` x :func:`slice_bytes` fit in
-    :func:`free_bytes` less ``CHUNK_MARGIN_BYTES`` (at least one)."""
+    :func:`free_bytes` less ``CHUNK_MARGIN_BYTES`` (at least one).  The
+    caching allocator's unused blocks are released first: counted as
+    free while cached, fragmented blocks let a chunk be sized from room
+    that no allocation of its size could take (Zamba2-7B at 81 layers
+    ran out of memory with 6.4 GB cached and unused)."""
     if chunk is not None:
         return max(1, min(int(chunk), n_slices))
     if device.type != "cuda":
         return n_slices
+    torch.cuda.empty_cache()
     room = free_bytes(device) - CHUNK_MARGIN_BYTES
     fit = int(room // (SLICE_WORK_FACTOR * slice_bytes(spec)))
     return max(1, min(n_slices, fit))

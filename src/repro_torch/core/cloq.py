@@ -1,6 +1,7 @@
 """CLoQ (Theorem 3.1): closed-form calibrated LoRA initialization.
 
-PyTorch twin of the single-device functions of ``repro.core.cloq``.  Given
+PyTorch twin of the single-device functions of ``repro.core.cloq``
+(``cloq_site_lora`` included; its sharded form is not ported yet).  Given
 the regularized calibration Gram ``H = X^T X + lambda*I`` and the
 quantization residual ``dW = W - Q``, the optimal rank-r adapters
 minimizing ``|| X (A B^T - dW) ||_F^2`` are any factorization of
@@ -65,6 +66,29 @@ def cloq_init(H: Tensor, dW: Tensor, rank: int, split: str = "paper"):
     r = rank
     return split_factors(Rinv @ U[..., :r], S[..., :r], Vh[..., :r, :].mT,
                          split)
+
+
+def cloq_site_lora(Hs, dW: Tensor, rank: int, split: str = "paper",
+                   mesh=None, lambda_frac: float = 0.01):
+    """Per-site CLoQ adapters of a weight-shared block: one Theorem-3.1
+    solve a call site against the site's own Gram, with the residual
+    ``dW = W - Q`` of the (pooled-Gram) shared base fixed.
+
+    ``Hs`` holds the sites' *unregularized* Grams, stacked ``(S, m, m)``
+    or as a sequence of ``(m, m)`` (no stacked copy: Zamba2-7B's 13 sites
+    of ``mlp.down`` are 10.7 GB of f32); ``dW`` is (m, n).  Returns
+    ``(As (S, m, r), Bs (S, n, r))`` with ``r = min(rank, n)``, as
+    ``cloq_init`` cuts a rank above ``n``.  ``mesh=`` (the JAX twin's
+    column-sharded solve) is not ported yet and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "cloq_site_lora(mesh=): the sharded per-site solve is not "
+            "ported to repro_torch yet (see ROADMAP.md)")
+    dW = dW.float()
+    outs = [cloq_init(regularize_gram(H.float(), lambda_frac), dW, rank,
+                      split) for H in Hs]
+    return (torch.stack([a for a, _ in outs]),
+            torch.stack([b for _, b in outs]))
 
 
 def lowrank_objective(H: Tensor, dW: Tensor, A: Tensor, B: Tensor) -> float:

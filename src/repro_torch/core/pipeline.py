@@ -1,7 +1,7 @@
 """End-to-end model quantization + LoRA initialization.
 
-PyTorch twin of ``repro.core.pipeline`` for dense and MoE models on one
-device.
+PyTorch twin of ``repro.core.pipeline`` for dense, MoE, SSM and hybrid
+models on one device.
 ``quantize_model`` converts a dense param tree into the paper's deployment
 form: every block linear replaced by {qcodes, scales, zeros, lora_a,
 lora_b} ({qcodes, absmax, ...} for NF4 ``qlora``), the base quantized by
@@ -14,6 +14,18 @@ stacked MoE expert site ``(E, m, n)`` gets one Gram an expert,
 ``(E, m, m)``, and each expert slice is quantized as a site of its own
 (its health record keyed ``path[e]``).  An expert the health ladder leaves
 dense leaves its whole stacked site dense: the site is one leaf tree.
+
+A hybrid model's weight-shared block (``shared.block.<mod>.<lin>``) is
+quantized once, against the pooled Gram of all its call sites (the sum of
+``sites.<s>.shared.<mod>.<lin>``), and keeps no adapter of its own; each
+site gets its own CLoQ pair, one Theorem-3.1 solve against the site's
+Gram with the shared residual ``W - Q`` fixed
+(:func:`repro_torch.core.cloq.cloq_site_lora`), stacked into
+``shared.site_lora.<mod>_<lin>``.  Other methods give every site the
+base's own adapter pair.  A non-finite site pair walks
+``health.heal_site_lora``.  Sites are ordered by their number (the JAX
+twin sorts their keys as strings, which puts ``sites.10`` before
+``sites.2`` from 11 sites on).
 
 Engines
 -------
@@ -30,8 +42,8 @@ healed site is bit-identical across engines.  ``journal_dir=`` makes a
 batched run resumable at bucket boundaries.
 
 Not ported yet (``ROADMAP.md``): the mesh, the cost model, the compile
-cache, bit allocation, the quantization manifests, and weight-shared and
-cross-attention sites; asking for them raises ``NotImplementedError``.
+cache, bit allocation, the quantization manifests, and cross-attention
+sites; asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,6 +58,8 @@ from repro_torch.core import faults, health
 from repro_torch.core.batched import (LayerTask, make_spec,
                                       quantize_layer_batch, quantize_single,
                                       task_key)
+from repro_torch.core.cloq import cloq_site_lora
+from repro_torch.core.quantizer import dequantize_int, unpack_codes
 from repro_torch.core.recipe import QuantRecipe, SiteSpec
 from repro_torch.models.modules import QSpec
 from repro_torch.models.transformer import (ModelConfig, forward,
@@ -161,6 +175,70 @@ def run_calibration(params: dict, cfg: ModelConfig,
     return store
 
 
+def _scope_for(lin_path: str) -> str:
+    """The capture scope of a param path within its call site:
+    ``shared.block.attn.q`` is recorded as ``sites.<s>.shared.attn.q``."""
+    if lin_path.startswith("shared.block."):
+        return "shared." + lin_path[len("shared.block."):]
+    return lin_path
+
+
+def _shared_site_grams(store: GramStore, lin_path: str):
+    """(the site Gram keys ``sites.<s>.shared.<mod>.<lin>`` in site order,
+    their pooled sum through the fault hook at ``lin_path``)."""
+    suffix = "." + _scope_for(lin_path)
+    site_paths = sorted((k for k in store.grams
+                         if k.startswith("sites.") and k.endswith(suffix)),
+                        key=lambda k: int(k.split(".")[1]))
+    pooled = None
+    for sp in site_paths:
+        g = store.grams[sp]
+        pooled = g.clone() if pooled is None else pooled + g
+    return site_paths, faults.corrupt_gram(lin_path, pooled)
+
+
+def _shared_base_dequant(newlin: dict, m: int, qspec: QSpec) -> Tensor:
+    """The shared base dequantized once (f32): every site's residual."""
+    codes = unpack_codes(newlin["qcodes"], qspec.bits, m)
+    return dequantize_int(codes, newlin["scales"], newlin["zeros"],
+                          qspec.group_size)
+
+
+def _set_shared_sites(new_params: dict, store: GramStore, path: str,
+                      W: Tensor, newlin: dict, site: SiteSpec,
+                      site_paths: list[str], cfg: ModelConfig, *, policy,
+                      report) -> None:
+    """Pop the shared base's own adapter pair from ``newlin`` and set the
+    stacked per-site adapters of the linear at ``path``.  CLoQ: one solve
+    a site against its Gram (read through the fault hook at its key), a
+    non-finite pair healed by ``health.heal_site_lora`` when the guards
+    are on; other methods: the base's pair at every site."""
+    A0, B0 = newlin.pop("lora_a"), newlin.pop("lora_b")
+    if not site_paths:
+        return
+    S, qspec = len(site_paths), site.qspec
+    if site.method != "cloq":
+        As = A0.unsqueeze(0).expand(S, *A0.shape)
+        Bs = B0.unsqueeze(0).expand(S, *B0.shape)
+    else:
+        dW = W.float() - _shared_base_dequant(newlin, W.shape[0], qspec)
+        Hs_raw = [faults.corrupt_gram(sp, store.grams[sp])
+                  for sp in site_paths]
+        As, Bs = cloq_site_lora(Hs_raw, dW, qspec.rank, qspec.split)
+        guarded = policy is not None and policy.enabled
+        for s in range(S):
+            if not guarded or (bool(torch.isfinite(As[s]).all()) and
+                               bool(torch.isfinite(Bs[s]).all())):
+                continue
+            As[s], Bs[s] = health.heal_site_lora(
+                Hs_raw[s], dW, qspec.rank, qspec.split, policy, report,
+                path, site_paths[s])
+    rest = path[len("shared.block."):].replace(".", "_")
+    set_path(new_params, f"shared.site_lora.{rest}",
+             {"lora_a": As.to(cfg.dtype).contiguous(),
+              "lora_b": Bs.to(cfg.dtype).contiguous()})
+
+
 def _site_gram(store: GramStore, path: str) -> Tensor | None:
     """A site's Gram through the fault-injection hook
     (:func:`repro_torch.core.faults.corrupt_gram`): both engines read every
@@ -201,10 +279,9 @@ def _cast_for_model(leaves: dict, dtype) -> dict:
 
 
 def _ported_site(lin_path: str) -> None:
-    if lin_path.startswith(("shared.", "cross.")):
+    if lin_path.startswith("cross."):
         raise NotImplementedError(
-            f"{lin_path}: weight-shared and cross-attention sites "
-            f"{_NOT_PORTED}")
+            f"{lin_path}: cross-attention sites {_NOT_PORTED}")
 
 
 def _stacked_dense_event(report, path: str) -> None:
@@ -272,6 +349,17 @@ def _quantize_model_sequential(eparams: dict, store: GramStore,
                     _stacked_dense_event(report, lin_path)
                     continue
                 newlin = _stack_experts(outs)
+            elif lin_path.startswith("shared.block."):
+                # the pooled Gram for the shared base, each site's own for
+                # its adapters
+                key = task_key(seed, i)
+                site_paths, H = _shared_site_grams(store, lin_path)
+                newlin = _quantize_one(W, H, qspec, method, key)
+                newlin = guard(W, H, newlin, key, site, lin_path)
+                if newlin is not None:
+                    _set_shared_sites(new_params, store, lin_path, W, newlin,
+                                      site, site_paths, cfg, policy=policy,
+                                      report=report)
             else:
                 key = task_key(seed, i)
                 H = _site_gram(store, lin_path)
@@ -288,11 +376,12 @@ def _gather_tasks(eparams: dict, store: GramStore,
                   sites: dict[str, SiteSpec], seed: int):
     """Every non-skipped site as :class:`LayerTask`s carrying its resolved
     spec, keyed like the sequential loop (skipped sites take a key but give
-    no task): one task a 2-D site, one an expert of a stacked site.
-    Returns (tasks, [(path, other leaves, its task indices)] in task
+    no task): one task a 2-D site (a shared linear's with the pooled Gram),
+    one an expert of a stacked site.  Returns (tasks, [(path, other leaves,
+    its task indices, a shared linear's site Gram keys or None)] in task
     order)."""
     tasks: list[LayerTask] = []
-    groups: list[tuple[str, dict, list[int]]] = []
+    groups: list[tuple] = []
     for i, lin_path in enumerate(quantizable_linear_paths(eparams)):
         site = sites[lin_path]
         if site.skip:
@@ -300,6 +389,7 @@ def _gather_tasks(eparams: dict, store: GramStore,
         lin = dict(get_path(eparams, lin_path))
         W = lin.pop("w")
         _ported_site(lin_path)
+        shared = None
         if W.dim() == 3:            # stacked MoE experts: a natural bucket
             Hs = _expert_grams(store, lin_path, W.shape[0])
             idxs = list(range(len(tasks), len(tasks) + W.shape[0]))
@@ -307,11 +397,14 @@ def _gather_tasks(eparams: dict, store: GramStore,
                                    task_key(seed, i, e), site=site)
                          for e in range(W.shape[0]))
         else:
+            if lin_path.startswith("shared.block."):
+                shared, H = _shared_site_grams(store, lin_path)
+            else:
+                H = _site_gram(store, lin_path)
             idxs = [len(tasks)]
-            tasks.append(LayerTask(lin_path, None, W,
-                                   _site_gram(store, lin_path),
-                                   task_key(seed, i), site=site))
-        groups.append((lin_path, lin, idxs))
+            tasks.append(LayerTask(lin_path, None, W, H, task_key(seed, i),
+                                   site=site))
+        groups.append((lin_path, lin, idxs, shared))
     return tasks, groups
 
 
@@ -327,7 +420,7 @@ def _quantize_model_batched(eparams: dict, store: GramStore,
                                        policy=policy, report=report,
                                        journal=journal,
                                        should_stop=should_stop)
-    for path, lin, idxs in groups:
+    for path, lin, idxs, shared in groups:
         outs = [results[i] for i in idxs]
         for i in idxs:                 # a finished chunk's leaves are freed
             results[i] = None          # once all of its sites are stacked
@@ -337,6 +430,11 @@ def _quantize_model_batched(eparams: dict, store: GramStore,
             continue                          # degraded to dense: keep w
         res = (outs[0] if tasks[idxs[0]].expert is None
                else _stack_experts(outs))
+        if shared is not None:
+            res = dict(res)
+            _set_shared_sites(new_params, store, path, tasks[idxs[0]].W, res,
+                              sites[path], shared, cfg, policy=policy,
+                              report=report)
         keep = dict(lin)                          # bias etc.
         keep.update(_cast_for_model(res, cfg.dtype))
         set_path(new_params, path, keep)

@@ -5,8 +5,8 @@
         --tenants 4 --ranks 64,16 [--adapter NAME=DIR]
 
 ``--arch``: the dense ``qwen3-1.7b``, ``qwen3-4b``, ``codeqwen1.5-7b`` and
-``minicpm-2b``, or the MoE ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``
-(``repro_torch.configs``).
+``minicpm-2b``, the MoE ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``, the SSM
+``mamba2-370m`` or the hybrid ``zamba2-7b`` (``repro_torch.configs``).
 
 Twin of ``repro.launch.serve``: the same flags plus ``--device`` (CUDA
 unless ``--device cpu``).  It quantizes as the JAX CLI does, through
@@ -23,8 +23,10 @@ unless ``--device cpu``).  It quantizes as the JAX CLI does, through
   NAME=DIR`` loaded from a checkpoint (the train CLI's ``--ckpt-dir``),
   ``--batch`` slots a rank bucket, a paged KV cache of ``--page-size``
   tokens a page; the summary is read from the metrics registry;
-* a model without adapter sites (``--method none``) is served by the
-  fixed-slot refill loop (:func:`serve_fixed_slots`).
+* an SSM or hybrid model, and a model without adapter sites
+  (``--method none``), is served by the fixed-slot refill loop
+  (:func:`serve_fixed_slots`), whose conv windows, SSM states and K/V
+  rings are written in place each step.
 
 On a CUDA device the quantized linears and decode attention run through
 the hand-written kernels (``QSpec.use_kernel``), and each decode step is

@@ -4,8 +4,11 @@
         --bits 4 --group-size 64 --rank 64 --steps 100
 
 ``--arch``: the dense ``qwen3-1.7b``, ``qwen3-4b``, ``codeqwen1.5-7b`` and
-``minicpm-2b``, or the MoE ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``
-(``repro_torch.configs``).
+``minicpm-2b``, the MoE ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``, the SSM
+``mamba2-370m`` or the hybrid ``zamba2-7b`` (``repro_torch.configs``).  A
+hybrid model's shared block is quantized once against its sites' pooled
+Gram and each site's LoRA pair is its own CLoQ solve; the per-site pairs
+train like any other adapter.
 
 Twin of ``repro.launch.train``: the same flags plus ``--device`` (CUDA
 unless ``--device cpu``).  It builds the model from ``--seed``, optionally

@@ -1,11 +1,19 @@
-"""Decoder-only model: config, init, forward, loss and KV-cache decode.
+"""Decoder-only model: config, init, forward, loss and cached decode.
 
-PyTorch twin of the dense and MoE branches of ``repro.models.transformer``.
-Block params are either scan-stacked (every leaf under ``blocks`` has a
-leading layer axis, as the JAX package stacks them for ``lax.scan``; MoE
-expert stacks are ``(L, E, m, n)``) or eager (``blocks.<i>.…``); the
-layer loop is a Python loop over either layout.  Other families (SSM,
-hybrid, enc-dec, VLM) are not ported yet (``ROADMAP.md``).
+PyTorch twin of the dense, MoE, SSM and hybrid branches of
+``repro.models.transformer``.  Block params are either scan-stacked (every
+leaf under ``blocks`` has a leading layer axis, as the JAX package stacks
+them for ``lax.scan``; MoE expert stacks are ``(L, E, m, n)``) or eager
+(``blocks.<i>.…``); the layer loop is a Python loop over either layout.
+
+A hybrid (Zamba2-style) model adds ``shared``: one attention + MLP block
+(``shared.block``) applied after every ``hybrid_attn_every`` Mamba layers,
+each application (a site) with its own LoRA pair spliced into every linear
+from the stacks ``shared.site_lora.<mod>_<lin>.lora_a (S, m, r)`` and
+``lora_b (S, n, r)``.  In the eager layout a site runs under the scope
+``sites.<s>``, so its calibration Grams are keyed ``sites.<s>.shared.
+attn.q`` and so on, as in the JAX package.  The enc-dec family and the
+vision frontend are not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ from repro_torch.models.modules import (QSpec, embedding_apply,
                                         lm_head_apply, rmsnorm_apply,
                                         rmsnorm_init)
 from repro_torch.models.parallel import LOCAL, PContext
+from repro_torch.models.ssm import (SSMConfig, mamba_apply, mamba_decode,
+                                    mamba_init)
 from repro_torch.utils import resolve_device, scope
 
 Tensor = torch.Tensor
@@ -31,7 +41,7 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # "dense" or "moe" are ported
+    family: str                   # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     vocab: int
@@ -48,6 +58,14 @@ class ModelConfig:
     top_k: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
+    # SSM
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_chunk: int = 256
+    # hybrid (zamba2-style): shared attn+mlp block applied every k SSM layers
+    hybrid_attn_every: int = 6
+    hybrid_window: int | None = 4096   # sliding window of the decode ring
     vocab_pad_multiple: int = 1   # pad embedding/head rows
     quant: QSpec | None = None
     lora_rank: int = 0            # LoRA on dense weights
@@ -64,13 +82,26 @@ class ModelConfig:
         return MoEConfig(self.n_experts, self.top_k, self.d_model,
                          self.d_ff_expert, self.capacity_factor)
 
+    def ssm_cfg(self) -> SSMConfig:
+        return SSMConfig(self.d_model, self.ssm_state, self.ssm_head_dim,
+                         2, self.ssm_groups, 4, self.ssm_chunk)
+
+    @property
+    def trainable_rank(self) -> int:
+        return self.quant.rank if self.quant else self.lora_rank
+
     @property
     def vocab_padded(self) -> int:
         m = self.vocab_pad_multiple
         return -(-self.vocab // m) * m
 
+    @property
+    def n_hybrid_sites(self) -> int:
+        return (self.n_layers // self.hybrid_attn_every
+                if self.family == "hybrid" else 0)
 
-FAMILIES = ("dense", "moe")
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -82,6 +113,10 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     r = cfg.lora_rank
+    if cfg.family in ("ssm", "hybrid"):
+        return {"norm": rmsnorm_init(cfg.d_model, cfg.dtype, device),
+                "mamba": mamba_init(gen, cfg.ssm_cfg(), dtype=cfg.dtype,
+                                    lora_rank=r, device=device)}
     p = {"ln1": rmsnorm_init(cfg.d_model, cfg.dtype, device),
          "attn": attn_init(gen, cfg.attn_cfg(), dtype=cfg.dtype,
                            lora_rank=r, device=device),
@@ -93,6 +128,69 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
         p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
                                lora_rank=r, device=device)
     return p
+
+
+def _shared_block_init(gen: torch.Generator, cfg: ModelConfig,
+                       device) -> dict:
+    """The Zamba2-style shared block (no LoRA of its own) and its per-site
+    LoRA stacks, rank ``max(trainable_rank, 8)``: ``lora_a`` (S, m, r)
+    random, ``lora_b`` (S, n, r) zero."""
+    blk = {"ln1": rmsnorm_init(cfg.d_model, cfg.dtype, device),
+           "attn": attn_init(gen, cfg.attn_cfg(), dtype=cfg.dtype,
+                             device=device),
+           "ln2": rmsnorm_init(cfg.d_model, cfg.dtype, device),
+           "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
+                              device=device)}
+    r = max(cfg.trainable_rank, 8)
+    S = cfg.n_hybrid_sites
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    dims = {"attn.q": (cfg.d_model, q), "attn.k": (cfg.d_model, kv),
+            "attn.v": (cfg.d_model, kv), "attn.o": (q, cfg.d_model),
+            "mlp.gate": (cfg.d_model, cfg.d_ff),
+            "mlp.up": (cfg.d_model, cfg.d_ff),
+            "mlp.down": (cfg.d_ff, cfg.d_model)}
+    lora = {}
+    for path, (m, n) in sorted(dims.items()):
+        lora[path.replace(".", "_")] = {
+            "lora_a": (torch.randn((S, m, r), generator=gen,
+                                   dtype=torch.float32, device=device)
+                       / m ** 0.5).to(cfg.dtype),
+            "lora_b": torch.zeros((S, n, r), dtype=cfg.dtype, device=device)}
+    return {"block": blk, "site_lora": lora}
+
+
+def _with_site_lora(shared: dict, site_lora: dict, site: int) -> dict:
+    """The shared block with site ``site``'s LoRA spliced into each linear
+    (views of the stacks, so gradients reach them)."""
+    blk = {"ln1": shared["ln1"], "ln2": shared["ln2"],
+           "attn": dict(shared["attn"]), "mlp": dict(shared["mlp"])}
+    for key, sub in site_lora.items():
+        mod, lin = key.split("_", 1)
+        blk[mod][lin] = dict(blk[mod][lin], lora_a=sub["lora_a"][site],
+                             lora_b=sub["lora_b"][site])
+    return blk
+
+
+def _shared_block_apply(p: dict, cfg: ModelConfig, x: Tensor,
+                        site: int) -> Tensor:
+    blk = _with_site_lora(p["block"], p["site_lora"], site)
+    with scope("shared.attn"):
+        x = x + attn_apply(blk["attn"], cfg.attn_cfg(),
+                           rmsnorm_apply(blk["ln1"], x), qspec=cfg.quant)
+    with scope("shared.mlp"):
+        x = x + swiglu_apply(blk["mlp"], rmsnorm_apply(blk["ln2"], x),
+                             cfg.quant)
+    return x
+
+
+def _site_after(cfg: ModelConfig, layer: int) -> int | None:
+    """The shared-block site applied after layer ``layer``, or None."""
+    every = cfg.hybrid_attn_every
+    if cfg.family != "hybrid" or (layer + 1) % every:
+        return None
+    site = (layer + 1) // every - 1
+    return site if site < cfg.n_hybrid_sites else None
 
 
 def stack_layers(layers: list[dict]) -> dict:
@@ -128,13 +226,21 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     layers = [_block_init(gen, cfg, dev) for _ in range(cfg.n_layers)]
     p["blocks"] = (stack_layers(layers) if cfg.scan_layers
                    else {str(i): l for i, l in enumerate(layers)})
+    if cfg.family == "hybrid":
+        p["shared"] = _shared_block_init(gen, cfg, dev)
     return p
 
 
 def _block_apply(p, cfg: ModelConfig, x: Tensor,
                  pctx: PContext = LOCAL) -> tuple[Tensor, Tensor | None]:
-    """Returns (y, aux_loss): the MoE block's aux loss, None for dense."""
+    """Returns (y, aux_loss): the MoE block's aux loss, None for the
+    other families."""
     q = cfg.quant
+    if cfg.family in ("ssm", "hybrid"):
+        with scope("mamba"):
+            y = mamba_apply(p["mamba"], cfg.ssm_cfg(),
+                            rmsnorm_apply(p["norm"], x), qspec=q)
+        return x + y, None
     with scope("attn"):
         x = x + attn_apply(p["attn"], cfg.attn_cfg(),
                            rmsnorm_apply(p["ln1"], x), qspec=q)
@@ -181,6 +287,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     _check_family(cfg)
     x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared")
     for i, bp in _layers(params["blocks"], cfg):
         if cfg.scan_layers:
             x, a = _block_apply(bp, cfg, x, pctx)
@@ -189,6 +296,13 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
                 x, a = _block_apply(bp, cfg, x, pctx)
         if a is not None:
             aux = aux + a
+        site = _site_after(cfg, int(i))
+        if site is not None:
+            if cfg.scan_layers:
+                x = _shared_block_apply(shared, cfg, x, site)
+            else:
+                with scope(f"sites.{site}"):
+                    x = _shared_block_apply(shared, cfg, x, site)
     x = rmsnorm_apply(params["final_norm"], x)
     if return_hidden:
         return x, aux
@@ -235,37 +349,89 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype=None, device: str | torch.device | None = None
                       ) -> dict:
-    """KV caches for one-token-at-a-time decode with context ``cache_len``."""
+    """Caches for one-token-at-a-time decode with context ``cache_len``:
+    K/V ``(L, batch, cache_len, Hkv, hd)`` for dense and MoE; f32 conv
+    windows and SSM states (a leading layer axis) for SSM; for hybrid also
+    ``shared_kv``, one K/V ring a site of ``min(cache_len,
+    hybrid_window)`` positions."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     hd = cfg.head_dim or (cfg.d_model // max(cfg.n_heads, 1))
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "idx": torch.zeros((), dtype=torch.int32, device=dev)}
+    idx = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def kv(n: int, length: int) -> dict:
+        shape = (n, batch, length, cfg.n_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "idx": idx.clone()}
+
+    if cfg.family in ("dense", "moe"):
+        return kv(cfg.n_layers, cache_len)
+    s, L, f32 = cfg.ssm_cfg(), cfg.n_layers, torch.float32
+    cache = {"conv_x": torch.zeros((L, batch, s.conv_kernel - 1, s.d_inner),
+                                   dtype=f32, device=dev),
+             "conv_bc": torch.zeros((L, batch, s.conv_kernel - 1, s.d_bc),
+                                    dtype=f32, device=dev),
+             "state": torch.zeros((L, batch, s.n_heads, s.head_dim,
+                                   s.d_state), dtype=f32, device=dev),
+             "idx": idx}
+    if cfg.family == "hybrid":
+        cache["shared_kv"] = kv(cfg.n_hybrid_sites,
+                                min(cache_len, cfg.hybrid_window or cache_len))
+    return cache
+
+
+def _ssm_decode(params: dict, cfg: ModelConfig, cache: dict, x: Tensor,
+                idx: Tensor) -> Tensor:
+    """The SSM / hybrid layers of one decode step; conv windows, states and
+    the shared block's K/V rings written in place."""
+    q, scfg = cfg.quant, cfg.ssm_cfg()
+    shared = params.get("shared")
+    acfg = cfg.attn_cfg(window=cfg.hybrid_window)
+    for i, bp in _layers(params["blocks"], cfg):
+        li = int(i)
+        y, _ = mamba_decode(bp["mamba"], scfg, rmsnorm_apply(bp["norm"], x),
+                            {"conv_x": cache["conv_x"][li],
+                             "conv_bc": cache["conv_bc"][li],
+                             "state": cache["state"][li]}, qspec=q)
+        x = x + y
+        site = _site_after(cfg, li)
+        if site is None:
+            continue
+        blk = _with_site_lora(shared["block"], shared["site_lora"], site)
+        skv = cache["shared_kv"]
+        y, _ = attn_decode(blk["attn"], acfg, rmsnorm_apply(blk["ln1"], x),
+                           {"k": skv["k"][site], "v": skv["v"][site],
+                            "idx": idx}, qspec=q)
+        x = x + y
+        x = x + swiglu_apply(blk["mlp"], rmsnorm_apply(blk["ln2"], x), q)
+    return x
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
                 *, pctx: PContext = LOCAL) -> tuple[Tensor, dict]:
     """One decode step.  tokens (B, 1) int.  Returns (logits (B, V), cache).
 
-    The new K/V rows are written into ``cache["k"]``/``cache["v"]`` in
-    place (see ``attn_decode``); the returned cache holds the same tensors
-    and ``idx + 1``."""
+    The new K/V rows, conv windows and SSM states are written into the
+    cache's tensors in place (see ``attn_decode`` and ``mamba_decode``);
+    the returned cache holds the same tensors and ``idx + 1``."""
     _check_family(cfg)
     x = embedding_apply(params["embed"], tokens).to(cfg.dtype)
     q = cfg.quant
     idx = cache["idx"]
-    acfg = cfg.attn_cfg()
-    for i, bp in _layers(params["blocks"], cfg):
-        li = int(i)
-        h = rmsnorm_apply(bp["ln1"], x)
-        y, _ = attn_decode(bp["attn"], acfg, h,
-                           {"k": cache["k"][li], "v": cache["v"][li],
-                            "idx": idx}, qspec=q)
-        x = x + y
-        x = x + _ffn_decode(bp, cfg, rmsnorm_apply(bp["ln2"], x), pctx)
+    if cfg.family in ("ssm", "hybrid"):
+        x = _ssm_decode(params, cfg, cache, x, idx)
+    else:
+        acfg = cfg.attn_cfg()
+        for i, bp in _layers(params["blocks"], cfg):
+            li = int(i)
+            h = rmsnorm_apply(bp["ln1"], x)
+            y, _ = attn_decode(bp["attn"], acfg, h,
+                               {"k": cache["k"][li], "v": cache["v"][li],
+                                "idx": idx}, qspec=q)
+            x = x + y
+            x = x + _ffn_decode(bp, cfg, rmsnorm_apply(bp["ln2"], x), pctx)
     x = rmsnorm_apply(params["final_norm"], x)
     head = params.get("head", params["embed"])
     logits = lm_head_apply(head, x)[:, 0, :]

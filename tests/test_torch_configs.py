@@ -24,7 +24,7 @@ from tests.torch_parity import port_params, to_np
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 NEW = ("qwen3-4b", "codeqwen1.5-7b", "minicpm-2b", "olmoe-1b-7b",
-       "qwen3-moe-30b-a3b")
+       "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b")
 
 
 def test_registry_order_and_aliases_are_the_references():
@@ -33,9 +33,8 @@ def test_registry_order_and_aliases_are_the_references():
     assert tc.ARCH_IDS == [a for a in jc.ARCH_IDS if a in tc.ARCH_IDS]
     assert tc.ALIASES == {k: v for k, v in jc.ALIASES.items()
                           if v in tc.ARCH_IDS}
-    assert len(tc.ARCH_IDS) == 6
-    for name in ("zamba2-7b", "mamba2-370m", "seamless-m4t-medium",
-                 "pixtral-12b"):
+    assert len(tc.ARCH_IDS) == 8
+    for name in ("seamless-m4t-medium", "pixtral-12b"):
         with pytest.raises(KeyError, match="ROADMAP"):
             tc.get_config(name)
 
@@ -56,6 +55,10 @@ def test_config_fields_are_the_references(arch, smoke):
     if cj.family == "moe":
         assert dataclasses.asdict(ct.moe_cfg()) == \
             dataclasses.asdict(cj.moe_cfg())
+    if cj.family in ("ssm", "hybrid"):
+        assert dataclasses.asdict(ct.ssm_cfg()) == \
+            dataclasses.asdict(cj.ssm_cfg())
+        assert ct.n_hybrid_sites == cj.n_hybrid_sites
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "codeqwen1.5-7b",

@@ -833,3 +833,84 @@ def test_moe_dispatch_captures_without_a_host_sync(cuda):
     assert torch.equal(eager, again)
     for o in outs:
         assert torch.equal(o, eager)
+
+
+# -- the SSM and hybrid families (Mamba2-370M, Zamba2-7B) ---------------------
+
+@pytest.mark.parametrize("K,N", [(1024, 32), (3584, 112), (1024, 256),
+                                 (14336, 3584)])
+def test_ssm_decode_linears_on_the_tensor_core_route(gen, K, N):
+    """The decode kernel at 4 rows, bf16, 4-bit, group 64, at the SSM
+    families' new shapes: output widths below one 128-column tile (Mamba2's
+    dt_proj N = 32, Zamba2's N = 112, not a multiple of 64; bc_proj N =
+    256) and Zamba2's mlp.down K = 14336 (224 groups), on its planned
+    tensor-core route within the bf16 tolerance."""
+    from repro_torch.kernels.dequant_matmul import plan_for
+    codes, s, z = quantize_int(_randn(gen, K, N) * 0.02, 4, 64)
+    packed = pack_codes(codes, 4)
+    x = _randn(gen, 4, K).to(torch.bfloat16)
+    assert plan_for(x, packed, s, z, 64).route == "mma"
+    y = ops.dequant_matmul(x, packed, s, z, bits=4, group_size=64)
+    _close(y, ref.dequant_matmul_ref(x, packed, s, z, bits=4, group_size=64),
+           **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("K,N,r", [(1024, 32, 32), (3584, 112, 64)])
+def test_ssm_fused_lora_on_narrow_outputs(gen, K, N, r):
+    """The fused kernel at 1024 rows on a partial column tile: Mamba2's
+    dt_proj (N = 32 at the rank CLoQ cuts to N) and Zamba2's (N = 112), on
+    the planned wgmma route within the bf16 tolerance."""
+    from repro_torch.kernels.dequant_matmul import lora_plan_for
+    codes, s, z = quantize_int(_randn(gen, K, N) * 0.02, 4, 64)
+    packed = pack_codes(codes, 4)
+    xt = _randn(gen, 1024, K).to(torch.bfloat16)
+    a = (_randn(gen, K, r) / K ** 0.5).to(torch.bfloat16)
+    b = (_randn(gen, N, r) * 0.1).to(torch.bfloat16)
+    assert lora_plan_for(xt, packed, s, z, a, b, 64).route == "wgmma"
+    y = ops.dequant_matmul_lora(xt, packed, s, z, a, b, bits=4,
+                                group_size=64)
+    _close(y, ref.dequant_matmul_lora_ref(xt, packed, s, z, a, b, bits=4,
+                                          group_size=64),
+           **_tol(torch.bfloat16))
+
+
+def test_captured_mamba_decode_gives_the_eager_bits(cuda):
+    """``mamba_decode`` on a quantized Mamba block captured as a CUDA graph
+    and replayed: each replay gives the eager step's output bits and leaves
+    the eager step's conv windows and state, written in place into the
+    cache tensors the graph captured."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch.steps import CapturedStep
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.ssm import mamba_decode, mamba_init_cache
+    from repro_torch.models.transformer import init_params, layer_params
+    cfg = get_smoke_config("mamba2-370m", dtype=torch.bfloat16, d_model=256,
+                           ssm_head_dim=64, ssm_state=64)
+    params = init_params(cfg, seed=0, device=cuda)
+    calib = [TokenStream(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                    global_batch=2, seed=0)).next_batch()]
+    qp, qcfg, _ = quantize_model(params, cfg, calib, recipe=QuantRecipe.single(
+        "cloq", QSpec(bits=4, group_size=64, rank=8)))
+    q = QSpec(bits=4, group_size=64, rank=8, use_kernel=True)
+    p = layer_params(qp["blocks"], 0)["mamba"]
+    scfg = qcfg.ssm_cfg()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    xs = [_randn(gen, 4, 1, cfg.d_model).to(torch.bfloat16)
+          for _ in range(4)]
+    eager_cache = mamba_init_cache(scfg, 4, device=cuda)
+    graph_cache = mamba_init_cache(scfg, 4, device=cuda)
+    step = CapturedStep(lambda x: mamba_decode(p, scfg, x, graph_cache,
+                                               qspec=q)[0])
+    with torch.no_grad():
+        for x in xs:
+            want = mamba_decode(p, scfg, x, eager_cache, qspec=q)[0]
+            got = step(x)
+            assert torch.equal(got, want)
+            for k in ("conv_x", "conv_bc", "state"):
+                assert torch.equal(graph_cache[k], eager_cache[k]), k
+    assert step.graph is not None and step.launches["dequant_matmul"] == 5
+    assert bool(eager_cache["state"].abs().sum() > 0)

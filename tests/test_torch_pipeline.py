@@ -268,8 +268,8 @@ def test_quantize_model_rejects_unported():
 
 def test_stacked_expert_sites_are_quantization_sites():
     """Stacked MoE expert weights (E, m, n) are quantization sites like the
-    2-D linears (the router is not); weight-shared and cross-attention
-    sites still raise as not ported."""
+    2-D linears (the router is not), as are a hybrid's weight-shared
+    linears; cross-attention sites still raise as not ported."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.transformer import init_params
     cfg = get_smoke_config("olmoe-1b-7b", scan_layers=False)
@@ -279,11 +279,10 @@ def test_stacked_expert_sites_are_quantization_sites():
     assert "blocks.1.moe.down" in paths and not any("router" in p
                                                     for p in paths)
     assert get_path(params, "blocks.1.moe.down")["w"].dim() == 3
-    for p in paths:
+    for p in paths + ["shared.block.attn.q"]:
         tp._ported_site(p)
-    for p in ("shared.block.attn.q", "cross.0.xattn.q"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tp._ported_site(p)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tp._ported_site("cross.0.xattn.q")
 
 
 @pytest.mark.parametrize("case", ["normal", "huge", "overflow", "nan"])
