@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Planted-fault check of ``chip_smoke.py``'s bf16 decode attention cases
-and its gram cases.
+"""Planted-fault check of ``chip_smoke.py``'s bf16 decode attention cases,
+its gram cases and its kernel-vs-plain decode logits check.
 
     python3 chip_fault_check.py
 
@@ -18,15 +18,26 @@ plants two faults in the copy:
   the tensor-core route (the calibration shapes and
   ``chip_smoke.GRAM_WGMMA``) run at the bf16 and the f32 tolerance.
 
-Each set runs on the real sources and on the copy, each tree in its own
-process.  One JSON line a case: tree, kernel, shape, the plan's split or
-route, whether the checks pass, the error and the reference's largest
-value.
+A second copy, ``build/fault_copy_dequant/``, holds a third fault alone:
+
+* ``dequant_matmul.cu``: the decode route ("mma") takes the zeros of half
+  the columns one off in the first K stage (its first group or groups).
+  The logits cases quantize Qwen3-1.7B at full width, 1 layer (RTN, 4 and
+  2 bits, group 64, rank 64: no calibration) and hold kernel against plain
+  decode logits to ``chip_smoke.logits_limit``, as the configs, ssm and
+  allocate phases do.
+
+The attention and gram cases run on the real sources and on the first
+copy, the logits cases on the real sources and on the second, each tree
+in its own process.  One JSON line a case: tree, kernel, shape, the
+plan's split or route, whether the checks pass, the error and the
+reference's largest value (for the logits, the limit).
 
 Exits 0 when every case passes on the real sources, the attention check
-fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, and the
-gram check fails on the copy in every case with more than one token
-stage; the last line says which.
+fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, the gram
+check fails on the copy in every case with more than one token stage, and
+the logits check fails on the second copy in every case; the last line
+says which.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 COPY = ROOT / "build" / "fault_copy"
+DQ_COPY = ROOT / "build" / "fault_copy_dequant"
 KERNEL = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
 # the combine's count of partials; the fault drops the last rank's
 SOUND = "const int nparts = splits * kw;"
@@ -47,6 +59,12 @@ GRAM_KERNEL = Path("src/repro_torch/kernels/csrc/gram.cu")
 # from the stage before it
 GRAM_SOUND = "const int t0 = ks * WG_BK;"
 GRAM_FAULT = "const int t0 = (ks + 1 == kt && ks > 0 ? ks - 1 : ks) * WG_BK;"
+DQ_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul.cu")
+# the decode route's zeros of a stage (columns c, c+1 of each 4); the fault
+# takes them one off in the first K stage
+DQ_SOUND = "nz[c] = -(OFF + z.x); nz[c + 1] = -(OFF + z.y);"
+DQ_FAULT = ("nz[c] = -(OFF + z.x + (s_lo + i == 0)); "
+            "nz[c + 1] = -(OFF + z.y + (s_lo + i == 0));")
 
 
 def _plant(text: str, sound: str, fault: str, where: Path) -> str:
@@ -65,6 +83,12 @@ def plant_gram_fault(text: str) -> str:
     """The gram kernel's source with its fault in place of the sound
     line."""
     return _plant(text, GRAM_SOUND, GRAM_FAULT, GRAM_KERNEL)
+
+
+def plant_dequant_fault(text: str) -> str:
+    """The decode kernel's source with its fault in place of the sound
+    line."""
+    return _plant(text, DQ_SOUND, DQ_FAULT, DQ_KERNEL)
 
 
 def flash_cases(torch, cs, dev) -> list[dict]:
@@ -118,46 +142,89 @@ def gram_cases(torch, cs, dev) -> list[dict]:
     return out
 
 
-def run_cases(tree: Path) -> list[dict]:
-    """Both sets of cases on the sources under ``tree``."""
+def logits_cases(torch, cs, dev) -> list[dict]:
+    """Kernel against plain decode logits of Qwen3-1.7B at full width, 1
+    layer, RTN-quantized at 4 and 2 bits on the sources imported."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.kernels.dequant_matmul import plan_for
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("qwen3-1.7b", n_layers=1)
+    params = init_params(cfg, seed=0, device=dev)
+    out = []
+    for bits in (4, 2):
+        recipe = QuantRecipe.single("rtn", QSpec(bits=bits, group_size=64,
+                                                 rank=64))
+        qp, qcfg, _ = quantize_model(params, cfg, [], recipe=recipe)
+        q = qp["blocks"]["attn"]["q"]
+        x = torch.zeros((4, q["lora_a"].shape[-2]), dtype=torch.bfloat16,
+                        device=dev)
+        lg = cs._kernel_vs_plain_logits(torch, dev, qp, qcfg)
+        out.append({"kernel": "logits", "bits": bits,
+                    "route": plan_for(x, q["qcodes"][0], q["scales"][0],
+                                      q["zeros"][0], 64).route,
+                    "passes": lg["within"], **lg})
+        del qp
+    return out
+
+
+def run_cases(tree: Path, which: str) -> list[dict]:
+    """The attention and gram cases (``which`` "kernels") or the logits
+    cases ("logits") on the sources under ``tree``."""
     sys.path.insert(0, str(tree / "src"))
     import torch
 
     import chip_smoke as cs
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if which == "logits":
+        return logits_cases(torch, cs, dev)
     return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
 
 
+def _copy(dst: Path) -> None:
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(ROOT / "src" / "repro_torch", dst / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+
+
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--tree":
-        for row in run_cases(Path(sys.argv[2])):
+    if len(sys.argv) == 4 and sys.argv[1] == "--tree":
+        for row in run_cases(Path(sys.argv[2]), sys.argv[3]):
             print(json.dumps(row), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_fault_check: CUDA is not available", file=sys.stderr)
         return 1
-    if not (ROOT / KERNEL).is_file() or not (ROOT / GRAM_KERNEL).is_file():
-        print(f"chip_fault_check: no {KERNEL} or {GRAM_KERNEL} beside "
-              f"{__file__}", file=sys.stderr)
+    if not all((ROOT / k).is_file() for k in (KERNEL, GRAM_KERNEL,
+                                               DQ_KERNEL)):
+        print(f"chip_fault_check: no {KERNEL}, {GRAM_KERNEL} or "
+              f"{DQ_KERNEL} beside {__file__}", file=sys.stderr)
         return 1
-    shutil.rmtree(COPY, ignore_errors=True)
-    shutil.copytree(ROOT / "src" / "repro_torch", COPY / "src" / "repro_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    _copy(COPY)
     (COPY / KERNEL).write_text(plant_fault((ROOT / KERNEL).read_text()))
     (COPY / GRAM_KERNEL).write_text(
         plant_gram_fault((ROOT / GRAM_KERNEL).read_text()))
+    _copy(DQ_COPY)
+    (DQ_COPY / DQ_KERNEL).write_text(
+        plant_dequant_fault((ROOT / DQ_KERNEL).read_text()))
     rows = {}
-    for name, tree in (("sources", ROOT), ("fault", COPY)):
-        proc = subprocess.run([sys.executable, __file__, "--tree", str(tree)],
-                              capture_output=True, text=True, cwd=ROOT,
-                              timeout=900)
+    for name, tree, which in (("sources", ROOT, "kernels"),
+                              ("fault", COPY, "kernels"),
+                              ("sources", ROOT, "logits"),
+                              ("fault_dequant", DQ_COPY, "logits")):
+        proc = subprocess.run(
+            [sys.executable, __file__, "--tree", str(tree), which],
+            capture_output=True, text=True, cwd=ROOT, timeout=900)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return 1
-        rows[name] = [json.loads(ln) for ln in proc.stdout.splitlines()]
-        for row in rows[name]:
+        got = [json.loads(ln) for ln in proc.stdout.splitlines()]
+        rows.setdefault(name, []).extend(got)
+        for row in got:
             print(json.dumps({"tree": name, **row}), flush=True)
     import chip_smoke as cs
     sound = all(r["passes"] and r.get("passes_f32_tol", True)
@@ -167,9 +234,12 @@ def main() -> int:
                      and r["q_scale"] == cs.FLASH_Q_PEAK and r["Sk"] == 4096)
     gram_seen = all(not r["passes"] for r in rows["fault"]
                     if r["kernel"] == "gram" and r["T"] > 64)
+    dequant_seen = bool(rows["fault_dequant"]) and all(
+        not r["passes"] for r in rows["fault_dequant"])
     print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
-                      "gram_fault_caught": gram_seen}))
-    return 0 if sound and flash_seen and gram_seen else 1
+                      "gram_fault_caught": gram_seen,
+                      "dequant_fault_caught_by_logits": dequant_seen}))
+    return 0 if sound and flash_seen and gram_seen and dequant_seen else 1
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--layers L] [--moe-layers L] [--hybrid-layers L]
+                          [--only configs|ssm|allocate]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
 one JSON line each:
@@ -122,7 +123,10 @@ one JSON line each:
    (4 requests x 8 tokens) eager and captured.  Quantize seconds, peak
    memory, the routes each kernel took, the largest difference of kernel
    against plain decode logits; held: captured tokens equal to eager
-   ones, finite losses, an empty health report, the launches.
+   ones, finite losses, an empty health report, the launches, the logits
+   difference within ``logits_limit`` (the JAX package's bf16 kernel
+   tolerance, grown by the square root of the kernel calls a decode step
+   makes, on the logits' own scale).
 13. ssm — Mamba2-370M (all 48 layers, d_model 1024, state 128) and
    Zamba2-7B (d_model 3584, the shared attention + MLP block with d_ff
    14336 after every 6 Mamba layers), ``--hybrid-layers`` deep (15 by
@@ -145,17 +149,35 @@ one JSON line each:
    ``flash_attention`` none (the shared block's windowed ring decodes in
    plain PyTorch, as in the JAX package), and each site's adapter at
    least as good on its own Gram as the other's (x (1 + 1e-4)), the two
-   sites' ``A @ B^T`` more than 1e-2 apart.
+   sites' ``A @ B^T`` more than 1e-2 apart, kernel against plain decode
+   logits within ``logits_limit``.
+14. allocate — Qwen3-1.7B at full width, ``ALLOC_LAYERS`` (2) deep, the
+   only mixed-bit model: the train CLI's ``--auto-allocate`` path (CLoQ,
+   base 4-bit g64 r64, the sweep over 2/3/4 bits x ranks 0/16/64,
+   calibration 2 x 8 x 128 twice, 2 steps at 8 x 128) under a
+   ``--budget-mb`` midway between all (2 bits, rank 0) and all (4 bits,
+   rank 64), then the fixed-slot decode of the trained model (batch 4, 4
+   requests x 8 tokens) eager and captured.  Each group's chosen (bits,
+   rank), the sweep and quantize seconds, peak memory, losses, routes;
+   held: the plan within budget, ``recipe_plan_bytes`` = the plan's bytes
+   = the returned sites' bytes, each group's sweep error within 1e-3 of
+   ``tr(E^T H E)`` from the engine's leaves, finite losses, an empty
+   health report, the launches, captured tokens equal to eager ones,
+   kernel against plain logits within ``logits_limit``, and the
+   checkpoint's ``meta.json`` carrying the manifest with the
+   ``plan_fingerprint`` of ``(cfg, recipe)``.
 
 ``--moe-layers`` at another depth than 2 (``--moe-layers 16``: the
 full-depth check) runs the device and build phases and the moe phase
 alone; ``--hybrid-layers`` at another depth than 15 (at least 12;
 ``--hybrid-layers 81``: the full-depth check) the device and build phases
-and the ssm phase alone.  Otherwise the kernel table follows as one JSON
+and the ssm phase alone; ``--only PHASE`` the device and build phases and
+that phase alone.  Otherwise the kernel table follows as one JSON
 line (each kernel's launches from the path that runs it: train for
 ``gram`` and ``dequant_matmul_lora``, the engine serve for the others;
-from the moe phase's, ``launches_moe``; and from the ssm phase's, both
-models summed, ``launches_ssm``), the ``nvidia-smi`` name and power limit
+from the moe phase's, ``launches_moe``; from the ssm phase's, both
+models summed, ``launches_ssm``; and from the allocate phase's,
+``launches_allocate``), the ``nvidia-smi`` name and power limit
 line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without the ``ok`` line, as does a host without CUDA or a directory
@@ -2210,26 +2232,58 @@ def _kernel_routes(torch, dev, params, cfg) -> dict:
     return routes
 
 
-def _kernel_vs_plain_logits(torch, dev, params, cfg, steps: int = 4):
-    """Largest |logit| difference of kernel against plain decode over
-    ``steps`` greedy steps at batch 4 from the same caches and tokens."""
+# Kernel against plain decode logits (configs, ssm, allocate).  Each kernel
+# call of a decode step may differ from its plain version by the JAX
+# package's bf16 kernel tolerance (tests/test_kernels.py:12-14: atol 2e-2,
+# rtol 2e-2 of its output's scale); the errors of the n calls a decode
+# step makes are independent and add in quadrature through the residual
+# stream, so the logits may differ by
+#     LOGIT_ATOL + LOGIT_RTOL * sqrt(n) * max |plain logit|
+# with n counted (launches a step) and the logits' scale read in the run.
+# On an H100 the sound kernels gave 0.035-0.198 against limits of
+# 0.25-0.96 (PERF.md, PR 21 run B), and a zero one grid step off on one
+# group gave 1.83-6.92 against 0.29-0.30 (chip_fault_check.py).
+LOGIT_ATOL = 2e-2
+LOGIT_RTOL = 2e-2
+
+
+def logits_limit(max_abs_logit: float, calls: float) -> float:
+    """The limit of kernel against plain decode logits (see above)."""
+    return LOGIT_ATOL + LOGIT_RTOL * math.sqrt(calls) * max_abs_logit
+
+
+def _kernel_vs_plain_logits(torch, dev, params, cfg, steps: int = 4) -> dict:
+    """Kernel against plain decode over ``steps`` greedy steps at batch 4
+    from the same caches and tokens: the largest |logit| difference, the
+    plain logits' largest |logit|, the kernel calls a step (launches
+    counted around the kernel steps), :func:`logits_limit` of them and
+    whether the difference is within it."""
     import dataclasses
+    from repro_torch.kernels import ops
     from repro_torch.models.transformer import (decode_step,
                                                 init_decode_cache)
     cfgs = [dataclasses.replace(cfg, quant=dataclasses.replace(
         cfg.quant, use_kernel=k)) for k in (True, False)]
     caches = [init_decode_cache(c, 4, 16, device=dev) for c in cfgs]
     tok = torch.tensor([[3], [17], [101], [400]], device=dev)
-    err = 0.0
+    err = scale = 0.0
+    calls = 0
     with torch.no_grad():
         for _ in range(steps):
             out = []
             for i, c in enumerate(cfgs):
+                before = sum(ops.launch_counts().values())
                 logits, caches[i] = decode_step(params, c, caches[i], tok)
+                if i == 0:
+                    calls += sum(ops.launch_counts().values()) - before
                 out.append(logits.float())
             err = max(err, float((out[0] - out[1]).abs().max()))
+            scale = max(scale, float(out[1].abs().max()))
             tok = out[0].argmax(-1, keepdim=True)
-    return err
+    limit = logits_limit(scale, calls / steps)
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "kernel_calls_per_step": calls / steps, "limit": limit,
+            "within": err <= limit}
 
 
 def configs_phase(torch, dev) -> dict:
@@ -2272,7 +2326,7 @@ def configs_phase(torch, dev) -> dict:
                 "peak_mem_gb": peak, "losses": res["losses"],
                 "step_s": res["step_s"],
                 "routes": _kernel_routes(torch, dev, qparams, qcfg),
-                "kernel_vs_plain_max_abs_logit": _kernel_vs_plain_logits(
+                "kernel_vs_plain_logits": _kernel_vs_plain_logits(
                     torch, dev, qparams, qcfg),
                 "captured_tokens_equal": sv["tokens_equal"],
                 "slot_tok_s": {k: sv[k]["slot_tok_s"]
@@ -2288,6 +2342,7 @@ def configs_phase(torch, dev) -> dict:
                 _sites_2d(cfg) * decodes or \
                 cap["launches"]["flash_attention"] != decodes or \
                 not sv["tokens_equal"] or \
+                not line["kernel_vs_plain_logits"]["within"] or \
                 any(len(o) != 8 for o in cap["outputs"]):
             raise Failed(f"configs phase, {arch} (launches expected "
                          f"{want}): {line}")
@@ -2422,7 +2477,7 @@ def ssm_run(torch, dev, arch: str, layers: int) -> dict:
                                          zip(res["losses"], plain)),
            "grad_norms": res["grad_norms"], "step_s": step_s,
            "train_tok_s": tokens * len(step_s) / sum(step_s),
-           "routes": routes, "kernel_vs_plain_max_abs_logit": logit_err,
+           "routes": routes, "kernel_vs_plain_logits": logit_err,
            "fixed_slots": {k: {f: v for f, v in r.items() if f != "outputs"}
                            for k, r in runs.items()},
            "captured_tokens_equal":
@@ -2453,6 +2508,8 @@ def ssm_run(torch, dev, arch: str, layers: int) -> dict:
             bad.append(f"serve {k}: not every request served finite")
     if not out["captured_tokens_equal"]:
         bad.append("captured tokens differ from eager ones")
+    if not logit_err["within"]:
+        bad.append("kernel against plain decode logits beyond the limit")
     if hybrid:
         sites = got["inspected"]
         out["site_adapters"] = sites
@@ -2478,6 +2535,214 @@ def ssm_phase(torch, dev, hybrid_layers: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 10: calibrated bit allocation, the only mixed-bit model
+# ---------------------------------------------------------------------------
+
+ALLOC_LAYERS = 2        # Qwen3-1.7B's 28 cut: the sweep is ~9 quantizes
+ALLOC_STEPS = 2
+ALLOC_CKPT = ROOT / "build" / "chip_smoke" / "alloc_ckpt"
+ALLOC_OBJ_LIMIT = REL_FRO   # the engines phase's objective limit (1e-3)
+
+
+def _alloc_objectives(torch, alloc, qparams, qcfg, dense, store) -> dict:
+    """Each site group's proxy error as the sweep measured it for the
+    chosen candidate, and ``tr(E^T H E)`` recomputed from the quantize
+    engine's leaves (``E = W - Q - A B^T``, ``A``, ``B`` as stored) with
+    the same Grams, summed over the group's sites."""
+    from repro_torch.core.pipeline import to_eager_params
+    from repro_torch.core.quantizer import dequantize_int, unpack_codes
+    from repro_torch.models.modules import _group_of, packed_bits
+    from repro_torch.utils import get_path
+    q = to_eager_params(qparams, qcfg)
+    d = to_eager_params(dense, qcfg)
+    out = {}
+    for row in alloc.table:
+        total = 0.0
+        for path in row["paths"]:
+            lv = get_path(q, path)
+            W = get_path(d, path)["w"].float()
+            m = W.shape[0]
+            codes = unpack_codes(lv["qcodes"], packed_bits(
+                lv["qcodes"].shape[-2], m), m)
+            Q = dequantize_int(codes, lv["scales"], lv["zeros"],
+                               _group_of(lv["scales"], m))
+            E = W - Q - lv["lora_a"].float() @ lv["lora_b"].float().T
+            total += float((E * (store.grams[path].float() @ E)).sum())
+        out[row["pattern"]] = {"sweep": row["err"], "engine": total,
+                               "rel": abs(total - row["err"]) /
+                               abs(row["err"])}
+    return out
+
+
+def _site_nbytes(torch, qparams, qcfg, paths) -> int:
+    """Bytes of the quantized sites' leaves that ``quantize_model``
+    returned (a bias is not a site leaf)."""
+    from repro_torch.core.pipeline import to_eager_params
+    from repro_torch.utils import get_path
+    q = to_eager_params(qparams, qcfg)
+    return sum(v.numel() * v.element_size() for path in paths
+               for k, v in get_path(q, path).items() if k != "b")
+
+
+def allocate_phase(torch, dev) -> dict:
+    """Qwen3-1.7B at full width, ``ALLOC_LAYERS`` deep, through the train
+    CLI's ``--auto-allocate`` path (``--method cloq --bits 4 --group-size
+    64 --rank 64``: the sweep over {2, 3, 4} bits x ranks {0, 16, 64},
+    calibration 2 x 8 x 128, ``ALLOC_STEPS`` steps at 8 x 128) under a
+    ``--budget-mb`` midway between the uniform plans all (2 bits, rank 0)
+    and all (4 bits, rank 64), then the fixed-slot decode of the trained
+    model (batch 4, 4 requests x 8 tokens) eager and captured.  Held: the
+    plan within budget; ``recipe_plan_bytes``, the plan's bytes and the
+    returned sites' bytes equal; each group's sweep error within 1e-3 of
+    ``tr(E^T H E)`` from the engine's leaves; finite losses, an empty
+    health report; launches (``gram`` 2 calibrations x 14 sites x 2
+    batches, ``dequant_matmul_lora`` 14 sites a step: every site is a
+    packed INT site with 2-D LoRA, rank 0 too, and a step has 1024 rows,
+    ``dequant_matmul`` 14 and ``flash_attention`` 2 a decode step);
+    captured tokens equal to eager ones; kernel-vs-plain logits within
+    :func:`logits_limit`; the checkpoint's manifest and its
+    ``plan_fingerprint``."""
+    import dataclasses
+    import json
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import (quantization_manifest,
+                                           recipe_plan_bytes)
+    from repro_torch.core.recipe import QuantRecipe, plan_fingerprint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models.modules import QSpec
+    from repro_torch.optim import merge_params
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b", n_layers=ALLOC_LAYERS)
+    uniform = {f"{b}b_r{r}": recipe_plan_bytes(cfg, QuantRecipe.single(
+        "cloq", QSpec(bits=b, group_size=64, rank=r, method="cloq")))
+        for b, r in ((2, 0), (4, 64))}
+    budget = sum(uniform.values()) // 2
+    shutil.rmtree(ALLOC_CKPT, ignore_errors=True)
+    argv = ["--arch", "qwen3-1.7b", "--method", "cloq", "--bits", "4",
+            "--group-size", "64", "--rank", "64", "--auto-allocate",
+            "--budget-mb", repr(budget / 2**20), "--calib-batches", "2",
+            "--batch", "8", "--seq-len", "128", "--steps", str(ALLOC_STEPS),
+            "--seed", "0", "--device", str(dev), "--ckpt-every", "0",
+            "--ckpt-dir", str(ALLOC_CKPT)]
+    args = train.build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    keep = {}
+
+    def inspect(dense, qparams, qcfg, store):
+        keep["alloc_obj"] = (dense, store)
+        return None
+
+    res, got = _spied_train(torch, train, args, cfg, inspect=inspect)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    alloc, qparams, qcfg = res["allocation"], got["params"], got["cfg"]
+    dense, store = keep.pop("alloc_obj")
+    objectives = _alloc_objectives(torch, alloc, qparams, qcfg, dense, store)
+    del dense, store
+    site_bytes = _site_nbytes(torch, qparams, qcfg,
+                              [p for r in alloc.table for p in r["paths"]])
+    plan_bytes = recipe_plan_bytes(cfg, alloc.recipe)
+    meta = json.loads((ALLOC_CKPT / f"step_{ALLOC_STEPS:08d}" /
+                       "meta.json").read_text())
+    saved = meta.get("bucket_manifest")
+    fp = plan_fingerprint(quantization_manifest(qcfg, recipe=alloc.recipe))
+    trained = merge_params(res["state"]["train"], res["state"]["frozen"])
+    del res["state"], qparams
+    torch.cuda.empty_cache()
+    routes = _kernel_routes(torch, dev, trained, qcfg)
+    kcfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+    logits = _kernel_vs_plain_logits(torch, dev, trained, qcfg)
+    runs = {}
+    for graph in (False, True):
+        ops.reset_launch_counts()
+        sv = serve.serve_fixed_slots(trained, kcfg, batch=4, cache_len=16,
+                                     requests=4, max_new=8, seed=0,
+                                     device=dev, graph=graph)
+        runs["captured" if graph else "eager"] = {
+            "outputs": [o.tolist() for o in sv["outputs"]],
+            "slot_tok_s": sv["tok_s"], "steps": sv["steps"],
+            "requests_done": sv["requests_done"],
+            "logits_finite": sv["all_finite"],
+            "step_ms_median": 1e3 * _median(sv["step_s"]),
+            "launches": ops.launch_counts()}
+    L, n = ALLOC_LAYERS, 7 * ALLOC_LAYERS
+    decodes = runs["captured"]["steps"]
+    want_train = {"gram": 2 * n * args.calib_batches,
+                  "dequant_matmul_lora": n * ALLOC_STEPS,
+                  "dequant_matmul": 0, "flash_attention": 0}
+    want_serve = {"gram": 0, "dequant_matmul_lora": 0,
+                  "dequant_matmul": n * decodes,
+                  "flash_attention": L * decodes}
+    chosen = {r["pattern"]: [r["spec"].qspec.bits, r["spec"].qspec.rank]
+              for r in alloc.table}
+    out = {"layers": L, "reduced": {"n_layers": [28, L]}, "argv": argv,
+           "uniform_bytes": uniform, "budget_bytes": budget,
+           "total_bytes": alloc.total_bytes, "plan_bytes": plan_bytes,
+           "site_leaf_bytes": site_bytes,
+           "proxy_error": alloc.total_error, "chosen": chosen,
+           "mixed": len({tuple(v) for v in chosen.values()}) > 1,
+           "objectives": objectives,
+           "sweep_s": res["allocate_s"], "quantize_s": res["quantize_s"],
+           "buckets": _bucket_chunks(got["lines"]),
+           "peak_mem_gb": peak, "losses": res["losses"],
+           "grad_norms": res["grad_norms"], "step_s": res["step_s"],
+           "health": res["health"].counts(),
+           "health_events": res["health"].events,
+           "health_checked": res["health"].checked,
+           "launches": {"train": counts,
+                        "serve_captured": runs["captured"]["launches"],
+                        "serve_eager": runs["eager"]["launches"]},
+           "launches_expected": {"train": want_train, "serve": want_serve},
+           "routes": routes, "kernel_vs_plain_logits": logits,
+           "fixed_slots": {k: {f: v for f, v in r.items() if f != "outputs"}
+                           for k, r in runs.items()},
+           "captured_tokens_equal":
+               runs["eager"]["outputs"] == runs["captured"]["outputs"],
+           "ckpt_step": res["ckpt_step"],
+           "ckpt_manifest": saved is not None,
+           "ckpt_fingerprint_equal": saved is not None and
+           plan_fingerprint(saved) == fp,
+           # the checkpoint's plan, read from its manifest (load_plan on
+           # a meta.json gives the default recipe, as in the JAX package)
+           "ckpt_recipe_equal": saved is not None and QuantRecipe.from_dict(
+               saved["recipe"]).to_dict() == alloc.recipe.to_dict(),
+           "phase_s": time.perf_counter() - t_phase}
+    bad = []
+    if not alloc.total_bytes <= budget:
+        bad.append("plan over budget")
+    if not plan_bytes == alloc.total_bytes == site_bytes:
+        bad.append("byte accounting differs")
+    if any(v["rel"] > ALLOC_OBJ_LIMIT for v in objectives.values()):
+        bad.append(f"sweep error off the engine's by more than "
+                   f"{ALLOC_OBJ_LIMIT}")
+    if not all(math.isfinite(v) for v in res["losses"]):
+        bad.append("losses not finite")
+    if out["health"] or out["health_events"] or out["health_checked"] != n:
+        bad.append("health report not empty")
+    if any(counts[k] != v for k, v in want_train.items()):
+        bad.append(f"train launches, expected {want_train}")
+    for k, r in runs.items():
+        if any(r["launches"][n_] != v for n_, v in want_serve.items()):
+            bad.append(f"serve {k} launches, expected {want_serve}")
+        if r["requests_done"] != 4 or not r["logits_finite"]:
+            bad.append(f"serve {k}: not every request served finite")
+    if not out["captured_tokens_equal"]:
+        bad.append("captured tokens differ from eager ones")
+    if not logits["within"]:
+        bad.append("kernel against plain decode logits beyond the limit")
+    if not (out["ckpt_fingerprint_equal"] and out["ckpt_recipe_equal"]):
+        bad.append("checkpoint manifest missing, or its fingerprint or "
+                   "recipe differs")
+    if bad:
+        raise Failed(f"allocate phase: {bad}: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -2494,7 +2759,11 @@ def main(argv=None) -> int:
                          "other depth runs the device and build phases and "
                          "the ssm phase alone (the full-depth check: "
                          "--hybrid-layers 81)")
+    ap.add_argument("--only", choices=("configs", "ssm", "allocate"),
+                    help="run the device and build phases and this phase "
+                         "alone (a quick check of one path)")
     a = ap.parse_args(argv)
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2527,6 +2796,18 @@ def main(argv=None) -> int:
               "dir": str(build.build_dir().relative_to(ROOT)),
               "sources": list(build.SOURCES), "ptxas": ptxas})
 
+        if a.only:
+            phase = a.only
+            run = {"configs": lambda: configs_phase(torch, dev),
+                   "ssm": lambda: ssm_phase(torch, dev, a.hybrid_layers),
+                   "allocate": lambda: allocate_phase(torch, dev)}[a.only]
+            emit({"phase": a.only, **run(),
+                  "script_s": time.perf_counter() - t_script})
+            print(card, flush=True)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}})
+            return 0
         if a.moe_layers != MOE_LAYERS or a.hybrid_layers != HYBRID_LAYERS:
             if a.moe_layers != MOE_LAYERS:
                 phase = "moe"
@@ -2622,6 +2903,11 @@ def main(argv=None) -> int:
         phase = "ssm"
         ss = ssm_phase(torch, dev, a.hybrid_layers)
         emit({"phase": "ssm", **ss})
+        torch.cuda.empty_cache()
+        phase = "allocate"
+        al = allocate_phase(torch, dev)
+        emit({"phase": "allocate", **al,
+              "script_s": time.perf_counter() - t_script})
     except Failed as e:
         emit({"phase": phase, "ok": False, "error": str(e)})
         return 1
@@ -2634,26 +2920,30 @@ def main(argv=None) -> int:
                              for k in ("gram", "dequant_matmul_lora",
                                        "dequant_matmul", "flash_attention")}
                             for run in ("serve_captured", "train"))
-    for name, chk, tm, launches, moe_launches, ssm_launches, src, tpu in (
+    al_serve, al_train = (al["launches"]["serve_captured"],
+                          al["launches"]["train"])
+    for name, chk, tm, launches, moe_launches, ssm_launches, al_launches, \
+            src, tpu in (
             ("dequant_matmul", dq, dq_t, sv["launches"], moe_serve,
-             ssm_serve,
+             ssm_serve, al_serve,
              "src/repro_torch/kernels/csrc/dequant_matmul.cu",
              "src/repro/kernels/dequant_matmul.py:73"),
             ("flash_attention", fa, fa_t, sv["launches"], moe_serve,
-             ssm_serve,
+             ssm_serve, al_serve,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:94"),
             ("dequant_matmul_lora", lo, lo_t, tr["launches"], moe_train,
-             ssm_train,
+             ssm_train, al_train,
              "src/repro_torch/kernels/csrc/dequant_matmul_lora.cu",
              "src/repro/kernels/dequant_matmul.py:134"),
             ("gram", gr, gr_t, tr["launches"], moe_train, ssm_train,
-             "src/repro_torch/kernels/csrc/gram.cu",
+             al_train, "src/repro_torch/kernels/csrc/gram.cu",
              "src/repro/kernels/gram.py:41")):
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": tpu, "launches": launches[name],
                       "launches_moe": moe_launches[name],
                       "launches_ssm": ssm_launches[name],
+                      "launches_allocate": al_launches[name],
                       "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],
                       "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                       "bound_by": tm["bound_by"],

@@ -19,8 +19,11 @@ Leaves may be torch tensors on any device or numpy arrays; they are
 restored as CPU torch tensors, bf16 as ``torch.bfloat16``.
 :class:`QuantJournal` commits each finished bucket of the batched
 quantization engine as one step, so a stopped run resumes where it stood.
-Not ported yet (``ROADMAP.md``): the bucket manifest
-(``save_tree(manifest=)``) and ``manifest_shardings``, which need the
+A quantized checkpoint saved with ``save_tree(..., manifest=)`` (the plan
+of ``repro_torch.core.pipeline.quantization_manifest``, its recipe
+included) carries it in ``meta.json`` under :data:`MANIFEST_KEY`, as the
+JAX package's does.  Not ported yet (``ROADMAP.md``):
+``manifest_shardings`` and ``restore_tree(mesh=)``, which need the
 distributed layer.
 """
 from __future__ import annotations
@@ -41,6 +44,9 @@ from repro_torch.obs import names as obs_names
 from repro_torch.utils import set_path, tree_paths
 
 _BF16_TAG = "__bf16__"
+
+# meta.json key holding the serialized bucket manifest (plan output)
+MANIFEST_KEY = "bucket_manifest"
 
 # in-progress and superseded step directories live under <dir>/tmp/
 _TMP_SUBDIR = "tmp"
@@ -87,7 +93,7 @@ def _leaf_checksums(host: dict[str, np.ndarray]) -> dict[str, int]:
 
 
 def save_tree(tree, directory: str, step: int, extra_meta: dict | None = None,
-              background: bool = False,
+              background: bool = False, manifest: dict | None = None,
               pin: bool = False) -> threading.Thread | None:
     """Write a snapshot of ``tree`` as step ``step`` of ``directory``.
     Returns the writer thread if ``background`` (the copy to the host
@@ -96,8 +102,10 @@ def save_tree(tree, directory: str, step: int, extra_meta: dict | None = None,
     Everything lands in ``<dir>/tmp/`` first (arrays, then ``meta.json``,
     fsynced) and the finished directory is renamed into place; a step of
     the same number is moved aside into ``tmp/`` first and deleted after,
-    so a reader never sees a half-written or half-deleted step.  ``pin``
-    puts a :data:`PIN_MARKER` file in the step so that
+    so a reader never sees a half-written or half-deleted step.
+    ``manifest`` (a bucket manifest, ``pipeline.quantization_manifest``)
+    is stored in ``meta.json`` under :data:`MANIFEST_KEY`.  ``pin`` puts a
+    :data:`PIN_MARKER` file in the step so that
     :class:`CheckpointManager`'s retention never collects it."""
     os.makedirs(directory, exist_ok=True)
     obs_metrics.counter(obs_names.CKPT_SAVES).inc()
@@ -105,6 +113,8 @@ def save_tree(tree, directory: str, step: int, extra_meta: dict | None = None,
     meta = {"step": int(step), "time": time.time()}
     meta.update(extra_meta or {})
     meta["checksums"] = _leaf_checksums(host)
+    if manifest is not None:
+        meta[MANIFEST_KEY] = manifest
 
     def write():
         from repro_torch.core import faults
@@ -226,12 +236,14 @@ class CheckpointManager:
             self._thread = None
 
     def maybe_save(self, step: int, tree, extra_meta: dict | None = None,
-                   force: bool = False, pin: bool = False) -> bool:
+                   force: bool = False, manifest: dict | None = None,
+                   pin: bool = False) -> bool:
         if not force and (self.every <= 0 or step % self.every != 0):
             return False
         self.wait()
         self._thread = save_tree(tree, self.directory, step, extra_meta,
-                                 background=self.async_write, pin=pin)
+                                 background=self.async_write,
+                                 manifest=manifest, pin=pin)
         self._gc()
         return True
 

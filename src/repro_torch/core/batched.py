@@ -55,11 +55,18 @@ order: a bucket run in chunks (stacked calls of other lengths) gives the
 bits of one call at the CPU tests' shapes, and is held to the engines'
 oracle on the card (``chip_smoke.py``, ``engines``).
 
+4.  **Sensitivity sweep** (:func:`evaluate_layer_batch`): the bit
+    allocator's (:mod:`repro_torch.core.allocate`) proxy error
+    ``tr(E^T H E)``, ``E = W - Q - A B^T``, of every ``(site,
+    candidate)`` task, planned with ``for_eval=True`` (every task's Gram
+    weights its error, data-free methods included) and run a bucket chunk
+    at a time, one stacked call each (:func:`run_bucket_eval`).
+
 Not ported yet (``ROADMAP.md``): the mesh (``mesh=``), the cost model
-(``cost_model=``), the compile cache (``compile_cache=``) and the
-sensitivity sweep (``evaluate_layer_batch``); asking for them raises
-``NotImplementedError``.  The reference has no chunks: it sends a bucket
-that would not fit to its sequential path through the cost model.
+(``cost_model=``) and the compile cache (``compile_cache=``); asking for
+them raises ``NotImplementedError``.  The reference has no chunks: it
+sends a bucket that would not fit to its sequential path through the cost
+model.
 """
 from __future__ import annotations
 
@@ -162,9 +169,13 @@ def task_site(t: LayerTask, qspec=None, method: str | None = None):
 
 
 def make_spec(m: int, n: int, qspec, method: str, has_gram: bool,
-              base: QuantConfig | None = None, *,
-              mesh=None) -> BucketSpec:
-    """Resolve all static/branching decisions for one (shape, method)."""
+              base: QuantConfig | None = None, *, mesh=None,
+              for_eval: bool = False) -> BucketSpec:
+    """Resolve all static/branching decisions for one (shape, method).
+    ``for_eval`` marks a sensitivity-sweep bucket
+    (:func:`evaluate_layer_batch`): the Gram is then routed into the
+    bucket whenever one exists, so every candidate's proxy error is
+    weighted by the same calibration data, data-free methods' too."""
     if mesh is not None:
         raise NotImplementedError(f"mesh= {_NOT_PORTED}")
     base = base or QuantConfig(bits=qspec.bits, group_size=qspec.group_size)
@@ -175,7 +186,7 @@ def make_spec(m: int, n: int, qspec, method: str, has_gram: bool,
         act_order=base.act_order, lambda_frac=base.lambda_frac,
         magr=(method == "cloq" and qspec.bits <= 4),
         magr_iters=base.magr_iters,
-        has_gram=has_gram and method in GRAM_METHODS)
+        has_gram=has_gram and (for_eval or method in GRAM_METHODS))
 
 
 def spec_qcfg(spec: BucketSpec) -> QuantConfig:
@@ -260,16 +271,25 @@ def quantize_single(W: Tensor, H: Tensor | None, key: int,
     return quantize_single_deq(W, H, key, spec)[0]
 
 
+def _proxy_error(W: Tensor, H: Tensor | None, leaves: dict, Qd: Tensor,
+                 has_gram: bool) -> Tensor:
+    """``tr(E^T H E)`` (``||E||_F^2`` without a Gram), ``E = W - Q - A
+    B^T``, in f32, of one site or of each slice of a stack (``(L,)``)."""
+    E = W.float() - Qd - leaves["lora_a"] @ leaves["lora_b"].mT
+    if has_gram:
+        return (E * (H.float() @ E)).sum((-2, -1))
+    return (E * E).sum((-2, -1))
+
+
 def eval_single(W: Tensor, H: Tensor | None, key: int,
                 spec: BucketSpec) -> Tensor:
     """Calibration-weighted proxy error of quantizing this site with
     ``spec``: ``tr(E^T H E)``, ``E = W - Q - A B^T`` (the unweighted
-    ``||E||_F^2`` when the spec carries no Gram)."""
+    ``||E||_F^2`` when the spec carries no Gram), from the same stack as
+    :func:`quantize_single_deq`, so it ranks what the engine would
+    produce."""
     leaves, Qd = quantize_single_deq(W, H, key, spec)
-    E = W.float() - Qd - leaves["lora_a"] @ leaves["lora_b"].mT
-    if spec.has_gram:
-        return torch.einsum("ij,ik,kj->", E, H.float(), E)
-    return (E * E).sum()
+    return _proxy_error(W, H, leaves, Qd, spec.has_gram)
 
 
 def run_bucket(Ws: Tensor, Hs: Tensor | None, keys: list[int],
@@ -279,6 +299,16 @@ def run_bucket(Ws: Tensor, Hs: Tensor | None, keys: list[int],
     the stacked leaves (leading dim ``L``)."""
     A0 = _random_a(keys, spec, Ws.device)
     return _quantize_core(Ws, Hs, A0, spec)[0]
+
+
+def run_bucket_eval(Ws: Tensor, Hs: Tensor | None, keys: list[int],
+                    spec: BucketSpec) -> Tensor:
+    """Sensitivity-sweep analog of :func:`run_bucket`: the ``(L,)`` proxy
+    errors of one bucket's stack in one stacked call, left on the
+    device."""
+    A0 = _random_a(keys, spec, Ws.device)
+    leaves, Qd = _quantize_core(Ws, Hs, A0, spec)
+    return _proxy_error(Ws, Hs, leaves, Qd, spec.has_gram)
 
 
 def run_bucket_sequential(Ws: Tensor, Hs: Tensor | None, keys: list[int],
@@ -300,11 +330,12 @@ def requeue_spec(spec: BucketSpec) -> BucketSpec:
 
 def plan_buckets(tasks: list[LayerTask], qspec=None,
                  method: str | None = None, base: QuantConfig | None = None,
-                 *, mesh=None,
+                 *, mesh=None, for_eval: bool = False,
                  cost_model=None) -> dict[BucketSpec, list[int]]:
     """Group task indices by bucket signature (insertion-ordered).  Tasks
     carrying a resolved ``site`` bucket by their own spec; the rest by the
-    global ``(qspec, method)``.  Raises ``ValueError`` when a
+    global ``(qspec, method)``.  ``for_eval`` plans sensitivity-sweep
+    buckets (:func:`make_spec`).  Raises ``ValueError`` when a
     Gram-consuming method has no Gram."""
     if cost_model is not None:
         raise NotImplementedError(f"cost_model= {_NOT_PORTED}")
@@ -317,7 +348,8 @@ def plan_buckets(tasks: list[LayerTask], qspec=None,
             raise ValueError(
                 f"method {t_method!r} needs a calibration Gram for {t.path}"
                 f"{'' if t.expert is None else f'[expert {t.expert}]'}")
-        spec = make_spec(m, n, t_qspec, t_method, has_gram, base, mesh=mesh)
+        spec = make_spec(m, n, t_qspec, t_method, has_gram, base, mesh=mesh,
+                         for_eval=for_eval)
         buckets.setdefault(spec, []).append(i)
     return buckets
 
@@ -550,4 +582,56 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
         faults.maybe_kill("kill_between_buckets", b)
         if should_stop is not None and should_stop():
             raise health.QuantPreempted(b)
+    return results
+
+
+def evaluate_layer_batch(tasks: list[LayerTask],
+                         base: QuantConfig | None = None,
+                         progress: Callable[[str], None] | None = None,
+                         *, mesh=None,
+                         chunk: int | None = None) -> list[float]:
+    """Proxy error ``tr(E^T H E)`` of every task, bucket by bucket: the
+    engine of the bit allocator's sensitivity sweep
+    (:mod:`repro_torch.core.allocate`).
+
+    Tasks carry their *candidate* spec in ``LayerTask.site``; the planner
+    (``for_eval=True``) groups them into ``(shape, candidate-spec)``
+    buckets, and each bucket runs in chunks of :func:`chunk_size` slices
+    (one chunk when it fits the card, always on the CPU; ``chunk`` forces
+    that many), one stacked :func:`run_bucket_eval` call each.  Every
+    chunk is sized before the first is dispatched, from the memory then
+    free: a chunk keeps only its ``(L,)`` errors, so each finds the room
+    the one before it had.  The errors stay on the device until every
+    chunk has been dispatched; the host waits once, at the end.
+    ``progress`` gets one ``[sweep]`` line a bucket, in the JAX twin's
+    format.  ``mesh=`` is not ported and raises.
+
+    Returns one Python float per task, in task order."""
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
+    buckets = plan_buckets(tasks, base=base, for_eval=True)
+    sizes = [chunk_size(spec, len(idxs), tasks[idxs[0]].W.device, chunk)
+             for spec, idxs in buckets.items()]
+    order: list[int] = []
+    errs: list[Tensor] = []
+    with torch.no_grad():
+        for b, (spec, idxs) in enumerate(buckets.items()):
+            if progress:
+                g = "col" if spec.group_size is None else spec.group_size
+                progress(_event(
+                    "sweep", i=b,
+                    spec=f"{spec.method}/{spec.bits}b/g{g}/r{spec.rank}",
+                    shape=f"{spec.m}x{spec.n}", candidates=len(idxs),
+                    path=("sharded" if spec.n_shards > 1 else "replicated"),
+                    shards=spec.n_shards))
+            for pos in range(0, len(idxs), sizes[b]):
+                cidxs = idxs[pos:pos + sizes[b]]
+                errs.append(run_bucket_eval(
+                    *_stage_bucket(tasks, cidxs, spec), spec))
+                order.extend(cidxs)
+    results: list[float] = [0.0] * len(tasks)
+    if errs:
+        host = torch.cat([e.reshape(-1) for e in errs]).tolist()
+        for i, e in zip(order, host):
+            results[i] = e
     return results

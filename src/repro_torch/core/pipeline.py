@@ -41,9 +41,15 @@ and heal a failing one through the same single-site core in both, so a
 healed site is bit-identical across engines.  ``journal_dir=`` makes a
 batched run resumable at bucket boundaries.
 
+Bit allocation (:func:`allocate_plan`, :func:`allocate_recipe`) derives
+the recipe from a byte budget through :mod:`repro_torch.core.allocate`.
+The abstract functions (:func:`quantization_manifest`,
+:func:`recipe_plan_bytes`, :func:`quantized_param_shapes`) plan from the
+config's shapes alone, on the meta device: no weights, no calibration.
+
 Not ported yet (``ROADMAP.md``): the mesh, the cost model, the compile
-cache, bit allocation, the quantization manifests, and cross-attention
-sites; asking for them raises ``NotImplementedError``.
+cache, and cross-attention sites; asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,7 +61,8 @@ from typing import Callable, Iterable
 import torch
 
 from repro_torch.core import faults, health
-from repro_torch.core.batched import (LayerTask, make_spec,
+from repro_torch.core.batched import (GRAM_METHODS, LayerTask, make_spec,
+                                      plan_buckets, plan_manifest,
                                       quantize_layer_batch, quantize_single,
                                       task_key)
 from repro_torch.core.cloq import cloq_site_lora
@@ -74,6 +81,10 @@ Tensor = torch.Tensor
 
 # param paths NOT quantized even though they hold a 2-D "w"
 _SKIP_SUFFIXES = ("embed.w", "head.w", "router.w")
+
+# containers stacked over layers when scan_layers (the JAX twin's
+# encoder-decoder ones are not ported)
+_STACK_KEYS = ("blocks",)
 
 _NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
 
@@ -183,13 +194,19 @@ def _scope_for(lin_path: str) -> str:
     return lin_path
 
 
-def _shared_site_grams(store: GramStore, lin_path: str):
-    """(the site Gram keys ``sites.<s>.shared.<mod>.<lin>`` in site order,
-    their pooled sum through the fault hook at ``lin_path``)."""
+def _shared_site_keys(store: GramStore, lin_path: str) -> list[str]:
+    """The site Gram keys ``sites.<s>.shared.<mod>.<lin>`` of a shared
+    linear, in site order."""
     suffix = "." + _scope_for(lin_path)
-    site_paths = sorted((k for k in store.grams
-                         if k.startswith("sites.") and k.endswith(suffix)),
-                        key=lambda k: int(k.split(".")[1]))
+    return sorted((k for k in store.grams
+                   if k.startswith("sites.") and k.endswith(suffix)),
+                  key=lambda k: int(k.split(".")[1]))
+
+
+def _shared_site_grams(store: GramStore, lin_path: str):
+    """(the site Gram keys in site order, their pooled sum through the
+    fault hook at ``lin_path``)."""
+    site_paths = _shared_site_keys(store, lin_path)
     pooled = None
     for sp in site_paths:
         g = store.grams[sp]
@@ -548,3 +565,263 @@ def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
     if cfg.scan_layers:
         new_params = to_scan_params(new_params, cfg)
     return new_params, new_cfg, store
+
+
+# ---------------------------------------------------------------------------
+# Calibrated bit allocation: derive the recipe from a byte budget
+# (repro_torch.core.allocate: sensitivity sweep + budget solver).
+# ---------------------------------------------------------------------------
+
+
+def _allocation_meta(eparams: dict, store: GramStore
+                     ) -> dict[str, tuple[int, int, int, int]]:
+    """Each site's geometry for the allocator's byte accounting: ``{path:
+    (m, n, experts, lora_sites)}``.  A stacked MoE weight multiplies
+    everything by E; a weight-shared linear keeps one base and an adapter
+    pair a recorded call site."""
+    meta: dict[str, tuple[int, int, int, int]] = {}
+    for lin_path in quantizable_linear_paths(eparams):
+        W = get_path(eparams, lin_path)["w"]
+        if W.dim() == 3:
+            E, m, n = W.shape
+            meta[lin_path] = (m, n, E, 1)
+        elif lin_path.startswith("shared.block."):
+            m, n = W.shape
+            meta[lin_path] = (m, n, 1,
+                              len(_shared_site_keys(store, lin_path)))
+        else:
+            m, n = W.shape
+            meta[lin_path] = (m, n, 1, 1)
+    return meta
+
+
+def allocate_plan(params: dict, cfg: ModelConfig, calib, budget_bytes: int,
+                  *, grid=None, qspec: QSpec | None = None,
+                  include_skip: bool = False, seed: int = 0,
+                  mesh=None, progress: Callable[[str], None] | None = None):
+    """Solve for a mixed-precision plan under a byte budget.
+
+    Stage 1 sweeps every quantization site over the candidate ``grid``
+    (``(method, bits, rank)`` tuples; ``allocate.default_grid()`` when
+    ``None``) through the batched engine's sweep, stage 2 picks one
+    candidate a site (a scan-uniform group) minimizing the total proxy
+    error with exact serialized bytes <= ``budget_bytes``.
+
+    ``calib``: calibration batches, or a filled :class:`GramStore` to
+    reuse.  ``qspec``: the base the candidates take ``group_size`` and
+    ``split`` from (default ``cfg.quant``).  ``include_skip`` adds the
+    leave-dense candidate.  ``mesh=`` is not ported and raises.
+
+    Returns a :class:`repro_torch.core.allocate.Allocation`; its
+    ``.recipe`` is ready for ``quantize_model(recipe=...)``."""
+    from repro_torch.core import allocate
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
+    base = qspec or cfg.quant or QSpec()
+    eparams = to_eager_params(params, cfg)
+    store = (calib if isinstance(calib, GramStore) else run_calibration(
+        eparams, dataclasses.replace(cfg, scan_layers=False), calib))
+    # every site takes part in the sweep: a zero-rule recipe (the
+    # candidates' specs replace it task by task)
+    sites = QuantRecipe.single(base.method or "cloq", base).resolve(
+        quantizable_linear_paths(eparams))
+    tasks, _ = _gather_tasks(eparams, store, sites, seed)
+    scan_containers = _STACK_KEYS if cfg.scan_layers else ()
+    return allocate.build_allocation(
+        tasks, _allocation_meta(eparams, store), budget_bytes, base, grid,
+        cfg.dtype, scan_containers=scan_containers,
+        include_skip=include_skip, progress=progress)
+
+
+def allocate_recipe(params: dict, cfg: ModelConfig, calib,
+                    budget_bytes: int, *, grid=None,
+                    qspec: QSpec | None = None,
+                    include_skip: bool = False, seed: int = 0,
+                    mesh=None,
+                    progress: Callable[[str], None] | None = None
+                    ) -> QuantRecipe:
+    """The :class:`QuantRecipe` of :func:`allocate_plan`."""
+    return allocate_plan(params, cfg, calib, budget_bytes, grid=grid,
+                         qspec=qspec, include_skip=include_skip, seed=seed,
+                         mesh=mesh, progress=progress).recipe
+
+
+# ---------------------------------------------------------------------------
+# Abstract quantized parameter shapes and the bucket manifest: planned from
+# the config's shapes on the meta device (nothing allocated, no compute).
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _abstract_eager_shapes(cfg: ModelConfig) -> dict:
+    """The dense eager param tree as meta tensors (shapes and dtypes of
+    ``init_params``, nothing allocated)."""
+    from repro_torch.models.transformer import init_params
+    return init_params(dataclasses.replace(cfg, scan_layers=False),
+                       device="meta")
+
+
+def _abstract_tasks(eshapes: dict,
+                    sites: dict[str, SiteSpec]) -> list[LayerTask]:
+    """The quantization sites of an abstract tree as meta-tensor
+    :class:`LayerTask`s with their resolved specs, discovered and ordered
+    as :func:`_gather_tasks` does (skipped sites give no task), so the
+    planner gives the real engine's buckets (it reads only ``W.shape``,
+    whether there is an ``H``, and the site spec)."""
+    tasks: list[LayerTask] = []
+    for lin_path in quantizable_linear_paths(eshapes):
+        site = sites[lin_path]
+        if site.skip:
+            continue
+        W = get_path(eshapes, lin_path)["w"]
+        has_gram = site.method in GRAM_METHODS
+        E, (m, n) = (None, W.shape) if W.dim() == 2 else (W.shape[0],
+                                                          W.shape[1:])
+        H = _meta((m, m), torch.float32) if has_gram else None
+        for e in ([None] if E is None else range(E)):
+            tasks.append(LayerTask(lin_path, e, _meta((m, n), torch.float32),
+                                   H, 0, site=site))
+    return tasks
+
+
+def quantization_manifest(cfg: ModelConfig, method: str | None = None,
+                          qspec: QSpec | None = None, *,
+                          recipe: QuantRecipe | None = None, mesh=None,
+                          shard_axis: str = "model", cost_model=None,
+                          _eshapes: dict | None = None) -> dict:
+    """Bucket manifest of a ``quantize_model`` run, from abstract shapes
+    alone: the batched engine's planner (``batched.plan_buckets``) over
+    meta-tensor tasks, serialized (``batched.plan_manifest``: every
+    bucket's spec and its tasks), plus
+
+    * ``recipe``: the serialized :class:`QuantRecipe`;
+    * ``site_lora``: one entry a weight-shared linear (name, ``n``,
+      method), for the per-site adapter stacks;
+    * ``stacked``: the containers stacked over layers, when
+      ``cfg.scan_layers``.
+
+    The legacy ``(method, qspec)`` pair is taken as a zero-rule recipe.
+    JSON-equal to the JAX twin's for the same ``(cfg, recipe)``.  Hand it
+    to ``checkpoint.save_tree(..., manifest=)``.  ``mesh=`` and
+    ``cost_model=`` are not ported and raise."""
+    for name, value in (("mesh", mesh), ("cost_model", cost_model)):
+        if value is not None:
+            raise NotImplementedError(f"{name}= {_NOT_PORTED}")
+    if recipe is None:
+        recipe = QuantRecipe.single(method or "cloq",
+                                    qspec or cfg.quant or QSpec())
+    elif method is not None or qspec is not None:
+        raise ValueError("quantization_manifest: pass either recipe= or "
+                         "the legacy (method, qspec) pair, not both")
+    eshapes = _abstract_eager_shapes(cfg) if _eshapes is None else _eshapes
+    sites = recipe.resolve(quantizable_linear_paths(eshapes))
+    _check_scan_uniform(sites, cfg)
+    tasks = _abstract_tasks(eshapes, sites)
+    manifest = plan_manifest(tasks, plan_buckets(tasks), axis=shard_axis)
+    manifest["recipe"] = recipe.to_dict()
+    manifest["site_lora"] = [
+        {"name": p[len("shared.block."):].replace(".", "_"),
+         "n": int(get_path(eshapes, p)["w"].shape[-1]),
+         "method": s.method}
+        for p, s in sites.items()
+        if p.startswith("shared.block.") and not s.skip]
+    if cfg.scan_layers:
+        manifest["stacked"] = [k for k in _STACK_KEYS if k in eshapes]
+    return manifest
+
+
+def recipe_plan_bytes(cfg: ModelConfig, recipe: QuantRecipe) -> int:
+    """Exact serialized bytes of all quantization sites under ``recipe``,
+    from abstract shapes alone (``allocate.site_bytes`` over a whole
+    plan; a skipped site counts its dense weight)."""
+    from repro_torch.core.allocate import site_bytes
+    eshapes = _abstract_eager_shapes(cfg)
+    sites = recipe.resolve(quantizable_linear_paths(eshapes))
+    site_lora = eshapes.get("shared", {}).get("site_lora", {})
+    total = 0
+    for lin_path, site in sites.items():
+        W = get_path(eshapes, lin_path)["w"]
+        experts, (m, n) = (1, W.shape) if W.dim() == 2 else \
+            (W.shape[0], W.shape[1:])
+        lora_sites = 1
+        if lin_path.startswith("shared.block."):
+            name = lin_path[len("shared.block."):].replace(".", "_")
+            lora_sites = (site_lora[name]["lora_a"].shape[0]
+                          if name in site_lora else 0)
+        total += site_bytes(m, n, site, cfg.dtype, experts, lora_sites)
+    return total
+
+
+def _quant_leaf_shapes(m: int, n: int, qspec: QSpec, dtype,
+                       lead: tuple = (), method: str = "cloq") -> dict:
+    """One site's quantized leaves as meta tensors (``lead``: a stacked
+    site's leading dims)."""
+    g = m if qspec.group_size is None else qspec.group_size
+    bits = 4 if method == "qlora" else qspec.bits       # NF4 is always 4-bit
+    mp = m * bits // 8 if bits in (2, 4) else m
+    out = {"qcodes": _meta(lead + (mp, n), torch.uint8),
+           "lora_a": _meta(lead + (m, qspec.rank), dtype),
+           "lora_b": _meta(lead + (n, qspec.rank), dtype)}
+    if method == "qlora":
+        out["absmax"] = _meta(lead + (m // g, n), torch.float32)
+    else:
+        out["scales"] = _meta(lead + (m // g, n), torch.float32)
+        out["zeros"] = _meta(lead + (m // g, n), torch.float32)
+    return out
+
+
+def quantized_param_shapes(cfg: ModelConfig, *, method: str | None = None,
+                           recipe: QuantRecipe | None = None,
+                           mesh=None, shard_axis: str = "model",
+                           with_manifest: bool = False):
+    """The post-quantization param tree as meta tensors, in the port's
+    layout (what ``quantize_model`` returns for ``cfg``), built without
+    calibration or allocation.  Each site's leaves follow its resolved
+    ``(bits, group_size, rank)``; a skipped site keeps its dense ``w``; a
+    weight-shared block's ``shared.site_lora`` stacks take the resolved
+    rank.  Without ``recipe``, ``cfg.quant`` (+ ``method``) is the
+    zero-rule recipe.  ``with_manifest=True`` returns ``(shapes,
+    manifest)``, the manifest :func:`quantization_manifest`'s on the same
+    shapes.  ``mesh=`` is not ported and raises."""
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
+    if recipe is None:
+        assert cfg.quant is not None, "cfg.quant must be set"
+        recipe = QuantRecipe.single(method or "cloq", cfg.quant)
+    shapes = _abstract_eager_shapes(cfg)
+    sites = recipe.resolve(quantizable_linear_paths(shapes))
+    _check_scan_uniform(sites, cfg)
+    manifest = (quantization_manifest(cfg, recipe=recipe,
+                                      shard_axis=shard_axis, _eshapes=shapes)
+                if with_manifest else None)
+    for lin_path, site in sites.items():
+        if site.skip:
+            continue                         # dense w stays in place
+        qspec = site.qspec
+        lin = dict(get_path(shapes, lin_path))
+        W = lin.pop("w")
+        lead, (m, n) = ((), W.shape) if W.dim() == 2 else \
+            ((W.shape[0],), W.shape[1:])
+        newlin = _quant_leaf_shapes(m, n, qspec, cfg.dtype, lead,
+                                    site.method)
+        if lin_path.startswith("shared.block."):
+            newlin.pop("lora_a")
+            newlin.pop("lora_b")
+            # the per-site adapter stacks take the resolved rank
+            name = lin_path[len("shared.block."):].replace(".", "_")
+            site_lora = get_path(shapes, "shared.site_lora")
+            if name in site_lora:
+                S = site_lora[name]["lora_a"].shape[0]
+                site_lora[name] = {
+                    "lora_a": _meta((S, m, qspec.rank), cfg.dtype),
+                    "lora_b": _meta((S, n, qspec.rank), cfg.dtype)}
+        lin.update(newlin)
+        set_path(shapes, lin_path, lin)
+    if cfg.scan_layers:
+        shapes = to_scan_params(shapes, cfg)    # stacks meta tensors
+    if with_manifest:
+        return shapes, manifest
+    return shapes

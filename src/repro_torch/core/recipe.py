@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
+import hashlib
 import json
 import re
 
@@ -118,9 +119,35 @@ class QuantRecipe:
                    method=d.get("method", "cloq"), qspec=qspec)
 
 
+def canonical_digest(obj) -> str:
+    """sha1 hex digest of an object's canonical JSON form (sorted keys,
+    compact separators, ``default=str``): the same bytes, so the same
+    digest, as the JAX package's ``compile_cache.canonical_digest``."""
+    blob = json.dumps(obj, sort_keys=True, default=str,
+                      separators=(",", ":"))
+    return hashlib.sha1(blob.encode()).hexdigest()
+
+
+def plan_fingerprint(plan: dict) -> str:
+    """Canonical sha1 of a serialized plan: a recipe dict or a bucket
+    manifest (``pipeline.quantization_manifest``).  Key order does not
+    matter:
+
+    >>> a = plan_fingerprint({"buckets": [], "axis": "model"})
+    >>> a == plan_fingerprint({"axis": "model", "buckets": []})
+    True
+    >>> len(a)
+    40
+    """
+    return canonical_digest(plan)
+
+
 def load_plan(path: str) -> QuantRecipe:
     """Load a :class:`QuantRecipe` from either a recipe JSON or a bucket
-    manifest JSON that embeds one (under ``"recipe"``)."""
+    manifest JSON that embeds one (under ``"recipe"``).  A checkpoint's
+    ``meta.json`` is neither: its manifest sits under ``"bucket_manifest"``
+    and it has no ``"rules"``, so it loads as the default recipe, as in the
+    JAX package (``ROADMAP.md``)."""
     with open(path) as f:
         d = json.load(f)
     if "buckets" in d:

@@ -36,9 +36,18 @@ newest step there.  With ``--resume-quant DIR`` every finished bucket of
 the quantization is journaled in DIR (and the health report saved as
 DIR/health.json); SIGTERM or SIGINT during quantization stops it at the
 next bucket boundary with exit code 0, and a rerun with the same DIR
-restores the committed buckets bit-identical.  Bit allocation, the compile
-cache, the cost model and tracing are not ported yet (``ROADMAP.md``);
-their flags raise.
+restores the committed buckets bit-identical.
+
+With ``--auto-allocate --budget-mb B`` the recipe is derived instead:
+the model is calibrated, every site swept over ``--bits`` in {2, 3, 4} x
+``--rank`` in {0, 16, 64} of ``--method`` through the batched engine, and
+the budget solver picks each site group's candidate under ``B`` MiB of
+quantized sites (``repro_torch.core.allocate``; the plan's summary is
+printed); quantization then calibrates again on the same batches, as the
+JAX CLI does.  Every checkpoint of a quantized run carries the bucket
+manifest of its recipe (``pipeline.quantization_manifest``) in
+``meta.json``.  The compile cache, the cost model and tracing are not
+ported yet (``ROADMAP.md``); their flags raise.
 """
 from __future__ import annotations
 
@@ -56,7 +65,9 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.health import HealthReport, QuantPreempted
-from repro_torch.core.pipeline import quantize_model
+from repro_torch.core.allocate import default_grid
+from repro_torch.core.pipeline import (allocate_plan, quantization_manifest,
+                                       quantize_model)
 from repro_torch.core.recipe import QuantRecipe, load_plan
 from repro_torch.data import DataConfig, TokenStream
 from repro_torch.launch.steps import build_state, make_train_step
@@ -69,8 +80,8 @@ from repro_torch.optim import OptConfig, merge_params
 from repro_torch.utils import resolve_device
 
 # flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"compile_cache": "", "cost_cal": "", "auto_allocate": False,
-               "budget_mb": 0.0, "trace_out": "", "metrics_out": ""}
+_NOT_PORTED = {"compile_cache": "", "cost_cal": "", "trace_out": "",
+               "metrics_out": ""}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -107,11 +118,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume-quant", default="", metavar="DIR",
                    help="journal the quantization's buckets in DIR and "
                         "resume from the ones committed there")
+    p.add_argument("--auto-allocate", action="store_true",
+                   help="derive the recipe: sensitivity sweep + budget "
+                        "solver under --budget-mb")
+    p.add_argument("--budget-mb", type=float, default=0.0,
+                   help="byte budget (MiB) of the quantized sites for "
+                        "--auto-allocate")
     # JAX CLI flags of subsystems not ported yet (rejected unless default)
     p.add_argument("--compile-cache", default="")
     p.add_argument("--cost-cal", default="")
-    p.add_argument("--auto-allocate", action="store_true")
-    p.add_argument("--budget-mb", type=float, default=0.0)
     p.add_argument("--trace-out", default="")
     p.add_argument("--metrics-out", default="")
     return p
@@ -122,9 +137,21 @@ def _check_ported(args) -> None:
              if getattr(args, k) != default]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: bit allocation, the compile cache, the "
-            "cost model and tracing are not ported to repro_torch yet (see "
-            "ROADMAP.md)")
+            f"{', '.join(given)}: the compile cache, the cost model and "
+            "tracing are not ported to repro_torch yet (see ROADMAP.md)")
+
+
+def _check_allocation_flags(args) -> None:
+    """The JAX CLI's checks of ``--auto-allocate``/``--budget-mb``."""
+    if args.auto_allocate and args.recipe:
+        raise SystemExit("--auto-allocate derives the recipe; it conflicts "
+                         "with an explicit --recipe")
+    if args.auto_allocate and args.method == "none":
+        raise SystemExit("--auto-allocate conflicts with --method none")
+    if args.budget_mb and not args.auto_allocate:
+        raise SystemExit("--budget-mb only applies with --auto-allocate")
+    if args.auto_allocate and args.budget_mb <= 0:
+        raise SystemExit("--auto-allocate needs --budget-mb > 0")
 
 
 def _sync(device: torch.device) -> None:
@@ -141,8 +168,9 @@ def _log(event: str, **kv) -> None:
 def run(args, cfg=None) -> dict:
     """Build, quantize and fine-tune as the CLI does.  ``cfg`` overrides the
     config chosen from ``--arch``/``--smoke`` (e.g. a depth-cut one).
-    Returns the final ``state`` and ``cfg``, ``quantize_s``, the
-    quantization's ``health`` report (None with ``--method none``), the
+    Returns the final ``state`` and ``cfg``, ``quantize_s``, with
+    ``--auto-allocate`` the ``allocation`` and ``allocate_s`` (else None
+    and 0), the quantization's ``health`` report (None with ``--method none``), the
     first step run (``start_step``: > 0 after a resume), per step run
     ``losses``, ``grad_norms`` and ``step_s``, the newest saved step
     (``ckpt_step``, None without ``--ckpt-dir``) and whether a signal
@@ -169,6 +197,7 @@ def run(args, cfg=None) -> dict:
 
 def _run(args, cfg, stop: dict) -> dict:
     _check_ported(args)
+    _check_allocation_flags(args)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = (get_smoke_config(args.arch) if args.smoke
@@ -193,15 +222,33 @@ def _run(args, cfg, stop: dict) -> dict:
     recipe = None
     if args.recipe:
         recipe = load_plan(args.recipe)
-    elif args.method != "none":
+    elif args.method != "none" and not args.auto_allocate:
         recipe = QuantRecipe.single(
             args.method, QSpec(bits=args.bits, group_size=group_size,
                                rank=args.rank, method=args.method,
                                split=args.split))
-    quantize_s = 0.0
-    report = None
-    if recipe is not None:
+    calib, alloc, allocate_s = None, None, 0.0
+    if args.auto_allocate:
+        base = QSpec(bits=args.bits, group_size=group_size, rank=args.rank,
+                     method=args.method, split=args.split)
         calib = [stream.next_batch() for _ in range(args.calib_batches)]
+        _sync(device)
+        t0 = time.perf_counter()
+        # the candidate bits x ranks of the CLI's method
+        alloc = allocate_plan(params, cfg, calib,
+                              int(args.budget_mb * 2**20),
+                              grid=default_grid(methods=(args.method,)),
+                              qspec=base)
+        _sync(device)
+        allocate_s = time.perf_counter() - t0
+        _log("allocate", s=allocate_s)
+        print(alloc.summary(), flush=True)
+        recipe = alloc.recipe
+    quantize_s = 0.0
+    report = manifest = None
+    if recipe is not None:
+        if calib is None:
+            calib = [stream.next_batch() for _ in range(args.calib_batches)]
         journal_dir = args.resume_quant or None
         report = HealthReport()
         _sync(device)
@@ -216,6 +263,7 @@ def _run(args, cfg, stop: dict) -> dict:
                   f"committed to {journal_dir}; rerun with the same "
                   "--resume-quant to continue", flush=True)
             return {"cfg": cfg, "state": None, "quantize_s": 0.0,
+                    "allocation": alloc, "allocate_s": allocate_s,
                     "health": report, "start_step": 0, "losses": [],
                     "grad_norms": [], "step_s": [], "preempted": True,
                     "ckpt_step": None}
@@ -224,6 +272,8 @@ def _run(args, cfg, stop: dict) -> dict:
         _log("quantize", rules=len(recipe.rules),
              default=f"{recipe.method}/{recipe.qspec.bits}b", s=quantize_s)
         print(f"[quantize] {report.summary()}", flush=True)
+        # checkpoints carry the plan they were quantized with
+        manifest = quantization_manifest(cfg, recipe=recipe)
         if device.type == "cuda":
             cfg = dataclasses.replace(cfg, quant=dataclasses.replace(
                 cfg.quant, use_kernel=True))
@@ -249,7 +299,7 @@ def _run(args, cfg, stop: dict) -> dict:
 
     def save(step: int, **kw) -> None:
         ckpt.maybe_save(step, state, {"data": stream.state_dict(),
-                                      "step": step}, **kw)
+                                      "step": step}, manifest=manifest, **kw)
 
     step_hist = obs_metrics.histogram(obs_names.TRAIN_STEP_TIME)
     step_count = obs_metrics.counter(obs_names.TRAIN_STEPS)
@@ -289,6 +339,7 @@ def _run(args, cfg, stop: dict) -> dict:
     if ckpt is not None:
         ckpt.wait()
     return {"cfg": cfg, "state": state, "quantize_s": quantize_s,
+            "allocation": alloc, "allocate_s": allocate_s,
             "health": report, "start_step": start_step, "losses": losses, "grad_norms": gnorms,
             "step_s": times, "preempted": preempted,
             "ckpt_step": None if ckpt is None else ckpt.latest_step()}

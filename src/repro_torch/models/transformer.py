@@ -212,10 +212,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device: str | torch.device | None = None) -> dict:
     """Random params with the JAX package's shapes, dtypes and scales, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA
-    unless given).  The draws differ from ``jax.random``'s."""
+    unless given).  The draws differ from ``jax.random``'s.  On the
+    ``"meta"`` device the tree holds shapes and dtypes only: nothing is
+    allocated or drawn (the generator, which the meta device cannot hold,
+    stays on the CPU unused)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     vp = cfg.vocab_padded
     p: dict = {"embed": embedding_init(gen, vp, cfg.d_model, cfg.dtype, dev),

@@ -27,6 +27,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.obs import metrics as t_metrics
 from repro_torch.obs import names as t_names
 from repro_torch.utils import tree_paths
+from tests import torch_parity  # noqa: F401  (sets torch's threads)
 
 
 def _numpy_tree(seed=0):

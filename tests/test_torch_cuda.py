@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.core.quantizer import pack_codes, quantize_int
 from repro_torch.kernels import ops, ref
+# sets torch's threads; imported from the tests' own directory, which
+# pytest puts on sys.path: on the card's machine another package may be
+# the importable ``tests``
+import torch_parity  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -914,3 +918,61 @@ def test_captured_mamba_decode_gives_the_eager_bits(cuda):
                 assert torch.equal(graph_cache[k], eager_cache[k]), k
     assert step.graph is not None and step.launches["dequant_matmul"] == 5
     assert bool(eager_cache["state"].abs().sum() > 0)
+
+
+# -- slice 10: the mixed-bit sites of an allocated plan -----------------------
+
+
+@pytest.mark.parametrize("rank", [0, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [4, 1024])
+def test_three_bit_site_one_code_a_byte(cuda, rank, dtype, M):
+    """A 3-bit site, its codes stored one a byte (the kernels' 8-bit
+    layout, as ``linear_apply`` reads it), at rank 0 and 64:
+    ``dequant_matmul`` (decode rows) and ``dequant_matmul_lora`` (any
+    rows) against their plain versions, the weights at the other LoRA
+    cases' scale (the plain version rounds them to bf16 once dequantized:
+    at unit scale that alone moves small outputs past 2e-2)."""
+    from repro_torch.models.modules import packed_bits
+    K, N, g = 2048, 1024, 64
+    x, packed, s, z, a, b = _lora_case(cuda, M, K, N, g, 3, rank, dtype)
+    assert packed.shape == (K, N) and int(packed.max()) <= 7
+    assert packed_bits(packed.shape[0], K) == 8
+    y = ops.dequant_matmul(x, packed, s, z, bits=8, group_size=g)
+    yl = ops.dequant_matmul_lora(x, packed, s, z, a, b, bits=8, group_size=g)
+    torch.cuda.synchronize()
+    _close(y, ref.dequant_matmul_ref(x, packed, s, z, bits=8, group_size=g),
+           **_tol(dtype))
+    _close(yl, ref.dequant_matmul_lora_ref(x, packed, s, z, a, b, bits=8,
+                                           group_size=g), **_tol(dtype))
+
+
+def test_evaluate_layer_batch_on_the_card_matches_the_cpu(cuda):
+    """The sensitivity sweep's proxy errors of the same tasks (every
+    method, 2-4 bits, ranks 0 and 8) on the card and on the CPU, within
+    1e-3 relative, the calibrated objective's limit of the engines'
+    oracle; the random ``A`` of gptq, qlora and rtn meets ``B = 0``."""
+    from repro_torch.core import batched as tb
+    from repro_torch.core.recipe import SiteSpec
+    from repro_torch.models.modules import QSpec
+    rng = np.random.default_rng(0)
+    m, n = 128, 96
+    cpu, card = [], []
+    for method, bits, rank in (("cloq", 2, 8), ("cloq", 3, 0),
+                               ("gptq", 4, 8), ("loftq", 2, 8),
+                               ("qlora", 4, 8), ("rtn", 3, 0)):
+        spec = SiteSpec(method, QSpec(bits=bits, group_size=32, rank=rank,
+                                      method=method))
+        for _ in range(3):
+            W = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+            X = rng.normal(size=(512, m)).astype(np.float32)
+            H = torch.from_numpy(X.T @ X)
+            key = tb.task_key(0, len(cpu))
+            cpu.append(tb.LayerTask(f"{method}{len(cpu)}", None, W, H, key,
+                                    site=spec))
+            card.append(tb.LayerTask(cpu[-1].path, None, W.to(cuda),
+                                     H.to(cuda), key, site=spec))
+    want = tb.evaluate_layer_batch(cpu)
+    got = tb.evaluate_layer_batch(card)
+    for t, a, b in zip(cpu, got, want):
+        assert abs(a - b) <= 1e-3 * abs(b), (t.path, a, b)

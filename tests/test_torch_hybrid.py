@@ -251,6 +251,52 @@ def test_quantize_hybrid_model_matches_jax(oracle, engine):
         assert _rel_fro(got[0], got[1]) > 1e-2, lin
 
 
+def test_site_order_from_eleven_sites_on():
+    """12 shared-block sites (12 Mamba layers, the block after each): the
+    port's stacked adapter at index ``s`` is ``cloq_init`` against site
+    ``s``'s own (regularized) Gram with the shared residual, as ``A @
+    B^T``; the JAX package stacks its sites in the string order of their
+    keys (``sites.10`` before ``sites.2``), and its stack reordered to
+    number order matches the port's within the hybrid tests' 1e-3."""
+    cfg_j, cfg_t = (dataclasses.replace(c, n_layers=12, hybrid_attn_every=1)
+                    for c in _oracle_cfgs())
+    assert cfg_t.n_hybrid_sites == 12
+    from repro_torch.data import DataConfig as TDC
+    from repro_torch.data import TokenStream as TTS
+    pj = jt.init_params(jax.random.PRNGKey(0), cfg_j)
+    pt = port_params(pj, cfg_t)
+    calib = [TTS(TDC(vocab=128, seq_len=32, global_batch=2,
+                     seed=3)).next_batch()]
+    recipe = dict(bits=4, group_size=16, rank=8)
+    qt, qcfg, store = tp.quantize_model(
+        pt, cfg_t, calib, recipe=TRecipe.single("cloq", TQSpec(**recipe)))
+    qj, qcfg_j, _ = jp.quantize_model(
+        pj, cfg_j, [{k: v.numpy() for k, v in calib[0].items()}],
+        recipe=JRecipe.single("cloq", JQSpec(**recipe)))
+    lt = tpaths(tp.to_eager_params(qt, qcfg))
+    lj = jpaths(jax_to_numpy(jp.to_eager_params(qj, qcfg_j)))
+    string_order = [int(k) for k in sorted(str(s) for s in range(12))]
+    assert string_order[:4] == [0, 1, 10, 11]
+    W0 = tpaths(pt)
+    for lin in ("attn.q", "mlp.down"):
+        got = _site_prods(lt, lin)
+        node = {k: lt[f"shared.block.{lin}.{k}"]
+                for k in ("qcodes", "scales", "zeros")}
+        m = W0[f"shared.block.{lin}.w"].shape[0]
+        dW = W0[f"shared.block.{lin}.w"].float() - \
+            tp._shared_base_dequant(node, m, TQSpec(**recipe))
+        for s in range(12):
+            H = store.grams[f"sites.{s}.shared.{lin}"]
+            A, B = tcloq.cloq_init(tcloq.regularize_gram(H), dW, 8)
+            assert _rel_fro(got[s], to_np(A @ B.T)) <= REL, (lin, s)
+        want = _site_prods(lj, lin)
+        reordered = np.empty_like(want)
+        reordered[string_order] = want
+        for s in range(12):
+            assert _rel_fro(got[s], reordered[s]) <= REL, (lin, s)
+        assert _rel_fro(got[2], want[2]) > 1e-2, lin
+
+
 SITE = "sites.0.shared.attn.q"
 
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build, ops
+from tests import torch_parity  # noqa: F401  (sets torch's threads)
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "repro"}

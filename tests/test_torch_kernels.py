@@ -507,3 +507,32 @@ def test_fault_check_plants_the_gram_fault():
     assert "ks * WG_BK" in changed[0][0]
     with pytest.raises(ValueError):
         fc.plant_gram_fault(fault)
+
+
+def test_fault_check_plants_the_dequant_fault():
+    """chip_fault_check.py's planted decode fault (the zeros of half the
+    columns one off in the first K stage) finds its one line in
+    ``dequant_matmul.cu``, and the limit its logits cases are held to
+    grows with the calls a decode step makes and the logits' scale."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "chip_fault_check", root / "chip_fault_check.py")
+    fc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fc)
+    sound = (root / fc.DQ_KERNEL).read_text()
+    fault = fc.plant_dequant_fault(sound)
+    changed = [(a, b) for a, b in zip(sound.splitlines(), fault.splitlines())
+               if a != b]
+    assert len(changed) == 1 and fc.DQ_FAULT in changed[0][1]
+    assert fc.DQ_SOUND in changed[0][0]
+    with pytest.raises(ValueError):
+        fc.plant_dequant_fault(fault)
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    assert cs.logits_limit(5.0, 16) == pytest.approx(
+        cs.LOGIT_ATOL + cs.LOGIT_RTOL * 4 * 5.0)
+    assert cs.logits_limit(5.0, 64) > cs.logits_limit(5.0, 16) > \
+        cs.logits_limit(1.0, 16)
