@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--layers L] [--moe-layers L] [--hybrid-layers L]
-                          [--only configs|ssm|allocate]
+                          [--vlm-layers L] [--only configs|ssm|encdec|allocate]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
 one JSON line each:
@@ -36,6 +36,11 @@ one JSON line each:
    the two routes ``linear_apply`` can take for a quantized linear with
    LoRA on the kernel path (fused kernel; ``dequant_matmul`` plus unfused
    LoRA) timed at 4 to 1024 rows, which sets ``ops.FUSED_LORA_MIN_ROWS``.
+   lora_precision: the fused kernel's wgmma route at K = 14336 (Pixtral's
+   and Zamba2's down projections) against the exact product, its own bf16
+   weights' (held: within one bf16 rounding of its output) and the plain
+   version, at the sweep's weight std (0.02) and at the model's (K^-0.5,
+   as the enc-dec and vision paths' cases are built).
 4. parity  — the smoke model quantized on the card and decoded with the
    kernels and with the plain path: logits agree and tokens are equal.
 5. train_parity — the smoke model quantized on the card takes 3 LoRA steps
@@ -151,7 +156,31 @@ one JSON line each:
    least as good on its own Gram as the other's (x (1 + 1e-4)), the two
    sites' ``A @ B^T`` more than 1e-2 apart, kernel against plain decode
    logits within ``logits_limit``.
-14. allocate — Qwen3-1.7B at full width, ``ALLOC_LAYERS`` (2) deep, the
+14. encdec — Seamless-M4T-medium at full width and full depth (12 encoder
+   and 12 decoder layers, d_model 1024, vocab 256206, bf16) and
+   Pixtral-12B at full width (d_model 5120, GQA 32/8, d_ff 14336, vocab
+   131072), ``--vlm-layers`` deep (2 by default, cut from 40): the train
+   CLI's path (CLoQ 4-bit g64 r64, calibration 2 x 8 x 128 with 32
+   encoder frames or 256 patches a sequence, 3 steps at 8 x 128), the
+   same steps on the plain path from the same quantized params and
+   batches, then the serve CLI's route: seamless's fixed-slot loop (batch
+   4, 8 requests x 16 tokens, cache 128) against an encoder output of the
+   port's encoder over seeded frames, Pixtral's engine (ranks 64/16, 4
+   tenants, 4 requests x 8 tokens), eager and captured.  Quantize
+   seconds, buckets and chunks, peak memory, losses, step seconds and
+   tokens/s, slot tokens/s, routes (every stack's, a cross k/v's fused
+   decode route third), launches; for seamless, one captured decode
+   step's device ms beside its cross k/v projections' alone (the fused
+   kernel over all of ``enc_out``'s rows, 2 a layer).  Held: losses
+   finite and within 1e-2 of the plain path's, an empty health report,
+   captured tokens equal to eager ones, kernel against plain decode
+   logits within ``logits_limit`` (seamless's from a real encoder
+   output), ``gram`` and ``dequant_matmul_lora`` 7 a dense block and 4 a
+   cross block a calibration batch and a step (216 for seamless), a
+   decode step's ``dequant_matmul`` 9 a seamless decoder layer (7 a
+   Pixtral layer), ``dequant_matmul_lora`` 2 a seamless layer (its cross
+   k/v over all of enc_out), ``flash_attention`` 1 a layer.
+15. allocate — Qwen3-1.7B at full width, ``ALLOC_LAYERS`` (2) deep, the
    only mixed-bit model: the train CLI's ``--auto-allocate`` path (CLoQ,
    base 4-bit g64 r64, the sweep over 2/3/4 bits x ranks 0/16/64,
    calibration 2 x 8 x 128 twice, 2 steps at 8 x 128) under a
@@ -171,12 +200,16 @@ one JSON line each:
 full-depth check) runs the device and build phases and the moe phase
 alone; ``--hybrid-layers`` at another depth than 15 (at least 12;
 ``--hybrid-layers 81``: the full-depth check) the device and build phases
-and the ssm phase alone; ``--only PHASE`` the device and build phases and
-that phase alone.  Otherwise the kernel table follows as one JSON
+and the ssm phase alone; ``--vlm-layers`` at another depth than 2
+(``--vlm-layers 40``: the full-depth check) the device and build phases
+and Pixtral-12B alone by RTN with no calibration batch (at 40 layers
+CLoQ's Grams would not fit beside the weights); ``--only PHASE`` the
+device and build phases and that phase alone.  Otherwise the kernel table follows as one JSON
 line (each kernel's launches from the path that runs it: train for
 ``gram`` and ``dequant_matmul_lora``, the engine serve for the others;
 from the moe phase's, ``launches_moe``; from the ssm phase's, both
-models summed, ``launches_ssm``; and from the allocate phase's,
+models summed, ``launches_ssm``; from the encdec phase's, both models
+summed, ``launches_encdec``; and from the allocate phase's,
 ``launches_allocate``), the ``nvidia-smi`` name and power limit
 line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -213,16 +246,18 @@ QWEN_LINEARS = ((2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048),
                 (2048, 6144), (2048, 6144), (6144, 2048))
 
 
-# the configs slices 8 and 9 add, each at its published widths
+# the configs slices 8, 9 and 11 add, each at its published widths
 NEW_CONFIGS = ("qwen3-4b", "codeqwen1.5-7b", "minicpm-2b", "olmoe-1b-7b",
-               "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b")
+               "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b",
+               "seamless-m4t-medium", "pixtral-12b")
 
 
 def config_shapes(c) -> dict:
     """The kernel shapes of one layer of the model config ``c`` (and of a
     hybrid's shared block): ``linears`` (K, N) of its quantized 2-D
-    linears (attention's q, k, v, o; dense and shared gate/up and down;
-    Mamba's z/x, bc, dt and out projections), ``heads`` (Hq, Hkv, d) of
+    linears (attention's q, k, v, o, an enc-dec model's cross-attention's
+    alike; dense and shared gate/up and down; Mamba's z/x, bc, dt and out
+    projections), ``heads`` (Hq, Hkv, d) of
     the decode attention the flash kernel runs (None for SSM and hybrid:
     the hybrid's windowed ring decodes in plain PyTorch, as in the JAX
     package) and ``grams`` the calibration widths D (and, for MoE, the
@@ -332,9 +367,10 @@ def time_graph(torch, fn, reps: int = 20) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _quantized(torch, K, N, bits, g, dev, gen, any_zero: bool = False):
+def _quantized(torch, K, N, bits, g, dev, gen, any_zero: bool = False,
+               w_std: float = 0.02):
     from repro_torch.core.quantizer import pack_codes, quantize_int
-    W = torch.randn((K, N), generator=gen, device=dev) * 0.02
+    W = torch.randn((K, N), generator=gen, device=dev) * w_std
     codes, s, z = quantize_int(W, bits, g)
     if any_zero:    # shift each zero by U(-0.5, 0.5), some by -2^bits
         z = z + torch.rand(z.shape, generator=gen, device=dev) - 0.5
@@ -677,6 +713,28 @@ def time_flash(torch, dev, layers: int = 28, T: int = 128,
 TRAIN_TOKENS = 8 * 128
 GRAM_DIMS = (2048,) * 6 + (6144,)
 
+# rows of the enc-dec and vision paths' calls besides TRAIN_TOKENS:
+# seamless's encoder and cross-attention k/v in training (8 x 32 frames),
+# its cross k/v in decode (4 slots x a 128-position encoder output, the
+# fused kernel's rows), pixtral's training rows (8 x (256 patches + 128
+# tokens))
+ENC_ROWS = 8 * 32
+CROSS_DECODE_ROWS = 4 * 128
+VLM_ROWS = 8 * (256 + 128)
+
+
+def path_cases() -> dict:
+    """The enc-dec and vision paths' shapes at those rows: ``lora`` (M, K,
+    N) of the fused kernel, ``grams`` (T, D) of ``gram``."""
+    from repro_torch.configs import get_config
+    sm = get_config("seamless-m4t-medium")
+    s_, p_ = config_shapes(sm), config_shapes(get_config("pixtral-12b"))
+    return {"lora": [(ENC_ROWS, K, N) for K, N in s_["linears"]] +
+            [(CROSS_DECODE_ROWS, sm.d_model, sm.n_kv_heads * sm.head_dim)] +
+            [(VLM_ROWS, K, N) for K, N in p_["linears"]],
+            "grams": [(ENC_ROWS, D) for D in s_["grams"]] +
+            [(VLM_ROWS, D) for D in p_["grams"]]}
+
 
 # check_gram's cases for the tensor-core route beyond the main ones: T
 # ragged around the 64-token stage and past it, D cut inside a 128-column
@@ -694,8 +752,8 @@ GRAM_EXPERT_SLICES = ((160, 2048), (160, 1024), (80, 2048), (80, 768))
 def check_gram(torch, dev) -> tuple[dict, list]:
     """The kernel against its plain version: the main cases (T = 1024, D =
     2048 and 6144, bf16 run twice for equal bits, and f32), the
-    tensor-core route's ragged cases, the other configs' widths and MoE
-    expert slices, and the sweep (f32 and D % 8 != 0
+    tensor-core route's ragged cases, the other configs' widths, MoE
+    expert slices and the enc-dec and vision paths' rows, and the sweep (f32 and D % 8 != 0
     take the CUDA-core route).  Every case exactly symmetric; the bf16
     cases on the wgmma route also within the f32 tolerance (their products
     are exact, so a lost token stage or a wrong swizzle cannot hide in
@@ -710,7 +768,8 @@ def check_gram(torch, dev) -> tuple[dict, list]:
     wgmma = [(T, D, torch.bfloat16) for T, D in GRAM_WGMMA] + [
         (TRAIN_TOKENS, D, torch.bfloat16) for D in new_shapes("grams")
         if D not in GRAM_DIMS] + [
-        (T, D, torch.bfloat16) for T, D in GRAM_EXPERT_SLICES]
+        (T, D, torch.bfloat16) for T, D in GRAM_EXPERT_SLICES] + [
+        (T, D, torch.bfloat16) for T, D in path_cases()["grams"]]
     sweep = [(T, D, dt) for T, D in ((1, 64), (1, 50), (37, 50), (300, 130),
                                      (129, 65), (1000, 2047), (64, 1))
              for dt in (torch.float32, torch.bfloat16)]
@@ -855,8 +914,9 @@ def time_gram_tiles(torch, dev, calls: int = 28) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _lora_operands(torch, M, K, N, bits, g, r, dt, dev, gen):
-    packed, s, z = _quantized(torch, K, N, bits, g, dev, gen)
+def _lora_operands(torch, M, K, N, bits, g, r, dt, dev, gen,
+                   w_std: float = 0.02):
+    packed, s, z = _quantized(torch, K, N, bits, g, dev, gen, w_std=w_std)
     x = torch.randn((M, K), generator=gen, device=dev).to(dt)
     a = (torch.randn((K, r), generator=gen, device=dev) / K ** 0.5).to(dt)
     b = (torch.randn((N, r), generator=gen, device=dev) * 0.1).to(dt)
@@ -878,27 +938,33 @@ LORA_SWEEP_BITS_RANKS = ((4, 0), (4, 8), (4, 64), (4, 128), (2, 8), (2, 64),
 def check_lora(torch, dev) -> tuple[dict, list]:
     """The fused kernel against its plain version: the train shapes
     (Qwen3-1.7B's linears in bf16 and f32, the other configs' in bf16 at
-    rank 64, or N where CLoQ cuts the rank to N (Mamba2's dt_proj: 32);
-    run twice: the same bits both times) and the sweep.  Returns the summary
-    and one ``[M, K, N, bits, g, r, dtype, route, max_abs_err]`` a case."""
+    rank 64, or N where CLoQ cuts the rank to N (Mamba2's dt_proj: 32),
+    the enc-dec and vision paths' rows, seamless's cross k/v decode
+    among them, with weights of std ``K ** -0.5`` as ``init_params``
+    draws them, see :func:`lora_precision`; run twice: the same bits both
+    times) and the sweep (weights of std 0.02).  Returns the summary and
+    one ``[M, K, N, bits, g, r, dtype, route, max_abs_err, w_std]`` a
+    case."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_matmul import (dequant_matmul_lora_cuda,
                                                     lora_plan_for)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    main = [(TRAIN_TOKENS, K, N, 4, 64, 64, dt) for K, N in
+    main = [(TRAIN_TOKENS, K, N, 4, 64, 64, dt, 0.02) for K, N in
             sorted(set(QWEN_LINEARS)) for dt in (torch.bfloat16,
                                                  torch.float32)] + [
-        (TRAIN_TOKENS, K, N, 4, 64, min(64, N), torch.bfloat16)
-        for K, N in new_shapes("linears") if (K, N) not in QWEN_LINEARS]
-    sweep = [(M, K, N, bits, g, r, dt)
+        (TRAIN_TOKENS, K, N, 4, 64, min(64, N), torch.bfloat16, 0.02)
+        for K, N in new_shapes("linears") if (K, N) not in QWEN_LINEARS] + [
+        (M, K, N, 4, 64, 64, torch.bfloat16, K ** -0.5)
+        for M, K, N in path_cases()["lora"]]
+    sweep = [(M, K, N, bits, g, r, dt, 0.02)
              for M in LORA_SWEEP_ROWS for K, N, g in LORA_SWEEP_SHAPES
              for bits, r in LORA_SWEEP_BITS_RANKS
              for dt in (torch.bfloat16, torch.float32)]
     main_err, cases, routes = 0.0, [], {}
-    for i, (M, K, N, bits, g, r, dt) in enumerate(main + sweep):
+    for i, (M, K, N, bits, g, r, dt, w_std) in enumerate(main + sweep):
         x, packed, s, z, a, b = _lora_operands(torch, M, K, N, bits, g, r,
-                                               dt, dev, gen)
+                                               dt, dev, gen, w_std)
         route = lora_plan_for(x, packed, s, z, a, b, g).route
         y = dequant_matmul_lora_cuda(x, packed, s, z, a, b, bits=bits,
                                      group_size=g)
@@ -921,11 +987,72 @@ def check_lora(torch, dev) -> tuple[dict, list]:
             if dt == torch.bfloat16:
                 main_err = max(main_err, err)
         routes[route] = routes.get(route, 0) + 1
-        cases.append([M, K, N, bits, g, r, dname, route, err])
+        cases.append([M, K, N, bits, g, r, dname, route, err, w_std])
     if set(routes) != {"wgmma", "mma", "fma"}:
         raise Failed(f"dequant_matmul_lora sweep missed a route: {routes}")
     return ({"cases": len(cases), "routes": routes, "max_abs_err": main_err,
              "deterministic": True}, cases)
+
+
+# lora_precision's cases: Pixtral's down projection at its training rows and
+# Zamba2's at 1024 (K = 14336), at the sweep's weight std and at the
+# model's (``init_params``: K ** -0.5)
+LORA_PRECISION = ((VLM_ROWS, 14336, 5120), (TRAIN_TOKENS, 14336, 3584))
+
+
+def lora_precision(torch, dev) -> dict:
+    """What the wgmma route computes at K = 14336.  It rounds each
+    dequantized weight ``(c - z) * s`` to bf16 once, as the model's plain
+    path (``linear_apply``'s ``x @ w`` in x's dtype) does, and sums in f32;
+    the plain version keeps the weight in f32 and rounds the base product
+    to bf16 before adding the LoRA term.  Against the exact product (f64)
+    each is reported, and the kernel is held to the exact product of its
+    own bf16 weights (within one bf16 rounding of its output, 2^-8
+    relative, + 1e-3).  Also reported: the elements outside the JAX bf16
+    tolerance against the plain version, and the outputs' std: with
+    weights of std 0.02 the outputs' std grows as 0.02 sqrt(K) (2.4 here)
+    and the weight rounding, on that scale, passes the 2e-2 atol where
+    base and LoRA terms cancel; at the model's std it stays on an output
+    scale of 1."""
+    from repro_torch.core.quantizer import dequantize_int, unpack_codes
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_matmul import (dequant_matmul_lora_cuda,
+                                                    lora_plan_for)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    out = []
+    f64 = torch.float64
+    for M, K, N in LORA_PRECISION:
+        for w_std in (0.02, K ** -0.5):
+            x, packed, s, z, a, b = _lora_operands(
+                torch, M, K, N, 4, 64, 64, torch.bfloat16, dev, gen, w_std)
+            route = lora_plan_for(x, packed, s, z, a, b, 64).route
+            y = dequant_matmul_lora_cuda(x, packed, s, z, a, b, bits=4,
+                                         group_size=64).to(f64)
+            y_ref = ref.dequant_matmul_lora_ref(x, packed, s, z, a, b,
+                                                bits=4, group_size=64).to(f64)
+            W = dequantize_int(unpack_codes(packed, 4, K), s, z, 64,
+                               dtype=f64)
+            lora = (x.to(f64) @ a.to(f64)) @ b.to(f64).T
+            exact = x.to(f64) @ W + lora
+            own = x.to(f64) @ W.to(torch.bfloat16).to(f64) + lora
+            del W
+            rtol, atol = TOL["bfloat16"]
+            outside = (y - y_ref).abs() > atol + rtol * y_ref.abs()
+            own_err = (y - own).abs()
+            row = {"M": M, "K": K, "N": N, "w_std": w_std, "route": route,
+                   "out_std": float(exact.std()),
+                   "kernel_vs_exact": float((y - exact).abs().max()),
+                   "plain_vs_exact": float((y_ref - exact).abs().max()),
+                   "kernel_vs_own_bf16_weights": float(own_err.max()),
+                   "outside_jax_tol_vs_plain": int(outside.sum())}
+            out.append(row)
+            if route != "wgmma" or \
+                    not bool((own_err <= 2 ** -8 * own.abs() + 1e-3).all()):
+                raise Failed(f"lora_precision: {row}")
+            del x, packed, s, z, a, b, y, y_ref, lora, exact, own, own_err
+            torch.cuda.empty_cache()
+    return {"cases": out}
 
 
 def time_lora(torch, dev, layers: int = 28) -> dict:
@@ -2027,19 +2154,22 @@ def _spied_train(torch, train, args, cfg, inspect=None) -> tuple[dict, dict]:
 
 def _plain_losses(torch, dev, args, qparams, qcfg, steps: int) -> list:
     """The train CLI's steps replayed on the same quantized params and
-    batches (the stream past its calibration batches) with every kernel
-    off: the plain path's losses."""
+    batches (the stream past its calibration batches, of the model's data
+    kind as the CLI draws them) with every kernel off: the plain path's
+    losses."""
     import dataclasses
-    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.data import DataConfig, TokenStream, data_kind
     from repro_torch.launch.steps import build_state, make_train_step
     from repro_torch.optim import OptConfig
     cfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
         qcfg.quant, use_kernel=False))
     ocfg = OptConfig(lr=args.lr, trainable="lora", total_steps=args.steps,
                      schedule=args.schedule)
-    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
-                                    global_batch=args.batch,
-                                    seed=args.seed))
+    stream = TokenStream(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.batch,
+        seed=args.seed, kind=data_kind(cfg),
+        enc_len=max(args.seq_len // 4, 8), n_prefix=cfg.n_prefix,
+        d_model=cfg.d_model))
     for _ in range(args.calib_batches):
         stream.next_batch()
     state, step = build_state(qparams, ocfg), make_train_step(cfg, ocfg)
@@ -2189,17 +2319,21 @@ def moe_phase(torch, dev, layers: int) -> dict:
 
 
 def _kernel_routes(torch, dev, params, cfg) -> dict:
-    """The routes the kernels take on one layer of ``params`` (and on a
-    hybrid's shared block, with site 0's adapters): each quantized 2-D
-    linear's decode (4 rows) and fused train (1024 rows) route, the decode
-    attention's (where the flash kernel runs it) and each calibration
-    width's Gram."""
+    """The routes the kernels take on one layer of each of ``params``'
+    stacks (and on a hybrid's shared block, with site 0's adapters): each
+    quantized 2-D linear's decode (4 rows) and fused train (1024 rows)
+    route, an enc-dec cross k/v's fused decode route (over all of a
+    128-position encoder output at 4 slots) third, the decode attention's
+    (where the flash kernel runs it) and each calibration width's
+    Gram."""
     from repro_torch.kernels import dequant_matmul as dq
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram as gm
     from repro_torch.models.transformer import _with_site_lora, layer_params
     from repro_torch.utils import get_path, tree_paths
-    lp = {"blocks": {"0": layer_params(params["blocks"], 0)}}
+    lp = {k: {"0": layer_params(params[k], 0)}
+          for k in ("blocks", "enc_blocks", "dec_blocks", "cross")
+          if k in params}
     if "shared" in params:
         sh = params["shared"]
         lp["shared"] = _with_site_lora(sh["block"], sh["site_lora"], 0)
@@ -2218,6 +2352,10 @@ def _kernel_routes(torch, dev, params, cfg) -> dict:
             dq.plan_for(x4, leaf, node["scales"], node["zeros"], g).route,
             dq.lora_plan_for(xt, leaf, node["scales"], node["zeros"], a, b,
                              g).route]
+        if path.endswith(("xattn.k.qcodes", "xattn.v.qcodes")):
+            xd = torch.zeros((CROSS_DECODE_ROWS, K), dtype=bf, device=dev)
+            routes[path[:-len(".qcodes")]].append(dq.lora_plan_for(
+                xd, leaf, node["scales"], node["zeros"], a, b, g).route)
     heads = config_shapes(cfg)["heads"]
     if heads is not None:
         Hq, Hkv, d = heads
@@ -2254,10 +2392,12 @@ def logits_limit(max_abs_logit: float, calls: float) -> float:
 
 def _kernel_vs_plain_logits(torch, dev, params, cfg, steps: int = 4) -> dict:
     """Kernel against plain decode over ``steps`` greedy steps at batch 4
-    from the same caches and tokens: the largest |logit| difference, the
-    plain logits' largest |logit|, the kernel calls a step (launches
-    counted around the kernel steps), :func:`logits_limit` of them and
-    whether the difference is within it."""
+    from the same caches and tokens (an enc-dec model's ``enc_out`` from
+    :func:`encoder_output`, so that its cross-attention carries signal):
+    the largest |logit| difference, the plain logits' largest |logit|,
+    the kernel calls a step (launches counted around the kernel steps),
+    :func:`logits_limit` of them and whether the difference is within
+    it."""
     import dataclasses
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import (decode_step,
@@ -2265,6 +2405,10 @@ def _kernel_vs_plain_logits(torch, dev, params, cfg, steps: int = 4) -> dict:
     cfgs = [dataclasses.replace(cfg, quant=dataclasses.replace(
         cfg.quant, use_kernel=k)) for k in (True, False)]
     caches = [init_decode_cache(c, 4, 16, device=dev) for c in cfgs]
+    if cfg.family == "encdec":
+        enc_out = encoder_output(torch, dev, params, cfg, 16)
+        for c in caches:
+            c["enc_out"].copy_(enc_out)
     tok = torch.tensor([[3], [17], [101], [400]], device=dev)
     err = scale = 0.0
     calls = 0
@@ -2536,6 +2680,224 @@ def ssm_phase(torch, dev, hybrid_layers: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 11: the enc-dec family and the vision prefix at full width
+# ---------------------------------------------------------------------------
+
+VLM_LAYERS = 2          # Pixtral-12B's 40 cut: the script's time, and at 40
+                        # layers CLoQ's f32 Grams (56.6 GB) and the bf16
+                        # weights (24.5 GB) do not fit one card together
+ENCDEC_STEPS = 3
+
+
+def encoder_output(torch, dev, params, cfg, rows: int, batch: int = 4):
+    """The port's encoder (plain path) over seeded frame embeddings
+    ``(batch, rows, d_model)``: a real ``enc_out`` to decode against."""
+    import dataclasses
+    from repro_torch.models.transformer import _encode
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    emb = torch.randn((batch, rows, cfg.d_model), generator=gen, device=dev)
+    plain = dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, use_kernel=False))
+    with torch.no_grad():
+        return _encode(params, plain, emb)
+
+
+def _encdec_sites(cfg) -> int:
+    """Quantized linears of a training pass (``gram`` and fused launches):
+    7 a dense block, encoder and decoder, 4 a cross-attention block."""
+    if cfg.family == "encdec":
+        return 7 * (cfg.n_enc_layers + cfg.n_layers) + 4 * cfg.n_layers
+    return 7 * cfg.n_layers
+
+
+def _decode_times(torch, dev, qparams, kcfg, enc_out) -> dict:
+    """One seamless decode step on the card (kernel path, 4 slots, cache
+    128, at position 64) and its cross k/v projections alone (the fused
+    kernel over all of ``enc_out``'s rows, 2 a decoder layer, through
+    ``linear_apply`` as the step runs them), each timed as a captured
+    graph: device ms and the cross k/v's share."""
+    from repro_torch.models.modules import linear_apply
+    from repro_torch.models.transformer import (_layers, decode_step,
+                                                init_decode_cache)
+    cache = init_decode_cache(kcfg, 4, 128, device=dev)
+    cache["enc_out"].copy_(enc_out)
+    cache["idx"].fill_(64)
+    tok = torch.tensor([[3], [17], [101], [400]], device=dev)
+    kv = [cp["xattn"][n] for _, cp in _layers(qparams["cross"], kcfg)
+          for n in ("k", "v")]
+    x = cache["enc_out"]
+
+    def cross_kv():
+        for p in kv:
+            linear_apply(p, x, kcfg.quant)
+
+    with torch.no_grad():
+        step_ms = time_graph(
+            torch, lambda: decode_step(qparams, kcfg, cache, tok))
+        kv_ms = time_graph(torch, cross_kv)
+    return {"step_ms": step_ms, "cross_kv_fused_ms": kv_ms,
+            "cross_kv_calls": len(kv), "cross_kv_share": kv_ms / step_ms}
+
+
+def encdec_run(torch, dev, arch: str, layers: int, method: str = "cloq",
+               calib_batches: int = 2) -> dict:
+    """``arch`` at full width, ``layers`` deep: the train CLI's path
+    (``method`` 4-bit g64 r64, calibration ``calib_batches`` x 8 x 128
+    tokens with their 32 encoder frames or 256 patches, 3 steps at 8 x
+    128), its losses against the plain path's on the same quantized params
+    and batches, then the serve CLI's route: seamless's fixed-slot loop
+    (batch 4, 8 requests x 16 tokens, cache 128, against a real encoder
+    output) or pixtral's engine (ranks 64 and 16, 4 tenants, 4 requests x
+    8 tokens), eager and captured.  Held: finite losses within 1e-2 of the
+    plain path's, an empty health report, captured tokens equal to eager
+    ones, kernel against plain decode logits within ``logits_limit`` and
+    every kernel's launches (see the module doc)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    argv = ["--arch", arch, "--method", method, "--bits", "4",
+            "--group-size", "64", "--rank", "64", "--calib-batches",
+            str(calib_batches), "--batch", "8", "--seq-len", "128",
+            "--steps", str(ENCDEC_STEPS), "--seed", "0", "--device",
+            str(dev)]
+    args = train.build_parser().parse_args(argv)
+    cfg = get_config(arch, n_layers=layers)
+    encdec = cfg.family == "encdec"
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res, got = _spied_train(torch, train, args, cfg)
+    counts = ops.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    qparams, qcfg = got["params"], got["cfg"]
+    plain = _plain_losses(torch, dev, args, qparams, qcfg, ENCDEC_STEPS)
+    del res["state"]
+    torch.cuda.empty_cache()
+    routes = _kernel_routes(torch, dev, qparams, qcfg)
+    logit_err = _kernel_vs_plain_logits(torch, dev, qparams, qcfg)
+    kcfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+    torch.cuda.reset_peak_memory_stats(dev)
+    L, n = layers, _encdec_sites(cfg)
+    if encdec:
+        enc_out = encoder_output(torch, dev, qparams, qcfg, 128)
+        runs = {}
+        for graph in (False, True):
+            ops.reset_launch_counts()
+            sv = serve.serve_fixed_slots(
+                qparams, kcfg, batch=4, cache_len=128, requests=8,
+                max_new=16, seed=0, device=dev, graph=graph,
+                enc_out=enc_out)
+            runs["captured" if graph else "eager"] = {
+                "outputs": [o.tolist() for o in sv["outputs"]],
+                "slot_tok_s": sv["tok_s"], "seconds": sv["seconds"],
+                "steps": sv["steps"], "requests_done": sv["requests_done"],
+                "step_ms_median": 1e3 * _median(sv["step_s"]),
+                "logits_finite": sv["all_finite"],
+                "launches": ops.launch_counts()}
+        decodes = runs["captured"]["steps"]
+        want_serve = {"gram": 0, "dequant_matmul": 9 * L * decodes,
+                      "dequant_matmul_lora": 2 * L * decodes,
+                      "flash_attention": L * decodes}
+        served = {"fixed_slots": {k: {f: v for f, v in r.items()
+                                      if f != "outputs"}
+                                  for k, r in runs.items()},
+                  "decode_times": _decode_times(torch, dev, qparams, kcfg,
+                                                enc_out)}
+        equal = runs["eager"]["outputs"] == runs["captured"]["outputs"]
+        done = all(r["requests_done"] == 8 and r["logits_finite"]
+                   for r in runs.values())
+        cap_launches = runs["captured"]["launches"]
+        eager_launches = runs["eager"]["launches"]
+        del enc_out
+    else:
+        sv = _serve_both(torch, dev, arch, qparams, qcfg, ranks=SERVE_RANKS,
+                         tenants=4, requests=4, max_new=8)
+        cap = sv["captured"]
+        decodes = sum(cap["decodes"].values())
+        want_serve = {"gram": 0, "dequant_matmul_lora": 0,
+                      "dequant_matmul": 7 * L * decodes,
+                      "flash_attention": L * decodes}
+        served = {"engine": {k: {f: sv[k][f] for f in
+                                 ("slot_tok_s", "tok_s", "seconds",
+                                  "step_ms_median", "decodes", "captured")}
+                             for k in ("eager", "captured")}}
+        equal = sv["tokens_equal"]
+        done = cap["requests_done"] == 4 and all(len(o) == 8
+                                                 for o in cap["outputs"])
+        cap_launches, eager_launches = cap["launches"], \
+            sv["eager"]["launches"]
+    want_train = {"gram": n * calib_batches,
+                  "dequant_matmul_lora": n * ENCDEC_STEPS,
+                  "dequant_matmul": 0, "flash_attention": 0}
+    step_s, tokens = res["step_s"], args.batch * args.seq_len
+    out = {"layers": L, "method": method, "argv": argv,
+           "quantize_s": res["quantize_s"],
+           "buckets": _bucket_chunks(got["lines"]),
+           "bucket_lines": got["lines"], "memory_gb": got["memory"],
+           "peak_mem_gb": {"train": train_peak,
+                           "serve": torch.cuda.max_memory_allocated(dev)
+                           / 1e9},
+           "losses": res["losses"], "losses_plain": plain,
+           "loss_rel_diff_vs_plain": max(abs(a - b) / abs(b) for a, b in
+                                         zip(res["losses"], plain)),
+           "grad_norms": res["grad_norms"], "step_s": step_s,
+           "train_tok_s": tokens * len(step_s) / sum(step_s),
+           "routes": routes, "kernel_vs_plain_logits": logit_err,
+           **served, "captured_tokens_equal": equal,
+           "launches": {"train": counts, "serve_captured": cap_launches,
+                        "serve_eager": eager_launches},
+           "health": res["health"].counts(),
+           "health_events": res["health"].events,
+           "health_checked": res["health"].checked}
+    full = get_config(arch).n_layers
+    if L != full:
+        out["reduced"] = {"n_layers": [full, L]}
+    bad = []
+    if not all(math.isfinite(v) for v in res["losses"] + plain):
+        bad.append("losses not finite")
+    if out["loss_rel_diff_vs_plain"] > LOSS_LIMIT:
+        bad.append(f"losses more than {LOSS_LIMIT} off the plain path's")
+    if out["health"] or out["health_events"] or out["health_checked"] != n:
+        bad.append("health report not empty")
+    if any(counts[k] != v for k, v in want_train.items()):
+        bad.append(f"train launches, expected {want_train}")
+    for k, got_l in (("captured", cap_launches), ("eager", eager_launches)):
+        if any(got_l[k_] != v for k_, v in want_serve.items()):
+            bad.append(f"serve {k} launches, expected {want_serve}")
+    if not done:
+        bad.append("not every request served finite")
+    if not equal:
+        bad.append("captured tokens differ from eager ones")
+    if not logit_err["within"]:
+        bad.append("kernel against plain decode logits beyond the limit")
+    if bad:
+        raise Failed(f"encdec phase, {arch}: {bad}: {out}")
+    return out
+
+
+def encdec_phase(torch, dev, vlm_layers: int) -> dict:
+    """Seamless-M4T-medium at full depth (12 + 12 layers) and Pixtral-12B
+    ``vlm_layers`` deep through :func:`encdec_run`, CLoQ; at another
+    depth than ``VLM_LAYERS`` Pixtral alone by RTN with no calibration
+    batch (it reads no Gram: at 40 layers CLoQ's Grams would not fit)."""
+    out = {}
+    if vlm_layers == VLM_LAYERS:
+        out["seamless-m4t-medium"] = encdec_run(
+            torch, dev, "seamless-m4t-medium", 12)
+        torch.cuda.empty_cache()
+        out["pixtral-12b"] = encdec_run(torch, dev, "pixtral-12b",
+                                        vlm_layers)
+    else:
+        out["pixtral-12b"] = encdec_run(torch, dev, "pixtral-12b",
+                                        vlm_layers, method="rtn",
+                                        calib_batches=0)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # slice 10: calibrated bit allocation, the only mixed-bit model
 # ---------------------------------------------------------------------------
 
@@ -2759,7 +3121,13 @@ def main(argv=None) -> int:
                          "other depth runs the device and build phases and "
                          "the ssm phase alone (the full-depth check: "
                          "--hybrid-layers 81)")
-    ap.add_argument("--only", choices=("configs", "ssm", "allocate"),
+    ap.add_argument("--vlm-layers", type=int, default=VLM_LAYERS,
+                    help=f"depth of Pixtral-12B in the encdec phase "
+                         f"({VLM_LAYERS}); any other depth runs the device "
+                         "and build phases and Pixtral-12B alone by RTN "
+                         "(the full-depth check: --vlm-layers 40)")
+    ap.add_argument("--only", choices=("configs", "ssm", "encdec",
+                                       "allocate"),
                     help="run the device and build phases and this phase "
                          "alone (a quick check of one path)")
     a = ap.parse_args(argv)
@@ -2800,6 +3168,7 @@ def main(argv=None) -> int:
             phase = a.only
             run = {"configs": lambda: configs_phase(torch, dev),
                    "ssm": lambda: ssm_phase(torch, dev, a.hybrid_layers),
+                   "encdec": lambda: encdec_phase(torch, dev, a.vlm_layers),
                    "allocate": lambda: allocate_phase(torch, dev)}[a.only]
             emit({"phase": a.only, **run(),
                   "script_s": time.perf_counter() - t_script})
@@ -2808,7 +3177,8 @@ def main(argv=None) -> int:
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
                 "count": torch.cuda.device_count()}})
             return 0
-        if a.moe_layers != MOE_LAYERS or a.hybrid_layers != HYBRID_LAYERS:
+        if a.moe_layers != MOE_LAYERS or a.hybrid_layers != HYBRID_LAYERS \
+                or a.vlm_layers != VLM_LAYERS:
             if a.moe_layers != MOE_LAYERS:
                 phase = "moe"
                 emit({"phase": "moe", **moe_phase(torch, dev, a.moe_layers)})
@@ -2816,6 +3186,11 @@ def main(argv=None) -> int:
                 phase = "ssm"
                 emit({"phase": "ssm",
                       **ssm_phase(torch, dev, a.hybrid_layers)})
+            if a.vlm_layers != VLM_LAYERS:
+                phase = "encdec"
+                emit({"phase": "encdec",
+                      **encdec_phase(torch, dev, a.vlm_layers),
+                      "script_s": time.perf_counter() - t_script})
             print(card, flush=True)
             emit({"ok": True, "device": {
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2855,7 +3230,8 @@ def main(argv=None) -> int:
                       "8 x 128"})
         emit({"phase": "kernels", "lora_cases": lo_cases,
               "fields": ["M", "K", "N", "bits", "g", "r", "dtype", "route",
-                         "max_abs_err"]})
+                         "max_abs_err", "w_std"]})
+        emit({"phase": "lora_precision", **lora_precision(torch, dev)})
         emit({"phase": "lora_route", **time_lora_routes(torch, dev)})
 
         phase = "parity"
@@ -2904,6 +3280,10 @@ def main(argv=None) -> int:
         ss = ssm_phase(torch, dev, a.hybrid_layers)
         emit({"phase": "ssm", **ss})
         torch.cuda.empty_cache()
+        phase = "encdec"
+        ed = encdec_phase(torch, dev, a.vlm_layers)
+        emit({"phase": "encdec", **ed})
+        torch.cuda.empty_cache()
         phase = "allocate"
         al = allocate_phase(torch, dev)
         emit({"phase": "allocate", **al,
@@ -2922,28 +3302,34 @@ def main(argv=None) -> int:
                             for run in ("serve_captured", "train"))
     al_serve, al_train = (al["launches"]["serve_captured"],
                           al["launches"]["train"])
+    ed_serve, ed_train = ({k: sum(r["launches"][run][k]
+                                  for r in ed.values())
+                           for k in ("gram", "dequant_matmul_lora",
+                                     "dequant_matmul", "flash_attention")}
+                          for run in ("serve_captured", "train"))
     for name, chk, tm, launches, moe_launches, ssm_launches, al_launches, \
-            src, tpu in (
+            ed_launches, src, tpu in (
             ("dequant_matmul", dq, dq_t, sv["launches"], moe_serve,
-             ssm_serve, al_serve,
+             ssm_serve, al_serve, ed_serve,
              "src/repro_torch/kernels/csrc/dequant_matmul.cu",
              "src/repro/kernels/dequant_matmul.py:73"),
             ("flash_attention", fa, fa_t, sv["launches"], moe_serve,
-             ssm_serve, al_serve,
+             ssm_serve, al_serve, ed_serve,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:94"),
             ("dequant_matmul_lora", lo, lo_t, tr["launches"], moe_train,
-             ssm_train, al_train,
+             ssm_train, al_train, ed_train,
              "src/repro_torch/kernels/csrc/dequant_matmul_lora.cu",
              "src/repro/kernels/dequant_matmul.py:134"),
             ("gram", gr, gr_t, tr["launches"], moe_train, ssm_train,
-             al_train, "src/repro_torch/kernels/csrc/gram.cu",
+             al_train, ed_train, "src/repro_torch/kernels/csrc/gram.cu",
              "src/repro/kernels/gram.py:41")):
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": tpu, "launches": launches[name],
                       "launches_moe": moe_launches[name],
                       "launches_ssm": ssm_launches[name],
                       "launches_allocate": al_launches[name],
+                      "launches_encdec": ed_launches[name],
                       "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],
                       "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                       "bound_by": tm["bound_by"],

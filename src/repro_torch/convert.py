@@ -8,7 +8,9 @@ n)`` (``(L, E, m, n)`` scan-stacked), packed expert leaves with their
 leading ``E``; SSM blocks their f32 ``a_log``, ``d`` and ``dt_bias`` and
 their ``conv_*`` leaves; a hybrid tree its ``shared.block`` and the
 per-site ``shared.site_lora`` stacks ``(S, m, r)``, which are not
-layer-stacked and carry unchanged in either layout.  The caller exports the JAX tree to numpy first (for example
+layer-stacked and carry unchanged in either layout; an enc-dec tree its
+``enc_blocks``, ``dec_blocks`` and ``cross`` containers (each stacked or
+per layer, as ``blocks``) and its ``enc_norm``.  The caller exports the JAX tree to numpy first (for example
 ``jax.tree.map(np.asarray, params)``); this module imports neither ``jax``
 nor the JAX package.
 """
@@ -19,7 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.pipeline import to_eager_params, to_scan_params
+from repro_torch.core.pipeline import (_STACK_KEYS, to_eager_params,
+                                       to_scan_params)
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.utils import resolve_device
 
@@ -52,10 +55,11 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
     ``ml_dtypes`` bfloat16 array (what ``np.asarray`` of a JAX bf16 array
     gives); its bits are reinterpreted as ``torch.bfloat16``, exactly.  A
     leaf already widened to float32 by the caller stays float32.  The
-    layout follows ``cfg.scan_layers``: scan-stacked blocks are unstacked
-    for an eager config and per-layer blocks stacked for a scan config."""
+    layout follows ``cfg.scan_layers``: scan-stacked containers are
+    unstacked for an eager config and per-layer ones stacked for a scan
+    config."""
     params = _map(tree_of_numpy, resolve_device(device))
-    blocks = params.get("blocks", {})
+    blocks = next((params[k] for k in _STACK_KEYS if k in params), {})
     eager = bool(blocks) and all(k.isdigit() for k in blocks)
     if cfg.scan_layers and eager:
         return to_scan_params(params, cfg)

@@ -1,7 +1,7 @@
 """End-to-end model quantization + LoRA initialization.
 
-PyTorch twin of ``repro.core.pipeline`` for dense, MoE, SSM and hybrid
-models on one device.
+PyTorch twin of ``repro.core.pipeline`` for every model family on one
+device.
 ``quantize_model`` converts a dense param tree into the paper's deployment
 form: every block linear replaced by {qcodes, scales, zeros, lora_a,
 lora_b} ({qcodes, absmax, ...} for NF4 ``qlora``), the base quantized by
@@ -27,6 +27,11 @@ base's own adapter pair.  A non-finite site pair walks
 twin sorts their keys as strings, which puts ``sites.10`` before
 ``sites.2`` from 11 sites on).
 
+An enc-dec model's cross-attention linears ``cross.<i>.xattn.<name>`` are
+sites like any other; their Grams are captured under the decoder layer's
+scope, ``dec_blocks.<i>.cross.<name>`` (:func:`_scope_for`), and ``k``/``v``
+see the encoder output's rows.
+
 Engines
 -------
 ``engine="batched"`` (default) is :mod:`repro_torch.core.batched`: the
@@ -47,9 +52,8 @@ The abstract functions (:func:`quantization_manifest`,
 :func:`recipe_plan_bytes`, :func:`quantized_param_shapes`) plan from the
 config's shapes alone, on the meta device: no weights, no calibration.
 
-Not ported yet (``ROADMAP.md``): the mesh, the cost model, the compile
-cache, and cross-attention sites; asking for them raises
-``NotImplementedError``.
+Not ported yet (``ROADMAP.md``): the mesh, the cost model and the compile
+cache; asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -82,31 +86,34 @@ Tensor = torch.Tensor
 # param paths NOT quantized even though they hold a 2-D "w"
 _SKIP_SUFFIXES = ("embed.w", "head.w", "router.w")
 
-# containers stacked over layers when scan_layers (the JAX twin's
-# encoder-decoder ones are not ported)
-_STACK_KEYS = ("blocks",)
+# containers stacked over layers when scan_layers, with their layer counts
+_STACK_KEYS = {"blocks": "n_layers", "enc_blocks": "n_enc_layers",
+               "dec_blocks": "n_layers", "cross": "n_layers"}
 
 _NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
 
 
 def to_eager_params(params: dict, cfg: ModelConfig) -> dict:
-    """Unstack scan-stacked block params into per-layer dicts (views)."""
+    """Unstack scan-stacked containers into per-layer dicts (views)."""
     if not cfg.scan_layers:
         return params
     out = dict(params)
-    blocks = params["blocks"]
-    out["blocks"] = {str(i): layer_params(blocks, i)
-                     for i in range(n_stacked(blocks))}
+    for key in _STACK_KEYS:
+        if key in params:
+            out[key] = {str(i): layer_params(params[key], i)
+                        for i in range(n_stacked(params[key]))}
     return out
 
 
 def to_scan_params(params: dict, cfg: ModelConfig) -> dict:
+    """Stack per-layer containers (``"0"``, ``"1"``, … keys) over layers."""
     out = dict(params)
-    blocks = params.get("blocks")
-    if isinstance(blocks, dict) and blocks and all(k.isdigit()
-                                                   for k in blocks):
-        out["blocks"] = stack_layers([blocks[k]
-                                      for k in sorted(blocks, key=int)])
+    for key in _STACK_KEYS:
+        layers = params.get(key)
+        if isinstance(layers, dict) and layers and all(k.isdigit()
+                                                       for k in layers):
+            out[key] = stack_layers([layers[k]
+                                     for k in sorted(layers, key=int)])
     return out
 
 
@@ -187,10 +194,14 @@ def run_calibration(params: dict, cfg: ModelConfig,
 
 
 def _scope_for(lin_path: str) -> str:
-    """The capture scope of a param path within its call site:
-    ``shared.block.attn.q`` is recorded as ``sites.<s>.shared.attn.q``."""
+    """The capture scope of a param path: ``shared.block.attn.q`` is
+    recorded as ``sites.<s>.shared.attn.q`` (this returns the part after
+    ``sites.<s>.``), ``cross.<i>.xattn.q`` as ``dec_blocks.<i>.cross.q``."""
     if lin_path.startswith("shared.block."):
         return "shared." + lin_path[len("shared.block."):]
+    if lin_path.startswith("cross."):
+        _, idx, _, name = lin_path.split(".")
+        return f"dec_blocks.{idx}.cross.{name}"
     return lin_path
 
 
@@ -257,11 +268,12 @@ def _set_shared_sites(new_params: dict, store: GramStore, path: str,
 
 
 def _site_gram(store: GramStore, path: str) -> Tensor | None:
-    """A site's Gram through the fault-injection hook
+    """A site's Gram, read at its capture scope (:func:`_scope_for`),
+    through the fault-injection hook keyed by its param path
     (:func:`repro_torch.core.faults.corrupt_gram`): both engines read every
     Gram here, so an armed ``gram_*`` injection corrupts the same site in
     each."""
-    return faults.corrupt_gram(path, store.grams.get(path))
+    return faults.corrupt_gram(path, store.grams.get(_scope_for(path)))
 
 
 def _expert_grams(store: GramStore, path: str,
@@ -293,12 +305,6 @@ def _quantize_one(W: Tensor, H: Tensor | None, qspec: QSpec, method: str,
 def _cast_for_model(leaves: dict, dtype) -> dict:
     return {k: (v.to(dtype) if k in ("lora_a", "lora_b") else v)
             for k, v in leaves.items()}
-
-
-def _ported_site(lin_path: str) -> None:
-    if lin_path.startswith("cross."):
-        raise NotImplementedError(
-            f"{lin_path}: cross-attention sites {_NOT_PORTED}")
 
 
 def _stacked_dense_event(report, path: str) -> None:
@@ -346,7 +352,6 @@ def _quantize_model_sequential(eparams: dict, store: GramStore,
         qspec, method = site.qspec, site.method
         lin = dict(get_path(eparams, lin_path))
         W = lin.pop("w")
-        _ported_site(lin_path)
         if progress:
             progress(f"[{i}] {lin_path} {tuple(W.shape)} "
                      f"{method}/{qspec.bits}b/r{qspec.rank}")
@@ -405,7 +410,6 @@ def _gather_tasks(eparams: dict, store: GramStore,
             continue
         lin = dict(get_path(eparams, lin_path))
         W = lin.pop("w")
-        _ported_site(lin_path)
         shared = None
         if W.dim() == 3:            # stacked MoE experts: a natural bucket
             Hs = _expert_grams(store, lin_path, W.shape[0])
@@ -462,22 +466,24 @@ _ENGINES = {"batched": _quantize_model_batched,
 
 
 def _check_scan_uniform(sites: dict[str, SiteSpec], cfg: ModelConfig) -> None:
-    """Scan-stacked blocks are re-stacked after quantization, which needs
-    one leaf structure for every layer: a layer-uniform recipe."""
+    """Scan-stacked containers are re-stacked after quantization, which
+    needs one leaf structure for every layer of a container: a recipe
+    layer-uniform within each."""
     if not cfg.scan_layers:
         return
-    groups: dict[str, set[SiteSpec]] = {}
+    groups: dict[tuple[str, str], set[SiteSpec]] = {}
     for p, s in sites.items():
         segs = p.split(".")
-        if segs[0] == "blocks" and len(segs) > 1 and segs[1].isdigit():
-            groups.setdefault(".".join(segs[2:]), set()).add(s)
-    for rest, specs in sorted(groups.items()):
+        if segs[0] in _STACK_KEYS and len(segs) > 1 and segs[1].isdigit():
+            groups.setdefault((segs[0], ".".join(segs[2:])), set()).add(s)
+    for (container, rest), specs in sorted(groups.items()):
         if len(specs) > 1:
             raise ValueError(
-                f"recipe resolves layers of the scan-stacked blocks to "
-                f"{len(specs)} different specs at blocks.<i>.{rest}; scan "
-                "stacking needs layer-uniform rules — use a config with "
-                "scan_layers=False for depth-dependent plans")
+                f"recipe resolves layers of the scan-stacked container "
+                f"{container!r} to {len(specs)} different specs at "
+                f"{container}.<i>.{rest}; scan stacking needs layer-uniform "
+                "rules — use a config with scan_layers=False for "
+                "depth-dependent plans")
 
 
 def _coerce_recipe(recipe: QuantRecipe | None, method: str | None,
@@ -626,7 +632,7 @@ def allocate_plan(params: dict, cfg: ModelConfig, calib, budget_bytes: int,
     sites = QuantRecipe.single(base.method or "cloq", base).resolve(
         quantizable_linear_paths(eparams))
     tasks, _ = _gather_tasks(eparams, store, sites, seed)
-    scan_containers = _STACK_KEYS if cfg.scan_layers else ()
+    scan_containers = tuple(_STACK_KEYS) if cfg.scan_layers else ()
     return allocate.build_allocation(
         tasks, _allocation_meta(eparams, store), budget_bytes, base, grid,
         cfg.dtype, scan_containers=scan_containers,

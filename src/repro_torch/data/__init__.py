@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import DataConfig, TokenStream
+from repro_torch.data.pipeline import DataConfig, TokenStream, data_kind
 
-__all__ = ["DataConfig", "TokenStream"]
+__all__ = ["DataConfig", "TokenStream", "data_kind"]

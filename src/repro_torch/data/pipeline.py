@@ -2,8 +2,11 @@
 
 The synthetic corpus is a seeded Zipf-unigram + affine-Markov mixture and a
 pure function of ``(seed, step)``, drawn with numpy exactly as the JAX
-package draws it, so a batch is byte-identical in both packages.  Batches
-are CPU tensors; callers move them to their device.
+package draws it, so a batch is byte-identical in both packages.  Kind
+``"encdec"`` adds ``enc_embeds`` (B, enc_len, d_model) and ``"vlm"``
+``prefix_embeds`` (B, n_prefix, d_model): f32 standard normals drawn from
+the batch's generator after the tokens, the frontend stubs' outputs.
+Batches are CPU tensors; callers move them to their device.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
-    kind: str = "lm"              # only "lm" is ported
+    kind: str = "lm"              # lm | encdec | vlm
     enc_len: int = 0
     n_prefix: int = 0
     d_model: int = 0
@@ -27,13 +30,23 @@ class DataConfig:
     zipf_a: float = 1.3
 
 
+KINDS = ("lm", "encdec", "vlm")
+
+
+def data_kind(cfg) -> str:
+    """The data kind a model config reads (the JAX CLIs' choice): its
+    frontend stub's embeddings beside the tokens, or none."""
+    return ("encdec" if cfg.family == "encdec"
+            else "vlm" if cfg.frontend == "vision" else "lm")
+
+
 class TokenStream:
     """Deterministic resumable iterator of training batches."""
 
     def __init__(self, cfg: DataConfig, step: int = 0):
-        if cfg.kind != "lm":
-            raise NotImplementedError(
-                f"data kind {cfg.kind!r} is not ported yet (see ROADMAP.md)")
+        if cfg.kind not in KINDS:
+            raise ValueError(f"unknown data kind {cfg.kind!r}; options "
+                             f"{KINDS}")
         self.cfg = cfg
         self.step = int(step)
         ranks = np.arange(1, cfg.vocab + 1, dtype=np.float64)
@@ -67,8 +80,15 @@ class TokenStream:
         rng = np.random.default_rng((cfg.seed << 20) ^ self.step)
         self.step += 1
         toks = self._tokens(rng, cfg.global_batch, cfg.seq_len + 1)
-        return {"tokens": torch.from_numpy(np.ascontiguousarray(toks[:, :-1])),
-                "labels": torch.from_numpy(np.ascontiguousarray(toks[:, 1:]))}
+        batch = {"tokens": torch.from_numpy(np.ascontiguousarray(toks[:, :-1])),
+                 "labels": torch.from_numpy(np.ascontiguousarray(toks[:, 1:]))}
+        extra = {"encdec": ("enc_embeds", cfg.enc_len),
+                 "vlm": ("prefix_embeds", cfg.n_prefix)}.get(cfg.kind)
+        if extra is not None:
+            name, length = extra
+            batch[name] = torch.from_numpy(rng.standard_normal(
+                (cfg.global_batch, length, cfg.d_model)).astype(np.float32))
+        return batch
 
     def __iter__(self):
         while True:

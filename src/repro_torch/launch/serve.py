@@ -6,12 +6,15 @@
 
 ``--arch``: the dense ``qwen3-1.7b``, ``qwen3-4b``, ``codeqwen1.5-7b`` and
 ``minicpm-2b``, the MoE ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``, the SSM
-``mamba2-370m`` or the hybrid ``zamba2-7b`` (``repro_torch.configs``).
+``mamba2-370m``, the hybrid ``zamba2-7b``, the enc-dec
+``seamless-m4t-medium`` or the vision-prefix ``pixtral-12b``
+(``repro_torch.configs``).
 
 Twin of ``repro.launch.serve``: the same flags plus ``--device`` (CUDA
 unless ``--device cpu``).  It quantizes as the JAX CLI does, through
 ``quantize_model``'s batched engine with any ``--method`` (calibration on
-2 x 64 tokens; group 64 and rank 64 at full size, 16 and 8 with
+2 x 64 tokens, with 16 encoder frames or ``n_prefix`` patches where the
+model reads them; group 64 and rank 64 at full size, 16 and 8 with
 ``--smoke``), and routes as it does:
 
 * a dense or MoE scan model with LoRA adapter sites (every quantized
@@ -23,10 +26,12 @@ unless ``--device cpu``).  It quantizes as the JAX CLI does, through
   NAME=DIR`` loaded from a checkpoint (the train CLI's ``--ckpt-dir``),
   ``--batch`` slots a rank bucket, a paged KV cache of ``--page-size``
   tokens a page; the summary is read from the metrics registry;
-* an SSM or hybrid model, and a model without adapter sites
+* an SSM, hybrid or enc-dec model, and a model without adapter sites
   (``--method none``), is served by the fixed-slot refill loop
   (:func:`serve_fixed_slots`), whose conv windows, SSM states and K/V
-  rings are written in place each step.
+  rings are written in place each step; an enc-dec model decodes against
+  an ``enc_out`` of zeros, as in the JAX CLI (the text-only decode of a
+  speech model with no audio).
 
 On a CUDA device the quantized linears and decode attention run through
 the hand-written kernels (``QSpec.use_kernel``), and each decode step is
@@ -49,7 +54,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.pipeline import quantize_model
 from repro_torch.core.recipe import QuantRecipe, load_plan
-from repro_torch.data import DataConfig, TokenStream
+from repro_torch.data import DataConfig, TokenStream, data_kind
 from repro_torch.launch.steps import (CapturedStep, make_decode_step,
                                       resolve_graph)
 from repro_torch.models.modules import QSpec
@@ -131,7 +136,8 @@ def build_quantized(args, cfg, params):
                   rank=8 if args.smoke else 64, method=args.method))
     if recipe is not None:
         dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2,
-                          seed=args.seed)
+                          seed=args.seed, kind=data_kind(cfg), enc_len=16,
+                          n_prefix=cfg.n_prefix, d_model=cfg.d_model)
         calib = [TokenStream(dcfg).next_batch()]
         params, cfg, _ = quantize_model(params, cfg, calib, recipe=recipe)
     return cfg, params
@@ -141,13 +147,16 @@ def serve_fixed_slots(params, cfg, *, batch: int, cache_len: int,
                       requests: int, max_new: int, seed: int,
                       device: str | torch.device,
                       keep_logits: bool = False,
-                      graph: bool | None = None) -> dict:
+                      graph: bool | None = None,
+                      enc_out: torch.Tensor | None = None) -> dict:
     """Fixed-slot refill loop: ``batch`` slots, each serving one request
     of ``max_new`` greedy tokens from a random first token, refilled as
     requests finish.  The KV cache position advances every step and is
     never rewound, so the run needs ``ceil(requests / batch) * max_new <=
     cache_len`` (checked up front).  ``graph``: capture the decode step as
-    a CUDA graph (None: on CUDA, not on the CPU).  Returns counts, times
+    a CUDA graph (None: on CUDA, not on the CPU).  ``enc_out``: an enc-dec
+    model's encoder output ``(batch, cache_len, d_model)`` to decode
+    against (default: the cache's zeros, as the CLI serves).  Returns counts, times
     (each step's host seconds in ``step_s``: a step ends by reading its
     tokens, a sync), the per-step input and output tokens, whether every
     logit was finite, and (``keep_logits``) the per-step logits on the
@@ -160,6 +169,8 @@ def serve_fixed_slots(params, cfg, *, batch: int, cache_len: int,
             f"{-(-requests // B) * max_new} steps, more than --cache-len "
             f"{cache_len}")
     cache = init_decode_cache(cfg, B, cache_len, device=device)
+    if enc_out is not None:
+        cache["enc_out"].copy_(enc_out)
     decode = make_decode_step(cfg, LOCAL)
 
     def step(inp):

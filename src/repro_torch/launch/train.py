@@ -5,10 +5,14 @@
 
 ``--arch``: the dense ``qwen3-1.7b``, ``qwen3-4b``, ``codeqwen1.5-7b`` and
 ``minicpm-2b``, the MoE ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``, the SSM
-``mamba2-370m`` or the hybrid ``zamba2-7b`` (``repro_torch.configs``).  A
-hybrid model's shared block is quantized once against its sites' pooled
-Gram and each site's LoRA pair is its own CLoQ solve; the per-site pairs
-train like any other adapter.
+``mamba2-370m``, the hybrid ``zamba2-7b``, the enc-dec
+``seamless-m4t-medium`` or the vision-prefix ``pixtral-12b``
+(``repro_torch.configs``).  A hybrid model's shared block is quantized
+once against its sites' pooled Gram and each site's LoRA pair is its own
+CLoQ solve; the per-site pairs train like any other adapter.  An enc-dec
+model's batches carry ``enc_embeds`` of ``max(seq_len // 4, 8)`` frames
+and its cross-attention linears are sites like the others; a vision
+model's carry ``n_prefix`` patch embeddings before the text.
 
 Twin of ``repro.launch.train``: the same flags plus ``--device`` (CUDA
 unless ``--device cpu``).  It builds the model from ``--seed``, optionally
@@ -69,7 +73,7 @@ from repro_torch.core.allocate import default_grid
 from repro_torch.core.pipeline import (allocate_plan, quantization_manifest,
                                        quantize_model)
 from repro_torch.core.recipe import QuantRecipe, load_plan
-from repro_torch.data import DataConfig, TokenStream
+from repro_torch.data import DataConfig, TokenStream, data_kind
 from repro_torch.launch.steps import build_state, make_train_step
 from repro_torch.models.modules import QSpec
 from repro_torch.models.parallel import LOCAL
@@ -206,8 +210,11 @@ def _run(args, cfg, stop: dict) -> dict:
     if args.smoke and group_size > cfg.d_model:
         group_size = min(group_size, 16)
     params = init_params(cfg, seed=args.seed, device=device)
-    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
-                                    global_batch=args.batch, seed=args.seed))
+    stream = TokenStream(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.batch,
+        seed=args.seed, kind=data_kind(cfg),
+        enc_len=max(args.seq_len // 4, 8), n_prefix=cfg.n_prefix,
+        d_model=cfg.d_model))
 
     if args.pretrain_steps:
         ocfg0 = OptConfig(lr=3e-3, trainable="all",

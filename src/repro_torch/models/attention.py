@@ -1,5 +1,6 @@
 """GQA attention with RoPE, optional qk-norm, sliding window and KV-cache
-decode.  PyTorch twin of ``repro.models.attention`` (self-attention only).
+decode, and the enc-dec model's cross-attention.  PyTorch twin of
+``repro.models.attention``.
 Shapes: x (B, S, D); heads laid out as (B, S, H, hd).  Softmax in f32.
 """
 from __future__ import annotations
@@ -184,3 +185,27 @@ def attn_decode(p, cfg: AttnConfig, x: Tensor, cache: dict, *,
     with scope("o"):
         y = linear_apply(p["o"], out.reshape(B, 1, -1).to(x.dtype), qspec)
     return y, {"k": K, "v": V, "idx": idx + 1}
+
+
+def cross_attn_apply(p, cfg: AttnConfig, x: Tensor, kv_src: Tensor, *,
+                     qspec: QSpec | None = None) -> Tensor:
+    """Encoder-decoder cross-attention: queries from ``x`` (B, Sq, D), keys
+    and values projected from ``kv_src`` (B, Sk, D); no RoPE and no mask
+    (the plain softmax, as the JAX twin: no kernel runs here)."""
+    B, Sq, _ = x.shape
+    Sk = kv_src.shape[1]
+    hd = cfg.hd
+    with scope("q"):
+        q = linear_apply(p["q"], x, qspec).reshape(B, Sq, cfg.n_heads, hd)
+    with scope("k"):
+        k = linear_apply(p["k"], kv_src, qspec).reshape(B, Sk,
+                                                        cfg.n_kv_heads, hd)
+    with scope("v"):
+        v = linear_apply(p["v"], kv_src, qspec).reshape(B, Sk,
+                                                        cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q)
+        k = rmsnorm_apply(p["k_norm"], k)
+    out = _sdpa(q, k, v, None)
+    with scope("o"):
+        return linear_apply(p["o"], out.reshape(B, Sq, -1).to(x.dtype), qspec)

@@ -1,10 +1,11 @@
-"""Decoder-only model: config, init, forward, loss and cached decode.
+"""Model stack: config, init, forward, loss and cached decode.
 
-PyTorch twin of the dense, MoE, SSM and hybrid branches of
-``repro.models.transformer``.  Block params are either scan-stacked (every
-leaf under ``blocks`` has a leading layer axis, as the JAX package stacks
-them for ``lax.scan``; MoE expert stacks are ``(L, E, m, n)``) or eager
-(``blocks.<i>.…``); the layer loop is a Python loop over either layout.
+PyTorch twin of ``repro.models.transformer``: the dense, MoE, SSM, hybrid
+and enc-dec families, and the vision prefix.  Block params are either
+scan-stacked (every leaf under ``blocks`` has a leading layer axis, as the
+JAX package stacks them for ``lax.scan``; MoE expert stacks are ``(L, E,
+m, n)``) or eager (``blocks.<i>.…``); the layer loop is a Python loop over
+either layout.
 
 A hybrid (Zamba2-style) model adds ``shared``: one attention + MLP block
 (``shared.block``) applied after every ``hybrid_attn_every`` Mamba layers,
@@ -12,18 +13,34 @@ each application (a site) with its own LoRA pair spliced into every linear
 from the stacks ``shared.site_lora.<mod>_<lin>.lora_a (S, m, r)`` and
 ``lora_b (S, n, r)``.  In the eager layout a site runs under the scope
 ``sites.<s>``, so its calibration Grams are keyed ``sites.<s>.shared.
-attn.q`` and so on, as in the JAX package.  The enc-dec family and the
-vision frontend are not ported yet (``ROADMAP.md``).
+attn.q`` and so on, as in the JAX package.
+
+An enc-dec (seamless-style) model holds ``enc_blocks`` (``n_enc_layers``
+dense blocks with bidirectional attention, then ``enc_norm``),
+``dec_blocks`` (``n_layers`` causal dense blocks) and ``cross`` (one
+``ln`` and non-causal ``xattn`` a decoder layer), each stacked or eager.
+The frontend is a stub: ``batch["enc_embeds"]`` is the encoder's input.
+In training a decoder layer runs self-attention, MLP, then
+cross-attention over the encoder output; in decode self-attention,
+cross-attention over ``cache["enc_out"]``, then MLP: the JAX twin orders
+them so in each, and the port keeps both.  Eager scopes are
+``enc_blocks.<i>`` and ``dec_blocks.<i>`` (its cross-attention under
+``dec_blocks.<i>.cross``), so calibration Grams carry the JAX keys.  A
+vision-prefix model (``frontend="vision"``) prepends
+``batch["prefix_embeds"]`` to the token embeddings and drops those
+positions after the final norm.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.models.attention import (AttnConfig, attn_apply,
-                                          attn_decode, attn_init)
+                                          attn_decode, attn_init,
+                                          cross_attn_apply)
 from repro_torch.models.mlp import swiglu_apply, swiglu_init
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 from repro_torch.models.modules import (QSpec, embedding_apply,
@@ -41,7 +58,7 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid
+    family: str                   # dense | moe | ssm | hybrid | encdec
     n_layers: int
     d_model: int
     vocab: int
@@ -66,6 +83,10 @@ class ModelConfig:
     # hybrid (zamba2-style): shared attn+mlp block applied every k SSM layers
     hybrid_attn_every: int = 6
     hybrid_window: int | None = 4096   # sliding window of the decode ring
+    # enc-dec
+    n_enc_layers: int = 0
+    frontend: str | None = None   # "audio" | "vision" (stub embeddings input)
+    n_prefix: int = 0             # vlm: number of patch positions
     vocab_pad_multiple: int = 1   # pad embedding/head rows
     quant: QSpec | None = None
     lora_rank: int = 0            # LoRA on dense weights
@@ -101,14 +122,13 @@ class ModelConfig:
                 if self.family == "hybrid" else 0)
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet; "
-            f"{FAMILIES} are (see ROADMAP.md)")
+        raise ValueError(f"unknown family {cfg.family!r}; options "
+                         f"{FAMILIES}")
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -226,18 +246,36 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         p["head"] = linear_init(gen, cfg.d_model, vp, dtype=cfg.dtype,
                                 device=dev)
-    layers = [_block_init(gen, cfg, dev) for _ in range(cfg.n_layers)]
-    p["blocks"] = (stack_layers(layers) if cfg.scan_layers
-                   else {str(i): l for i, l in enumerate(layers)})
+
+    def make_stack(layers: list[dict]) -> dict:
+        return (stack_layers(layers) if cfg.scan_layers
+                else {str(i): l for i, l in enumerate(layers)})
+
+    if cfg.family == "encdec":
+        p["enc_blocks"] = make_stack([_block_init(gen, cfg, dev)
+                                      for _ in range(cfg.n_enc_layers)])
+        p["dec_blocks"] = make_stack([_block_init(gen, cfg, dev)
+                                      for _ in range(cfg.n_layers)])
+        p["cross"] = make_stack([
+            {"ln": rmsnorm_init(cfg.d_model, cfg.dtype, dev),
+             "xattn": attn_init(gen, cfg.attn_cfg(causal=False),
+                                dtype=cfg.dtype, lora_rank=cfg.lora_rank,
+                                device=dev)}
+            for _ in range(cfg.n_layers)])
+        p["enc_norm"] = rmsnorm_init(cfg.d_model, cfg.dtype, dev)
+    else:
+        p["blocks"] = make_stack([_block_init(gen, cfg, dev)
+                                  for _ in range(cfg.n_layers)])
     if cfg.family == "hybrid":
         p["shared"] = _shared_block_init(gen, cfg, dev)
     return p
 
 
-def _block_apply(p, cfg: ModelConfig, x: Tensor,
-                 pctx: PContext = LOCAL) -> tuple[Tensor, Tensor | None]:
+def _block_apply(p, cfg: ModelConfig, x: Tensor, pctx: PContext = LOCAL,
+                 causal: bool = True) -> tuple[Tensor, Tensor | None]:
     """Returns (y, aux_loss): the MoE block's aux loss, None for the
-    other families."""
+    other families.  ``causal=False``: the enc-dec encoder's
+    bidirectional attention."""
     q = cfg.quant
     if cfg.family in ("ssm", "hybrid"):
         with scope("mamba"):
@@ -245,7 +283,7 @@ def _block_apply(p, cfg: ModelConfig, x: Tensor,
                             rmsnorm_apply(p["norm"], x), qspec=q)
         return x + y, None
     with scope("attn"):
-        x = x + attn_apply(p["attn"], cfg.attn_cfg(),
+        x = x + attn_apply(p["attn"], cfg.attn_cfg(causal=causal),
                            rmsnorm_apply(p["ln1"], x), qspec=q)
     if cfg.family == "moe":
         with scope("moe"):
@@ -281,36 +319,87 @@ def _layers(blocks: dict, cfg: ModelConfig):
     return [(i, blocks[i]) for i in sorted(blocks, key=int)]
 
 
+def _layer_scope(cfg: ModelConfig, name: str):
+    """The eager layout's per-layer scope (calibration keys); none for a
+    scan-stacked model, as under the JAX twin's ``lax.scan``."""
+    return contextlib.nullcontext() if cfg.scan_layers else scope(name)
+
+
+def _encode(params: dict, cfg: ModelConfig, enc_embeds: Tensor) -> Tensor:
+    """The enc-dec encoder: bidirectional dense blocks over the frontend
+    stub's embeddings (B, Se, D), then ``enc_norm``.  Returns enc_out."""
+    x = enc_embeds.to(cfg.dtype)
+    for i, bp in _layers(params["enc_blocks"], cfg):
+        with _layer_scope(cfg, f"enc_blocks.{i}"):
+            x, _ = _block_apply(bp, cfg, x, causal=False)
+    return rmsnorm_apply(params["enc_norm"], x)
+
+
+def _cross_apply(cp: dict, cfg: ModelConfig, x: Tensor,
+                 enc_out: Tensor) -> Tensor:
+    """A decoder layer's residual cross-attention over ``enc_out``."""
+    with scope("cross"):
+        return x + cross_attn_apply(cp["xattn"], cfg.attn_cfg(causal=False),
+                                    rmsnorm_apply(cp["ln"], x), enc_out,
+                                    qspec=cfg.quant)
+
+
+def _forward_encdec(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
+    """The enc-dec decoder's hidden states before the final norm: each
+    layer's dense block (attention, MLP), then its cross-attention."""
+    enc_out = _encode(params, cfg, batch["enc_embeds"])
+    x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
+    cross = dict(_layers(params["cross"], cfg))
+    for i, bp in _layers(params["dec_blocks"], cfg):
+        with _layer_scope(cfg, f"dec_blocks.{i}"):
+            x, _ = _block_apply(bp, cfg, x)
+            x = _cross_apply(cross[i], cfg, x, enc_out)
+    return x
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             pctx: PContext = LOCAL, return_hidden: bool = False):
-    """Training/prefill forward.  batch: tokens (B, S) int.  Returns
-    (logits (B, S, V), aux) — or (hidden (B, S, D), aux) with
-    ``return_hidden``.  ``aux`` is the f32 sum of the MoE layers' load
-    balance losses (zero for a dense model)."""
+    """Training/prefill forward.  batch: tokens (B, S) int; an enc-dec
+    model's ``enc_embeds`` (B, Se, D); a vision model's optional
+    ``prefix_embeds`` (B, P, D), prepended to the token embeddings.
+    Returns (logits (B, S, V), aux) — or (hidden (B, S, D), aux) with
+    ``return_hidden``: text positions only.  ``aux`` is the f32 sum of the
+    MoE layers' load balance losses (zero for the other families)."""
     _check_family(cfg)
-    x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    shared = params.get("shared")
-    for i, bp in _layers(params["blocks"], cfg):
-        if cfg.scan_layers:
-            x, a = _block_apply(bp, cfg, x, pctx)
-        else:
-            with scope(f"blocks.{i}"):
-                x, a = _block_apply(bp, cfg, x, pctx)
-        if a is not None:
-            aux = aux + a
-        site = _site_after(cfg, int(i))
-        if site is not None:
-            if cfg.scan_layers:
-                x = _shared_block_apply(shared, cfg, x, site)
-            else:
-                with scope(f"sites.{site}"):
-                    x = _shared_block_apply(shared, cfg, x, site)
+    if cfg.family == "encdec":
+        x = _forward_encdec(params, cfg, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, aux = _forward_blocks(params, cfg, batch, pctx)
     x = rmsnorm_apply(params["final_norm"], x)
+    if cfg.frontend == "vision" and "prefix_embeds" in batch:
+        x = x[:, batch["prefix_embeds"].shape[1]:, :]
     if return_hidden:
         return x, aux
     head = params.get("head", params["embed"])
     return lm_head_apply(head, x), aux
+
+
+def _forward_blocks(params: dict, cfg: ModelConfig, batch: dict,
+                    pctx: PContext) -> tuple[Tensor, Tensor]:
+    """The ``blocks`` stack (and a hybrid's shared-block sites) over the
+    token embeddings, a vision model's prefix first.  Returns (hidden
+    before the final norm, aux)."""
+    x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
+    if cfg.frontend == "vision" and "prefix_embeds" in batch:
+        x = torch.cat([batch["prefix_embeds"].to(cfg.dtype), x], dim=1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared")
+    for i, bp in _layers(params["blocks"], cfg):
+        with _layer_scope(cfg, f"blocks.{i}"):
+            x, a = _block_apply(bp, cfg, x, pctx)
+        if a is not None:
+            aux = aux + a
+        site = _site_after(cfg, int(i))
+        if site is not None:
+            with _layer_scope(cfg, f"sites.{site}"):
+                x = _shared_block_apply(shared, cfg, x, site)
+    return x, aux
 
 
 def _ce(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
@@ -353,10 +442,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype=None, device: str | torch.device | None = None
                       ) -> dict:
     """Caches for one-token-at-a-time decode with context ``cache_len``:
-    K/V ``(L, batch, cache_len, Hkv, hd)`` for dense and MoE; f32 conv
-    windows and SSM states (a leading layer axis) for SSM; for hybrid also
-    ``shared_kv``, one K/V ring a site of ``min(cache_len,
-    hybrid_window)`` positions."""
+    K/V ``(L, batch, cache_len, Hkv, hd)`` for dense and MoE, and for
+    enc-dec with ``enc_out`` ``(batch, cache_len, d_model)`` (zeros until
+    the caller fills it with an encoder output); f32 conv windows and SSM
+    states (a leading layer axis) for SSM; for hybrid also ``shared_kv``,
+    one K/V ring a site of ``min(cache_len, hybrid_window)`` positions."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
@@ -371,6 +461,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
     if cfg.family in ("dense", "moe"):
         return kv(cfg.n_layers, cache_len)
+    if cfg.family == "encdec":
+        return {"enc_out": torch.zeros((batch, cache_len, cfg.d_model),
+                                       dtype=dtype, device=dev),
+                **kv(cfg.n_layers, cache_len)}
     s, L, f32 = cfg.ssm_cfg(), cfg.n_layers, torch.float32
     cache = {"conv_x": torch.zeros((L, batch, s.conv_kernel - 1, s.d_inner),
                                    dtype=f32, device=dev),
@@ -418,7 +512,10 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
 
     The new K/V rows, conv windows and SSM states are written into the
     cache's tensors in place (see ``attn_decode`` and ``mamba_decode``);
-    the returned cache holds the same tensors and ``idx + 1``."""
+    the returned cache holds the same tensors and ``idx + 1``.  An enc-dec
+    layer runs self-attention, cross-attention over ``cache["enc_out"]``
+    (its K/V projected from all of it every step, as in the JAX twin),
+    then the MLP."""
     _check_family(cfg)
     x = embedding_apply(params["embed"], tokens).to(cfg.dtype)
     q = cfg.quant
@@ -427,13 +524,18 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
         x = _ssm_decode(params, cfg, cache, x, idx)
     else:
         acfg = cfg.attn_cfg()
-        for i, bp in _layers(params["blocks"], cfg):
+        encdec = cfg.family == "encdec"
+        blocks = params["dec_blocks" if encdec else "blocks"]
+        cross = dict(_layers(params["cross"], cfg)) if encdec else None
+        for i, bp in _layers(blocks, cfg):
             li = int(i)
             h = rmsnorm_apply(bp["ln1"], x)
             y, _ = attn_decode(bp["attn"], acfg, h,
                                {"k": cache["k"][li], "v": cache["v"][li],
                                 "idx": idx}, qspec=q)
             x = x + y
+            if encdec:
+                x = _cross_apply(cross[i], cfg, x, cache["enc_out"])
             x = x + _ffn_decode(bp, cfg, rmsnorm_apply(bp["ln2"], x), pctx)
     x = rmsnorm_apply(params["final_norm"], x)
     head = params.get("head", params["embed"])

@@ -24,19 +24,20 @@ from tests.torch_parity import port_params, to_np
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 NEW = ("qwen3-4b", "codeqwen1.5-7b", "minicpm-2b", "olmoe-1b-7b",
-       "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b")
+       "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b",
+       "seamless-m4t-medium", "pixtral-12b")
 
 
 def test_registry_order_and_aliases_are_the_references():
-    """The ported entries in the reference's order; the families not ported
-    yet raise ``KeyError``."""
-    assert tc.ARCH_IDS == [a for a in jc.ARCH_IDS if a in tc.ARCH_IDS]
-    assert tc.ALIASES == {k: v for k, v in jc.ALIASES.items()
-                          if v in tc.ARCH_IDS}
-    assert len(tc.ARCH_IDS) == 8
+    """All ten of the reference's architectures in its order, with its
+    aliases; an unknown name raises ``KeyError``."""
+    assert tc.ARCH_IDS == jc.ARCH_IDS
+    assert tc.ALIASES == jc.ALIASES
+    assert len(tc.ARCH_IDS) == 10
     for name in ("seamless-m4t-medium", "pixtral-12b"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tc.get_config(name)
+        assert tc.get_config(name).name == jc.get_config(name).name
+    with pytest.raises(KeyError, match="unknown arch"):
+        tc.get_config("whisper-large")
 
 
 @pytest.mark.parametrize("smoke", [False, True])

@@ -517,6 +517,58 @@ def test_captured_fixed_slots_give_the_eager_tokens(cuda, which):
                                   np.stack(eager["logits"]))
 
 
+@pytest.mark.parametrize("which", sorted(_GRAPH_MODELS))
+def test_captured_encdec_fixed_slots_give_the_eager_tokens(cuda, which):
+    """seamless's smoke model (widened as the others), CLoQ-quantized on
+    the card, decoded by the fixed-slot loop against a real encoder
+    output, eager and captured: the same tokens and logits, and a step's
+    launches, among them the fused kernel over all of ``enc_out``'s rows
+    (4 x 32: cross k/v, 2 a layer) inside the captured graph."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream, data_kind
+    from repro_torch.launch import serve
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.transformer import _encode, init_params
+    cfg = get_smoke_config("seamless-m4t-medium", **_GRAPH_MODELS[which])
+    params = init_params(cfg, seed=0, device=cuda)
+    calib = [TokenStream(DataConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0,
+        kind=data_kind(cfg), enc_len=16, d_model=cfg.d_model)).next_batch()]
+    g = 16 if which == "f32" else 64
+    qp, qcfg, _ = quantize_model(params, cfg, calib,
+                                 recipe=QuantRecipe.single(
+                                     "cloq", QSpec(bits=4, group_size=g,
+                                                   rank=8)))
+    qcfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    with torch.no_grad():
+        enc_out = _encode(qp, qcfg, torch.randn(
+            (4, 32, cfg.d_model), generator=gen, device=cuda))
+    runs = {}
+    for graph in (False, True):
+        ops.reset_launch_counts()
+        res = serve.serve_fixed_slots(qp, qcfg, batch=4, cache_len=32,
+                                      requests=8, max_new=8, seed=0,
+                                      device=cuda, graph=graph,
+                                      keep_logits=True, enc_out=enc_out)
+        runs[graph] = (res, ops.launch_counts())
+    (eager, ce), (capt, cc) = runs[False], runs[True]
+    L = qcfg.n_layers
+    assert cc == ce == {"dequant_matmul": 9 * L * 16,
+                        "dequant_matmul_lora": 2 * L * 16,
+                        "flash_attention": L * 16, "gram": 0}
+    assert capt["steps"] == eager["steps"] == 16 and capt["all_finite"]
+    for a, b in zip(capt["outputs"], eager["outputs"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(np.stack(capt["logits"]),
+                                  np.stack(eager["logits"]))
+
+
 def test_hot_swap_after_capture_reaches_the_next_replay(cuda):
     """A swap written into a rank bucket's stacks after its step was
     captured is seen by the next replay, with no new capture: the tokens

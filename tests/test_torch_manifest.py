@@ -4,7 +4,7 @@
 that carry the manifest (``save_tree(manifest=)``), against the JAX
 package.
 
-Tolerances: none.  For each of the 8 ported configs at its published size
+Tolerances: none.  For each of the 10 configs at its published size
 (abstract shapes cost nothing) and three recipes (one method; a mixed plan
 with a ``skip`` rule and other methods, bits and ranks; NF4 ``qlora``)
 the manifest is JSON-equal to JAX's and has the same fingerprint, and the
@@ -41,7 +41,8 @@ from repro_torch.utils import tree_paths as tpaths
 from tests import torch_parity  # noqa: F401  (sets torch's threads)
 
 ARCHS = ("qwen3-1.7b", "qwen3-4b", "codeqwen1.5-7b", "minicpm-2b",
-         "olmoe-1b-7b", "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b")
+         "olmoe-1b-7b", "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b",
+         "seamless-m4t-medium", "pixtral-12b")
 _QS = dict(bits=4, group_size=64, rank=64)
 # first match wins: the attention output left dense, the MLPs at 2 bits
 # rank 16, MoE experts by RTN at 3 bits (one code a byte) rank 0, the
@@ -121,7 +122,7 @@ def test_manifest_bytes_and_shapes_match_jax(arch, recipe):
     assert _layout(tpaths(shapes_t)) == _layout(jpaths(shapes_j))
     assert tp.recipe_plan_bytes(ct, rt) == jp.recipe_plan_bytes(cj, rj)
     if recipe == "mixed":                # the skipped site plans no task
-        assert all(not t["path"].endswith("attn.o")
+        assert all(not t["path"].endswith(".attn.o")
                    for b in man_t["buckets"] for t in b["tasks"])
     if cj.family == "hybrid":
         assert len(man_t["site_lora"]) == (6 if recipe == "mixed" else 7)

@@ -269,7 +269,8 @@ def test_quantize_model_rejects_unported():
 def test_stacked_expert_sites_are_quantization_sites():
     """Stacked MoE expert weights (E, m, n) are quantization sites like the
     2-D linears (the router is not), as are a hybrid's weight-shared
-    linears; cross-attention sites still raise as not ported."""
+    linears and an enc-dec model's cross-attention linears, each read at
+    the reference's capture scope."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.transformer import init_params
     cfg = get_smoke_config("olmoe-1b-7b", scan_layers=False)
@@ -279,10 +280,16 @@ def test_stacked_expert_sites_are_quantization_sites():
     assert "blocks.1.moe.down" in paths and not any("router" in p
                                                     for p in paths)
     assert get_path(params, "blocks.1.moe.down")["w"].dim() == 3
-    for p in paths + ["shared.block.attn.q"]:
-        tp._ported_site(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp._ported_site("cross.0.xattn.q")
+    encdec = init_params(get_smoke_config("seamless-m4t-medium",
+                                          scan_layers=False),
+                         seed=0, device="cpu")
+    cross = [p for p in tp.quantizable_linear_paths(encdec)
+             if p.startswith("cross.")]
+    assert cross == [f"cross.{i}.xattn.{n}" for i in range(2)
+                     for n in ("k", "o", "q", "v")]
+    for p in paths + cross + ["shared.block.attn.q"]:
+        assert tp._scope_for(p) == jp._scope_for(p)
+    assert tp._scope_for("cross.1.xattn.v") == "dec_blocks.1.cross.v"
 
 
 @pytest.mark.parametrize("case", ["normal", "huge", "overflow", "nan"])
