@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Planted-fault check of ``chip_smoke.py``'s bf16 decode attention cases,
-its gram cases and its kernel-vs-plain decode logits check.
+its gram cases, its kernel-vs-plain decode logits check and its fused
+LoRA kernel's precision check.
 
     python3 chip_fault_check.py
 
@@ -27,17 +28,27 @@ A second copy, ``build/fault_copy_dequant/``, holds a third fault alone:
   decode logits to ``chip_smoke.logits_limit``, as the configs, ssm and
   allocate phases do.
 
+A third copy, ``build/fault_copy_lora/``, holds a fourth:
+
+* ``dequant_matmul_lora.cu``: the wgmma route folds each group's sums
+  with its scale rounded to bf16 (the kind of rounding the kernel exists
+  to avoid).  The cases are ``chip_smoke.lora_precision``'s (K = 14336,
+  weights of std 0.02 and K^-0.5), held to the exact product within
+  ``LORA_EXACT_RTOL * |exact| + LORA_EXACT_ATOL`` and to the plain
+  version within the JAX bf16 tolerance.
+
 The attention and gram cases run on the real sources and on the first
-copy, the logits cases on the real sources and on the second, each tree
-in its own process.  One JSON line a case: tree, kernel, shape, the
+copy, the logits cases on the real sources and on the second, the
+precision cases on the real sources and on the third, each tree in its
+own process.  One JSON line a case: tree, kernel, shape, the
 plan's split or route, whether the checks pass, the error and the
 reference's largest value (for the logits, the limit).
 
 Exits 0 when every case passes on the real sources, the attention check
 fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, the gram
-check fails on the copy in every case with more than one token stage, and
-the logits check fails on the second copy in every case; the last line
-says which.
+check fails on the copy in every case with more than one token stage,
+the logits check fails on the second copy in every case, and the
+precision check on the third in every case; the last line says which.
 """
 from __future__ import annotations
 
@@ -65,6 +76,14 @@ DQ_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul.cu")
 DQ_SOUND = "nz[c] = -(OFF + z.x); nz[c + 1] = -(OFF + z.y);"
 DQ_FAULT = ("nz[c] = -(OFF + z.x + (s_lo + i == 0)); "
             "nz[c + 1] = -(OFF + z.y + (s_lo + i == 0));")
+LORA_COPY = ROOT / "build" / "fault_copy_lora"
+LORA_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul_lora.cu")
+# the wgmma route's fold reads a group's scales; the fault rounds them to
+# bf16 first
+LORA_SOUND = ("const float2 s2 = *reinterpret_cast<const float2*>"
+              "(szp + 8 * jn + 2 * cq);")
+LORA_FAULT = ("const float2 s2 = __bfloat1622float2(__float22bfloat162_rn("
+              "*reinterpret_cast<const float2*>(szp + 8 * jn + 2 * cq)));")
 
 
 def _plant(text: str, sound: str, fault: str, where: Path) -> str:
@@ -89,6 +108,12 @@ def plant_dequant_fault(text: str) -> str:
     """The decode kernel's source with its fault in place of the sound
     line."""
     return _plant(text, DQ_SOUND, DQ_FAULT, DQ_KERNEL)
+
+
+def plant_lora_fault(text: str) -> str:
+    """The fused kernel's source with its fault in place of the sound
+    line."""
+    return _plant(text, LORA_SOUND, LORA_FAULT, LORA_KERNEL)
 
 
 def flash_cases(torch, cs, dev) -> list[dict]:
@@ -170,9 +195,16 @@ def logits_cases(torch, cs, dev) -> list[dict]:
     return out
 
 
+def lora_cases(torch, cs, dev) -> list[dict]:
+    """``chip_smoke.lora_precision``'s cases on the sources imported."""
+    return [{"kernel": "dequant_matmul_lora", "passes": r["holds"], **r}
+            for r in cs.lora_precision_rows(torch, dev)]
+
+
 def run_cases(tree: Path, which: str) -> list[dict]:
-    """The attention and gram cases (``which`` "kernels") or the logits
-    cases ("logits") on the sources under ``tree``."""
+    """The attention and gram cases (``which`` "kernels"), the logits
+    cases ("logits") or the precision cases ("lora") on the sources under
+    ``tree``."""
     sys.path.insert(0, str(tree / "src"))
     import torch
 
@@ -181,6 +213,8 @@ def run_cases(tree: Path, which: str) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     if which == "logits":
         return logits_cases(torch, cs, dev)
+    if which == "lora":
+        return lora_cases(torch, cs, dev)
     return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
 
 
@@ -200,9 +234,9 @@ def main() -> int:
         print("chip_fault_check: CUDA is not available", file=sys.stderr)
         return 1
     if not all((ROOT / k).is_file() for k in (KERNEL, GRAM_KERNEL,
-                                               DQ_KERNEL)):
-        print(f"chip_fault_check: no {KERNEL}, {GRAM_KERNEL} or "
-              f"{DQ_KERNEL} beside {__file__}", file=sys.stderr)
+                                               DQ_KERNEL, LORA_KERNEL)):
+        print(f"chip_fault_check: no {KERNEL}, {GRAM_KERNEL}, {DQ_KERNEL} "
+              f"or {LORA_KERNEL} beside {__file__}", file=sys.stderr)
         return 1
     _copy(COPY)
     (COPY / KERNEL).write_text(plant_fault((ROOT / KERNEL).read_text()))
@@ -211,11 +245,16 @@ def main() -> int:
     _copy(DQ_COPY)
     (DQ_COPY / DQ_KERNEL).write_text(
         plant_dequant_fault((ROOT / DQ_KERNEL).read_text()))
+    _copy(LORA_COPY)
+    (LORA_COPY / LORA_KERNEL).write_text(
+        plant_lora_fault((ROOT / LORA_KERNEL).read_text()))
     rows = {}
     for name, tree, which in (("sources", ROOT, "kernels"),
                               ("fault", COPY, "kernels"),
                               ("sources", ROOT, "logits"),
-                              ("fault_dequant", DQ_COPY, "logits")):
+                              ("fault_dequant", DQ_COPY, "logits"),
+                              ("sources", ROOT, "lora"),
+                              ("fault_lora", LORA_COPY, "lora")):
         proc = subprocess.run(
             [sys.executable, __file__, "--tree", str(tree), which],
             capture_output=True, text=True, cwd=ROOT, timeout=900)
@@ -236,10 +275,14 @@ def main() -> int:
                     if r["kernel"] == "gram" and r["T"] > 64)
     dequant_seen = bool(rows["fault_dequant"]) and all(
         not r["passes"] for r in rows["fault_dequant"])
+    lora_seen = bool(rows["fault_lora"]) and all(
+        not r["passes"] for r in rows["fault_lora"])
     print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
                       "gram_fault_caught": gram_seen,
-                      "dequant_fault_caught_by_logits": dequant_seen}))
-    return 0 if sound and flash_seen and gram_seen and dequant_seen else 1
+                      "dequant_fault_caught_by_logits": dequant_seen,
+                      "lora_fault_caught_by_precision": lora_seen}))
+    return 0 if (sound and flash_seen and gram_seen and dequant_seen
+                 and lora_seen) else 1
 
 
 if __name__ == "__main__":

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""The fused LoRA kernel's time in this checkout against another tree's,
+in turns on one GPU.
+
+    python3 chip_lora_ab.py --parent DIR [--rounds N]
+
+Run from the root of a checkout on a machine with one NVIDIA GPU.  DIR
+holds another checkout of the repository (for a commit,
+``git archive COMMIT | tar -x -C DIR``), whose ``src/repro_torch`` is
+timed beside this one's.  Each tree runs in its own process (its kernels
+built into its own ``build/``) and times ``chip_smoke.time_lora`` (one
+Qwen3-1.7B training forward's fused calls: 7 linears x 28 layers at
+1024 rows, bf16, 4-bit, group 64, rank 64, replayed as a CUDA graph
+between CUDA events) twice, with this checkout's ``chip_smoke.py``, in
+the order parent, change, change, parent (``--rounds`` such rounds).
+One JSON line a run, then one with each tree's times and the change's
+median over the parent's.  Exits 0 when every run finished.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def time_tree(tree: Path) -> dict:
+    """``chip_smoke.time_lora`` twice on the sources under ``tree``."""
+    sys.path.insert(0, str(tree / "src"))
+    sys.path.insert(1, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    build.build_all()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = [cs.time_lora(torch, dev) for _ in range(2)]
+    return {"tree": str(tree), "ms": [r["ms"] for r in runs],
+            "library_ms": [r["library_ms"] for r in runs],
+            "bound_ms": runs[0]["bound_ms"]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python3 chip_lora_ab.py")
+    ap.add_argument("--parent", help="the other checkout's root")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--tree", help=argparse.SUPPRESS)  # one run, internal
+    a = ap.parse_args(argv)
+    if a.tree:
+        print(json.dumps(time_tree(Path(a.tree))), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_lora_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    parent = Path(a.parent or "").resolve()
+    if not a.parent or not (parent / "src" / "repro_torch").is_dir() or \
+            not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_lora_ab: --parent must name another checkout, and this "
+              "script must run from one", file=sys.stderr)
+        return 1
+    trees = {"parent": parent, "change": ROOT}
+    times: dict = {"parent": [], "change": []}
+    for _ in range(a.rounds):
+        for name in ("parent", "change", "change", "parent"):
+            proc = subprocess.run(
+                [sys.executable, __file__, "--tree", str(trees[name])],
+                capture_output=True, text=True, cwd=ROOT, timeout=900)
+            if proc.returncode:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return 1
+            row = json.loads(proc.stdout.splitlines()[-1])
+            times[name] += row["ms"]
+            print(json.dumps({"run": name, **row}), flush=True)
+    print(json.dumps({"ms": times, "change_over_parent":
+                      statistics.median(times["change"])
+                      / statistics.median(times["parent"])}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

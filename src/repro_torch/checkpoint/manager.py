@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils import set_path, tree_paths
 
 _BF16_TAG = "__bf16__"
@@ -109,7 +110,8 @@ def save_tree(tree, directory: str, step: int, extra_meta: dict | None = None,
     :class:`CheckpointManager`'s retention never collects it."""
     os.makedirs(directory, exist_ok=True)
     obs_metrics.counter(obs_names.CKPT_SAVES).inc()
-    host = _to_host(tree)
+    with obs_trace.span("ckpt.gather", step=int(step)):
+        host = _to_host(tree)          # device -> host copy: a sync point
     meta = {"step": int(step), "time": time.time()}
     meta.update(extra_meta or {})
     meta["checksums"] = _leaf_checksums(host)
@@ -145,7 +147,8 @@ def save_tree(tree, directory: str, step: int, extra_meta: dict | None = None,
         t = threading.Thread(target=write, daemon=True)
         t.start()
         return t
-    write()
+    with obs_trace.span("ckpt.write", step=int(step)):
+        write()
     return None
 
 
@@ -182,6 +185,7 @@ def restore_tree(directory: str, step: int | None = None, *,
         raise FileNotFoundError(f"no checkpoints under {directory}")
     step = steps[-1] if step is None else step
     obs_metrics.counter(obs_names.CKPT_RESTORES).inc()
+    obs_trace.instant("ckpt.restore", step=int(step))
     path = os.path.join(directory, f"step_{step:08d}")
     shard = os.path.join(path, "arrays.npz")
     with open(os.path.join(path, "meta.json")) as f:
@@ -329,5 +333,7 @@ class QuantJournal:
             "dense": [j for j, r in enumerate(results) if r is None],
             "health": health_records or {},
         }
-        save_tree(tree, self.directory, bucket, extra_meta=meta)
+        with obs_trace.span("journal.commit", bucket=int(bucket),
+                            tasks=len(task_ids)):
+            save_tree(tree, self.directory, bucket, extra_meta=meta)
         obs_metrics.counter(obs_names.JOURNAL_COMMITTED).inc()

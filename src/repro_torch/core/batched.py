@@ -83,8 +83,10 @@ from repro_torch.core.magr import magr_alpha, magr_preprocess
 from repro_torch.core.optq import optq_quantize_core, pick_block
 from repro_torch.core.quantizer import (QuantConfig, dequantize_int,
                                         pack_codes, quantize_int)
+from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
+from repro_torch.obs import trace as obs_trace
 
 if TYPE_CHECKING:
     from repro_torch.core.recipe import SiteSpec
@@ -425,10 +427,6 @@ def chunk_size(spec: BucketSpec, n_slices: int, device: torch.device,
     return max(1, min(n_slices, fit))
 
 
-def _event(event: str, **fields) -> str:
-    return " ".join([f"[{event}]"] + [f"{k}={v}" for k, v in fields.items()])
-
-
 def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
                          method: str | None = None,
                          base: QuantConfig | None = None,
@@ -459,7 +457,12 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
     of computed (the entry does not depend on the chunks).
     ``should_stop`` is polled at every bucket boundary after the commit;
     True raises :class:`repro_torch.core.health.QuantPreempted`.
-    ``progress`` gets one ``[bucket]`` line a bucket.
+    ``progress`` gets one ``[bucket]`` line a bucket
+    (``obs.log.format_event``).  Spans (``repro_torch.obs.trace``, the JAX
+    twin's names and arguments): ``quant.plan``; a ``bucket.stage``, a
+    ``bucket.execute`` and, when guarded, a ``bucket.health_check`` a
+    chunk (``layers`` its slices), the last two fenced under
+    ``REPRO_TRACE_SYNC=1``.
 
     Returns one leaf dict per task, in task order."""
     from repro_torch.core import faults, health
@@ -468,7 +471,10 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
         raise NotImplementedError(f"mesh= {_NOT_PORTED}")
     if compile_cache is not None:
         raise NotImplementedError(f"compile_cache= {_NOT_PORTED}")
-    buckets = plan_buckets(tasks, qspec, method, base, cost_model=cost_model)
+    with obs_trace.span("quant.plan", tasks=len(tasks)) as sp:
+        buckets = plan_buckets(tasks, qspec, method, base,
+                               cost_model=cost_model)
+        sp.set(buckets=len(buckets))
     results: list[dict | None] = [None] * len(tasks)
     items = list(buckets.items())
     guarded = policy is not None and policy.enabled
@@ -501,6 +507,10 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
             return run_bucket_sequential(Ws, Hs, keys, spec)
         return run_bucket(Ws, Hs, keys, spec)
 
+    def stage(b: int, cidxs: list[int]):
+        with obs_trace.span("bucket.stage", bucket=b, layers=len(cidxs)):
+            return _stage_bucket(tasks, cidxs, items[b][0])
+
     def size_of(b: int, left: int) -> int:
         """Slices of bucket ``b``'s next chunk, ``left`` still to run: the
         memory is read afresh, as the finished chunks' leaves stay."""
@@ -514,8 +524,8 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
         if b in loaded:
             ahead = None
             if progress:
-                progress(_event("bucket", i=b, restored="journal",
-                                layers=len(idxs)))
+                progress(obs_log.format_event(
+                    "bucket", i=b, restored="journal", layers=len(idxs)))
             for j, i in enumerate(idxs):
                 results[i] = loaded[b][j]
             continue
@@ -526,26 +536,32 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
                 size, cur = ahead[1], ahead[2]
             else:
                 size = size_of(b, len(idxs) - pos)
-                cur = _stage_bucket(tasks, idxs[pos:pos + size], spec)
+                cur = stage(b, idxs[pos:pos + size])
             cidxs = idxs[pos:pos + size]
             sizes.append(size)
             ahead = None
-            out = run(spec, cur)
+            with obs_trace.span("bucket.execute", bucket=b,
+                                path=spec.exec_path, shards=spec.n_shards,
+                                layers=len(cidxs)) as sp:
+                out = run(spec, cur)
+                sp.sync(out)    # REPRO_TRACE_SYNC=1: fence before close
             last = sum(sizes) == len(idxs)
             if stream and last and b + 1 < len(items) and \
                     (b + 1) not in loaded:
                 # stage bucket b+1's first chunk before anything waits on
                 # this one
-                nspec, nidxs = items[b + 1]
+                nidxs = items[b + 1][1]
                 nsize = size_of(b + 1, len(nidxs))
-                ahead = (b + 1, nsize,
-                         _stage_bucket(tasks, nidxs[:nsize], nspec))
+                ahead = (b + 1, nsize, stage(b + 1, nidxs[:nsize]))
             elif not stream and cur[0].is_cuda:
                 torch.cuda.synchronize(cur[0].device)
             for j, i in enumerate(cidxs):
                 results[i] = {k: v[j] for k, v in out.items()}
             if guarded:
-                ok = health.check_bucket(cur[0], out, spec, policy)
+                with obs_trace.span("bucket.health_check", bucket=b,
+                                    layers=len(cidxs)) as hsp:
+                    ok = health.check_bucket(cur[0], out, spec, policy)
+                    hsp.sync(ok)
                 report.checked += len(cidxs)
                 obs_metrics.counter(obs_names.HEALTH_CHECKED).inc(
                     len(cidxs))
@@ -561,7 +577,7 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
         obs_metrics.counter(obs_names.QUANT_PATH + spec.exec_path).inc()
         if progress:
             g = "col" if spec.group_size is None else spec.group_size
-            progress(_event(
+            progress(obs_log.format_event(
                 "bucket", i=b,
                 spec=f"{spec.method}/{spec.bits}b/g{g}/r{spec.rank}",
                 shape=f"{spec.m}x{spec.n}", layers=len(idxs),
@@ -604,7 +620,9 @@ def evaluate_layer_batch(tasks: list[LayerTask],
     the one before it had.  The errors stay on the device until every
     chunk has been dispatched; the host waits once, at the end.
     ``progress`` gets one ``[sweep]`` line a bucket, in the JAX twin's
-    format.  ``mesh=`` is not ported and raises.
+    format (``obs.log.format_event``), and each chunk's call is a
+    ``sweep.execute`` span (fenced under ``REPRO_TRACE_SYNC=1``).
+    ``mesh=`` is not ported and raises.
 
     Returns one Python float per task, in task order."""
     if mesh is not None:
@@ -618,7 +636,7 @@ def evaluate_layer_batch(tasks: list[LayerTask],
         for b, (spec, idxs) in enumerate(buckets.items()):
             if progress:
                 g = "col" if spec.group_size is None else spec.group_size
-                progress(_event(
+                progress(obs_log.format_event(
                     "sweep", i=b,
                     spec=f"{spec.method}/{spec.bits}b/g{g}/r{spec.rank}",
                     shape=f"{spec.m}x{spec.n}", candidates=len(idxs),
@@ -626,8 +644,11 @@ def evaluate_layer_batch(tasks: list[LayerTask],
                     shards=spec.n_shards))
             for pos in range(0, len(idxs), sizes[b]):
                 cidxs = idxs[pos:pos + sizes[b]]
-                errs.append(run_bucket_eval(
-                    *_stage_bucket(tasks, cidxs, spec), spec))
+                staged = _stage_bucket(tasks, cidxs, spec)
+                with obs_trace.span("sweep.execute", bucket=b,
+                                    candidates=len(cidxs)) as sp:
+                    errs.append(sp.sync(run_bucket_eval(*staged, spec)))
+                del staged
                 order.extend(cidxs)
     results: list[float] = [0.0] * len(tasks)
     if errs:

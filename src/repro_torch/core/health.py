@@ -45,6 +45,7 @@ from repro_torch.core.quantizer import (dequantize_int, dequantize_nf4,
                                         unpack_codes)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
+from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
 
@@ -96,10 +97,12 @@ class HealthReport:
     def record(self, path: str, expert: int | None, status: str, *,
                ladder: tuple | list = (), diagnosis: dict | None = None,
                detail: str = "") -> None:
-        self.records[self.site_key(path, expert)] = {
+        site = self.site_key(path, expert)
+        self.records[site] = {
             "status": status, "ladder": list(ladder),
             "diagnosis": diagnosis, "detail": detail}
         obs_metrics.counter(obs_names.HEALTH_PREFIX + status).inc()
+        obs_trace.instant("health." + status, site=site)
 
     def fallbacks(self) -> dict[str, dict]:
         """Sites that did not come out of the bucket's own call clean."""
@@ -265,7 +268,18 @@ def heal_task(W: Tensor, H: Tensor | None, key: int, spec: BucketSpec,
     Returns the accepted leaf dict, or ``None`` for skip-to-dense (the
     caller leaves the dense ``w`` in place).  Raises ``FloatingPointError``
     when the weight itself is non-finite: that is corrupt input, not a
-    numerical cliff."""
+    numerical cliff.  One ``health.heal`` span (``repro_torch.obs``)."""
+    with obs_trace.span("health.heal",
+                        site=HealthReport.site_key(path, expert),
+                        method=spec.method) as sp:
+        out = _heal_ladder(W, H, key, spec, policy, report, path, expert)
+        sp.set(healed=out is not None)
+        return out
+
+
+def _heal_ladder(W: Tensor, H: Tensor | None, key: int, spec: BucketSpec,
+                 policy: HealthPolicy, report: HealthReport, path: str,
+                 expert: int | None = None) -> dict | None:
     if not bool(torch.isfinite(W).all()):
         raise FloatingPointError(
             f"weight at {HealthReport.site_key(path, expert)} contains "

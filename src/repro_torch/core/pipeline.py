@@ -78,6 +78,7 @@ from repro_torch.models.transformer import (ModelConfig, forward,
                                             stack_layers)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils import (ActivationLog, GramStore, capture_grams,
                                get_path, set_path, tree_paths)
 
@@ -558,13 +559,18 @@ def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
     eparams = to_eager_params(params, cfg)
     sites = recipe.resolve(quantizable_linear_paths(eparams))
     _check_scan_uniform(sites, cfg)
-    store = run_calibration(eparams, dataclasses.replace(cfg,
-                                                         scan_layers=False),
-                            calib_batches, report=report)
+    with obs_trace.span("quant.calibrate",
+                        batches=len(calib_batches)) as sp:
+        store = run_calibration(eparams, dataclasses.replace(
+            cfg, scan_layers=False), calib_batches, report=report)
+        sp.sync(store.grams)    # the Grams stay on the device
     new_params = _tree_copy(eparams)
-    _ENGINES[engine](eparams, store, sites, seed, cfg, new_params, progress,
-                     policy=policy, report=report, journal=journal,
-                     should_stop=should_stop)
+    with obs_trace.span("quant.model", engine=engine,
+                        sites=len(sites)) as sp:
+        _ENGINES[engine](eparams, store, sites, seed, cfg, new_params,
+                         progress, policy=policy, report=report,
+                         journal=journal, should_stop=should_stop)
+        sp.sync(new_params)
     if journal_dir is not None:
         report.save(os.path.join(journal_dir, "health.json"))
     new_cfg = dataclasses.replace(cfg, quant=recipe.qspec)

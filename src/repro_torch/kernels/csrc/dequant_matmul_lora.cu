@@ -12,9 +12,17 @@
 // the bf16 tensor-core rate.  Three kernels, chosen by shape (`lora_plan`
 // in kernels/dequant_matmul.py is the rule; the entry point re-checks it):
 //
+// The weight is the reference's f32 (codes - z) * s on every route, never
+// rounded to bf16: at K = 14336 a bf16 weight puts outputs where base and
+// LoRA terms cancel outside the bf16 tolerance.  The tensor-core routes
+// take the codes exactly in bf16 (128 + code at 2 and 4 bits, the code at
+// 8 bits), so every product is exact in the f32 sums, sum each group
+// apart, and fold each group in with one f32 FMA a column:
+// acc += s * (part - (z + off) * sum(x over the group)), any f32 zero.
+//
 //  * wgmma: bf16 x, and every base and row stride TMA can address (K % 8,
-//    N % 16, r % 8, a group of 16 or 32 or a multiple of 64, 16-byte
-//    aligned bases).  The training path.
+//    N % 16, r % 8, 16-byte aligned bases), a group that is a multiple of
+//    64 (a group a stage or more).  The training path.
 //    - x @ A once per row, not once per column tile: a prologue
 //      (`xa_kernel`, mma.sync, bf16 products exact in f32 sums) splits K
 //      over a cluster of up to 8 blocks, adds the partial sums in block
@@ -25,30 +33,39 @@
 //      prologue's tail.
 //    - The LoRA term on the tensor cores: [hi | lo] (M x 2r) is appended to
 //      x's K sweep against [B^T; B^T] (B is bf16 and K-major already), so it
-//      lands in the same wgmma accumulators; xa keeps about 16 bits.
+//      lands in the tile's sums unscaled; xa keeps about 16 bits.
 //    - Persistent blocks, one per SM, walking 128 x BN output tiles
 //      (BN = 128, or 64 where 128 would leave SMs idle), K in stages of 64.
 //      Warp 12 keeps a ring of x tiles (128 x 64, 128-byte swizzle; for the
 //      LoRA stages [hi | lo]) in flight with TMA; warp 13 a deeper ring of
-//      packed codes with their scales and zeros, and each tile's B.
-//    - wgmma reads B from shared memory in bf16, so a dequantizing
-//      warpgroup (warps 8-11) turns each stage's codes into a swizzled bf16
-//      tile ((code - z) * s in f32, rounded once; no I2F: a code becomes a
-//      float by OR-ing it into the mantissa of 2^23) in a ring of 4, while
-//      two warpgroups (warps 0-7) run wgmma m64nBNk16 on 64 rows each,
-//      one stage's wgmmas in flight while the next is issued.  Each
-//      dequantized weight feeds all 128 rows of the tile.
+//      packed codes with their scale and zero rows, and each tile's B.
+//    - wgmma reads B from shared memory in bf16, so a staging warpgroup
+//      (warps 8-11) turns each stage's codes into a swizzled bf16 tile of
+//      exact codes (two codes a 32-bit word in two instructions at 2 and 4
+//      bits: no multiply, no rounding) in a ring of 4, with the group's
+//      scale and z + off beside it, while two warpgroups (warps 0-7) run
+//      wgmma m64n(BN+8)k16 on 64 rows each into a group's sums, wait for
+//      them at the group's end and fold them into the tile's.  The B tile's
+//      8 extra rows hold ones, so the same wgmmas give each row's sum of x
+//      over the group (8 more columns, no second read of x).  A second
+//      64 x (BN+8) accumulator a consumer thread is 68 more registers at
+//      BN 128: the loading and staging warpgroups give registers up with
+//      setmaxnreg, the consumers take them.
 //    - The sums leave through shared memory in coalesced 16-byte stores.
-//    - What holds it back now is shared memory: per stage the wgmmas read
-//      the x tile and (once per warpgroup) the B tile, TMA writes x and
-//      the codes, the dequantize writes B; the dequantizing warpgroup's
-//      time per stage does not fall with more threads.
-//  * mma: bf16 x that TMA cannot address.  64 x 128 tiles of 256 threads,
-//    mma.sync m16n8k16, each chunk's operands loaded into registers one
-//    32-row chunk ahead, x @ A in the same sweep, the LoRA term in f32 FMAs.
-//  * fma: f32 x.  f32 FMAs on the CUDA cores (67 TFLOP/s), the only way to
-//    the reference's f32 tolerance (2e-4) with no TF32; 4 x 8 register
-//    micro-tiles, the same tiles and sweep as mma.
+//    - What held the bf16-weight design back was shared memory: per stage
+//      the wgmmas read the x tile and (once per warpgroup) the B tile, TMA
+//      writes x and the codes, the staging writes B.  The fold adds a wait
+//      a group (the other warpgroup's wgmmas run meanwhile).
+//  * mma: bf16 x that the wgmma route does not take, group % 8 == 0.
+//    64 x 128 tiles of 256 threads, mma.sync m16n8k16 on exact codes (k8
+//    halves where the group is not a multiple of 16), the group's sum of x
+//    by one more mma against ones, each chunk's operands loaded into
+//    registers one 32-row chunk ahead, x @ A in the same sweep, the LoRA
+//    term in f32 FMAs.
+//  * fma: f32 x, and bf16 x with another group.  f32 FMAs on the CUDA cores
+//    (67 TFLOP/s) on the f32 weight, the only way to the reference's f32
+//    tolerance (2e-4) with no TF32; 4 x 8 register micro-tiles, the same
+//    tiles and sweep as mma.
 // No atomics and a fixed summation order on every route: the same bits on
 // every run.  Every M >= 1, ragged N and K, bits in {2, 4, 8} (3-bit codes
 // are stored raw and arrive as 8), any group size dividing K, and ranks
@@ -322,6 +339,32 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a (16 x 8, row-major) @ b (8 x 8): the k8 halves of mma_bf16's
+// fragments (a[0], a[1], b[0] the first, a[2], a[3], b[1] the second)
+__device__ __forceinline__ void mma_bf16_k8(float* d, uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+constexpr uint32_t BF16_ONES = 0x3F803F80u;  // a pair of bf16 1.0
+constexpr float CODE_OFF = 128.f;            // 2- and 4-bit codes are staged as 128 + code
+
+// A code as the exact bf16 the tensor cores take: 128 + code at 2 and 4
+// bits (the bf16 bits 0x4300 | code: 128's exponent, the code in the
+// mantissa), the code itself at 8 bits; a pair in one 32-bit word
+template <int BITS> __device__ __forceinline__ uint32_t code_pair(uint32_t c0, uint32_t c1) {
+  if constexpr (BITS < 8) {
+    return 0x43004300u | c0 | (c1 << 16);
+  } else {
+    const float f0 = __uint_as_float(0x4B000000u | c0) - 8388608.f;  // exact
+    const float f1 = __uint_as_float(0x4B000000u | c1) - 8388608.f;
+    return pack_bf16(f0, f1);
+  }
+}
+
 // the A fragment of the 16 x 16 tile at t (rows of stride KS, k contiguous)
 __device__ __forceinline__ void frag_a(uint32_t* a, const bf16* t, int g, int c) {
   a[0] = ld32(t + g * KS + 2 * c);
@@ -350,16 +393,26 @@ __host__ __device__ constexpr int mma_smem_bytes(int rt) {
 }
 
 // RT: rank tiles of 16 staged (r <= 16 * RT, zero-padded)
-// two blocks an SM up to rank 64 (at most 128 registers a thread), so one
+// two blocks an SM up to rank 32 (at most 128 registers a thread), so one
 // block's products run while the other waits on its next chunk
+//
+// The weight chunk holds exact codes (code_pair), so every product on the
+// tensor cores is exact and each group's sums `part` are those of
+// x @ (codes + off) in f32.  One more mma a step against ones gives the
+// group's sum of x over the same rows (`sx`), and at the group's end each
+// sum is folded in with the group's scale and zero in f32:
+// acc += s * (part - (z + off) * sx), off = 128 at 2 and 4 bits, 0 at 8.
+// A group that is a multiple of 16 folds after a k16 step, one that is a
+// multiple of 8 after a k8 half (group % 8 == 0 is this route's rule).
 template <int BITS, int RT>
-__global__ void __launch_bounds__(NT, RT <= 4 ? 2 : 1)
+__global__ void __launch_bounds__(NT, RT <= 2 ? 2 : 1)
 dqmm_lora_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
                      const float* __restrict__ scales, const float* __restrict__ zeros,
                      const bf16* __restrict__ lora_a, const bf16* __restrict__ lora_b,
                      bf16* __restrict__ out, int M, int K, int N, int group, int r) {
   constexpr int PER = BITS == 2 ? 4 : (BITS == 4 ? 2 : 1);
   constexpr uint32_t MASK = BITS == 8 ? 0xFFu : ((1u << BITS) - 1u);
+  constexpr float OFF = BITS < 8 ? CODE_OFF : 0.f;
   constexpr int RP = 16 * RT;
   constexpr int ROWS_PER_THREAD = BK * BN / NT;  // weight rows a thread
   constexpr int WORDS = ROWS_PER_THREAD / PER;    // packed bytes a thread
@@ -367,7 +420,7 @@ dqmm_lora_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
   constexpr int X_PER_THREAD = BM * BK / 8 / NT; // 16-byte x slots a thread
   extern __shared__ __align__(16) float smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);  // [BM][KS]: x chunk
-  bf16* ws = xs + BM * KS;                   // [BN][KS]: weight chunk, transposed
+  bf16* ws = xs + BM * KS;                   // [BN][KS]: code chunk, transposed
   bf16* as = ws + BN * KS;                   // [RP][KS]: A chunk, transposed
 
   const int tid = threadIdx.x;
@@ -380,26 +433,56 @@ dqmm_lora_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
-  float acc[2][4][4];
+  float acc[2][4][4], part[2][4][4], sx[2][4];
   float xa[RT][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sx[i][e] = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.f;
+  }
 #pragma unroll
   for (int j = 0; j < RT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) xa[j][e] = 0.f;
 
-  // the weight column and rows this thread dequantizes, the x row and
-  // 8-wide k slot it stages (when K % 8 == 0 and x is 16-byte aligned)
+  // group gi's sums into acc: the thread's 8 columns' scales and zeros
+  auto fold = [&](int gi) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float s[2], zb[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + wn + 8 * j + 2 * c + h;
+        s[h] = n < N ? scales[(size_t)gi * N + n] : 0.f;
+        zb[h] = n < N ? zeros[(size_t)gi * N + n] + OFF : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][j][e] = fmaf(s[e & 1], fmaf(-zb[e & 1], sx[i][e], part[i][j][e]),
+                              acc[i][j][e]);
+          part[i][j][e] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sx[i][e] = 0.f;
+  };
+
+  // the weight column and rows this thread stages, the x row and 8-wide k
+  // slot it stages (when K % 8 == 0 and x is 16-byte aligned)
   const int wc = tid % BN;
   const int wr0 = (tid / BN) * ROWS_PER_THREAD;
   const int n_w = n0 + wc;
   const bool x_vec = (K & 7) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bf16 zero = __float2bfloat16(0.f);
+  const uint32_t ones[2] = {BF16_ONES, BF16_ONES};
 
   // one chunk's global operands, loaded into registers all at once, one
   // chunk ahead of the products (so one memory latency a chunk, hidden
@@ -407,7 +490,6 @@ dqmm_lora_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
   uint4 xr[X_PER_THREAD];
   bf16 ar[A_PER_THREAD];
   uint32_t wr[WORDS];
-  float sr, zr;
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < X_PER_THREAD; ++i) {
@@ -428,11 +510,6 @@ dqmm_lora_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
     for (int p = 0; p < WORDS; ++p) {
       const int kw = kb + p * PER;
       wr[p] = (n_w < N && kw < K) ? packed[(size_t)(kw / PER) * N + n_w] : 0u;
-    }
-    sr = zr = 0.f;
-    if (n_w < N && kb < K) {
-      sr = scales[(size_t)(kb / group) * N + n_w];
-      zr = zeros[(size_t)(kb / group) * N + n_w];
     }
   };
 
@@ -458,39 +535,23 @@ dqmm_lora_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
       const int idx = tid + i * NT;
       as[(idx % RP) * KS + idx / RP] = ar[i];
     }
-    // dequantize in f32, round to bf16, store as two 16-byte vectors of
-    // ws[wc]; a group boundary inside the 16 rows (groups under 16 or not
-    // a multiple of 16) fetches its scale and zero here
+    // the codes as exact bf16, two 16-byte vectors of ws[wc]; zero past N
+    // and K
     {
       const int kb = k0 + wr0;
-      int gi = kb / group;
-      int next_boundary = (gi + 1) * group;
-      float s = sr, z = zr;
-      float v[ROWS_PER_THREAD];
+      uint32_t v[ROWS_PER_THREAD / 2];
 #pragma unroll
-      for (int p = 0; p < WORDS; ++p) {
-        const int kw = kb + p * PER;
-        const bool ok = n_w < N && kw < K;
-#pragma unroll
-        for (int j = 0; j < PER; ++j) {
-          const int k = kw + j;
-          if (ok && k == next_boundary) {
-            ++gi;
-            next_boundary += group;
-            s = scales[(size_t)gi * N + n_w];
-            z = zeros[(size_t)gi * N + n_w];
-          }
-          const float code = (float)((wr[p] >> (BITS * j)) & MASK);
-          v[p * PER + j] = ok ? (code - z) * s : 0.f;
-        }
+      for (int q = 0; q < ROWS_PER_THREAD / 2; ++q) {
+        const int k = kb + 2 * q;  // rows k, k + 1: one packed word, or two at 8 bits
+        const uint32_t w0 = wr[(2 * q) / PER], w1 = wr[(2 * q + 1) / PER];
+        const uint32_t c0 = (w0 >> (BITS * ((2 * q) % PER))) & MASK;
+        const uint32_t c1 = (w1 >> (BITS * ((2 * q + 1) % PER))) & MASK;
+        v[q] = (n_w < N && k < K) ? code_pair<BITS>(c0, c1) : 0u;
       }
       uint4* dst = reinterpret_cast<uint4*>(ws + wc * KS + wr0);
 #pragma unroll
       for (int q = 0; q < ROWS_PER_THREAD / 8; ++q)
-        dst[q] = make_uint4(pack_bf16(v[8 * q], v[8 * q + 1]),
-                            pack_bf16(v[8 * q + 2], v[8 * q + 3]),
-                            pack_bf16(v[8 * q + 4], v[8 * q + 5]),
-                            pack_bf16(v[8 * q + 6], v[8 * q + 7]));
+        dst[q] = make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
     }
     __syncthreads();
     if (k0 + BK < K) fetch(k0 + BK);
@@ -501,10 +562,29 @@ dqmm_lora_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pac
       for (int i = 0; i < 2; ++i) frag_a(af[i], xs + (wm + 16 * i) * KS + ks, g, c);
 #pragma unroll
       for (int j = 0; j < 4; ++j) frag_b(bfr[j], ws + (wn + 8 * j) * KS + ks, g, c);
+      if (group % 16 == 0) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+          for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], af[i], bfr[j]);
+          mma_bf16(sx[i], af[i], ones);
+        }
+        const int ke = k0 + ks + 16;
+        if (ke <= K && ke % group == 0) fold(ke / group - 1);
+      } else {
+#pragma unroll
+        for (int hk = 0; hk < 2; ++hk) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_bf16_k8(part[i][j], af[i][2 * hk], af[i][2 * hk + 1], bfr[j][hk]);
+            mma_bf16_k8(sx[i], af[i][2 * hk], af[i][2 * hk + 1], BF16_ONES);
+          }
+          const int ke = k0 + ks + 8 * (hk + 1);
+          if (ke <= K && ke % group == 0) fold(ke / group - 1);
+        }
+      }
       frag_a(la, xs + lm * KS + ks, g, c);
 #pragma unroll
       for (int j = 0; j < RT; ++j) {
@@ -875,6 +955,49 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db, in
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d = a (64 x 16) @ b (16 x BN+8) + (scale_d ? d : 0): a weight stage's
+// product with the B tile's 8 extra columns of ones, whose sums are the
+// rows' sums of x (both K-major in shared memory, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_n136(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67"
+      "}, %68, %69, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n72(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, %36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db, int scale_d);
 template <>
@@ -885,67 +1008,83 @@ template <>
 __device__ __forceinline__ void wgmma_bn<64>(float* d, uint64_t da, uint64_t db, int scale_d) {
   wgmma_n64(d, da, db, scale_d);
 }
+template <int BN>
+__device__ __forceinline__ void wgmma_part(float* d, uint64_t da, uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_part<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  wgmma_n136(d, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_part<64>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  wgmma_n72(d, da, db, scale_d);
+}
 
 // --- the main kernel --------------------------------------------------------
 
 constexpr int WG_BM = 128;          // rows of x a tile: two warpgroups of 64
 constexpr int WG_BK = 64;           // K rows a stage: one swizzled 128-byte row
 constexpr int WG_CONSUMERS = 256;   // two warpgroups run the wgmmas,
-constexpr int WG_DEQUANT = 128;     // one dequantizes,
-constexpr int WG_THREADS = WG_CONSUMERS + WG_DEQUANT + 64;  // two warps load
+constexpr int WG_DEQUANT = 128;     // one stages the codes,
+constexpr int WG_THREADS = WG_CONSUMERS + WG_DEQUANT + 128;  // one loads (two warps of it)
 constexpr int X_BYTES = WG_BM * WG_BK * 2;     // an x (or [hi | lo]) tile
-constexpr int WG_DQ = 4;            // dequantized B tiles
-constexpr int MAX_SROWS = WG_BK / 16;          // group >= 16: scale rows a stage
+constexpr int WG_DQ = 4;            // staged B tiles
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block can have
+// registers a thread after setmaxnreg: the loading warpgroup gives its
+// registers up, the code-staging one keeps what it needs, and the two
+// consumers, which hold the tile's sums and one group's sums (2 x 64 f32
+// at BN 128), take the rest: 128 x (40 + 72) + 256 x 200 = 65536
+constexpr int REG_LOAD = 40, REG_STAGE = 72, REG_MMA = 200;
 
 // The shared memory of one (BITS, BN) instance, from 1024-byte alignment:
 // the x ring (XS tiles), the weight ring (WS slots of codes, scales and
-// zeros), the ring of WG_DQ dequantized B tiles, the tile's LoRA B (two
-// 64-rank chunks; the epilogue's staging after the LoRA stages), then the
-// barriers.  x and B tiles come back when the wgmmas that read them are
-// done; weight slots as soon as they are dequantized, so that ring runs
-// further ahead.
+// zeros), the ring of WG_DQ staged B tiles (BN rows of codes, then 8 rows
+// of ones, written once), the tile's LoRA B (two 64-rank chunks; the
+// epilogue's staging after the LoRA stages), the scales and offset zeros
+// of each staged B tile, then the barriers.  x and B tiles
+// come back when the wgmmas that read them are done; weight slots as soon
+// as they are staged, so that ring runs further ahead.
 template <int BITS, int BN> struct WgLayout {
   static constexpr int PER = BITS == 2 ? 4 : (BITS == 4 ? 2 : 1);
-  static constexpr int B_BYTES = BN * WG_BK * 2;            // a B tile
+  static constexpr int B_BYTES = BN * WG_BK * 2;            // a LoRA B tile
+  static constexpr int DQ_BYTES = B_BYTES + 8 * WG_BK * 2;  // a staged B tile
   static constexpr int CODE_BYTES = BN * WG_BK / PER;
-  static constexpr int SC = CODE_BYTES;                     // scales in a slot
-  static constexpr int ZR = SC + BN * MAX_SROWS * 4;        // zeros in a slot
-  static constexpr int W_BYTES = (ZR + BN * MAX_SROWS * 4 + 1023) / 1024 * 1024;
+  static constexpr int SC = CODE_BYTES;                     // the scale row in a slot
+  static constexpr int ZR = SC + BN * 4;                    // the zero row
+  static constexpr int W_BYTES = (ZR + BN * 4 + 1023) / 1024 * 1024;
+  static constexpr int SZ_BYTES = 2 * BN * 4;               // a B tile's s and z + off
   static constexpr int XS = BN == 128 ? 4 : 8;
-  static constexpr int FIXED = 1024 + 512 + XS * X_BYTES + (WG_DQ + 2) * B_BYTES;
+  static constexpr int FIXED =
+      1024 + 512 + XS * X_BYTES + WG_DQ * DQ_BYTES + 2 * B_BYTES + WG_DQ * SZ_BYTES;
   static constexpr int WS_FIT = (SMEM_LIMIT - FIXED) / W_BYTES;
   static constexpr int WS = WS_FIT < 8 ? WS_FIT : 8;
   static constexpr int X_OFF = 0;
   static constexpr int W_OFF = X_OFF + XS * X_BYTES;
   static constexpr int DQ_OFF = W_OFF + WS * W_BYTES;
-  static constexpr int LB_OFF = DQ_OFF + WG_DQ * B_BYTES;
-  static constexpr int BAR_OFF = LB_OFF + 2 * B_BYTES;
+  static constexpr int LB_OFF = DQ_OFF + WG_DQ * DQ_BYTES;
+  static constexpr int SZ_OFF = LB_OFF + 2 * B_BYTES;
+  static constexpr int BAR_OFF = SZ_OFF + WG_DQ * SZ_BYTES;
   static constexpr int SMEM = 1024 + BAR_OFF + 512;
   static_assert(WS >= 3 && SMEM <= SMEM_LIMIT, "shared memory");
 };
 
 // one stage's packed codes (64 K rows x BN columns, scales and zeros
-// beside) dequantized into the K-major swizzled bf16 tile wgmma reads as
-// B, in 256 units of CPT = BN/32 columns by 8 K rows; this thread takes
-// units u0 + k * (256 / U), k < U, all loads first.  Unit u (w = u / 32,
+// beside) staged as the K-major swizzled bf16 tile wgmma reads as B, in
+// 256 units of CPT = BN/32 columns by 8 K rows; this thread takes units
+// u0 + k * (256 / U), k < U, all loads first.  Unit u (w = u / 32,
 // l = u % 32) takes columns l*CPT .. +CPT and K rows 8kg .. 8kg+7,
 // kg = (w + l/2) % 8, so each quarter-warp's 16-byte stores land in 8
-// distinct bank groups and its code loads in distinct banks.
-// (code - z) * s in f32, rounded to bf16 once.  A code becomes a float by
-// OR-ing it into the mantissa of 2^23 (no I2F); where z is an integer, as
-// quantize_int's zeros are, code - z is that float minus (2^23 + z), one
-// exact FADD, else two.
+// distinct bank groups and its code loads in distinct banks.  Each code is
+// staged exactly (code_pair: two codes a word in two instructions at 2 and
+// 4 bits); the stage's scale and zero + off (its group's: groups are
+// multiples of 64) go beside the tile in f32 for the consumers' fold.
 template <int BITS, int BN, int U>
 __device__ __forceinline__ void dequant_stage(const unsigned char* slot, unsigned char* dq,
-                                              int group, int u0) {
+                                              float* sz, int u0) {
   using L = WgLayout<BITS, BN>;
   constexpr int PER = L::PER;
   constexpr uint32_t MASK = BITS == 8 ? 0xFFu : ((1u << BITS) - 1u);
   constexpr int CPT = BN / 32;
   constexpr int ROWS = 8 / PER;  // packed rows that hold 8 K rows
-  constexpr float TWO23 = 8388608.f;
-  float s[U][CPT], z[U][CPT];
   uint32_t w[U][ROWS];
   int kg[U], n0[U];
 #pragma unroll
@@ -954,67 +1093,53 @@ __device__ __forceinline__ void dequant_stage(const unsigned char* slot, unsigne
     const int lane = u & 31, warp = u >> 5;
     kg[k] = (warp + (lane >> 1)) & 7;
     n0[k] = lane * CPT;
-    const int srow = group >= WG_BK ? 0 : (8 * kg[k]) / group;
-    const float* sc = reinterpret_cast<const float*>(slot + L::SC) + srow * BN + n0[k];
-    const float* zr = reinterpret_cast<const float*>(slot + L::ZR) + srow * BN + n0[k];
-    if constexpr (CPT == 4) {
-      const float4 sv = *reinterpret_cast<const float4*>(sc);
-      const float4 zv = *reinterpret_cast<const float4*>(zr);
-      s[k][0] = sv.x; s[k][1] = sv.y; s[k][2] = sv.z; s[k][3] = sv.w;
-      z[k][0] = zv.x; z[k][1] = zv.y; z[k][2] = zv.z; z[k][3] = zv.w;
 #pragma unroll
-      for (int p = 0; p < ROWS; ++p)
+    for (int p = 0; p < ROWS; ++p) {
+      if constexpr (CPT == 4)
         w[k][p] = *reinterpret_cast<const uint32_t*>(slot + (kg[k] * ROWS + p) * BN + n0[k]);
-    } else {
-      const float2 sv = *reinterpret_cast<const float2*>(sc);
-      const float2 zv = *reinterpret_cast<const float2*>(zr);
-      s[k][0] = sv.x; s[k][1] = sv.y;
-      z[k][0] = zv.x; z[k][1] = zv.y;
-#pragma unroll
-      for (int p = 0; p < ROWS; ++p)
+      else
         w[k][p] = *reinterpret_cast<const uint16_t*>(slot + (kg[k] * ROWS + p) * BN + n0[k]);
     }
   }
+  if (u0 < BN) {
+    sz[u0] = reinterpret_cast<const float*>(slot + L::SC)[u0];
+    sz[BN + u0] = reinterpret_cast<const float*>(slot + L::ZR)[u0] + (BITS < 8 ? CODE_OFF : 0.f);
+  }
 #pragma unroll
   for (int k = 0; k < U; ++k) {
-    bool whole = true;  // every zero of the unit an integer below 2^22
-    float zb[CPT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
-      zb[c] = TWO23 + z[k][c];
-      whole = whole && zb[c] - TWO23 == z[k][c] && fabsf(z[k][c]) < 4194304.f;
-    }
-    auto unit = [&](auto fast) {
+      uint32_t v[4];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        float v[8];
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t code = (w[k][kk / PER] >> (8 * c + BITS * (kk % PER))) & MASK;
-          const float f = __uint_as_float(0x4B000000u | code);  // 2^23 + code
-          v[kk] = (decltype(fast)::value ? f - zb[c] : (f - TWO23) - z[k][c]) * s[k][c];
-        }
-        const int n = n0[k] + c;
-        *reinterpret_cast<uint4*>(dq + n * 128 + ((kg[k] ^ (n & 7)) << 4)) =
-            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                       pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+      for (int q = 0; q < 4; ++q) {
+        const int k0 = 2 * q, k1 = 2 * q + 1;
+        const uint32_t c0 = (w[k][k0 / PER] >> (8 * c + BITS * (k0 % PER))) & MASK;
+        const uint32_t c1 = (w[k][k1 / PER] >> (8 * c + BITS * (k1 % PER))) & MASK;
+        v[q] = code_pair<BITS>(c0, c1);
       }
-    };
-    if (whole) {
-      unit(std::true_type{});
-    } else {
-      unit(std::false_type{});
+      const int n = n0[k] + c;
+      *reinterpret_cast<uint4*>(dq + n * 128 + ((kg[k] ^ (n & 7)) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
 // Persistent: block b walks tiles b, b + gridDim.x, ... of 128 x BN
 // (row tile fastest, so the blocks in flight share weight tiles in L2).
-// Each tile is a sweep of kt = ceil(K/64) weight stages and 2 * ceil(r/64)
-// LoRA stages ([hi | lo] against [B^T; B^T]); the stage counters run on
-// across tiles, so every ring does too.  Warps 0-7 run the wgmmas, 8-11
-// dequantize, 12 loads the x ring, 13 the weight ring and each tile's
-// LoRA B.  Every wgmma and every read of the accumulators stays out of
+// Each tile is a sweep of kt = K/64 weight stages and 2 * ceil(r/64) LoRA
+// stages ([hi | lo] against [B^T; B^T]); the stage counters run on across
+// tiles, so every ring does too.  Warps 0-7 run the wgmmas, 8-11 stage the
+// codes, 12 loads the x ring, 13 the weight ring and each tile's LoRA B
+// (14 and 15 only give their registers up).
+//
+// A weight stage's wgmmas (m64n(BN+8)k16) sum x @ (codes + off) into
+// `part`, exact products in f32 sums, one group (group / 64 stages) at a
+// time, and in its last 8 columns, against the B tile's rows of ones, the
+// group's sum of each row of x (sx); at the group's end the warpgroup
+// waits for them and folds them into the tile's sums in f32:
+// acc += s * (part - (z + off) * sx).  So the weight is the reference's
+// f32 (c - z) * s, never rounded to bf16.  The LoRA stages add unscaled
+// into acc.  Every wgmma and every read of the accumulators stays out of
 // divergent code (ptxas serializes the wgmmas otherwise).
 template <int BITS, int BN>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -1028,6 +1153,7 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   using L = WgLayout<BITS, BN>;
   constexpr int XS = L::XS, WS = L::WS;
   constexpr int NACC = BN / 2;  // m64nBN f32 accumulators a thread
+  constexpr int NPART = NACC + 4;  // and m64n(BN+8): a group's sums and sx
   constexpr int MMA_WARPS = WG_CONSUMERS / 32, DQ_WARPS = WG_DEQUANT / 32;
   extern __shared__ __align__(1024) unsigned char wg_raw[];
   unsigned char* base = wg_raw + ((1024 - (smem_u32(wg_raw) & 1023)) & 1023);
@@ -1041,15 +1167,17 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   uint64_t* lbempty = lbfull + 1;
   auto x_tile = [&](int i) { return base + L::X_OFF + (i % XS) * X_BYTES; };
   auto w_slot = [&](int j) { return base + L::W_OFF + (j % WS) * L::W_BYTES; };
-  auto dq_tile = [&](int j) { return base + L::DQ_OFF + (j % WG_DQ) * L::B_BYTES; };
+  auto dq_tile = [&](int j) { return base + L::DQ_OFF + (j % WG_DQ) * L::DQ_BYTES; };
+  auto sz_row = [&](int j) {
+    return reinterpret_cast<float*>(base + L::SZ_OFF + (j % WG_DQ) * L::SZ_BYTES);
+  };
   unsigned char* lb = base + L::LB_OFF;
 
-  const int kt = (K + WG_BK - 1) / WG_BK;
+  const int kt = K / WG_BK;
+  const int gst = group / WG_BK;  // stages a group
   const int rt = (r + WG_BK - 1) / WG_BK;
-  const int st = kt + 2 * rt;
   const int tiles_m = (M + WG_BM - 1) / WG_BM;
   const int tiles = tiles_m * ((N + BN - 1) / BN);
-  const int srows = group >= WG_BK ? 1 : WG_BK / group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -1069,16 +1197,24 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     mbar_init(lbempty, MMA_WARPS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // each staged B tile's 8 rows of ones after its BN rows of codes (the
+  // staging warpgroup never writes them), seen by the wgmmas' proxy
+  for (int i = threadIdx.x; i < WG_DQ * 8 * WG_BK / 2; i += WG_THREADS) {
+    const int s = i / (8 * WG_BK / 2), w = i % (8 * WG_BK / 2);
+    reinterpret_cast<uint32_t*>(dq_tile(s) + L::B_BYTES)[w] = BF16_ONES;
+  }
+  fence_proxy_async();
   __syncthreads();
 
-  if (warp >= MMA_WARPS + DQ_WARPS) {  // loaders: one thread of each warp
-    if (lane != 0) return;
+  if (warp >= MMA_WARPS + DQ_WARPS) {  // loaders: one thread of warps 12 and 13
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REG_LOAD));
+    if (lane != 0 || warp > MMA_WARPS + DQ_WARPS + 1) return;
     const bool x_loader = warp == MMA_WARPS + DQ_WARPS;
     int i = 0, j = 0, q = 0;  // stages, weight stages, tiles issued
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++q) {
       const int m0 = (t % tiles_m) * WG_BM, n0 = (t / tiles_m) * BN;
       if (x_loader) {  // x tiles, then [hi | lo]: hi rank chunks, then lo
-        for (int ks = 0; ks < st; ++ks, ++i) {
+        for (int ks = 0; ks < kt + 2 * rt; ++ks, ++i) {
           uint64_t* bar = &xfull[i % XS];
           if (i >= XS) mbar_wait(&xempty[i % XS], ((i / XS) - 1) & 1);
           mbar_expect_tx(bar, X_BYTES);
@@ -1095,8 +1231,8 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         for (int ks = 0; ks < kt; ++ks, ++j) {
           uint64_t* bar = &wfull[j % WS];
           if (j >= WS) mbar_wait(&wempty[j % WS], ((j / WS) - 1) & 1);
-          mbar_expect_tx(bar, L::CODE_BYTES + 2 * BN * srows * 4);
-          const int srow = ks * WG_BK / group;
+          mbar_expect_tx(bar, L::CODE_BYTES + 2 * BN * 4);
+          const int srow = ks / gst;
           tma_load(w_slot(j), &tm_p, bar, n0, ks * WG_BK / L::PER);
           tma_load(w_slot(j) + L::SC, &tm_s, bar, n0, srow);
           tma_load(w_slot(j) + L::ZR, &tm_z, bar, n0, srow);
@@ -1112,13 +1248,14 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     return;
   }
 
-  if (warp >= MMA_WARPS) {  // the dequantizing warpgroup
+  if (warp >= MMA_WARPS) {  // the code-staging warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REG_STAGE));
     const int dt = threadIdx.x - WG_CONSUMERS;
     const int stages = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * kt;
     for (int j = 0; j < stages; ++j) {
       mbar_wait(&wfull[j % WS], (j / WS) & 1);
       if (j >= WG_DQ) mbar_wait(&dqempty[j % WG_DQ], ((j / WG_DQ) - 1) & 1);
-      dequant_stage<BITS, BN, 256 / WG_DEQUANT>(w_slot(j), dq_tile(j), group, dt);
+      dequant_stage<BITS, BN, 256 / WG_DEQUANT>(w_slot(j), dq_tile(j), sz_row(j), dt);
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) {
@@ -1130,56 +1267,94 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 
   // wgmma warpgroups: wg owns rows 64 wg .. 64 wg + 63 of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REG_MMA));
   const int wg = threadIdx.x >> 7;
-  float acc[NACC];
+  const int g = lane >> 2, cq = lane & 3;
+  const int r0 = (warp & 3) * 16 + g;  // the thread's rows r0 and r0 + 8 of its 64
+  float acc[NACC], part[NPART];
 #pragma unroll
-  for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+  for (int e = 0; e < NPART; ++e) part[e] = 0.f;
   int i = 0, j = 0, q = 0;  // stages, weight stages, tiles
-  int px = -1, pj = -1;     // the previous stage's x and B tiles, to hand back
   for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++q) {
-    for (int ks = 0; ks < st; ++ks, ++i) {
-      mbar_wait(&xfull[i % XS], (i / XS) & 1);
-      const unsigned char* b_tile;
-      if (ks < kt) {
-        mbar_wait(&dqfull[j % WG_DQ], (j / WG_DQ) & 1);
-        b_tile = dq_tile(j);
-      } else {
-        if (ks == kt) mbar_wait(lbfull, q & 1);
-        b_tile = lb + ((ks - kt) % rt) * L::B_BYTES;
-      }
-      const uint64_t da = sw128_desc(x_tile(i) + wg * (X_BYTES / 2));
-      const uint64_t db = sw128_desc(b_tile);
-      fence_acc(acc);
-      wgmma_fence();
+    const int m0 = (t % tiles_m) * WG_BM + wg * 64, n0 = (t / tiles_m) * BN;
 #pragma unroll
-      for (int kk = 0; kk < WG_BK / 16; ++kk)  // a tile's first product overwrites
-        wgmma_bn<BN>(acc, da + 2 * kk, db + 2 * kk, ks > 0 || kk > 0);
-      wgmma_commit();
-      fence_acc(acc);
-      // stage i's wgmmas run on into stage i+1; stage i-1's are done
-      wgmma_wait<1>();
-      fence_acc(acc);
-      if (lane == 0 && px >= 0) {
-        mbar_arrive(&xempty[px % XS]);
-        if (pj >= 0) mbar_arrive(&dqempty[pj % WG_DQ]);
+    for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+    for (int ks = 0; ks < kt; ks += gst) {  // one group
+      for (int s = 0; s < gst; ++s, ++i, ++j) {
+        mbar_wait(&xfull[i % XS], (i / XS) & 1);
+        mbar_wait(&dqfull[j % WG_DQ], (j / WG_DQ) & 1);
+        const uint64_t da = sw128_desc(x_tile(i) + wg * (X_BYTES / 2));
+        const uint64_t db = sw128_desc(dq_tile(j));
+        fence_acc(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk)  // a group's first product overwrites
+          wgmma_part<BN>(part, da + 2 * kk, db + 2 * kk, s > 0 || kk > 0);
+        wgmma_commit();
+        fence_acc(part);
+        if (s + 1 < gst) {  // the stage before is done: hand its tiles back
+          wgmma_wait<1>();
+          fence_acc(part);
+          if (lane == 0 && s > 0) {
+            mbar_arrive(&xempty[(i - 1) % XS]);
+            mbar_arrive(&dqempty[(j - 1) % WG_DQ]);
+          }
+        }
       }
-      px = i;
-      pj = ks < kt ? j++ : -1;
+      wgmma_wait<0>();
+      fence_acc(part);
+      // the fold, with the group's s and z + off from its last B tile and
+      // the rows' sums of x from the ones columns (rows r0, r0 + 8)
+      const float* szp = sz_row(j - 1);
+      const float sx0 = part[NACC], sx1 = part[NACC + 2];
+#pragma unroll
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        const float2 s2 = *reinterpret_cast<const float2*>(szp + 8 * jn + 2 * cq);
+        const float2 z2 = *reinterpret_cast<const float2*>(szp + BN + 8 * jn + 2 * cq);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float sxh = h ? sx1 : sx0;
+          float* a2 = acc + 4 * jn + 2 * h;
+          const float* p2 = part + 4 * jn + 2 * h;
+          a2[0] = fmaf(s2.x, fmaf(-z2.x, sxh, p2[0]), a2[0]);
+          a2[1] = fmaf(s2.y, fmaf(-z2.y, sxh, p2[1]), a2[1]);
+        }
+      }
+      if (lane == 0) {  // the group's last stage (and the one before, if any)
+        if (gst > 1) {
+          mbar_arrive(&xempty[(i - 2) % XS]);
+          mbar_arrive(&dqempty[(j - 2) % WG_DQ]);
+        }
+        mbar_arrive(&xempty[(i - 1) % XS]);
+        mbar_arrive(&dqempty[(j - 1) % WG_DQ]);
+      }
     }
-    wgmma_wait<0>();
-    fence_acc(acc);
-    if (lane == 0) {
-      mbar_arrive(&xempty[px % XS]);
-      if (pj >= 0) mbar_arrive(&dqempty[pj % WG_DQ]);
+    if (rt > 0) {  // the LoRA stages, unscaled, into the tile's sums
+      mbar_wait(lbfull, q & 1);
+      for (int l = 0; l < 2 * rt; ++l, ++i) {
+        mbar_wait(&xfull[i % XS], (i / XS) & 1);
+        const uint64_t da = sw128_desc(x_tile(i) + wg * (X_BYTES / 2));
+        const uint64_t db = sw128_desc(lb + (l % rt) * L::B_BYTES);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk)
+          wgmma_bn<BN>(acc, da + 2 * kk, db + 2 * kk, 1);
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (lane == 0 && l > 0) mbar_arrive(&xempty[(i - 1) % XS]);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(&xempty[(i - 1) % XS]);
     }
-    px = pj = -1;
     // the sums in bf16 through the LoRA B tiles, once both warpgroups'
     // wgmmas are done with them (one per warpgroup, 16-byte chunks
     // XOR-swizzled by row), then out in coalesced 16-byte stores
     mma_warpgroups_sync();
     unsigned char* stage = lb + wg * L::B_BYTES;
-    const int g = lane >> 2, cq = lane & 3;
-    const int r0 = (warp & 3) * 16 + g;
 #pragma unroll
     for (int jn = 0; jn < BN / 8; ++jn)
 #pragma unroll
@@ -1190,7 +1365,6 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
             __floats2bfloat162_rn(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
       }
     asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
-    const int m0 = (t % tiles_m) * WG_BM + wg * 64, n0 = (t / tiles_m) * BN;
     for (int c = threadIdx.x & 127; c < 64 * (BN / 8); c += 128) {
       const int row = c / (BN / 8), ch = c % (BN / 8);
       const uint4 v = *reinterpret_cast<const uint4*>(stage + row * (BN * 2) +
@@ -1275,7 +1449,6 @@ int launch_wgmma(const void* x, const void* packed, const void* scales, const vo
                  const void* b, const void* hl, void* out, int M, int K, int N, int group,
                  int r, int grid, cudaStream_t s) {
   constexpr int PER = BITS == 2 ? 4 : (BITS == 4 ? 2 : 1);
-  const int srows = group >= WG_BK ? 1 : WG_BK / group;
   CUtensorMap mx, mp, ms, mz, mxa, mb;
   memset(&mxa, 0, sizeof(mxa));
   memset(&mb, 0, sizeof(mb));
@@ -1284,9 +1457,9 @@ int launch_wgmma(const void* x, const void* packed, const void* scales, const vo
   if (!rc) rc = make_map(&mp, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, N, K / PER, N, BN,
                          WG_BK / PER, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!rc) rc = make_map(&ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, N, K / group,
-                         4ull * N, BN, srows, CU_TENSOR_MAP_SWIZZLE_NONE);
+                         4ull * N, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!rc) rc = make_map(&mz, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, zeros, N, K / group,
-                         4ull * N, BN, srows, CU_TENSOR_MAP_SWIZZLE_NONE);
+                         4ull * N, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!rc && r > 0)
     rc = make_map(&mxa, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, hl, r, 2ull * M, 2ull * r,
                   WG_BK, WG_BM, CU_TENSOR_MAP_SWIZZLE_128B);
@@ -1330,8 +1503,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // the shapes and pointers the wgmma route can address (lora_plan's rule)
 bool wgmma_ok(const void* x, const void* packed, const void* scales, const void* zeros,
               const void* a, const void* b, int K, int N, int group, int r) {
-  return K % 8 == 0 && N % 16 == 0 && r % 8 == 0 && group % 16 == 0 &&
-         (group % WG_BK == 0 || WG_BK % group == 0) && aligned16(x) && aligned16(packed) &&
+  return K % 8 == 0 && N % 16 == 0 && r % 8 == 0 && group % WG_BK == 0 &&
+         aligned16(x) && aligned16(packed) &&
          aligned16(scales) && aligned16(zeros) && (r == 0 || (aligned16(a) && aligned16(b)));
 }
 
@@ -1348,27 +1521,29 @@ int xa_by_rank(int rt, const void* x, const void* a, void* hl, int M, int K, int
 
 }  // namespace
 
-// x (M, K), lora_a (K, r), lora_b (N, r) and out (M, N), all f32 (route
-// 0) or all bf16 (routes 1 and 2); packed (K*bits/8, N) uint8;
-// scales/zeros (K/group, N) f32.  All contiguous.  0 <= r <= 128.
-// Routes, as kernels/dequant_matmul.py `lora_plan` picks them:
-//   0 fma:   f32 FMAs on the CUDA cores, 64 x 128 tiles;
-//   1 mma:   mma.sync, 64 x 128 tiles;
-//   2 wgmma: the x @ A prologue, K cut into xa_splits <= 8 ranges of
-//            xa_chunk rows summed by a cluster, into xa_hl (2M, r) bf16;
-//            then `grid` persistent blocks over 128 x bn tiles (bn 64 or
-//            128).  The shapes and pointers must pass wgmma_ok.
+// x (M, K), lora_a (K, r), lora_b (N, r) and out (M, N), all f32 or all
+// bf16 (is_bf16 != 0); packed (K*bits/8, N) uint8; scales/zeros (K/group, N)
+// f32.  All contiguous.  0 <= r <= 128.  Routes, as
+// kernels/dequant_matmul.py `lora_plan` picks them:
+//   0 fma:   CUDA-core f32 FMAs on the f32 weight, 64 x 128 tiles (f32 x,
+//            and bf16 x whose group is not a multiple of 8);
+//   1 mma:   bf16, mma.sync on exact codes, 64 x 128 tiles, group % 8 == 0;
+//   2 wgmma: bf16, the x @ A prologue (r > 0), K cut into xa_splits <= 8
+//            ranges of xa_chunk rows summed by a cluster, into xa_hl (2M, r)
+//            bf16; then `grid` persistent blocks over 128 x bn tiles (bn 64
+//            or 128).  The shapes and pointers must pass wgmma_ok (group %
+//            64 == 0 among them).
 // Returns 0, a cudaError_t code, or 10000 + the CUresult of a tensor map
 // that could not be encoded.
 extern "C" int dqmm_lora_launch(const void* x, const void* packed, const void* scales,
                                 const void* zeros, const void* lora_a,
                                 const void* lora_b, void* out, void* xa_hl,
                                 int M, int K, int N, int bits, int group, int r,
-                                int route, int bn, int grid, int xa_splits, int xa_chunk,
-                                void* stream) {
+                                int route, int is_bf16, int bn, int grid, int xa_splits,
+                                int xa_chunk, void* stream) {
   const int per = bits == 2 ? 4 : (bits == 4 ? 2 : 1);
   if (M < 1 || K < 1 || N < 1 || group < 1 || K % group || K % per || r < 0 ||
-      r > 16 * MAX_RPT)
+      r > 16 * MAX_RPT || (route != 0 && !is_bf16))
     return (int)cudaErrorInvalidValue;
   const int need = r <= 16 ? 1 : (r <= 32 ? 2 : (r <= 64 ? 4 : 8));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1384,12 +1559,16 @@ extern "C" int dqmm_lora_launch(const void* x, const void* packed, const void* s
       rc = wgmma_by_bits(bits, bn, x, packed, scales, zeros, lora_b, xa_hl, out, M, K, N,
                          group, r, grid, s);
   } else if (route == 0 || route == 1) {
-    if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-    rc = route == 1
-        ? mma_by_bits(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M, K, N,
-                      group, r, s)
-        : by_bits<float>(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M, K,
-                         N, group, r, s);
+    if ((M + BM - 1) / BM > 65535 || (route == 1 && group % 8)) return (int)cudaErrorInvalidValue;
+    if (route == 1)
+      rc = mma_by_bits(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M, K, N,
+                       group, r, s);
+    else if (is_bf16)
+      rc = by_bits<bf16>(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M, K, N,
+                         group, r, s);
+    else
+      rc = by_bits<float>(bits, need, x, packed, scales, zeros, lora_a, lora_b, out, M, K,
+                          N, group, r, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

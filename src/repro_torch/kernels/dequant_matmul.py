@@ -50,7 +50,7 @@ launches = 0
 lora_launches = 0
 
 _argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-_lora_argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+_lora_argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
                   + [ctypes.c_void_p])
 
 
@@ -161,12 +161,13 @@ class LoraPlan:
 
 def tma_addressable(K: int, N: int, r: int, group: int,
                     aligned: bool) -> bool:
-    """Whether TMA can address every operand of the wgmma route: 16-byte
-    row strides (K % 8, N % 16, r % 8), a group that tiles the 64-row
-    stages (16 or 32, or a multiple of 64), and 16-byte aligned bases
-    (``aligned``).  The entry point checks the same."""
-    return (K % 8 == 0 and N % 16 == 0 and r % 8 == 0 and group % 16 == 0
-            and (group % _WG_BK == 0 or _WG_BK % group == 0) and aligned)
+    """Whether the wgmma route takes these operands: 16-byte row strides
+    for TMA (K % 8, N % 16, r % 8), 16-byte aligned bases (``aligned``),
+    and a group of whole 64-row stages (group % 64 == 0: the route folds
+    each group's sums at a stage's end).  The entry point checks the
+    same."""
+    return (K % 8 == 0 and N % 16 == 0 and r % 8 == 0
+            and group % _WG_BK == 0 and aligned)
 
 
 def _fill(tiles: int, n_sm: int) -> float:
@@ -179,22 +180,27 @@ def lora_plan(M: int, K: int, N: int, r: int, group: int, *, bf16: bool,
     """The route and tiling of ``dequant_matmul_lora_cuda`` for x (M, K),
     N output columns, rank r and the quantization group, chosen by shape.
 
-    f32 x takes the fma route (the only one within the f32 tolerance); bf16
-    x takes wgmma where :func:`tma_addressable`, else mma.  The wgmma tiles
+    Every route computes with the reference's f32 weight.  f32 x takes
+    the fma route (the only one within the f32 tolerance); bf16 x takes
+    wgmma where :func:`tma_addressable` (so groups of 16 and 32 do not:
+    they go to mma), else mma where the group is a multiple of 8 (the
+    route folds each group's sums after a k16 step or a k8 half), else
+    fma (CUDA cores on the f32 weight; no model config has such a
+    group).  The wgmma tiles
     are 128 x 128, or 128 x 64 where that fills clearly more of the
     ``n_sm`` SMs (Qwen3-1.7B's k/v projections at 1024 rows: 128 tiles,
     not 64); one persistent block per SM.  The x @ A prologue splits K
     over a cluster of up to 8 blocks, so that about one block an SM
     runs."""
     if not bf16 or not tma_addressable(K, N, r, group, aligned):
+        route = "mma" if bf16 and group % 8 == 0 else "fma"
         bm, bn = _SYNC_TILE
         rows = -(-M // bm)
         if rows > _MAX_GRID_ROWS:
             raise ValueError(f"dequant_matmul_lora: {M} rows of x are too "
-                             f"many for the {'mma' if bf16 else 'fma'} "
-                             "route's grid")
+                             f"many for the {route} route's grid")
         tiles = rows * -(-N // bn)
-        return LoraPlan("mma" if bf16 else "fma", bm, bn, tiles, tiles)
+        return LoraPlan(route, bm, bn, tiles, tiles)
     rows = -(-M // _WG_BM)
     bn = 64 if (_fill(rows * -(-N // 64), n_sm)
                 > _fill(rows * -(-N // 128), n_sm) + 0.1) else 128
@@ -345,8 +351,9 @@ def dequant_matmul_lora_cuda(x: Tensor, packed: Tensor, scales: Tensor,
     rc = _lora_lib()(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                      zeros.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
                      out.data_ptr(), None if hl is None else hl.data_ptr(),
-                     M, K, N, bits, g, r, LORA_ROUTES[plan.route], plan.bn,
-                     plan.grid, plan.xa_splits, plan.xa_chunk,
+                     M, K, N, bits, g, r, LORA_ROUTES[plan.route],
+                     int(x.dtype == torch.bfloat16), plan.bn, plan.grid,
+                     plan.xa_splits, plan.xa_chunk,
                      build.stream_handle(x.device))
     build.check(rc, f"{what} launch")
     lora_launches += 1

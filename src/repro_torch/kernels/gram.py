@@ -26,6 +26,10 @@ ROUTES = {"fma": 0, "wgmma": 1}  # csrc: route
 # launches of the CUDA kernel; reset and read by callers that need to show
 # a path went through it
 launches = 0
+# the same launches by the route the entry point accepted and launched (it
+# launches route 1's kernel, the wgmma one, or refuses): a record of which
+# kernel ran that needs no profiler
+route_launches = {route: 0 for route in ROUTES}
 
 _argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
@@ -112,4 +116,5 @@ def gram_cuda(x: Tensor, plan: GramPlan | None = None) -> Tensor:
                 build.stream_handle(x.device))
     build.check(rc, "gram launch")
     launches += 1
+    route_launches[plan.route] += 1
     return out

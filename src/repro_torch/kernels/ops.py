@@ -11,11 +11,17 @@ dispatches by device, the backward is plain PyTorch on either device, as in
 the JAX package, where these gradients are autodiff of XLA dots outside any
 Pallas kernel.  The packed base gets no gradient.  Without a gradient (the
 serve path) they call the forward directly.
+
+Under a gradient the forward goes through a ``torch.library`` custom op
+(``repro_torch::dequant_matmul`` and ``repro_torch::dequant_matmul_lora``):
+the kernels are launched through ``ctypes``, which no dispatch mode sees,
+and the op makes each call one op whose output a selective checkpoint can
+keep (``ModelConfig.remat="dots"``).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 
@@ -110,6 +116,31 @@ def _dequant_matmul_lora(x, packed, scales, zeros, lora_a, lora_b, bits,
                                           group_size=group_size)
 
 
+@torch.library.custom_op("repro_torch::dequant_matmul", mutates_args=())
+def _dequant_matmul_op(x: Tensor, packed: Tensor, scales: Tensor,
+                       zeros: Tensor, bits: int,
+                       group_size: Optional[int]) -> Tensor:
+    return _dequant_matmul(x, packed, scales, zeros, bits, group_size)
+
+
+@_dequant_matmul_op.register_fake
+def _(x, packed, scales, zeros, bits, group_size):
+    return x.new_empty((*x.shape[:-1], packed.shape[-1]))
+
+
+@torch.library.custom_op("repro_torch::dequant_matmul_lora", mutates_args=())
+def _dequant_matmul_lora_op(x: Tensor, packed: Tensor, scales: Tensor,
+                            zeros: Tensor, lora_a: Tensor, lora_b: Tensor,
+                            bits: int, group_size: Optional[int]) -> Tensor:
+    return _dequant_matmul_lora(x, packed, scales, zeros, lora_a, lora_b,
+                                bits, group_size)
+
+
+@_dequant_matmul_lora_op.register_fake
+def _(x, packed, scales, zeros, lora_a, lora_b, bits, group_size):
+    return x.new_empty((*x.shape[:-1], packed.shape[-1]))
+
+
 def _wants_grad(*ts: Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
@@ -119,7 +150,7 @@ class _DequantMatmul(torch.autograd.Function):
     def forward(ctx, x, packed, scales, zeros, bits, group_size):
         ctx.save_for_backward(packed, scales, zeros)
         ctx.bits, ctx.group_size, ctx.x_shape = bits, group_size, x.shape
-        return _dequant_matmul(x, packed, scales, zeros, bits, group_size)
+        return _dequant_matmul_op(x, packed, scales, zeros, bits, group_size)
 
     @staticmethod
     def backward(ctx, g):
@@ -140,8 +171,8 @@ class _DequantMatmulLora(torch.autograd.Function):
                 group_size):
         ctx.save_for_backward(x, packed, scales, zeros, lora_a, lora_b)
         ctx.bits, ctx.group_size = bits, group_size
-        return _dequant_matmul_lora(x, packed, scales, zeros, lora_a, lora_b,
-                                    bits, group_size)
+        return _dequant_matmul_lora_op(x, packed, scales, zeros, lora_a,
+                                       lora_b, bits, group_size)
 
     @staticmethod
     def backward(ctx, g):

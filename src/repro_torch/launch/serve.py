@@ -38,8 +38,12 @@ the hand-written kernels (``QSpec.use_kernel``), and each decode step is
 captured as a CUDA graph and replayed
 (:class:`repro_torch.launch.steps.CapturedStep`); on the CPU the kernels
 take their plain versions only with ``--kernel``, and steps run eagerly.
-The compile cache, cost model and tracing flags are not ported yet
-(``ROADMAP.md``); giving them raises.
+``--trace-out FILE`` writes a chrome-trace span timeline (the
+quantization's buckets, ``serve.step``, ``serve.admit``,
+``serve.decode``) and ``--metrics-out FILE`` the metrics snapshot
+(``results/metrics-serve.json`` when only ``--trace-out`` is given), as
+the JAX CLI does (``repro_torch.obs``).  The compile cache and cost
+model flags are not ported yet (``ROADMAP.md``); giving them raises.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from repro_torch.launch.steps import (CapturedStep, make_decode_step,
 from repro_torch.models.modules import QSpec
 from repro_torch.models.parallel import LOCAL
 from repro_torch.models.transformer import init_decode_cache, init_params
+from repro_torch import obs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
 from repro_torch.serve import (AdapterRegistry, ServeEngine,
@@ -68,8 +73,7 @@ from repro_torch.serve.registry import synthesize_adapters
 from repro_torch.utils import resolve_device
 
 # flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"compile_cache": "", "cost_cal": "", "trace_out": "",
-               "metrics_out": ""}
+_NOT_PORTED = {"compile_cache": "", "cost_cal": ""}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,11 +106,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kernel", action="store_true",
                    help="route quantized linears and decode attention "
                         "through the kernel wrappers (always on for CUDA)")
+    p.add_argument("--trace-out", default="", metavar="FILE",
+                   help="write a chrome-trace/Perfetto span timeline "
+                        "(quantize buckets + serve steps/decodes) to FILE; "
+                        "REPRO_TRACE_SYNC=1 fences the CUDA work")
+    p.add_argument("--metrics-out", default="", metavar="FILE",
+                   help="write the metrics-registry snapshot to FILE "
+                        "(defaults to results/metrics-serve.json when "
+                        "--trace-out is set)")
     # JAX CLI flags of subsystems not ported yet (rejected unless default)
     p.add_argument("--compile-cache", default="")
     p.add_argument("--cost-cal", default="")
-    p.add_argument("--trace-out", default="")
-    p.add_argument("--metrics-out", default="")
     return p
 
 
@@ -115,8 +125,8 @@ def _check_ported(args) -> None:
              if getattr(args, k) != default]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: the compile cache, cost model and tracing "
-            "are not ported to repro_torch yet (see ROADMAP.md)")
+            f"{', '.join(given)}: the compile cache and cost model are not "
+            "ported to repro_torch yet (see ROADMAP.md)")
 
 
 def _sync(device: torch.device) -> None:
@@ -363,7 +373,10 @@ def run(args, cfg=None) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    res = run(args)
+    metrics_out = args.metrics_out or (
+        obs.default_metrics_path("serve") if args.trace_out else "")
+    with obs.session(args.trace_out or None, metrics_out or None):
+        res = run(args)
     s = res["serve"]
     if res["route"] == "engine":
         print(f"[serve] requests={s['requests_done']}/{args.requests} "

@@ -50,8 +50,16 @@ quantized sites (``repro_torch.core.allocate``; the plan's summary is
 printed); quantization then calibrates again on the same batches, as the
 JAX CLI does.  Every checkpoint of a quantized run carries the bucket
 manifest of its recipe (``pipeline.quantization_manifest``) in
-``meta.json``.  The compile cache, the cost model and tracing are not
-ported yet (``ROADMAP.md``); their flags raise.
+``meta.json``.
+
+``--trace-out FILE`` writes a chrome-trace span timeline of the run
+(``quant.*``, ``bucket.*``, ``health.*``, ``train.step``, ``ckpt.*``;
+load it at https://ui.perfetto.dev; ``REPRO_TRACE_SYNC=1`` fences the
+CUDA work a span launched before it closes) and ``--metrics-out FILE``
+the metrics snapshot (``results/metrics-train.json`` when only
+``--trace-out`` is given), as the JAX CLI does (``repro_torch.obs``).
+Progress lines go through ``obs.log``.  The compile cache and the cost
+model are not ported yet (``ROADMAP.md``); their flags raise.
 """
 from __future__ import annotations
 
@@ -78,14 +86,16 @@ from repro_torch.launch.steps import build_state, make_train_step
 from repro_torch.models.modules import QSpec
 from repro_torch.models.parallel import LOCAL
 from repro_torch.models.transformer import init_params
+from repro_torch import obs
+from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import OptConfig, merge_params
 from repro_torch.utils import resolve_device
 
 # flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"compile_cache": "", "cost_cal": "", "trace_out": "",
-               "metrics_out": ""}
+_NOT_PORTED = {"compile_cache": "", "cost_cal": ""}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -128,11 +138,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--budget-mb", type=float, default=0.0,
                    help="byte budget (MiB) of the quantized sites for "
                         "--auto-allocate")
+    p.add_argument("--trace-out", default="", metavar="FILE",
+                   help="write a chrome-trace/Perfetto span timeline of "
+                        "the run to FILE (load at https://ui.perfetto.dev; "
+                        "REPRO_TRACE_SYNC=1 fences the CUDA work at span "
+                        "close)")
+    p.add_argument("--metrics-out", default="", metavar="FILE",
+                   help="write the metrics-registry snapshot to FILE "
+                        "(defaults to results/metrics-train.json when "
+                        "--trace-out is set)")
     # JAX CLI flags of subsystems not ported yet (rejected unless default)
     p.add_argument("--compile-cache", default="")
     p.add_argument("--cost-cal", default="")
-    p.add_argument("--trace-out", default="")
-    p.add_argument("--metrics-out", default="")
     return p
 
 
@@ -141,8 +158,8 @@ def _check_ported(args) -> None:
              if getattr(args, k) != default]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: the compile cache, the cost model and "
-            "tracing are not ported to repro_torch yet (see ROADMAP.md)")
+            f"{', '.join(given)}: the compile cache and the cost model are "
+            "not ported to repro_torch yet (see ROADMAP.md)")
 
 
 def _check_allocation_flags(args) -> None:
@@ -161,12 +178,6 @@ def _check_allocation_flags(args) -> None:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _log(event: str, **kv) -> None:
-    print(f"[{event}] " + " ".join(
-        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-        for k, v in kv.items()), flush=True)
 
 
 def run(args, cfg=None) -> dict:
@@ -224,7 +235,8 @@ def _run(args, cfg, stop: dict) -> dict:
         for _ in range(args.pretrain_steps):
             st0, m0 = step0(st0, stream.next_batch())
         params = merge_params(st0["train"], st0["frozen"])
-        _log("pretrain", steps=args.pretrain_steps, loss=float(m0["loss"]))
+        obs_log.info("pretrain", steps=args.pretrain_steps,
+                     loss=float(m0["loss"]))
 
     recipe = None
     if args.recipe:
@@ -248,7 +260,7 @@ def _run(args, cfg, stop: dict) -> dict:
                               qspec=base)
         _sync(device)
         allocate_s = time.perf_counter() - t0
-        _log("allocate", s=allocate_s)
+        obs_log.info("allocate", s=allocate_s)
         print(alloc.summary(), flush=True)
         recipe = alloc.recipe
     quantize_s = 0.0
@@ -266,9 +278,10 @@ def _run(args, cfg, stop: dict) -> dict:
                 report=report, journal_dir=journal_dir,
                 should_stop=(lambda: stop["flag"]) if journal_dir else None)
         except QuantPreempted as e:
-            print(f"[preempt-quant] signal received — buckets 0..{e.bucket} "
-                  f"committed to {journal_dir}; rerun with the same "
-                  "--resume-quant to continue", flush=True)
+            obs_log.warn("preempt-quant",
+                         f"signal received — buckets 0..{e.bucket} "
+                         f"committed to {journal_dir}; rerun with the same "
+                         "--resume-quant to continue")
             return {"cfg": cfg, "state": None, "quantize_s": 0.0,
                     "allocation": alloc, "allocate_s": allocate_s,
                     "health": report, "start_step": 0, "losses": [],
@@ -276,9 +289,10 @@ def _run(args, cfg, stop: dict) -> dict:
                     "ckpt_step": None}
         _sync(device)
         quantize_s = time.perf_counter() - t0
-        _log("quantize", rules=len(recipe.rules),
-             default=f"{recipe.method}/{recipe.qspec.bits}b", s=quantize_s)
-        print(f"[quantize] {report.summary()}", flush=True)
+        obs_log.info("quantize", rules=len(recipe.rules),
+                     default=f"{recipe.method}/{recipe.qspec.bits}b",
+                     s=quantize_s)
+        obs_log.info("quantize", report.summary())
         # checkpoints carry the plan they were quantized with
         manifest = quantization_manifest(cfg, recipe=recipe)
         if device.type == "cuda":
@@ -302,7 +316,7 @@ def _run(args, cfg, stop: dict) -> dict:
             state, meta = ckpt.restore(device=device)
             stream.load_state_dict(meta["data"])
             start_step = meta["step"]
-            _log("resume", step=start_step)
+            obs_log.info("resume", step=start_step)
 
     def save(step: int, **kw) -> None:
         ckpt.maybe_save(step, state, {"data": stream.state_dict(),
@@ -316,8 +330,10 @@ def _run(args, cfg, stop: dict) -> dict:
         batch = stream.next_batch()
         _sync(device)
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        _sync(device)
+        with obs_trace.span("train.step", step=step):
+            state, metrics = step_fn(state, batch)
+            # the step time below measures the device work, not the enqueue
+            _sync(device)
         dt = time.perf_counter() - t0
         step_hist.observe(dt)
         step_count.inc()
@@ -326,15 +342,16 @@ def _run(args, cfg, stop: dict) -> dict:
         if len(times) >= 5:
             med = statistics.median(times[-50:])
             if dt > args.straggler_factor * med:
-                _log("straggler", step=step, s=dt, median_s=med)
+                obs_log.warn("straggler", step=step, s=dt, median_s=med)
         times.append(dt)
         if step % 10 == 0 or step == args.steps - 1:
-            _log("step", i=step, loss=losses[-1], lr=float(metrics["lr"]),
-                 gnorm=gnorms[-1], ms=dt * 1e3)
+            obs_log.info("step", i=step, loss=losses[-1],
+                         lr=float(metrics["lr"]), gnorm=gnorms[-1],
+                         ms=dt * 1e3)
         if ckpt is not None:
             save(step + 1)
         if stop["flag"]:
-            _log("preempt", step=step + 1)
+            obs_log.warn("preempt", step=step + 1)
             preempted = True
             if ckpt is not None:
                 # pinned: retention never collects the preemption save
@@ -354,7 +371,10 @@ def _run(args, cfg, stop: dict) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    res = run(args)
+    metrics_out = args.metrics_out or (
+        obs.default_metrics_path("train") if args.trace_out else "")
+    with obs.session(args.trace_out or None, metrics_out or None):
+        res = run(args)
     if res["preempted"]:
         return 0
     final = res["losses"][-1] if res["losses"] else float("nan")

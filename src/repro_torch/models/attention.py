@@ -119,15 +119,32 @@ def causal_mask(Sq: int, Sk: int, window: int | None = None,
 
 
 def attn_apply(p, cfg: AttnConfig, x: Tensor, *, qspec: QSpec | None = None,
-               positions: Tensor | None = None) -> Tensor:
-    """Full (training / prefill) self-attention."""
+               positions: Tensor | None = None,
+               q_chunk: int | None = None) -> Tensor:
+    """Full (training / prefill) self-attention.
+
+    ``q_chunk``: blockwise query chunking, when ``S > q_chunk`` and
+    ``q_chunk`` divides S: each block of ``q_chunk`` queries attends to
+    all S keys under its own mask offset, softmax in f32, so the peak
+    logits memory falls from O(S^2) to O(q_chunk * S) a head with the same
+    math (the JAX twin's unrolled blocks)."""
     B, S, _ = x.shape
     positions = (torch.arange(S, device=x.device) if positions is None
                  else positions)
     q, k, v = _project_qkv(p, cfg, x, positions, qspec)
-    mask = (causal_mask(S, S, cfg.sliding_window, device=x.device)
-            if cfg.causal else None)
-    out = _sdpa(q, k, v, mask)
+    if q_chunk and S > q_chunk and S % q_chunk == 0:
+        outs = []
+        for i in range(S // q_chunk):
+            qi = q[:, i * q_chunk:(i + 1) * q_chunk]
+            mask = (causal_mask(q_chunk, S, cfg.sliding_window,
+                                offset=i * q_chunk, device=x.device)
+                    if cfg.causal else None)
+            outs.append(_sdpa(qi, k, v, mask))
+        out = torch.cat(outs, dim=1)
+    else:
+        mask = (causal_mask(S, S, cfg.sliding_window, device=x.device)
+                if cfg.causal else None)
+        out = _sdpa(q, k, v, mask)
     with scope("o"):
         return linear_apply(p["o"], out.reshape(B, S, -1).to(x.dtype), qspec)
 

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from repro_torch.core.quantizer import (dequantize_int, dequantize_nf4,
                                         unpack_codes)
 from repro_torch.models.modules import QSpec, packed_bits
-from repro_torch.utils import current_scope, record_activation, scope
+from repro_torch.utils import (current_scope, is_recomputing,
+                               record_activation, scope)
 
 Tensor = torch.Tensor
 
@@ -127,7 +128,8 @@ _drop_log: list | None = None
 def record_drops() -> Iterator[list]:
     """Collect ``(dropped, routed)`` token-slot counts of every dispatch
     run inside the block, as 0-d device tensors (nothing is read on the
-    host until the caller does)."""
+    host until the caller does): one record a dispatch a forward, none
+    from a checkpointed region's recompute in the backward."""
     global _drop_log
     prev, _drop_log = _drop_log, []
     try:
@@ -154,7 +156,7 @@ def _dispatch_compute_combine(p: dict, cfg: MoEConfig, xt: Tensor,
     keep = pos_in_e < capacity
     dest = torch.where(keep, sorted_e * capacity + pos_in_e,
                        torch.full_like(pos_in_e, E * capacity))
-    if _drop_log is not None:
+    if _drop_log is not None and not is_recomputing():  # once a forward
         _drop_log.append(((~keep).sum(), keep.numel()))
     token_id = sort_idx // k
     # the overflow row (last) takes every dropped slot and is discarded

@@ -50,7 +50,8 @@ from repro_torch.models.modules import (QSpec, embedding_apply,
 from repro_torch.models.parallel import LOCAL, PContext
 from repro_torch.models.ssm import (SSMConfig, mamba_apply, mamba_decode,
                                     mamba_init)
-from repro_torch.utils import resolve_device, scope
+from repro_torch.utils import (checkpoint, is_capturing, resolve_device,
+                               scope)
 
 Tensor = torch.Tensor
 
@@ -91,8 +92,10 @@ class ModelConfig:
     quant: QSpec | None = None
     lora_rank: int = 0            # LoRA on dense weights
     scan_layers: bool = True
+    remat: str = "full"           # full | dots | tp_out | none
     dtype: Any = torch.bfloat16
     loss_chunk: int = 0           # >0: CE loss computed over seq chunks
+    attn_chunk: int = 0           # >0: blockwise query-chunked attention
 
     def attn_cfg(self, causal=True, window=None) -> AttnConfig:
         return AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
@@ -192,15 +195,23 @@ def _with_site_lora(shared: dict, site_lora: dict, site: int) -> dict:
     return blk
 
 
-def _shared_block_apply(p: dict, cfg: ModelConfig, x: Tensor,
-                        site: int) -> Tensor:
+def _direct(fn, *args):
+    return fn(*args)
+
+
+def _shared_block_apply(p: dict, cfg: ModelConfig, x: Tensor, site: int,
+                        sub=_direct) -> Tensor:
+    """The shared block at site ``site``; ``sub`` runs each sub-layer (a
+    checkpoint under ``remat="tp_out"``)."""
     blk = _with_site_lora(p["block"], p["site_lora"], site)
     with scope("shared.attn"):
-        x = x + attn_apply(blk["attn"], cfg.attn_cfg(),
-                           rmsnorm_apply(blk["ln1"], x), qspec=cfg.quant)
+        x = x + sub(lambda h: attn_apply(blk["attn"], cfg.attn_cfg(),
+                                         rmsnorm_apply(blk["ln1"], h),
+                                         qspec=cfg.quant), x)
     with scope("shared.mlp"):
-        x = x + swiglu_apply(blk["mlp"], rmsnorm_apply(blk["ln2"], x),
-                             cfg.quant)
+        x = x + sub(lambda h: swiglu_apply(blk["mlp"],
+                                           rmsnorm_apply(blk["ln2"], h),
+                                           cfg.quant), x)
     return x
 
 
@@ -272,27 +283,34 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 
 def _block_apply(p, cfg: ModelConfig, x: Tensor, pctx: PContext = LOCAL,
-                 causal: bool = True) -> tuple[Tensor, Tensor | None]:
+                 causal: bool = True,
+                 sub=_direct) -> tuple[Tensor, Tensor | None]:
     """Returns (y, aux_loss): the MoE block's aux loss, None for the
     other families.  ``causal=False``: the enc-dec encoder's
-    bidirectional attention."""
+    bidirectional attention (never query-chunked, as in the JAX twin's
+    encoder); otherwise ``cfg.attn_chunk`` chunks the queries.  ``sub``
+    runs each sub-layer (a checkpoint under ``remat="tp_out"``)."""
     q = cfg.quant
     if cfg.family in ("ssm", "hybrid"):
         with scope("mamba"):
-            y = mamba_apply(p["mamba"], cfg.ssm_cfg(),
-                            rmsnorm_apply(p["norm"], x), qspec=q)
+            y = sub(lambda h: mamba_apply(p["mamba"], cfg.ssm_cfg(),
+                                          rmsnorm_apply(p["norm"], h),
+                                          qspec=q), x)
         return x + y, None
+    chunk = (cfg.attn_chunk or None) if causal else None
     with scope("attn"):
-        x = x + attn_apply(p["attn"], cfg.attn_cfg(causal=causal),
-                           rmsnorm_apply(p["ln1"], x), qspec=q)
+        x = x + sub(lambda h: attn_apply(p["attn"], cfg.attn_cfg(
+            causal=causal), rmsnorm_apply(p["ln1"], h), qspec=q,
+            q_chunk=chunk), x)
     if cfg.family == "moe":
         with scope("moe"):
-            y, aux = moe_apply(p["moe"], cfg.moe_cfg(),
-                               rmsnorm_apply(p["ln2"], x), qspec=q,
-                               pctx=pctx)
+            y, aux = sub(lambda h: moe_apply(p["moe"], cfg.moe_cfg(),
+                                             rmsnorm_apply(p["ln2"], h),
+                                             qspec=q, pctx=pctx), x)
         return x + y, aux
     with scope("mlp"):
-        x = x + swiglu_apply(p["mlp"], rmsnorm_apply(p["ln2"], x), q)
+        x = x + sub(lambda h: swiglu_apply(p["mlp"],
+                                           rmsnorm_apply(p["ln2"], h), q), x)
     return x, None
 
 
@@ -325,35 +343,93 @@ def _layer_scope(cfg: ModelConfig, name: str):
     return contextlib.nullcontext() if cfg.scan_layers else scope(name)
 
 
-def _encode(params: dict, cfg: ModelConfig, enc_embeds: Tensor) -> Tensor:
+# ---------------------------------------------------------------------------
+# Activation recompute: the ``remat`` lever (the JAX twin's _remat_policy).
+# ---------------------------------------------------------------------------
+
+
+def _dots_ops() -> list:
+    """The ops whose outputs ``remat="dots"`` keeps: the matrix products,
+    aten's and the quantized linears' (``kernels.ops`` registers them as
+    custom ops, so that the selective checkpoint sees them)."""
+    from repro_torch.kernels import ops  # noqa: F401  (registers them)
+    aten = torch.ops.aten
+    return [aten.mm.default, aten.bmm.default, aten.addmm.default,
+            aten.baddbmm.default, torch.ops.repro_torch.dequant_matmul.default,
+            torch.ops.repro_torch.dequant_matmul_lora.default]
+
+
+def _remat_mode(cfg: ModelConfig, force: bool = False) -> str | None:
+    """The recompute policy a training forward runs under: None for
+    ``"none"`` (``"full"`` with ``force``: the stacked enc-dec layout's
+    rule, as in the JAX twin) and while calibration Grams are captured;
+    ``"dots"`` or ``"tp_out"``; ``"full"`` for any other string."""
+    if is_capturing():
+        return None
+    if cfg.remat == "none":
+        return "full" if force else None
+    return cfg.remat if cfg.remat in ("dots", "tp_out") else "full"
+
+
+def _runners(mode: str | None):
+    """(unit, sub) under ``mode``: how a block-level region (a block, a
+    shared-block site, an enc-dec decoder layer) and a sub-layer (an
+    attention, MLP, MoE or Mamba step) are run.  ``"full"`` checkpoints
+    each unit (nothing inside is kept), ``"dots"`` each unit keeping its
+    matrix products' outputs, ``"tp_out"`` each sub-layer (its output is
+    kept, its inside recomputed)."""
+    if mode == "full":
+        return checkpoint, _direct
+    if mode == "dots":
+        return (lambda fn, *a: checkpoint(fn, *a, save_ops=_dots_ops()),
+                _direct)
+    if mode == "tp_out":
+        return _direct, checkpoint
+    return _direct, _direct
+
+
+def _encode(params: dict, cfg: ModelConfig, enc_embeds: Tensor,
+            unit=_direct, sub=_direct) -> Tensor:
     """The enc-dec encoder: bidirectional dense blocks over the frontend
-    stub's embeddings (B, Se, D), then ``enc_norm``.  Returns enc_out."""
+    stub's embeddings (B, Se, D), then ``enc_norm``.  Returns enc_out.
+    ``unit``/``sub``: :func:`_runners`."""
     x = enc_embeds.to(cfg.dtype)
     for i, bp in _layers(params["enc_blocks"], cfg):
         with _layer_scope(cfg, f"enc_blocks.{i}"):
-            x, _ = _block_apply(bp, cfg, x, causal=False)
+            x, _ = unit(lambda h, bp=bp: _block_apply(bp, cfg, h,
+                                                      causal=False, sub=sub),
+                        x)
     return rmsnorm_apply(params["enc_norm"], x)
 
 
-def _cross_apply(cp: dict, cfg: ModelConfig, x: Tensor,
-                 enc_out: Tensor) -> Tensor:
+def _cross_apply(cp: dict, cfg: ModelConfig, x: Tensor, enc_out: Tensor,
+                 sub=_direct) -> Tensor:
     """A decoder layer's residual cross-attention over ``enc_out``."""
     with scope("cross"):
-        return x + cross_attn_apply(cp["xattn"], cfg.attn_cfg(causal=False),
-                                    rmsnorm_apply(cp["ln"], x), enc_out,
-                                    qspec=cfg.quant)
+        return x + sub(lambda h: cross_attn_apply(
+            cp["xattn"], cfg.attn_cfg(causal=False),
+            rmsnorm_apply(cp["ln"], h), enc_out, qspec=cfg.quant), x)
 
 
 def _forward_encdec(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
     """The enc-dec decoder's hidden states before the final norm: each
-    layer's dense block (attention, MLP), then its cross-attention."""
-    enc_out = _encode(params, cfg, batch["enc_embeds"])
+    layer's dense block (attention, MLP), then its cross-attention.  In the
+    stacked layout every encoder block and decoder layer is checkpointed
+    (``remat="none"`` counts as ``"full"`` there), in the eager one none
+    is, as in the JAX twin."""
+    unit, sub = _runners(_remat_mode(cfg, force=True) if cfg.scan_layers
+                         else None)
+    enc_out = _encode(params, cfg, batch["enc_embeds"], unit, sub)
     x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
     cross = dict(_layers(params["cross"], cfg))
+
+    def layer(bp, cp, h):
+        h, _ = _block_apply(bp, cfg, h, sub=sub)
+        return _cross_apply(cp, cfg, h, enc_out, sub)
+
     for i, bp in _layers(params["dec_blocks"], cfg):
         with _layer_scope(cfg, f"dec_blocks.{i}"):
-            x, _ = _block_apply(bp, cfg, x)
-            x = _cross_apply(cross[i], cfg, x, enc_out)
+            x = unit(lambda h, bp=bp, cp=cross[i]: layer(bp, cp, h), x)
     return x
 
 
@@ -384,21 +460,49 @@ def _forward_blocks(params: dict, cfg: ModelConfig, batch: dict,
                     pctx: PContext) -> tuple[Tensor, Tensor]:
     """The ``blocks`` stack (and a hybrid's shared-block sites) over the
     token embeddings, a vision model's prefix first.  Returns (hidden
-    before the final norm, aux)."""
+    before the final norm, aux).
+
+    Under ``cfg.remat`` each block is checkpointed (:func:`_runners`); in
+    the stacked layout a hybrid's sites are too, and under ``"full"`` each
+    segment of ``hybrid_attn_every`` blocks with its site is checkpointed
+    around its checkpointed blocks (the JAX twin's ``seg_body``); the
+    eager layout's sites are not (as in the JAX twin)."""
     x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
     if cfg.frontend == "vision" and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(cfg.dtype), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared")
-    for i, bp in _layers(params["blocks"], cfg):
+    mode = _remat_mode(cfg)
+    unit, sub = _runners(mode)
+    layers = _layers(params["blocks"], cfg)
+
+    def block(i, bp, h):
         with _layer_scope(cfg, f"blocks.{i}"):
-            x, a = _block_apply(bp, cfg, x, pctx)
+            return unit(lambda g: _block_apply(bp, cfg, g, pctx, sub=sub), h)
+
+    def site_of(s, h):
+        if not cfg.scan_layers:
+            with scope(f"sites.{s}"):
+                return _shared_block_apply(shared, cfg, h, s)
+        return unit(lambda g: _shared_block_apply(shared, cfg, g, s, sub),
+                    h)
+
+    if shared is not None and cfg.scan_layers and mode == "full":
+        every = cfg.hybrid_attn_every
+        for s in range(cfg.n_hybrid_sites):
+            def segment(h, seg=layers[s * every:(s + 1) * every], s=s):
+                for i, bp in seg:
+                    h, _ = block(i, bp, h)
+                return _shared_block_apply(shared, cfg, h, s)
+            x = checkpoint(segment, x)
+        layers = layers[cfg.n_hybrid_sites * every:]
+    for i, bp in layers:
+        x, a = block(i, bp, x)
         if a is not None:
             aux = aux + a
         site = _site_after(cfg, int(i))
         if site is not None:
-            with _layer_scope(cfg, f"sites.{site}"):
-                x = _shared_block_apply(shared, cfg, x, site)
+            x = site_of(site, x)
     return x, aux
 
 

@@ -30,9 +30,11 @@ alone through the same step gives its batched tokens
 step (tenants adapt the attention sites; the experts keep the base's
 adapters), but capacity-based routing mixes a bucket's rows, so that
 oracle holds for ``dense`` only, as in the JAX twin; the MoE dispatch
-reads nothing on the host, so its step is captured as well.  Span
-tracing and the persisted compile cache of the JAX twin are not ported
-yet (``ROADMAP.md``).
+reads nothing on the host, so its step is captured as well.  Each
+:meth:`ServeEngine.step` is a ``serve.step`` span and each bucket's
+decode a ``serve.decode`` span inside it (``repro_torch.obs.trace``, as
+in the JAX twin).  The persisted compile cache of the JAX twin is not
+ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from repro_torch.models.parallel import LOCAL
 from repro_torch.models.transformer import decode_step
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.kv_cache import (PageAllocator, extract_token,
                                         gather_pages, init_pools,
                                         pages_needed, scatter_token)
@@ -238,47 +241,52 @@ class ServeEngine:
 
     def step(self) -> list[int]:
         """One engine iteration; returns rids finished this step."""
-        active = self.scheduler.tick()
-        now = time.perf_counter()
-        queue_hist = obs_metrics.histogram(obs_names.SERVE_QUEUE_WAIT)
-        for entries in active.values():
-            for _slot, rid in entries:
-                r = self._reqs[rid]
-                if r.t_admit == 0.0:
-                    r.t_admit = now
-                    queue_hist.observe(now - r.t_submit)
-        finished: list[int] = []
-        for rank in sorted(b for b, ent in active.items() if ent):
-            entries = active[rank]
-            sched = np.zeros((self.bucket_capacity, _PT + self._maxp),
-                             np.int32)
-            for slot, rid in entries:
-                r = self._reqs[rid]
-                sched[slot, _AD] = r.ad_slot
-                sched[slot, _TOK] = r.next_token()
-                sched[slot, _LEN] = r.pos
-                pages = self.scheduler.pages_of(rid)
-                sched[slot, _PT:_PT + len(pages)] = pages
-            nxt = self._decode(rank, sched)
-            for slot, rid in entries:
-                r = self._reqs[rid]
-                r.pos += 1
-                if r.pos >= len(r.prompt):
-                    tok = int(nxt[slot])
-                    r.out.append(tok)
-                    obs_metrics.counter(obs_names.SERVE_TOKENS).inc()
-                    if len(r.out) == 1:
-                        r.t_first = time.perf_counter()
-                        obs_metrics.histogram(obs_names.SERVE_TTFT).observe(
-                            r.t_first - r.t_submit)
-                    if len(r.out) >= r.max_new or tok == r.eos:
-                        r.t_finish = time.perf_counter()
-                        self._retire_metrics(r)
-                        self.scheduler.retire(rid)
-                        finished.append(rid)
-        self._kv_metrics()
-        obs_metrics.counter(obs_names.SERVE_STEPS).inc()
-        self.steps += 1
+        with obs_trace.span("serve.step", step=self.steps) as step_sp:
+            active = self.scheduler.tick()
+            now = time.perf_counter()
+            queue_hist = obs_metrics.histogram(obs_names.SERVE_QUEUE_WAIT)
+            for entries in active.values():
+                for _slot, rid in entries:
+                    r = self._reqs[rid]
+                    if r.t_admit == 0.0:
+                        r.t_admit = now
+                        queue_hist.observe(now - r.t_submit)
+            finished: list[int] = []
+            for rank in sorted(b for b, ent in active.items() if ent):
+                entries = active[rank]
+                sched = np.zeros((self.bucket_capacity, _PT + self._maxp),
+                                 np.int32)
+                for slot, rid in entries:
+                    r = self._reqs[rid]
+                    sched[slot, _AD] = r.ad_slot
+                    sched[slot, _TOK] = r.next_token()
+                    sched[slot, _LEN] = r.pos
+                    pages = self.scheduler.pages_of(rid)
+                    sched[slot, _PT:_PT + len(pages)] = pages
+                with obs_trace.span("serve.decode", rank=rank,
+                                    batch=len(entries)):
+                    nxt = self._decode(rank, sched)  # host sync inside
+                for slot, rid in entries:
+                    r = self._reqs[rid]
+                    r.pos += 1
+                    if r.pos >= len(r.prompt):
+                        tok = int(nxt[slot])
+                        r.out.append(tok)
+                        obs_metrics.counter(obs_names.SERVE_TOKENS).inc()
+                        if len(r.out) == 1:
+                            r.t_first = time.perf_counter()
+                            obs_metrics.histogram(
+                                obs_names.SERVE_TTFT).observe(
+                                r.t_first - r.t_submit)
+                        if len(r.out) >= r.max_new or tok == r.eos:
+                            r.t_finish = time.perf_counter()
+                            self._retire_metrics(r)
+                            self.scheduler.retire(rid)
+                            finished.append(rid)
+            self._kv_metrics()
+            obs_metrics.counter(obs_names.SERVE_STEPS).inc()
+            self.steps += 1
+            step_sp.set(finished=len(finished))
         return finished
 
     def _retire_metrics(self, r: _Request) -> None:

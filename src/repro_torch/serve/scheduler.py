@@ -38,6 +38,7 @@ import dataclasses
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.kv_cache import PageAllocator
 
 
@@ -108,6 +109,8 @@ class Scheduler:
         if admitted:
             obs_metrics.counter(obs_names.SERVE_ADMITTED).inc(
                 len(admitted))
+            obs_trace.instant("serve.admit", step=self._step,
+                              n=len(admitted))
         active = {b: [(s, rid) for s, rid in enumerate(slots)
                       if rid is not None]
                   for b, slots in self._slots.items()}

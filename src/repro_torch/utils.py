@@ -198,12 +198,64 @@ def capture_grams(store: GramStore) -> Iterator[GramStore]:
         _state.capture = prev
 
 
+def is_capturing() -> bool:
+    """Whether a ``capture_grams`` context is open: the forward then records
+    calibration Grams, and nothing in it is checkpointed (a recompute
+    would record them again)."""
+    return _capture_store() is not None
+
+
 def record_activation(path: str, x: Tensor,
                       keep_leading: bool = False) -> None:
     store = _capture_store()
     if store is None:
         return
     store.add(path, x.detach(), keep_leading=keep_leading)
+
+
+# ---------------------------------------------------------------------------
+# Activation recompute (``ModelConfig.remat``).
+# ---------------------------------------------------------------------------
+
+_recompute_depth = 0
+
+
+def is_recomputing() -> bool:
+    """Whether the code running is a checkpointed region's recompute in the
+    backward, where a forward side effect (the MoE drop log) must not be
+    recorded a second time."""
+    return _recompute_depth > 0
+
+
+def checkpoint(fn, *args, save_ops: list | None = None):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant; tensors ``fn`` closes over
+    get their gradients too).  The recompute runs the whole region (no
+    early stop), so every kernel in it launches once more a backward, and
+    under :func:`is_recomputing`.  ``save_ops``: ops whose outputs are kept
+    instead of recomputed (selective checkpointing).  Without grad it is a
+    plain call."""
+    import torch.utils.checkpoint as tuc
+
+    calls = [0]
+
+    def run(*a):
+        global _recompute_depth
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        _recompute_depth += 1
+        try:
+            return fn(*a)
+        finally:
+            _recompute_depth -= 1
+
+    kw = {}
+    if save_ops is not None:
+        kw["context_fn"] = lambda: tuc.create_selective_checkpoint_contexts(
+            save_ops)
+    with tuc.set_checkpoint_early_stop(False):
+        return tuc.checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------

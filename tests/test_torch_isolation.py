@@ -29,7 +29,7 @@ def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert len(files) > 20
     return files + [REPO / "chip_smoke.py", REPO / "chip_fault_check.py",
-                    REPO / "chip_gram_losses.py"]
+                    REPO / "chip_gram_losses.py", REPO / "chip_lora_ab.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -256,8 +256,10 @@ def test_wrappers_take_the_function_only_when_a_gradient_is_asked():
 # the fused kernel's route and tiling, a plain function of the shape: every
 # Qwen3-1.7B linear at the training batch's 1024 rows takes the TMA + wgmma
 # kernel with its persistent blocks filling an H100's 132 SMs (the k/v
-# projections in 128 tiles of 128 x 64); what TMA cannot address takes the
-# mma.sync kernel, and f32 the CUDA-core one
+# projections in 128 tiles of 128 x 64); what TMA cannot address, and
+# groups that are not whole 64-row stages, take the mma.sync kernel where
+# the group is a multiple of 8 (else the CUDA-core one), and f32 the
+# CUDA-core one
 H100_SMS = 132
 
 
@@ -282,14 +284,15 @@ def test_lora_plan_qwen_linears_take_wgmma(K, N):
     (1000, 96, 40, 8, 48, True),       # N % 16 != 0, group 48
     (1024, 2048, 2048, 12, 64, True),  # r % 8 != 0
     (1024, 2048, 2048, 64, 48, True),  # group neither divides nor tiles 64
-    (1024, 2048, 2048, 64, 8, True),   # group 8: 8 scale rows a stage
-    (1024, 2052, 2048, 64, 4, True),   # K % 8 != 0, group 4
+    (1024, 2048, 2048, 64, 8, True),   # group 8: 8 groups a stage
+    (1024, 2052, 2048, 64, 4, True),   # K % 8 != 0, group 4: CUDA cores
     (1024, 2048, 2048, 64, 64, False),  # a base not 16-byte aligned
 ])
 def test_lora_plan_ragged_shapes_take_mma(M, K, N, r, g, aligned):
     from repro_torch.kernels.dequant_matmul import lora_plan
     p = lora_plan(M, K, N, r, g, bf16=True, aligned=aligned, n_sm=H100_SMS)
-    assert (p.route, p.bm, p.bn) == ("mma", 64, 128)
+    route = "mma" if g % 8 == 0 else "fma"   # mma folds at k8 or k16 steps
+    assert (p.route, p.bm, p.bn) == (route, 64, 128)
     assert p.grid == p.tiles == -(-M // 64) * -(-N // 128)
     f = lora_plan(M, K, N, r, g, bf16=False, aligned=aligned, n_sm=H100_SMS)
     assert f.route == "fma" and f.grid == p.grid
@@ -536,3 +539,31 @@ def test_fault_check_plants_the_dequant_fault():
         cs.LOGIT_ATOL + cs.LOGIT_RTOL * 4 * 5.0)
     assert cs.logits_limit(5.0, 64) > cs.logits_limit(5.0, 16) > \
         cs.logits_limit(1.0, 16)
+
+
+def test_fault_check_plants_the_lora_fault():
+    """chip_fault_check.py's planted fused-kernel fault (each group's scale
+    rounded to bf16 in the wgmma route's fold) finds its one line in
+    ``dequant_matmul_lora.cu``, and the precision cases it runs are
+    ``chip_smoke``'s, whose exact-product bound is one bf16 rounding of
+    the output with room."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "chip_fault_check", root / "chip_fault_check.py")
+    fc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fc)
+    sound = (root / fc.LORA_KERNEL).read_text()
+    fault = fc.plant_lora_fault(sound)
+    changed = [(a, b) for a, b in zip(sound.splitlines(), fault.splitlines())
+               if a != b]
+    assert len(changed) == 1 and fc.LORA_FAULT in changed[0][1]
+    assert fc.LORA_SOUND in changed[0][0]
+    with pytest.raises(ValueError):
+        fc.plant_lora_fault(fault)
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    assert cs.LORA_EXACT_RTOL == 2.0 ** -8 and cs.LORA_EXACT_ATOL == 1e-3
+    assert [K for _, K, _ in cs.LORA_PRECISION] == [14336, 14336]

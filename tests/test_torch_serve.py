@@ -122,15 +122,19 @@ def test_serve_cli_on_cpu(capsys):
         capsys.readouterr().out
 
 
-def test_serve_rejects_what_is_not_ported():
+def test_serve_rejects_what_is_not_ported(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)     # a trace, if asked for, lands here
     for flag in (["--compile-cache", "x"], ["--cost-cal", "c.json"],
-                 ["--trace-out", "t.json"], ["--metrics-out", "m.json"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                 ["--compile-cache", "x", "--trace-out", "t.json"],
+                 ["--cost-cal", "c.json", "--metrics-out", "m.json"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                         "--tenants", "2", *flag])
+        assert str(e.value).split(":")[0] == flag[0]
     ported = serve.build_parser().parse_args(
         ["--arch", "qwen3-1.7b", "--tenants", "2", "--ranks", "8,4",
-         "--adapter", "a=d", "--page-size", "4"])
+         "--adapter", "a=d", "--page-size", "4", "--trace-out", "t.json",
+         "--metrics-out", "m.json"])
     serve._check_ported(ported)
     with pytest.raises(KeyError, match="unknown arch"):
         serve.main(["--arch", "no-such-arch", "--smoke", "--device", "cpu"])

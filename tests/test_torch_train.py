@@ -354,25 +354,29 @@ def test_train_cli_full_finetune_without_quantization():
 @pytest.mark.parametrize("flag", [
     ["--compile-cache", "x", "--ckpt-dir", "y"], ["--resume", "--cost-cal",
                                                   "auto"],
-    ["--resume-quant", "x", "--trace-out", "t.json"],
+    ["--resume-quant", "x", "--compile-cache", "c"],
     ["--compile-cache", "x"], ["--cost-cal", "auto"],
-    ["--metrics-out", "m", "--auto-allocate", "--budget-mb", "5"],
+    ["--cost-cal", "auto", "--auto-allocate", "--budget-mb", "5"],
     ["--cost-cal", "auto", "--trace-out", "t.json"],
-    ["--trace-out", "t.json"], ["--metrics-out", "m"]])
-def test_train_rejects_what_is_not_ported(flag):
+    ["--compile-cache", "x", "--trace-out", "t.json"],
+    ["--compile-cache", "x", "--cost-cal", "auto", "--metrics-out", "m"]])
+def test_train_rejects_what_is_not_ported(flag, tmp_path, monkeypatch):
     """Each flag of a subsystem not ported raises, also beside the ported
-    checkpoint, journal and allocation flags, and names only the unported
-    flags."""
+    checkpoint, journal, allocation and tracing flags, and names only the
+    unported flags."""
+    monkeypatch.chdir(tmp_path)     # a trace, if asked for, lands here
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                      *flag])
     named = str(e.value).split(":")[0].split(", ")
-    assert named and set(named) <= {"--compile-cache", "--cost-cal",
-                                    "--trace-out", "--metrics-out"}
+    assert named and set(named) <= {"--compile-cache", "--cost-cal"}
+    assert set(named) == {f for f in flag if f in ("--compile-cache",
+                                                   "--cost-cal")}
     assert "allocation" not in str(e.value)
     ttrain._check_ported(ttrain.build_parser().parse_args(
         ["--arch", "qwen3-1.7b", "--ckpt-dir", "y", "--resume",
-         "--ckpt-every", "3", "--resume-quant", "q"]))
+         "--ckpt-every", "3", "--resume-quant", "q", "--trace-out", "t",
+         "--metrics-out", "m"]))
 
 
 def test_train_rejects_unported_methods_and_needs_cuda(monkeypatch):
