@@ -37,18 +37,29 @@ A third copy, ``build/fault_copy_lora/``, holds a fourth:
   ``LORA_EXACT_RTOL * |exact| + LORA_EXACT_ATOL`` and to the plain
   version within the JAX bf16 tolerance.
 
+A fourth copy, ``build/fault_copy_dist/``, holds a fifth, in Python:
+
+* ``core/loftq.py``: ``svd_lowrank_topr`` skips its all-reduce, so each
+  rank of the distributed engine factorizes its local Gram only.  The
+  cases are ``chip_smoke.py``'s distributed checks: CLoQ and LoftQ
+  quantized column-sharded by 2 ranks on the card over gloo, each site
+  held against the unsharded batched engine (``chip_smoke.dist_compare``:
+  ``A @ B^T``, the calibrated objective, codes, scales, zeros).
+
 The attention and gram cases run on the real sources and on the first
 copy, the logits cases on the real sources and on the second, the
-precision cases on the real sources and on the third, each tree in its
-own process.  One JSON line a case: tree, kernel, shape, the
+precision cases on the real sources and on the third, the distributed
+cases on the real sources and on the fourth, each tree in its own
+process.  One JSON line a case: tree, kernel, shape, the
 plan's split or route, whether the checks pass, the error and the
 reference's largest value (for the logits, the limit).
 
 Exits 0 when every case passes on the real sources, the attention check
 fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, the gram
 check fails on the copy in every case with more than one token stage,
-the logits check fails on the second copy in every case, and the
-precision check on the third in every case; the last line says which.
+the logits check fails on the second copy in every case, the precision
+check on the third in every case, and the distributed check on the
+fourth for both methods on ``A @ B^T``; the last line says which.
 """
 from __future__ import annotations
 
@@ -77,6 +88,11 @@ DQ_SOUND = "nz[c] = -(OFF + z.x); nz[c + 1] = -(OFF + z.y);"
 DQ_FAULT = ("nz[c] = -(OFF + z.x + (s_lo + i == 0)); "
             "nz[c + 1] = -(OFF + z.y + (s_lo + i == 0));")
 LORA_COPY = ROOT / "build" / "fault_copy_lora"
+DIST_COPY = ROOT / "build" / "fault_copy_dist"
+DIST_SOURCE = Path("src/repro_torch/core/loftq.py")
+# the Gram trick's one collective; the fault leaves it out
+DIST_SOUND = "    G = all_reduce_sum(G.contiguous(), group)"
+DIST_FAULT = "    G = G.contiguous()"
 LORA_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul_lora.cu")
 # the wgmma route's fold reads a group's scales; the fault rounds them to
 # bf16 first
@@ -114,6 +130,11 @@ def plant_lora_fault(text: str) -> str:
     """The fused kernel's source with its fault in place of the sound
     line."""
     return _plant(text, LORA_SOUND, LORA_FAULT, LORA_KERNEL)
+
+
+def plant_dist_fault(text: str) -> str:
+    """``loftq.py`` with the Gram trick's all-reduce left out."""
+    return _plant(text, DIST_SOUND, DIST_FAULT, DIST_SOURCE)
 
 
 def flash_cases(torch, cs, dev) -> list[dict]:
@@ -201,6 +222,24 @@ def lora_cases(torch, cs, dev) -> list[dict]:
             for r in cs.lora_precision_rows(torch, dev)]
 
 
+def dist_cases(torch, cs, dev, tree: Path) -> list[dict]:
+    """``chip_smoke.py``'s distributed checks on the sources imported: the
+    unsharded references (``dist_reference``), the 2 ranks' sharded CLoQ
+    and LoftQ (``dist_ranks``, no extras), each method's sites against
+    them (``dist_compare``)."""
+    ref = cs.dist_reference(torch, dev)
+    _, leaves = cs.dist_ranks(torch, tree / "build" / "fault_dist_work",
+                              extras=False)
+    out = []
+    for m in cs.DIST_METHODS:
+        c = cs.dist_compare(torch, dev, ref, m, leaves[m])
+        out.append({"kernel": "distributed", "method": m,
+                    "passes": not c["failed"], "worst": c["worst"],
+                    "failed_fields": sorted({f[1] for f in c["failed"]}),
+                    "failed_sites": len({f[0] for f in c["failed"]})})
+    return out
+
+
 def run_cases(tree: Path, which: str) -> list[dict]:
     """The attention and gram cases (``which`` "kernels"), the logits
     cases ("logits") or the precision cases ("lora") on the sources under
@@ -215,6 +254,8 @@ def run_cases(tree: Path, which: str) -> list[dict]:
         return logits_cases(torch, cs, dev)
     if which == "lora":
         return lora_cases(torch, cs, dev)
+    if which == "dist":
+        return dist_cases(torch, cs, dev, tree)
     return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
 
 
@@ -234,7 +275,8 @@ def main() -> int:
         print("chip_fault_check: CUDA is not available", file=sys.stderr)
         return 1
     if not all((ROOT / k).is_file() for k in (KERNEL, GRAM_KERNEL,
-                                               DQ_KERNEL, LORA_KERNEL)):
+                                               DQ_KERNEL, LORA_KERNEL,
+                                               DIST_SOURCE)):
         print(f"chip_fault_check: no {KERNEL}, {GRAM_KERNEL}, {DQ_KERNEL} "
               f"or {LORA_KERNEL} beside {__file__}", file=sys.stderr)
         return 1
@@ -248,13 +290,21 @@ def main() -> int:
     _copy(LORA_COPY)
     (LORA_COPY / LORA_KERNEL).write_text(
         plant_lora_fault((ROOT / LORA_KERNEL).read_text()))
+    _copy(DIST_COPY)
+    (DIST_COPY / DIST_SOURCE).write_text(
+        plant_dist_fault((ROOT / DIST_SOURCE).read_text()))
+    built = ROOT / "build" / "repro_torch"
+    if built.is_dir():        # the same CUDA sources: reuse their build
+        shutil.copytree(built, DIST_COPY / "build" / "repro_torch")
     rows = {}
     for name, tree, which in (("sources", ROOT, "kernels"),
                               ("fault", COPY, "kernels"),
                               ("sources", ROOT, "logits"),
                               ("fault_dequant", DQ_COPY, "logits"),
                               ("sources", ROOT, "lora"),
-                              ("fault_lora", LORA_COPY, "lora")):
+                              ("fault_lora", LORA_COPY, "lora"),
+                              ("sources", ROOT, "dist"),
+                              ("fault_dist", DIST_COPY, "dist")):
         proc = subprocess.run(
             [sys.executable, __file__, "--tree", str(tree), which],
             capture_output=True, text=True, cwd=ROOT, timeout=900)
@@ -277,12 +327,15 @@ def main() -> int:
         not r["passes"] for r in rows["fault_dequant"])
     lora_seen = bool(rows["fault_lora"]) and all(
         not r["passes"] for r in rows["fault_lora"])
+    dist_seen = bool(rows["fault_dist"]) and all(
+        "lora_ab" in r["failed_fields"] for r in rows["fault_dist"])
     print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
                       "gram_fault_caught": gram_seen,
                       "dequant_fault_caught_by_logits": dequant_seen,
-                      "lora_fault_caught_by_precision": lora_seen}))
+                      "lora_fault_caught_by_precision": lora_seen,
+                      "dist_fault_caught_on_lora_ab": dist_seen}))
     return 0 if (sound and flash_seen and gram_seen and dequant_seen
-                 and lora_seen) else 1
+                 and lora_seen and dist_seen) else 1
 
 
 if __name__ == "__main__":

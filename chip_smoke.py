@@ -1539,7 +1539,9 @@ def engines_phase(torch, dev) -> tuple[dict, dict]:
                                                   [4, 4, 1], [4, 4, 1]]:
         raise Failed(f"engines disagree or are unhealthy (code flips past "
                      f"the limit at {flips}): {out}")
-    return out, {"model": model, "clean": flat_b}
+    return out, {"model": model, "clean": flat_b, "store": store,
+                 "per_site": per_site,
+                 "quantize_s": runs["batched"][3]}
 
 
 def _assert_finite_leaves(torch, flat: dict, what: str) -> None:
@@ -3421,6 +3423,409 @@ def trace_phase(torch, dev) -> dict:
     return out
 
 
+DIST_DIR = ROOT / "build" / "chip_smoke" / "distributed"
+DIST_RANKS = 2
+# the methods the ranks quantize sharded: CLoQ (one all-reduce a bucket)
+# and LoftQ (one an AltMin round); gptq, qlora and rtn run sharded in the
+# CPU tests (tests/test_torch_distributed.py)
+DIST_METHODS = ("cloq", "loftq")
+DIST_LORA_REL = 5e-3       # A @ B^T, the reference's sharded tolerance
+DIST_BACKEND = ("gloo", "one card: NCCL refuses two ranks on one device; "
+                "gloo takes CUDA tensors for all_reduce and broadcast")
+DIST_DECODE_STEPS = 8      # the restored checkpoint's decode: 4 x 8 tokens
+# leaves the distributed phase's checkpoint leaves out: dense and unsharded,
+# the input params' own (the parent decodes with them)
+DIST_DENSE = ("embed", "head")
+# the fields whose limit grows to NUDGE_FACTOR x the one-ulp nudge's: CLoQ's
+# codes and A @ B^T on the site (one Gram ulp moves OPTQ's near-ties, as in
+# the engines phase); LoftQ's every field, at the largest of its bucket's
+# sites under one ulp up and one down on every weight (its grids are
+# fitted to W - A B^T, and the 5 AltMin rounds carry any ulp of one solve
+# into the next rounding, a different distance on each site: PERF.md, PR
+# 24 runs B-D)
+DIST_NUDGED = {"cloq": ("code_flips", "lora_ab"),
+               "loftq": ("code_flips", "scales", "zeros", "lora_ab",
+                         "gram_error")}
+
+
+def _dist_rank(rank: int, work: str, methods: tuple, extras: bool) -> None:
+    """One rank of the distributed phase (2 ranks on ``cuda:0`` over
+    gloo).  Builds the engine model (the same params from seed 0 and
+    calibration batches on every rank), calibrates through ``gram`` and
+    quantizes it with ``quantize_model(engine="batched",
+    mesh=make_model_mesh(2))`` for each of ``methods``; rank 0 saves each
+    run's gathered leaves as ``<method>.pt``.  With ``extras``: the cost
+    model (``calibrate(mesh)``, ``explain`` for each bucket at k = 2, the
+    CLoQ run once more under it), the sharded CLoQ tree saved with its
+    manifest and restored sharded (each rank's blocks held bit-equal), and
+    on rank 0 the train CLI with ``--cost-cal auto`` at 2 layers (RTN, 1
+    step).  Each rank writes ``rank<r>.json``: seconds, ``[bucket]``
+    lines, all-reduce count and bytes, launches."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core.batched import BucketSpec
+    from repro_torch.core.costmodel import CostModel, calibrate
+    from repro_torch.core.pipeline import (quantization_manifest,
+                                           quantize_model, to_eager_params)
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.models import parallel
+    from repro_torch.utils import tree_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    work = Path(work)
+    mesh = make_model_mesh(DIST_RANKS)
+    cfg, params, calib, recipe = _engine_model(torch, dev)
+    ops.reset_launch_counts()
+    parallel.reset_allreduce_stats()
+    out: dict = {"rank": rank, "backend": dist.get_backend(), "runs": {}}
+    kept = None
+    for method in methods:
+        rec = QuantRecipe.single(method, recipe.qspec)
+        before = dict(parallel.ALLREDUCE_STATS)
+        lines: list[str] = []
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        qp, qcfg, _ = quantize_model(params, cfg, calib, recipe=rec,
+                                     engine="batched", mesh=mesh,
+                                     progress=lines.append)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        full = parallel.gather_tree(qp)
+        if rank == 0:           # the blocks' leaves: every quantized site
+            flat = tree_paths(to_eager_params(full, qcfg))
+            torch.save({k: v.cpu() for k, v in flat.items()
+                        if k.startswith("blocks.")}, work / f"{method}.pt")
+        del full
+        out["runs"][method] = {
+            "quantize_s": dt, "bucket_lines": lines,
+            "allreduce_calls": parallel.ALLREDUCE_STATS["calls"]
+            - before["calls"],
+            "allreduce_bytes": parallel.ALLREDUCE_STATS["bytes"]
+            - before["bytes"]}
+        if method == "cloq":
+            kept = (qp, qcfg)
+        del qp
+    if extras:
+        t0 = time.perf_counter()
+        cal = calibrate(mesh, path=str(work / "costcal.json"), force=True)
+        cm = CostModel(cal)
+        manifest = quantization_manifest(cfg, recipe=recipe, mesh=mesh)
+        out["cost_model"] = {
+            "calibrate_s": time.perf_counter() - t0,
+            "table": {k: getattr(cal, k) for k in (
+                "flops_per_s", "bytes_per_s", "dispatch_s",
+                "psum_latency_s", "psum_bytes_per_s", "shard_efficiency")},
+            "explain": [cm.explain(BucketSpec(**b["spec"]), len(b["tasks"]),
+                                   DIST_RANKS)
+                        for b in manifest["buckets"]]}
+        lines = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qp_cm, _, _ = quantize_model(params, cfg, calib, recipe=recipe,
+                                     engine="batched", mesh=mesh,
+                                     cost_model=cm, progress=lines.append)
+        torch.cuda.synchronize()
+        out["cost_model"].update(quantize_s=time.perf_counter() - t0,
+                                 bucket_lines=lines)
+        del qp_cm
+        # the quantized tree without the embedding and head (dense, as the
+        # input params; 2.5 GB of f32 to write and read back)
+        qp = {k: v for k, v in kept[0].items() if k not in DIST_DENSE}
+        t0 = time.perf_counter()
+        ckpt.save_tree(qp, str(work / "ckpt"), 1, manifest=manifest)
+        dist.barrier()
+        back, _ = ckpt.restore_tree(str(work / "ckpt"), mesh=mesh)
+        want, got = tree_paths(qp), tree_paths(back)
+        unequal = [p for p, leaf in want.items() if p not in got or
+                   parallel.is_sharded(got[p]) != parallel.is_sharded(leaf)
+                   or not torch.equal(parallel.local_of(got[p]).cpu(),
+                                      parallel.local_of(leaf).cpu())]
+        out["restore"] = {
+            "s": time.perf_counter() - t0, "leaves": len(want),
+            "sharded_leaves": sum(parallel.is_sharded(v)
+                                  for v in want.values()),
+            "local_cols": {p: list(parallel.local_of(v).shape)
+                           for p, v in want.items()
+                           if p.endswith("attn.q.qcodes")},
+            "unequal": unequal}
+        del back
+        if rank == 0:
+            from repro_torch.configs import get_config
+            from repro_torch.launch import train
+            os.environ["REPRO_COSTCAL"] = str(work / "costcal-auto.json")
+            targv = ["--arch", "qwen3-1.7b", "--method", "rtn", "--bits",
+                     "4", "--group-size", "64", "--rank", "64",
+                     "--calib-batches", "1", "--batch", "8", "--seq-len",
+                     "128", "--steps", "1", "--seed", "0", "--device",
+                     str(dev), "--cost-cal", "auto"]
+            t0 = time.perf_counter()
+            res = train.run(train.build_parser().parse_args(targv),
+                            get_config("qwen3-1.7b", n_layers=2))
+            out["train_cli"] = {
+                "s": time.perf_counter() - t0, "losses": res["losses"],
+                "costcal_written": (work / "costcal-auto.json").is_file()}
+            del res
+        dist.barrier()
+    out["launches"] = ops.launch_counts()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def dist_reference(torch, dev, eng: dict | None = None,
+                   methods: tuple = DIST_METHODS) -> dict:
+    """The unsharded side of the distributed checks on this card: the
+    engine model, its Grams, the batched engine's leaves for each method
+    and each site's one-ulp nudge.  CLoQ's (the sequential engine against
+    itself with every Gram entry one ulp off) come from the engines
+    phase's ``eng`` when given.  LoftQ's unsharded run takes each round's
+    factors through the Gram trick (``loftq_init(gram_trick=True)``, the
+    sharded run's factorization on all columns): over 5 AltMin rounds the
+    ``eigh``/``svd`` difference of one solve moves the next rounding, so
+    at full width the two factorizations drift apart (PERF.md, PR 24 run
+    B) whatever the sharding does; its nudge is the largest diff of the
+    same run with every block weight one ulp up, and one ulp down (LoftQ
+    reads no Gram)."""
+    import functools
+    from repro_torch.core import batched, loftq
+    from repro_torch.core.recipe import QuantRecipe
+    if eng is None:
+        model = _engine_model(torch, dev)
+        flat, store, _, dt, _, _ = _quantize_eager(torch, dev, model,
+                                                   engine="batched")
+        ref = {"model": model, "store": store, "leaves": {"cloq": flat},
+               "quantize_s": {"cloq": dt},
+               "nudge": {"cloq": _nudges(torch, model, store)}}
+    else:
+        ref = {"model": eng["model"], "store": eng["store"],
+               "leaves": {"cloq": eng["clean"]},
+               "quantize_s": {"cloq": eng["quantize_s"]},
+               "nudge": {"cloq": {s: d["nudge"]
+                                  for s, d in eng["per_site"].items()}}}
+    cfg, params, calib, recipe = ref["model"]
+    if "loftq" not in methods:
+        return ref
+    rec = QuantRecipe.single("loftq", recipe.qspec)
+    batched.loftq_init = functools.partial(loftq.loftq_init, gram_trick=True)
+    try:
+        flat, _, _, dt, _, _ = _quantize_eager(
+            torch, dev, (cfg, params, calib, rec), engine="batched")
+        ref["leaves"]["loftq"], ref["quantize_s"]["loftq"] = flat, dt
+        nudges = []
+        for to in (float("inf"), float("-inf")):
+            nudged, _, _, _, _, _ = _quantize_eager(
+                torch, dev, (cfg, _nudged_weights(torch, params, to), calib,
+                             rec), engine="batched")
+            nudges.append(_site_diffs(torch, ref, nudged, flat))
+            del nudged
+    finally:
+        batched.loftq_init = loftq.loftq_init
+    ref["nudge"]["loftq"] = {site: {k: max(n[site][k] for n in nudges)
+                                    for k in nudges[0][site]}
+                             for site in nudges[0]}
+    return ref
+
+
+def _nudged_weights(torch, params: dict, to: float) -> dict:
+    """``params`` with every block weight ``w`` one ulp towards ``to`` (a
+    new tree; the other leaves shared)."""
+    from repro_torch.utils import set_path, tree_paths
+    out: dict = {}
+    for p, v in tree_paths(params).items():
+        if p.startswith("blocks.") and p.endswith(".w"):
+            v = torch.nextafter(v, torch.full_like(v, to))
+        set_path(out, p, v)
+    return out
+
+
+def _site_diffs(torch, ref: dict, got: dict, want: dict) -> dict:
+    """``_site_diff`` of every site of the engine model, ``got`` against
+    ``want`` (flat eager leaves)."""
+    from repro_torch.core.pipeline import (quantizable_linear_paths,
+                                           to_eager_params)
+    from repro_torch.utils import get_path
+    cfg, params = ref["model"][0], ref["model"][1]
+    eparams = to_eager_params(params, cfg)
+    keys = ("qcodes", "scales", "zeros", "lora_a", "lora_b")
+    dev = params["embed"]["w"].device
+    out = {}
+    with torch.no_grad():
+        for site in quantizable_linear_paths(eparams):
+            out[site] = _site_diff(
+                torch, {k: got[f"{site}.{k}"].to(dev) for k in keys},
+                {k: want[f"{site}.{k}"].to(dev) for k in keys},
+                get_path(eparams, site)["w"].float(),
+                ref["store"].grams[site])
+    return out
+
+
+def _nudges(torch, model, store) -> dict:
+    """Each site's one-ulp nudge diff, as the engines phase measures it."""
+    from repro_torch.core.batched import task_key
+    from repro_torch.core.pipeline import (_quantize_one,
+                                           quantizable_linear_paths,
+                                           to_eager_params)
+    from repro_torch.utils import get_path
+    cfg, params, _, recipe = model
+    eparams = to_eager_params(params, cfg)
+    out = {}
+    with torch.no_grad():
+        for i, site in enumerate(quantizable_linear_paths(eparams)):
+            W = get_path(eparams, site)["w"].float()
+            H = store.grams[site]
+            seq = _quantize_one(W, H, recipe.qspec, "cloq", task_key(0, i))
+            nudged = _quantize_one(
+                W, torch.nextafter(H, torch.full_like(H, float("inf"))),
+                recipe.qspec, "cloq", task_key(0, i))
+            out[site] = _site_diff(torch, nudged, seq, W, H)
+    return out
+
+
+def dist_ranks(torch, work: Path, methods: tuple = DIST_METHODS,
+               extras: bool = True) -> tuple[list, dict]:
+    """Spawn the ranks (:func:`_dist_rank`) and read back their JSON and
+    rank 0's gathered leaves."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_ranks
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    spawn_ranks(_dist_rank, DIST_RANKS, backend=DIST_BACKEND[0],
+                device="cuda", args=(str(work), tuple(methods), extras),
+                store_dir=str(work))
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(DIST_RANKS)]
+    leaves = {m: torch.load(work / f"{m}.pt") for m in methods}
+    return ranks, leaves
+
+
+def dist_compare(torch, dev, ref: dict, method: str, got: dict) -> dict:
+    """One method's gathered sharded leaves against the unsharded batched
+    engine's on the card, site by site (``_site_diff``: code flips,
+    scales, zeros, ``A @ B^T``, the calibrated objective ``gram_error``),
+    held to the engines phase's limits (codes 0.005, scales, zeros and
+    ``gram_error`` 1e-3) and ``A @ B^T`` to 5e-3, each field of
+    ``DIST_NUDGED`` to twice the one-ulp nudge's where that is larger (on
+    the site for CLoQ, the largest of its bucket's sites for LoftQ).
+    LoftQ is held against its Gram-trick run (:func:`dist_reference`).
+    Returns the per-site diffs with their limits, the worst of each, and
+    the failures."""
+    base = {"code_flips": FLIP_BUDGET, "lora_ab": DIST_LORA_REL,
+            "scales": REL_FRO, "zeros": REL_FRO, "gram_error": REL_FRO}
+    per_site, worst, failed = {}, {}, []
+    diffs = _site_diffs(torch, ref, got, ref["leaves"][method])
+    nudges = ref["nudge"][method]
+    if method == "loftq":         # a bucket's sites: one shape
+        shape = {s: tuple(ref["leaves"][method][f"{s}.qcodes"].shape)
+                 for s in diffs}
+        nudges = {s: {k: max(nudges[o][k] for o in diffs
+                             if shape[o] == shape[s]) for k in nudges[s]}
+                  for s in diffs}
+    for site, d in diffs.items():
+        nudge = nudges[site]
+        lim = {k: (max(v, NUDGE_FACTOR * nudge[k])
+                   if k in DIST_NUDGED[method] else v)
+               for k, v in base.items()}
+        per_site[site] = {**d, "nudge": nudge, "limits": lim}
+        for k, v in d.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+            if not v <= lim[k]:
+                failed.append([site, k, v, lim[k]])
+    return {"per_site": per_site, "worst": worst, "failed": failed}
+
+
+def distributed_phase(torch, dev, eng: dict | None = None) -> dict:
+    """The distributed quantization engine: ``DIST_RANKS`` ranks on
+    ``cuda:0`` over gloo (``DIST_BACKEND``: one card, and NCCL refuses two
+    ranks on one device) quantize the engine model (Qwen3-1.7B, full width,
+    ``ENGINE_LAYERS`` deep, f32, 4-bit g64 r64) column-sharded for each of
+    ``DIST_METHODS`` (:func:`_dist_rank`), held against the unsharded
+    batched engine's leaves on the same card (:func:`dist_compare`; the
+    engines phase's run for CLoQ, the Gram-trick run for LoftQ).  Then the
+    cost model's table, paths and ``explain`` lines, the sharded
+    checkpoint restored sharded in the ranks (equal bits) and here whole:
+    4 requests x ``DIST_DECODE_STEPS`` tokens decoded through the kernels
+    and the plain path, held to ``logits_limit``.  ``quant.model`` seconds
+    sharded against unsharded are no speed-up: both ranks share one
+    card.  Launches are summed over the ranks and this process."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    ref = dist_reference(torch, dev, eng)
+    t_ranks = time.perf_counter()
+    ranks, leaves = dist_ranks(torch, DIST_DIR)
+    ranks_s = time.perf_counter() - t_ranks
+    cmp = {m: dist_compare(torch, dev, ref, m, leaves[m])
+           for m in DIST_METHODS}
+    del leaves
+    ops.reset_launch_counts()
+    tree, meta = ckpt.restore_tree(str(DIST_DIR / "ckpt"), device=dev)
+    cfg, params = ref["model"][0], ref["model"][1]
+    tree.update({k: params[k] for k in DIST_DENSE if k in params})
+    import dataclasses
+    qcfg = dataclasses.replace(cfg, quant=ref["model"][3].qspec)
+    lg = _kernel_vs_plain_logits(torch, dev, tree, qcfg,
+                                 steps=DIST_DECODE_STEPS)
+    parent = ops.launch_counts()
+    del tree
+    launches = {k: parent.get(k, 0) + sum(r["launches"].get(k, 0)
+                                          for r in ranks)
+                for k in ("gram", "dequant_matmul_lora", "dequant_matmul",
+                          "flash_attention")}
+    r0 = ranks[0]
+    paths = {m: [[f.split("=", 1)[1] for f in ln.split()
+                  if f.startswith(("path=", "shards="))]
+                 for ln in r0["runs"][m]["bucket_lines"]]
+             for m in DIST_METHODS}
+    out = {"ranks": DIST_RANKS, "backend": DIST_BACKEND[0],
+           "why": DIST_BACKEND[1], "device": "cuda:0 (both ranks)",
+           "methods": list(DIST_METHODS), "bucket_paths": paths,
+           "allreduce": {m: {"calls": r0["runs"][m]["allreduce_calls"],
+                             "bytes": r0["runs"][m]["allreduce_bytes"]}
+                         for m in DIST_METHODS},
+           "quantize_s": {m: {"sharded": [r["runs"][m]["quantize_s"]
+                                          for r in ranks],
+                              "unsharded": ref["quantize_s"][m]}
+                          for m in DIST_METHODS},
+           "speedup_note": "no speed-up: both ranks share one card",
+           "worst": {m: c["worst"] for m, c in cmp.items()},
+           "nudge_worst": {m: {k: max(d[k] for d in ref["nudge"][m].values())
+                               for k in c["worst"]}
+                           for m, c in cmp.items()},
+           "failed": {m: c["failed"] for m, c in cmp.items()},
+           "per_site": {m: c["per_site"] for m, c in cmp.items()},
+           "cost_model": r0["cost_model"],
+           "cost_model_paths": [[f.split("=", 1)[1] for f in ln.split()
+                                 if f.startswith(("path=", "shards="))]
+                                for ln in r0["cost_model"]["bucket_lines"]],
+           "restore": [{k: r["restore"][k] for k in
+                        ("s", "leaves", "sharded_leaves", "local_cols",
+                         "unequal")} for r in ranks],
+           "manifest_buckets": [[b["spec"]["n_shards"], len(b["tasks"])]
+                                for b in meta[ckpt.MANIFEST_KEY]["buckets"]],
+           "train_cli": r0["train_cli"], "logits": lg,
+           "launches": launches,
+           "launches_by": {"ranks": [r["launches"] for r in ranks],
+                           "parent": parent},
+           "ranks_s": ranks_s,
+           "phase_s": time.perf_counter() - t_phase}
+    sharded = all(p == ["sharded", str(DIST_RANKS)]
+                  for m in DIST_METHODS for p in paths[m])
+    if any(c["failed"] for c in cmp.values()) or not sharded or \
+            any(r["restore"]["unequal"] for r in ranks) or \
+            not lg["within"] or not r0["train_cli"]["costcal_written"] or \
+            not all(math.isfinite(x) for x in r0["train_cli"]["losses"]) or \
+            out["allreduce"]["cloq"]["calls"] < 1 or \
+            launches["gram"] < 1 or launches["dequant_matmul"] < 1 or \
+            launches["flash_attention"] < 1:
+        raise Failed(f"distributed: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -3443,11 +3848,19 @@ def main(argv=None) -> int:
                          "and build phases and Pixtral-12B alone by RTN "
                          "(the full-depth check: --vlm-layers 40)")
     ap.add_argument("--only", choices=("configs", "ssm", "encdec",
-                                       "allocate", "levers", "trace"),
+                                       "allocate", "levers", "trace",
+                                       "distributed"),
                     help="run the device and build phases and this phase "
                          "alone (a quick check of one path)")
     a = ap.parse_args(argv)
     t_script = time.perf_counter()
+    t_lap = [t_script]
+
+    def lap() -> dict:
+        """``phase_s``: seconds since the previous phase line."""
+        now = time.perf_counter()
+        dt, t_lap[0] = now - t_lap[0], now
+        return {"phase_s": dt}
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3466,7 +3879,7 @@ def main(argv=None) -> int:
         emit({"phase": "device", "name": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(), "nvidia_smi": card,
               "torch": torch.__version__, "cuda": torch.version.cuda,
-              "allow_tf32": {"matmul": False, "cudnn": False}})
+              "allow_tf32": {"matmul": False, "cudnn": False}, **lap()})
 
         phase = "build"
         from repro_torch.kernels import build
@@ -3478,7 +3891,7 @@ def main(argv=None) -> int:
                  for src, log in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "dir": str(build.build_dir().relative_to(ROOT)),
-              "sources": list(build.SOURCES), "ptxas": ptxas})
+              "sources": list(build.SOURCES), "ptxas": ptxas, **lap()})
 
         if a.only:
             phase = a.only
@@ -3487,8 +3900,10 @@ def main(argv=None) -> int:
                    "encdec": lambda: encdec_phase(torch, dev, a.vlm_layers),
                    "allocate": lambda: allocate_phase(torch, dev),
                    "levers": lambda: levers_phase(torch, dev),
-                   "trace": lambda: trace_phase(torch, dev)}[a.only]
-            emit({"phase": a.only, **run(),
+                   "trace": lambda: trace_phase(torch, dev),
+                   "distributed": lambda: distributed_phase(torch, dev)
+                   }[a.only]
+            emit({"phase": a.only, **run(), **lap(),
                   "script_s": time.perf_counter() - t_script})
             print(card, flush=True)
             emit({"ok": True, "device": {
@@ -3499,15 +3914,16 @@ def main(argv=None) -> int:
                 or a.vlm_layers != VLM_LAYERS:
             if a.moe_layers != MOE_LAYERS:
                 phase = "moe"
-                emit({"phase": "moe", **moe_phase(torch, dev, a.moe_layers)})
+                emit({"phase": "moe", **moe_phase(torch, dev, a.moe_layers),
+                      **lap()})
             if a.hybrid_layers != HYBRID_LAYERS:
                 phase = "ssm"
                 emit({"phase": "ssm",
-                      **ssm_phase(torch, dev, a.hybrid_layers)})
+                      **ssm_phase(torch, dev, a.hybrid_layers), **lap()})
             if a.vlm_layers != VLM_LAYERS:
                 phase = "encdec"
                 emit({"phase": "encdec",
-                      **encdec_phase(torch, dev, a.vlm_layers),
+                      **encdec_phase(torch, dev, a.vlm_layers), **lap(),
                       "script_s": time.perf_counter() - t_script})
             print(card, flush=True)
             emit({"ok": True, "device": {
@@ -3529,89 +3945,98 @@ def main(argv=None) -> int:
               "flash_attention": {**fa, **fa_t},
               "flash_attention_cache_4096": fa_long,
               "work": "one 28-layer qwen3-1.7b decode step at batch 4 "
-                      "(flash_attention also at a 4096-key cache)"})
+                      "(flash_attention also at a 4096-key cache)", **lap()})
         emit({"phase": "kernels", "dequant_cases": dq_cases,
               "fields": ["M", "K", "N", "bits", "g", "dtype", "route",
-                         "max_abs_err", "any_zero"]})
+                         "max_abs_err", "any_zero"], **lap()})
         emit({"phase": "kernels", "flash_cases": fa_cases,
               "fields": ["B", "Hq", "Hkv", "Sq", "Sk", "d", "causal", "dtype",
-                         "route", "max_abs_err", "max_abs_ref"]})
-        emit({"phase": "dequant_splits", **time_dequant_splits(torch, dev)})
+                         "route", "max_abs_err", "max_abs_ref"], **lap()})
+        emit({"phase": "dequant_splits", **time_dequant_splits(torch, dev),
+              **lap()})
         emit({"phase": "kernels", "gram_cases": gr_cases,
               "fields": ["T", "D", "dtype", "route", "max_abs_err",
-                         "max_abs_ref", "within_f32_tol"]})
-        emit({"phase": "gram_tiles", **time_gram_tiles(torch, dev)})
+                         "max_abs_ref", "within_f32_tol"], **lap()})
+        emit({"phase": "gram_tiles", **time_gram_tiles(torch, dev), **lap()})
         emit({"phase": "kernels", "gram": {**gr, **gr_t},
               "dequant_matmul_lora": {**lo, **lo_t},
               "work": "one 28-layer qwen3-1.7b calibration batch (gram) "
                       "and training forward (dequant_matmul_lora) at batch "
-                      "8 x 128"})
+                      "8 x 128", **lap()})
         emit({"phase": "kernels", "lora_cases": lo_cases,
               "fields": ["M", "K", "N", "bits", "g", "r", "dtype", "route",
-                         "max_abs_err", "w_std"]})
-        emit({"phase": "lora_precision", **lora_precision(torch, dev)})
-        emit({"phase": "lora_route", **time_lora_routes(torch, dev)})
+                         "max_abs_err", "w_std"], **lap()})
+        emit({"phase": "lora_precision", **lora_precision(torch, dev),
+              **lap()})
+        emit({"phase": "lora_route", **time_lora_routes(torch, dev),
+              **lap()})
 
         phase = "parity"
-        emit({"phase": "parity", **parity(torch, dev)})
+        emit({"phase": "parity", **parity(torch, dev), **lap()})
         phase = "train_parity"
-        emit({"phase": "train_parity", **train_parity(torch, dev)})
+        emit({"phase": "train_parity", **train_parity(torch, dev), **lap()})
 
         phase = "engines"
         en, eng = engines_phase(torch, dev)
-        emit({"phase": "engines", **en})
+        emit({"phase": "engines", **en, **lap()})
         phase = "quantize_split"
         emit({"phase": "quantize_split", **quantize_split(torch, dev),
-              "slice_factor": slice_factors(torch, dev)})
+              "slice_factor": slice_factors(torch, dev), **lap()})
         phase = "health"
-        emit({"phase": "health", **health_phase(torch, dev, eng)})
+        emit({"phase": "health", **health_phase(torch, dev, eng), **lap()})
         phase = "journal"
-        emit({"phase": "journal", **journal_phase(torch, dev, eng)})
+        emit({"phase": "journal", **journal_phase(torch, dev, eng), **lap()})
+        phase = "distributed"
+        di = distributed_phase(torch, dev, eng)
+        emit({"phase": "distributed", **di, **lap()})
         del eng
+        torch.cuda.empty_cache()
         phase = "methods"
-        emit({"phase": "methods", **methods_phase(torch, dev)})
+        emit({"phase": "methods", **methods_phase(torch, dev), **lap()})
 
         phase = "train"
         tr, res, args = train_phase(torch, dev)
-        emit({"phase": "train", **tr})
+        emit({"phase": "train", **tr, **lap()})
         phase = "train_profile"
         emit({"phase": "train_profile",
-              **profile_train(torch, dev, res, args)})
+              **profile_train(torch, dev, res, args), **lap()})
         del res
 
         phase = "serve"
         sv, res = serve_phase(torch, dev, a.layers)
-        emit({"phase": "serve", **sv})
+        emit({"phase": "serve", **sv, **lap()})
         phase = "serve_graph"
-        emit({"phase": "serve_graph", **serve_graph(torch, dev, res)})
+        emit({"phase": "serve_graph", **serve_graph(torch, dev, res),
+              **lap()})
         phase = "profile"
-        emit({"phase": "profile", **profile_decode(torch, dev, res)})
+        emit({"phase": "profile", **profile_decode(torch, dev, res),
+              **lap()})
         del res
         torch.cuda.empty_cache()
 
         phase = "moe"
         mo = moe_phase(torch, dev, a.moe_layers)
-        emit({"phase": "moe", **mo})
+        emit({"phase": "moe", **mo, **lap()})
         phase = "configs"
-        emit({"phase": "configs", **configs_phase(torch, dev)})
+        emit({"phase": "configs", **configs_phase(torch, dev), **lap()})
         phase = "ssm"
         ss = ssm_phase(torch, dev, a.hybrid_layers)
-        emit({"phase": "ssm", **ss})
+        emit({"phase": "ssm", **ss, **lap()})
         torch.cuda.empty_cache()
         phase = "encdec"
         ed = encdec_phase(torch, dev, a.vlm_layers)
-        emit({"phase": "encdec", **ed})
+        emit({"phase": "encdec", **ed, **lap()})
         torch.cuda.empty_cache()
         phase = "allocate"
         al = allocate_phase(torch, dev)
-        emit({"phase": "allocate", **al})
+        emit({"phase": "allocate", **al, **lap()})
         torch.cuda.empty_cache()
         phase = "levers"
         lv = levers_phase(torch, dev)
-        emit({"phase": "levers", **lv})
+        emit({"phase": "levers", **lv, **lap()})
         phase = "trace"
         tc = trace_phase(torch, dev)
-        emit({"phase": "trace", **tc,
+        emit({"phase": "trace", **tc, **lap(),
               "script_s": time.perf_counter() - t_script})
     except Failed as e:
         emit({"phase": phase, "ok": False, "error": str(e)})
@@ -3662,6 +4087,7 @@ def main(argv=None) -> int:
                       "launches_encdec": ed_launches[name],
                       "launches_levers": lv_launches[name],
                       "launches_trace": tc_launches[name],
+                      "launches_distributed": di["launches"][name],
                       "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],
                       "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                       "bound_by": tm["bound_by"],

@@ -22,9 +22,12 @@ quantization engine as one step, so a stopped run resumes where it stood.
 A quantized checkpoint saved with ``save_tree(..., manifest=)`` (the plan
 of ``repro_torch.core.pipeline.quantization_manifest``, its recipe
 included) carries it in ``meta.json`` under :data:`MANIFEST_KEY`, as the
-JAX package's does.  Not ported yet (``ROADMAP.md``):
-``manifest_shardings`` and ``restore_tree(mesh=)``, which need the
-distributed layer.
+JAX package's does.  :func:`manifest_shardings` rebuilds the layout of
+such a checkpoint for another mesh from that manifest alone (no planner,
+no model config), and ``restore_tree(mesh=)`` gives each rank its blocks
+as DTensors.  A tree holding DTensors (the sharded engine's output) is
+gathered whole under the ``ckpt.gather`` span, a collective of every rank
+of its mesh, and written by rank 0 alone.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import os
 import shutil
 import threading
 import time
+import warnings
 import zlib
 
 import numpy as np
@@ -41,6 +45,7 @@ import torch
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
+from repro_torch.models import parallel
 from repro_torch.obs import trace as obs_trace
 from repro_torch.utils import set_path, tree_paths
 
@@ -107,10 +112,21 @@ def save_tree(tree, directory: str, step: int, extra_meta: dict | None = None,
     ``manifest`` (a bucket manifest, ``pipeline.quantization_manifest``)
     is stored in ``meta.json`` under :data:`MANIFEST_KEY`.  ``pin`` puts a
     :data:`PIN_MARKER` file in the step so that
-    :class:`CheckpointManager`'s retention never collects it."""
-    os.makedirs(directory, exist_ok=True)
-    obs_metrics.counter(obs_names.CKPT_SAVES).inc()
+    :class:`CheckpointManager`'s retention never collects it.
+
+    A tree holding DTensors is gathered first (every rank of their mesh
+    must call this); then rank 0 writes and the other ranks return None."""
+    import torch.distributed as dist
+    sharded = parallel.tree_has_sharded(tree)
+    writer = not sharded or dist.get_rank() == 0
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        obs_metrics.counter(obs_names.CKPT_SAVES).inc()
     with obs_trace.span("ckpt.gather", step=int(step)):
+        if sharded:
+            tree = parallel.gather_tree(tree)
+        if not writer:
+            return None
         host = _to_host(tree)          # device -> host copy: a sync point
     meta = {"step": int(step), "time": time.time()}
     meta.update(extra_meta or {})
@@ -173,13 +189,101 @@ def _tensor(arr: np.ndarray, bf16: bool) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def manifest_shardings(manifest: dict, mesh, axis: str | None = None,
+                       cost_model=None) -> dict:
+    """Per-leaf layouts (:class:`repro_torch.launch.shardings.
+    NamedSharding`) of a quantized checkpoint on a **new** mesh, rebuilt
+    from its bucket manifest alone: no planner, no model config.
+
+    Shard counts are re-resolved against ``mesh``: through
+    ``cost_model.decide_geometry`` (the planner's rule,
+    :class:`repro_torch.core.costmodel.CostModel`) when given, else the
+    divisibility gate (``batched.bucket_shards``); the saved
+    ``n_shards``/``exec_path`` belong to the save-time mesh.  When the
+    choice differs from the saved one, ONE ``RuntimeWarning`` names the
+    buckets.  Covers the weight-shared block's per-site adapter stacks and
+    each task path's scan-stacked alias.  Returns ``{dot.path.leaf:
+    NamedSharding}``; entries of leaves absent from a tree are ignored by
+    :func:`restore_tree`."""
+    from repro_torch.core.batched import (bucket_axis_size, bucket_shards,
+                                          task_leaf_specs)
+    from repro_torch.launch.shardings import NamedSharding
+
+    axis = axis or manifest.get("axis", "model")
+    stacked = set(manifest.get("stacked", ()))
+    out: dict = {}
+    diverged: list[str] = []
+    for sl in manifest.get("site_lora", ()):
+        k = bucket_shards(sl["n"], sl["method"], mesh, axis)
+        specs = task_leaf_specs(sl["method"], axis if k > 1 else None,
+                                lead=1)
+        for leaf in ("lora_a", "lora_b"):
+            out[f"shared.site_lora.{sl['name']}.{leaf}"] = \
+                NamedSharding(mesh, specs[leaf])
+    for bucket in manifest["buckets"]:
+        spec = bucket["spec"]
+        if cost_model is not None:
+            path, k = cost_model.decide_geometry(
+                spec["method"], m=spec["m"], n=spec["n"],
+                L=max(len(bucket.get("tasks", ())), 1),
+                k=bucket_axis_size(mesh, axis), rank=spec.get("rank", 16),
+                has_gram=spec.get("has_gram"))
+        else:
+            k = bucket_shards(spec["n"], spec["method"], mesh, axis)
+            path = "sharded" if k > 1 else "replicated"
+        saved_k = int(spec.get("n_shards", 1))
+        saved_path = spec.get("exec_path",
+                              "sharded" if saved_k > 1 else "replicated")
+        if (k, path) != (saved_k, saved_path):
+            diverged.append(
+                f"{spec['method']}/{spec['bits']}b {spec['m']}x{spec['n']}: "
+                f"saved {saved_path} x{saved_k} -> restored {path} x{k}")
+        ax = axis if k > 1 else None
+        for task in bucket["tasks"]:
+            lead = 0 if task["expert"] is None else 1
+            # the eager per-layer path, plus its scan-stacked alias
+            # ("blocks.3.attn.q" -> "blocks.attn.q", one more lead dim)
+            targets = [(task["path"], lead)]
+            segs = task["path"].split(".")
+            if segs[0] in stacked and len(segs) > 1 and segs[1].isdigit():
+                targets.append((".".join([segs[0]] + segs[2:]), lead + 1))
+            for tpath, ld in targets:
+                for leaf, sp in task_leaf_specs(spec["method"], ax,
+                                                lead=ld).items():
+                    out[f"{tpath}.{leaf}"] = NamedSharding(mesh, sp)
+    if diverged:
+        shown = "; ".join(diverged[:3])
+        more = f" (+{len(diverged) - 3} more)" if len(diverged) > 3 else ""
+        warnings.warn(
+            f"restore-time bucket layout differs from the save-time "
+            f"manifest for {len(diverged)} bucket(s): {shown}{more} — "
+            "re-resolved against the target mesh"
+            + ("/cost model" if cost_model is not None else "")
+            + "; results are identical, only the sharding layout moved",
+            RuntimeWarning, stacklevel=2)
+    return out
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def restore_tree(directory: str, step: int | None = None, *,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, shardings=None,
+                 mesh=None, axis: str | None = None, cost_model=None):
     """Load ``(tree, meta)`` of step ``step`` (the newest if None).  Leaves
     are torch tensors on the CPU, or on ``device`` when given.  Raises
     ValueError naming the leaf when a stored array fails its crc32 or
     cannot be read, and FileNotFoundError when there is no complete
-    step."""
+    step.
+
+    ``shardings`` (``{dot.path: NamedSharding}``) or ``mesh`` (the layouts
+    then rebuilt from the checkpoint's bucket manifest,
+    :func:`manifest_shardings`, re-decided by ``cost_model`` when given):
+    each such leaf becomes a DTensor of this rank's block, on ``device`` or
+    the mesh's device; a checkpoint without a manifest restores whole."""
     steps = list_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -199,6 +303,9 @@ def restore_tree(directory: str, step: int | None = None, *,
             f"checkpoint shard {shard} is unreadable (truncated or "
             f"corrupt archive): {e!r} — delete step_{step:08d} and restore "
             "an earlier step") from e
+    if shardings is None and mesh is not None and MANIFEST_KEY in meta:
+        shardings = manifest_shardings(meta[MANIFEST_KEY], mesh, axis,
+                                       cost_model=cost_model)
     tree: dict = {}
     for key in files:
         bf16 = key.endswith(_BF16_TAG)
@@ -216,7 +323,13 @@ def restore_tree(directory: str, step: int | None = None, *,
                 "the shard is corrupt (bit rot or torn write); delete "
                 f"step_{step:08d} and restore an earlier step")
         t = _tensor(arr, bf16)
-        set_path(tree, leaf_name, t if device is None else t.to(device))
+        sh = None if shardings is None else shardings.get(leaf_name)
+        if sh is not None:
+            dev = device if device is not None else _mesh_device(sh.mesh)
+            t = sh.distribute(t.to(dev))
+        elif device is not None:
+            t = t.to(device)
+        set_path(tree, leaf_name, t)
     return tree, meta
 
 
@@ -256,9 +369,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int | None = None, *,
-                device: str | torch.device | None = None):
+                device: str | torch.device | None = None, shardings=None,
+                mesh=None, axis: str | None = None, cost_model=None):
         self.wait()
-        return restore_tree(self.directory, step, device=device)
+        return restore_tree(self.directory, step, device=device,
+                            shardings=shardings, mesh=mesh, axis=axis,
+                            cost_model=cost_model)
 
     def _gc(self) -> None:
         steps = list_steps(self.directory)

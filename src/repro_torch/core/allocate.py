@@ -41,7 +41,9 @@ zeros (2*512) and two f32 rank-4 adapters ((64+32)*4*4 = 1536):
 ...                                           rank=4)), torch.float32)
 3584
 
-``mesh=`` (the sharded sweep) is not ported and raises.
+With ``mesh=`` the sweep's divisible buckets run column-sharded (every rank
+of the mesh calling with the same tasks and getting every error, so every
+rank solves for the same plan).
 """
 from __future__ import annotations
 
@@ -62,8 +64,6 @@ from repro_torch.models.modules import QSpec
 DEFAULT_BITS = (2, 3, 4)
 DEFAULT_METHODS = ("gptq", "cloq", "loftq")
 DEFAULT_RANKS = (0, 16, 64)
-
-_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
 
 
 def default_grid(bits: Sequence[int] = DEFAULT_BITS,
@@ -180,6 +180,7 @@ def group_sites(path_meta: dict[str, tuple[int, int, int, int]],
 def sweep_sensitivity(tasks: list[LayerTask], groups: list[SiteGroup],
                       grid: Iterable, base: QSpec, dtype=torch.bfloat16,
                       *, include_skip: bool = False, mesh=None,
+                      axis: str = "model",
                       progress: Callable[[str], None] | None = None
                       ) -> list[SiteGroup]:
     """Fill every group's ``(candidates, bytes_, errors)`` table.
@@ -190,9 +191,9 @@ def sweep_sensitivity(tasks: list[LayerTask], groups: list[SiteGroup],
     its bytes come from :func:`site_bytes`.  ``include_skip`` appends the
     leave-dense candidate (zero error, dense bytes).  A candidate with a
     non-finite error leaves the table (reported through ``progress``);
-    a group left with none raises ``RuntimeError``."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
+    a group left with none raises ``RuntimeError``.  ``mesh``: the sweep's
+    divisible buckets run column-sharded over ``axis``
+    (``batched.evaluate_layer_batch``)."""
     grid = tuple(grid)
     by_path: dict[str, list[int]] = {}
     for i, t in enumerate(tasks):
@@ -219,7 +220,8 @@ def sweep_sensitivity(tasks: list[LayerTask], groups: list[SiteGroup],
                         dataclasses.replace(tasks[ti], site=spec))
                     slots.append((gi, ci))
 
-    errs = evaluate_layer_batch(eval_tasks, progress=progress)
+    errs = evaluate_layer_batch(eval_tasks, mesh=mesh, axis=axis,
+                                progress=progress)
     acc: dict[tuple[int, int], float] = {}
     for (gi, ci), e in zip(slots, errs):
         acc[(gi, ci)] = acc.get((gi, ci), 0.0) + e
@@ -418,6 +420,7 @@ def build_allocation(tasks: list[LayerTask],
                      dtype=torch.bfloat16, *,
                      scan_containers: Sequence[str] = (),
                      include_skip: bool = False, mesh=None,
+                     axis: str = "model",
                      progress: Callable[[str], None] | None = None
                      ) -> Allocation:
     """Group -> sweep -> solve -> emit over gathered tasks.  The model
@@ -426,7 +429,7 @@ def build_allocation(tasks: list[LayerTask],
     groups = group_sites(path_meta, scan_containers)
     groups = sweep_sensitivity(tasks, groups, grid, base, dtype,
                                include_skip=include_skip, mesh=mesh,
-                               progress=progress)
+                               axis=axis, progress=progress)
     choice = solve_budget(groups, budget_bytes)
     recipe = emit_recipe(groups, choice, base)
     table = [{"pattern": g.pattern, "paths": list(g.paths),

@@ -36,7 +36,24 @@ bucket at a time:
     :func:`task_key`), so the batched and sequential engines draw the same
     bits.
 
-3.  **Runtime**: the health check of every finished bucket and the
+3.  **Sharding** (:func:`run_bucket_sharded`): on a mesh
+    (:mod:`repro_torch.launch.mesh`, one rank a mesh position, every rank
+    running the same plan) the planner gives each bucket ``n_shards``
+    column shards over the ``model`` axis (``1``, replicated, only when
+    ``n`` does not divide the axis; or where the cost model,
+    :mod:`repro_torch.core.costmodel`, predicts another path faster).
+    Each rank stages only its own columns ``W[..., cols]`` (the Grams whole)
+    and runs the same stacked method stack on them; the only communication
+    is the Gram trick's all-reduce: one ``(L, m, m)`` a bucket for CLoQ
+    (:func:`repro_torch.core.cloq.cloq_lowrank_local`), one an AltMin round
+    for LoftQ (:func:`repro_torch.core.loftq.svd_lowrank_topr`).  Random
+    ``lora_a`` is drawn from the task's generator on every rank, the bits
+    of the unsharded engine's.  A sharded task's leaves are DTensors of its
+    rank's block (:func:`task_leaf_specs`: column leaves ``Shard`` over the
+    axis, ``lora_a`` ``Replicate``); ``models.parallel.gather_tree`` makes
+    them whole.
+
+4.  **Runtime**: the health check of every finished bucket and the
     degradation ladder for failing slices (:mod:`repro_torch.core.health`),
     the quantization journal (:class:`repro_torch.checkpoint.manager.
     QuantJournal`) that makes a run resumable at bucket boundaries, and the
@@ -55,18 +72,20 @@ order: a bucket run in chunks (stacked calls of other lengths) gives the
 bits of one call at the CPU tests' shapes, and is held to the engines'
 oracle on the card (``chip_smoke.py``, ``engines``).
 
-4.  **Sensitivity sweep** (:func:`evaluate_layer_batch`): the bit
+5.  **Sensitivity sweep** (:func:`evaluate_layer_batch`): the bit
     allocator's (:mod:`repro_torch.core.allocate`) proxy error
     ``tr(E^T H E)``, ``E = W - Q - A B^T``, of every ``(site,
     candidate)`` task, planned with ``for_eval=True`` (every task's Gram
     weights its error, data-free methods included) and run a bucket chunk
-    at a time, one stacked call each (:func:`run_bucket_eval`).
+    at a time, one stacked call each (:func:`run_bucket_eval`); sharded
+    buckets all-reduce each slice's error (:func:`run_bucket_eval_sharded`).
 
-Not ported yet (``ROADMAP.md``): the mesh (``mesh=``), the cost model
-(``cost_model=``) and the compile cache (``compile_cache=``); asking for
-them raises ``NotImplementedError``.  The reference has no chunks: it
+Not ported yet (``ROADMAP.md``): the compile cache (``compile_cache=``),
+which raises ``NotImplementedError``.  The reference has no chunks: it
 sends a bucket that would not fit to its sequential path through the cost
-model.
+model (which the port also has); here a chunk is sized from the free
+memory of the rank's device, so ranks sharing one card each see the other's
+allocations only as they happen.
 """
 from __future__ import annotations
 
@@ -76,13 +95,15 @@ from typing import TYPE_CHECKING, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.cloq import cloq_init, regularize_gram
+from repro_torch.core.cloq import (cloq_init, cloq_lowrank_local, gram_root,
+                                   regularize_gram)
 from repro_torch.core.loftq import (gptq_lora_init, lora_normal, loftq_init,
                                     qlora_init)
 from repro_torch.core.magr import magr_alpha, magr_preprocess
 from repro_torch.core.optq import optq_quantize_core, pick_block
 from repro_torch.core.quantizer import (QuantConfig, dequantize_int,
                                         pack_codes, quantize_int)
+from repro_torch.models import parallel
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
@@ -99,7 +120,38 @@ GRAM_METHODS = ("cloq", "gptq")
 # methods whose LoRA init draws a random A (B = 0)
 _RANDOM_A_METHODS = ("gptq", "qlora", "rtn")
 
+# methods the planner must keep replicated on a mesh.  Empty: every method's
+# stack is column-local given the Gram, the two full-width SVDs (CLoQ's
+# R dW, LoftQ's per-round W - Q) recovered exactly by the Gram trick
+_REPLICATED_METHODS: tuple[str, ...] = ()
+
 _NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
+
+
+def bucket_axis_size(mesh, axis: str = "model") -> int:
+    """Size of the mesh's ``axis`` (``1`` without a mesh or that axis):
+    the candidate shard count of the planner and the cost model.
+
+    >>> bucket_axis_size(None)
+    1
+    """
+    return parallel.axis_size(mesh, axis)
+
+
+def bucket_shards(n: int, method: str, mesh=None,
+                  axis: str = "model") -> int:
+    """Column shards the planner gives a bucket: the ``axis`` size of
+    ``mesh`` when ``n`` divides it (and the method is not kept replicated:
+    none is), else ``1``.  The divisibility gate only; with a cost model
+    the planner re-decides each bucket's path (:func:`apply_cost_model`).
+
+    >>> bucket_shards(48, "cloq", mesh=None)
+    1
+    """
+    k = bucket_axis_size(mesh, axis)
+    if k <= 1 or method in _REPLICATED_METHODS or n % k != 0:
+        return 1
+    return k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,8 +170,10 @@ class BucketSpec:
     magr: bool               # MagR gate (bits <= 4), resolved at plan time
     magr_iters: int
     has_gram: bool
-    n_shards: int = 1        # column shards (always 1: no mesh yet)
-    # "replicated" (one stacked call) or "sequential" (one call a slice)
+    n_shards: int = 1        # column shards over the model axis (1 = local)
+    # "replicated" (one stacked call), "sharded" (one stacked call a rank on
+    # its columns, n_shards > 1) or "sequential" (one call a slice, chosen
+    # only by the cost model's memory gate); kept in the bucket manifest
     exec_path: str = "replicated"
 
 
@@ -172,15 +226,15 @@ def task_site(t: LayerTask, qspec=None, method: str | None = None):
 
 def make_spec(m: int, n: int, qspec, method: str, has_gram: bool,
               base: QuantConfig | None = None, *, mesh=None,
-              for_eval: bool = False) -> BucketSpec:
-    """Resolve all static/branching decisions for one (shape, method).
-    ``for_eval`` marks a sensitivity-sweep bucket
-    (:func:`evaluate_layer_batch`): the Gram is then routed into the
+              axis: str = "model", for_eval: bool = False) -> BucketSpec:
+    """Resolve all static/branching decisions for one (shape, method),
+    with ``mesh`` the bucket's column shards over ``axis`` too
+    (:func:`bucket_shards`).  ``for_eval`` marks a sensitivity-sweep
+    bucket (:func:`evaluate_layer_batch`): the Gram is then routed into the
     bucket whenever one exists, so every candidate's proxy error is
     weighted by the same calibration data, data-free methods' too."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
     base = base or QuantConfig(bits=qspec.bits, group_size=qspec.group_size)
+    k = bucket_shards(n, method, mesh, axis)
     return BucketSpec(
         m=m, n=n, method=method, bits=qspec.bits,
         group_size=qspec.group_size, rank=qspec.rank, split=qspec.split,
@@ -188,7 +242,8 @@ def make_spec(m: int, n: int, qspec, method: str, has_gram: bool,
         act_order=base.act_order, lambda_frac=base.lambda_frac,
         magr=(method == "cloq" and qspec.bits <= 4),
         magr_iters=base.magr_iters,
-        has_gram=has_gram and (for_eval or method in GRAM_METHODS))
+        has_gram=has_gram and (for_eval or method in GRAM_METHODS),
+        n_shards=k, exec_path="sharded" if k > 1 else "replicated")
 
 
 def spec_qcfg(spec: BucketSpec) -> QuantConfig:
@@ -200,23 +255,25 @@ def spec_qcfg(spec: BucketSpec) -> QuantConfig:
 
 
 def _quantize_core(W: Tensor, H: Tensor | None, A0: Tensor | None,
-                   spec: BucketSpec) -> tuple[dict, Tensor]:
+                   spec: BucketSpec, group=None) -> tuple[dict, Tensor]:
     """The method stack on one weight ``(m, n)`` or a bucket's stack ``(L,
     m, n)`` (Grams ``(L, m, m)``, random ``A0 (L, m, r)``).  Returns
     ``(leaves, Qd)``: f32 factors, packed codes, and the dequantized
     base.  Every leaf is a tensor of its own: a factor left as a view of
     an SVD's output (CLoQ's ``B``) would keep the whole output alive for as
     long as the engine holds the slice's leaves (4-8 MB a slice for an
-    OLMoE-1B-7B expert, against 2 MB of leaves)."""
-    leaves, Qd = _method_stack(W, H, A0, spec)
+    OLMoE-1B-7B expert, against 2 MB of leaves).  With ``group`` (the
+    mesh axis's process group) ``W`` is the rank's column shard: CLoQ and
+    LoftQ take the Gram-trick solves, every other op is per column."""
+    leaves, Qd = _method_stack(W, H, A0, spec, group)
     return {k: v.contiguous() for k, v in leaves.items()}, Qd
 
 
 def _method_stack(W: Tensor, H: Tensor | None, A0: Tensor | None,
-                  spec: BucketSpec) -> tuple[dict, Tensor]:
+                  spec: BucketSpec, group=None) -> tuple[dict, Tensor]:
     qcfg = spec_qcfg(spec)
     W = W.float()
-    m, n = spec.m, spec.n
+    m, n = spec.m, W.shape[-1]          # n is the rank's under a mesh
     if spec.method == "cloq":
         H = H.float()
         Wp = (magr_preprocess(W, H, alpha=magr_alpha(H, m),
@@ -225,8 +282,15 @@ def _method_stack(W: Tensor, H: Tensor | None, A0: Tensor | None,
         del Wp
         # spec.lambda_frac regularizes both the OPTQ damping (via qcfg) and
         # the CLoQ Gram root, so the ladder's re-damp rung reaches both
-        A, B = cloq_init(regularize_gram(H, spec.lambda_frac), W - Qd,
-                         spec.rank, spec.split)
+        Hreg = regularize_gram(H, spec.lambda_frac)
+        if group is None:
+            A, B = cloq_init(Hreg, W - Qd, spec.rank, spec.split)
+        else:
+            R, Rinv = gram_root(Hreg)
+            A, B = cloq_lowrank_local(R, Rinv, W - Qd, spec.rank, spec.split,
+                                      group)
+            del R, Rinv
+        del Hreg
         return {"qcodes": pack_codes(Qc, spec.bits), "scales": s, "zeros": z,
                 "lora_a": A, "lora_b": B}, Qd
     if spec.method == "gptq":
@@ -235,7 +299,8 @@ def _method_stack(W: Tensor, H: Tensor | None, A0: Tensor | None,
         return {"qcodes": pack_codes(Qc, spec.bits), "scales": s, "zeros": z,
                 "lora_a": A, "lora_b": B}, Qd
     if spec.method == "loftq":
-        Qd, A, B, (codes, s, z) = loftq_init(W, qcfg, spec.rank, iters=5)
+        Qd, A, B, (codes, s, z) = loftq_init(W, qcfg, spec.rank, iters=5,
+                                             group=group)
         return {"qcodes": pack_codes(codes, spec.bits), "scales": s,
                 "zeros": z, "lora_a": A, "lora_b": B}, Qd
     if spec.method == "qlora":
@@ -259,18 +324,22 @@ def _random_a(keys: list[int], spec: BucketSpec,
 
 
 def quantize_single_deq(W: Tensor, H: Tensor | None, key: int,
-                        spec: BucketSpec) -> tuple[dict, Tensor]:
+                        spec: BucketSpec,
+                        group=None) -> tuple[dict, Tensor]:
     """One site ``W (m, n)`` with its Gram (``None`` for data-free
     methods) and generator seed: ``(leaves, Qd)``, ``Qd`` the dequantized
-    base.  The sequential engine's and the health ladder's core."""
+    base.  The sequential engine's and the health ladder's core.  With
+    ``group`` ``W`` is the rank's column shard ``(m, n_local)`` and the
+    column leaves cover those columns; ``lora_a`` is the same on every
+    rank (the all-reduced Gram, or the task's generator)."""
     A0 = _random_a([key], spec, W.device)
-    return _quantize_core(W, H, None if A0 is None else A0[0], spec)
+    return _quantize_core(W, H, None if A0 is None else A0[0], spec, group)
 
 
 def quantize_single(W: Tensor, H: Tensor | None, key: int,
-                    spec: BucketSpec) -> dict:
+                    spec: BucketSpec, group=None) -> dict:
     """The leaf dict of :func:`quantize_single_deq`."""
-    return quantize_single_deq(W, H, key, spec)[0]
+    return quantize_single_deq(W, H, key, spec, group)[0]
 
 
 def _proxy_error(W: Tensor, H: Tensor | None, leaves: dict, Qd: Tensor,
@@ -284,14 +353,16 @@ def _proxy_error(W: Tensor, H: Tensor | None, leaves: dict, Qd: Tensor,
 
 
 def eval_single(W: Tensor, H: Tensor | None, key: int,
-                spec: BucketSpec) -> Tensor:
+                spec: BucketSpec, group=None) -> Tensor:
     """Calibration-weighted proxy error of quantizing this site with
     ``spec``: ``tr(E^T H E)``, ``E = W - Q - A B^T`` (the unweighted
     ``||E||_F^2`` when the spec carries no Gram), from the same stack as
     :func:`quantize_single_deq`, so it ranks what the engine would
-    produce."""
-    leaves, Qd = quantize_single_deq(W, H, key, spec)
-    return _proxy_error(W, H, leaves, Qd, spec.has_gram)
+    produce.  With ``group`` each column's ``e_j^T H e_j`` is the rank's
+    given the whole Gram, and one all-reduce sums them."""
+    leaves, Qd = quantize_single_deq(W, H, key, spec, group)
+    return parallel.all_reduce_sum(
+        _proxy_error(W, H, leaves, Qd, spec.has_gram), group)
 
 
 def run_bucket(Ws: Tensor, Hs: Tensor | None, keys: list[int],
@@ -313,6 +384,123 @@ def run_bucket_eval(Ws: Tensor, Hs: Tensor | None, keys: list[int],
     return _proxy_error(Ws, Hs, leaves, Qd, spec.has_gram)
 
 
+def run_bucket_sharded(Ws: Tensor, Hs: Tensor | None, keys: list[int],
+                       spec: BucketSpec, mesh, axis: str = "model") -> dict:
+    """One bucket on this rank's columns: ``Ws (L, m, n / k)`` the rank's
+    column shard of the stack (:func:`_stage_bucket` with its columns),
+    ``Hs (L, m, m)`` whole, one generator seed a task.  Every rank runs
+    the same stacked method stack on its own columns; the only
+    communication is CLoQ's ``(L, m, m)`` all-reduce (LoftQ's, one an
+    AltMin round).  Returns the rank's stacked leaves (column leaves cover
+    its columns, ``lora_a`` whole); :func:`shard_leaves` makes a task's
+    DTensors."""
+    A0 = _random_a(keys, spec, Ws.device)
+    return _quantize_core(Ws, Hs, A0, spec,
+                          parallel.axis_group(mesh, axis))[0]
+
+
+def run_bucket_eval_sharded(Ws: Tensor, Hs: Tensor | None, keys: list[int],
+                            spec: BucketSpec, mesh,
+                            axis: str = "model") -> Tensor:
+    """Distributed :func:`run_bucket_eval` on the rank's column shard: each
+    slice's error summed over the ranks by one ``(L,)`` all-reduce, the
+    same on every rank."""
+    group = parallel.axis_group(mesh, axis)
+    A0 = _random_a(keys, spec, Ws.device)
+    leaves, Qd = _quantize_core(Ws, Hs, A0, spec, group)
+    return parallel.all_reduce_sum(
+        _proxy_error(Ws, Hs, leaves, Qd, spec.has_gram), group)
+
+
+def task_leaf_specs(method: str, axis: str | None = "model",
+                    lead: int = 0) -> dict:
+    """Layouts of ONE task's (unstacked) leaves, the JAX twin's
+    PartitionSpecs as tuples: column leaves (``qcodes``, ``scales``,
+    ``zeros``, ``absmax``) shard their last dim over ``axis``, ``lora_b``
+    ``(n, r)`` its first, ``lora_a`` is replicated.  ``axis=None`` is the
+    replicated layout; ``lead`` prepends that many unsharded dims (a
+    stacked expert site's ``E``).  The source of truth for sharded leaves,
+    :func:`bucket_out_specs` and ``checkpoint.manager.manifest_shardings``."""
+    pre = (None,) * lead
+    col = (*pre, None, axis)
+    out = {"qcodes": col, "lora_a": (*pre, None, None),
+           "lora_b": (*pre, axis, None)}
+    if method == "qlora":
+        out["absmax"] = col
+    else:
+        out["scales"] = col
+        out["zeros"] = col
+    return out
+
+
+def bucket_out_specs(method: str, axis: str = "model") -> dict:
+    """Layouts of one sharded bucket's stacked leaves: :func:`task_leaf_specs`
+    under an unsharded leading bucket dim ``L``."""
+    return {k: (None, *sp) for k, sp in task_leaf_specs(method, axis).items()}
+
+
+def shard_leaves(leaves: dict, method: str, mesh, axis: str = "model", *,
+                 local: bool = True) -> dict:
+    """One task's leaves as DTensors of the layout :func:`task_leaf_specs`
+    gives: ``local=True`` when they already are the rank's blocks (the
+    sharded bucket's output), ``False`` for whole leaves (a healed slice,
+    a journal entry) whose blocks are cut here."""
+    specs = task_leaf_specs(method, axis)
+    out = {}
+    for k, v in leaves.items():
+        blk = v if local else parallel.local_slice(v, specs[k], mesh)
+        out[k] = parallel.distribute_local(blk.contiguous(), specs[k], mesh)
+    return out
+
+
+def per_layer_sharded_dispatch(tasks: list[LayerTask], qspec, mesh,
+                               axis: str = "model",
+                               base: QuantConfig | None = None) -> list:
+    """The per-layer baseline of :func:`run_bucket_sharded`: one sharded
+    OPTQ call and one sharded CLoQ solve a layer (MagR on the whole
+    weight on every rank), with the MagR gate and alpha of
+    :func:`quantize_single`.  Returns each task's ``(A, B)`` as DTensors
+    (``A`` replicated, ``B`` row-sharded)."""
+    from repro_torch.core.optq import optq_quantize_sharded
+    group = parallel.axis_group(mesh, axis)
+    outs = []
+    for t in tasks:
+        m, n = t.W.shape
+        spec = make_spec(m, n, qspec, "cloq", t.H is not None, base,
+                         mesh=mesh, axis=axis)
+        W, H = t.W.float(), t.H.float()
+        W_q = (magr_preprocess(W, H, alpha=magr_alpha(H, m),
+                               iters=spec.magr_iters) if spec.magr else W)
+        Qd = optq_quantize_sharded(W_q, H, spec_qcfg(spec), mesh, axis)[0]
+        dW_l = parallel.local_slice(W, (None, axis), mesh) - Qd.to_local()
+        R, Rinv = gram_root(regularize_gram(H))
+        A, B_l = cloq_lowrank_local(R, Rinv, dW_l, spec.rank, spec.split,
+                                    group)
+        outs.append((parallel.distribute_local(A, (None, None), mesh),
+                     parallel.distribute_local(B_l, (axis, None), mesh)))
+    return outs
+
+
+def apply_cost_model(buckets: dict[BucketSpec, list[int]], cost_model, *,
+                     mesh=None,
+                     axis: str = "model") -> dict[BucketSpec, list[int]]:
+    """Re-decide each planned bucket's execution path from predicted time:
+    ``cost_model.decide(spec, L, k)`` (:class:`repro_torch.core.costmodel.
+    CostModel`) picks replicated / sharded / sequential now that the
+    bucket's size ``L`` is known.  Bucket membership does not change;
+    insertion order is kept.  ``cost_model=None`` is the identity."""
+    if cost_model is None:
+        return buckets
+    k = bucket_axis_size(mesh, axis)
+    out: dict[BucketSpec, list[int]] = {}
+    for spec, idxs in buckets.items():
+        k_eff = 1 if spec.method in _REPLICATED_METHODS else k
+        path, shards = cost_model.decide(spec, len(idxs), k_eff)
+        spec = dataclasses.replace(spec, exec_path=path, n_shards=shards)
+        out.setdefault(spec, []).extend(idxs)
+    return out
+
+
 def run_bucket_sequential(Ws: Tensor, Hs: Tensor | None, keys: list[int],
                           spec: BucketSpec) -> dict:
     """One bucket a slice at a time, outputs stacked to
@@ -332,15 +520,17 @@ def requeue_spec(spec: BucketSpec) -> BucketSpec:
 
 def plan_buckets(tasks: list[LayerTask], qspec=None,
                  method: str | None = None, base: QuantConfig | None = None,
-                 *, mesh=None, for_eval: bool = False,
+                 *, mesh=None, axis: str = "model", for_eval: bool = False,
                  cost_model=None) -> dict[BucketSpec, list[int]]:
     """Group task indices by bucket signature (insertion-ordered).  Tasks
     carrying a resolved ``site`` bucket by their own spec; the rest by the
-    global ``(qspec, method)``.  ``for_eval`` plans sensitivity-sweep
-    buckets (:func:`make_spec`).  Raises ``ValueError`` when a
+    global ``(qspec, method)``.  ``mesh``: buckets whose column count
+    divides ``axis`` get ``n_shards > 1`` (:func:`run_bucket_sharded`).
+    ``for_eval`` plans sensitivity-sweep buckets (:func:`make_spec`).
+    ``cost_model`` (a :class:`repro_torch.core.costmodel.CostModel`)
+    re-decides each bucket's path from predicted time
+    (:func:`apply_cost_model`).  Raises ``ValueError`` when a
     Gram-consuming method has no Gram."""
-    if cost_model is not None:
-        raise NotImplementedError(f"cost_model= {_NOT_PORTED}")
     buckets: dict[BucketSpec, list[int]] = {}
     for i, t in enumerate(tasks):
         t_qspec, t_method = task_site(t, qspec, method)
@@ -351,9 +541,9 @@ def plan_buckets(tasks: list[LayerTask], qspec=None,
                 f"method {t_method!r} needs a calibration Gram for {t.path}"
                 f"{'' if t.expert is None else f'[expert {t.expert}]'}")
         spec = make_spec(m, n, t_qspec, t_method, has_gram, base, mesh=mesh,
-                         for_eval=for_eval)
+                         axis=axis, for_eval=for_eval)
         buckets.setdefault(spec, []).append(i)
-    return buckets
+    return apply_cost_model(buckets, cost_model, mesh=mesh, axis=axis)
 
 
 def plan_manifest(tasks: list[LayerTask],
@@ -372,11 +562,23 @@ def plan_manifest(tasks: list[LayerTask],
     }
 
 
+def rank_columns(spec: BucketSpec, mesh,
+                 axis: str = "model") -> slice | None:
+    """This rank's columns of a sharded bucket (``None``: all of them)."""
+    if spec.n_shards <= 1:
+        return None
+    step = spec.n // spec.n_shards
+    r = parallel.axis_rank(mesh, axis)
+    return slice(r * step, (r + 1) * step)
+
+
 def _stage_bucket(tasks: list[LayerTask], idxs: list[int],
-                  spec: BucketSpec):
-    """Stack one bucket's ``(W, H)`` pairs as f32 on their device; the
-    generator seeds stay a list."""
-    Ws = torch.stack([tasks[i].W.float() for i in idxs])
+                  spec: BucketSpec, cols: slice | None = None):
+    """Stack one bucket's ``(W, H)`` pairs as f32 on their device (``W``'s
+    columns ``cols`` only: a rank's shard); the generator seeds stay a
+    list."""
+    cols = slice(None) if cols is None else cols
+    Ws = torch.stack([tasks[i].W[:, cols].float() for i in idxs])
     Hs = None
     if spec.has_gram:
         Hs = torch.stack([tasks[i].H.float() for i in idxs])
@@ -394,8 +596,10 @@ CHUNK_MARGIN_BYTES = 2 << 30
 
 
 def slice_bytes(spec: BucketSpec) -> int:
-    """f32 bytes of one slice's staged ``W`` and ``H``."""
-    return 4 * (spec.m * spec.n + (spec.m * spec.m if spec.has_gram else 0))
+    """f32 bytes of one slice's staged ``W`` (a rank's columns when
+    sharded) and ``H``."""
+    n = spec.n // spec.n_shards
+    return 4 * (spec.m * n + (spec.m * spec.m if spec.has_gram else 0))
 
 
 def free_bytes(device: torch.device) -> int:
@@ -458,7 +662,18 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
     ``should_stop`` is polled at every bucket boundary after the commit;
     True raises :class:`repro_torch.core.health.QuantPreempted`.
     ``progress`` gets one ``[bucket]`` line a bucket
-    (``obs.log.format_event``).  Spans (``repro_torch.obs.trace``, the JAX
+    (``obs.log.format_event``; ``path``, ``shards`` as in the JAX twin).
+
+    ``mesh`` (every rank of it calls this with the same tasks): a bucket
+    with ``n_shards > 1`` runs on each rank's columns
+    (:func:`run_bucket_sharded`), its leaves DTensors (:func:`shard_leaves`);
+    the health check sums each slice's errors over the ranks; a healed
+    slice is recomputed whole on every rank and cut to its blocks; the
+    journal gathers each bucket and rank 0 writes it, and a restored entry
+    is cut to the rank's blocks.  ``cost_model`` (a
+    :class:`repro_torch.core.costmodel.CostModel`, or what its ``coerce``
+    takes): each bucket's path from predicted time (:func:`plan_buckets`).
+    Spans (``repro_torch.obs.trace``, the JAX
     twin's names and arguments): ``quant.plan``; a ``bucket.stage``, a
     ``bucket.execute`` and, when guarded, a ``bucket.health_check`` a
     chunk (``layers`` its slices), the last two fenced under
@@ -467,13 +682,14 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
     Returns one leaf dict per task, in task order."""
     from repro_torch.core import faults, health
 
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
+    from repro_torch.core.costmodel import CostModel
+
     if compile_cache is not None:
         raise NotImplementedError(f"compile_cache= {_NOT_PORTED}")
+    cost_model = CostModel.coerce(cost_model)
     with obs_trace.span("quant.plan", tasks=len(tasks)) as sp:
-        buckets = plan_buckets(tasks, qspec, method, base,
-                               cost_model=cost_model)
+        buckets = plan_buckets(tasks, qspec, method, base, mesh=mesh,
+                               axis=axis, cost_model=cost_model)
         sp.set(buckets=len(buckets))
     results: list[dict | None] = [None] * len(tasks)
     items = list(buckets.items())
@@ -493,6 +709,11 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
             if entry is None:
                 continue
             loaded[b] = entry[0]
+            if spec.n_shards > 1:
+                loaded[b] = [None if r is None else
+                             shard_leaves(r, spec.method, mesh, axis,
+                                          local=False)
+                             for r in loaded[b]]
             obs_metrics.counter(obs_names.JOURNAL_RESTORED).inc()
             obs_metrics.counter(obs_names.JOURNAL_SKIPPED_TASKS).inc(
                 len(idxs))
@@ -501,15 +722,21 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
                 report.event(f"bucket {b} restored from journal "
                              f"({len(idxs)} slices skipped)")
 
+    group = (parallel.axis_group(mesh, axis)
+             if bucket_axis_size(mesh, axis) > 1 else None)
+
     def run(spec: BucketSpec, staged) -> dict:
         Ws, Hs, keys = staged
+        if spec.n_shards > 1:
+            return run_bucket_sharded(Ws, Hs, keys, spec, mesh, axis)
         if spec.exec_path == "sequential":
             return run_bucket_sequential(Ws, Hs, keys, spec)
         return run_bucket(Ws, Hs, keys, spec)
 
     def stage(b: int, cidxs: list[int]):
         with obs_trace.span("bucket.stage", bucket=b, layers=len(cidxs)):
-            return _stage_bucket(tasks, cidxs, items[b][0])
+            return _stage_bucket(tasks, cidxs, items[b][0],
+                                 rank_columns(items[b][0], mesh, axis))
 
     def size_of(b: int, left: int) -> int:
         """Slices of bucket ``b``'s next chunk, ``left`` still to run: the
@@ -530,6 +757,8 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
                 results[i] = loaded[b][j]
             continue
         sizes: list[int] = []
+        path = "sharded" if spec.n_shards > 1 else spec.exec_path
+        sharded = spec.n_shards > 1
         while sum(sizes) < len(idxs):
             pos = sum(sizes)
             if pos == 0 and ahead is not None and ahead[0] == b:
@@ -540,8 +769,8 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
             cidxs = idxs[pos:pos + size]
             sizes.append(size)
             ahead = None
-            with obs_trace.span("bucket.execute", bucket=b,
-                                path=spec.exec_path, shards=spec.n_shards,
+            with obs_trace.span("bucket.execute", bucket=b, path=path,
+                                shards=spec.n_shards,
                                 layers=len(cidxs)) as sp:
                 out = run(spec, cur)
                 sp.sync(out)    # REPRO_TRACE_SYNC=1: fence before close
@@ -556,11 +785,15 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
             elif not stream and cur[0].is_cuda:
                 torch.cuda.synchronize(cur[0].device)
             for j, i in enumerate(cidxs):
-                results[i] = {k: v[j] for k, v in out.items()}
+                res = {k: v[j] for k, v in out.items()}
+                results[i] = (shard_leaves(res, spec.method, mesh, axis)
+                              if sharded else res)
             if guarded:
                 with obs_trace.span("bucket.health_check", bucket=b,
                                     layers=len(cidxs)) as hsp:
-                    ok = health.check_bucket(cur[0], out, spec, policy)
+                    ok = health.check_bucket(cur[0], out, spec, policy,
+                                             group=group if sharded
+                                             else None)
                     hsp.sync(ok)
                 report.checked += len(cidxs)
                 obs_metrics.counter(obs_names.HEALTH_CHECKED).inc(
@@ -571,17 +804,21 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
                         results[i] = health.heal_task(
                             t.W, t.H, t.key, spec, policy, report, t.path,
                             t.expert)
+                        if sharded and results[i] is not None:
+                            results[i] = shard_leaves(
+                                results[i], spec.method, mesh, axis,
+                                local=False)
             del cur, out
         obs_metrics.counter(obs_names.QUANT_BUCKETS).inc()
         obs_metrics.counter(obs_names.QUANT_TASKS).inc(len(idxs))
-        obs_metrics.counter(obs_names.QUANT_PATH + spec.exec_path).inc()
+        obs_metrics.counter(obs_names.QUANT_PATH + path).inc()
         if progress:
             g = "col" if spec.group_size is None else spec.group_size
             progress(obs_log.format_event(
                 "bucket", i=b,
                 spec=f"{spec.method}/{spec.bits}b/g{g}/r{spec.rank}",
                 shape=f"{spec.m}x{spec.n}", layers=len(idxs),
-                path=spec.exec_path, shards=spec.n_shards,
+                path=path, shards=spec.n_shards,
                 chunks=len(sizes), chunk=max(sizes)))
         if journal is not None:
             hrecs = {}
@@ -604,7 +841,7 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
 def evaluate_layer_batch(tasks: list[LayerTask],
                          base: QuantConfig | None = None,
                          progress: Callable[[str], None] | None = None,
-                         *, mesh=None,
+                         *, mesh=None, axis: str = "model",
                          chunk: int | None = None) -> list[float]:
     """Proxy error ``tr(E^T H E)`` of every task, bucket by bucket: the
     engine of the bit allocator's sensitivity sweep
@@ -621,13 +858,14 @@ def evaluate_layer_batch(tasks: list[LayerTask],
     chunk has been dispatched; the host waits once, at the end.
     ``progress`` gets one ``[sweep]`` line a bucket, in the JAX twin's
     format (``obs.log.format_event``), and each chunk's call is a
-    ``sweep.execute`` span (fenced under ``REPRO_TRACE_SYNC=1``).
-    ``mesh=`` is not ported and raises.
+    ``sweep.execute`` span (fenced under ``REPRO_TRACE_SYNC=1``).  With
+    ``mesh`` (every rank calling with the same tasks) a divisible bucket
+    runs on each rank's columns and all-reduces its errors
+    (:func:`run_bucket_eval_sharded`): every rank gets every error.
 
     Returns one Python float per task, in task order."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
-    buckets = plan_buckets(tasks, base=base, for_eval=True)
+    buckets = plan_buckets(tasks, base=base, mesh=mesh, axis=axis,
+                           for_eval=True)
     sizes = [chunk_size(spec, len(idxs), tasks[idxs[0]].W.device, chunk)
              for spec, idxs in buckets.items()]
     order: list[int] = []
@@ -642,12 +880,16 @@ def evaluate_layer_batch(tasks: list[LayerTask],
                     shape=f"{spec.m}x{spec.n}", candidates=len(idxs),
                     path=("sharded" if spec.n_shards > 1 else "replicated"),
                     shards=spec.n_shards))
+            cols = rank_columns(spec, mesh, axis)
             for pos in range(0, len(idxs), sizes[b]):
                 cidxs = idxs[pos:pos + sizes[b]]
-                staged = _stage_bucket(tasks, cidxs, spec)
+                staged = _stage_bucket(tasks, cidxs, spec, cols)
                 with obs_trace.span("sweep.execute", bucket=b,
                                     candidates=len(cidxs)) as sp:
-                    errs.append(sp.sync(run_bucket_eval(*staged, spec)))
+                    out = (run_bucket_eval_sharded(*staged, spec, mesh, axis)
+                           if cols is not None
+                           else run_bucket_eval(*staged, spec))
+                    errs.append(sp.sync(out))
                 del staged
                 order.extend(cidxs)
     results: list[float] = [0.0] * len(tasks)

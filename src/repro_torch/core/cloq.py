@@ -1,7 +1,6 @@
 """CLoQ (Theorem 3.1): closed-form calibrated LoRA initialization.
 
-PyTorch twin of the single-device functions of ``repro.core.cloq``
-(``cloq_site_lora`` included; its sharded form is not ported yet).  Given
+PyTorch twin of ``repro.core.cloq``.  Given
 the regularized calibration Gram ``H = X^T X + lambda*I`` and the
 quantization residual ``dW = W - Q``, the optimal rank-r adapters
 minimizing ``|| X (A B^T - dW) ||_F^2`` are any factorization of
@@ -12,12 +11,20 @@ Splits of ``A B^T = R^{-1} U_{:r} S_{:r} V_{:r}^T`` (paper Table 7):
     "paper" : A = R^{-1} U S,      B = V        (default)
     "bsigma": A = R^{-1} U,        B = V S
     "sqrt"  : A = R^{-1} U S^1/2,  B = V S^1/2
+
+:func:`cloq_init_sharded` is the distributed variant: ``dW`` column-sharded
+over the mesh's model axis, the SVD of ``R dW`` computed exactly through
+the Gram trick (one ``m x m`` all-reduce a layer).  Its shard-local body
+:func:`cloq_lowrank_local` also takes a bucket's stack ``(L, m, n_local)``,
+whose ``(L, m, m)`` Grams go out in one all-reduce
+(:func:`repro_torch.core.batched.run_bucket_sharded`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import linalg
+from repro_torch.models import parallel
 
 Tensor = torch.Tensor
 
@@ -69,7 +76,8 @@ def cloq_init(H: Tensor, dW: Tensor, rank: int, split: str = "paper"):
 
 
 def cloq_site_lora(Hs, dW: Tensor, rank: int, split: str = "paper",
-                   mesh=None, lambda_frac: float = 0.01):
+                   mesh=None, axis: str = "model",
+                   lambda_frac: float = 0.01):
     """Per-site CLoQ adapters of a weight-shared block: one Theorem-3.1
     solve a call site against the site's own Gram, with the residual
     ``dW = W - Q`` of the (pooled-Gram) shared base fixed.
@@ -78,17 +86,69 @@ def cloq_site_lora(Hs, dW: Tensor, rank: int, split: str = "paper",
     or as a sequence of ``(m, m)`` (no stacked copy: Zamba2-7B's 13 sites
     of ``mlp.down`` are 10.7 GB of f32); ``dW`` is (m, n).  Returns
     ``(As (S, m, r), Bs (S, n, r))`` with ``r = min(rank, n)``, as
-    ``cloq_init`` cuts a rank above ``n``.  ``mesh=`` (the JAX twin's
-    column-sharded solve) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "cloq_site_lora(mesh=): the sharded per-site solve is not "
-            "ported to repro_torch yet (see ROADMAP.md)")
+    ``cloq_init`` cuts a rank above ``n``.
+
+    With ``mesh`` every rank solves on its own columns of ``dW`` through
+    :func:`cloq_lowrank_local` (the caller makes sure ``n`` divides the
+    axis: the planner's gate, ``batched.bucket_shards``): ``As`` comes back
+    replicated and ``Bs`` column-sharded over ``axis``, both as DTensors.
+    The sites are solved one at a time, one ``(m, m)`` all-reduce each (the
+    JAX twin fuses them into one ``(S, m, m)`` collective), so that one
+    site's Gram root is held at a time."""
     dW = dW.float()
-    outs = [cloq_init(regularize_gram(H.float(), lambda_frac), dW, rank,
-                      split) for H in Hs]
-    return (torch.stack([a for a, _ in outs]),
-            torch.stack([b for _, b in outs]))
+    if mesh is None:
+        outs = [cloq_init(regularize_gram(H.float(), lambda_frac), dW, rank,
+                          split) for H in Hs]
+        return (torch.stack([a for a, _ in outs]),
+                torch.stack([b for _, b in outs]))
+    group = parallel.axis_group(mesh, axis)
+    dW_l = parallel.local_slice(dW, (None, axis), mesh)
+    outs = []
+    for H in Hs:
+        R, Rinv = gram_root(regularize_gram(H.float(), lambda_frac))
+        outs.append(cloq_lowrank_local(R, Rinv, dW_l, rank, split, group))
+        del R, Rinv
+    As = torch.stack([a for a, _ in outs])
+    Bs = torch.stack([b for _, b in outs])
+    return (parallel.distribute_local(As, (None, None, None), mesh),
+            parallel.distribute_local(Bs, (None, axis, None), mesh))
+
+
+def cloq_lowrank_local(R: Tensor, Rinv: Tensor, dW_local: Tensor, rank: int,
+                       split: str = "paper", group=None):
+    """Shard-local body of the Gram-trick CLoQ solve: the exact top-``rank``
+    factorization of ``R^{-1} LR_r(R dW)`` from a column shard
+    ``dW_local (..., m, n_local)`` of the residual,
+
+        G = (R dW)(R dW)^T        -- all-reduced over ``group`` when given
+        eigh(G) -> U, S^2         -- the same on every rank
+        V_local = (R dW)_l^T U S^{-1}   -- shard-local
+
+    ``R``, ``Rinv``: the non-symmetric root of the *regularized* Gram and
+    its inverse (:func:`gram_root`), the same on every rank.  ``group=None``
+    means ``dW_local`` holds all columns.  Returns ``(A (..., m, r), B_local
+    (..., n_local, r))``.  Uses ``eigh`` of the ``m x m`` Gram instead of
+    the unsharded path's ``svd(R dW)``: the same subspace to float precision
+    (compare the ``A B^T`` product).  The Gram-trick core is LoftQ's
+    (:func:`repro_torch.core.loftq.svd_lowrank_topr`) with ``R != I``."""
+    from repro_torch.core.loftq import svd_lowrank_topr
+    M_l = R @ dW_local.float()                          # (..., m, n_local)
+    U, S, V_l = svd_lowrank_topr(M_l, rank, group)
+    return split_factors(Rinv @ U, S, V_l, split)
+
+
+def cloq_init_sharded(H: Tensor, dW: Tensor, rank: int, mesh,
+                      axis: str = "model", split: str = "paper"):
+    """Distributed CLoQ: every rank solves on its columns of ``dW (m, n)``
+    (``n`` divisible by the axis) with ``H`` already regularized.
+    Communication: one ``m x m`` f32 all-reduce.  Returns ``(A (m, r)``
+    replicated, ``B (n, r)`` row-sharded over ``axis``) as DTensors."""
+    R, Rinv = gram_root(H.float())
+    dW_l = parallel.local_slice(dW.float(), (None, axis), mesh)
+    A, B_l = cloq_lowrank_local(R, Rinv, dW_l, rank, split,
+                                parallel.axis_group(mesh, axis))
+    return (parallel.distribute_local(A, (None, None), mesh),
+            parallel.distribute_local(B_l, (axis, None), mesh))
 
 
 def lowrank_objective(H: Tensor, dW: Tensor, A: Tensor, B: Tensor) -> float:

@@ -181,10 +181,18 @@ def _check(W: Tensor, leaves: dict, spec: BucketSpec):
 
 
 def check_bucket(Ws: Tensor, leaves: dict, spec: BucketSpec,
-                 policy: HealthPolicy) -> np.ndarray:
+                 policy: HealthPolicy, group=None) -> np.ndarray:
     """Health flags of one executed bucket: ``(L,)`` bool, True = the slice
-    is clean.  The blowup comparison happens on the host in f64."""
+    is clean.  The blowup comparison happens on the host in f64.  With
+    ``group`` ``Ws`` and the leaves are a rank's column shard: each slice's
+    errors and non-finite count are summed over the ranks (one all-reduce),
+    so every rank reaches the same flags."""
     finite, err, rerr = _check(Ws, leaves, spec)
+    if group is not None:
+        from repro_torch.models.parallel import all_reduce_sum
+        tot = all_reduce_sum(torch.stack([(~finite).double(), err.double(),
+                                          rerr.double()]), group)
+        finite, err, rerr = tot[0] == 0, tot[1], tot[2]
     finite = finite.cpu().numpy()
     err = err.double().cpu().numpy()
     rerr = rerr.double().cpu().numpy()

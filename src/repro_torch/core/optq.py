@@ -142,6 +142,25 @@ def optq_quantize(W: Tensor, H: Tensor, cfg: QuantConfig,
     return optq_quantize_core(W, H, cfg, scales, zeros)
 
 
+def optq_quantize_sharded(W: Tensor, H: Tensor, cfg: QuantConfig, mesh,
+                          axis: str = "model"):
+    """Distributed OPTQ: output columns sharded over ``axis``.  ``H`` is the
+    same on every rank and the sweep needs no communication (columns are
+    independent given ``H``): each rank runs :func:`optq_quantize_core` on
+    its own columns of ``W`` (``n`` divisible by the axis), with the sweep
+    block resolved here.  Returns ``(Qd (m, n), codes uint8, scales (m/g,
+    n), zeros (m/g, n))``, each a DTensor column-sharded over ``axis``."""
+    from repro_torch.models import parallel
+    bs = pick_block(W.shape[-2], cfg.block_size)
+    if bs != cfg.block_size:
+        cfg = dataclasses.replace(cfg, block_size=bs)
+    col = (None, axis)
+    outs = optq_quantize_core(parallel.local_slice(W.float(), col, mesh),
+                              H.float(), cfg)
+    return tuple(parallel.distribute_local(o.contiguous(), col, mesh)
+                 for o in outs)
+
+
 def cholesky_factor_finite(H: Tensor, lambda_frac: float = 0.01) -> bool:
     """Does the *damped* Gram admit a finite Cholesky factor?  The check the
     health guards use to name the classic OPTQ failure (a finite but

@@ -52,8 +52,14 @@ The abstract functions (:func:`quantization_manifest`,
 :func:`recipe_plan_bytes`, :func:`quantized_param_shapes`) plan from the
 config's shapes alone, on the meta device: no weights, no calibration.
 
-Not ported yet (``ROADMAP.md``): the mesh, the cost model and the compile
-cache; asking for them raises ``NotImplementedError``.
+``mesh=`` (batched engine; every rank of the mesh calls ``quantize_model``
+with the same params and calibration) runs each bucket column-sharded over
+``shard_axis`` (:mod:`repro_torch.core.batched`): a sharded site's leaves
+are DTensors of the rank's block, ``lora_a`` replicated
+(``models.parallel.gather_tree`` makes a tree whole).  ``cost_model=``
+chooses each bucket's path from predicted time
+(:mod:`repro_torch.core.costmodel`).  Not ported yet (``ROADMAP.md``): the
+compile cache; ``compile_cache=`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -65,13 +71,14 @@ from typing import Callable, Iterable
 import torch
 
 from repro_torch.core import faults, health
-from repro_torch.core.batched import (GRAM_METHODS, LayerTask, make_spec,
-                                      plan_buckets, plan_manifest,
-                                      quantize_layer_batch, quantize_single,
-                                      task_key)
+from repro_torch.core.batched import (GRAM_METHODS, LayerTask,
+                                      bucket_shards, make_spec, plan_buckets,
+                                      plan_manifest, quantize_layer_batch,
+                                      quantize_single, task_key)
 from repro_torch.core.cloq import cloq_site_lora
 from repro_torch.core.quantizer import dequantize_int, unpack_codes
 from repro_torch.core.recipe import QuantRecipe, SiteSpec
+from repro_torch.models import parallel
 from repro_torch.models.modules import QSpec
 from repro_torch.models.transformer import (ModelConfig, forward,
                                             layer_params, n_stacked,
@@ -236,36 +243,69 @@ def _shared_base_dequant(newlin: dict, m: int, qspec: QSpec) -> Tensor:
 def _set_shared_sites(new_params: dict, store: GramStore, path: str,
                       W: Tensor, newlin: dict, site: SiteSpec,
                       site_paths: list[str], cfg: ModelConfig, *, policy,
-                      report) -> None:
+                      report, mesh=None, shard_axis: str = "model") -> None:
     """Pop the shared base's own adapter pair from ``newlin`` and set the
     stacked per-site adapters of the linear at ``path``.  CLoQ: one solve
     a site against its Gram (read through the fault hook at its key), a
     non-finite pair healed by ``health.heal_site_lora`` when the guards
-    are on; other methods: the base's pair at every site."""
+    are on; other methods: the base's pair at every site.  With ``mesh``
+    the solves are column-sharded when ``n`` divides the axis (the
+    planner's gate), ``Bs`` coming back sharded."""
     A0, B0 = newlin.pop("lora_a"), newlin.pop("lora_b")
     if not site_paths:
         return
     S, qspec = len(site_paths), site.qspec
     if site.method != "cloq":
-        As = A0.unsqueeze(0).expand(S, *A0.shape)
-        Bs = B0.unsqueeze(0).expand(S, *B0.shape)
+        As = parallel.stack_sharded([A0] * S)
+        Bs = parallel.stack_sharded([B0] * S)
     else:
-        dW = W.float() - _shared_base_dequant(newlin, W.shape[0], qspec)
+        # the base's leaves made whole (a collective under a mesh)
+        dW = W.float() - _shared_base_dequant(parallel.gather_tree(newlin),
+                                              W.shape[0], qspec)
         Hs_raw = [faults.corrupt_gram(sp, store.grams[sp])
                   for sp in site_paths]
-        As, Bs = cloq_site_lora(Hs_raw, dW, qspec.rank, qspec.split)
+        site_mesh = mesh if bucket_shards(dW.shape[1], site.method, mesh,
+                                          shard_axis) > 1 else None
+        As, Bs = cloq_site_lora(Hs_raw, dW, qspec.rank, qspec.split,
+                                mesh=site_mesh, axis=shard_axis)
         guarded = policy is not None and policy.enabled
-        for s in range(S):
-            if not guarded or (bool(torch.isfinite(As[s]).all()) and
-                               bool(torch.isfinite(Bs[s]).all())):
-                continue
-            As[s], Bs[s] = health.heal_site_lora(
-                Hs_raw[s], dW, qspec.rank, qspec.split, policy, report,
-                path, site_paths[s])
+        if guarded:
+            As, Bs = _heal_site_pairs(As, Bs, Hs_raw, dW, qspec, policy,
+                                      report, path, site_paths, site_mesh,
+                                      shard_axis)
     rest = path[len("shared.block."):].replace(".", "_")
     set_path(new_params, f"shared.site_lora.{rest}",
              {"lora_a": As.to(cfg.dtype).contiguous(),
               "lora_b": Bs.to(cfg.dtype).contiguous()})
+
+
+def _heal_site_pairs(As, Bs, Hs_raw, dW: Tensor, qspec: QSpec, policy,
+                     report, path: str, site_paths: list[str], mesh,
+                     axis: str):
+    """Every non-finite site pair through ``health.heal_site_lora``.  Under
+    a mesh the flags are summed over the ranks (a rank sees its block of
+    ``Bs`` only), every rank heals the same sites whole, and keeps its
+    block."""
+    A_l, B_l = parallel.local_of(As), parallel.local_of(Bs)
+    bad = torch.stack([(~torch.isfinite(A_l[s])).any() |
+                       (~torch.isfinite(B_l[s])).any()
+                       for s in range(len(site_paths))]).double()
+    if mesh is not None:
+        bad = parallel.all_reduce_sum(bad, parallel.axis_group(mesh, axis))
+    bad = [s for s, b in enumerate(bad.tolist()) if b]
+    if not bad:
+        return As, Bs
+    A_l, B_l = A_l.clone(), B_l.clone()
+    for s in bad:
+        A, B = health.heal_site_lora(Hs_raw[s], dW, qspec.rank, qspec.split,
+                                     policy, report, path, site_paths[s])
+        A_l[s] = A
+        B_l[s] = (B if mesh is None
+                  else parallel.local_slice(B, (axis, None), mesh))
+    if mesh is None:
+        return A_l, B_l
+    return (parallel.distribute_local(A_l, (None, None, None), mesh),
+            parallel.distribute_local(B_l, (None, axis, None), mesh))
 
 
 def _site_gram(store: GramStore, path: str) -> Tensor | None:
@@ -316,7 +356,7 @@ def _stacked_dense_event(report, path: str) -> None:
 
 
 def _stack_experts(outs: list[dict]) -> dict:
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return {k: parallel.stack_sharded([o[k] for o in outs]) for k in outs[0]}
 
 
 def _quantize_model_sequential(eparams: dict, store: GramStore,
@@ -435,13 +475,17 @@ def _quantize_model_batched(eparams: dict, store: GramStore,
                             cfg: ModelConfig, new_params: dict,
                             progress: Callable[[str], None] | None, *,
                             policy=None, report=None, journal=None,
-                            should_stop=None) -> None:
+                            should_stop=None, mesh=None,
+                            shard_axis: str = "model",
+                            cost_model=None) -> None:
     tasks, groups = _gather_tasks(eparams, store, sites, seed)
     with torch.no_grad():
         results = quantize_layer_batch(tasks, progress=progress,
+                                       mesh=mesh, axis=shard_axis,
                                        policy=policy, report=report,
                                        journal=journal,
-                                       should_stop=should_stop)
+                                       should_stop=should_stop,
+                                       cost_model=cost_model)
     for path, lin, idxs, shared in groups:
         outs = [results[i] for i in idxs]
         for i in idxs:                 # a finished chunk's leaves are freed
@@ -454,9 +498,11 @@ def _quantize_model_batched(eparams: dict, store: GramStore,
                else _stack_experts(outs))
         if shared is not None:
             res = dict(res)
-            _set_shared_sites(new_params, store, path, tasks[idxs[0]].W, res,
-                              sites[path], shared, cfg, policy=policy,
-                              report=report)
+            with torch.no_grad():
+                _set_shared_sites(new_params, store, path, tasks[idxs[0]].W,
+                                  res, sites[path], shared, cfg,
+                                  policy=policy, report=report, mesh=mesh,
+                                  shard_axis=shard_axis)
         keep = dict(lin)                          # bias etc.
         keep.update(_cast_for_model(res, cfg.dtype))
         set_path(new_params, path, keep)
@@ -508,7 +554,8 @@ def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
                    method: str | None = None, qspec: QSpec | None = None,
                    seed: int = 0, engine: str = "batched",
                    progress: Callable[[str], None] | None = None,
-                   mesh=None, policy: "health.HealthPolicy | None" = None,
+                   mesh=None, shard_axis: str = "model",
+                   policy: "health.HealthPolicy | None" = None,
                    report: "health.HealthReport | None" = None,
                    journal_dir: str | None = None,
                    should_stop: Callable[[], bool] | None = None,
@@ -532,8 +579,17 @@ def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
     the same plan restores the committed buckets bit-identical, and the
     report is saved as ``<journal_dir>/health.json``.  ``should_stop`` is
     polled at every bucket boundary; True raises
-    :class:`repro_torch.core.health.QuantPreempted`.  ``mesh``,
-    ``cost_model`` and ``compile_cache`` are not ported and raise.
+    :class:`repro_torch.core.health.QuantPreempted`.
+
+    ``mesh`` (batched engine only; a ``DeviceMesh`` from
+    :mod:`repro_torch.launch.mesh`, every rank calling with the same
+    params, batches and seed) runs each bucket column-sharded over
+    ``shard_axis``, buckets whose column count does not divide the axis
+    replicated; a sharded site's leaves are DTensors of the rank's block,
+    ``lora_a`` replicated.  ``cost_model`` (batched engine only; a
+    :class:`repro_torch.core.costmodel.CostModel`, a calibration or its
+    file) chooses each bucket's path from predicted time.
+    ``compile_cache`` is not ported and raises.
 
     Returns (new_params in the input (scan/eager) layout, new_cfg with
     ``quant=`` set to the recipe's default qspec, gram_store).  Skipped
@@ -541,10 +597,15 @@ def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}; options "
                          f"{tuple(_ENGINES)}")
-    for name, value in (("mesh", mesh), ("cost_model", cost_model),
-                        ("compile_cache", compile_cache)):
-        if value is not None:
-            raise NotImplementedError(f"{name}= {_NOT_PORTED}")
+    if compile_cache is not None:
+        raise NotImplementedError(f"compile_cache= {_NOT_PORTED}")
+    if mesh is not None and engine != "batched":
+        # fail before the (expensive) calibration pass, not after
+        raise ValueError("mesh sharding is only supported by the batched "
+                         "engine; use engine='batched' or drop mesh=")
+    if cost_model is not None and engine != "batched":
+        raise ValueError("cost_model= drives the batched engine's bucket "
+                         "planner; use engine='batched' or drop it")
     if journal_dir is not None and engine != "batched":
         raise ValueError("journaled (resumable) quantization requires the "
                          "batched engine's bucket streaming; use "
@@ -565,11 +626,13 @@ def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
             cfg, scan_layers=False), calib_batches, report=report)
         sp.sync(store.grams)    # the Grams stay on the device
     new_params = _tree_copy(eparams)
+    extra = ({"mesh": mesh, "shard_axis": shard_axis,
+              "cost_model": cost_model} if engine == "batched" else {})
     with obs_trace.span("quant.model", engine=engine,
                         sites=len(sites)) as sp:
         _ENGINES[engine](eparams, store, sites, seed, cfg, new_params,
                          progress, policy=policy, report=report,
-                         journal=journal, should_stop=should_stop)
+                         journal=journal, should_stop=should_stop, **extra)
         sp.sync(new_params)
     if journal_dir is not None:
         report.save(os.path.join(journal_dir, "health.json"))
@@ -610,7 +673,8 @@ def _allocation_meta(eparams: dict, store: GramStore
 def allocate_plan(params: dict, cfg: ModelConfig, calib, budget_bytes: int,
                   *, grid=None, qspec: QSpec | None = None,
                   include_skip: bool = False, seed: int = 0,
-                  mesh=None, progress: Callable[[str], None] | None = None):
+                  mesh=None, shard_axis: str = "model",
+                  progress: Callable[[str], None] | None = None):
     """Solve for a mixed-precision plan under a byte budget.
 
     Stage 1 sweeps every quantization site over the candidate ``grid``
@@ -622,13 +686,13 @@ def allocate_plan(params: dict, cfg: ModelConfig, calib, budget_bytes: int,
     ``calib``: calibration batches, or a filled :class:`GramStore` to
     reuse.  ``qspec``: the base the candidates take ``group_size`` and
     ``split`` from (default ``cfg.quant``).  ``include_skip`` adds the
-    leave-dense candidate.  ``mesh=`` is not ported and raises.
+    leave-dense candidate.  ``mesh``: the sweep's divisible buckets run
+    column-sharded over ``shard_axis`` (every rank calling with the same
+    inputs; each gets the same plan).
 
     Returns a :class:`repro_torch.core.allocate.Allocation`; its
     ``.recipe`` is ready for ``quantize_model(recipe=...)``."""
     from repro_torch.core import allocate
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
     base = qspec or cfg.quant or QSpec()
     eparams = to_eager_params(params, cfg)
     store = (calib if isinstance(calib, GramStore) else run_calibration(
@@ -642,20 +706,22 @@ def allocate_plan(params: dict, cfg: ModelConfig, calib, budget_bytes: int,
     return allocate.build_allocation(
         tasks, _allocation_meta(eparams, store), budget_bytes, base, grid,
         cfg.dtype, scan_containers=scan_containers,
-        include_skip=include_skip, progress=progress)
+        include_skip=include_skip, mesh=mesh, axis=shard_axis,
+        progress=progress)
 
 
 def allocate_recipe(params: dict, cfg: ModelConfig, calib,
                     budget_bytes: int, *, grid=None,
                     qspec: QSpec | None = None,
                     include_skip: bool = False, seed: int = 0,
-                    mesh=None,
+                    mesh=None, shard_axis: str = "model",
                     progress: Callable[[str], None] | None = None
                     ) -> QuantRecipe:
     """The :class:`QuantRecipe` of :func:`allocate_plan`."""
     return allocate_plan(params, cfg, calib, budget_bytes, grid=grid,
                          qspec=qspec, include_skip=include_skip, seed=seed,
-                         mesh=mesh, progress=progress).recipe
+                         mesh=mesh, shard_axis=shard_axis,
+                         progress=progress).recipe
 
 
 # ---------------------------------------------------------------------------
@@ -716,12 +782,11 @@ def quantization_manifest(cfg: ModelConfig, method: str | None = None,
       ``cfg.scan_layers``.
 
     The legacy ``(method, qspec)`` pair is taken as a zero-rule recipe.
-    JSON-equal to the JAX twin's for the same ``(cfg, recipe)``.  Hand it
-    to ``checkpoint.save_tree(..., manifest=)``.  ``mesh=`` and
-    ``cost_model=`` are not ported and raise."""
-    for name, value in (("mesh", mesh), ("cost_model", cost_model)):
-        if value is not None:
-            raise NotImplementedError(f"{name}= {_NOT_PORTED}")
+    JSON-equal to the JAX twin's for the same ``(cfg, recipe)``, with
+    ``mesh`` (each bucket's ``n_shards``/``exec_path`` for it) and
+    ``cost_model`` (its predicted-time paths) too.  Hand it to
+    ``checkpoint.save_tree(..., manifest=)``."""
+    from repro_torch.core.costmodel import CostModel
     if recipe is None:
         recipe = QuantRecipe.single(method or "cloq",
                                     qspec or cfg.quant or QSpec())
@@ -732,7 +797,9 @@ def quantization_manifest(cfg: ModelConfig, method: str | None = None,
     sites = recipe.resolve(quantizable_linear_paths(eshapes))
     _check_scan_uniform(sites, cfg)
     tasks = _abstract_tasks(eshapes, sites)
-    manifest = plan_manifest(tasks, plan_buckets(tasks), axis=shard_axis)
+    buckets = plan_buckets(tasks, mesh=mesh, axis=shard_axis,
+                           cost_model=CostModel.coerce(cost_model))
+    manifest = plan_manifest(tasks, buckets, axis=shard_axis)
     manifest["recipe"] = recipe.to_dict()
     manifest["site_lora"] = [
         {"name": p[len("shared.block."):].replace(".", "_"),
@@ -797,16 +864,14 @@ def quantized_param_shapes(cfg: ModelConfig, *, method: str | None = None,
     rank.  Without ``recipe``, ``cfg.quant`` (+ ``method``) is the
     zero-rule recipe.  ``with_manifest=True`` returns ``(shapes,
     manifest)``, the manifest :func:`quantization_manifest`'s on the same
-    shapes.  ``mesh=`` is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= {_NOT_PORTED}")
+    shapes, planned for ``mesh``."""
     if recipe is None:
         assert cfg.quant is not None, "cfg.quant must be set"
         recipe = QuantRecipe.single(method or "cloq", cfg.quant)
     shapes = _abstract_eager_shapes(cfg)
     sites = recipe.resolve(quantizable_linear_paths(shapes))
     _check_scan_uniform(sites, cfg)
-    manifest = (quantization_manifest(cfg, recipe=recipe,
+    manifest = (quantization_manifest(cfg, recipe=recipe, mesh=mesh,
                                       shard_axis=shard_axis, _eshapes=shapes)
                 if with_manifest else None)
     for lin_path, site in sites.items():

@@ -42,8 +42,9 @@ take their plain versions only with ``--kernel``, and steps run eagerly.
 quantization's buckets, ``serve.step``, ``serve.admit``,
 ``serve.decode``) and ``--metrics-out FILE`` the metrics snapshot
 (``results/metrics-serve.json`` when only ``--trace-out`` is given), as
-the JAX CLI does (``repro_torch.obs``).  The compile cache and cost
-model flags are not ported yet (``ROADMAP.md``); giving them raises.
+the JAX CLI does (``repro_torch.obs``).  ``--cost-cal FILE`` plans the
+quantization buckets with the cost model.  The compile cache is not ported
+yet (``ROADMAP.md``); ``--compile-cache`` raises.
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ from repro_torch.serve.registry import synthesize_adapters
 from repro_torch.utils import resolve_device
 
 # flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"compile_cache": "", "cost_cal": ""}
+_NOT_PORTED = {"compile_cache": ""}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -114,9 +115,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the metrics-registry snapshot to FILE "
                         "(defaults to results/metrics-serve.json when "
                         "--trace-out is set)")
-    # JAX CLI flags of subsystems not ported yet (rejected unless default)
+    p.add_argument("--cost-cal", default="", metavar="FILE",
+                   help="cost-model calibration JSON (repro_torch.core."
+                        "costmodel.calibrate output) driving the bucket "
+                        "planner's sharded/replicated/sequential choice")
+    # JAX CLI flag of a subsystem not ported yet (rejected unless default)
     p.add_argument("--compile-cache", default="")
-    p.add_argument("--cost-cal", default="")
     return p
 
 
@@ -125,8 +129,8 @@ def _check_ported(args) -> None:
              if getattr(args, k) != default]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: the compile cache and cost model are not "
-            "ported to repro_torch yet (see ROADMAP.md)")
+            f"{', '.join(given)}: the compile cache is not ported to "
+            "repro_torch yet (see ROADMAP.md)")
 
 
 def _sync(device: torch.device) -> None:
@@ -149,7 +153,9 @@ def build_quantized(args, cfg, params):
                           seed=args.seed, kind=data_kind(cfg), enc_len=16,
                           n_prefix=cfg.n_prefix, d_model=cfg.d_model)
         calib = [TokenStream(dcfg).next_batch()]
-        params, cfg, _ = quantize_model(params, cfg, calib, recipe=recipe)
+        params, cfg, _ = quantize_model(
+            params, cfg, calib, recipe=recipe,
+            cost_model=args.cost_cal or None)
     return cfg, params
 
 

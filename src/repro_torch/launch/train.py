@@ -58,8 +58,10 @@ load it at https://ui.perfetto.dev; ``REPRO_TRACE_SYNC=1`` fences the
 CUDA work a span launched before it closes) and ``--metrics-out FILE``
 the metrics snapshot (``results/metrics-train.json`` when only
 ``--trace-out`` is given), as the JAX CLI does (``repro_torch.obs``).
-Progress lines go through ``obs.log``.  The compile cache and the cost
-model are not ported yet (``ROADMAP.md``); their flags raise.
+Progress lines go through ``obs.log``.  ``--cost-cal FILE|auto`` plans the
+quantization buckets with the cost model (``repro_torch.core.costmodel``;
+``auto`` measures this host once and caches the table).  The compile cache
+is not ported yet (``ROADMAP.md``); ``--compile-cache`` raises.
 """
 from __future__ import annotations
 
@@ -95,7 +97,7 @@ from repro_torch.optim import OptConfig, merge_params
 from repro_torch.utils import resolve_device
 
 # flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"compile_cache": "", "cost_cal": ""}
+_NOT_PORTED = {"compile_cache": ""}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -147,9 +149,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the metrics-registry snapshot to FILE "
                         "(defaults to results/metrics-train.json when "
                         "--trace-out is set)")
-    # JAX CLI flags of subsystems not ported yet (rejected unless default)
+    p.add_argument("--cost-cal", default="", metavar="FILE|auto",
+                   help="cost-model calibration driving the bucket "
+                        "planner's sharded/replicated/sequential choice: a "
+                        "calibration JSON, or 'auto' to measure this host "
+                        "once and cache the result "
+                        "(repro_torch.core.costmodel.calibrate)")
+    # JAX CLI flag of a subsystem not ported yet (rejected unless default)
     p.add_argument("--compile-cache", default="")
-    p.add_argument("--cost-cal", default="")
     return p
 
 
@@ -158,8 +165,8 @@ def _check_ported(args) -> None:
              if getattr(args, k) != default]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: the compile cache and the cost model are "
-            "not ported to repro_torch yet (see ROADMAP.md)")
+            f"{', '.join(given)}: the compile cache is not ported to "
+            "repro_torch yet (see ROADMAP.md)")
 
 
 def _check_allocation_flags(args) -> None:
@@ -268,6 +275,12 @@ def _run(args, cfg, stop: dict) -> dict:
     if recipe is not None:
         if calib is None:
             calib = [stream.next_batch() for _ in range(args.calib_batches)]
+        cost_model = None
+        if args.cost_cal:
+            from repro_torch.core.costmodel import CostModel, calibrate
+            cal = (calibrate(device=device) if args.cost_cal == "auto"
+                   else args.cost_cal)
+            cost_model = CostModel.coerce(cal)
         journal_dir = args.resume_quant or None
         report = HealthReport()
         _sync(device)
@@ -276,6 +289,7 @@ def _run(args, cfg, stop: dict) -> dict:
             params, cfg, _ = quantize_model(
                 params, cfg, calib, recipe=recipe,
                 report=report, journal_dir=journal_dir,
+                cost_model=cost_model,
                 should_stop=(lambda: stop["flag"]) if journal_dir else None)
         except QuantPreempted as e:
             obs_log.warn("preempt-quant",

@@ -197,7 +197,8 @@ def moe_apply(p: dict, cfg: MoEConfig, x: Tensor, *,
     if pctx is not None and getattr(pctx, "mesh", None) is not None:
         raise NotImplementedError(
             "moe_apply: expert parallelism over a mesh is not ported to "
-            "repro_torch yet (see ROADMAP.md)")
+            "repro_torch yet; it comes with the training-side distribution "
+            "slice (see ROADMAP.md)")
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     topw, topi, aux = _route(p["router"]["w"], xt, cfg)

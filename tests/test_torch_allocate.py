@@ -326,8 +326,9 @@ def _eval_tasks(seed=0):
 def test_evaluate_layer_batch_buckets_chunks_and_single():
     """Every task's Gram reaches its eval bucket (data-free methods'
     too); one call a bucket; one-slice chunks and the single-site core
-    give the same errors; ``[sweep]`` lines in the JAX twin's format;
-    ``mesh=`` raises."""
+    give the same errors; ``[sweep]`` lines in the JAX twin's format; a
+    mesh without a model axis plans every bucket replicated (the sharded
+    sweep: tests/test_torch_distributed.py)."""
     tasks = _eval_tasks()
     specs = list(tb.plan_buckets(tasks, for_eval=True))
     assert len(specs) == 5 and all(s.has_gram for s in specs)
@@ -345,8 +346,7 @@ def test_evaluate_layer_batch_buckets_chunks_and_single():
         one = float(tb.eval_single(t.W, t.H, t.key, spec))
         assert math.isfinite(e) and e > 0
         assert abs(c - e) <= 1e-5 * e and abs(one - e) <= 1e-5 * e, t.path
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.evaluate_layer_batch(tasks, mesh=object())
+    assert tb.evaluate_layer_batch(tasks, mesh=object()) == errs
 
 
 def test_evaluate_layer_batch_matches_jax():

@@ -198,12 +198,21 @@ def test_missing_gram_raises_for_calibrated_methods(method, raises):
 
 
 def test_unported_options_raise():
+    """The compile cache is not ported and raises; a cost-model path with
+    no calibration behind it raises as the JAX twin's; a mesh without a
+    model axis plans the bucket replicated, the meshless leaves bit for
+    bit (the sharded engine: tests/test_torch_distributed.py)."""
     qspec = tmod.QSpec(bits=4, group_size=16, rank=4)
     tasks = _tasks(*_layers(1, 16, 8))
-    for kw in (dict(mesh=object()), dict(cost_model="auto"),
-               dict(compile_cache="dir")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tb.quantize_layer_batch(tasks, qspec, "cloq", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tb.quantize_layer_batch(tasks, qspec, "cloq", compile_cache="dir")
+    with pytest.raises(FileNotFoundError, match="calibrat"):
+        tb.quantize_layer_batch(tasks, qspec, "cloq",
+                                cost_model="no-such-calibration.json")
+    got = tb.quantize_layer_batch(tasks, qspec, "cloq", mesh=object())
+    want = tb.quantize_layer_batch(tasks, qspec, "cloq")
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
 
 
 def _smoke(seed=3):

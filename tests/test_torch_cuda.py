@@ -1059,3 +1059,72 @@ def test_evaluate_layer_batch_on_the_card_matches_the_cpu(cuda):
     got = tb.evaluate_layer_batch(card)
     for t, a, b in zip(cpu, got, want):
         assert abs(a - b) <= 1e-3 * abs(b), (t.path, a, b)
+
+
+def _bucket_diff(got: dict, want: dict, W, H, m: int, g: int) -> dict:
+    """One slice's leaves against another run's, in the terms of the
+    reference's engine oracle: code flips, scales, zeros, ``A @ B^T`` and
+    the calibrated objective ``gram_error`` (relative)."""
+    from repro_torch.core.optq import gram_error
+    from repro_torch.core.quantizer import dequantize_int, unpack_codes
+
+    def recon(lv):
+        codes = unpack_codes(lv["qcodes"], 4, m)
+        return codes, (dequantize_int(codes, lv["scales"], lv["zeros"], g)
+                       + lv["lora_a"] @ lv["lora_b"].T)
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    cg, rg = recon(got)
+    cw, rw = recon(want)
+    eg, ew = gram_error(H, W - rg), gram_error(H, W - rw)
+    return {"code_flips": float((cg != cw).float().mean()),
+            "scales": rel(got["scales"], want["scales"]),
+            "zeros": rel(got["zeros"], want["zeros"]),
+            "lora_ab": rel(got["lora_a"] @ got["lora_b"].T,
+                           want["lora_a"] @ want["lora_b"].T),
+            "gram_error": abs(eg - ew) / ew}
+
+
+def test_sharded_cloq_bucket_on_two_ranks_matches_unsharded(cuda, tmp_path):
+    """2 gloo ranks on ``cuda:0`` run one CLoQ bucket at Qwen3-1.7B's gate
+    shape (2048 x 6144, L = 2; 4-bit, group 64, rank 64) column-sharded;
+    the gathered leaves agree with the unsharded bucket on the card under
+    the engines' limits: scales, zeros and ``gram_error`` within 1e-3,
+    codes within 0.005 or twice what one ulp of the Gram moves on the
+    unsharded bucket, ``A @ B^T`` within 5e-3 or twice that ulp's."""
+    import torch_dist_worker
+    from repro_torch.core import batched as tb
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.modules import QSpec
+    gen = torch.Generator().manual_seed(7)
+    L, m, n, T = 2, 2048, 6144, 1024
+    Ws = torch.randn((L, m, n), generator=gen) * 0.02
+    Xs = torch.randn((L, T, m), generator=gen)
+    Hs = Xs.mT @ Xs
+    qs = dict(bits=4, group_size=64, rank=64)
+    torch.save({"Ws": Ws, "Hs": Hs, "qs": qs}, tmp_path / "bucket.pt")
+    spawn_ranks(torch_dist_worker.cuda_bucket, 2, backend="gloo",
+                device="cuda", args=(str(tmp_path),),
+                store_dir=str(tmp_path))
+    got = torch.load(tmp_path / "sharded.pt")
+    Ws, Hs = Ws.to(cuda), Hs.to(cuda)
+
+    def unsharded(H):
+        tasks = [tb.LayerTask(f"l{i}", None, Ws[i], H[i], tb.task_key(0, i))
+                 for i in range(L)]
+        return tb.quantize_layer_batch(tasks, QSpec(**qs), "cloq")
+
+    want = unsharded(Hs)
+    nudged = unsharded(torch.nextafter(Hs, torch.full_like(Hs,
+                                                           float("inf"))))
+    for i in range(L):
+        g = {k: v.to(cuda) for k, v in got[i].items()}
+        d = _bucket_diff(g, want[i], Ws[i], Hs[i], m, 64)
+        nd = _bucket_diff(nudged[i], want[i], Ws[i], Hs[i], m, 64)
+        assert d["code_flips"] <= max(0.005, 2 * nd["code_flips"]), (d, nd)
+        assert d["lora_ab"] <= max(5e-3, 2 * nd["lora_ab"]), (d, nd)
+        for k in ("scales", "zeros", "gram_error"):
+            assert d[k] <= 1e-3, (k, d)

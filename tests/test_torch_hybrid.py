@@ -184,7 +184,8 @@ def test_cloq_site_lora_matches_jax():
     """One closed-form solve a site against its own Gram: ``A @ B^T`` of
     each site within 1e-4 of JAX's (the factors themselves are defined up
     to the SVD's signs), the two sites' different; a rank above ``n``
-    comes out at ``n`` as JAX's; ``mesh=`` raises."""
+    comes out at ``n`` as JAX's; a sequence of Grams gives the stacked
+    call's adapters (the sharded solve: tests/test_torch_distributed.py)."""
     rng = np.random.default_rng(10)
     X = rng.normal(size=(2, 40, 24)).astype(np.float32)
     Hs = np.einsum("stm,stn->smn", X, X)
@@ -199,9 +200,11 @@ def test_cloq_site_lora_matches_jax():
         np.testing.assert_allclose(got, want, **TOL)
         if rank < 6:
             assert _rel_fro(got[0], got[1]) > 1e-2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcloq.cloq_site_lora(torch.from_numpy(Hs), torch.from_numpy(dW), 4,
-                             mesh=object())
+    A, B = tcloq.cloq_site_lora(torch.from_numpy(Hs), torch.from_numpy(dW),
+                                4)
+    A2, B2 = tcloq.cloq_site_lora(list(torch.from_numpy(Hs)),
+                                  torch.from_numpy(dW), 4)
+    assert torch.equal(A, A2) and torch.equal(B, B2)
 
 
 @pytest.mark.parametrize("engine", ["batched", "sequential"])

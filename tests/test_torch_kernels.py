@@ -567,3 +567,36 @@ def test_fault_check_plants_the_lora_fault():
     import chip_smoke as cs
     assert cs.LORA_EXACT_RTOL == 2.0 ** -8 and cs.LORA_EXACT_ATOL == 1e-3
     assert [K for _, K, _ in cs.LORA_PRECISION] == [14336, 14336]
+
+
+
+def test_fault_check_plants_the_dist_fault():
+    """chip_fault_check.py's planted distributed fault (the Gram trick's
+    all-reduce left out of ``svd_lowrank_topr``, so each rank factorizes
+    its local Gram only) changes exactly one line of ``core/loftq.py``,
+    the line with the engine's one collective, and the cases it runs are
+    ``chip_smoke``'s distributed checks of CLoQ and LoftQ at the
+    reference's ``A @ B^T`` tolerance."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "chip_fault_check", root / "chip_fault_check.py")
+    fc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fc)
+    sound = (root / fc.DIST_SOURCE).read_text()
+    fault = fc.plant_dist_fault(sound)
+    changed = [(a, b) for a, b in zip(sound.splitlines(), fault.splitlines())
+               if a != b]
+    assert len(sound.splitlines()) == len(fault.splitlines())
+    assert len(changed) == 1 and changed[0] == (fc.DIST_SOUND,
+                                                fc.DIST_FAULT)
+    assert "all_reduce" not in fault.split("def svd_lowrank_topr")[1] \
+        .split("def ")[0].replace("all-reduced", "")
+    with pytest.raises(ValueError):
+        fc.plant_dist_fault(fault)
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    assert cs.DIST_METHODS == ("cloq", "loftq")
+    assert cs.DIST_LORA_REL == 5e-3 and cs.DIST_RANKS == 2

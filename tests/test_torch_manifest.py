@@ -137,12 +137,18 @@ def test_manifest_legacy_form_and_unported_arguments():
     with pytest.raises(ValueError, match="not both"):
         tp.quantization_manifest(cfg, "cloq",
                                  recipe=tr.QuantRecipe.single("cloq", q))
-    for kw in (dict(mesh=object()), dict(cost_model=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tp.quantization_manifest(cfg, recipe=tr.QuantRecipe(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.quantized_param_shapes(cfg, recipe=tr.QuantRecipe(),
-                                  mesh=object())
+    # a mesh without a model axis plans every bucket replicated; a cost
+    # model must be one (or its calibration); the sharded manifest is held
+    # against JAX's in tests/test_torch_distributed.py
+    assert tp.quantization_manifest(cfg, recipe=tr.QuantRecipe(),
+                                    mesh=object()) == \
+        tp.quantization_manifest(cfg, recipe=tr.QuantRecipe())
+    with pytest.raises(TypeError, match="CostModel"):
+        tp.quantization_manifest(cfg, recipe=tr.QuantRecipe(),
+                                 cost_model=object())
+    _, man = tp.quantized_param_shapes(cfg, recipe=tr.QuantRecipe(),
+                                       mesh=object(), with_manifest=True)
+    assert man == tp.quantization_manifest(cfg, recipe=tr.QuantRecipe())
 
 
 def _site_bytes_of(params: dict, cfg, recipe) -> int:

@@ -247,15 +247,17 @@ def test_quantize_model_sequential_matches_jax():
 
 
 def test_quantize_model_rejects_unported():
-    """What is still not ported raises before calibration: the mesh, the
-    cost model and the compile cache; a journal needs the batched engine.
-    A recipe that skips every site leaves the model dense."""
+    """What is still not ported raises before calibration: the compile
+    cache; the mesh, the cost model and a journal need the batched engine,
+    as in the JAX twin.  A recipe that skips every site leaves the model
+    dense."""
     cfg_j, cfg_t, pj, pt = _model()
     _, ct = _calib(cfg_t.vocab)
-    for kw in (dict(mesh=object()), dict(cost_model="auto"),
-               dict(compile_cache="cache")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tp.quantize_model(pt, cfg_t, ct, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tp.quantize_model(pt, cfg_t, ct, compile_cache="cache")
+    for kw in (dict(mesh=object()), dict(cost_model="auto")):
+        with pytest.raises(ValueError, match="batched"):
+            tp.quantize_model(pt, cfg_t, ct, engine="sequential", **kw)
     with pytest.raises(ValueError, match="batched"):
         tp.quantize_model(pt, cfg_t, ct, engine="sequential",
                           journal_dir="j")
