@@ -46,11 +46,20 @@ A fourth copy, ``build/fault_copy_dist/``, holds a fifth, in Python:
   held against the unsharded batched engine (``chip_smoke.dist_compare``:
   ``A @ B^T``, the calibrated objective, codes, scales, zeros).
 
+A fifth copy, ``build/fault_copy_sharded/``, holds a sixth, in Python:
+
+* ``models/modules.py``: a sharded linear's whole LoRA factor (``lora_a``
+  of a column linear, ``lora_b`` of a row one) no longer has its gradient
+  summed over the model axis, so each rank keeps its part.  The cases are
+  ``chip_smoke.py``'s ``train_sharded`` checks (4 gloo ranks on the card,
+  a (data 2, model 2) mesh, Qwen3-1.7B at full width against the
+  unsharded step).
+
 The attention and gram cases run on the real sources and on the first
 copy, the logits cases on the real sources and on the second, the
 precision cases on the real sources and on the third, the distributed
-cases on the real sources and on the fourth, each tree in its own
-process.  One JSON line a case: tree, kernel, shape, the
+cases on the real sources and on the fourth, the sharded-step cases on
+the real sources and on the fifth, each tree in its own process.  One JSON line a case: tree, kernel, shape, the
 plan's split or route, whether the checks pass, the error and the
 reference's largest value (for the logits, the limit).
 
@@ -59,7 +68,8 @@ fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, the gram
 check fails on the copy in every case with more than one token stage,
 the logits check fails on the second copy in every case, the precision
 check on the third in every case, and the distributed check on the
-fourth for both methods on ``A @ B^T``; the last line says which.
+fourth for both methods on ``A @ B^T``, and the sharded step's check on
+the fifth on the LoRA gradients; the last line says which.
 """
 from __future__ import annotations
 
@@ -93,6 +103,12 @@ DIST_SOURCE = Path("src/repro_torch/core/loftq.py")
 # the Gram trick's one collective; the fault leaves it out
 DIST_SOUND = "    G = all_reduce_sum(G.contiguous(), group)"
 DIST_FAULT = "    G = G.contiguous()"
+SHARDED_COPY = ROOT / "build" / "fault_copy_sharded"
+SHARDED_SOURCE = Path("src/repro_torch/models/modules.py")
+# the model-axis sum of a sharded linear's whole LoRA factor's gradient;
+# the fault leaves it out
+SHARDED_SOUND = "        local[other] = parallel.copy_to(local[other], group)"
+SHARDED_FAULT = "        local[other] = local[other]"
 LORA_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul_lora.cu")
 # the wgmma route's fold reads a group's scales; the fault rounds them to
 # bf16 first
@@ -135,6 +151,12 @@ def plant_lora_fault(text: str) -> str:
 def plant_dist_fault(text: str) -> str:
     """``loftq.py`` with the Gram trick's all-reduce left out."""
     return _plant(text, DIST_SOUND, DIST_FAULT, DIST_SOURCE)
+
+
+def plant_sharded_fault(text: str) -> str:
+    """``models/modules.py`` with the LoRA factor's model-axis gradient
+    sum left out."""
+    return _plant(text, SHARDED_SOUND, SHARDED_FAULT, SHARDED_SOURCE)
 
 
 def flash_cases(torch, cs, dev) -> list[dict]:
@@ -240,6 +262,20 @@ def dist_cases(torch, cs, dev, tree: Path) -> list[dict]:
     return out
 
 
+def sharded_cases(torch, cs, dev, tree: Path) -> list[dict]:
+    """``chip_smoke.py``'s ``train_sharded`` checks on the sources
+    imported, returned rather than raised."""
+    out = cs.train_sharded_phase(torch, dev, tree / "build" /
+                                 "fault_sharded_work", hold=False)
+    return [{"kernel": "train_sharded", "passes": not out["failed"],
+             "failed_checks": sorted({
+                 f"{f[0]}:{f[1]}" if f[0] in ("tp", "seq") else f[0]
+                 for f in out["failed"]}),
+             "grads_worst": out["grads_worst"],
+             "loss_rel": out["tp"]["loss_rel"],
+             "grad_norm_rel": out["tp"]["grad_norm_rel"]}]
+
+
 def run_cases(tree: Path, which: str) -> list[dict]:
     """The attention and gram cases (``which`` "kernels"), the logits
     cases ("logits") or the precision cases ("lora") on the sources under
@@ -256,6 +292,8 @@ def run_cases(tree: Path, which: str) -> list[dict]:
         return lora_cases(torch, cs, dev)
     if which == "dist":
         return dist_cases(torch, cs, dev, tree)
+    if which == "sharded":
+        return sharded_cases(torch, cs, dev, tree)
     return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
 
 
@@ -276,7 +314,8 @@ def main() -> int:
         return 1
     if not all((ROOT / k).is_file() for k in (KERNEL, GRAM_KERNEL,
                                                DQ_KERNEL, LORA_KERNEL,
-                                               DIST_SOURCE)):
+                                               DIST_SOURCE,
+                                               SHARDED_SOURCE)):
         print(f"chip_fault_check: no {KERNEL}, {GRAM_KERNEL}, {DQ_KERNEL} "
               f"or {LORA_KERNEL} beside {__file__}", file=sys.stderr)
         return 1
@@ -293,9 +332,13 @@ def main() -> int:
     _copy(DIST_COPY)
     (DIST_COPY / DIST_SOURCE).write_text(
         plant_dist_fault((ROOT / DIST_SOURCE).read_text()))
+    _copy(SHARDED_COPY)
+    (SHARDED_COPY / SHARDED_SOURCE).write_text(
+        plant_sharded_fault((ROOT / SHARDED_SOURCE).read_text()))
     built = ROOT / "build" / "repro_torch"
     if built.is_dir():        # the same CUDA sources: reuse their build
-        shutil.copytree(built, DIST_COPY / "build" / "repro_torch")
+        for copy in (DIST_COPY, SHARDED_COPY):
+            shutil.copytree(built, copy / "build" / "repro_torch")
     rows = {}
     for name, tree, which in (("sources", ROOT, "kernels"),
                               ("fault", COPY, "kernels"),
@@ -304,7 +347,9 @@ def main() -> int:
                               ("sources", ROOT, "lora"),
                               ("fault_lora", LORA_COPY, "lora"),
                               ("sources", ROOT, "dist"),
-                              ("fault_dist", DIST_COPY, "dist")):
+                              ("fault_dist", DIST_COPY, "dist"),
+                              ("sources", ROOT, "sharded"),
+                              ("fault_sharded", SHARDED_COPY, "sharded")):
         proc = subprocess.run(
             [sys.executable, __file__, "--tree", str(tree), which],
             capture_output=True, text=True, cwd=ROOT, timeout=900)
@@ -329,13 +374,16 @@ def main() -> int:
         not r["passes"] for r in rows["fault_lora"])
     dist_seen = bool(rows["fault_dist"]) and all(
         "lora_ab" in r["failed_fields"] for r in rows["fault_dist"])
+    sharded_seen = bool(rows["fault_sharded"]) and all(
+        "grad" in r["failed_checks"] for r in rows["fault_sharded"])
     print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
                       "gram_fault_caught": gram_seen,
                       "dequant_fault_caught_by_logits": dequant_seen,
                       "lora_fault_caught_by_precision": lora_seen,
-                      "dist_fault_caught_on_lora_ab": dist_seen}))
+                      "dist_fault_caught_on_lora_ab": dist_seen,
+                      "sharded_fault_caught_on_grads": sharded_seen}))
     return 0 if (sound and flash_seen and gram_seen and dequant_seen
-                 and lora_seen and dist_seen) else 1
+                 and lora_seen and dist_seen and sharded_seen) else 1
 
 
 if __name__ == "__main__":

@@ -134,13 +134,12 @@ one JSON line each:
    difference within ``logits_limit`` (the JAX package's bf16 kernel
    tolerance, grown by the square root of the kernel calls a decode step
    makes, on the logits' own scale).
-13. ssm — Mamba2-370M (all 48 layers, d_model 1024, state 128) and
-   Zamba2-7B (d_model 3584, the shared attention + MLP block with d_ff
-   14336 after every 6 Mamba layers), ``--hybrid-layers`` deep (15 by
-   default, cut from 81: two shared-block sites and 3 remainder layers,
-   the published 81 = 13 x 6 + 3's tail), at full width, bf16: the train
-   CLI's path (CLoQ 4-bit g64 r64, calibration 2 x 8 x 128, 3 steps at 8
-   x 128), the same steps on the plain path from the same quantized params
+13. ssm — Mamba2-370M (24 of its 48 layers, d_model 1024, state 128)
+   and Zamba2-7B (d_model 3584, the shared attention + MLP block with
+   d_ff 14336 after every 6 Mamba layers), ``--hybrid-layers`` deep (12
+   by default, cut from 81: two shared-block sites), at full width, bf16:
+   the train CLI's path (CLoQ 4-bit g64 r64, calibration 2 x 8 x 128, 3
+   steps at 8 x 128), the same steps on the plain path from the same quantized params
    and batches, then the serve CLI's route for these families, the
    fixed-slot loop (batch 4, 8 requests x 16 tokens, cache 128), eager and
    captured.  Quantize seconds, buckets and chunks, memory and host
@@ -161,7 +160,7 @@ one JSON line each:
 14. encdec — Seamless-M4T-medium at full width and full depth (12 encoder
    and 12 decoder layers, d_model 1024, vocab 256206, bf16) and
    Pixtral-12B at full width (d_model 5120, GQA 32/8, d_ff 14336, vocab
-   131072), ``--vlm-layers`` deep (2 by default, cut from 40): the train
+   131072), ``--vlm-layers`` deep (1 by default, cut from 40): the train
    CLI's path (CLoQ 4-bit g64 r64, calibration 2 x 8 x 128 with 32
    encoder frames or 256 patches a sequence, 3 steps at 8 x 128), the
    same steps on the plain path from the same quantized params and
@@ -182,7 +181,7 @@ one JSON line each:
    decode step's ``dequant_matmul`` 9 a seamless decoder layer (7 a
    Pixtral layer), ``dequant_matmul_lora`` 2 a seamless layer (its cross
    k/v over all of enc_out), ``flash_attention`` 1 a layer.
-15. allocate — Qwen3-1.7B at full width, ``ALLOC_LAYERS`` (2) deep, the
+15. allocate — Qwen3-1.7B at full width, ``ALLOC_LAYERS`` (1) deep, the
    only mixed-bit model: the train CLI's ``--auto-allocate`` path (CLoQ,
    base 4-bit g64 r64, the sweep over 2/3/4 bits x ranks 0/16/64,
    calibration 2 x 8 x 128 twice, 2 steps at 8 x 128) under a
@@ -225,9 +224,9 @@ segment's blocks).
 
 ``--moe-layers`` at another depth than 2 (``--moe-layers 16``: the
 full-depth check) runs the device and build phases and the moe phase
-alone; ``--hybrid-layers`` at another depth than 15 (at least 12;
+alone; ``--hybrid-layers`` at another depth than 12 (at least 12;
 ``--hybrid-layers 81``: the full-depth check) the device and build phases
-and the ssm phase alone; ``--vlm-layers`` at another depth than 2
+and the ssm phase alone; ``--vlm-layers`` at another depth than 1
 (``--vlm-layers 40``: the full-depth check) the device and build phases
 and Pixtral-12B alone by RTN with no calibration batch (at 40 layers
 CLoQ's Grams would not fit beside the weights); ``--only PHASE`` the
@@ -2540,8 +2539,8 @@ def configs_phase(torch, dev) -> dict:
 # slice 9: the SSM and hybrid families at full width
 # ---------------------------------------------------------------------------
 
-HYBRID_LAYERS = 15      # Zamba2-7B's 81 cut: 2 shared-block sites + 3 layers
-MAMBA_LAYERS = 48       # Mamba2-370M's full depth
+HYBRID_LAYERS = 12      # Zamba2-7B's 81 cut: 2 shared-block sites
+MAMBA_LAYERS = 24       # Mamba2-370M's 48 cut (the script's time)
 SSM_STEPS = 3
 SITE_SLACK = 1e-4       # own-Gram objective against the other site's adapter
 SITE_DIFF = 1e-2        # least relative difference of two sites' A @ B^T
@@ -2710,8 +2709,8 @@ def ssm_run(torch, dev, arch: str, layers: int) -> dict:
 
 
 def ssm_phase(torch, dev, hybrid_layers: int) -> dict:
-    """Mamba2-370M (all 48 layers) and Zamba2-7B (``hybrid_layers``) deep
-    through :func:`ssm_run`."""
+    """Mamba2-370M (``MAMBA_LAYERS``) and Zamba2-7B (``hybrid_layers``)
+    deep through :func:`ssm_run`."""
     out = {}
     for arch, layers in (("mamba2-370m", MAMBA_LAYERS),
                          ("zamba2-7b", hybrid_layers)):
@@ -2724,7 +2723,7 @@ def ssm_phase(torch, dev, hybrid_layers: int) -> dict:
 # slice 11: the enc-dec family and the vision prefix at full width
 # ---------------------------------------------------------------------------
 
-VLM_LAYERS = 2          # Pixtral-12B's 40 cut: the script's time, and at 40
+VLM_LAYERS = 1          # Pixtral-12B's 40 cut: the script's time, and at 40
                         # layers CLoQ's f32 Grams (56.6 GB) and the bf16
                         # weights (24.5 GB) do not fit one card together
 ENCDEC_STEPS = 3
@@ -2942,7 +2941,7 @@ def encdec_phase(torch, dev, vlm_layers: int) -> dict:
 # slice 10: calibrated bit allocation, the only mixed-bit model
 # ---------------------------------------------------------------------------
 
-ALLOC_LAYERS = 2        # Qwen3-1.7B's 28 cut: the sweep is ~9 quantizes
+ALLOC_LAYERS = 1        # Qwen3-1.7B's 28 cut: the sweep is ~9 quantizes
 ALLOC_STEPS = 2
 ALLOC_CKPT = ROOT / "build" / "chip_smoke" / "alloc_ckpt"
 ALLOC_OBJ_LIMIT = REL_FRO   # the engines phase's objective limit (1e-3)
@@ -3826,6 +3825,531 @@ def distributed_phase(torch, dev, eng: dict | None = None) -> dict:
     return out
 
 
+SHARDED_DIR = ROOT / "build" / "chip_smoke" / "train_sharded"
+SHARDED_MESH = (2, 2)        # (data, model): 4 gloo ranks sharing cuda:0
+SHARDED_LAYERS = 2           # Qwen3-1.7B's 28 cut: the script's time
+SHARDED_STEPS = 3
+SHARDED_LR = 3e-4            # the train CLI's default
+SHARDED_CALIB = 4            # calibration batches of 8 x 128
+SHARDED_QSPEC = dict(bits=4, group_size=64, rank=64)
+# step 1's gradients, sharded against unsharded (relative Frobenius): a
+# row-parallel linear rounds each rank's bf16 partial sum once more
+# before the all-reduce, 2^-8 of it at most; a step's gradient crosses 2
+# row linears a layer forward and again backward over 2 layers, 8
+# crossings, so at most 8 x 2^-8 if every one added up; a lost reduction
+# over "model" leaves each rank about half of a gradient
+SHARDED_GRAD_REL = 8 * 2.0 ** -8
+SHARDED_NORM_REL = 1e-2      # step 1's gradient norm
+SHARDED_DECODE = (4, 8, 128)     # batch, tokens, cache of the decode
+SHARDED_MOE_LAYERS = 2       # OLMoE-1B-7B's 16 cut
+SHARDED_MOE_STEPS = 2
+SHARDED_MOE_CF = 8.0         # nothing drops (the JAX EP test's setting)
+
+
+def predicted_collectives(n_layers: int, seq_shard: bool) -> dict:
+    """Collective calls of one ``trainable="lora"`` step a rank of a dense
+    model on the (data 2, model 2) mesh under ``remat="full"`` (each block
+    run twice forward), from the layout table of ``models/parallel.py`` and
+    ``models/modules.py``.  Once a step: the vocab-parallel embedding's
+    all-reduce, the cross-entropy's MAX and SUM, the loss's sum over
+    "data", the head input's gradient, the gradients' sum over "data", the
+    clip's norm over "model".  A block forward: one all-reduce after each
+    row linear (o, down), or under ``seq_shard`` one all-gather of S
+    before each sub-layer and one reduce-scatter after each row linear.
+    A block backward: the input gradient of each column linear whose input
+    needs one (q/k/v/gate/up; layer 0's q/k/v input does not, the
+    embedding being frozen), the gradient of each linear's whole LoRA
+    factor (5 ``lora_a``, 2 ``lora_b``), and under ``seq_shard`` the
+    all-gather of each reduce-scatter's gradient and the final norm's
+    gather."""
+    ar = 1 + 2 + 1 + 1 + 1 + 1
+    ag = rs = 0
+    for layer in range(n_layers):
+        ar += (2 if layer == 0 else 5) + 7
+        if seq_shard:
+            ag += 2 * 2 + 2
+            rs += 2 * 2
+        else:
+            ar += 2 * 2
+    ag += 1 if seq_shard else 0
+    return {"all_reduce": ar, "all_gather": ag, "reduce_scatter": rs}
+
+
+def _rel_fro(torch, a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _sharded_rank(rank: int, work: str) -> None:
+    """One rank of the ``train_sharded`` phase (4 ranks on ``cuda:0`` over
+    gloo, a (data 2, model 2) mesh).  Qwen3-1.7B: restore the parent's
+    quantized state with ``shardings=named(state_pspecs(...))`` (shapes on
+    the meta device), then for ``seq_shard`` off and on: step 1's
+    gradients (the rank's share, then summed over "data"), ``ef_psum_int8``
+    of the share over "data" against the exact mean, 3 steps (metrics,
+    collectives, launches each), the step-1 leaves; the sharded decode of
+    the parent's trained params.  OLMoE-1B-7B: 2 steps expert-parallel at
+    ``SHARDED_MOE_CF``, then the dropped share of one forward at the
+    config's own capacity factor.  Writes ``rank<r>.json`` and, on rank 0,
+    the gathered tensors ``rank0.pt``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core.pipeline import quantized_param_shapes
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh, pcontext_for
+    from repro_torch.launch.shardings import param_specs
+    from repro_torch.models import moe, parallel
+    from repro_torch.models.transformer import init_decode_cache, loss_fn
+    from repro_torch.optim import ef_psum_int8, merge_params, tree_map
+    from repro_torch.utils import tree_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(work)
+    inp = torch.load(work / "inputs.pt", weights_only=False)
+    dev = torch.device(inp["device"])
+    mesh = make_local_mesh(*SHARDED_MESH, device_type=dev.type)
+    pctx = pcontext_for(mesh)
+    dgroup = parallel.axis_group(mesh, "data")
+    out: dict = {"rank": rank, "coords": [mesh.get_local_rank("data"),
+                                          mesh.get_local_rank("model")],
+                 "runs": {}}
+    keep: dict = {}
+
+    def sharded_state(cfg, ocfg, name):
+        shapes = steps.build_state(quantized_param_shapes(cfg), ocfg)
+        t0 = time.perf_counter()
+        state, _ = ckpt.restore_tree(
+            str(work / name), device=dev,
+            shardings=steps.named(steps.state_pspecs(shapes, mesh), mesh))
+        return state, time.perf_counter() - t0
+
+    def gathered(tree):
+        return {k: v.detach().cpu() for k, v in
+                tree_paths(parallel.gather_tree(tree)).items()}
+
+    cfg, ocfg = inp["cfg"], inp["ocfg"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    state0, out["restore_s"] = sharded_state(cfg, ocfg, "state")
+    out["routes"] = _shard_routes(torch, dev, parallel.localize(
+        merge_params(state0["train"], state0["frozen"])))
+    for seq in (False, True):
+        run: dict = {}
+        c = dataclasses.replace(cfg, seq_shard=seq)
+        state = state0                  # the step returns new tensors
+        loc = parallel.localize(state)
+        _, share = steps.value_and_grad(c, pctx, state, inp["batches"][0],
+                                        sync=False)
+        grads = steps.sum_over_data(share, pctx)
+        # int8 error feedback over "data" on the step's real LoRA grads
+        lora = {k: v for k, v in tree_paths(share).items() if v.numel()}
+        synced, res = ef_psum_int8(
+            lora, tree_map(torch.zeros_like, lora), dgroup)
+        exact = tree_paths(grads)
+        worst = {"err_lsb": 0.0, "res_lsb": 0.0, "leaves": len(lora)}
+        for k, g in lora.items():
+            s_, r_, ex = synced[k], res[k], exact[k]
+            lsb = parallel.all_reduce_sum(
+                g.float().abs().max().reshape(1), dgroup,
+                op=dist.ReduceOp.MAX)[0] / 127
+            mean = ex.float() / parallel.axis_size(mesh, "data")
+            worst["err_lsb"] = max(worst["err_lsb"], float(
+                (s_ - mean).abs().max() / lsb))
+            worst["res_lsb"] = max(worst["res_lsb"], float(
+                r_.abs().max() / lsb))
+        run["ef"] = worst
+        if not seq:
+            keep["grads"] = gathered(parallel.delocalize(grads,
+                                                         loc["train"]))
+        step = steps.make_train_step(c, ocfg, pctx)
+        run.update(metrics=[], collectives=[], launches=[], step_s=[])
+        for i, b in enumerate(inp["batches"]):
+            parallel.reset_collective_stats()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            run["step_s"].append(time.perf_counter() - t0)
+            run["metrics"].append({k: float(v) for k, v in m.items()})
+            run["collectives"].append(parallel.collective_stats())
+            run["launches"].append(ops.launch_counts())
+            if i == 0:
+                keep[f"leaves.{int(seq)}"] = gathered(state["train"])
+        if not seq:
+            run["sharded_train_leaves"] = sorted(
+                k for k, v in tree_paths(state["train"]).items()
+                if any(p.is_shard() for p in v.placements))
+        out["runs"]["seq" if seq else "tp"] = run
+        del state, loc, share, grads, synced, res
+    # the sharded decode of the parent's trained params (its trained
+    # adapters beside the frozen base), fed the parent's tokens
+    B, n_tok, T = SHARDED_DECODE
+    shapes = steps.build_state(quantized_param_shapes(cfg), ocfg)["train"]
+    trained, _ = ckpt.restore_tree(
+        str(work / "trained"), device=dev,
+        shardings=steps.named(param_specs(shapes, mesh), mesh))
+    params = merge_params(trained, state0["frozen"])
+    cache = init_decode_cache(cfg, B, T, device=dev, pctx=pctx)
+    dec = steps.make_decode_step(cfg, pctx)
+    ops.reset_launch_counts()
+    parallel.reset_collective_stats()
+    logits = []
+    with torch.no_grad():
+        for tok in inp["decode_tokens"]:
+            lg, cache = dec(params, cache, tok.to(dev))
+            logits.append(lg.float().cpu())
+    out["decode"] = {"launches": ops.launch_counts(),
+                     "collectives": parallel.collective_stats(),
+                     "cache_local": list(parallel.local_of(
+                         cache["k"]).shape)}
+    keep["decode_logits"] = torch.stack(logits)
+    del params, cache, trained, state0
+    out["qwen_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    # OLMoE-1B-7B, expert parallel over "model"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mcfg, mocfg = inp["moe_cfg"], inp["moe_ocfg"]
+    c8 = dataclasses.replace(mcfg, capacity_factor=SHARDED_MOE_CF)
+    state, _ = sharded_state(c8, mocfg, "moe_state")
+    step = steps.make_train_step(c8, mocfg, pctx)
+    mo: dict = {"metrics": [], "launches": [], "step_s": [],
+                "collectives": []}
+    for b in inp["moe_batches"]:
+        parallel.reset_collective_stats()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        mo["step_s"].append(time.perf_counter() - t0)
+        mo["metrics"].append({k: float(v) for k, v in m.items()})
+        mo["launches"].append(ops.launch_counts())
+        mo["collectives"].append(parallel.collective_stats())
+    mo["local_experts"] = int(parallel.local_of(
+        state["frozen"]["blocks"]["moe"]["gate"]["qcodes"]).shape[1])
+    b = inp["moe_batches"][0]
+    batch = {k: v.to(dev) for k, v in shard_batch(
+        b, steps.batch_pspecs(mcfg, b, pctx.data_axes), mesh).items()}
+    with torch.no_grad(), moe.record_drops() as drops:
+        loss_fn(merge_params(state["train"], state["frozen"]), mcfg, batch,
+                pctx=pctx)
+    tot = torch.stack([sum(d for d, _ in drops), sum(n for _, n in drops)]
+                      ).double()
+    dist.all_reduce(tot)
+    mo["dropped_own_cf"] = [float(tot[0]), float(tot[1])]
+    mo["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["moe"] = mo
+    del state
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    if rank == 0:
+        torch.save(keep, work / "rank0.pt")
+
+
+def _shard_routes(torch, dev, params: dict) -> dict:
+    """The routes the kernels take on a rank's shards of layer 0 (the
+    fused kernel at a data rank's 4 x 128 rows, the decode kernel at its 2
+    rows of the decode batch, the decode attention with its heads)."""
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.utils import get_path, tree_paths
+    lp = layer_params(params["blocks"], 0)
+    bf = torch.bfloat16
+    routes = {}
+    for path, leaf in tree_paths(lp).items():
+        if not path.endswith(".qcodes"):
+            continue
+        node = get_path(lp, path[:-len(".qcodes")])
+        K = node["lora_a"].shape[0]
+        g = K // node["scales"].shape[0]
+        x2 = torch.zeros((2, K), dtype=bf, device=dev)
+        xt = torch.zeros((TRAIN_TOKENS // 2, K), dtype=bf, device=dev)
+        a, b = node["lora_a"].to(bf), node["lora_b"].to(bf)
+        routes[path[:-len(".qcodes")]] = [
+            list(leaf.shape),
+            dq.plan_for(x2, leaf, node["scales"], node["zeros"], g).route,
+            dq.lora_plan_for(xt, leaf, node["scales"], node["zeros"], a, b,
+                             g).route]
+    hq = lp["attn"]["q"]["qcodes"].shape[-1] // 128
+    hkv = lp["attn"]["k"]["qcodes"].shape[-1] // 128
+    q = torch.zeros((2, 1, hq, 128), dtype=bf, device=dev).transpose(1, 2)
+    kv = torch.zeros((2, SHARDED_DECODE[2], hkv, 128), dtype=bf,
+                     device=dev).transpose(1, 2)
+    routes["flash_attention"] = [[2, hq, hkv], fa.plan_for(q, kv, kv).route]
+    return routes
+
+
+def _sharded_reference(torch, dev, work: Path) -> dict:
+    """The parent's side: Qwen3-1.7B quantized once (CLoQ 4/64/64,
+    calibration ``SHARDED_CALIB`` x 8 x 128, the batched engine) and saved
+    as a train state; step 1's gradients and 3 steps unsharded, the
+    trained params saved, their unsharded kernel decode; OLMoE-1B-7B
+    quantized by RTN and saved, 2 steps at ``SHARDED_MOE_CF`` and the
+    dropped share of one forward at its own capacity factor.  Writes the
+    ranks' ``inputs.pt``."""
+    import dataclasses
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.parallel import LOCAL
+    from repro_torch.models.transformer import (init_decode_cache,
+                                                init_params, loss_fn)
+    from repro_torch.optim import OptConfig, merge_params
+    from repro_torch.utils import tree_paths
+    ref: dict = {}
+
+    def quantized(arch, layers, method, calib_n):
+        cfg = get_config(arch, n_layers=layers)
+        params = init_params(cfg, seed=0, device=dev)
+        stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                        global_batch=8, seed=0))
+        calib = [stream.next_batch() for _ in range(calib_n)]
+        t0 = time.perf_counter()
+        qp, qcfg, _ = quantize_model(
+            params, cfg, calib, engine="batched", recipe=QuantRecipe.single(
+                method, QSpec(**SHARDED_QSPEC)))
+        torch.cuda.synchronize()
+        qcfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+            qcfg.quant, use_kernel=True))
+        batches = [stream.next_batch() for _ in range(SHARDED_STEPS)]
+        return qp, qcfg, batches, time.perf_counter() - t0
+
+    qp, cfg, batches, ref["quantize_s"] = quantized(
+        "qwen3-1.7b", SHARDED_LAYERS, "cloq", SHARDED_CALIB)
+    ref["routes"] = _kernel_routes(torch, dev, qp, cfg)
+    ocfg = OptConfig(lr=SHARDED_LR, trainable="lora",
+                     total_steps=SHARDED_STEPS, schedule="const")
+    state = steps.build_state(qp, ocfg)
+    ckpt.save_tree(state, str(work / "state"), 1)
+    _, grads = steps.value_and_grad(cfg, LOCAL, state, batches[0])
+    ref["grads"] = {k: v.detach().cpu() for k, v in tree_paths(grads).items()}
+    step = steps.make_train_step(cfg, ocfg, LOCAL)
+    ref["metrics"], ref["step_s"] = [], []
+    ops.reset_launch_counts()
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ref["step_s"].append(time.perf_counter() - t0)
+        ref["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            ref["leaves"] = {k: v.detach().cpu() for k, v in
+                             tree_paths(state["train"]).items()}
+    ref["launches"] = ops.launch_counts()
+    ckpt.save_tree(state["train"], str(work / "trained"), 1)
+    trained = merge_params(state["train"], state["frozen"])
+    B, n_tok, T = SHARDED_DECODE
+    cache = init_decode_cache(cfg, B, T, device=dev)
+    dec = steps.make_decode_step(cfg, LOCAL)
+    tok = torch.tensor([[3], [17], [101], [400]], device=dev)
+    tokens, logits = [], []
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for _ in range(n_tok):
+            tokens.append(tok.cpu())
+            lg, cache = dec(trained, cache, tok)
+            logits.append(lg.float().cpu())
+            tok = lg.argmax(-1, keepdim=True)
+    ref["decode_launches"] = ops.launch_counts()
+    ref["decode_logits"] = torch.stack(logits)
+    del qp, state, grads, trained, cache
+    torch.cuda.empty_cache()
+    mq, mcfg, mbatches, ref["moe_quantize_s"] = quantized(
+        "olmoe-1b-7b", SHARDED_MOE_LAYERS, "rtn", 1)
+    mbatches = mbatches[:SHARDED_MOE_STEPS]
+    mocfg = OptConfig(lr=SHARDED_LR, trainable="lora",
+                      total_steps=SHARDED_MOE_STEPS, schedule="const")
+    mstate = steps.build_state(mq, mocfg)
+    ckpt.save_tree(mstate, str(work / "moe_state"), 1)
+    c8 = dataclasses.replace(mcfg, capacity_factor=SHARDED_MOE_CF)
+    step = steps.make_train_step(c8, mocfg, LOCAL)
+    ref["moe_losses"] = []
+    st = mstate
+    for b in mbatches:
+        st, m = step(st, b)
+        ref["moe_losses"].append(float(m["loss"]))
+    with torch.no_grad(), moe.record_drops() as drops:
+        b = {k: v.to(dev) for k, v in mbatches[0].items()}
+        loss_fn(merge_params(st["train"], st["frozen"]), mcfg, b)
+    ref["moe_dropped_own_cf"] = [float(sum(d for d, _ in drops)),
+                                 float(sum(n for _, n in drops))]
+    del mq, mstate, st
+    torch.cuda.empty_cache()
+    torch.save({"device": str(dev), "cfg": cfg, "ocfg": ocfg,
+                "batches": batches, "decode_tokens": tokens,
+                "moe_cfg": mcfg, "moe_ocfg": mocfg,
+                "moe_batches": mbatches}, work / "inputs.pt")
+    ref["cfg"] = cfg
+    return ref
+
+
+def train_sharded_phase(torch, dev, work: Path = SHARDED_DIR,
+                        hold: bool = True) -> dict:
+    """The sharded fine-tuning step and decode on a (data 2, model 2) mesh
+    of 4 gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on one
+    device): :func:`_sharded_reference` in this process, then
+    :func:`_sharded_rank` in the ranks.  Held: each step's loss within
+    ``LOSS_LIMIT`` of the unsharded one, with and without ``seq_shard``;
+    step 1's gradient norm within ``SHARDED_NORM_REL`` and every gathered
+    LoRA gradient within ``SHARDED_GRAD_REL`` (relative Frobenius); the
+    leaves after step 1 within 2 x lr + one bf16 ulp (2^-7 of the
+    largest) of the unsharded (AdamW's first step moves an element by lr x
+    sign(g), each side rounds to bf16); the metrics equal on every rank;
+    ``ef_psum_int8`` within 2 LSB of the exact mean and its residual
+    within 1 LSB (the JAX test's bounds); the decode's logits within
+    ``logits_limit`` of the unsharded kernel decode fed the same tokens
+    (its greedy ones: a near-tie must not fork the two); OLMoE's
+    losses within ``LOSS_LIMIT`` of the unsharded port; the collectives
+    a step equal to :func:`predicted_collectives`; the fused kernel
+    launched on the training shards, ``dequant_matmul`` and
+    ``flash_attention`` on the decode's.  No speed-up is measurable: the
+    ranks share one card and talk through the host.  ``work``: the
+    directory of the checkpoints and the ranks' files; ``hold=False``
+    returns the failures in ``failed`` instead of raising
+    (``chip_fault_check.py``)."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ref = _sharded_reference(torch, dev, work)
+    t_ranks = time.perf_counter()
+    n_ranks = SHARDED_MESH[0] * SHARDED_MESH[1]
+    spawn_ranks(_sharded_rank, n_ranks, backend="gloo", device=dev.type,
+                args=(str(work),), store_dir=str(work))
+    ranks_s = time.perf_counter() - t_ranks
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(n_ranks)]
+    got = torch.load(work / "rank0.pt")
+    cfg, failed = ref["cfg"], []
+    r0 = ranks[0]
+    out: dict = {"mesh": {"data": SHARDED_MESH[0], "model": SHARDED_MESH[1]},
+                 "backend": "gloo", "device": "cuda:0 (all 4 ranks)",
+                 "layers": SHARDED_LAYERS, "quantize_s": ref["quantize_s"],
+                 "unsharded_step_s": ref["step_s"], "ranks_s": ranks_s,
+                 "reference_s": t_ranks - t_phase,
+                 "restore_s": [r["restore_s"] for r in ranks]}
+    # losses, norms, metrics on every rank
+    for name, run in r0["runs"].items():
+        losses = [m["loss"] for m in run["metrics"]]
+        want = [m["loss"] for m in ref["metrics"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        norm = abs(run["metrics"][0]["grad_norm"] -
+                   ref["metrics"][0]["grad_norm"]) / \
+            ref["metrics"][0]["grad_norm"]
+        same = all(r["runs"][name]["metrics"] == run["metrics"]
+                   for r in ranks)
+        pred = predicted_collectives(SHARDED_LAYERS, name == "seq")
+        calls = {k: run["collectives"][-1][k]["calls"] for k in pred}
+        out[name] = {"losses": losses, "unsharded": want, "loss_rel": rel,
+                     "grad_norm_rel": norm, "equal_on_ranks": same,
+                     "ef": run["ef"], "step_s": run["step_s"],
+                     "collectives": run["collectives"][-1],
+                     "predicted_calls": pred,
+                     "launches_a_step": run["launches"][-1]}
+        if not rel <= LOSS_LIMIT:
+            failed.append([name, "loss", rel])
+        if not norm <= SHARDED_NORM_REL:
+            failed.append([name, "grad_norm", norm])
+        if not same:
+            failed.append([name, "metrics differ between ranks"])
+        if calls != pred:
+            failed.append([name, "collectives", calls, pred])
+        if not (run["ef"]["err_lsb"] <= 2 and run["ef"]["res_lsb"] <= 1):
+            failed.append([name, "ef_psum_int8", run["ef"]])
+        fused = run["launches"][-1].get("dequant_matmul_lora", 0)
+        if fused != fused_a_step(cfg):
+            failed.append([name, "fused launches a step", fused,
+                           fused_a_step(cfg)])
+    # step 1's gradients and leaves, gathered, against the unsharded
+    grads = {}
+    for k, w in ref["grads"].items():
+        if not w.numel():
+            continue
+        grads[k] = _rel_fro(torch, got["grads"][k], w)
+        if not grads[k] <= SHARDED_GRAD_REL:
+            failed.append(["grad", k, grads[k]])
+    leaves = {}
+    for seq in (0, 1):
+        for k, w in ref["leaves"].items():
+            if not w.numel():
+                continue
+            g = got[f"leaves.{seq}"][k].float()
+            d = float((g - w.float()).abs().max())
+            lim = 2 * SHARDED_LR + 2.0 ** -7 * float(w.float().abs().max())
+            share = float((g != w.float()).double().mean())
+            leaves[f"{seq}.{k}"] = [d, lim, share]
+            if not d <= lim:
+                failed.append(["leaf", seq, k, d, lim])
+    out["grads_rel"] = grads
+    out["grads_worst"] = max(grads.values())
+    out["leaves_worst"] = max(v[0] / v[1] for v in leaves.values())
+    out["leaves_unequal_share"] = max(v[2] for v in leaves.values())
+    out["sharded_train_leaves"] = r0["runs"]["tp"]["sharded_train_leaves"]
+    # the sharded decode against the unsharded kernel decode
+    calls = sum(r0["decode"]["launches"].values()) / SHARDED_DECODE[1]
+    err = float((got["decode_logits"] - ref["decode_logits"]).abs().max())
+    scale = float(ref["decode_logits"].abs().max())
+    lim = logits_limit(scale, calls)
+    out["decode"] = {"max_abs_err": err, "max_abs_logit": scale,
+                     "kernel_calls_per_step": calls, "limit": lim,
+                     "launches": r0["decode"]["launches"],
+                     "unsharded_launches": ref["decode_launches"],
+                     "collectives": r0["decode"]["collectives"],
+                     "cache_local": r0["decode"]["cache_local"]}
+    if not err <= lim:
+        failed.append(["decode", err, lim])
+    # MoE, expert parallel
+    mo = r0["moe"]
+    losses = [m["loss"] for m in mo["metrics"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["moe_losses"]))
+    dropped = mo["dropped_own_cf"]        # summed over the 4 ranks
+    out["moe"] = {"layers": SHARDED_MOE_LAYERS,
+                  "capacity_factor": SHARDED_MOE_CF, "losses": losses,
+                  "unsharded": ref["moe_losses"], "loss_rel": rel,
+                  "local_experts": mo["local_experts"],
+                  "step_s": mo["step_s"], "collectives": mo["collectives"][-1],
+                  "launches_a_step": mo["launches"][-1],
+                  "quantize_s": ref["moe_quantize_s"],
+                  "dropped_share_own_cf": {
+                      "sharded": dropped[0] / dropped[1],
+                      "unsharded": ref["moe_dropped_own_cf"][0]
+                      / ref["moe_dropped_own_cf"][1]},
+                  "peak_gb": [r["moe"]["peak_gb"] for r in ranks]}
+    if not rel <= LOSS_LIMIT:
+        failed.append(["moe", "loss", rel])
+    out["routes"] = {"shards": r0["routes"], "whole": ref["routes"]}
+    launches = {k: sum(sum(r["runs"][n]["launches"][i].get(k, 0)
+                           for n in ("tp", "seq")
+                           for i in range(SHARDED_STEPS))
+                       + r["decode"]["launches"].get(k, 0)
+                       + sum(lc.get(k, 0) for lc in r["moe"]["launches"])
+                       for r in ranks)
+                for k in ("gram", "dequant_matmul_lora", "dequant_matmul",
+                          "flash_attention")}
+    out.update(launches=launches,
+               peak_gb=[r["qwen_peak_gb"] for r in ranks],
+               failed=failed, phase_s=time.perf_counter() - t_phase)
+    if launches["dequant_matmul_lora"] < 1 or \
+            out["decode"]["launches"].get("dequant_matmul", 0) < 1 or \
+            out["decode"]["launches"].get("flash_attention", 0) < 1:
+        failed.append(["launches", launches, out["decode"]["launches"]])
+    if failed and hold:
+        raise Failed(f"train_sharded: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -3849,7 +4373,7 @@ def main(argv=None) -> int:
                          "(the full-depth check: --vlm-layers 40)")
     ap.add_argument("--only", choices=("configs", "ssm", "encdec",
                                        "allocate", "levers", "trace",
-                                       "distributed"),
+                                       "distributed", "train_sharded"),
                     help="run the device and build phases and this phase "
                          "alone (a quick check of one path)")
     a = ap.parse_args(argv)
@@ -3901,7 +4425,8 @@ def main(argv=None) -> int:
                    "allocate": lambda: allocate_phase(torch, dev),
                    "levers": lambda: levers_phase(torch, dev),
                    "trace": lambda: trace_phase(torch, dev),
-                   "distributed": lambda: distributed_phase(torch, dev)
+                   "distributed": lambda: distributed_phase(torch, dev),
+                   "train_sharded": lambda: train_sharded_phase(torch, dev)
                    }[a.only]
             emit({"phase": a.only, **run(), **lap(),
                   "script_s": time.perf_counter() - t_script})
@@ -3990,6 +4515,10 @@ def main(argv=None) -> int:
         di = distributed_phase(torch, dev, eng)
         emit({"phase": "distributed", **di, **lap()})
         del eng
+        torch.cuda.empty_cache()
+        phase = "train_sharded"
+        ts = train_sharded_phase(torch, dev)
+        emit({"phase": "train_sharded", **ts, **lap()})
         torch.cuda.empty_cache()
         phase = "methods"
         emit({"phase": "methods", **methods_phase(torch, dev), **lap()})
@@ -4088,6 +4617,7 @@ def main(argv=None) -> int:
                       "launches_levers": lv_launches[name],
                       "launches_trace": tc_launches[name],
                       "launches_distributed": di["launches"][name],
+                      "launches_train_sharded": ts["launches"][name],
                       "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],
                       "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                       "bound_by": tm["bound_by"],

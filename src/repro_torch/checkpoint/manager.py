@@ -279,7 +279,9 @@ def restore_tree(directory: str, step: int | None = None, *,
     cannot be read, and FileNotFoundError when there is no complete
     step.
 
-    ``shardings`` (``{dot.path: NamedSharding}``) or ``mesh`` (the layouts
+    ``shardings`` (``{dot.path: NamedSharding}`` or the same nested, as
+    ``launch.steps.named(state_pspecs(...), mesh)`` gives it) or ``mesh``
+    (the layouts
     then rebuilt from the checkpoint's bucket manifest,
     :func:`manifest_shardings`, re-decided by ``cost_model`` when given):
     each such leaf becomes a DTensor of this rank's block, on ``device`` or
@@ -306,6 +308,8 @@ def restore_tree(directory: str, step: int | None = None, *,
     if shardings is None and mesh is not None and MANIFEST_KEY in meta:
         shardings = manifest_shardings(meta[MANIFEST_KEY], mesh, axis,
                                        cost_model=cost_model)
+    elif shardings is not None:       # a nested tree (launch.steps.named)
+        shardings = tree_paths(shardings)
     tree: dict = {}
     for key in files:
         bf16 = key.endswith(_BF16_TAG)

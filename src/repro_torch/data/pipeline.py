@@ -6,7 +6,9 @@ package draws it, so a batch is byte-identical in both packages.  Kind
 ``"encdec"`` adds ``enc_embeds`` (B, enc_len, d_model) and ``"vlm"``
 ``prefix_embeds`` (B, n_prefix, d_model): f32 standard normals drawn from
 the batch's generator after the tokens, the frontend stubs' outputs.
-Batches are CPU tensors; callers move them to their device.
+Batches are CPU tensors; callers move them to their device.  Every rank
+of a mesh reads the same stream and keeps its rows of each global batch
+(:func:`shard_batch` by :func:`make_batch_specs`).
 """
 from __future__ import annotations
 
@@ -93,3 +95,38 @@ class TokenStream:
     def __iter__(self):
         while True:
             yield self.next_batch()
+
+
+def make_batch_specs(kind: str, data_axes) -> dict:
+    """Layouts of a batch dict: the batch dim over the data mesh axes."""
+    dp = data_axes
+    specs = {"tokens": (dp, None), "labels": (dp, None)}
+    if kind == "encdec":
+        specs["enc_embeds"] = (dp, None, None)
+    elif kind == "vlm":
+        specs["prefix_embeds"] = (dp, None, None)
+    return specs
+
+
+def shard_batch(batch: dict, specs: dict, mesh) -> dict:
+    """This rank's block of each leaf of a global ``batch`` under
+    ``specs`` on ``mesh`` (a dim named by one axis or a tuple of axes is
+    split over them in order; leaves without a layout stay whole)."""
+    names = tuple(mesh.mesh_dim_names)
+    out = {}
+    for k, v in batch.items():
+        for d, ax in enumerate(specs.get(k, ())):
+            for a in (() if ax is None else (ax,) if isinstance(ax, str)
+                      else tuple(ax)):
+                if a not in names:
+                    continue
+                n = int(mesh.size(names.index(a)))
+                if v.shape[d] % n:
+                    raise ValueError(f"batch leaf {k!r} dim {d} "
+                                     f"({v.shape[d]}) does not split over "
+                                     f"{a!r} ({n} ranks)")
+                r = int(mesh.get_local_rank(a))
+                step = v.shape[d] // n
+                v = v.narrow(d, r * step, step)
+        out[k] = v
+    return out

@@ -1,6 +1,6 @@
-"""Param-path -> layout rules, the quantization part.
+"""Param-path -> layout rules.
 
-Twin of the quantization part of ``repro.launch.shardings``.  A layout is
+Twin of ``repro.launch.shardings``.  A layout is
 the JAX twin's PartitionSpec as a tuple (one mesh axis name or ``None`` a
 tensor dim); :class:`NamedSharding` pairs it with a ``DeviceMesh`` and
 gives its DTensor placements (``models.parallel.placements``).
@@ -16,9 +16,14 @@ so that the sharded side matches the base ("col": lora_b output-sharded;
 
 The distributed quantization engine gives its bucket outputs
 column-sharded over "model" (``repro_torch.core.batched.bucket_out_specs``,
-re-exported as :func:`quant_bucket_specs`).  ``param_specs``,
-``cache_specs`` and ``constrain`` come with the training-side distribution
-(``ROADMAP.md``).
+re-exported as :func:`quant_bucket_specs`): "col"-oriented layers can be
+used in place, "row"/"rep" layers are re-laid out against
+:func:`param_specs` at load time (``checkpoint.restore_tree(shardings=)``,
+:meth:`NamedSharding.distribute`).
+
+A mesh here is a ``DeviceMesh`` or anything with ``mesh_dim_names`` (or
+``axis_names``) and ``shape`` (a tuple in the names' order, or a dict by
+name): the layout rules need no devices.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import dataclasses
 from typing import Any
 
 from repro_torch.models import parallel
+from repro_torch.utils import set_path, tree_paths
 
 COL = {"q", "k", "v", "gate", "up", "z_proj", "x_proj", "head"}
 ROW = {"o", "down", "out_proj"}
@@ -104,6 +110,113 @@ def spec_for_path(path: str, ndim: int) -> tuple:
     if pad < 0:          # e.g. a scalar bias on a rule expecting 2 dims
         return (None,) * ndim
     return (None,) * pad + tuple(tail)
+
+
+def _axis_names(mesh) -> tuple:
+    return tuple(getattr(mesh, "mesh_dim_names", None) or mesh.axis_names)
+
+
+def _axis_len(mesh, axis: str) -> int:
+    shape = mesh.shape
+    if isinstance(shape, dict):
+        return int(shape[axis])
+    return int(shape[_axis_names(mesh).index(axis)])
+
+
+def param_specs(shapes_tree, mesh=None) -> dict:
+    """Tree of layouts matching a tree of tensors (or meta tensors, or
+    DTensors: their full shapes).  With ``mesh``, an axis a dim's size
+    does not divide is dropped (the dim replicated): e.g. group-scale rows
+    ``m / 64`` of a row-parallel layer that the axis does not divide."""
+    out: dict = {}
+    for path, leaf in tree_paths(shapes_tree).items():
+        nd = len(leaf.shape) if hasattr(leaf, "shape") else 0
+        sp = spec_for_path(path, nd)
+        if len(sp) != nd:          # 0-size placeholders, scalars, etc.
+            sp = (None,) * nd
+        elif mesh is not None:
+            sp = tuple(ax if ax is None or size % _axis_len(mesh, ax) == 0
+                       else None for size, ax in zip(leaf.shape, sp))
+        set_path(out, path, sp)
+    return out
+
+
+def _divisible(n: int, mesh, axis: str) -> bool:
+    return axis in _axis_names(mesh) and n % _axis_len(mesh, axis) == 0
+
+
+def _bdiv(b: int, mesh, dp) -> bool:
+    axes = (dp,) if isinstance(dp, str) else tuple(dp)
+    total = 1
+    for ax in axes:
+        if ax not in _axis_names(mesh):
+            return False
+        total *= _axis_len(mesh, ax)
+    return b % total == 0
+
+
+def cache_specs(cfg, cache_tree, mesh, data_axes) -> dict:
+    """Decode-cache layouts.  KV caches ``(L, B, T, Hkv, hd)``: the batch
+    over the data axes; the heads over "model" where it divides them, else
+    the sequence (the distributed-softmax decode, which the port's decode
+    refuses: ``ROADMAP.md``).  SSM states shard heads over "model", conv
+    windows their channels; batch-1 caches leave the data axes unused.  A
+    layout names one axis a dim; several data axes become the tuple's
+    entry as the twin's ``P((pod, data), ...)`` does."""
+    dp = data_axes
+    specs: dict = {}
+    for path, leaf in tree_paths(cache_tree).items():
+        shape = tuple(leaf.shape)
+        if path in ("k", "v") or path.endswith(".k") or path.endswith(".v"):
+            L, B, T, H, hd = shape
+            bspec = dp if _bdiv(B, mesh, dp) else None
+            if _divisible(H, mesh, "model"):
+                specs[path] = (None, bspec, None, "model", None)
+            elif _divisible(T, mesh, "model"):
+                specs[path] = (None, bspec, "model", None, None)
+            else:
+                specs[path] = (None, bspec, None, None, None)
+        elif path.endswith("state"):
+            L, B, H, pd, n = shape
+            bspec = dp if _bdiv(B, mesh, dp) else None
+            hspec = "model" if _divisible(H, mesh, "model") else None
+            specs[path] = (None, bspec, hspec, None, None)
+        elif path.endswith("conv_x"):
+            L, B, K, C = shape
+            bspec = dp if _bdiv(B, mesh, dp) else None
+            cspec = "model" if _divisible(C, mesh, "model") else None
+            specs[path] = (None, bspec, None, cspec)
+        elif path.endswith("conv_bc"):
+            L, B, K, C = shape
+            bspec = dp if _bdiv(B, mesh, dp) else None
+            specs[path] = (None, bspec, None, None)
+        elif path.endswith("enc_out"):
+            B, S, D = shape
+            bspec = dp if _bdiv(B, mesh, dp) else None
+            specs[path] = (bspec, None, None)
+        else:  # idx scalars
+            specs[path] = (None,) * len(shape)
+    out: dict = {}
+    for pth, sp in specs.items():
+        set_path(out, pth, sp)
+    return out
+
+
+def to_named(specs_tree, mesh):
+    """A tree of layouts as :class:`NamedSharding` s on ``mesh``."""
+    if isinstance(specs_tree, dict):
+        return {k: to_named(v, mesh) for k, v in specs_tree.items()}
+    return NamedSharding(mesh, tuple(specs_tree))
+
+
+def constrain(x, mesh, spec: tuple):
+    """``x`` re-laid out to ``spec`` on ``mesh``: a DTensor gathered whole
+    first, then every tensor given the rank's block of it (a DTensor of
+    ``spec``).  The identity without a mesh."""
+    if mesh is None:
+        return x
+    return NamedSharding(mesh, tuple(spec)).distribute(
+        parallel.full_tensor(x))
 
 
 def quant_bucket_specs(method: str, axis: str = "model") -> dict:

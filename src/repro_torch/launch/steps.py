@@ -7,6 +7,19 @@ plus trainable adapters, AdamW and an LR schedule, with optional
 microbatch gradient accumulation.  Gradients come from
 ``torch.autograd.grad`` on the trainable leaves only.
 
+Given a meshed ``PContext`` (``launch.mesh.pcontext_for``) the step is the
+twin's ``jax.jit(make_train_step(...), in_shardings=named(state_pspecs(...)))``
+written SPMD: the state's leaves are DTensors of their ``param_specs``
+layouts (``checkpoint.restore_tree(shardings=named(state_pspecs(...)))``),
+each rank takes its rows of the global batch (``batch_pspecs``), the model
+computes on its local shards with its own collectives
+(``models.parallel``), every trainable gradient is summed over the data
+axes (one all-reduce: each data rank differentiates its share of the
+global loss), the clip's norm counts each sharded leaf once across its
+shards, and the metrics are the same on every rank.  ``make_decode_step``
+runs the sharded decode the same way (eagerly: a gloo collective cannot
+be captured in a CUDA graph).
+
 :class:`CapturedStep` is the port's counterpart of ``jax.jit`` for a
 decode step on the card: the step captured once as a CUDA graph and
 replayed, so that the host issues one launch a step instead of every
@@ -18,10 +31,13 @@ from typing import Callable
 
 import torch
 
+from repro_torch.data.pipeline import data_kind, make_batch_specs, shard_batch
 from repro_torch.kernels import ops
-
+from repro_torch.launch.shardings import param_specs, to_named
+from repro_torch.models import parallel
 from repro_torch.models.parallel import LOCAL, PContext
-from repro_torch.models.transformer import ModelConfig, decode_step, loss_fn
+from repro_torch.models.transformer import (ModelConfig, check_family,
+                                            decode_step, loss_fn)
 from repro_torch.optim import (OptConfig, adamw_init, adamw_update,
                                make_schedule, merge_params, partition_params,
                                trainable_mask, tree_leaves, tree_map)
@@ -54,11 +70,49 @@ def _device_of(tree) -> torch.device:
     return torch.device("cpu")
 
 
+def state_pspecs(state_shapes, mesh=None) -> dict:
+    """Layouts of a train state (``build_state``'s tree, or its shapes):
+    the params' and the moments' by :func:`param_specs`, the step
+    replicated."""
+    return {"train": param_specs(state_shapes["train"], mesh),
+            "frozen": param_specs(state_shapes["frozen"], mesh),
+            "opt": {"mu": param_specs(state_shapes["opt"]["mu"], mesh),
+                    "nu": param_specs(state_shapes["opt"]["nu"], mesh),
+                    "step": ()}}
+
+
+def batch_pspecs(cfg: ModelConfig, batch: dict, data_axes) -> dict:
+    """Layouts of a batch's leaves (tensors or shapes): the batch dim over
+    the data axes unless it is 1 (the twin's, for a batch instead of a
+    shape cell: ``SHAPE_CELLS`` comes with the dry run)."""
+    specs = make_batch_specs(data_kind(cfg), data_axes)
+    out = {}
+    for name, leaf in batch.items():
+        nd = len(leaf.shape)
+        bspec = specs.get(name, (data_axes,))[0] if leaf.shape[0] > 1 \
+            else None
+        out[name] = (bspec,) + (None,) * (nd - 1)
+    return out
+
+
+def named(tree, mesh):
+    """A tree of layouts as ``NamedSharding`` s on ``mesh`` (what
+    ``checkpoint.restore_tree(shardings=)`` takes)."""
+    return to_named(tree, mesh)
+
+
+def _live(t: torch.Tensor) -> torch.Tensor:
+    """A fresh leaf for autograd, keeping ``t``'s layout tag."""
+    return parallel.tag(t.detach().requires_grad_(True),
+                        parallel.layout_of(t))
+
+
 def _value_and_grad(cfg: ModelConfig, pctx: PContext, train: dict,
                     frozen: dict, batch: dict):
     """(loss, ce, aux), grads of ``train`` (each in its leaf's dtype; a leaf
-    the loss does not reach gets zeros)."""
-    live = tree_map(lambda t: t.detach().requires_grad_(True), train)
+    the loss does not reach gets zeros).  Under a mesh: the rank's
+    gradients of the global loss, before the sum over the data axes."""
+    live = tree_map(_live, train)
     with torch.enable_grad():
         loss, (ce, aux) = loss_fn(merge_params(live, frozen), cfg, batch,
                                   pctx=pctx)
@@ -70,41 +124,105 @@ def _value_and_grad(cfg: ModelConfig, pctx: PContext, train: dict,
     return (loss.detach(), ce.detach(), aux.detach()), grads
 
 
+def sum_over_data(grads, pctx: PContext):
+    """``grads`` summed over the data axes of ``pctx``: every leaf in one
+    flat f32 all-reduce an axis."""
+    axes = [ax for ax in parallel.data_axis_tuple(pctx)
+            if parallel.axis_size(pctx.mesh, ax) > 1]
+    leaves = tree_leaves(grads)
+    if not axes or not leaves:
+        return grads
+    flat = torch.cat([g.float().reshape(-1) for g in leaves])
+    for ax in axes:
+        flat = parallel.all_reduce_sum(flat, parallel.axis_group(pctx.mesh,
+                                                                 ax))
+    at = [0]
+
+    def take(g):
+        n = g.numel()
+        at[0] += n
+        return flat[at[0] - n:at[0]].view(g.shape).to(g.dtype)
+    return tree_map(take, grads)
+
+
+def value_and_grad(cfg: ModelConfig, pctx: PContext, state: dict,
+                   batch: dict, *, sync: bool = True):
+    """((loss, ce, aux), grads) of a train state on one batch, as the
+    step computes them before the optimizer: under a mesh the state's
+    DTensors in, the global batch read by rows, and the rank's shards of
+    the gradients of the global loss out, summed over the data axes
+    (``sync=False``: the rank's own share, before that sum)."""
+    loc = parallel.localize(state)
+    dev = _device_of(loc["frozen"])
+    batch = _batch_rows(cfg, pctx, batch, dev)
+    vals, grads = _value_and_grad(cfg, pctx, loc["train"], loc["frozen"],
+                                  batch)
+    if pctx.mesh is not None and sync:
+        grads = sum_over_data(grads, pctx)
+    return vals, grads
+
+
+def _batch_rows(cfg: ModelConfig, pctx: PContext, batch: dict,
+                dev: torch.device) -> dict:
+    """The rank's rows of a global batch (all of it without a mesh), on
+    ``dev``."""
+    batch = {n: torch.as_tensor(v) for n, v in batch.items()}
+    if pctx.mesh is not None:
+        batch = shard_batch(batch, batch_pspecs(cfg, batch, pctx.data_axes),
+                            pctx.mesh)
+    return {n: v.to(dev) for n, v in batch.items()}
+
+
 def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
                     pctx: PContext = LOCAL):
     """step(state, batch) -> (new_state, metrics).  ``batch`` holds
     ``tokens``/``labels`` (B, S) on any device; they are moved to the
     params' device.  With ``ocfg.microbatch`` = k > 1 the batch is split
     into k microbatches along B whose f32 gradients and losses are
-    averaged; the backward of one ends before the next starts."""
+    averaged; the backward of one ends before the next starts.  Under
+    ``pctx.mesh`` (the module docstring) the state holds DTensors and
+    ``batch`` is the global batch; the family must run under a mesh
+    (``transformer.MESH_FAMILIES``) or this raises."""
+    check_family(cfg, pctx)
     schedule = make_schedule(ocfg.schedule, ocfg.lr, ocfg.total_steps,
                              ocfg.warmup_frac)
     k = max(ocfg.microbatch, 1)
 
     def train_step(state, batch):
-        dev = _device_of(state["frozen"])
-        batch = {n: torch.as_tensor(v).to(dev) for n, v in batch.items()}
+        loc = parallel.localize(state) if pctx.mesh is not None else state
+        dev = _device_of(loc["frozen"])
+        batch = _batch_rows(cfg, pctx, batch, dev)
         if k > 1:
             acc = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                                  device=t.device),
-                           state["train"])
+                           loc["train"])
             sums = [torch.zeros((), dtype=torch.float32, device=dev)
                     for _ in range(3)]
             for i in range(k):
                 b = {n: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
                      for n, v in batch.items()}
-                vals, g = _value_and_grad(cfg, pctx, state["train"],
-                                          state["frozen"], b)
+                vals, g = _value_and_grad(cfg, pctx, loc["train"],
+                                          loc["frozen"], b)
                 acc = tree_map(lambda a, gi: a + gi, acc, g)
                 sums = [s + v.float() for s, v in zip(sums, vals)]
             grads = tree_map(lambda a: a / k, acc)
             loss, ce, aux = (s / k for s in sums)
         else:
             (loss, ce, aux), grads = _value_and_grad(
-                cfg, pctx, state["train"], state["frozen"], batch)
+                cfg, pctx, loc["train"], loc["frozen"], batch)
+        group = sharded = None
+        if pctx.mesh is not None:
+            grads = sum_over_data(grads, pctx)
+            sharded = tree_map(parallel.model_sharded, loc["train"])
+            if parallel.axis_size(pctx.mesh, pctx.model_axis) > 1:
+                group = parallel.axis_group(pctx.mesh, pctx.model_axis)
         with torch.no_grad():
-            new_tp, new_opt, m = adamw_update(grads, state["opt"],
-                                              state["train"], ocfg, schedule)
+            new_tp, new_opt, m = adamw_update(
+                grads, loc["opt"], loc["train"], ocfg, schedule,
+                group=group, sharded=sharded)
+        if pctx.mesh is not None:
+            new_tp = parallel.delocalize(new_tp, loc["train"])
+            new_opt = parallel.delocalize(new_opt, loc["opt"])
         metrics = {"loss": loss, "ce": ce, "aux": aux, **m}
         return {"train": new_tp, "frozen": state["frozen"],
                 "opt": new_opt}, metrics
@@ -113,10 +231,34 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
 
 
 def make_decode_step(cfg: ModelConfig, pctx: PContext):
-    def step(params, cache, tokens):
-        return decode_step(params, cfg, cache, tokens, pctx=pctx)
+    """step(params, cache, tokens) -> (logits (B, V), cache).  Under
+    ``pctx.mesh``: the cache from ``init_decode_cache(pctx=)``, ``tokens``
+    the global batch's, each rank decoding its rows of the cache's batch
+    with its KV heads, and the logits the global batch's on every rank."""
+    check_family(cfg, pctx)
+    if pctx.mesh is None:
+        def step(params, cache, tokens):
+            return decode_step(params, cfg, cache, tokens, pctx=pctx)
+        return step
 
-    return step
+    def sharded_step(params, cache, tokens):
+        kv = cache["k"]
+        spec = (parallel.spec_of_placements(kv.placements, kv.device_mesh,
+                                            kv.dim())
+                if parallel.is_sharded(kv) else (None,) * kv.dim())
+        bspec = spec[1]
+        tokens = torch.as_tensor(tokens).to(parallel.local_of(kv).device)
+        rows = shard_batch({"tokens": tokens}, {"tokens": (bspec, None)},
+                           pctx.mesh)["tokens"]
+        logits, cache = decode_step(params, cfg, cache, rows, pctx=pctx)
+        for ax in (() if bspec is None else (bspec,) if isinstance(bspec, str)
+                   else tuple(bspec))[::-1]:
+            logits = parallel.gather_from(logits,
+                                          parallel.axis_group(pctx.mesh, ax),
+                                          0, reduce_grad=False)
+        return logits, cache
+
+    return sharded_step
 
 
 def resolve_graph(graph: bool | None, device: torch.device) -> bool:

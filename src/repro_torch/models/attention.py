@@ -2,6 +2,11 @@
 decode, and the enc-dec model's cross-attention.  PyTorch twin of
 ``repro.models.attention``.
 Shapes: x (B, S, D); heads laid out as (B, S, H, hd).  Softmax in f32.
+
+Under a mesh (leaves sharded over "model", ``models.parallel``) each rank
+attends with the heads its q/k/v column shards hold.  Where a layout
+splits a head or breaks the GQA grouping, the projection is gathered to
+whole heads, as GSPMD would compute it (:func:`_shard_heads`).
 """
 from __future__ import annotations
 
@@ -10,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.models import parallel
 from repro_torch.models.modules import (QSpec, linear_apply, linear_init,
                                         rmsnorm_apply, rmsnorm_init)
 from repro_torch.utils import scope
@@ -73,19 +79,73 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, *, dtype=torch.bfloat16,
     return p
 
 
+def _tp_group(p: dict):
+    """The model axis's group when a projection of ``p`` is sharded over
+    it, else None."""
+    for lin in ("q", "k", "v", "o"):
+        for t in p.get(lin, {}).values():
+            lay = parallel.layout_of(t)
+            if lay is not None and lay.dim_of("model") is not None:
+                return parallel.axis_group(lay.mesh, "model")
+    return None
+
+
+def _shard_heads(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, group):
+    """q, k, v projections (B, S, cols) as heads (B, S, h, hd), and whether
+    the heads differ from rank to rank.  The rank keeps its q heads when
+    its q columns hold whole heads of a head count the axis divides; its
+    k/v columns then serve them when they hold the matching whole KV
+    heads, else k/v are gathered whole (their gradient reduce-scattered, or
+    summed when replicated) and each local q head takes its own KV head.
+    Otherwise every projection is gathered and every rank attends with all
+    heads (the gradient sliced)."""
+    B, S = q.shape[:2]
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    n = parallel.group_size(group)
+    heads = (lambda t: t.reshape(B, S, -1, hd))
+    if group is None or n == 1:
+        return heads(q), heads(k), heads(v), False
+    if q.shape[-1] * n == Hq * hd and q.shape[-1] % hd == 0 and Hq % n == 0:
+        hq = q.shape[-1] // hd
+        if k.shape[-1] * n == Hkv * hd and Hkv % n == 0 and \
+                (Hkv // n) * hd == k.shape[-1]:
+            return heads(q), heads(k), heads(v), True
+        rep = Hq // Hkv
+        q0 = torch.distributed.get_rank(group) * hq
+        idx = (q0 + torch.arange(hq, device=q.device)) // rep
+
+        def kv_whole(t):
+            if t.shape[-1] == Hkv * hd:       # replicated: summed gradient
+                t = parallel.copy_to(t, group)
+            else:
+                t = parallel.gather_from(t, group, -1, reduce_grad=True)
+            return heads(t)[:, :, idx]
+        return heads(q), kv_whole(k), kv_whole(v), True
+
+    def whole(t, H):
+        if t.shape[-1] == H * hd:
+            return heads(t)
+        return heads(parallel.gather_from(t, group, -1, reduce_grad=False))
+    return whole(q, Hq), whole(k, Hkv), whole(v, Hkv), False
+
+
 def _project_qkv(p, cfg: AttnConfig, x: Tensor, positions: Tensor,
                  qspec: QSpec | None, rope: bool = True):
-    B, S, _ = x.shape
-    hd = cfg.hd
     with scope("q"):
-        q = linear_apply(p["q"], x, qspec).reshape(B, S, cfg.n_heads, hd)
+        q = linear_apply(p["q"], x, qspec)
     with scope("k"):
-        k = linear_apply(p["k"], x, qspec).reshape(B, S, cfg.n_kv_heads, hd)
+        k = linear_apply(p["k"], x, qspec)
     with scope("v"):
-        v = linear_apply(p["v"], x, qspec).reshape(B, S, cfg.n_kv_heads, hd)
+        v = linear_apply(p["v"], x, qspec)
+    group = _tp_group(p)
+    q, k, v, sharded = _shard_heads(cfg, q, k, v, group)
     if cfg.qk_norm:
-        q = rmsnorm_apply(p["q_norm"], q)
-        k = rmsnorm_apply(p["k_norm"], k)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if sharded:          # applied to the rank's heads: summed grads
+            qn = {"scale": parallel.copy_to(qn["scale"], group)}
+            kn = {"scale": parallel.copy_to(kn["scale"], group)}
+        q = rmsnorm_apply(qn, q)
+        k = rmsnorm_apply(kn, k)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -172,6 +232,12 @@ def attn_decode(p, cfg: AttnConfig, x: Tensor, cache: dict, *,
     positions = idx[:, None] if vec else idx.reshape(1, 1).expand(B, 1)
     q, k, v = _project_qkv(p, cfg, x, positions, qspec)
     K, V = cache["k"], cache["v"]
+    if k.shape[2] != K.shape[2]:
+        raise NotImplementedError(
+            f"sharded decode: the rank's projections give {k.shape[2]} KV "
+            f"heads, its cache holds {K.shape[2]}; only KV heads sharded as "
+            "the k/v columns are (whole heads, a head count the model axis "
+            "divides) decode sharded (see ROADMAP.md)")
     T = K.shape[1]
     slot = torch.remainder(idx, T) if cfg.sliding_window else idx
     if vec:

@@ -14,8 +14,16 @@ Every shape is static and nothing reads a tensor's value on the host (no
 through this block can be captured as a CUDA graph.  The combine puts each
 token's ``k`` contributions back in token order through the inverse
 permutation and sums them, so it is deterministic on the card (no
-atomics).  Expert parallelism (``pctx.mesh``) is not ported yet
-(``ROADMAP.md``).
+atomics).
+
+Under a mesh (``pctx.mesh``, expert stacks sharded on E over "model", the
+twin's ``shard_map``): each rank routes its data shard's tokens (the same
+on every model rank), dispatches them to its ``E / n_model`` experts only
+(offset by its model rank, capacity from the local token count), and the
+ranks' outputs are summed over "model"; ``aux`` is the mean of the data
+shards' load-balance losses (the twin's ``pmean``).  The gradients that a
+rank's experts see only in part (the routing weights', the dispatched
+tokens') are summed over "model" (``parallel.copy_to``).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantizer import (dequantize_int, dequantize_nf4,
                                         unpack_codes)
+from repro_torch.models import parallel
 from repro_torch.models.modules import QSpec, packed_bits
 from repro_torch.utils import (current_scope, is_recomputing,
                                record_activation, scope)
@@ -140,24 +149,32 @@ def record_drops() -> Iterator[list]:
 
 def _dispatch_compute_combine(p: dict, cfg: MoEConfig, xt: Tensor,
                               topw: Tensor, topi: Tensor, capacity: int,
-                              qspec: QSpec | None) -> Tensor:
-    """Route the tokens xt (T, D) to their experts through a static
-    (E, C, D) buffer, run the experts and combine their weighted outputs."""
+                              qspec: QSpec | None, e_start: int = 0,
+                              e_local: int | None = None) -> Tensor:
+    """Route the tokens xt (T, D) to the experts ``[e_start, e_start +
+    e_local)`` (all of them by default) through a static (e_local, C, D)
+    buffer, run those experts and combine their weighted outputs (zero
+    from the other experts)."""
     T, D = xt.shape
-    k, E = cfg.top_k, cfg.n_experts
-    flat_e = topi.reshape(-1)                                # (T*k,)
+    k = cfg.top_k
+    E = cfg.n_experts if e_local is None else e_local
+    flat_e = topi.reshape(-1) - e_start                      # (T*k,)
     flat_w = topw.reshape(-1)
+    mine = (flat_e >= 0) & (flat_e < E)
+    flat_e = torch.where(mine, flat_e, E)                    # overflow id
     # position within expert, by a stable sort over expert id
     sorted_e, sort_idx = torch.sort(flat_e, stable=True)
     counts = torch.zeros(E + 1, dtype=torch.long, device=xt.device)
     counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=xt.device) - starts[sorted_e]
-    keep = pos_in_e < capacity
+    routed = sorted_e < E
+    keep = (pos_in_e < capacity) & routed
     dest = torch.where(keep, sorted_e * capacity + pos_in_e,
                        torch.full_like(pos_in_e, E * capacity))
     if _drop_log is not None and not is_recomputing():  # once a forward
-        _drop_log.append(((~keep).sum(), keep.numel()))
+        _drop_log.append(((routed & ~keep).sum(), keep.numel()
+                          if e_local is None else routed.sum()))
     token_id = sort_idx // k
     # the overflow row (last) takes every dropped slot and is discarded
     buf = torch.zeros((E * capacity + 1, D), dtype=xt.dtype,
@@ -193,15 +210,36 @@ def moe_capacity(cfg: MoEConfig, tokens_local: int) -> int:
 
 def moe_apply(p: dict, cfg: MoEConfig, x: Tensor, *,
               qspec: QSpec | None = None, pctx=None) -> tuple[Tensor, Tensor]:
-    """Returns (y (B, S, D), aux_loss scalar f32)."""
-    if pctx is not None and getattr(pctx, "mesh", None) is not None:
-        raise NotImplementedError(
-            "moe_apply: expert parallelism over a mesh is not ported to "
-            "repro_torch yet; it comes with the training-side distribution "
-            "slice (see ROADMAP.md)")
+    """Returns (y (B, S, D), aux_loss scalar f32).  Under ``pctx.mesh``,
+    ``x`` holds the rank's data shard (module docstring)."""
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
+    mesh = getattr(pctx, "mesh", None)
+    if mesh is None:
+        topw, topi, aux = _route(p["router"]["w"], xt, cfg)
+        C = moe_capacity(cfg, xt.shape[0])
+        y = _dispatch_compute_combine(p, cfg, xt, topw, topi, C, qspec)
+        return y.reshape(B, S, D), aux
+    stack = p["gate"].get("qcodes", p["gate"].get("w"))
+    lay = parallel.layout_of(stack)
+    e_dim = None if lay is None else lay.dim_of(pctx.model_axis)
+    if e_dim is not None and e_dim != stack.dim() - 3:
+        raise ValueError(f"expert stacks sharded on dim {e_dim}, not on "
+                         "the expert dim")
     topw, topi, aux = _route(p["router"]["w"], xt, cfg)
-    C = moe_capacity(cfg, xt.shape[0])
-    y = _dispatch_compute_combine(p, cfg, xt, topw, topi, C, qspec)
+    C = moe_capacity(cfg, xt.shape[0])          # the local token count
+    if e_dim is None:                # experts whole: every rank runs them
+        y = _dispatch_compute_combine(p, cfg, xt, topw, topi, C, qspec)
+    else:
+        mgroup = parallel.axis_group(mesh, pctx.model_axis)
+        e_local = cfg.n_experts // parallel.group_size(mgroup)
+        e_start = torch.distributed.get_rank(mgroup) * e_local
+        ew = {k: p[k] for k in ("gate", "up", "down")}
+        y = _dispatch_compute_combine(
+            ew, cfg, parallel.copy_to(xt, mgroup),
+            parallel.copy_to(topw, mgroup), topi, C, qspec, e_start, e_local)
+        y = parallel.reduce_from(y, mgroup)
+    for ax in parallel.data_axis_tuple(pctx):
+        dgroup = parallel.axis_group(mesh, ax)
+        aux = parallel.reduce_from(aux, dgroup) / parallel.group_size(dgroup)
     return y.reshape(B, S, D), aux

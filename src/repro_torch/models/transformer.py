@@ -29,6 +29,16 @@ them so in each, and the port keeps both.  Eager scopes are
 vision-prefix model (``frontend="vision"``) prepends
 ``batch["prefix_embeds"]`` to the token embeddings and drops those
 positions after the final norm.
+
+Under a mesh (``pctx.mesh``: the dense and MoE families; the others raise)
+the params are DTensors or tagged local shards (``models.parallel``) and
+``batch``/``tokens`` hold the rank's data rows.  Tensor parallelism lives
+in the linears, attention, embedding and head (``modules``,
+``attention``), expert parallelism in ``moe``; ``seq_shard`` keeps the
+residual stream between blocks sharded along S over "model" (gathered
+before each block's column linears, reduce-scattered after its row ones);
+``loss_fn`` reduces the vocab-parallel log-likelihoods and the label
+count over the data axes, so the loss is the global one on every rank.
 """
 from __future__ import annotations
 
@@ -43,10 +53,12 @@ from repro_torch.models.attention import (AttnConfig, attn_apply,
                                           cross_attn_apply)
 from repro_torch.models.mlp import swiglu_apply, swiglu_init
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
+from repro_torch.models import parallel
 from repro_torch.models.modules import (QSpec, embedding_apply,
-                                        embedding_init, linear_init,
-                                        lm_head_apply, rmsnorm_apply,
-                                        rmsnorm_init)
+                                        embedding_init, head_vocab_shard,
+                                        linear_init, lm_head_apply,
+                                        rmsnorm_apply, rmsnorm_init,
+                                        vocab_parallel_ll)
 from repro_torch.models.parallel import LOCAL, PContext
 from repro_torch.models.ssm import (SSMConfig, mamba_apply, mamba_decode,
                                     mamba_init)
@@ -96,6 +108,7 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     loss_chunk: int = 0           # >0: CE loss computed over seq chunks
     attn_chunk: int = 0           # >0: blockwise query-chunked attention
+    seq_shard: bool = False       # sequence-parallel residual stream (mesh)
 
     def attn_cfg(self, causal=True, window=None) -> AttnConfig:
         return AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
@@ -128,10 +141,23 @@ class ModelConfig:
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
-def _check_family(cfg: ModelConfig) -> None:
+def check_family(cfg: ModelConfig, pctx: PContext = LOCAL) -> None:
+    """Raise for an unknown family, and under a mesh for a family or
+    frontend the sharded model does not run."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; options "
                          f"{FAMILIES}")
+    if pctx.mesh is None:
+        return
+    if cfg.family not in MESH_FAMILIES or cfg.frontend == "vision":
+        what = ("the vision prefix" if cfg.family in MESH_FAMILIES
+                else f"the {cfg.family} family")
+        raise NotImplementedError(
+            f"{cfg.name}: {what} does not run under a mesh yet; only "
+            f"{MESH_FAMILIES} do (see ROADMAP.md)")
+
+
+MESH_FAMILIES = ("dense", "moe")
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -233,10 +259,11 @@ def stack_layers(layers: list[dict]) -> dict:
 
 
 def layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i`` of stacked block params, as views."""
+    """Layer ``i`` of stacked block params, as views (a local shard keeps
+    its layout tag)."""
     if isinstance(blocks, dict):
         return {k: layer_params(v, i) for k, v in blocks.items()}
-    return blocks[i]
+    return parallel.select_layer(blocks, i)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -247,7 +274,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     ``"meta"`` device the tree holds shapes and dtypes only: nothing is
     allocated or drawn (the generator, which the meta device cannot hold,
     stays on the CPU unused)."""
-    _check_family(cfg)
+    check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
@@ -282,6 +309,38 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return p
 
 
+def _seq_group(cfg: ModelConfig, pctx: PContext):
+    """The model axis's group when ``cfg.seq_shard`` shards the residual
+    stream along S over it, else None."""
+    if not cfg.seq_shard or pctx.mesh is None or \
+            parallel.axis_size(pctx.mesh, pctx.model_axis) == 1:
+        return None
+    return parallel.axis_group(pctx.mesh, pctx.model_axis)
+
+
+def _sublayer(fn, norm: dict, sp):
+    """``h -> fn(rmsnorm(norm, h))``.  Under sequence parallelism (``sp``:
+    the model axis's group) ``h`` is the rank's S slice: it is normalized
+    there (the scale's gradient summed), gathered along S, run with the
+    row-sharded linears reduce-scattering along S, and an output that comes
+    back whole is sliced (what GSPMD does under the twin's
+    ``_seq_shard``)."""
+    if sp is None:
+        return lambda h: fn(rmsnorm_apply(norm, h))
+
+    def run(h):
+        ln = {"scale": parallel.copy_to(norm["scale"], sp)}
+        full = parallel.gather_from(rmsnorm_apply(ln, h), sp, 1,
+                                    reduce_grad=False)
+        with parallel.row_output(1):
+            out = fn(full)
+        y = out[0] if isinstance(out, tuple) else out
+        if y.shape[1] != h.shape[1]:
+            y = parallel.scatter_to(y, sp, 1)
+        return (y, *out[1:]) if isinstance(out, tuple) else y
+    return run
+
+
 def _block_apply(p, cfg: ModelConfig, x: Tensor, pctx: PContext = LOCAL,
                  causal: bool = True,
                  sub=_direct) -> tuple[Tensor, Tensor | None]:
@@ -298,19 +357,20 @@ def _block_apply(p, cfg: ModelConfig, x: Tensor, pctx: PContext = LOCAL,
                                           qspec=q), x)
         return x + y, None
     chunk = (cfg.attn_chunk or None) if causal else None
+    sp = _seq_group(cfg, pctx)
     with scope("attn"):
-        x = x + sub(lambda h: attn_apply(p["attn"], cfg.attn_cfg(
-            causal=causal), rmsnorm_apply(p["ln1"], h), qspec=q,
-            q_chunk=chunk), x)
+        x = x + sub(_sublayer(lambda h: attn_apply(
+            p["attn"], cfg.attn_cfg(causal=causal), h, qspec=q,
+            q_chunk=chunk), p["ln1"], sp), x)
     if cfg.family == "moe":
         with scope("moe"):
-            y, aux = sub(lambda h: moe_apply(p["moe"], cfg.moe_cfg(),
-                                             rmsnorm_apply(p["ln2"], h),
-                                             qspec=q, pctx=pctx), x)
+            y, aux = sub(_sublayer(lambda h: moe_apply(
+                p["moe"], cfg.moe_cfg(), h, qspec=q, pctx=pctx),
+                p["ln2"], sp), x)
         return x + y, aux
     with scope("mlp"):
-        x = x + sub(lambda h: swiglu_apply(p["mlp"],
-                                           rmsnorm_apply(p["ln2"], h), q), x)
+        x = x + sub(_sublayer(lambda h: swiglu_apply(p["mlp"], h, q),
+                              p["ln2"], sp), x)
     return x, None
 
 
@@ -441,19 +501,35 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     Returns (logits (B, S, V), aux) — or (hidden (B, S, D), aux) with
     ``return_hidden``: text positions only.  ``aux`` is the f32 sum of the
     MoE layers' load balance losses (zero for the other families)."""
-    _check_family(cfg)
+    check_family(cfg, pctx)
+    if pctx.mesh is not None:
+        params = parallel.localize(params)
     if cfg.family == "encdec":
         x = _forward_encdec(params, cfg, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         x, aux = _forward_blocks(params, cfg, batch, pctx)
-    x = rmsnorm_apply(params["final_norm"], x)
+    sp = _seq_group(cfg, pctx)
+    if sp is None:
+        x = rmsnorm_apply(params["final_norm"], x)
+    else:
+        ln = {"scale": parallel.copy_to(params["final_norm"]["scale"], sp)}
+        x = parallel.gather_from(rmsnorm_apply(ln, x), sp, 1,
+                                 reduce_grad=False)
     if cfg.frontend == "vision" and "prefix_embeds" in batch:
         x = x[:, batch["prefix_embeds"].shape[1]:, :]
     if return_hidden:
         return x, aux
     head = params.get("head", params["embed"])
-    return lm_head_apply(head, x), aux
+    return _whole_vocab(head, lm_head_apply(head, x)), aux
+
+
+def _whole_vocab(head: dict, logits: Tensor) -> Tensor:
+    """Logits over the whole vocab: a vocab-sharded head's gathered."""
+    shard = head_vocab_shard(head)
+    if shard is None:
+        return logits
+    return parallel.gather_from(logits, shard[0], -1, reduce_grad=False)
 
 
 def _forward_blocks(params: dict, cfg: ModelConfig, batch: dict,
@@ -470,6 +546,9 @@ def _forward_blocks(params: dict, cfg: ModelConfig, batch: dict,
     x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
     if cfg.frontend == "vision" and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(cfg.dtype), x], dim=1)
+    sp = _seq_group(cfg, pctx)
+    if sp is not None:
+        x = parallel.scatter_to(x, sp, 1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared")
     mode = _remat_mode(cfg)
@@ -520,38 +599,64 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     (loss, aux)), as the JAX twin.  With ``cfg.loss_chunk`` = C, where C
     divides the sequence length S and S > C, the head and log-softmax run
     over sequence chunks of C and the full (B, S, V) f32 logits never
-    exist."""
+    exist.  Under a mesh ``batch`` holds the rank's data rows; the loss is
+    ``-sum(ll) / max(count, 1)`` over the global batch on every rank (sum
+    and count all-reduced over the data axes, as under GSPMD), the
+    log-likelihoods vocab-parallel when the head's vocab is sharded."""
+    check_family(cfg, pctx)
+    if pctx.mesh is not None:
+        params = parallel.localize(params)
     labels = batch["labels"]
     C = cfg.loss_chunk
-    if C and labels.shape[1] % C == 0 and labels.shape[1] > C:
-        hidden, aux = forward(params, cfg, batch, pctx=pctx,
-                              return_hidden=True)
-        head = params.get("head", params["embed"])
-        tot_s = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        tot_c = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        for i in range(hidden.shape[1] // C):
-            s, c = _ce(lm_head_apply(head, hidden[:, i * C:(i + 1) * C]),
-                       labels[:, i * C:(i + 1) * C])
-            tot_s = tot_s + s
-            tot_c = tot_c + c
-        loss = -tot_s / torch.clamp(tot_c, min=1.0)
-    else:
+    chunked = bool(C and labels.shape[1] % C == 0 and labels.shape[1] > C)
+    if pctx.mesh is None and not chunked:
         logits, aux = forward(params, cfg, batch, pctx=pctx)
         s, c = _ce(logits, labels)
         loss = -s / torch.clamp(c, min=1.0)
+        return loss + 0.01 * aux, (loss, aux)
+    hidden, aux = forward(params, cfg, batch, pctx=pctx, return_hidden=True)
+    head = params.get("head", params["embed"])
+    shard = head_vocab_shard(head)
+    C = C if chunked else labels.shape[1]
+    tot_s = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tot_c = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(hidden.shape[1] // C):
+        logits = lm_head_apply(head, hidden[:, i * C:(i + 1) * C])
+        lab = labels[:, i * C:(i + 1) * C]
+        if shard is None:
+            s, c = _ce(logits, lab)
+        else:
+            mask = (lab >= 0).float()
+            s = (vocab_parallel_ll(logits, lab, shard) * mask).sum()
+            c = mask.sum()
+        tot_s = tot_s + s
+        tot_c = tot_c + c
+    if pctx.mesh is not None:
+        tot = torch.stack([tot_s, tot_c])
+        for ax in parallel.data_axis_tuple(pctx):
+            tot = parallel.reduce_from(tot, parallel.axis_group(pctx.mesh,
+                                                                ax))
+        tot_s, tot_c = tot[0], tot[1]
+    loss = -tot_s / torch.clamp(tot_c, min=1.0)
     return loss + 0.01 * aux, (loss, aux)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                      dtype=None, device: str | torch.device | None = None
-                      ) -> dict:
+                      dtype=None, device: str | torch.device | None = None,
+                      pctx: PContext = LOCAL) -> dict:
     """Caches for one-token-at-a-time decode with context ``cache_len``:
     K/V ``(L, batch, cache_len, Hkv, hd)`` for dense and MoE, and for
     enc-dec with ``enc_out`` ``(batch, cache_len, d_model)`` (zeros until
     the caller fills it with an encoder output); f32 conv windows and SSM
     states (a leading layer axis) for SSM; for hybrid also ``shared_kv``,
-    one K/V ring a site of ``min(cache_len, hybrid_window)`` positions."""
-    _check_family(cfg)
+    one K/V ring a site of ``min(cache_len, hybrid_window)`` positions.
+    Under ``pctx.mesh`` the K/V are DTensors laid out by
+    ``launch.shardings.cache_specs`` (batch over the data axes, KV heads
+    over "model" where it divides them), each rank allocating only its
+    block; ``idx`` stays a plain tensor."""
+    check_family(cfg, pctx)
+    if pctx.mesh is not None:
+        return _sharded_cache(cfg, batch, cache_len, dtype, device, pctx)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     hd = cfg.head_dim or (cfg.d_model // max(cfg.n_heads, 1))
@@ -610,6 +715,25 @@ def _ssm_decode(params: dict, cfg: ModelConfig, cache: dict, x: Tensor,
     return x
 
 
+def _sharded_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device, pctx: PContext) -> dict:
+    from repro_torch.launch.shardings import cache_specs
+    shapes = init_decode_cache(cfg, batch, cache_len, dtype, "meta")
+    specs = cache_specs(cfg, shapes, pctx.mesh, pctx.data_axes)
+    dev = resolve_device(device)
+    out = {}
+    for k, leaf in shapes.items():
+        if leaf.dim() == 0:
+            out[k] = torch.zeros((), dtype=leaf.dtype, device=dev)
+            continue
+        shape = [n // parallel.axis_size(pctx.mesh, ax) if ax else n
+                 for n, ax in zip(leaf.shape, specs[k])]
+        out[k] = parallel.distribute_local(
+            torch.zeros(shape, dtype=leaf.dtype, device=dev), specs[k],
+            pctx.mesh)
+    return out
+
+
 def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
                 *, pctx: PContext = LOCAL) -> tuple[Tensor, dict]:
     """One decode step.  tokens (B, 1) int.  Returns (logits (B, V), cache).
@@ -619,8 +743,21 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
     the returned cache holds the same tensors and ``idx + 1``.  An enc-dec
     layer runs self-attention, cross-attention over ``cache["enc_out"]``
     (its K/V projected from all of it every step, as in the JAX twin),
-    then the MLP."""
-    _check_family(cfg)
+    then the MLP.  Under a mesh ``tokens`` are the rank's rows of the
+    cache's batch, the cache a :func:`init_decode_cache` ``(pctx=)`` one,
+    and the logits its rows' over the whole vocab; a cache sharded along
+    the sequence (``cache_specs``' fallback where the model axis does not
+    divide the KV heads) raises."""
+    check_family(cfg, pctx)
+    full = cache
+    if pctx.mesh is not None:
+        params, cache = parallel.localize(params), parallel.localize(cache)
+        lay = parallel.layout_of(cache.get("k"))
+        if lay is not None and lay.dim_of(pctx.model_axis) == 2:
+            raise NotImplementedError(
+                "the sequence-sharded KV cache (distributed-softmax decode, "
+                "cache_specs' layout where the model axis does not divide "
+                "the KV heads) is not ported yet (see ROADMAP.md)")
     x = embedding_apply(params["embed"], tokens).to(cfg.dtype)
     q = cfg.quant
     idx = cache["idx"]
@@ -643,5 +780,5 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
             x = x + _ffn_decode(bp, cfg, rmsnorm_apply(bp["ln2"], x), pctx)
     x = rmsnorm_apply(params["final_norm"], x)
     head = params.get("head", params["embed"])
-    logits = lm_head_apply(head, x)[:, 0, :]
-    return logits, dict(cache, idx=idx + 1)
+    logits = _whole_vocab(head, lm_head_apply(head, x))[:, 0, :]
+    return logits, dict(full, idx=idx + 1)

@@ -99,13 +99,24 @@ def merge_params(train, frozen):
     return tree_map(pick, train, frozen)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, group=None,
+                        sharded=None):
     """(grads scaled so their global f32 norm is at most ``max_norm``,
-    the norm before scaling)."""
+    the norm before scaling).  Over a mesh, ``sharded`` (a same-structured
+    tree of bools) marks the leaves that are the rank's shard of a leaf
+    sharded over ``group``: their squares are summed over the group (one
+    all-reduce), every other leaf's counted once."""
     leaves = tree_leaves(grads)
     dev = leaves[0].device if leaves else torch.device("cpu")
-    gn = torch.sqrt(sum((g.float().square().sum().to(dev) for g in leaves),
-                        torch.zeros((), dtype=torch.float32, device=dev)))
+    marks = (tree_leaves(sharded) if sharded is not None
+             else [False] * len(leaves))
+    sq = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(2)]
+    for g, m in zip(leaves, marks):
+        sq[bool(m)] = sq[bool(m)] + g.float().square().sum().to(dev)
+    if group is not None and any(marks):
+        from repro_torch.models.parallel import all_reduce_sum
+        sq[1] = all_reduce_sum(sq[1].reshape(1), group)[0]
+    gn = torch.sqrt(sq[0] + sq[1])
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
@@ -124,12 +135,17 @@ def adamw_init(train_params):
 
 
 def adamw_update(grads, opt_state, train_params, cfg: OptConfig,
-                 schedule: Callable | None = None):
+                 schedule: Callable | None = None, *, group=None,
+                 sharded=None):
     """One AdamW step on the trainable tree.  Returns (new_params,
-    new_state, metrics); the lr is ``schedule(step + 1)``."""
+    new_state, metrics); the lr is ``schedule(step + 1)``.  ``group``,
+    ``sharded``: the clip's norm over sharded leaves
+    (:func:`clip_by_global_norm`); the update is elementwise on each
+    rank's shards."""
     step = opt_state["step"] + 1
     lr = schedule(step) if schedule is not None else cfg.lr
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, group=group,
+                                       sharded=sharded)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1.0 - b1 ** step.to(torch.float32)
     bc2 = 1.0 - b2 ** step.to(torch.float32)
