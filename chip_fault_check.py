@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Planted-fault check of ``chip_smoke.py``'s bf16 decode attention cases,
-its gram cases, its kernel-vs-plain decode logits check and its fused
-LoRA kernel's precision check.
+its gram cases, its kernel-vs-plain decode logits check, its fused LoRA
+kernel's precision check and its distributed and sharded-step checks.
 
     python3 chip_fault_check.py
 
@@ -55,21 +55,32 @@ A fifth copy, ``build/fault_copy_sharded/``, holds a sixth, in Python:
   a (data 2, model 2) mesh, Qwen3-1.7B at full width against the
   unsharded step).
 
+A sixth copy, ``build/fault_copy_gated/``, holds a seventh, in Python:
+
+* ``models/modules.py``: a split ``rmsnorm_apply`` (the Mamba block's
+  gated norm) normalizes over the rank's channels only, its all-reduce of
+  the sum of squares dropped.  The cases are ``train_sharded``'s
+  ``SHARDED_FAMILIES`` alone; the Mamba2-370M and Zamba2-7B cases must
+  fail on a numerical check (their gradients or their decode), not only
+  on the collective count that the dropped all-reduce changes.
+
 The attention and gram cases run on the real sources and on the first
 copy, the logits cases on the real sources and on the second, the
 precision cases on the real sources and on the third, the distributed
 cases on the real sources and on the fourth, the sharded-step cases on
-the real sources and on the fifth, each tree in its own process.  One JSON line a case: tree, kernel, shape, the
-plan's split or route, whether the checks pass, the error and the
-reference's largest value (for the logits, the limit).
+the real sources and on the fifth, the families' sharded cases on the
+sixth, each tree in its own process.  One JSON line a case: tree,
+kernel, shape, the plan's split or route, whether the checks pass, the
+error and the reference's largest value (for the logits, the limit).
 
 Exits 0 when every case passes on the real sources, the attention check
 fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, the gram
 check fails on the copy in every case with more than one token stage,
 the logits check fails on the second copy in every case, the precision
 check on the third in every case, and the distributed check on the
-fourth for both methods on ``A @ B^T``, and the sharded step's check on
-the fifth on the LoRA gradients; the last line says which.
+fourth for both methods on ``A @ B^T``, the sharded step's check on
+the fifth on the LoRA gradients, and the Mamba families' sharded cases
+on the sixth; the last line says which.
 """
 from __future__ import annotations
 
@@ -109,6 +120,15 @@ SHARDED_SOURCE = Path("src/repro_torch/models/modules.py")
 # the fault leaves it out
 SHARDED_SOUND = "        local[other] = parallel.copy_to(local[other], group)"
 SHARDED_FAULT = "        local[other] = local[other]"
+GATED_COPY = ROOT / "build" / "fault_copy_gated"
+GATED_SOURCE = Path("src/repro_torch/models/modules.py")
+# the Mamba gated norm's sum of squares over every rank's channels; the
+# fault normalizes over the rank's channels only, the all-reduce dropped
+GATED_SOUND = ("        ss = parallel.reduce_from("
+               "parallel.copy_to(ss, group), group)")
+GATED_FAULT = "        ss = ss * parallel.group_size(group)"
+# the families with Mamba blocks, whose train_sharded cases must fail on it
+GATED_FAMILIES = ("mamba2-370m", "zamba2-7b")
 LORA_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul_lora.cu")
 # the wgmma route's fold reads a group's scales; the fault rounds them to
 # bf16 first
@@ -157,6 +177,22 @@ def plant_sharded_fault(text: str) -> str:
     """``models/modules.py`` with the LoRA factor's model-axis gradient
     sum left out."""
     return _plant(text, SHARDED_SOUND, SHARDED_FAULT, SHARDED_SOURCE)
+
+
+def plant_gated_fault(text: str) -> str:
+    """``models/modules.py`` with a split RMSNorm (Mamba's gated norm)
+    taken over the rank's channels only."""
+    return _plant(text, GATED_SOUND, GATED_FAULT, GATED_SOURCE)
+
+
+def gated_caught(rows: list) -> bool:
+    """Whether the seventh copy's rows show the plant caught: each of
+    ``GATED_FAMILIES`` fails a numerical check (its gathered gradients or
+    its decode logits), whatever its collective counts say."""
+    return bool(rows) and all(
+        f"{arch}:grad" in r["failed_checks"] or
+        f"{arch}:decode" in r["failed_checks"]
+        for r in rows for arch in GATED_FAMILIES)
 
 
 def flash_cases(torch, cs, dev) -> list[dict]:
@@ -262,18 +298,36 @@ def dist_cases(torch, cs, dev, tree: Path) -> list[dict]:
     return out
 
 
-def sharded_cases(torch, cs, dev, tree: Path) -> list[dict]:
+def _check_name(f: list, families: tuple) -> str:
+    """A ``train_sharded`` failure's name: its run and check ("tp:loss"),
+    a family's prefixed with the family ("mamba2-370m:tp:loss",
+    "mamba2-370m:grad")."""
+    if f[0] in families:
+        return ":".join(str(x) for x in f[:3 if f[1] in ("tp", "seq")
+                                           else 2])
+    return f"{f[0]}:{f[1]}" if f[0] in ("tp", "seq") else f[0]
+
+
+def sharded_cases(torch, cs, dev, tree: Path,
+                  families_only: bool = False) -> list[dict]:
     """``chip_smoke.py``'s ``train_sharded`` checks on the sources
-    imported, returned rather than raised."""
+    imported, returned rather than raised (``families_only``: its
+    ``SHARDED_FAMILIES`` alone)."""
     out = cs.train_sharded_phase(torch, dev, tree / "build" /
-                                 "fault_sharded_work", hold=False)
-    return [{"kernel": "train_sharded", "passes": not out["failed"],
-             "failed_checks": sorted({
-                 f"{f[0]}:{f[1]}" if f[0] in ("tp", "seq") else f[0]
-                 for f in out["failed"]}),
-             "grads_worst": out["grads_worst"],
-             "loss_rel": out["tp"]["loss_rel"],
-             "grad_norm_rel": out["tp"]["grad_norm_rel"]}]
+                                 "fault_sharded_work", hold=False,
+                                 families_only=families_only)
+    families = tuple(a for a, _, _ in cs.SHARDED_FAMILIES)
+    row = {"kernel": "train_sharded", "passes": not out["failed"],
+           "failed_checks": sorted({_check_name(f, families)
+                                    for f in out["failed"]}),
+           "families": {a: {"loss_rel": f["tp"]["loss_rel"],
+                            "grads_worst": f["grads_worst"]}
+                        for a, f in out["families"].items()}}
+    if not families_only:
+        row.update(grads_worst=out["grads_worst"],
+                   loss_rel=out["tp"]["loss_rel"],
+                   grad_norm_rel=out["tp"]["grad_norm_rel"])
+    return [row]
 
 
 def run_cases(tree: Path, which: str) -> list[dict]:
@@ -294,6 +348,8 @@ def run_cases(tree: Path, which: str) -> list[dict]:
         return dist_cases(torch, cs, dev, tree)
     if which == "sharded":
         return sharded_cases(torch, cs, dev, tree)
+    if which == "gated":
+        return sharded_cases(torch, cs, dev, tree, families_only=True)
     return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
 
 
@@ -315,7 +371,8 @@ def main() -> int:
     if not all((ROOT / k).is_file() for k in (KERNEL, GRAM_KERNEL,
                                                DQ_KERNEL, LORA_KERNEL,
                                                DIST_SOURCE,
-                                               SHARDED_SOURCE)):
+                                               SHARDED_SOURCE,
+                                               GATED_SOURCE)):
         print(f"chip_fault_check: no {KERNEL}, {GRAM_KERNEL}, {DQ_KERNEL} "
               f"or {LORA_KERNEL} beside {__file__}", file=sys.stderr)
         return 1
@@ -335,9 +392,12 @@ def main() -> int:
     _copy(SHARDED_COPY)
     (SHARDED_COPY / SHARDED_SOURCE).write_text(
         plant_sharded_fault((ROOT / SHARDED_SOURCE).read_text()))
+    _copy(GATED_COPY)
+    (GATED_COPY / GATED_SOURCE).write_text(
+        plant_gated_fault((ROOT / GATED_SOURCE).read_text()))
     built = ROOT / "build" / "repro_torch"
     if built.is_dir():        # the same CUDA sources: reuse their build
-        for copy in (DIST_COPY, SHARDED_COPY):
+        for copy in (DIST_COPY, SHARDED_COPY, GATED_COPY):
             shutil.copytree(built, copy / "build" / "repro_torch")
     rows = {}
     for name, tree, which in (("sources", ROOT, "kernels"),
@@ -349,7 +409,8 @@ def main() -> int:
                               ("sources", ROOT, "dist"),
                               ("fault_dist", DIST_COPY, "dist"),
                               ("sources", ROOT, "sharded"),
-                              ("fault_sharded", SHARDED_COPY, "sharded")):
+                              ("fault_sharded", SHARDED_COPY, "sharded"),
+                              ("fault_gated", GATED_COPY, "gated")):
         proc = subprocess.run(
             [sys.executable, __file__, "--tree", str(tree), which],
             capture_output=True, text=True, cwd=ROOT, timeout=900)
@@ -376,14 +437,17 @@ def main() -> int:
         "lora_ab" in r["failed_fields"] for r in rows["fault_dist"])
     sharded_seen = bool(rows["fault_sharded"]) and all(
         "grad" in r["failed_checks"] for r in rows["fault_sharded"])
+    gated_seen = gated_caught(rows["fault_gated"])
     print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
                       "gram_fault_caught": gram_seen,
                       "dequant_fault_caught_by_logits": dequant_seen,
                       "lora_fault_caught_by_precision": lora_seen,
                       "dist_fault_caught_on_lora_ab": dist_seen,
-                      "sharded_fault_caught_on_grads": sharded_seen}))
+                      "sharded_fault_caught_on_grads": sharded_seen,
+                      "gated_norm_fault_caught": gated_seen}))
     return 0 if (sound and flash_seen and gram_seen and dequant_seen
-                 and lora_seen and dist_seen and sharded_seen) else 1
+                 and lora_seen and dist_seen and sharded_seen
+                 and gated_seen) else 1
 
 
 if __name__ == "__main__":

@@ -61,8 +61,8 @@ one JSON line each:
    ~50% at this width); seconds and peak memory per engine; then the
    batched engine once more with every bucket cut into one-slice chunks
    (``chunked``), held to the same limits.  quantize_split: the CLoQ
-   stack of one full-depth
-   bucket (gate+up, 56 x 2048 x 6144; down, 28 x 6144 x 2048; random
+   stack of half a full-depth bucket (gate+up, 28 of 56 x 2048 x 6144;
+   down, 14 of 28 x 6144 x 2048; random
    weights and Grams) split into MagR, the OPTQ sweep and ``eigh``/``svd``
    with CUDA events, and ``slice_factor``: the batched engine's peak
    memory a slice over its f32 W and H bytes at five slice shapes (at
@@ -107,7 +107,8 @@ one JSON line each:
    tokens) eager and captured: equal greedy tokens for each pair, the
    fixed-slot loop counting 6272 ``dequant_matmul`` and 896
    ``flash_attention`` launches both ways; slot tokens/s of each run.
-10. profile — the fixed-slot loop and the engine, each eager and
+10. profile — the fixed-slot loop and the engine (4 requests x 16 tokens
+   each, ``PROFILE_REQUESTS``), each eager and
    captured (after a warm run of each), under ``torch.profiler``
    recording the device's events only: step
    time (also the median of the steps' own host times), device busy time
@@ -134,7 +135,7 @@ one JSON line each:
    difference within ``logits_limit`` (the JAX package's bf16 kernel
    tolerance, grown by the square root of the kernel calls a decode step
    makes, on the logits' own scale).
-13. ssm — Mamba2-370M (24 of its 48 layers, d_model 1024, state 128)
+13. ssm — Mamba2-370M (12 of its 48 layers, d_model 1024, state 128)
    and Zamba2-7B (d_model 3584, the shared attention + MLP block with
    d_ff 14336 after every 6 Mamba layers), ``--hybrid-layers`` deep (12
    by default, cut from 81: two shared-block sites), at full width, bf16:
@@ -157,8 +158,9 @@ one JSON line each:
    least as good on its own Gram as the other's (x (1 + 1e-4)), the two
    sites' ``A @ B^T`` more than 1e-2 apart, kernel against plain decode
    logits within ``logits_limit``.
-14. encdec — Seamless-M4T-medium at full width and full depth (12 encoder
-   and 12 decoder layers, d_model 1024, vocab 256206, bf16) and
+14. encdec — Seamless-M4T-medium at full width, 2 encoder and 2 decoder
+   layers (``SEAMLESS_LAYERS``, cut from 12 + 12; d_model 1024, vocab
+   256206, bf16) and
    Pixtral-12B at full width (d_model 5120, GQA 32/8, d_ff 14336, vocab
    131072), ``--vlm-layers`` deep (1 by default, cut from 40): the train
    CLI's path (CLoQ 4-bit g64 r64, calibration 2 x 8 x 128 with 32
@@ -177,7 +179,7 @@ one JSON line each:
    captured tokens equal to eager ones, kernel against plain decode
    logits within ``logits_limit`` (seamless's from a real encoder
    output), ``gram`` and ``dequant_matmul_lora`` 7 a dense block and 4 a
-   cross block a calibration batch and a step (216 for seamless), a
+   cross block a calibration batch and a step (36 for seamless), a
    decode step's ``dequant_matmul`` 9 a seamless decoder layer (7 a
    Pixtral layer), ``dequant_matmul_lora`` 2 a seamless layer (its cross
    k/v over all of enc_out), ``flash_attention`` 1 a layer.
@@ -253,6 +255,7 @@ f32 outside them), the larger of the two.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -436,7 +439,8 @@ def check_dequant(torch, dev) -> tuple[dict, list]:
             for K, N in sorted(set(QWEN_LINEARS))] + [
         (M, K, N, 4, 64, torch.bfloat16) for M in (1, 4)
         for K, N in new_shapes("linears")
-        if (K, N) not in QWEN_LINEARS]
+        if (K, N) not in QWEN_LINEARS] + [
+        (2, K, N, 4, 64, torch.bfloat16) for K, N in shard_shapes()]
     odd = [(M, K, N, bits, g, torch.bfloat16) for bits in (2, 4, 8)
            for M, K, N, g in DEQUANT_ODD]
     sweep = [(M, K, N, bits, g, dt)
@@ -765,6 +769,53 @@ def path_cases() -> dict:
             [(VLM_ROWS, D) for D in p_["grams"]]}
 
 
+@functools.cache
+def shard_shapes() -> tuple:
+    """(K, N) of the quantized linears of ``train_sharded``'s families on a
+    rank of its (data 2, model 2) mesh, as ``launch.shardings.
+    param_specs`` lays out each linear's weight by its role (a column
+    linear keeps N / 2, a row one K / 2); the replicated ones (Mamba's bc
+    and dt projections) are whole, as in the cases above and left out."""
+    import dataclasses
+    import types
+    from repro_torch.core.pipeline import quantizable_linear_paths
+    from repro_torch.launch.shardings import param_specs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.utils import get_path
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=SHARDED_MESH)
+    out = set()
+    for arch, layers, _ in SHARDED_FAMILIES:
+        meta = init_params(dataclasses.replace(
+            _family_config(arch, layers), scan_layers=False), device="meta")
+        specs = param_specs(meta, mesh)
+        for path in quantizable_linear_paths(meta):
+            w, spec = get_path(meta, path)["w"], get_path(specs, path)["w"]
+            if w.dim() == 2 and "model" in spec:
+                out.add(tuple(n // SHARDED_MESH[1] if ax == "model" else n
+                              for n, ax in zip(w.shape, spec)))
+    return tuple(sorted(out))
+
+
+def kernels_phase(torch, dev) -> dict:
+    """The whole script's kernel checks without its timings (each
+    kernel's cases against its plain version; a case that disagrees
+    raises), with the cases at ``train_sharded``'s shard shapes
+    (:func:`shard_shapes`) listed."""
+    shards = set(shard_shapes())
+    dq, dq_cases = check_dequant(torch, dev)
+    lo, lo_cases = check_lora(torch, dev)
+    return {"dequant_matmul": dq,
+            "flash_attention": check_flash(torch, dev)[0],
+            "gram": check_gram(torch, dev)[0], "dequant_matmul_lora": lo,
+            "shard_cases": {
+                "dequant_matmul": [c for c in dq_cases if c[0] == 2
+                                   and tuple(c[1:3]) in shards],
+                "dequant_matmul_lora": [c for c in lo_cases
+                                        if c[0] == TRAIN_TOKENS // 2
+                                        and tuple(c[1:3]) in shards]}}
+
+
 # check_gram's cases for the tensor-core route beyond the main ones: T
 # ragged around the 64-token stage and past it, D cut inside a 128-column
 # tile (136, 2056: 8 columns into the last one; 8: one tile mostly past D)
@@ -986,7 +1037,9 @@ def check_lora(torch, dev) -> tuple[dict, list]:
         (TRAIN_TOKENS, K, N, 4, 64, min(64, N), torch.bfloat16, 0.02)
         for K, N in new_shapes("linears") if (K, N) not in QWEN_LINEARS] + [
         (M, K, N, 4, 64, 64, torch.bfloat16, w_std)
-        for M, K, N in path_cases()["lora"] for w_std in (0.02, K ** -0.5)]
+        for M, K, N in path_cases()["lora"] for w_std in (0.02, K ** -0.5)] + [
+        (TRAIN_TOKENS // 2, K, N, 4, 64, 64, torch.bfloat16, 0.02)
+        for K, N in shard_shapes()]
     sweep = [(M, K, N, bits, g, r, dt, 0.02)
              for M in LORA_SWEEP_ROWS for K, N, g in LORA_SWEEP_SHAPES
              for bits, r in LORA_SWEEP_BITS_RANKS
@@ -1358,9 +1411,11 @@ NUDGE_FACTOR = 2.0
 REF_LOSSES = (12.411189, 11.932083, 11.835666, 11.706970)
 LOSS_LIMIT = 1e-2
 BASELINES = ("gptq", "loftq", "qlora", "rtn")
-# the full-depth buckets whose quantize time quantize_split splits:
+# the buckets whose quantize time quantize_split splits, half of the
+# full-depth ones (56 and 28 sites; cut for the script's time: every
+# operation is batched over the sites, so the split's shares hold):
 # name -> (sites L, in-features m, out-features n)
-SPLIT_BUCKETS = {"gate_up": (56, 2048, 6144), "down": (28, 6144, 2048)}
+SPLIT_BUCKETS = {"gate_up": (28, 2048, 6144), "down": (14, 6144, 2048)}
 
 
 def _engine_model(torch, dev):
@@ -1616,9 +1671,10 @@ def journal_phase(torch, dev, eng: dict) -> dict:
 
 
 def quantize_split(torch, dev) -> dict:
-    """Where one full-depth bucket's quantize time goes: the CLoQ stack of
-    ``batched.run_bucket`` on Qwen3-1.7B's gate+up bucket (56 x 2048 x
-    6144) and its down bucket (28 x 6144 x 2048), with random weights and
+    """Where a bucket's quantize time goes: the CLoQ stack of
+    ``batched.run_bucket`` on ``SPLIT_BUCKETS``, half of Qwen3-1.7B's
+    full-depth gate+up bucket (56 x 2048 x 6144) and down bucket (28 x
+    6144 x 2048), with random weights and
     Grams of 4096 random tokens, split into MagR, the OPTQ sweep, and the
     Gram root's ``eigh`` with the residual's ``svd``, each timed with CUDA
     events (and on the host clock) in one pass."""
@@ -2056,18 +2112,22 @@ def _decode_profile_line(steps, wall, busy, top, step_s) -> dict:
     return line
 
 
+PROFILE_REQUESTS = 4     # cut from 8 (the script's time)
+
+
 def profile_decode(torch, dev, res) -> dict:
     """Where a decode step's time goes, under ``torch.profiler``: the
-    fixed-slot loop (batch 4, 8 requests x 16 tokens) and the engine (the
-    serve phase's tenants, 8 requests x 16 tokens), each eager and
+    fixed-slot loop (batch 4, ``PROFILE_REQUESTS`` requests x 16 tokens)
+    and the engine (the serve phase's tenants, ``PROFILE_REQUESTS``
+    requests x 16 tokens), each eager and
     captured, each after a warm run of the same.  The captured fixed-slot
     run captures inside the window (its first step eager, the capture
     once); the engine's buckets were captured in its warm run."""
     from repro_torch.launch import serve
     from repro_torch.serve import ServeEngine
     params, cfg = res["params"], res["cfg"]
-    kw = dict(batch=4, cache_len=128, requests=8, max_new=16, seed=1,
-              device=dev)
+    kw = dict(batch=4, cache_len=128, requests=PROFILE_REQUESTS, max_new=16,
+              seed=1, device=dev)
     out = {}
     for graph in (False, True):
         serve.serve_fixed_slots(params, cfg, graph=graph, **kw)     # warm
@@ -2086,12 +2146,13 @@ def profile_decode(torch, dev, res) -> dict:
         eng = ServeEngine(params, cfg, res["registry"], page_size=8,
                           max_len=128, bucket_capacity=4, use_kernel=True,
                           graph=graph)
-        serve.serve_engine(eng, res["tenants"], requests=8, max_new=16,
-                           seed=1)                                   # warm
+        serve.serve_engine(eng, res["tenants"], requests=PROFILE_REQUESTS,
+                           max_new=16, seed=1)                       # warm
         got = {}
 
         def run():
-            got.update(serve.serve_engine(eng, res["tenants"], requests=8,
+            got.update(serve.serve_engine(eng, res["tenants"],
+                                          requests=PROFILE_REQUESTS,
                                           max_new=16, seed=1))
             return got["seconds"]
 
@@ -2358,14 +2419,17 @@ def moe_phase(torch, dev, layers: int) -> dict:
     return out
 
 
-def _kernel_routes(torch, dev, params, cfg) -> dict:
+def _kernel_routes(torch, dev, params, cfg, shards: tuple = (1, 1)
+                   ) -> dict:
     """The routes the kernels take on one layer of each of ``params``'
     stacks (and on a hybrid's shared block, with site 0's adapters): each
     quantized 2-D linear's decode (4 rows) and fused train (1024 rows)
     route, an enc-dec cross k/v's fused decode route (over all of a
     128-position encoder output at 4 slots) third, the decode attention's
     (where the flash kernel runs it) and each calibration width's
-    Gram."""
+    Gram.  ``shards`` = (data, model): ``params`` are a rank's local
+    shards (``parallel.localize``), the rows its data share, the
+    attention its heads, and no Gram (calibration runs unsharded)."""
     from repro_torch.kernels import dequant_matmul as dq
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram as gm
@@ -2378,6 +2442,7 @@ def _kernel_routes(torch, dev, params, cfg) -> dict:
         sh = params["shared"]
         lp["shared"] = _with_site_lora(sh["block"], sh["site_lora"], 0)
     bf = torch.bfloat16
+    nd, nm = shards
     routes = {}
     for path, leaf in tree_paths(lp).items():
         if not path.endswith(".qcodes") or leaf.dim() != 2:
@@ -2385,26 +2450,27 @@ def _kernel_routes(torch, dev, params, cfg) -> dict:
         node = get_path(lp, path[:-len(".qcodes")])
         K = node["lora_a"].shape[0]
         g = K // node["scales"].shape[0]
-        x4 = torch.zeros((4, K), dtype=bf, device=dev)
-        xt = torch.zeros((TRAIN_TOKENS, K), dtype=bf, device=dev)
+        x4 = torch.zeros((4 // nd, K), dtype=bf, device=dev)
+        xt = torch.zeros((TRAIN_TOKENS // nd, K), dtype=bf, device=dev)
         a, b = node["lora_a"].to(bf), node["lora_b"].to(bf)
         routes[path[:-len(".qcodes")]] = [
             dq.plan_for(x4, leaf, node["scales"], node["zeros"], g).route,
             dq.lora_plan_for(xt, leaf, node["scales"], node["zeros"], a, b,
                              g).route]
         if path.endswith(("xattn.k.qcodes", "xattn.v.qcodes")):
-            xd = torch.zeros((CROSS_DECODE_ROWS, K), dtype=bf, device=dev)
+            xd = torch.zeros((CROSS_DECODE_ROWS // nd, K), dtype=bf,
+                             device=dev)
             routes[path[:-len(".qcodes")]].append(dq.lora_plan_for(
                 xd, leaf, node["scales"], node["zeros"], a, b, g).route)
     heads = config_shapes(cfg)["heads"]
     if heads is not None:
         Hq, Hkv, d = heads
-        q = torch.zeros((4, 1, Hq, d), dtype=bf,
+        q = torch.zeros((4 // nd, 1, Hq // nm, d), dtype=bf,
                         device=dev).transpose(1, 2)
-        kv = torch.zeros((4, 128, Hkv, d), dtype=bf,
+        kv = torch.zeros((4 // nd, 128, Hkv // nm, d), dtype=bf,
                          device=dev).transpose(1, 2)
         routes["flash_attention"] = fa.plan_for(q, kv, kv).route
-    for D in config_shapes(cfg)["grams"]:
+    for D in config_shapes(cfg)["grams"] if shards == (1, 1) else ():
         routes[f"gram_{D}"] = gm.plan_for(torch.zeros(
             (TRAIN_TOKENS, D), dtype=bf, device=dev)).route
     return routes
@@ -2540,7 +2606,7 @@ def configs_phase(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 HYBRID_LAYERS = 12      # Zamba2-7B's 81 cut: 2 shared-block sites
-MAMBA_LAYERS = 24       # Mamba2-370M's 48 cut (the script's time)
+MAMBA_LAYERS = 12       # Mamba2-370M's 48 cut (the script's time)
 SSM_STEPS = 3
 SITE_SLACK = 1e-4       # own-Gram objective against the other site's adapter
 SITE_DIFF = 1e-2        # least relative difference of two sites' A @ B^T
@@ -2727,6 +2793,7 @@ VLM_LAYERS = 1          # Pixtral-12B's 40 cut: the script's time, and at 40
                         # layers CLoQ's f32 Grams (56.6 GB) and the bf16
                         # weights (24.5 GB) do not fit one card together
 ENCDEC_STEPS = 3
+SEAMLESS_LAYERS = 2     # its 12 + 12 cut to 2 + 2 (the script's time)
 
 
 def encoder_output(torch, dev, params, cfg, rows: int, batch: int = 4):
@@ -2803,7 +2870,7 @@ def encdec_run(torch, dev, arch: str, layers: int, method: str = "cloq",
             "--steps", str(ENCDEC_STEPS), "--seed", "0", "--device",
             str(dev)]
     args = train.build_parser().parse_args(argv)
-    cfg = get_config(arch, n_layers=layers)
+    cfg = _family_config(arch, layers)
     encdec = cfg.family == "encdec"
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
@@ -2891,9 +2958,11 @@ def encdec_run(torch, dev, arch: str, layers: int, method: str = "cloq",
            "health": res["health"].counts(),
            "health_events": res["health"].events,
            "health_checked": res["health"].checked}
-    full = get_config(arch).n_layers
-    if L != full:
-        out["reduced"] = {"n_layers": [full, L]}
+    full = get_config(arch)
+    if L != full.n_layers:
+        out["reduced"] = {"n_layers": [full.n_layers, L]}
+        if encdec:
+            out["reduced"]["n_enc_layers"] = [full.n_enc_layers, L]
     bad = []
     if not all(math.isfinite(v) for v in res["losses"] + plain):
         bad.append("losses not finite")
@@ -2918,14 +2987,15 @@ def encdec_run(torch, dev, arch: str, layers: int, method: str = "cloq",
 
 
 def encdec_phase(torch, dev, vlm_layers: int) -> dict:
-    """Seamless-M4T-medium at full depth (12 + 12 layers) and Pixtral-12B
-    ``vlm_layers`` deep through :func:`encdec_run`, CLoQ; at another
+    """Seamless-M4T-medium ``SEAMLESS_LAYERS`` + ``SEAMLESS_LAYERS`` deep
+    and Pixtral-12B ``vlm_layers`` deep through :func:`encdec_run`, CLoQ;
+    at another
     depth than ``VLM_LAYERS`` Pixtral alone by RTN with no calibration
     batch (it reads no Gram: at 40 layers CLoQ's Grams would not fit)."""
     out = {}
     if vlm_layers == VLM_LAYERS:
         out["seamless-m4t-medium"] = encdec_run(
-            torch, dev, "seamless-m4t-medium", 12)
+            torch, dev, "seamless-m4t-medium", SEAMLESS_LAYERS)
         torch.cuda.empty_cache()
         out["pixtral-12b"] = encdec_run(torch, dev, "pixtral-12b",
                                         vlm_layers)
@@ -3844,34 +3914,78 @@ SHARDED_DECODE = (4, 8, 128)     # batch, tokens, cache of the decode
 SHARDED_MOE_LAYERS = 2       # OLMoE-1B-7B's 16 cut
 SHARDED_MOE_STEPS = 2
 SHARDED_MOE_CF = 8.0         # nothing drops (the JAX EP test's setting)
+# the other families at full width: (arch, layers (an enc-dec model's on
+# each side), method).  Mamba2-370M's 48 layers cut to 2; Zamba2-7B's 81
+# to 6, the fewest that reach its one shared-block site; Seamless's 12 +
+# 12 to 1 + 1; Pixtral-12B's 40 to 1 with its 256 prefix embeddings.  An
+# RTN model's lora_b starts at zero (its lora_a gradients too): its
+# gradients are held at step 2, from the parent's state after step 1
+SHARDED_FAMILIES = (("mamba2-370m", 2, "cloq"), ("zamba2-7b", 6, "rtn"),
+                    ("seamless-m4t-medium", 1, "cloq"),
+                    ("pixtral-12b", 1, "rtn"))
+SHARDED_FAMILY_STEPS = 2
 
 
-def predicted_collectives(n_layers: int, seq_shard: bool) -> dict:
-    """Collective calls of one ``trainable="lora"`` step a rank of a dense
-    model on the (data 2, model 2) mesh under ``remat="full"`` (each block
-    run twice forward), from the layout table of ``models/parallel.py`` and
-    ``models/modules.py``.  Once a step: the vocab-parallel embedding's
-    all-reduce, the cross-entropy's MAX and SUM, the loss's sum over
-    "data", the head input's gradient, the gradients' sum over "data", the
-    clip's norm over "model".  A block forward: one all-reduce after each
-    row linear (o, down), or under ``seq_shard`` one all-gather of S
-    before each sub-layer and one reduce-scatter after each row linear.
-    A block backward: the input gradient of each column linear whose input
-    needs one (q/k/v/gate/up; layer 0's q/k/v input does not, the
-    embedding being frozen), the gradient of each linear's whole LoRA
-    factor (5 ``lora_a``, 2 ``lora_b``), and under ``seq_shard`` the
-    all-gather of each reduce-scatter's gradient and the final norm's
-    gather."""
-    ar = 1 + 2 + 1 + 1 + 1 + 1
-    ag = rs = 0
-    for layer in range(n_layers):
-        ar += (2 if layer == 0 else 5) + 7
-        if seq_shard:
-            ag += 2 * 2 + 2
-            rs += 2 * 2
-        else:
-            ar += 2 * 2
-    ag += 1 if seq_shard else 0
+def _layer_calls(kind: str, first: bool, seq: bool, runs: int = 2
+                 ) -> tuple[int, int, int]:
+    """(all-reduces, all-gathers, reduce-scatters) of one layer in a
+    ``"lora"`` step a rank on the (data 2, model 2) mesh, its forward run
+    ``runs`` times (2 under ``remat="full"``, 3 for a hybrid segment's
+    blocks).  ``kind``: "dense" (attention and MLP: the row linears o and
+    down; backward, the input gradient of each column linear whose input
+    needs one, q/k/v/gate/up, not layer 0's q/k/v, the embedding being
+    frozen, and each whole LoRA factor, 5 ``lora_a`` and 2 ``lora_b``);
+    "mamba" (out_proj and the gated norm's sum of squares; backward,
+    z/x_proj's input, their ``lora_a`` and out_proj's ``lora_b``, the
+    rank's heads of dt and of B/C, and the sum of squares' gradient);
+    "cross" (o; backward, q's input, the encoder output into k and v, 4
+    whole factors); "encoder" (a dense layer never sequence-sharded).
+    Under ``seq_shard`` a sub-layer's row linear reduce-scatters instead of
+    all-reducing, one all-gather of S a sub-layer forward and one of the
+    reduce-scatter's gradient."""
+    rows = {"dense": 2, "encoder": 2, "mamba": 1, "cross": 1}[kind]
+    back = {"dense": (2 if first else 5) + 7,
+            "encoder": (2 if first else 5) + 7,
+            "mamba": (0 if first else 2) + 3 + 2 + 1,
+            "cross": 1 + 2 + 4}[kind]
+    fwd = 1 if kind == "mamba" else 0     # the gated norm's sum
+    if not seq or kind == "encoder":
+        return back + runs * (rows + fwd), 0, 0
+    return back + runs * fwd, runs * rows + rows, runs * rows
+
+
+def predicted_collectives(cfg, seq_shard: bool) -> dict:
+    """Collective calls of one ``trainable="lora"`` step a rank of a model
+    of ``cfg``'s structure (every family, scan-stacked, ``remat="full"``)
+    on the (data 2, model 2) mesh, from the layout table of
+    ``models/parallel.py``, ``models/modules.py``, ``models/attention.py``
+    and ``models/ssm.py`` (:func:`_layer_calls` a layer).  Once a step:
+    the vocab-parallel embedding's all-reduce, the cross-entropy's MAX and
+    SUM, the loss's sum over "data", the head input's gradient, the
+    gradients' sum over "data", the clip's norm over "model", and under
+    ``seq_shard`` the final norm's gather.  A hybrid's first ``sites x
+    every`` blocks run in checkpointed segments around their checkpointed
+    blocks (forward three times), each site a dense layer after them; an
+    enc-dec model's decoder layer is a dense layer and a cross-attention
+    over the encoder's layers."""
+    layers = []
+    if cfg.family == "encdec":
+        layers += [("encoder", i == 0, 2) for i in range(cfg.n_enc_layers)]
+        for i in range(cfg.n_layers):
+            layers += [("dense", i == 0, 2), ("cross", False, 2)]
+    elif cfg.family in ("ssm", "hybrid"):
+        seg = cfg.n_hybrid_sites * cfg.hybrid_attn_every
+        for i in range(cfg.n_layers):
+            layers.append(("mamba", i == 0, 3 if i < seg else 2))
+            if cfg.family == "hybrid" and (i + 1) % cfg.hybrid_attn_every \
+                    == 0 and i < seg:
+                layers.append(("dense", False, 2))
+    else:
+        layers += [("dense", i == 0, 2) for i in range(cfg.n_layers)]
+    ar, ag, rs = 1 + 2 + 1 + 1 + 1 + 1, int(seq_shard), 0
+    for kind, first, runs in layers:
+        a, g, r = _layer_calls(kind, first, seq_shard, runs)
+        ar, ag, rs = ar + a, ag + g, rs + r
     return {"all_reduce": ar, "all_gather": ag, "reduce_scatter": rs}
 
 
@@ -3890,8 +4004,36 @@ def _sharded_rank(rank: int, work: str) -> None:
     collectives, launches each), the step-1 leaves; the sharded decode of
     the parent's trained params.  OLMoE-1B-7B: 2 steps expert-parallel at
     ``SHARDED_MOE_CF``, then the dropped share of one forward at the
-    config's own capacity factor.  Writes ``rank<r>.json`` and, on rank 0,
-    the gathered tensors ``rank0.pt``."""
+    config's own capacity factor.  Then each of ``SHARDED_FAMILIES``
+    (:func:`_family_rank`; with ``families_only`` in the inputs, those
+    alone).  Writes ``rank<r>.json`` and, on rank 0, the gathered tensors
+    ``rank0.pt``."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh, pcontext_for
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(work)
+    inp = torch.load(work / "inputs.pt", weights_only=False)
+    dev = torch.device(inp["device"])
+    mesh = make_local_mesh(*SHARDED_MESH, device_type=dev.type)
+    pctx = pcontext_for(mesh)
+    out: dict = {"rank": rank, "coords": [mesh.get_local_rank("data"),
+                                          mesh.get_local_rank("model")],
+                 "runs": {}, "families": {}}
+    keep: dict = {}
+    if not inp["families_only"]:
+        _dense_moe_rank(dev, work, inp, mesh, pctx, out, keep)
+    for arch, fin in inp["families"].items():
+        out["families"][arch], keep[arch] = _family_rank(
+            torch, dev, work, arch, fin, mesh, pctx)
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    if rank == 0:
+        torch.save(keep, work / "rank0.pt")
+
+
+def _dense_moe_rank(dev, work: Path, inp: dict, mesh, pctx, out: dict,
+                    keep: dict) -> None:
+    """Qwen3-1.7B's and OLMoE-1B-7B's side of :func:`_sharded_rank`,
+    recorded into ``out`` and ``keep``."""
     import dataclasses
 
     import torch
@@ -3901,23 +4043,12 @@ def _sharded_rank(rank: int, work: str) -> None:
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_local_mesh, pcontext_for
     from repro_torch.launch.shardings import param_specs
     from repro_torch.models import moe, parallel
     from repro_torch.models.transformer import init_decode_cache, loss_fn
     from repro_torch.optim import ef_psum_int8, merge_params, tree_map
     from repro_torch.utils import tree_paths
-    torch.backends.cuda.matmul.allow_tf32 = False
-    work = Path(work)
-    inp = torch.load(work / "inputs.pt", weights_only=False)
-    dev = torch.device(inp["device"])
-    mesh = make_local_mesh(*SHARDED_MESH, device_type=dev.type)
-    pctx = pcontext_for(mesh)
     dgroup = parallel.axis_group(mesh, "data")
-    out: dict = {"rank": rank, "coords": [mesh.get_local_rank("data"),
-                                          mesh.get_local_rank("model")],
-                 "runs": {}}
-    keep: dict = {}
 
     def sharded_state(cfg, ocfg, name):
         shapes = steps.build_state(quantized_param_shapes(cfg), ocfg)
@@ -3934,8 +4065,8 @@ def _sharded_rank(rank: int, work: str) -> None:
     cfg, ocfg = inp["cfg"], inp["ocfg"]
     torch.cuda.reset_peak_memory_stats(dev)
     state0, out["restore_s"] = sharded_state(cfg, ocfg, "state")
-    out["routes"] = _shard_routes(torch, dev, parallel.localize(
-        merge_params(state0["train"], state0["frozen"])))
+    out["routes"] = _kernel_routes(torch, dev, parallel.localize(
+        merge_params(state0["train"], state0["frozen"])), cfg, SHARDED_MESH)
     for seq in (False, True):
         run: dict = {}
         c = dataclasses.replace(cfg, seq_shard=seq)
@@ -4044,53 +4175,34 @@ def _sharded_rank(rank: int, work: str) -> None:
     mo["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["moe"] = mo
     del state
-    (work / f"rank{rank}.json").write_text(json.dumps(out))
-    if rank == 0:
-        torch.save(keep, work / "rank0.pt")
 
 
-def _shard_routes(torch, dev, params: dict) -> dict:
-    """The routes the kernels take on a rank's shards of layer 0 (the
-    fused kernel at a data rank's 4 x 128 rows, the decode kernel at its 2
-    rows of the decode batch, the decode attention with its heads)."""
-    from repro_torch.kernels import dequant_matmul as dq
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.transformer import layer_params
-    from repro_torch.utils import get_path, tree_paths
-    lp = layer_params(params["blocks"], 0)
-    bf = torch.bfloat16
-    routes = {}
-    for path, leaf in tree_paths(lp).items():
-        if not path.endswith(".qcodes"):
-            continue
-        node = get_path(lp, path[:-len(".qcodes")])
-        K = node["lora_a"].shape[0]
-        g = K // node["scales"].shape[0]
-        x2 = torch.zeros((2, K), dtype=bf, device=dev)
-        xt = torch.zeros((TRAIN_TOKENS // 2, K), dtype=bf, device=dev)
-        a, b = node["lora_a"].to(bf), node["lora_b"].to(bf)
-        routes[path[:-len(".qcodes")]] = [
-            list(leaf.shape),
-            dq.plan_for(x2, leaf, node["scales"], node["zeros"], g).route,
-            dq.lora_plan_for(xt, leaf, node["scales"], node["zeros"], a, b,
-                             g).route]
-    hq = lp["attn"]["q"]["qcodes"].shape[-1] // 128
-    hkv = lp["attn"]["k"]["qcodes"].shape[-1] // 128
-    q = torch.zeros((2, 1, hq, 128), dtype=bf, device=dev).transpose(1, 2)
-    kv = torch.zeros((2, SHARDED_DECODE[2], hkv, 128), dtype=bf,
-                     device=dev).transpose(1, 2)
-    routes["flash_attention"] = [[2, hq, hkv], fa.plan_for(q, kv, kv).route]
-    return routes
+def _sharded_reference(torch, dev, work: Path, families_only: bool = False,
+                       families: tuple = SHARDED_FAMILIES,
+                       dtype=None) -> dict:
+    """The parent's side: Qwen3-1.7B and OLMoE-1B-7B
+    (:func:`_dense_moe_reference`, unless ``families_only``), then each of
+    ``families`` (:func:`_family_reference`, in ``dtype`` if given).
+    Writes the ranks' ``inputs.pt``."""
+    ref, inputs = ({}, {}) if families_only else \
+        _dense_moe_reference(torch, dev, work)
+    ref["families"], inputs["families"] = {}, {}
+    for arch, layers, method in families:
+        ref["families"][arch], inputs["families"][arch] = \
+            _family_reference(torch, dev, work, arch, layers, method, dtype)
+    torch.save({"device": str(dev), "families_only": families_only,
+                **inputs}, work / "inputs.pt")
+    return ref
 
 
-def _sharded_reference(torch, dev, work: Path) -> dict:
-    """The parent's side: Qwen3-1.7B quantized once (CLoQ 4/64/64,
-    calibration ``SHARDED_CALIB`` x 8 x 128, the batched engine) and saved
-    as a train state; step 1's gradients and 3 steps unsharded, the
-    trained params saved, their unsharded kernel decode; OLMoE-1B-7B
-    quantized by RTN and saved, 2 steps at ``SHARDED_MOE_CF`` and the
-    dropped share of one forward at its own capacity factor.  Writes the
-    ranks' ``inputs.pt``."""
+def _dense_moe_reference(torch, dev, work: Path) -> tuple[dict, dict]:
+    """Qwen3-1.7B quantized once (CLoQ 4/64/64, calibration
+    ``SHARDED_CALIB`` x 8 x 128, the batched engine) and saved as a train
+    state; step 1's gradients and 3 steps unsharded, the trained params
+    saved, their unsharded kernel decode; OLMoE-1B-7B quantized by RTN and
+    saved, 2 steps at ``SHARDED_MOE_CF`` and the dropped share of one
+    forward at its own capacity factor.  Returns (the reference, the
+    ranks' inputs)."""
     import dataclasses
     from repro_torch.checkpoint import manager as ckpt
     from repro_torch.configs import get_config
@@ -4186,59 +4298,312 @@ def _sharded_reference(torch, dev, work: Path) -> dict:
                                  float(sum(n for _, n in drops))]
     del mq, mstate, st
     torch.cuda.empty_cache()
-    torch.save({"device": str(dev), "cfg": cfg, "ocfg": ocfg,
-                "batches": batches, "decode_tokens": tokens,
-                "moe_cfg": mcfg, "moe_ocfg": mocfg,
-                "moe_batches": mbatches}, work / "inputs.pt")
     ref["cfg"] = cfg
-    return ref
+    return ref, {"cfg": cfg, "ocfg": ocfg, "batches": batches,
+                 "decode_tokens": tokens, "moe_cfg": mcfg,
+                 "moe_ocfg": mocfg, "moe_batches": mbatches}
 
 
-def train_sharded_phase(torch, dev, work: Path = SHARDED_DIR,
-                        hold: bool = True) -> dict:
-    """The sharded fine-tuning step and decode on a (data 2, model 2) mesh
-    of 4 gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on one
-    device): :func:`_sharded_reference` in this process, then
-    :func:`_sharded_rank` in the ranks.  Held: each step's loss within
-    ``LOSS_LIMIT`` of the unsharded one, with and without ``seq_shard``;
-    step 1's gradient norm within ``SHARDED_NORM_REL`` and every gathered
-    LoRA gradient within ``SHARDED_GRAD_REL`` (relative Frobenius); the
-    leaves after step 1 within 2 x lr + one bf16 ulp (2^-7 of the
-    largest) of the unsharded (AdamW's first step moves an element by lr x
-    sign(g), each side rounds to bf16); the metrics equal on every rank;
-    ``ef_psum_int8`` within 2 LSB of the exact mean and its residual
-    within 1 LSB (the JAX test's bounds); the decode's logits within
-    ``logits_limit`` of the unsharded kernel decode fed the same tokens
-    (its greedy ones: a near-tie must not fork the two); OLMoE's
-    losses within ``LOSS_LIMIT`` of the unsharded port; the collectives
-    a step equal to :func:`predicted_collectives`; the fused kernel
-    launched on the training shards, ``dequant_matmul`` and
-    ``flash_attention`` on the decode's.  No speed-up is measurable: the
-    ranks share one card and talk through the host.  ``work``: the
-    directory of the checkpoints and the ranks' files; ``hold=False``
-    returns the failures in ``failed`` instead of raising
-    (``chip_fault_check.py``)."""
-    import shutil
-    from repro_torch.launch.mesh import spawn_ranks
-    t_phase = time.perf_counter()
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    ref = _sharded_reference(torch, dev, work)
-    t_ranks = time.perf_counter()
-    n_ranks = SHARDED_MESH[0] * SHARDED_MESH[1]
-    spawn_ranks(_sharded_rank, n_ranks, backend="gloo", device=dev.type,
-                args=(str(work),), store_dir=str(work))
-    ranks_s = time.perf_counter() - t_ranks
-    ranks = [json.loads((work / f"rank{r}.json").read_text())
-             for r in range(n_ranks)]
-    got = torch.load(work / "rank0.pt")
-    cfg, failed = ref["cfg"], []
-    r0 = ranks[0]
-    out: dict = {"mesh": {"data": SHARDED_MESH[0], "model": SHARDED_MESH[1]},
-                 "backend": "gloo", "device": "cuda:0 (all 4 ranks)",
-                 "layers": SHARDED_LAYERS, "quantize_s": ref["quantize_s"],
-                 "unsharded_step_s": ref["step_s"], "ranks_s": ranks_s,
-                 "reference_s": t_ranks - t_phase,
+def _family_config(arch: str, layers: int, dtype=None):
+    from repro_torch.configs import get_config
+    kw = {"n_layers": layers}
+    if dtype is not None:
+        kw["dtype"] = dtype
+    if arch == "seamless-m4t-medium":
+        kw["n_enc_layers"] = layers
+    return get_config(arch, **kw)
+
+
+def _family_reference(torch, dev, work: Path, arch: str, layers: int,
+                      method: str, dtype=None) -> tuple[dict, dict]:
+    """The parent's side of one of ``SHARDED_FAMILIES``: the model at full
+    width quantized (CLoQ over one calibration batch of 8 x 128, or RTN
+    with none; the batched engine, 4/64/64) and saved as a train state;
+    ``SHARDED_FAMILY_STEPS`` steps at 8 x 128 (the train CLI's data: 32
+    encoder frames, 256 patches) unsharded, the gradients at the held
+    step, the trained params saved and decoded (the kernels; seamless
+    over its encoder's output of seeded frames).  ``dtype``: the model's,
+    if not the config's.  Returns (its reference, the ranks' inputs)."""
+    import dataclasses
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.data.pipeline import data_kind
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.parallel import LOCAL
+    from repro_torch.models.transformer import (encode, init_decode_cache,
+                                                init_params)
+    from repro_torch.optim import OptConfig, merge_params
+    from repro_torch.utils import tree_paths
+    cfg = _family_config(arch, layers, dtype)
+    stream = TokenStream(DataConfig(
+        vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0,
+        kind=data_kind(cfg), enc_len=128 // 4, n_prefix=cfg.n_prefix,
+        d_model=cfg.d_model))
+    calib = [stream.next_batch()] if method == "cloq" else []
+    t0 = time.perf_counter()
+    qp, qcfg, _ = quantize_model(
+        init_params(cfg, seed=0, device=dev), cfg, calib, engine="batched",
+        recipe=QuantRecipe.single(method, QSpec(**SHARDED_QSPEC)))
+    torch.cuda.synchronize()
+    ref: dict = {"quantize_s": time.perf_counter() - t0, "layers": layers,
+                 "method": method}
+    cfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+    batches = [stream.next_batch() for _ in range(SHARDED_FAMILY_STEPS)]
+    ocfg = OptConfig(lr=SHARDED_LR, trainable="lora",
+                     total_steps=SHARDED_FAMILY_STEPS, schedule="const")
+    grad_at = 1 if method == "rtn" else 0
+    state = steps.build_state(qp, ocfg)
+    del qp
+    ckpt.save_tree(state, str(work / arch / "state"), 1)
+    step = steps.make_train_step(cfg, ocfg, LOCAL)
+    ref["metrics"], ref["step_s"] = [], []
+    for i, b in enumerate(batches):
+        if i == grad_at:
+            if i:           # the frozen base is state's: the train leaves
+                ckpt.save_tree(state["train"],
+                               str(work / arch / "grad_train"), 1)
+            _, g = steps.value_and_grad(cfg, LOCAL, state, b)
+            ref["grads"] = {k: v.detach().cpu()
+                            for k, v in tree_paths(g).items()}
+            del g
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ref["step_s"].append(time.perf_counter() - t0)
+        ref["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            ref["leaves"] = {k: v.detach().cpu() for k, v in
+                             tree_paths(state["train"]).items()}
+    ckpt.save_tree(state["train"], str(work / arch / "trained"), 1)
+    trained = merge_params(state["train"], state["frozen"])
+    B, n_tok, T = SHARDED_DECODE
+    cache = init_decode_cache(cfg, B, T, device=dev)
+    emb = None
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        emb = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+        with torch.no_grad():
+            cache["enc_out"].copy_(encode(trained, cfg, emb))
+    dec = steps.make_decode_step(cfg, LOCAL)
+    tok = torch.tensor([[3], [17], [101], [400]], device=dev)
+    tokens, logits = [], []
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for _ in range(n_tok):
+            tokens.append(tok.cpu())
+            lg, cache = dec(trained, cache, tok)
+            logits.append(lg.float().cpu())
+            tok = lg.argmax(-1, keepdim=True)
+    ref["decode_launches"] = ops.launch_counts()
+    ref["decode_logits"] = torch.stack(logits)
+    ref["cfg"] = cfg
+    del state, trained, cache
+    torch.cuda.empty_cache()
+    return ref, {"cfg": cfg, "ocfg": ocfg, "batches": batches,
+                 "grad_at": grad_at, "decode_tokens": tokens,
+                 "enc_embeds": None if emb is None else emb.cpu()}
+
+
+def _family_rank(torch, dev, work: Path, arch: str, inp: dict, mesh,
+                 pctx) -> tuple[dict, dict]:
+    """One rank's side of one of ``SHARDED_FAMILIES``: the parent's state
+    restored as the mesh's DTensors, the routes on its shards, the
+    gradients at the held step (the rank's share summed over "data"),
+    ``SHARDED_FAMILY_STEPS`` steps with and without ``seq_shard``
+    (metrics, collectives, launches, the leaves after step 1), then the
+    sharded decode of the parent's trained params fed the parent's
+    tokens (seamless's ``enc_out`` rows from the sharded encoder over
+    the same frames).  Returns (its JSON record, the gathered tensors
+    rank 0 keeps)."""
+    import dataclasses
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core.pipeline import quantized_param_shapes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.shardings import param_specs
+    from repro_torch.models import parallel
+    from repro_torch.models.transformer import encode, init_decode_cache
+    from repro_torch.optim import merge_params
+    from repro_torch.utils import tree_paths
+    cfg, ocfg = inp["cfg"], inp["ocfg"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    shapes = steps.build_state(quantized_param_shapes(cfg), ocfg)
+    named = steps.named(steps.state_pspecs(shapes, mesh), mesh)
+    train_named = steps.named(param_specs(shapes["train"], mesh), mesh)
+
+    def restore(name, shardings=named):
+        return ckpt.restore_tree(str(work / arch / name), device=dev,
+                                 shardings=shardings)[0]
+
+    def gathered(tree):
+        return {k: v.detach().cpu() for k, v in
+                tree_paths(parallel.gather_tree(tree)).items()}
+
+    t0 = time.perf_counter()
+    state0 = restore("state")
+    out: dict = {"restore_s": time.perf_counter() - t0, "runs": {}}
+    out["routes"] = _kernel_routes(torch, dev, parallel.localize(
+        merge_params(state0["train"], state0["frozen"])), cfg, SHARDED_MESH)
+    keep: dict = {}
+    at = inp["grad_at"]
+    g_state = (dict(state0, train=restore("grad_train", train_named)) if at
+               else state0)
+    _, grads = steps.value_and_grad(cfg, pctx, g_state, inp["batches"][at])
+    keep["grads"] = gathered(parallel.delocalize(
+        grads, parallel.localize(g_state)["train"]))
+    del g_state, grads
+    for seq in (False, True):
+        c = dataclasses.replace(cfg, seq_shard=seq)
+        state = state0
+        step = steps.make_train_step(c, ocfg, pctx)
+        run = {"metrics": [], "collectives": [], "launches": [],
+               "step_s": []}
+        for i, b in enumerate(inp["batches"]):
+            parallel.reset_collective_stats()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            run["step_s"].append(time.perf_counter() - t0)
+            run["metrics"].append({k: float(v) for k, v in m.items()})
+            run["collectives"].append(parallel.collective_stats())
+            run["launches"].append(ops.launch_counts())
+            if i == 0:
+                keep[f"leaves.{int(seq)}"] = gathered(state["train"])
+        out["runs"]["seq" if seq else "tp"] = run
+        del state
+    trained = restore("trained", train_named)
+    params = merge_params(trained, state0["frozen"])
+    B, _, T = SHARDED_DECODE
+    cache = init_decode_cache(cfg, B, T, device=dev, pctx=pctx)
+    if inp["enc_embeds"] is not None:
+        rows = inp["enc_embeds"].chunk(SHARDED_MESH[0])[
+            mesh.get_local_rank("data")].to(dev)
+        with torch.no_grad():
+            parallel.local_of(cache["enc_out"]).copy_(
+                encode(params, cfg, rows, pctx=pctx))
+    dec = steps.make_decode_step(cfg, pctx)
+    ops.reset_launch_counts()
+    parallel.reset_collective_stats()
+    logits = []
+    with torch.no_grad():
+        for tok in inp["decode_tokens"]:
+            lg, cache = dec(params, cache, tok.to(dev))
+            logits.append(lg.float().cpu())
+    out["decode"] = {"launches": ops.launch_counts(),
+                     "collectives": parallel.collective_stats(),
+                     "cache_local": {k: list(parallel.local_of(v).shape)
+                                     for k, v in cache.items()
+                                     if k in ("k", "state", "conv_x")}}
+    keep["decode_logits"] = torch.stack(logits)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, trained, cache, state0
+    return out, keep
+
+
+def _hold_family(torch, arch: str, ref: dict, ranks: list, got: dict,
+                 failed: list) -> dict:
+    """One of ``SHARDED_FAMILIES``' rank records and rank 0's gathered
+    tensors against the parent's reference, ``train_sharded``'s checks
+    (failures appended to ``failed``)."""
+    cfg = ref["cfg"]
+    r0 = ranks[0]["families"][arch]
+    out: dict = {"layers": ref["layers"], "method": ref["method"],
+                 "quantize_s": ref["quantize_s"],
+                 "unsharded_step_s": ref["step_s"],
+                 "restore_s": [r["families"][arch]["restore_s"]
+                               for r in ranks],
+                 "peak_gb": [r["families"][arch]["peak_gb"] for r in ranks],
+                 "routes": r0["routes"]}
+    want = [m["loss"] for m in ref["metrics"]]
+    for name, run in r0["runs"].items():
+        losses = [m["loss"] for m in run["metrics"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        norm = abs(run["metrics"][0]["grad_norm"] -
+                   ref["metrics"][0]["grad_norm"]) / \
+            ref["metrics"][0]["grad_norm"]
+        same = all(r["families"][arch]["runs"][name]["metrics"] ==
+                   run["metrics"] for r in ranks)
+        pred = predicted_collectives(cfg, name == "seq")
+        calls = [{k: c[k]["calls"] for k in pred}
+                 for c in run["collectives"]]
+        fused = [lc.get("dequant_matmul_lora", 0) for lc in run["launches"]]
+        out[name] = {"losses": losses, "unsharded": want, "loss_rel": rel,
+                     "grad_norm_rel": norm, "equal_on_ranks": same,
+                     "step_s": run["step_s"],
+                     "collectives": run["collectives"][-1],
+                     "predicted_calls": pred, "fused_a_step": fused}
+        if not rel <= LOSS_LIMIT:
+            failed.append([arch, name, "loss", rel])
+        if not norm <= SHARDED_NORM_REL:
+            failed.append([arch, name, "grad_norm", norm])
+        if not same:
+            failed.append([arch, name, "metrics differ between ranks"])
+        if any(c != pred for c in calls):
+            failed.append([arch, name, "collectives", calls, pred])
+        if any(f != fused_a_step(cfg) for f in fused):
+            failed.append([arch, name, "fused launches a step", fused,
+                           fused_a_step(cfg)])
+    grads = {}
+    for k, w in ref["grads"].items():
+        if w.numel():
+            grads[k] = _rel_fro(torch, got["grads"][k], w)
+            if not grads[k] <= SHARDED_GRAD_REL:
+                failed.append([arch, "grad", k, grads[k]])
+    worst_leaf = (0.0, "")
+    for seq in (0, 1):
+        for k, w in ref["leaves"].items():
+            if not w.numel():
+                continue
+            d = float((got[f"leaves.{seq}"][k].float() - w.float()).abs()
+                      .max())
+            lim = 2 * SHARDED_LR + 2.0 ** -7 * float(w.float().abs().max())
+            worst_leaf = max(worst_leaf, (d / lim, k))
+            if not d <= lim:
+                failed.append([arch, "leaf", seq, k, d, lim])
+    worst = max(grads, key=grads.get)
+    out.update(grads_worst=grads[worst], grads_worst_leaf=worst,
+               grads_leaves=len(grads), leaves_worst=worst_leaf[0],
+               leaves_worst_leaf=worst_leaf[1])
+    n_tok = SHARDED_DECODE[1]
+    launches = r0["decode"]["launches"]
+    calls = sum(launches.values()) / n_tok
+    err = float((got["decode_logits"] - ref["decode_logits"]).abs().max())
+    scale = float(ref["decode_logits"].abs().max())
+    lim = logits_limit(scale, calls)
+    out["decode"] = {"max_abs_err": err, "max_abs_logit": scale,
+                     "limit": lim, "launches": launches,
+                     "unsharded_launches": ref["decode_launches"],
+                     "collectives": r0["decode"]["collectives"],
+                     "cache_local": r0["decode"]["cache_local"]}
+    if not err <= lim:
+        failed.append([arch, "decode", err, lim])
+    attention = cfg.family in ("dense", "encdec")
+    if launches != ref["decode_launches"] or \
+            launches.get("dequant_matmul", 0) < 1 or \
+            (launches.get("flash_attention", 0) < 1) == attention:
+        failed.append([arch, "decode launches", launches,
+                       ref["decode_launches"]])
+    return out
+
+
+def _hold_dense_moe(torch, ref: dict, ranks: list, got: dict,
+                    failed: list) -> dict:
+    """Qwen3-1.7B's and OLMoE-1B-7B's rank records and rank 0's gathered
+    tensors against the parent's reference, ``train_sharded``'s checks
+    (failures appended to ``failed``)."""
+    cfg, r0 = ref["cfg"], ranks[0]
+    out: dict = {"layers": SHARDED_LAYERS, "quantize_s": ref["quantize_s"],
+                 "unsharded_step_s": ref["step_s"],
                  "restore_s": [r["restore_s"] for r in ranks]}
     # losses, norms, metrics on every rank
     for name, run in r0["runs"].items():
@@ -4250,7 +4615,7 @@ def train_sharded_phase(torch, dev, work: Path = SHARDED_DIR,
             ref["metrics"][0]["grad_norm"]
         same = all(r["runs"][name]["metrics"] == run["metrics"]
                    for r in ranks)
-        pred = predicted_collectives(SHARDED_LAYERS, name == "seq")
+        pred = predicted_collectives(cfg, name == "seq")
         calls = {k: run["collectives"][-1][k]["calls"] for k in pred}
         out[name] = {"losses": losses, "unsharded": want, "loss_rel": rel,
                      "grad_norm_rel": norm, "equal_on_ranks": same,
@@ -4339,12 +4704,80 @@ def train_sharded_phase(torch, dev, work: Path = SHARDED_DIR,
                 for k in ("gram", "dequant_matmul_lora", "dequant_matmul",
                           "flash_attention")}
     out.update(launches=launches,
-               peak_gb=[r["qwen_peak_gb"] for r in ranks],
-               failed=failed, phase_s=time.perf_counter() - t_phase)
+               peak_gb=[r["qwen_peak_gb"] for r in ranks])
     if launches["dequant_matmul_lora"] < 1 or \
             out["decode"]["launches"].get("dequant_matmul", 0) < 1 or \
             out["decode"]["launches"].get("flash_attention", 0) < 1:
         failed.append(["launches", launches, out["decode"]["launches"]])
+    return out
+
+
+def train_sharded_phase(torch, dev, work: Path = SHARDED_DIR,
+                        hold: bool = True, families_only: bool = False,
+                        families: tuple = SHARDED_FAMILIES,
+                        dtype=None) -> dict:
+    """The sharded fine-tuning step and decode on a (data 2, model 2) mesh
+    of 4 gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on one
+    device): :func:`_sharded_reference` in this process, then
+    :func:`_sharded_rank` in the ranks.  Held: each step's loss within
+    ``LOSS_LIMIT`` of the unsharded one, with and without ``seq_shard``;
+    step 1's gradient norm within ``SHARDED_NORM_REL`` and every gathered
+    LoRA gradient within ``SHARDED_GRAD_REL`` (relative Frobenius); the
+    leaves after step 1 within 2 x lr + one bf16 ulp (2^-7 of the
+    largest) of the unsharded (AdamW's first step moves an element by lr x
+    sign(g), each side rounds to bf16); the metrics equal on every rank;
+    ``ef_psum_int8`` within 2 LSB of the exact mean and its residual
+    within 1 LSB (the JAX test's bounds); the decode's logits within
+    ``logits_limit`` of the unsharded kernel decode fed the same tokens
+    (its greedy ones: a near-tie must not fork the two); OLMoE's
+    losses within ``LOSS_LIMIT`` of the unsharded port; the collectives
+    a step equal to :func:`predicted_collectives`; the fused kernel
+    launched on the training shards, ``dequant_matmul`` and
+    ``flash_attention`` on the decode's.  Then ``SHARDED_FAMILIES`` the
+    same way (:func:`_hold_family`; an RTN model's gradients at step 2,
+    the collectives :func:`predicted_collectives`, the fused launches a step
+    :func:`fused_a_step`, the decode's launches a rank those of the
+    unsharded decode).  No speed-up is measurable: the ranks share one
+    card and talk through the host.  ``work``: the directory of the
+    checkpoints and the ranks' files; ``hold=False`` returns the failures
+    in ``failed`` instead of raising; ``families_only`` runs
+    ``families`` alone (both for ``chip_fault_check.py``); ``families``
+    and ``dtype``: which of ``SHARDED_FAMILIES`` run, in which dtype if
+    not their configs' (``--families``, ``--family-dtype``)."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ref = _sharded_reference(torch, dev, work, families_only, families,
+                             dtype)
+    t_ranks = time.perf_counter()
+    n_ranks = SHARDED_MESH[0] * SHARDED_MESH[1]
+    spawn_ranks(_sharded_rank, n_ranks, backend="gloo", device=dev.type,
+                args=(str(work),), store_dir=str(work))
+    ranks_s = time.perf_counter() - t_ranks
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(n_ranks)]
+    got = torch.load(work / "rank0.pt")
+    failed: list = []
+    out: dict = {"mesh": {"data": SHARDED_MESH[0], "model": SHARDED_MESH[1]},
+                 "backend": "gloo", "device": "cuda:0 (all 4 ranks)",
+                 "ranks_s": ranks_s, "reference_s": t_ranks - t_phase}
+    if not families_only:
+        out.update(_hold_dense_moe(torch, ref, ranks, got, failed))
+    out["families"] = {arch: _hold_family(torch, arch, fr, ranks, got[arch],
+                                          failed)
+                       for arch, fr in ref["families"].items()}
+    kernels = ("gram", "dequant_matmul_lora", "dequant_matmul",
+               "flash_attention")
+    fam = {k: sum(sum(lc.get(k, 0) for n in ("tp", "seq")
+                      for lc in r["families"][a]["runs"][n]["launches"])
+                  + r["families"][a]["decode"]["launches"].get(k, 0)
+                  for r in ranks for a in r["families"])
+           for k in kernels}
+    out["launches"] = {k: out.get("launches", {}).get(k, 0) + fam[k]
+                       for k in kernels}
+    out.update(failed=failed, phase_s=time.perf_counter() - t_phase)
     if failed and hold:
         raise Failed(f"train_sharded: {out}")
     return out
@@ -4371,12 +4804,25 @@ def main(argv=None) -> int:
                          f"({VLM_LAYERS}); any other depth runs the device "
                          "and build phases and Pixtral-12B alone by RTN "
                          "(the full-depth check: --vlm-layers 40)")
-    ap.add_argument("--only", choices=("configs", "ssm", "encdec",
+    ap.add_argument("--only", choices=("kernels", "configs", "ssm", "encdec",
                                        "allocate", "levers", "trace",
                                        "distributed", "train_sharded"),
                     help="run the device and build phases and this phase "
                          "alone (a quick check of one path)")
+    ap.add_argument("--families", default=None,
+                    help="with --only train_sharded: these of "
+                         "SHARDED_FAMILIES alone, comma-separated (the "
+                         "dense and MoE cases left out)")
+    ap.add_argument("--family-dtype", choices=("bfloat16", "float32"),
+                    default=None,
+                    help="with --only train_sharded: the families' models "
+                         "in this dtype (their configs': bfloat16)")
     a = ap.parse_args(argv)
+    fams = SHARDED_FAMILIES if a.families is None else tuple(
+        f for f in SHARDED_FAMILIES if f[0] in a.families.split(","))
+    if a.families is not None and len(fams) != len(a.families.split(",")):
+        ap.error(f"--families: each one of "
+                 f"{[f[0] for f in SHARDED_FAMILIES]}")
     t_script = time.perf_counter()
     t_lap = [t_script]
 
@@ -4419,14 +4865,18 @@ def main(argv=None) -> int:
 
         if a.only:
             phase = a.only
-            run = {"configs": lambda: configs_phase(torch, dev),
+            run = {"kernels": lambda: kernels_phase(torch, dev),
+                   "configs": lambda: configs_phase(torch, dev),
                    "ssm": lambda: ssm_phase(torch, dev, a.hybrid_layers),
                    "encdec": lambda: encdec_phase(torch, dev, a.vlm_layers),
                    "allocate": lambda: allocate_phase(torch, dev),
                    "levers": lambda: levers_phase(torch, dev),
                    "trace": lambda: trace_phase(torch, dev),
                    "distributed": lambda: distributed_phase(torch, dev),
-                   "train_sharded": lambda: train_sharded_phase(torch, dev)
+                   "train_sharded": lambda: train_sharded_phase(
+                       torch, dev, families_only=a.families is not None,
+                       families=fams, dtype=a.family_dtype and getattr(
+                           torch, a.family_dtype))
                    }[a.only]
             emit({"phase": a.only, **run(), **lap(),
                   "script_s": time.perf_counter() - t_script})

@@ -181,9 +181,10 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
     into k microbatches along B whose f32 gradients and losses are
     averaged; the backward of one ends before the next starts.  Under
     ``pctx.mesh`` (the module docstring) the state holds DTensors and
-    ``batch`` is the global batch; the family must run under a mesh
-    (``transformer.MESH_FAMILIES``) or this raises."""
-    check_family(cfg, pctx)
+    ``batch`` is the global batch (an enc-dec model's ``enc_embeds`` and
+    a vision model's ``prefix_embeds`` split over the data axes with the
+    tokens)."""
+    check_family(cfg)
     schedule = make_schedule(ocfg.schedule, ocfg.lr, ocfg.total_steps,
                              ocfg.warmup_frac)
     k = max(ocfg.microbatch, 1)
@@ -230,24 +231,38 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
     return train_step
 
 
+def _cache_batch(cache: dict, pctx: PContext):
+    """(the batch dim's layout entry, the device) of a sharded decode
+    cache: read from its first leaf sharded over a data axis (None: the
+    batch whole on every rank)."""
+    data = set(parallel.data_axis_tuple(pctx))
+    dev = None
+    for leaf in tree_leaves(cache):
+        dev = dev or parallel.local_of(leaf).device
+        if not parallel.is_sharded(leaf):
+            continue
+        for ax in parallel.spec_of_placements(leaf.placements,
+                                              leaf.device_mesh, leaf.dim()):
+            if ax in data:
+                return ax, parallel.local_of(leaf).device
+    return None, dev
+
+
 def make_decode_step(cfg: ModelConfig, pctx: PContext):
     """step(params, cache, tokens) -> (logits (B, V), cache).  Under
     ``pctx.mesh``: the cache from ``init_decode_cache(pctx=)``, ``tokens``
     the global batch's, each rank decoding its rows of the cache's batch
-    with its KV heads, and the logits the global batch's on every rank."""
-    check_family(cfg, pctx)
+    with its KV heads, SSM state heads and conv channels, and the logits
+    the global batch's on every rank."""
+    check_family(cfg)
     if pctx.mesh is None:
         def step(params, cache, tokens):
             return decode_step(params, cfg, cache, tokens, pctx=pctx)
         return step
 
     def sharded_step(params, cache, tokens):
-        kv = cache["k"]
-        spec = (parallel.spec_of_placements(kv.placements, kv.device_mesh,
-                                            kv.dim())
-                if parallel.is_sharded(kv) else (None,) * kv.dim())
-        bspec = spec[1]
-        tokens = torch.as_tensor(tokens).to(parallel.local_of(kv).device)
+        bspec, dev = _cache_batch(cache, pctx)
+        tokens = torch.as_tensor(tokens).to(dev)
         rows = shard_batch({"tokens": tokens}, {"tokens": (bspec, None)},
                            pctx.mesh)["tokens"]
         logits, cache = decode_step(params, cfg, cache, rows, pctx=pctx)

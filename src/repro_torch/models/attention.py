@@ -82,27 +82,23 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, *, dtype=torch.bfloat16,
 def _tp_group(p: dict):
     """The model axis's group when a projection of ``p`` is sharded over
     it, else None."""
-    for lin in ("q", "k", "v", "o"):
-        for t in p.get(lin, {}).values():
-            lay = parallel.layout_of(t)
-            if lay is not None and lay.dim_of("model") is not None:
-                return parallel.axis_group(lay.mesh, "model")
-    return None
+    return parallel.model_group({k: p[k] for k in ("q", "k", "v", "o")
+                                 if k in p})
 
 
 def _shard_heads(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, group):
-    """q, k, v projections (B, S, cols) as heads (B, S, h, hd), and whether
-    the heads differ from rank to rank.  The rank keeps its q heads when
+    """q, k, v projections (B, S, cols) as heads (B, S, h, hd) (k and v
+    may have another S: cross-attention), and whether the heads differ
+    from rank to rank.  The rank keeps its q heads when
     its q columns hold whole heads of a head count the axis divides; its
     k/v columns then serve them when they hold the matching whole KV
     heads, else k/v are gathered whole (their gradient reduce-scattered, or
     summed when replicated) and each local q head takes its own KV head.
     Otherwise every projection is gathered and every rank attends with all
     heads (the gradient sliced)."""
-    B, S = q.shape[:2]
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     n = parallel.group_size(group)
-    heads = (lambda t: t.reshape(B, S, -1, hd))
+    heads = (lambda t: t.reshape(*t.shape[:2], -1, hd))
     if group is None or n == 1:
         return heads(q), heads(k), heads(v), False
     if q.shape[-1] * n == Hq * hd and q.shape[-1] % hd == 0 and Hq % n == 0:
@@ -129,14 +125,18 @@ def _shard_heads(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, group):
     return whole(q, Hq), whole(k, Hkv), whole(v, Hkv), False
 
 
-def _project_qkv(p, cfg: AttnConfig, x: Tensor, positions: Tensor,
-                 qspec: QSpec | None, rope: bool = True):
+def _project_qkv(p, cfg: AttnConfig, x: Tensor, positions: Tensor | None,
+                 qspec: QSpec | None, kv_src: Tensor | None = None):
+    """q from ``x``, k and v from ``kv_src`` (``x`` when None), as the
+    rank's heads (:func:`_shard_heads`), qk-normed and, given
+    ``positions``, roped."""
+    kv_src = x if kv_src is None else kv_src
     with scope("q"):
         q = linear_apply(p["q"], x, qspec)
     with scope("k"):
-        k = linear_apply(p["k"], x, qspec)
+        k = linear_apply(p["k"], kv_src, qspec)
     with scope("v"):
-        v = linear_apply(p["v"], x, qspec)
+        v = linear_apply(p["v"], kv_src, qspec)
     group = _tp_group(p)
     q, k, v, sharded = _shard_heads(cfg, q, k, v, group)
     if cfg.qk_norm:
@@ -146,7 +146,7 @@ def _project_qkv(p, cfg: AttnConfig, x: Tensor, positions: Tensor,
             kn = {"scale": parallel.copy_to(kn["scale"], group)}
         q = rmsnorm_apply(qn, q)
         k = rmsnorm_apply(kn, k)
-    if rope:
+    if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -274,21 +274,10 @@ def cross_attn_apply(p, cfg: AttnConfig, x: Tensor, kv_src: Tensor, *,
                      qspec: QSpec | None = None) -> Tensor:
     """Encoder-decoder cross-attention: queries from ``x`` (B, Sq, D), keys
     and values projected from ``kv_src`` (B, Sk, D); no RoPE and no mask
-    (the plain softmax, as the JAX twin: no kernel runs here)."""
+    (the plain softmax, as the JAX twin: no kernel runs here).  Under a
+    mesh each rank attends with its heads, ``kv_src`` whole along Sk."""
     B, Sq, _ = x.shape
-    Sk = kv_src.shape[1]
-    hd = cfg.hd
-    with scope("q"):
-        q = linear_apply(p["q"], x, qspec).reshape(B, Sq, cfg.n_heads, hd)
-    with scope("k"):
-        k = linear_apply(p["k"], kv_src, qspec).reshape(B, Sk,
-                                                        cfg.n_kv_heads, hd)
-    with scope("v"):
-        v = linear_apply(p["v"], kv_src, qspec).reshape(B, Sk,
-                                                        cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rmsnorm_apply(p["q_norm"], q)
-        k = rmsnorm_apply(p["k_norm"], k)
+    q, k, v = _project_qkv(p, cfg, x, None, qspec, kv_src=kv_src)
     out = _sdpa(q, k, v, None)
     with scope("o"):
         return linear_apply(p["o"], out.reshape(B, Sq, -1).to(x.dtype), qspec)

@@ -261,11 +261,24 @@ def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None) -> dict:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm_apply(p: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
+def rmsnorm_apply(p: dict, x: Tensor, eps: float = 1e-6, *, group=None,
+                  c0: int = 0, width: int | None = None) -> Tensor:
+    """RMSNorm over ``x``'s last dim.  With ``group``, ``x`` holds the
+    channels ``c0 ..`` of a norm over ``width`` channels split over that
+    group (Mamba's gated norm on the rank's heads): the sum of squares is
+    summed over the group (every rank's total used on its own channels, so
+    its gradient is summed too) and the rank's slice of the scale used."""
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    scale = p["scale"]
+    if group is None:
+        var = x32.square().mean(dim=-1, keepdim=True)
+    else:
+        ss = x32.square().sum(dim=-1, keepdim=True)
+        ss = parallel.reduce_from(parallel.copy_to(ss, group), group)
+        var = ss / width
+        scale = parallel.rank_part(scale, group, 0, c0, x.shape[-1])
     y = x32 * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
 
 
 def layernorm_init(d: int, dtype=torch.bfloat16, device=None) -> dict:

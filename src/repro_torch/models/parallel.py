@@ -23,10 +23,12 @@ collectives are ``torch.autograd.Function`` s over a mesh axis's group
 the gradient reduce-scattered or sliced), :func:`scatter_to` (the rank's
 slice, all-gather of the gradient) and :func:`reduce_scatter` (reduce-
 scatter, all-gather of the gradient), each counted in :data:`ALLREDUCE_STATS`,
-:data:`GATHER_STATS` or :data:`REDUCE_SCATTER_STATS`.  Over a group of one
-rank each is the identity.  Under gloo a 16-bit float payload travels as
-f32, a CUDA all-gather through the host, and a reduce-scatter as an
-all-reduce and the rank's slice (transports, not fallbacks).
+:data:`GATHER_STATS` or :data:`REDUCE_SCATTER_STATS`; :func:`rank_part` is
+a replicated tensor used on the rank's part (``copy_to``, then a slice).
+Over a group of one rank each is the identity.  Under gloo a 16-bit float
+payload travels as f32, a CUDA all-gather through the host, and a
+reduce-scatter as an all-reduce and the rank's slice (transports, not
+fallbacks).
 """
 from __future__ import annotations
 
@@ -241,6 +243,14 @@ def reduce_from(x: Tensor, group) -> Tensor:
     return x if group_size(group) == 1 else _ReduceFrom.apply(x, group)
 
 
+def rank_part(x: Tensor, group, dim: int, start: int, length: int
+              ) -> Tensor:
+    """A replicated ``x`` used on the rank's part, ``length`` entries from
+    ``start`` along ``dim``: :func:`copy_to` first, so that its gradient,
+    each rank's from its own part, is summed over ``group``."""
+    return copy_to(x, group).narrow(dim, start, length)
+
+
 def gather_from(x: Tensor, group, dim: int, *,
                 reduce_grad: bool) -> Tensor:
     """All-gather of equal shards along ``dim``.  The gradient is
@@ -378,6 +388,20 @@ def model_sharded(t) -> bool:
     """Whether the tagged shard ``t`` is one of several over "model"."""
     lay = layout_of(t)
     return lay is not None and lay.dim_of("model") is not None
+
+
+def model_group(tree):
+    """The model axis's group of the first leaf of ``tree`` (a nested dict
+    of tagged shards) sharded over it, else None."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            g = model_group(v)
+            if g is not None:
+                return g
+        return None
+    if model_sharded(tree):
+        return axis_group(layout_of(tree).mesh, "model")
+    return None
 
 
 # ---------------------------------------------------------------------------

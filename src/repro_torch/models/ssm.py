@@ -13,6 +13,18 @@ JAX package, so CLoQ reaches every SSM linear.  The scan's arithmetic is
 f32 at the JAX twin's points: x, B, C and dt are widened before the scan,
 ``A = -exp(a_log)``, ``dt = softplus(dt + dt_bias)``, and the gated norm
 is ``rmsnorm(y * silu(z).to(x.dtype))``.
+
+Under a mesh (tagged local shards, ``models.parallel``) ``z_proj`` and
+``x_proj`` give the rank's channels and ``conv_x`` convolves them; where
+they are whole heads, each rank scans its heads: ``dt``, ``a_log``, ``d``,
+``dt_bias``, the groups of B and C its heads read and its slice of the
+gated norm's scale are taken from the replicated leaves by
+``parallel.rank_part`` (their gradients summed over "model"), the gated
+norm's sum of squares is summed over "model" (``rmsnorm_apply(group=)``),
+and the row-sharded ``out_proj`` sums the ranks' parts.  Where the rank's
+channels split a head, ``z`` and ``x`` are gathered whole and every rank
+computes every head (the JAX twin's GSPMD layout computes the same model
+either way).
 """
 from __future__ import annotations
 
@@ -21,6 +33,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel
 from repro_torch.models.modules import (QSpec, _randn, linear_apply,
                                         linear_init, rmsnorm_apply,
                                         rmsnorm_init)
@@ -151,26 +164,49 @@ def _project(p: dict, x: Tensor, qspec: QSpec | None):
     return z, xs, bc, dt
 
 
-def _split_heads(cfg: SSMConfig, xs: Tensor, bc: Tensor, lead: tuple):
-    """x as heads (*lead, h, p); B and C (*lead, h, n), head ``i`` reading
-    group ``i // (h / g)`` (``repeat_interleave``, the JAX twin's
-    ``jnp.repeat``)."""
+def _rank_heads(p: dict, cfg: SSMConfig, z: Tensor, xs: Tensor):
+    """``(z, xs, group, h0)``: the projections as the rank computes with
+    them, the model axis's group when the rank scans its own heads
+    ``h0 ..`` (None: every head, on one device or with the block whole on
+    every rank).  Channels that split a head are gathered whole."""
+    group = parallel.model_group({k: p[k] for k in ("z_proj", "x_proj")})
+    if group is None or xs.shape[-1] == cfg.d_inner:
+        return z, xs, None, 0
+    n = parallel.group_size(group)
+    if cfg.n_heads % n:
+        return (parallel.gather_from(z, group, -1, reduce_grad=False),
+                parallel.gather_from(xs, group, -1, reduce_grad=False),
+                None, 0)
+    return z, xs, group, torch.distributed.get_rank(group) * (
+        cfg.n_heads // n)
+
+
+def _split_heads(cfg: SSMConfig, xs: Tensor, bc: Tensor, lead: tuple,
+                 group=None, h0: int = 0):
+    """x as heads (*lead, hl, p); B and C (*lead, hl, n), head ``i``
+    reading group ``i // (h / g)`` (``repeat_interleave``, the JAX twin's
+    ``jnp.repeat``): the heads ``h0 .. h0 + hl`` of the replicated B and
+    C (with ``group``, the rank's)."""
     h, n, g = cfg.n_heads, cfg.d_state, cfg.n_groups
-    rep = h // g
-    xh = xs.reshape(*lead, h, cfg.head_dim)
-    Bm = bc[..., :g * n].reshape(*lead, g, n)
-    Cm = bc[..., g * n:].reshape(*lead, g, n)
-    Bm = torch.repeat_interleave(Bm, rep, dim=len(lead))
-    Cm = torch.repeat_interleave(Cm, rep, dim=len(lead))
-    return xh, Bm, Cm
+    hl = xs.shape[-1] // cfg.head_dim
+    xh = xs.reshape(*lead, hl, cfg.head_dim)
+    bcg = torch.repeat_interleave(bc.reshape(*lead, 2, g, n), h // g,
+                                  dim=len(lead) + 1)
+    bcg = parallel.rank_part(bcg, group, len(lead) + 1, h0, hl)
+    return xh, bcg.select(len(lead), 0), bcg.select(len(lead), 1)
 
 
 def _gated_out(p: dict, cfg: SSMConfig, y: Tensor, xh: Tensor, z: Tensor,
-               x: Tensor, qspec: QSpec | None) -> Tensor:
-    """``D`` skip, gated norm and out_proj of the scan's f32 output."""
-    y = y + xh.float() * p["d"][:, None]
-    y = y.reshape(*x.shape[:-1], cfg.d_inner).to(x.dtype)
-    y = rmsnorm_apply(p["norm"], y * F.silu(z.float()).to(x.dtype))
+               x: Tensor, qspec: QSpec | None, group=None,
+               h0: int = 0) -> Tensor:
+    """``D`` skip, gated norm and out_proj of the scan's f32 output (the
+    rank's heads ``h0 ..`` with ``group``)."""
+    hl = xh.shape[-2]
+    d = parallel.rank_part(p["d"], group, 0, h0, hl)
+    y = y + xh.float() * d[:, None]
+    y = y.reshape(*x.shape[:-1], hl * cfg.head_dim).to(x.dtype)
+    y = rmsnorm_apply(p["norm"], y * F.silu(z.float()).to(x.dtype),
+                      group=group, c0=h0 * cfg.head_dim, width=cfg.d_inner)
     with scope("out_proj"):
         return linear_apply(p["out_proj"], y, qspec)
 
@@ -182,11 +218,14 @@ def mamba_apply(p: dict, cfg: SSMConfig, x: Tensor, *,
     z, xs, bc, dt = _project(p, x, qspec)
     xs = _causal_conv(xs, p["conv_x"], p["conv_x_b"])
     bc = _causal_conv(bc, p["conv_bc"], p["conv_bc_b"])
-    xh, Bm, Cm = _split_heads(cfg, xs, bc, (B_, S))
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["a_log"])
+    z, xs, group, h0 = _rank_heads(p, cfg, z, xs)
+    xh, Bm, Cm = _split_heads(cfg, xs, bc, (B_, S), group, h0)
+    hl = xh.shape[-2]
+    dt = F.softplus(parallel.rank_part(dt, group, -1, h0, hl).float()
+                    + parallel.rank_part(p["dt_bias"], group, 0, h0, hl))
+    A = -torch.exp(parallel.rank_part(p["a_log"], group, 0, h0, hl))
     y, _ = ssd_chunked(xh, dt, A, Bm, Cm, min(cfg.chunk, S))
-    return _gated_out(p, cfg, y, xh, z, x, qspec)
+    return _gated_out(p, cfg, y, xh, z, x, qspec, group, h0)
 
 
 def mamba_init_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,
@@ -224,14 +263,17 @@ def mamba_decode(p: dict, cfg: SSMConfig, x: Tensor, cache: dict, *,
     z, xs, bc, dt = z[:, 0], xs[:, 0], bc[:, 0], dt[:, 0]
     xs = _conv_step(cache["conv_x"], xs, p["conv_x"], p["conv_x_b"])
     bc = _conv_step(cache["conv_bc"], bc, p["conv_bc"], p["conv_bc_b"])
-    xh, Bm, Cm = _split_heads(cfg, xs, bc, (B_,))
-    dt_ = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["a_log"])
+    z, xs, group, h0 = _rank_heads(p, cfg, z, xs)
+    xh, Bm, Cm = _split_heads(cfg, xs, bc, (B_,), group, h0)
+    hl = xh.shape[-2]
+    dt_ = F.softplus(parallel.rank_part(dt, group, -1, h0, hl).float()
+                     + parallel.rank_part(p["dt_bias"], group, 0, h0, hl))
+    A = -torch.exp(parallel.rank_part(p["a_log"], group, 0, h0, hl))
     decay = torch.exp(dt_ * A)                              # (B, h)
     st = cache["state"]
     new = (st * decay[:, :, None, None]
            + torch.einsum("bh,bhn,bhp->bhpn", dt_, Bm, xh.float()))
     st.copy_(new)
     y = torch.einsum("bhn,bhpn->bhp", Cm, new)
-    out = _gated_out(p, cfg, y, xh, z[:, None], x, qspec)
+    out = _gated_out(p, cfg, y, xh, z[:, None], x, qspec, group, h0)
     return out, cache

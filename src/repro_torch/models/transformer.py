@@ -30,13 +30,16 @@ vision-prefix model (``frontend="vision"``) prepends
 ``batch["prefix_embeds"]`` to the token embeddings and drops those
 positions after the final norm.
 
-Under a mesh (``pctx.mesh``: the dense and MoE families; the others raise)
-the params are DTensors or tagged local shards (``models.parallel``) and
+Under a mesh (``pctx.mesh``, every family and the vision prefix) the
+params are DTensors or tagged local shards (``models.parallel``) and
 ``batch``/``tokens`` hold the rank's data rows.  Tensor parallelism lives
-in the linears, attention, embedding and head (``modules``,
-``attention``), expert parallelism in ``moe``; ``seq_shard`` keeps the
-residual stream between blocks sharded along S over "model" (gathered
-before each block's column linears, reduce-scattered after its row ones);
+in the linears, attention (and cross-attention), the Mamba block,
+embedding and head (``modules``, ``attention``, ``ssm``), expert
+parallelism in ``moe``; ``seq_shard`` keeps the residual stream between
+sub-layers sharded along S over "model" (gathered before each sub-layer's
+column linears, reduce-scattered after its row ones; a vision model's
+prefix positions with the tokens'); the enc-dec encoder and its output,
+the cross-attention's keys and values, stay whole along their sequence.
 ``loss_fn`` reduces the vocab-parallel log-likelihoods and the label
 count over the data axes, so the loss is the global one on every rank.
 """
@@ -141,23 +144,11 @@ class ModelConfig:
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
-def check_family(cfg: ModelConfig, pctx: PContext = LOCAL) -> None:
-    """Raise for an unknown family, and under a mesh for a family or
-    frontend the sharded model does not run."""
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for an unknown family."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; options "
                          f"{FAMILIES}")
-    if pctx.mesh is None:
-        return
-    if cfg.family not in MESH_FAMILIES or cfg.frontend == "vision":
-        what = ("the vision prefix" if cfg.family in MESH_FAMILIES
-                else f"the {cfg.family} family")
-        raise NotImplementedError(
-            f"{cfg.name}: {what} does not run under a mesh yet; only "
-            f"{MESH_FAMILIES} do (see ROADMAP.md)")
-
-
-MESH_FAMILIES = ("dense", "moe")
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -211,13 +202,15 @@ def _shared_block_init(gen: torch.Generator, cfg: ModelConfig,
 
 def _with_site_lora(shared: dict, site_lora: dict, site: int) -> dict:
     """The shared block with site ``site``'s LoRA spliced into each linear
-    (views of the stacks, so gradients reach them)."""
+    (views of the stacks, so gradients reach them; a local shard keeps its
+    layout tag)."""
     blk = {"ln1": shared["ln1"], "ln2": shared["ln2"],
            "attn": dict(shared["attn"]), "mlp": dict(shared["mlp"])}
     for key, sub in site_lora.items():
         mod, lin = key.split("_", 1)
-        blk[mod][lin] = dict(blk[mod][lin], lora_a=sub["lora_a"][site],
-                             lora_b=sub["lora_b"][site])
+        blk[mod][lin] = dict(
+            blk[mod][lin], lora_a=parallel.select_layer(sub["lora_a"], site),
+            lora_b=parallel.select_layer(sub["lora_b"], site))
     return blk
 
 
@@ -226,18 +219,19 @@ def _direct(fn, *args):
 
 
 def _shared_block_apply(p: dict, cfg: ModelConfig, x: Tensor, site: int,
-                        sub=_direct) -> Tensor:
+                        sub=_direct, sp=None) -> Tensor:
     """The shared block at site ``site``; ``sub`` runs each sub-layer (a
-    checkpoint under ``remat="tp_out"``)."""
+    checkpoint under ``remat="tp_out"``), ``sp`` the sequence-parallel
+    group (:func:`_sublayer`)."""
     blk = _with_site_lora(p["block"], p["site_lora"], site)
     with scope("shared.attn"):
-        x = x + sub(lambda h: attn_apply(blk["attn"], cfg.attn_cfg(),
-                                         rmsnorm_apply(blk["ln1"], h),
-                                         qspec=cfg.quant), x)
+        x = x + sub(_sublayer(lambda h: attn_apply(
+            blk["attn"], cfg.attn_cfg(), h, qspec=cfg.quant), blk["ln1"],
+            sp), x)
     with scope("shared.mlp"):
-        x = x + sub(lambda h: swiglu_apply(blk["mlp"],
-                                           rmsnorm_apply(blk["ln2"], h),
-                                           cfg.quant), x)
+        x = x + sub(_sublayer(lambda h: swiglu_apply(blk["mlp"], h,
+                                                     cfg.quant),
+                              blk["ln2"], sp), x)
     return x
 
 
@@ -347,17 +341,18 @@ def _block_apply(p, cfg: ModelConfig, x: Tensor, pctx: PContext = LOCAL,
     """Returns (y, aux_loss): the MoE block's aux loss, None for the
     other families.  ``causal=False``: the enc-dec encoder's
     bidirectional attention (never query-chunked, as in the JAX twin's
-    encoder); otherwise ``cfg.attn_chunk`` chunks the queries.  ``sub``
-    runs each sub-layer (a checkpoint under ``remat="tp_out"``)."""
+    encoder, and never sequence-sharded: the encoder and its output stay
+    whole along Se); otherwise ``cfg.attn_chunk`` chunks the queries.
+    ``sub`` runs each sub-layer (a checkpoint under ``remat="tp_out"``)."""
     q = cfg.quant
+    sp = _seq_group(cfg, pctx) if causal else None
     if cfg.family in ("ssm", "hybrid"):
+        # under seq_shard the scan gathers the whole sequence
         with scope("mamba"):
-            y = sub(lambda h: mamba_apply(p["mamba"], cfg.ssm_cfg(),
-                                          rmsnorm_apply(p["norm"], h),
-                                          qspec=q), x)
+            y = sub(_sublayer(lambda h: mamba_apply(
+                p["mamba"], cfg.ssm_cfg(), h, qspec=q), p["norm"], sp), x)
         return x + y, None
     chunk = (cfg.attn_chunk or None) if causal else None
-    sp = _seq_group(cfg, pctx)
     with scope("attn"):
         x = x + sub(_sublayer(lambda h: attn_apply(
             p["attn"], cfg.attn_cfg(causal=causal), h, qspec=q,
@@ -449,43 +444,60 @@ def _runners(mode: str | None):
 
 
 def _encode(params: dict, cfg: ModelConfig, enc_embeds: Tensor,
-            unit=_direct, sub=_direct) -> Tensor:
+            unit=_direct, sub=_direct, pctx: PContext = LOCAL) -> Tensor:
     """The enc-dec encoder: bidirectional dense blocks over the frontend
-    stub's embeddings (B, Se, D), then ``enc_norm``.  Returns enc_out.
-    ``unit``/``sub``: :func:`_runners`."""
+    stub's embeddings (B, Se, D), then ``enc_norm``.  Returns enc_out
+    (whole along Se on every rank under a mesh).  ``unit``/``sub``:
+    :func:`_runners`."""
     x = enc_embeds.to(cfg.dtype)
     for i, bp in _layers(params["enc_blocks"], cfg):
         with _layer_scope(cfg, f"enc_blocks.{i}"):
-            x, _ = unit(lambda h, bp=bp: _block_apply(bp, cfg, h,
+            x, _ = unit(lambda h, bp=bp: _block_apply(bp, cfg, h, pctx,
                                                       causal=False, sub=sub),
                         x)
     return rmsnorm_apply(params["enc_norm"], x)
 
 
+def encode(params: dict, cfg: ModelConfig, enc_embeds: Tensor, *,
+           pctx: PContext = LOCAL) -> Tensor:
+    """An enc-dec model's encoder output ``(B, Se, D)`` for the frontend
+    stub's embeddings, what ``init_decode_cache``'s ``enc_out`` is filled
+    with.  Under a mesh ``enc_embeds`` are the rank's data rows."""
+    if pctx.mesh is not None:
+        params = parallel.localize(params)
+    return _encode(params, cfg, enc_embeds, pctx=pctx)
+
+
 def _cross_apply(cp: dict, cfg: ModelConfig, x: Tensor, enc_out: Tensor,
-                 sub=_direct) -> Tensor:
-    """A decoder layer's residual cross-attention over ``enc_out``."""
+                 sub=_direct, sp=None) -> Tensor:
+    """A decoder layer's residual cross-attention over ``enc_out``; ``sp``:
+    :func:`_sublayer`'s (the queries' S sharded, ``enc_out`` whole)."""
     with scope("cross"):
-        return x + sub(lambda h: cross_attn_apply(
-            cp["xattn"], cfg.attn_cfg(causal=False),
-            rmsnorm_apply(cp["ln"], h), enc_out, qspec=cfg.quant), x)
+        return x + sub(_sublayer(lambda h: cross_attn_apply(
+            cp["xattn"], cfg.attn_cfg(causal=False), h, enc_out,
+            qspec=cfg.quant), cp["ln"], sp), x)
 
 
-def _forward_encdec(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
+def _forward_encdec(params: dict, cfg: ModelConfig, batch: dict,
+                    pctx: PContext = LOCAL) -> Tensor:
     """The enc-dec decoder's hidden states before the final norm: each
     layer's dense block (attention, MLP), then its cross-attention.  In the
     stacked layout every encoder block and decoder layer is checkpointed
     (``remat="none"`` counts as ``"full"`` there), in the eager one none
-    is, as in the JAX twin."""
+    is, as in the JAX twin.  Under ``seq_shard`` the decoder's residual
+    stream is sharded along S (returned so)."""
     unit, sub = _runners(_remat_mode(cfg, force=True) if cfg.scan_layers
                          else None)
-    enc_out = _encode(params, cfg, batch["enc_embeds"], unit, sub)
+    enc_out = _encode(params, cfg, batch["enc_embeds"], unit, sub, pctx)
     x = embedding_apply(params["embed"], batch["tokens"]).to(cfg.dtype)
+    sp = _seq_group(cfg, pctx)
+    if sp is not None:
+        x = parallel.scatter_to(x, sp, 1)
     cross = dict(_layers(params["cross"], cfg))
 
     def layer(bp, cp, h):
-        h, _ = _block_apply(bp, cfg, h, sub=sub)
-        return _cross_apply(cp, cfg, h, enc_out, sub)
+        h, _ = _block_apply(bp, cfg, h, pctx, sub=sub)
+        return _cross_apply(cp, cfg, h, enc_out, sub, sp)
 
     for i, bp in _layers(params["dec_blocks"], cfg):
         with _layer_scope(cfg, f"dec_blocks.{i}"):
@@ -501,11 +513,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     Returns (logits (B, S, V), aux) — or (hidden (B, S, D), aux) with
     ``return_hidden``: text positions only.  ``aux`` is the f32 sum of the
     MoE layers' load balance losses (zero for the other families)."""
-    check_family(cfg, pctx)
+    check_family(cfg)
     if pctx.mesh is not None:
         params = parallel.localize(params)
     if cfg.family == "encdec":
-        x = _forward_encdec(params, cfg, batch)
+        x = _forward_encdec(params, cfg, batch, pctx)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         x, aux = _forward_blocks(params, cfg, batch, pctx)
@@ -562,9 +574,9 @@ def _forward_blocks(params: dict, cfg: ModelConfig, batch: dict,
     def site_of(s, h):
         if not cfg.scan_layers:
             with scope(f"sites.{s}"):
-                return _shared_block_apply(shared, cfg, h, s)
-        return unit(lambda g: _shared_block_apply(shared, cfg, g, s, sub),
-                    h)
+                return _shared_block_apply(shared, cfg, h, s, sp=sp)
+        return unit(lambda g: _shared_block_apply(shared, cfg, g, s, sub,
+                                                  sp), h)
 
     if shared is not None and cfg.scan_layers and mode == "full":
         every = cfg.hybrid_attn_every
@@ -572,7 +584,7 @@ def _forward_blocks(params: dict, cfg: ModelConfig, batch: dict,
             def segment(h, seg=layers[s * every:(s + 1) * every], s=s):
                 for i, bp in seg:
                     h, _ = block(i, bp, h)
-                return _shared_block_apply(shared, cfg, h, s)
+                return _shared_block_apply(shared, cfg, h, s, sp=sp)
             x = checkpoint(segment, x)
         layers = layers[cfg.n_hybrid_sites * every:]
     for i, bp in layers:
@@ -603,7 +615,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     ``-sum(ll) / max(count, 1)`` over the global batch on every rank (sum
     and count all-reduced over the data axes, as under GSPMD), the
     log-likelihoods vocab-parallel when the head's vocab is sharded."""
-    check_family(cfg, pctx)
+    check_family(cfg)
     if pctx.mesh is not None:
         params = parallel.localize(params)
     labels = batch["labels"]
@@ -650,11 +662,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
     the caller fills it with an encoder output); f32 conv windows and SSM
     states (a leading layer axis) for SSM; for hybrid also ``shared_kv``,
     one K/V ring a site of ``min(cache_len, hybrid_window)`` positions.
-    Under ``pctx.mesh`` the K/V are DTensors laid out by
-    ``launch.shardings.cache_specs`` (batch over the data axes, KV heads
-    over "model" where it divides them), each rank allocating only its
-    block; ``idx`` stays a plain tensor."""
-    check_family(cfg, pctx)
+    Under ``pctx.mesh`` the caches are DTensors laid out by
+    ``launch.shardings.cache_specs`` (batch over the data axes, KV heads,
+    SSM state heads and ``conv_x`` channels over "model" where it divides
+    them), each rank allocating only its block; ``idx`` stays a plain
+    tensor."""
+    check_family(cfg)
     if pctx.mesh is not None:
         return _sharded_cache(cfg, batch, cache_len, dtype, device, pctx)
     dev = resolve_device(device)
@@ -721,17 +734,18 @@ def _sharded_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     shapes = init_decode_cache(cfg, batch, cache_len, dtype, "meta")
     specs = cache_specs(cfg, shapes, pctx.mesh, pctx.data_axes)
     dev = resolve_device(device)
-    out = {}
-    for k, leaf in shapes.items():
+
+    def alloc(leaf, spec):
+        if isinstance(leaf, dict):     # a hybrid's shared_kv
+            return {k: alloc(v, spec[k]) for k, v in leaf.items()}
         if leaf.dim() == 0:
-            out[k] = torch.zeros((), dtype=leaf.dtype, device=dev)
-            continue
+            return torch.zeros((), dtype=leaf.dtype, device=dev)
         shape = [n // parallel.axis_size(pctx.mesh, ax) if ax else n
-                 for n, ax in zip(leaf.shape, specs[k])]
-        out[k] = parallel.distribute_local(
-            torch.zeros(shape, dtype=leaf.dtype, device=dev), specs[k],
+                 for n, ax in zip(leaf.shape, spec)]
+        return parallel.distribute_local(
+            torch.zeros(shape, dtype=leaf.dtype, device=dev), spec,
             pctx.mesh)
-    return out
+    return alloc(shapes, specs)
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
@@ -748,7 +762,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
     and the logits its rows' over the whole vocab; a cache sharded along
     the sequence (``cache_specs``' fallback where the model axis does not
     divide the KV heads) raises."""
-    check_family(cfg, pctx)
+    check_family(cfg)
     full = cache
     if pctx.mesh is not None:
         params, cache = parallel.localize(params), parallel.localize(cache)

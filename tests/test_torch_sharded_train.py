@@ -65,7 +65,6 @@ from repro_torch.launch import shardings as tsh
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import modules as tmod
 from repro_torch.models import transformer as tt
-from repro_torch.models.parallel import PContext
 from repro_torch.optim import OptConfig
 from repro_torch.utils import tree_paths as tpaths
 from tests import torch_sharded_worker
@@ -440,25 +439,6 @@ def _same_specs(want: dict, got: dict) -> None:
     assert not bad, list(bad.items())[:5]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b",
-                                  "seamless-m4t-medium", "pixtral-12b"])
-def test_unported_families_raise_under_a_mesh(arch):
-    """The families the sharded model does not run raise, naming the
-    family and ROADMAP.md, from the step builders, the forward and the
-    cache: none computes unsharded under a mesh."""
-    cfg = tc.get_smoke_config(arch)
-    pctx = PContext(mesh=_MeshStub({"data": 2, "model": 2}))
-    what = "vision prefix" if arch == "pixtral-12b" else cfg.family
-    for call in (lambda: tsteps.make_train_step(cfg, OptConfig(), pctx),
-                 lambda: tsteps.make_decode_step(cfg, pctx),
-                 lambda: tt.forward({}, cfg, {}, pctx=pctx),
-                 lambda: tt.init_decode_cache(cfg, 2, 8, device="cpu",
-                                              pctx=pctx)):
-        with pytest.raises(NotImplementedError, match=what) as e:
-            call()
-        assert "ROADMAP.md" in str(e.value)
-
-
 def test_shardings_without_a_mesh_are_the_identity():
     """``constrain`` is the identity without a mesh; ``batch_pspecs`` puts
     the batch dim over the data axes unless it is 1, as JAX's."""
@@ -518,6 +498,7 @@ def test_chip_smoke_predicts_the_collectives(runs, name):
     (2, 2) mesh), with and without ``seq_shard``."""
     port, _ = runs
     _, _, cs = _chip_scripts()
-    want = cs.predicted_collectives(2, name == "lora_seq")
+    _, cfg = configs()
+    want = cs.predicted_collectives(cfg, name == "lora_seq")
     for step in port[name]["collectives"]:
         assert {k: v["calls"] for k, v in step.items()} == want
