@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Planted-fault check of ``chip_smoke.py``'s bf16 decode attention cases,
 its gram cases, its kernel-vs-plain decode logits check, its fused LoRA
-kernel's precision check and its distributed and sharded-step checks.
+kernel's precision check, its distributed and sharded-step checks and its
+sequence-sharded decode.
 
     python3 chip_fault_check.py
 
@@ -53,7 +54,7 @@ A fifth copy, ``build/fault_copy_sharded/``, holds a sixth, in Python:
   summed over the model axis, so each rank keeps its part.  The cases are
   ``chip_smoke.py``'s ``train_sharded`` checks (4 gloo ranks on the card,
   a (data 2, model 2) mesh, Qwen3-1.7B at full width against the
-  unsharded step).
+  unsharded step, whose gradients must fail).
 
 A sixth copy, ``build/fault_copy_gated/``, holds a seventh, in Python:
 
@@ -64,12 +65,22 @@ A sixth copy, ``build/fault_copy_gated/``, holds a seventh, in Python:
   fail on a numerical check (their gradients or their decode), not only
   on the collective count that the dropped all-reduce changes.
 
+A seventh copy, ``build/fault_copy_seqkv/``, holds an eighth, in Python:
+
+* ``models/parallel.py``: ``combine_softmax`` (the sequence-sharded
+  decode's combine of the ranks' partial softmaxes) weighs each rank's
+  partial without the rescale by the global max: 1 for a rank with a
+  valid key, 0 for one without, in place of ``exp(lse - M)``.  The case
+  is ``train_sharded``'s ``seq_kv`` alone (Qwen3-30B-A3B, 8 gloo ranks, a
+  (data 1, model 8) mesh, its cache sharded along the sequence), which
+  must fail on its decode logits.
+
 The attention and gram cases run on the real sources and on the first
 copy, the logits cases on the real sources and on the second, the
 precision cases on the real sources and on the third, the distributed
 cases on the real sources and on the fourth, the sharded-step cases on
 the real sources and on the fifth, the families' sharded cases on the
-sixth, each tree in its own process.  One JSON line a case: tree,
+sixth, the seq_kv case on the seventh, each tree in its own process.  One JSON line a case: tree,
 kernel, shape, the plan's split or route, whether the checks pass, the
 error and the reference's largest value (for the logits, the limit).
 
@@ -79,8 +90,9 @@ check fails on the copy in every case with more than one token stage,
 the logits check fails on the second copy in every case, the precision
 check on the third in every case, and the distributed check on the
 fourth for both methods on ``A @ B^T``, the sharded step's check on
-the fifth on the LoRA gradients, and the Mamba families' sharded cases
-on the sixth; the last line says which.
+the fifth on the LoRA gradients, the Mamba families' sharded cases on
+the sixth, and the seq_kv case on the seventh on its logits; the last
+line says which.
 """
 from __future__ import annotations
 
@@ -129,6 +141,14 @@ GATED_SOUND = ("        ss = parallel.reduce_from("
 GATED_FAULT = "        ss = ss * parallel.group_size(group)"
 # the families with Mamba blocks, whose train_sharded cases must fail on it
 GATED_FAMILIES = ("mamba2-370m", "zamba2-7b")
+# the family whose gradients the sixth plant must move
+SHARDED_FAMILY = "qwen3-1.7b"
+SEQKV_COPY = ROOT / "build" / "fault_copy_seqkv"
+SEQKV_SOURCE = Path("src/repro_torch/models/parallel.py")
+# each rank's weight in the combine of the partial softmaxes; the fault
+# drops the rescale by the ranks' max of the log-sum-exp
+SEQKV_SOUND = "    w = torch.exp(lse - m)"
+SEQKV_FAULT = "    w = torch.isfinite(lse).float()"
 LORA_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul_lora.cu")
 # the wgmma route's fold reads a group's scales; the fault rounds them to
 # bf16 first
@@ -183,6 +203,19 @@ def plant_gated_fault(text: str) -> str:
     """``models/modules.py`` with a split RMSNorm (Mamba's gated norm)
     taken over the rank's channels only."""
     return _plant(text, GATED_SOUND, GATED_FAULT, GATED_SOURCE)
+
+
+def plant_seqkv_fault(text: str) -> str:
+    """``models/parallel.py`` with the partial softmaxes combined without
+    the rescale by the global max."""
+    return _plant(text, SEQKV_SOUND, SEQKV_FAULT, SEQKV_SOURCE)
+
+
+def seqkv_caught(rows: list) -> bool:
+    """Whether the eighth copy's rows show the plant caught: the seq_kv
+    case fails on its decode logits."""
+    return bool(rows) and all("seq_kv:decode" in r["failed_checks"]
+                              for r in rows)
 
 
 def gated_caught(rows: list) -> bool:
@@ -298,35 +331,31 @@ def dist_cases(torch, cs, dev, tree: Path) -> list[dict]:
     return out
 
 
-def _check_name(f: list, families: tuple) -> str:
-    """A ``train_sharded`` failure's name: its run and check ("tp:loss"),
-    a family's prefixed with the family ("mamba2-370m:tp:loss",
-    "mamba2-370m:grad")."""
-    if f[0] in families:
-        return ":".join(str(x) for x in f[:3 if f[1] in ("tp", "seq")
-                                           else 2])
-    return f"{f[0]}:{f[1]}" if f[0] in ("tp", "seq") else f[0]
+def _check_name(f: list) -> str:
+    """A ``train_sharded`` failure's name: its case (a family, "moe" or
+    "seq_kv") and check, a run's between them ("mamba2-370m:tp:loss",
+    "mamba2-370m:grad", "seq_kv:decode")."""
+    return ":".join(str(x) for x in f[:3 if f[1] in ("tp", "seq") else 2])
 
 
 def sharded_cases(torch, cs, dev, tree: Path,
-                  families_only: bool = False) -> list[dict]:
+                  which: str = "all") -> list[dict]:
     """``chip_smoke.py``'s ``train_sharded`` checks on the sources
-    imported, returned rather than raised (``families_only``: its
-    ``SHARDED_FAMILIES`` alone)."""
-    out = cs.train_sharded_phase(torch, dev, tree / "build" /
-                                 "fault_sharded_work", hold=False,
-                                 families_only=families_only)
-    families = tuple(a for a, _, _ in cs.SHARDED_FAMILIES)
+    imported, returned rather than raised: all of them, its
+    ``SHARDED_FAMILIES`` alone ("families") or its seq_kv case alone
+    ("seq_kv")."""
+    out = cs.train_sharded_phase(
+        torch, dev, tree / "build" / "fault_sharded_work", hold=False,
+        families=() if which == "seq_kv" else cs.SHARDED_FAMILIES,
+        moe=which == "all", seq_kv=which != "families")
     row = {"kernel": "train_sharded", "passes": not out["failed"],
-           "failed_checks": sorted({_check_name(f, families)
-                                    for f in out["failed"]}),
+           "failed_checks": sorted({_check_name(f) for f in out["failed"]}),
            "families": {a: {"loss_rel": f["tp"]["loss_rel"],
                             "grads_worst": f["grads_worst"]}
                         for a, f in out["families"].items()}}
-    if not families_only:
-        row.update(grads_worst=out["grads_worst"],
-                   loss_rel=out["tp"]["loss_rel"],
-                   grad_norm_rel=out["tp"]["grad_norm_rel"])
+    if "seq_kv" in out:
+        row["seq_kv"] = {k: out["seq_kv"][k]
+                         for k in ("max_abs_err", "limit", "max_abs_logit")}
     return [row]
 
 
@@ -348,8 +377,12 @@ def run_cases(tree: Path, which: str) -> list[dict]:
         return dist_cases(torch, cs, dev, tree)
     if which == "sharded":
         return sharded_cases(torch, cs, dev, tree)
+    if which == "sharded_families":
+        return sharded_cases(torch, cs, dev, tree, "families")
     if which == "gated":
-        return sharded_cases(torch, cs, dev, tree, families_only=True)
+        return sharded_cases(torch, cs, dev, tree, "families")
+    if which == "seqkv":
+        return sharded_cases(torch, cs, dev, tree, "seq_kv")
     return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
 
 
@@ -372,7 +405,7 @@ def main() -> int:
                                                DQ_KERNEL, LORA_KERNEL,
                                                DIST_SOURCE,
                                                SHARDED_SOURCE,
-                                               GATED_SOURCE)):
+                                               GATED_SOURCE, SEQKV_SOURCE)):
         print(f"chip_fault_check: no {KERNEL}, {GRAM_KERNEL}, {DQ_KERNEL} "
               f"or {LORA_KERNEL} beside {__file__}", file=sys.stderr)
         return 1
@@ -395,9 +428,12 @@ def main() -> int:
     _copy(GATED_COPY)
     (GATED_COPY / GATED_SOURCE).write_text(
         plant_gated_fault((ROOT / GATED_SOURCE).read_text()))
+    _copy(SEQKV_COPY)
+    (SEQKV_COPY / SEQKV_SOURCE).write_text(
+        plant_seqkv_fault((ROOT / SEQKV_SOURCE).read_text()))
     built = ROOT / "build" / "repro_torch"
     if built.is_dir():        # the same CUDA sources: reuse their build
-        for copy in (DIST_COPY, SHARDED_COPY, GATED_COPY):
+        for copy in (DIST_COPY, SHARDED_COPY, GATED_COPY, SEQKV_COPY):
             shutil.copytree(built, copy / "build" / "repro_torch")
     rows = {}
     for name, tree, which in (("sources", ROOT, "kernels"),
@@ -409,8 +445,10 @@ def main() -> int:
                               ("sources", ROOT, "dist"),
                               ("fault_dist", DIST_COPY, "dist"),
                               ("sources", ROOT, "sharded"),
-                              ("fault_sharded", SHARDED_COPY, "sharded"),
-                              ("fault_gated", GATED_COPY, "gated")):
+                              ("fault_sharded", SHARDED_COPY,
+                               "sharded_families"),
+                              ("fault_gated", GATED_COPY, "gated"),
+                              ("fault_seqkv", SEQKV_COPY, "seqkv")):
         proc = subprocess.run(
             [sys.executable, __file__, "--tree", str(tree), which],
             capture_output=True, text=True, cwd=ROOT, timeout=900)
@@ -436,18 +474,21 @@ def main() -> int:
     dist_seen = bool(rows["fault_dist"]) and all(
         "lora_ab" in r["failed_fields"] for r in rows["fault_dist"])
     sharded_seen = bool(rows["fault_sharded"]) and all(
-        "grad" in r["failed_checks"] for r in rows["fault_sharded"])
+        f"{SHARDED_FAMILY}:grad" in r["failed_checks"]
+        for r in rows["fault_sharded"])
     gated_seen = gated_caught(rows["fault_gated"])
+    seqkv_seen = seqkv_caught(rows["fault_seqkv"])
     print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
                       "gram_fault_caught": gram_seen,
                       "dequant_fault_caught_by_logits": dequant_seen,
                       "lora_fault_caught_by_precision": lora_seen,
                       "dist_fault_caught_on_lora_ab": dist_seen,
                       "sharded_fault_caught_on_grads": sharded_seen,
-                      "gated_norm_fault_caught": gated_seen}))
+                      "gated_norm_fault_caught": gated_seen,
+                      "seqkv_combine_fault_caught_on_logits": seqkv_seen}))
     return 0 if (sound and flash_seen and gram_seen and dequant_seen
                  and lora_seen and dist_seen and sharded_seen
-                 and gated_seen) else 1
+                 and gated_seen and seqkv_seen) else 1
 
 
 if __name__ == "__main__":

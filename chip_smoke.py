@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py [--layers L] [--moe-layers L] [--hybrid-layers L]
                           [--vlm-layers L]
-                          [--only configs|ssm|encdec|allocate|levers|trace]
+                          [--only kernels|configs|ssm|encdec|allocate|levers|
+                                  trace|distributed|train_sharded]
+                          [--families A,B] [--family-dtype float32]
+                          [--seq-kv-only]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
 one JSON line each:
@@ -20,7 +23,12 @@ one JSON line each:
    function picks, each case's route and error on a ``dequant_cases``,
    ``flash_cases``, ``gram_cases`` or ``lora_cases`` line; the decode and
    train shapes run twice for equal bits, and ``gram``'s tensor-core
-   cases must also meet the f32 tolerance (exact products).  Then the kernel, the plain version and one
+   cases must also meet the f32 tolerance (exact products).
+   ``flash_attention``'s partial mode (``return_lse``, the
+   sequence-sharded decode's softmax over a rank's keys) on both decode
+   routes, zero-length rows included, on a ``flash_partial_cases`` line
+   (:data:`FLASH_PARTIAL`), and timed at decode_32k's production shard
+   (``flash_attention_partial``).  Then the kernel, the plain version and one
    PyTorch library call timed over one step's worth of calls (CUDA graphs
    replayed between CUDA events), the least time the card could take for
    the same work and, for the decode kernels, the bytes/s reached and
@@ -217,6 +225,18 @@ one JSON line each:
    ``serve.decode`` x the engine's decodes; the same tokens traced and
    untraced.
 
+Between journal and methods run ``distributed`` (the column-sharded
+quantization engine on 2 gloo ranks) and ``train_sharded``: each of
+:data:`SHARDED_FAMILIES` (Qwen3-1.7B, Mamba2, Zamba2, Seamless, Pixtral
+at full width) restored by 4 gloo ranks sharing the card as a (data 2,
+model 2) mesh, its steps with and without ``seq_shard`` and its decode
+held against the unsharded ones (Qwen3-1.7B's ``ef_psum_int8`` too),
+OLMoE's expert-parallel steps, and ``seq_kv``: Qwen3-30B-A3B decoded by
+8 ranks as a (data 1, model 8) mesh whose cache ``cache_specs`` shards
+along the sequence (the distributed softmax over the partial
+``flash_attention``), its logits, launches and collectives a step held
+(:func:`train_sharded_phase`).
+
 Every training phase runs under the port's default ``remat="full"`` (the
 JAX package's): each fused linear launches again in the backward's
 recompute, so a step's ``dequant_matmul_lora`` launches are
@@ -241,7 +261,9 @@ summed, ``launches_encdec``; from the allocate phase's,
 ``launches_allocate``; from the levers phase's runs summed,
 ``launches_levers``; from the trace phase's, ``launches_trace``: the
 serve run's for the decode kernels, the traced train run's for the
-others), the ``nvidia-smi`` name and power limit
+others; ``flash_attention``'s ``partial``: the partial mode's time,
+bound, plain and library times at the production shard and its
+launches in ``seq_kv``), the ``nvidia-smi`` name and power limit
 line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without the ``ok`` line, as does a host without CUDA or a directory
@@ -676,6 +698,143 @@ def check_flash(torch, dev) -> tuple[dict, list]:
              "deterministic": True}, out)
 
 
+# the partial mode's cases (the sequence-sharded decode's softmax over a
+# rank's keys): (B, Hq, Hkv, keys a rank, d, dtype, lengths), one query
+# row through the cache's transpose.  Lengths 0 (a rank whose shard lies
+# past idx), 1 and the shard's whole T.  bf16 d 128 and 64 take the "mma"
+# route, f32 the "split" one; seq_kv's shard (Qwen3-30B-A3B on model 8:
+# every q head, 4 KV heads, 8 keys) and decode_32k's production shard
+# (Qwen3-1.7B on one rank of 16 x 16: 8 rows, 16 q heads after the
+# gather, 8 KV heads, 2048 keys)
+FLASH_PARTIAL = (
+    (4, 16, 8, 128, 128, "bfloat16", (0, 1, 128, 57)),
+    (4, 16, 8, 128, 128, "float32", (0, 1, 128, 33)),
+    (4, 36, 36, 128, 64, "bfloat16", (1, 0, 128, 77)),
+    (4, 32, 4, 8, 128, "bfloat16", (0, 1, 8, 5)),
+    (8, 16, 8, 2048, 128, "bfloat16",
+     (2048, 0, 1, 1500, 2048, 2047, 640, 33)),
+    (8, 16, 8, 2048, 128, "float32", (2048, 0, 1, 1500, 2048, 2047, 640, 33)),
+)
+# the log-sum-exp against the plain version's, absolute, over rows with a
+# valid key: f32 as the issue's bound; bf16 from the prediction written
+# before its first run (PERF.md): the mma route's scores are exact
+# products of bf16 operands summed in f32, so only the summation order
+# differs from the plain f32 einsum, ~1e-6 of logits of O(10)
+FLASH_LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+
+
+def check_flash_partial(torch, dev) -> tuple[dict, list]:
+    """The partial mode (``return_lse``) against the plain version's:
+    ``out`` within the JAX tolerances (bf16 q scaled by
+    ``FLASH_Q_PEAK``), ``lse`` within ``FLASH_LSE_TOL`` over rows with a
+    valid key, and a row of length 0 exactly ``out`` 0 and ``lse`` -inf,
+    as in the plain version; each case run twice for equal bits.  Returns
+    the summary and one ``[B, Hq, Hkv, Sk, d, dtype, route, max_abs_err,
+    lse_err, zero_rows]`` a case."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     plan_for)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    out, worst, lse_worst, routes = [], 0.0, {}, {}
+    for B, Hq, Hkv, T, d, dname, lens in FLASH_PARTIAL:
+        dt = getattr(torch, dname)
+        q = torch.randn((B, Hq, 1, d), generator=gen, device=dev)
+        q = (q * FLASH_Q_PEAK if dt == torch.bfloat16 else q).to(dt)
+        k, v = (torch.randn((B, T, Hkv, d), generator=gen, device=dev)
+                .to(dt).transpose(1, 2) for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        route = plan_for(q, k, v).route
+        o, lse = flash_attention_cuda(q, k, v, causal=False,
+                                      lengths=lengths, return_lse=True)
+        o2, lse2 = flash_attention_cuda(q, k, v, causal=False,
+                                        lengths=lengths, return_lse=True)
+        o_ref, lse_ref = ref.flash_attention_ref(
+            q, k, v, causal=False, lengths=lengths, return_lse=True)
+        torch.cuda.synchronize()
+        what = (f"flash_attention partial {(B, Hq, Hkv, T, d)} {dname} "
+                f"lengths={lens} ({route})")
+        live = lengths > 0
+        ok, err = within(o[live], o_ref[live], TOL_ATTN[dname])
+        lse_err = float((lse[live] - lse_ref[live]).abs().max())
+        zero = ~live
+        zero_exact = bool((o[zero] == 0).all()) and bool(
+            torch.isneginf(lse[zero]).all()) and bool(
+            torch.isneginf(lse_ref[zero]).all()) and bool(
+            (o_ref[zero] == 0).all())
+        if not ok:
+            raise Failed(f"{what}: out max err {err}")
+        if not lse_err <= FLASH_LSE_TOL[dname]:
+            raise Failed(f"{what}: lse max err {lse_err}")
+        if not zero_exact:
+            raise Failed(f"{what}: a row of no valid key is not out 0, "
+                         "lse -inf")
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise Failed(f"{what}: two runs differ")
+        want = "mma" if dt == torch.bfloat16 and d in (64, 128) else "split"
+        if route != want:
+            raise Failed(f"{what}: route {route}, not {want}")
+        routes[route] = routes.get(route, 0) + 1
+        worst = max(worst, err)
+        lse_worst[dname] = max(lse_worst.get(dname, 0.0), lse_err)
+        out.append([B, Hq, Hkv, T, d, dname, route, err, lse_err,
+                    int(zero.sum())])
+    return ({"cases": len(out), "routes": routes, "max_abs_err": worst,
+             "lse_max_abs_err": lse_worst, "lse_tol": FLASH_LSE_TOL,
+             "zero_rows_exact": True, "deterministic": True}, out)
+
+
+def time_flash_partial(torch, dev, layers: int = 28) -> dict:
+    """The partial mode at decode_32k's production shard of Qwen3-1.7B
+    (one rank of 16 x 16: 8 rows, 16 q heads after the gather, 8 KV heads,
+    2048 keys a rank, d 128, bf16, the shard's every key valid), one call
+    a layer over ``layers`` layers, each on its own cache shard read
+    through the decode path's transpose.  Bytes: the keys and values, q,
+    the output and the lse; operations 4 a key, q head and dim.  Library:
+    SDPA on the same shard (no lse)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     plan_for)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    B, Hq, Hkv, T, d = 8, 16, 8, 2048, 128
+    lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+    sets = []
+    for _ in range(layers):
+        q = torch.randn((B, 1, Hq, d), generator=gen,
+                        device=dev).to(torch.bfloat16).transpose(1, 2)
+        k, v = (torch.randn((B, T, Hkv, d), generator=gen, device=dev)
+                .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+        sets.append((q, k, v))
+    nbytes = layers * (2 * B * T * Hkv * d * 2 + 2 * B * Hq * d * 2
+                       + B * Hq * 4 + B * 4)
+    flops = layers * 4 * B * T * Hq * d
+
+    def kernel():
+        for q, k, v in sets:
+            flash_attention_cuda(q, k, v, causal=False, lengths=lengths,
+                                 return_lse=True)
+
+    def plain():
+        for q, k, v in sets:
+            ref.flash_attention_ref(q, k, v, causal=False, lengths=lengths,
+                                    return_lse=True)
+
+    def library():
+        for q, k, v in sets:
+            _sdpa(torch, q, k, v, None)
+
+    ms = time_graph(torch, kernel)
+    plain_ms = time_graph(torch, plain)
+    library_ms = time_graph(torch, library)
+    plan = plan_for(*sets[0])
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention on the same shard",
+            **bound(nbytes, flops, BF16_FLOPS), **_rate(nbytes, ms),
+            "calls": layers, "shard": [B, Hq, Hkv, T, d],
+            "route": plan.route, "splits": plan.splits}
+
+
 def _sdpa(torch, q, k, v, mask):
     F = torch.nn.functional
     try:
@@ -805,8 +964,10 @@ def kernels_phase(torch, dev) -> dict:
     shards = set(shard_shapes())
     dq, dq_cases = check_dequant(torch, dev)
     lo, lo_cases = check_lora(torch, dev)
+    fp, fp_cases = check_flash_partial(torch, dev)
     return {"dequant_matmul": dq,
             "flash_attention": check_flash(torch, dev)[0],
+            "flash_partial": {**fp, "cases_list": fp_cases},
             "gram": check_gram(torch, dev)[0], "dequant_matmul_lora": lo,
             "shard_cases": {
                 "dequant_matmul": [c for c in dq_cases if c[0] == 2
@@ -3897,10 +4058,7 @@ def distributed_phase(torch, dev, eng: dict | None = None) -> dict:
 
 SHARDED_DIR = ROOT / "build" / "chip_smoke" / "train_sharded"
 SHARDED_MESH = (2, 2)        # (data, model): 4 gloo ranks sharing cuda:0
-SHARDED_LAYERS = 2           # Qwen3-1.7B's 28 cut: the script's time
-SHARDED_STEPS = 3
 SHARDED_LR = 3e-4            # the train CLI's default
-SHARDED_CALIB = 4            # calibration batches of 8 x 128
 SHARDED_QSPEC = dict(bits=4, group_size=64, rank=64)
 # step 1's gradients, sharded against unsharded (relative Frobenius): a
 # row-parallel linear rounds each rank's bf16 partial sum once more
@@ -3914,16 +4072,37 @@ SHARDED_DECODE = (4, 8, 128)     # batch, tokens, cache of the decode
 SHARDED_MOE_LAYERS = 2       # OLMoE-1B-7B's 16 cut
 SHARDED_MOE_STEPS = 2
 SHARDED_MOE_CF = 8.0         # nothing drops (the JAX EP test's setting)
-# the other families at full width: (arch, layers (an enc-dec model's on
-# each side), method).  Mamba2-370M's 48 layers cut to 2; Zamba2-7B's 81
-# to 6, the fewest that reach its one shared-block site; Seamless's 12 +
-# 12 to 1 + 1; Pixtral-12B's 40 to 1 with its 256 prefix embeddings.  An
-# RTN model's lora_b starts at zero (its lora_a gradients too): its
-# gradients are held at step 2, from the parent's state after step 1
-SHARDED_FAMILIES = (("mamba2-370m", 2, "cloq"), ("zamba2-7b", 6, "rtn"),
+# the families at full width: (arch, layers (an enc-dec model's on each
+# side), method).  Qwen3-1.7B's 28 layers cut to 2; Mamba2-370M's 48 to
+# 2; Zamba2-7B's 81 to 6, the fewest that reach its one shared-block
+# site; Seamless's 12 + 12 to 1 + 1; Pixtral-12B's 40 to 1 with its 256
+# prefix embeddings.  An RTN model's lora_b starts at zero (its lora_a
+# gradients too): its gradients are held at step 2, from the parent's
+# state after step 1.  Qwen3-1.7B also runs ``ef_psum_int8`` on its
+# step-1 gradients (``SHARDED_EF``)
+SHARDED_FAMILIES = (("qwen3-1.7b", 2, "cloq"), ("mamba2-370m", 2, "cloq"),
+                    ("zamba2-7b", 6, "rtn"),
                     ("seamless-m4t-medium", 1, "cloq"),
                     ("pixtral-12b", 1, "rtn"))
 SHARDED_FAMILY_STEPS = 2
+SHARDED_EF = ("qwen3-1.7b",)
+# the sequence-sharded decode (seq_kv): Qwen3-30B-A3B at full width, 1 of
+# its 48 layers, RTN, on 8 gloo ranks sharing cuda:0 as a (data 1, model
+# 8) mesh.  Its 4 KV heads on 8 ranks give half a KV head and 4 whole q
+# heads a rank (the production pattern of Qwen3 and Pixtral at model 16),
+# so cache_specs shards the cache's sequence: 8 of its 64 positions a
+# rank.  40 greedy tokens from position 0 cross five shard boundaries,
+# and ranks 5-7 hold no valid key on any step.  Experts: 16 a rank.  In
+# f32: in bf16 the row-sharded and gathered projections round differently
+# from the whole ones (as in every sharded decode), and a router near-tie
+# among 128 experts turns an ulp into another expert's output at some
+# steps (PERF.md, run B); in f32 the two decodes differ by summation
+# order only
+SEQ_KV_ARCH = "qwen3-moe-30b-a3b"
+SEQ_KV_DTYPE = "float32"
+SEQ_KV_LAYERS = 1
+SEQ_KV_MESH = (1, 8)
+SEQ_KV_DECODE = (4, 40, 64)     # batch, tokens, cache
 
 
 def _layer_calls(kind: str, first: bool, seq: bool, runs: int = 2
@@ -3989,6 +4168,21 @@ def predicted_collectives(cfg, seq_shard: bool) -> dict:
     return {"all_reduce": ar, "all_gather": ag, "reduce_scatter": rs}
 
 
+def predicted_decode_collectives(cfg) -> dict:
+    """Collective calls of one decode step a rank of a dense or MoE model
+    whose KV cache ``cache_specs`` shards along its sequence (the model
+    axis does not divide the KV heads; a data axis of one rank), from the
+    layout table of ``models/attention.py``: a layer's q, k and v column
+    shards gathered to whole heads (3 all-gathers), the partial softmaxes'
+    MAX and SUM all-reduces (``parallel.combine_softmax``), the row-sharded
+    o's and the MLP's (down's, or the experts' sum) all-reduce; once a
+    step the vocab-parallel embedding's all-reduce and the head's gather of
+    the whole vocab."""
+    L = cfg.n_layers
+    return {"all_reduce": 1 + 4 * L, "all_gather": 1 + 3 * L,
+            "reduce_scatter": 0}
+
+
 def _rel_fro(torch, a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / max(float(b.norm()), 1e-30))
@@ -3996,18 +4190,11 @@ def _rel_fro(torch, a, b) -> float:
 
 def _sharded_rank(rank: int, work: str) -> None:
     """One rank of the ``train_sharded`` phase (4 ranks on ``cuda:0`` over
-    gloo, a (data 2, model 2) mesh).  Qwen3-1.7B: restore the parent's
-    quantized state with ``shardings=named(state_pspecs(...))`` (shapes on
-    the meta device), then for ``seq_shard`` off and on: step 1's
-    gradients (the rank's share, then summed over "data"), ``ef_psum_int8``
-    of the share over "data" against the exact mean, 3 steps (metrics,
-    collectives, launches each), the step-1 leaves; the sharded decode of
-    the parent's trained params.  OLMoE-1B-7B: 2 steps expert-parallel at
-    ``SHARDED_MOE_CF``, then the dropped share of one forward at the
-    config's own capacity factor.  Then each of ``SHARDED_FAMILIES``
-    (:func:`_family_rank`; with ``families_only`` in the inputs, those
-    alone).  Writes ``rank<r>.json`` and, on rank 0, the gathered tensors
-    ``rank0.pt``."""
+    gloo, a (data 2, model 2) mesh): each family of the inputs
+    (:func:`_family_rank`, ``ef_psum_int8`` on the families of
+    ``SHARDED_EF``), then OLMoE-1B-7B's expert-parallel steps
+    (:func:`_moe_rank`) where the inputs hold them.  Writes
+    ``rank<r>.json`` and, on rank 0, the gathered tensors ``rank0.pt``."""
     import torch
     from repro_torch.launch.mesh import make_local_mesh, pcontext_for
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4018,22 +4205,50 @@ def _sharded_rank(rank: int, work: str) -> None:
     pctx = pcontext_for(mesh)
     out: dict = {"rank": rank, "coords": [mesh.get_local_rank("data"),
                                           mesh.get_local_rank("model")],
-                 "runs": {}, "families": {}}
+                 "families": {}}
     keep: dict = {}
-    if not inp["families_only"]:
-        _dense_moe_rank(dev, work, inp, mesh, pctx, out, keep)
     for arch, fin in inp["families"].items():
         out["families"][arch], keep[arch] = _family_rank(
             torch, dev, work, arch, fin, mesh, pctx)
+    if inp.get("moe") is not None:
+        out["moe"] = _moe_rank(dev, work, inp["moe"], mesh, pctx)
     (work / f"rank{rank}.json").write_text(json.dumps(out))
     if rank == 0:
         torch.save(keep, work / "rank0.pt")
 
 
-def _dense_moe_rank(dev, work: Path, inp: dict, mesh, pctx, out: dict,
-                    keep: dict) -> None:
-    """Qwen3-1.7B's and OLMoE-1B-7B's side of :func:`_sharded_rank`,
-    recorded into ``out`` and ``keep``."""
+def _ef_check(torch, share: dict, grads: dict, mesh) -> dict:
+    """``ef_psum_int8`` over "data" of a rank's share of step 1's LoRA
+    gradients against their exact mean (``grads``, the share summed over
+    "data"): the worst synced error and residual in LSBs of the largest
+    share entry (the JAX test's bounds: 2 and 1)."""
+    import torch.distributed as dist
+    from repro_torch.models import parallel
+    from repro_torch.optim import ef_psum_int8, tree_map
+    from repro_torch.utils import tree_paths
+    dgroup = parallel.axis_group(mesh, "data")
+    lora = {k: v for k, v in tree_paths(share).items() if v.numel()}
+    synced, res = ef_psum_int8(lora, tree_map(torch.zeros_like, lora),
+                               dgroup)
+    exact = tree_paths(grads)
+    worst = {"err_lsb": 0.0, "res_lsb": 0.0, "leaves": len(lora)}
+    for k, g in lora.items():
+        lsb = parallel.all_reduce_sum(
+            g.float().abs().max().reshape(1), dgroup,
+            op=dist.ReduceOp.MAX)[0] / 127
+        mean = exact[k].float() / parallel.axis_size(mesh, "data")
+        worst["err_lsb"] = max(worst["err_lsb"], float(
+            (synced[k] - mean).abs().max() / lsb))
+        worst["res_lsb"] = max(worst["res_lsb"], float(
+            res[k].abs().max() / lsb))
+    return worst
+
+
+def _moe_rank(dev, work: Path, inp: dict, mesh, pctx) -> dict:
+    """OLMoE-1B-7B's side of :func:`_sharded_rank`: the parent's state
+    restored expert-parallel (experts over "model"), ``SHARDED_MOE_STEPS``
+    steps at ``SHARDED_MOE_CF``, then the dropped share of one forward at
+    the config's own capacity factor, summed over the ranks."""
     import dataclasses
 
     import torch
@@ -4043,113 +4258,21 @@ def _dense_moe_rank(dev, work: Path, inp: dict, mesh, pctx, out: dict,
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
-    from repro_torch.launch.shardings import param_specs
     from repro_torch.models import moe, parallel
-    from repro_torch.models.transformer import init_decode_cache, loss_fn
-    from repro_torch.optim import ef_psum_int8, merge_params, tree_map
-    from repro_torch.utils import tree_paths
-    dgroup = parallel.axis_group(mesh, "data")
-
-    def sharded_state(cfg, ocfg, name):
-        shapes = steps.build_state(quantized_param_shapes(cfg), ocfg)
-        t0 = time.perf_counter()
-        state, _ = ckpt.restore_tree(
-            str(work / name), device=dev,
-            shardings=steps.named(steps.state_pspecs(shapes, mesh), mesh))
-        return state, time.perf_counter() - t0
-
-    def gathered(tree):
-        return {k: v.detach().cpu() for k, v in
-                tree_paths(parallel.gather_tree(tree)).items()}
-
-    cfg, ocfg = inp["cfg"], inp["ocfg"]
-    torch.cuda.reset_peak_memory_stats(dev)
-    state0, out["restore_s"] = sharded_state(cfg, ocfg, "state")
-    out["routes"] = _kernel_routes(torch, dev, parallel.localize(
-        merge_params(state0["train"], state0["frozen"])), cfg, SHARDED_MESH)
-    for seq in (False, True):
-        run: dict = {}
-        c = dataclasses.replace(cfg, seq_shard=seq)
-        state = state0                  # the step returns new tensors
-        loc = parallel.localize(state)
-        _, share = steps.value_and_grad(c, pctx, state, inp["batches"][0],
-                                        sync=False)
-        grads = steps.sum_over_data(share, pctx)
-        # int8 error feedback over "data" on the step's real LoRA grads
-        lora = {k: v for k, v in tree_paths(share).items() if v.numel()}
-        synced, res = ef_psum_int8(
-            lora, tree_map(torch.zeros_like, lora), dgroup)
-        exact = tree_paths(grads)
-        worst = {"err_lsb": 0.0, "res_lsb": 0.0, "leaves": len(lora)}
-        for k, g in lora.items():
-            s_, r_, ex = synced[k], res[k], exact[k]
-            lsb = parallel.all_reduce_sum(
-                g.float().abs().max().reshape(1), dgroup,
-                op=dist.ReduceOp.MAX)[0] / 127
-            mean = ex.float() / parallel.axis_size(mesh, "data")
-            worst["err_lsb"] = max(worst["err_lsb"], float(
-                (s_ - mean).abs().max() / lsb))
-            worst["res_lsb"] = max(worst["res_lsb"], float(
-                r_.abs().max() / lsb))
-        run["ef"] = worst
-        if not seq:
-            keep["grads"] = gathered(parallel.delocalize(grads,
-                                                         loc["train"]))
-        step = steps.make_train_step(c, ocfg, pctx)
-        run.update(metrics=[], collectives=[], launches=[], step_s=[])
-        for i, b in enumerate(inp["batches"]):
-            parallel.reset_collective_stats()
-            ops.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, b)
-            torch.cuda.synchronize()
-            run["step_s"].append(time.perf_counter() - t0)
-            run["metrics"].append({k: float(v) for k, v in m.items()})
-            run["collectives"].append(parallel.collective_stats())
-            run["launches"].append(ops.launch_counts())
-            if i == 0:
-                keep[f"leaves.{int(seq)}"] = gathered(state["train"])
-        if not seq:
-            run["sharded_train_leaves"] = sorted(
-                k for k, v in tree_paths(state["train"]).items()
-                if any(p.is_shard() for p in v.placements))
-        out["runs"]["seq" if seq else "tp"] = run
-        del state, loc, share, grads, synced, res
-    # the sharded decode of the parent's trained params (its trained
-    # adapters beside the frozen base), fed the parent's tokens
-    B, n_tok, T = SHARDED_DECODE
-    shapes = steps.build_state(quantized_param_shapes(cfg), ocfg)["train"]
-    trained, _ = ckpt.restore_tree(
-        str(work / "trained"), device=dev,
-        shardings=steps.named(param_specs(shapes, mesh), mesh))
-    params = merge_params(trained, state0["frozen"])
-    cache = init_decode_cache(cfg, B, T, device=dev, pctx=pctx)
-    dec = steps.make_decode_step(cfg, pctx)
-    ops.reset_launch_counts()
-    parallel.reset_collective_stats()
-    logits = []
-    with torch.no_grad():
-        for tok in inp["decode_tokens"]:
-            lg, cache = dec(params, cache, tok.to(dev))
-            logits.append(lg.float().cpu())
-    out["decode"] = {"launches": ops.launch_counts(),
-                     "collectives": parallel.collective_stats(),
-                     "cache_local": list(parallel.local_of(
-                         cache["k"]).shape)}
-    keep["decode_logits"] = torch.stack(logits)
-    del params, cache, trained, state0
-    out["qwen_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    # OLMoE-1B-7B, expert parallel over "model"
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.optim import merge_params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    mcfg, mocfg = inp["moe_cfg"], inp["moe_ocfg"]
+    mcfg, mocfg = inp["cfg"], inp["ocfg"]
     c8 = dataclasses.replace(mcfg, capacity_factor=SHARDED_MOE_CF)
-    state, _ = sharded_state(c8, mocfg, "moe_state")
+    shapes = steps.build_state(quantized_param_shapes(c8), mocfg)
+    state, _ = ckpt.restore_tree(
+        str(work / "moe_state"), device=dev,
+        shardings=steps.named(steps.state_pspecs(shapes, mesh), mesh))
     step = steps.make_train_step(c8, mocfg, pctx)
     mo: dict = {"metrics": [], "launches": [], "step_s": [],
                 "collectives": []}
-    for b in inp["moe_batches"]:
+    for b in inp["batches"]:
         parallel.reset_collective_stats()
         ops.reset_launch_counts()
         torch.cuda.synchronize()
@@ -4162,7 +4285,7 @@ def _dense_moe_rank(dev, work: Path, inp: dict, mesh, pctx, out: dict,
         mo["collectives"].append(parallel.collective_stats())
     mo["local_experts"] = int(parallel.local_of(
         state["frozen"]["blocks"]["moe"]["gate"]["qcodes"]).shape[1])
-    b = inp["moe_batches"][0]
+    b = inp["batches"][0]
     batch = {k: v.to(dev) for k, v in shard_batch(
         b, steps.batch_pspecs(mcfg, b, pctx.data_axes), mesh).items()}
     with torch.no_grad(), moe.record_drops() as drops:
@@ -4173,135 +4296,75 @@ def _dense_moe_rank(dev, work: Path, inp: dict, mesh, pctx, out: dict,
     dist.all_reduce(tot)
     mo["dropped_own_cf"] = [float(tot[0]), float(tot[1])]
     mo["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    out["moe"] = mo
-    del state
+    return mo
 
 
-def _sharded_reference(torch, dev, work: Path, families_only: bool = False,
-                       families: tuple = SHARDED_FAMILIES,
+def _sharded_reference(torch, dev, work: Path,
+                       families: tuple = SHARDED_FAMILIES, moe: bool = True,
                        dtype=None) -> dict:
-    """The parent's side: Qwen3-1.7B and OLMoE-1B-7B
-    (:func:`_dense_moe_reference`, unless ``families_only``), then each of
-    ``families`` (:func:`_family_reference`, in ``dtype`` if given).
-    Writes the ranks' ``inputs.pt``."""
-    ref, inputs = ({}, {}) if families_only else \
-        _dense_moe_reference(torch, dev, work)
-    ref["families"], inputs["families"] = {}, {}
+    """The parent's side: each of ``families`` (:func:`_family_reference`,
+    in ``dtype`` if given), then OLMoE-1B-7B (:func:`_moe_reference`) with
+    ``moe``.  Writes the ranks' ``inputs.pt``."""
+    ref: dict = {"families": {}}
+    inputs: dict = {"families": {}, "moe": None}
     for arch, layers, method in families:
         ref["families"][arch], inputs["families"][arch] = \
             _family_reference(torch, dev, work, arch, layers, method, dtype)
-    torch.save({"device": str(dev), "families_only": families_only,
-                **inputs}, work / "inputs.pt")
+    if moe:
+        ref["moe"], inputs["moe"] = _moe_reference(torch, dev, work)
+    torch.save({"device": str(dev), **inputs}, work / "inputs.pt")
     return ref
 
 
-def _dense_moe_reference(torch, dev, work: Path) -> tuple[dict, dict]:
-    """Qwen3-1.7B quantized once (CLoQ 4/64/64, calibration
-    ``SHARDED_CALIB`` x 8 x 128, the batched engine) and saved as a train
-    state; step 1's gradients and 3 steps unsharded, the trained params
-    saved, their unsharded kernel decode; OLMoE-1B-7B quantized by RTN and
-    saved, 2 steps at ``SHARDED_MOE_CF`` and the dropped share of one
-    forward at its own capacity factor.  Returns (the reference, the
-    ranks' inputs)."""
+def _moe_reference(torch, dev, work: Path) -> tuple[dict, dict]:
+    """OLMoE-1B-7B at full width, ``SHARDED_MOE_LAYERS`` layers, quantized
+    by RTN (the batched engine, no calibration) and saved as a train
+    state; ``SHARDED_MOE_STEPS`` unsharded steps at ``SHARDED_MOE_CF`` and
+    the dropped share of one forward at its own capacity factor.  Returns
+    (the reference, the ranks' inputs)."""
     import dataclasses
     from repro_torch.checkpoint import manager as ckpt
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.recipe import QuantRecipe
     from repro_torch.data import DataConfig, TokenStream
-    from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import moe
     from repro_torch.models.modules import QSpec
     from repro_torch.models.parallel import LOCAL
-    from repro_torch.models.transformer import (init_decode_cache,
-                                                init_params, loss_fn)
+    from repro_torch.models.transformer import init_params, loss_fn
     from repro_torch.optim import OptConfig, merge_params
-    from repro_torch.utils import tree_paths
-    ref: dict = {}
-
-    def quantized(arch, layers, method, calib_n):
-        cfg = get_config(arch, n_layers=layers)
-        params = init_params(cfg, seed=0, device=dev)
-        stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=128,
-                                        global_batch=8, seed=0))
-        calib = [stream.next_batch() for _ in range(calib_n)]
-        t0 = time.perf_counter()
-        qp, qcfg, _ = quantize_model(
-            params, cfg, calib, engine="batched", recipe=QuantRecipe.single(
-                method, QSpec(**SHARDED_QSPEC)))
-        torch.cuda.synchronize()
-        qcfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
-            qcfg.quant, use_kernel=True))
-        batches = [stream.next_batch() for _ in range(SHARDED_STEPS)]
-        return qp, qcfg, batches, time.perf_counter() - t0
-
-    qp, cfg, batches, ref["quantize_s"] = quantized(
-        "qwen3-1.7b", SHARDED_LAYERS, "cloq", SHARDED_CALIB)
-    ref["routes"] = _kernel_routes(torch, dev, qp, cfg)
-    ocfg = OptConfig(lr=SHARDED_LR, trainable="lora",
-                     total_steps=SHARDED_STEPS, schedule="const")
-    state = steps.build_state(qp, ocfg)
-    ckpt.save_tree(state, str(work / "state"), 1)
-    _, grads = steps.value_and_grad(cfg, LOCAL, state, batches[0])
-    ref["grads"] = {k: v.detach().cpu() for k, v in tree_paths(grads).items()}
-    step = steps.make_train_step(cfg, ocfg, LOCAL)
-    ref["metrics"], ref["step_s"] = [], []
-    ops.reset_launch_counts()
-    for i, b in enumerate(batches):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, b)
-        torch.cuda.synchronize()
-        ref["step_s"].append(time.perf_counter() - t0)
-        ref["metrics"].append({k: float(v) for k, v in m.items()})
-        if i == 0:
-            ref["leaves"] = {k: v.detach().cpu() for k, v in
-                             tree_paths(state["train"]).items()}
-    ref["launches"] = ops.launch_counts()
-    ckpt.save_tree(state["train"], str(work / "trained"), 1)
-    trained = merge_params(state["train"], state["frozen"])
-    B, n_tok, T = SHARDED_DECODE
-    cache = init_decode_cache(cfg, B, T, device=dev)
-    dec = steps.make_decode_step(cfg, LOCAL)
-    tok = torch.tensor([[3], [17], [101], [400]], device=dev)
-    tokens, logits = [], []
-    ops.reset_launch_counts()
-    with torch.no_grad():
-        for _ in range(n_tok):
-            tokens.append(tok.cpu())
-            lg, cache = dec(trained, cache, tok)
-            logits.append(lg.float().cpu())
-            tok = lg.argmax(-1, keepdim=True)
-    ref["decode_launches"] = ops.launch_counts()
-    ref["decode_logits"] = torch.stack(logits)
-    del qp, state, grads, trained, cache
-    torch.cuda.empty_cache()
-    mq, mcfg, mbatches, ref["moe_quantize_s"] = quantized(
-        "olmoe-1b-7b", SHARDED_MOE_LAYERS, "rtn", 1)
-    mbatches = mbatches[:SHARDED_MOE_STEPS]
+    cfg = get_config("olmoe-1b-7b", n_layers=SHARDED_MOE_LAYERS)
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                    global_batch=8, seed=0))
+    t0 = time.perf_counter()
+    qp, mcfg, _ = quantize_model(
+        init_params(cfg, seed=0, device=dev), cfg, [], engine="batched",
+        recipe=QuantRecipe.single("rtn", QSpec(**SHARDED_QSPEC)))
+    torch.cuda.synchronize()
+    ref: dict = {"quantize_s": time.perf_counter() - t0}
+    mcfg = dataclasses.replace(mcfg, quant=dataclasses.replace(
+        mcfg.quant, use_kernel=True))
+    batches = [stream.next_batch() for _ in range(SHARDED_MOE_STEPS)]
     mocfg = OptConfig(lr=SHARDED_LR, trainable="lora",
                       total_steps=SHARDED_MOE_STEPS, schedule="const")
-    mstate = steps.build_state(mq, mocfg)
-    ckpt.save_tree(mstate, str(work / "moe_state"), 1)
-    c8 = dataclasses.replace(mcfg, capacity_factor=SHARDED_MOE_CF)
-    step = steps.make_train_step(c8, mocfg, LOCAL)
-    ref["moe_losses"] = []
-    st = mstate
-    for b in mbatches:
-        st, m = step(st, b)
-        ref["moe_losses"].append(float(m["loss"]))
+    state = steps.build_state(qp, mocfg)
+    del qp
+    ckpt.save_tree(state, str(work / "moe_state"), 1)
+    step = steps.make_train_step(dataclasses.replace(
+        mcfg, capacity_factor=SHARDED_MOE_CF), mocfg, LOCAL)
+    ref["losses"] = []
+    for b in batches:
+        state, m = step(state, b)
+        ref["losses"].append(float(m["loss"]))
     with torch.no_grad(), moe.record_drops() as drops:
-        b = {k: v.to(dev) for k, v in mbatches[0].items()}
-        loss_fn(merge_params(st["train"], st["frozen"]), mcfg, b)
-    ref["moe_dropped_own_cf"] = [float(sum(d for d, _ in drops)),
-                                 float(sum(n for _, n in drops))]
-    del mq, mstate, st
+        loss_fn(merge_params(state["train"], state["frozen"]), mcfg,
+                {k: v.to(dev) for k, v in batches[0].items()})
+    ref["dropped_own_cf"] = [float(sum(d for d, _ in drops)),
+                             float(sum(n for _, n in drops))]
+    del state
     torch.cuda.empty_cache()
-    ref["cfg"] = cfg
-    return ref, {"cfg": cfg, "ocfg": ocfg, "batches": batches,
-                 "decode_tokens": tokens, "moe_cfg": mcfg,
-                 "moe_ocfg": mocfg, "moe_batches": mbatches}
+    return ref, {"cfg": mcfg, "ocfg": mocfg, "batches": batches}
 
 
 def _family_config(arch: str, layers: int, dtype=None):
@@ -4408,7 +4471,8 @@ def _family_reference(torch, dev, work: Path, arch: str, layers: int,
     torch.cuda.empty_cache()
     return ref, {"cfg": cfg, "ocfg": ocfg, "batches": batches,
                  "grad_at": grad_at, "decode_tokens": tokens,
-                 "enc_embeds": None if emb is None else emb.cpu()}
+                 "enc_embeds": None if emb is None else emb.cpu(),
+                 "ef": arch in SHARDED_EF}
 
 
 def _family_rank(torch, dev, work: Path, arch: str, inp: dict, mesh,
@@ -4420,8 +4484,9 @@ def _family_rank(torch, dev, work: Path, arch: str, inp: dict, mesh,
     (metrics, collectives, launches, the leaves after step 1), then the
     sharded decode of the parent's trained params fed the parent's
     tokens (seamless's ``enc_out`` rows from the sharded encoder over
-    the same frames).  Returns (its JSON record, the gathered tensors
-    rank 0 keeps)."""
+    the same frames); with ``ef`` in its inputs, ``ef_psum_int8`` of the
+    rank's share of the held gradients (:func:`_ef_check`).  Returns (its
+    JSON record, the gathered tensors rank 0 keeps)."""
     import dataclasses
     from repro_torch.checkpoint import manager as ckpt
     from repro_torch.core.pipeline import quantized_param_shapes
@@ -4456,10 +4521,14 @@ def _family_rank(torch, dev, work: Path, arch: str, inp: dict, mesh,
     at = inp["grad_at"]
     g_state = (dict(state0, train=restore("grad_train", train_named)) if at
                else state0)
-    _, grads = steps.value_and_grad(cfg, pctx, g_state, inp["batches"][at])
+    _, share = steps.value_and_grad(cfg, pctx, g_state, inp["batches"][at],
+                                    sync=False)
+    grads = steps.sum_over_data(share, pctx)
+    if inp.get("ef"):
+        out["ef"] = _ef_check(torch, share, grads, mesh)
     keep["grads"] = gathered(parallel.delocalize(
         grads, parallel.localize(g_state)["train"]))
-    del g_state, grads
+    del g_state, grads, share
     for seq in (False, True):
         c = dataclasses.replace(cfg, seq_shard=seq)
         state = state0
@@ -4570,6 +4639,10 @@ def _hold_family(torch, arch: str, ref: dict, ranks: list, got: dict,
             worst_leaf = max(worst_leaf, (d / lim, k))
             if not d <= lim:
                 failed.append([arch, "leaf", seq, k, d, lim])
+    if "ef" in r0:
+        out["ef"] = r0["ef"]
+        if not (r0["ef"]["err_lsb"] <= 2 and r0["ef"]["res_lsb"] <= 1):
+            failed.append([arch, "ef_psum_int8", r0["ef"]])
     worst = max(grads, key=grads.get)
     out.update(grads_worst=grads[worst], grads_worst_leaf=worst,
                grads_leaves=len(grads), leaves_worst=worst_leaf[0],
@@ -4596,187 +4669,288 @@ def _hold_family(torch, arch: str, ref: dict, ranks: list, got: dict,
     return out
 
 
-def _hold_dense_moe(torch, ref: dict, ranks: list, got: dict,
-                    failed: list) -> dict:
-    """Qwen3-1.7B's and OLMoE-1B-7B's rank records and rank 0's gathered
-    tensors against the parent's reference, ``train_sharded``'s checks
-    (failures appended to ``failed``)."""
-    cfg, r0 = ref["cfg"], ranks[0]
-    out: dict = {"layers": SHARDED_LAYERS, "quantize_s": ref["quantize_s"],
-                 "unsharded_step_s": ref["step_s"],
-                 "restore_s": [r["restore_s"] for r in ranks]}
-    # losses, norms, metrics on every rank
-    for name, run in r0["runs"].items():
-        losses = [m["loss"] for m in run["metrics"]]
-        want = [m["loss"] for m in ref["metrics"]]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
-        norm = abs(run["metrics"][0]["grad_norm"] -
-                   ref["metrics"][0]["grad_norm"]) / \
-            ref["metrics"][0]["grad_norm"]
-        same = all(r["runs"][name]["metrics"] == run["metrics"]
-                   for r in ranks)
-        pred = predicted_collectives(cfg, name == "seq")
-        calls = {k: run["collectives"][-1][k]["calls"] for k in pred}
-        out[name] = {"losses": losses, "unsharded": want, "loss_rel": rel,
-                     "grad_norm_rel": norm, "equal_on_ranks": same,
-                     "ef": run["ef"], "step_s": run["step_s"],
-                     "collectives": run["collectives"][-1],
-                     "predicted_calls": pred,
-                     "launches_a_step": run["launches"][-1]}
-        if not rel <= LOSS_LIMIT:
-            failed.append([name, "loss", rel])
-        if not norm <= SHARDED_NORM_REL:
-            failed.append([name, "grad_norm", norm])
-        if not same:
-            failed.append([name, "metrics differ between ranks"])
-        if calls != pred:
-            failed.append([name, "collectives", calls, pred])
-        if not (run["ef"]["err_lsb"] <= 2 and run["ef"]["res_lsb"] <= 1):
-            failed.append([name, "ef_psum_int8", run["ef"]])
-        fused = run["launches"][-1].get("dequant_matmul_lora", 0)
-        if fused != fused_a_step(cfg):
-            failed.append([name, "fused launches a step", fused,
-                           fused_a_step(cfg)])
-    # step 1's gradients and leaves, gathered, against the unsharded
-    grads = {}
-    for k, w in ref["grads"].items():
-        if not w.numel():
-            continue
-        grads[k] = _rel_fro(torch, got["grads"][k], w)
-        if not grads[k] <= SHARDED_GRAD_REL:
-            failed.append(["grad", k, grads[k]])
-    leaves = {}
-    for seq in (0, 1):
-        for k, w in ref["leaves"].items():
-            if not w.numel():
-                continue
-            g = got[f"leaves.{seq}"][k].float()
-            d = float((g - w.float()).abs().max())
-            lim = 2 * SHARDED_LR + 2.0 ** -7 * float(w.float().abs().max())
-            share = float((g != w.float()).double().mean())
-            leaves[f"{seq}.{k}"] = [d, lim, share]
-            if not d <= lim:
-                failed.append(["leaf", seq, k, d, lim])
-    out["grads_rel"] = grads
-    out["grads_worst"] = max(grads.values())
-    out["leaves_worst"] = max(v[0] / v[1] for v in leaves.values())
-    out["leaves_unequal_share"] = max(v[2] for v in leaves.values())
-    out["sharded_train_leaves"] = r0["runs"]["tp"]["sharded_train_leaves"]
-    # the sharded decode against the unsharded kernel decode
-    calls = sum(r0["decode"]["launches"].values()) / SHARDED_DECODE[1]
-    err = float((got["decode_logits"] - ref["decode_logits"]).abs().max())
-    scale = float(ref["decode_logits"].abs().max())
-    lim = logits_limit(scale, calls)
-    out["decode"] = {"max_abs_err": err, "max_abs_logit": scale,
-                     "kernel_calls_per_step": calls, "limit": lim,
-                     "launches": r0["decode"]["launches"],
-                     "unsharded_launches": ref["decode_launches"],
-                     "collectives": r0["decode"]["collectives"],
-                     "cache_local": r0["decode"]["cache_local"]}
-    if not err <= lim:
-        failed.append(["decode", err, lim])
-    # MoE, expert parallel
-    mo = r0["moe"]
+def _hold_moe(torch, ref: dict, ranks: list, failed: list) -> dict:
+    """OLMoE-1B-7B's expert-parallel rank records against the parent's
+    reference: its losses within ``LOSS_LIMIT`` (failures appended to
+    ``failed``), the dropped shares beside each other."""
+    mo = ranks[0]["moe"]
     losses = [m["loss"] for m in mo["metrics"]]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["moe_losses"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
     dropped = mo["dropped_own_cf"]        # summed over the 4 ranks
-    out["moe"] = {"layers": SHARDED_MOE_LAYERS,
-                  "capacity_factor": SHARDED_MOE_CF, "losses": losses,
-                  "unsharded": ref["moe_losses"], "loss_rel": rel,
-                  "local_experts": mo["local_experts"],
-                  "step_s": mo["step_s"], "collectives": mo["collectives"][-1],
-                  "launches_a_step": mo["launches"][-1],
-                  "quantize_s": ref["moe_quantize_s"],
-                  "dropped_share_own_cf": {
-                      "sharded": dropped[0] / dropped[1],
-                      "unsharded": ref["moe_dropped_own_cf"][0]
-                      / ref["moe_dropped_own_cf"][1]},
-                  "peak_gb": [r["moe"]["peak_gb"] for r in ranks]}
+    out = {"layers": SHARDED_MOE_LAYERS,
+           "capacity_factor": SHARDED_MOE_CF, "losses": losses,
+           "unsharded": ref["losses"], "loss_rel": rel,
+           "local_experts": mo["local_experts"],
+           "step_s": mo["step_s"], "collectives": mo["collectives"][-1],
+           "launches_a_step": mo["launches"][-1],
+           "quantize_s": ref["quantize_s"],
+           "dropped_share_own_cf": {
+               "sharded": dropped[0] / dropped[1],
+               "unsharded": ref["dropped_own_cf"][0]
+               / ref["dropped_own_cf"][1]},
+           "peak_gb": [r["moe"]["peak_gb"] for r in ranks]}
     if not rel <= LOSS_LIMIT:
         failed.append(["moe", "loss", rel])
-    out["routes"] = {"shards": r0["routes"], "whole": ref["routes"]}
-    launches = {k: sum(sum(r["runs"][n]["launches"][i].get(k, 0)
-                           for n in ("tp", "seq")
-                           for i in range(SHARDED_STEPS))
-                       + r["decode"]["launches"].get(k, 0)
-                       + sum(lc.get(k, 0) for lc in r["moe"]["launches"])
-                       for r in ranks)
-                for k in ("gram", "dequant_matmul_lora", "dequant_matmul",
-                          "flash_attention")}
-    out.update(launches=launches,
-               peak_gb=[r["qwen_peak_gb"] for r in ranks])
-    if launches["dequant_matmul_lora"] < 1 or \
-            out["decode"]["launches"].get("dequant_matmul", 0) < 1 or \
-            out["decode"]["launches"].get("flash_attention", 0) < 1:
-        failed.append(["launches", launches, out["decode"]["launches"]])
+    if not all(lc.get("dequant_matmul_lora", 0) >= 1
+               for lc in mo["launches"]):
+        failed.append(["moe", "launches", mo["launches"]])
+    return out
+
+
+def _seq_kv_reference(torch, dev, work: Path, dtype=None) -> dict:
+    """The parent's side of ``seq_kv``: ``SEQ_KV_ARCH`` at full width,
+    ``SEQ_KV_LAYERS`` layer, quantized by RTN 4/64/64 (the batched engine,
+    no calibration), its params saved, and its unsharded kernel decode of
+    ``SEQ_KV_DECODE``'s greedy tokens from position 0, written for the
+    ranks to ``seq_kv_inputs.pt``; the model in ``dtype`` (default
+    ``SEQ_KV_DTYPE``).  Returns the reference."""
+    import dataclasses
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.modules import QSpec
+    from repro_torch.models.parallel import LOCAL
+    from repro_torch.models.transformer import init_decode_cache, init_params
+    cfg = get_config(SEQ_KV_ARCH, n_layers=SEQ_KV_LAYERS,
+                     dtype=dtype or getattr(torch, SEQ_KV_DTYPE))
+    t0 = time.perf_counter()
+    qp, qcfg, _ = quantize_model(
+        init_params(cfg, seed=0, device=dev), cfg, [], engine="batched",
+        recipe=QuantRecipe.single("rtn", QSpec(**SHARDED_QSPEC)))
+    torch.cuda.synchronize()
+    ref: dict = {"quantize_s": time.perf_counter() - t0}
+    qcfg = dataclasses.replace(qcfg, quant=dataclasses.replace(
+        qcfg.quant, use_kernel=True))
+    ckpt.save_tree(qp, str(work / "seq_kv_params"), 1)
+    B, n_tok, T = SEQ_KV_DECODE
+    cache = init_decode_cache(qcfg, B, T, device=dev)
+    dec = steps.make_decode_step(qcfg, LOCAL)
+    tok = torch.tensor([[3], [17], [101], [400]], device=dev)
+    tokens, logits = [], []
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for _ in range(n_tok):
+            tokens.append(tok.cpu())
+            lg, cache = dec(qp, cache, tok)
+            logits.append(lg.float().cpu())
+            tok = lg.argmax(-1, keepdim=True)
+    ref.update(launches=ops.launch_counts(), logits=torch.stack(logits),
+               cfg=qcfg)
+    del qp, cache
+    torch.cuda.empty_cache()
+    torch.save({"device": str(dev), "cfg": qcfg, "tokens": tokens},
+               work / "seq_kv_inputs.pt")
+    return ref
+
+
+def _seq_kv_rank(rank: int, work: str) -> None:
+    """One rank of ``seq_kv`` (8 ranks on ``cuda:0`` over gloo, a (data
+    1, model 8) mesh): the parent's params restored by ``param_specs``,
+    the cache by ``init_decode_cache(pctx=)`` (``cache_specs`` shards its
+    sequence), then the parent's tokens decoded, each step's collectives,
+    launches and seconds recorded.  Writes ``seq_kv_rank<r>.json`` and,
+    on rank 0, the logits ``seq_kv_rank0.pt``."""
+    import hashlib
+
+    import torch
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core.pipeline import quantized_param_shapes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh, pcontext_for
+    from repro_torch.launch.shardings import param_specs
+    from repro_torch.models import parallel
+    from repro_torch.models.transformer import init_decode_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(work)
+    inp = torch.load(work / "seq_kv_inputs.pt", weights_only=False)
+    dev = torch.device(inp["device"])
+    mesh = make_local_mesh(*SEQ_KV_MESH, device_type=dev.type)
+    pctx = pcontext_for(mesh)
+    cfg = inp["cfg"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    shapes = quantized_param_shapes(cfg)
+    params, _ = ckpt.restore_tree(
+        str(work / "seq_kv_params"), device=dev,
+        shardings=steps.named(param_specs(shapes, mesh), mesh))
+    B, _, T = SEQ_KV_DECODE
+    cache = init_decode_cache(cfg, B, T, device=dev, pctx=pctx)
+    dec = steps.make_decode_step(cfg, pctx)
+    out: dict = {"rank": rank, "collectives": [], "launches": [],
+                 "step_s": []}
+    logits = []
+    with torch.no_grad():
+        for tok in inp["tokens"]:
+            parallel.reset_collective_stats()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = dec(params, cache, tok.to(dev))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["collectives"].append(parallel.collective_stats())
+            out["launches"].append(ops.launch_counts())
+            logits.append(lg.float().cpu())
+    k = cache["k"]
+    out.update(cache_local=list(parallel.local_of(k).shape),
+               cache_layout=list(parallel.spec_of_placements(
+                   k.placements, k.device_mesh, k.dim())),
+               digest=hashlib.sha1(torch.stack(logits).numpy().tobytes())
+               .hexdigest(),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    (work / f"seq_kv_rank{rank}.json").write_text(json.dumps(out))
+    if rank == 0:
+        torch.save(torch.stack(logits), work / "seq_kv_rank0.pt")
+
+
+def _hold_seq_kv(torch, ref: dict, ranks: list, got, failed: list) -> dict:
+    """``seq_kv``'s rank records against the parent's unsharded kernel
+    decode: the logits within ``logits_limit``, the same on every rank;
+    the cache's sequence over "model"; every rank's every step launching
+    the partial ``flash_attention`` and ``dequant_matmul`` as often as the
+    unsharded step does; its collectives ``predicted_decode_collectives``
+    (failures appended to ``failed``)."""
+    cfg = ref["cfg"]
+    n_tok = SEQ_KV_DECODE[1]
+    want_launch = {k: v // n_tok for k, v in ref["launches"].items()}
+    calls = sum(ref["launches"].values()) / n_tok
+    step_err = (got - ref["logits"]).abs().amax(dim=(1, 2))
+    err = float(step_err.max())
+    scale = float(ref["logits"].abs().max())
+    lim = logits_limit(scale, calls)
+    pred = predicted_decode_collectives(cfg)
+    r0 = ranks[0]
+    out = {"arch": SEQ_KV_ARCH, "layers": SEQ_KV_LAYERS,
+           "dtype": str(cfg.dtype).split(".")[-1],
+           "step_err": [float(e) for e in step_err],
+           "mesh": {"data": SEQ_KV_MESH[0], "model": SEQ_KV_MESH[1]},
+           "decode": list(SEQ_KV_DECODE), "quantize_s": ref["quantize_s"],
+           "max_abs_err": err, "max_abs_logit": scale, "limit": lim,
+           "cache_local": r0["cache_local"],
+           "cache_layout": r0["cache_layout"],
+           "collectives_a_step": r0["collectives"][-1],
+           "predicted_calls": pred, "launches_a_step": r0["launches"][-1],
+           "unsharded_launches_a_step": want_launch,
+           "step_s": [min(r["step_s"]) for r in ranks],
+           "step_s_median_rank0": sorted(r0["step_s"])[n_tok // 2],
+           "peak_gb": [r["peak_gb"] for r in ranks]}
+    if not err <= lim:
+        failed.append(["seq_kv", "decode", err, lim])
+    if len({r["digest"] for r in ranks}) != 1:
+        failed.append(["seq_kv", "logits differ between ranks"])
+    if r0["cache_layout"][2] != "model":
+        failed.append(["seq_kv", "cache not sequence-sharded",
+                       r0["cache_layout"]])
+    for r in ranks:
+        for i, (lc, cc) in enumerate(zip(r["launches"], r["collectives"])):
+            if lc != want_launch or lc.get("flash_attention", 0) < 1 or \
+                    lc.get("dequant_matmul", 0) < 1:
+                failed.append(["seq_kv", "launches", r["rank"], i, lc,
+                               want_launch])
+                break
+            calls_i = {k: cc[k]["calls"] for k in pred}
+            if calls_i != pred:
+                failed.append(["seq_kv", "collectives", r["rank"], i,
+                               calls_i, pred])
+                break
+    out["launches"] = {k: sum(sum(lc.get(k, 0) for lc in r["launches"])
+                              for r in ranks)
+                       for k in ("gram", "dequant_matmul_lora",
+                                 "dequant_matmul", "flash_attention")}
     return out
 
 
 def train_sharded_phase(torch, dev, work: Path = SHARDED_DIR,
-                        hold: bool = True, families_only: bool = False,
+                        hold: bool = True,
                         families: tuple = SHARDED_FAMILIES,
-                        dtype=None) -> dict:
+                        moe: bool = True, seq_kv: bool = True,
+                        dtype=None, seq_kv_dtype=None) -> dict:
     """The sharded fine-tuning step and decode on a (data 2, model 2) mesh
     of 4 gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on one
     device): :func:`_sharded_reference` in this process, then
-    :func:`_sharded_rank` in the ranks.  Held: each step's loss within
-    ``LOSS_LIMIT`` of the unsharded one, with and without ``seq_shard``;
-    step 1's gradient norm within ``SHARDED_NORM_REL`` and every gathered
-    LoRA gradient within ``SHARDED_GRAD_REL`` (relative Frobenius); the
-    leaves after step 1 within 2 x lr + one bf16 ulp (2^-7 of the
-    largest) of the unsharded (AdamW's first step moves an element by lr x
-    sign(g), each side rounds to bf16); the metrics equal on every rank;
-    ``ef_psum_int8`` within 2 LSB of the exact mean and its residual
-    within 1 LSB (the JAX test's bounds); the decode's logits within
+    :func:`_sharded_rank` in the ranks.  Held for each of ``families``
+    (:func:`_hold_family`): each step's loss within ``LOSS_LIMIT`` of the
+    unsharded one, with and without ``seq_shard``; the held step's
+    gradient norm within ``SHARDED_NORM_REL`` and every gathered LoRA
+    gradient within ``SHARDED_GRAD_REL`` (relative Frobenius, an RTN
+    model's at step 2); the leaves after step 1 within 2 x lr + one bf16
+    ulp (2^-7 of the largest) of the unsharded (AdamW's first step moves
+    an element by lr x sign(g), each side rounds to bf16); the metrics
+    equal on every rank; the collectives a step
+    :func:`predicted_collectives`; the fused kernel launched
+    :func:`fused_a_step` times a step; the decode's logits within
     ``logits_limit`` of the unsharded kernel decode fed the same tokens
-    (its greedy ones: a near-tie must not fork the two); OLMoE's
-    losses within ``LOSS_LIMIT`` of the unsharded port; the collectives
-    a step equal to :func:`predicted_collectives`; the fused kernel
-    launched on the training shards, ``dequant_matmul`` and
-    ``flash_attention`` on the decode's.  Then ``SHARDED_FAMILIES`` the
-    same way (:func:`_hold_family`; an RTN model's gradients at step 2,
-    the collectives :func:`predicted_collectives`, the fused launches a step
-    :func:`fused_a_step`, the decode's launches a rank those of the
-    unsharded decode).  No speed-up is measurable: the ranks share one
-    card and talk through the host.  ``work``: the directory of the
-    checkpoints and the ranks' files; ``hold=False`` returns the failures
-    in ``failed`` instead of raising; ``families_only`` runs
-    ``families`` alone (both for ``chip_fault_check.py``); ``families``
-    and ``dtype``: which of ``SHARDED_FAMILIES`` run, in which dtype if
-    not their configs' (``--families``, ``--family-dtype``)."""
+    (its greedy ones: a near-tie must not fork the two), its launches a
+    rank those of the unsharded decode; for ``SHARDED_EF``,
+    ``ef_psum_int8`` within 2 LSB of the exact mean and its residual
+    within 1 LSB (the JAX test's bounds).  With ``moe``, OLMoE's
+    expert-parallel losses within ``LOSS_LIMIT`` of the unsharded port
+    (:func:`_hold_moe`).  With ``seq_kv``, the sequence-sharded decode on
+    8 more ranks, a (data 1, model 8) mesh (:func:`_hold_seq_kv`).  No
+    speed-up is measurable: the ranks share one card and talk through the
+    host.  ``work``: the directory of the checkpoints and the ranks'
+    files; ``hold=False`` returns the failures in ``failed`` instead of
+    raising (``chip_fault_check.py``); ``dtype``: the families' dtype if
+    not their configs' (``--families``, ``--family-dtype``);
+    ``seq_kv_dtype``: seq_kv's if not ``SEQ_KV_DTYPE``
+    (``--seq-kv-dtype``)."""
     import shutil
     from repro_torch.launch.mesh import spawn_ranks
     t_phase = time.perf_counter()
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    ref = _sharded_reference(torch, dev, work, families_only, families,
-                             dtype)
-    t_ranks = time.perf_counter()
-    n_ranks = SHARDED_MESH[0] * SHARDED_MESH[1]
-    spawn_ranks(_sharded_rank, n_ranks, backend="gloo", device=dev.type,
-                args=(str(work),), store_dir=str(work))
-    ranks_s = time.perf_counter() - t_ranks
-    ranks = [json.loads((work / f"rank{r}.json").read_text())
-             for r in range(n_ranks)]
-    got = torch.load(work / "rank0.pt")
     failed: list = []
     out: dict = {"mesh": {"data": SHARDED_MESH[0], "model": SHARDED_MESH[1]},
-                 "backend": "gloo", "device": "cuda:0 (all 4 ranks)",
-                 "ranks_s": ranks_s, "reference_s": t_ranks - t_phase}
-    if not families_only:
-        out.update(_hold_dense_moe(torch, ref, ranks, got, failed))
-    out["families"] = {arch: _hold_family(torch, arch, fr, ranks, got[arch],
-                                          failed)
-                       for arch, fr in ref["families"].items()}
+                 "backend": "gloo", "families": {}}
     kernels = ("gram", "dequant_matmul_lora", "dequant_matmul",
                "flash_attention")
-    fam = {k: sum(sum(lc.get(k, 0) for n in ("tp", "seq")
-                      for lc in r["families"][a]["runs"][n]["launches"])
-                  + r["families"][a]["decode"]["launches"].get(k, 0)
-                  for r in ranks for a in r["families"])
-           for k in kernels}
-    out["launches"] = {k: out.get("launches", {}).get(k, 0) + fam[k]
-                       for k in kernels}
+    out["launches"] = dict.fromkeys(kernels, 0)
+    if families or moe:
+        ref = _sharded_reference(torch, dev, work, families, moe, dtype)
+        t_ranks = time.perf_counter()
+        n_ranks = SHARDED_MESH[0] * SHARDED_MESH[1]
+        spawn_ranks(_sharded_rank, n_ranks, backend="gloo", device=dev.type,
+                    args=(str(work),), store_dir=str(work))
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(n_ranks)]
+        got = torch.load(work / "rank0.pt")
+        out.update(device=f"cuda:0 (all {n_ranks} ranks)",
+                   ranks_s=time.perf_counter() - t_ranks,
+                   reference_s=t_ranks - t_phase)
+        out["families"] = {arch: _hold_family(torch, arch, fr, ranks,
+                                              got[arch], failed)
+                           for arch, fr in ref["families"].items()}
+        for k in kernels:
+            out["launches"][k] += sum(
+                sum(lc.get(k, 0) for n in ("tp", "seq")
+                    for lc in r["families"][a]["runs"][n]["launches"])
+                + r["families"][a]["decode"]["launches"].get(k, 0)
+                for r in ranks for a in r["families"])
+        if moe:
+            out["moe"] = _hold_moe(torch, ref["moe"], ranks, failed)
+            for k in kernels:
+                out["launches"][k] += sum(lc.get(k, 0) for r in ranks
+                                          for lc in r["moe"]["launches"])
+    if seq_kv:
+        t0 = time.perf_counter()
+        sref = _seq_kv_reference(torch, dev, work, seq_kv_dtype)
+        t1 = time.perf_counter()
+        n = SEQ_KV_MESH[0] * SEQ_KV_MESH[1]
+        spawn_ranks(_seq_kv_rank, n, backend="gloo", device=dev.type,
+                    args=(str(work),), store_dir=str(work))
+        sranks = [json.loads((work / f"seq_kv_rank{r}.json").read_text())
+                  for r in range(n)]
+        out["seq_kv"] = _hold_seq_kv(torch, sref, sranks,
+                                     torch.load(work / "seq_kv_rank0.pt"),
+                                     failed)
+        out["seq_kv"].update(reference_s=t1 - t0,
+                             ranks_s=time.perf_counter() - t1,
+                             case_s=time.perf_counter() - t0)
+        for k in kernels:
+            out["launches"][k] += out["seq_kv"]["launches"][k]
     out.update(failed=failed, phase_s=time.perf_counter() - t_phase)
     if failed and hold:
         raise Failed(f"train_sharded: {out}")
@@ -4812,7 +4986,14 @@ def main(argv=None) -> int:
     ap.add_argument("--families", default=None,
                     help="with --only train_sharded: these of "
                          "SHARDED_FAMILIES alone, comma-separated (the "
-                         "dense and MoE cases left out)")
+                         "MoE and seq_kv cases left out)")
+    ap.add_argument("--seq-kv-only", action="store_true",
+                    help="with --only train_sharded: the sequence-sharded "
+                         "decode case (seq_kv) alone")
+    ap.add_argument("--seq-kv-dtype", choices=("bfloat16", "float32"),
+                    default=None,
+                    help=f"with --only train_sharded: seq_kv's model in "
+                         f"this dtype ({SEQ_KV_DTYPE})")
     ap.add_argument("--family-dtype", choices=("bfloat16", "float32"),
                     default=None,
                     help="with --only train_sharded: the families' models "
@@ -4874,9 +5055,13 @@ def main(argv=None) -> int:
                    "trace": lambda: trace_phase(torch, dev),
                    "distributed": lambda: distributed_phase(torch, dev),
                    "train_sharded": lambda: train_sharded_phase(
-                       torch, dev, families_only=a.families is not None,
-                       families=fams, dtype=a.family_dtype and getattr(
-                           torch, a.family_dtype))
+                       torch, dev, families=() if a.seq_kv_only else fams,
+                       moe=a.families is None and not a.seq_kv_only,
+                       seq_kv=a.families is None,
+                       dtype=a.family_dtype and getattr(
+                           torch, a.family_dtype),
+                       seq_kv_dtype=a.seq_kv_dtype and getattr(
+                           torch, a.seq_kv_dtype))
                    }[a.only]
             emit({"phase": a.only, **run(), **lap(),
                   "script_s": time.perf_counter() - t_script})
@@ -4909,16 +5094,19 @@ def main(argv=None) -> int:
         phase = "kernels"
         dq, dq_cases = check_dequant(torch, dev)
         fa, fa_cases = check_flash(torch, dev)
+        fp, fp_cases = check_flash_partial(torch, dev)
         gr, gr_cases = check_gram(torch, dev)
         lo, lo_cases = check_lora(torch, dev)
         dq_t = time_dequant(torch, dev)
         fa_t = time_flash(torch, dev)
         fa_long = time_flash(torch, dev, T=4096, lens=(4096, 3072, 1024, 1))
+        fp_t = time_flash_partial(torch, dev)
         gr_t = time_gram(torch, dev)
         lo_t = time_lora(torch, dev)
         emit({"phase": "kernels", "dequant_matmul": {**dq, **dq_t},
               "flash_attention": {**fa, **fa_t},
               "flash_attention_cache_4096": fa_long,
+              "flash_attention_partial": {**fp, **fp_t},
               "work": "one 28-layer qwen3-1.7b decode step at batch 4 "
                       "(flash_attention also at a 4096-key cache)", **lap()})
         emit({"phase": "kernels", "dequant_cases": dq_cases,
@@ -4927,6 +5115,9 @@ def main(argv=None) -> int:
         emit({"phase": "kernels", "flash_cases": fa_cases,
               "fields": ["B", "Hq", "Hkv", "Sq", "Sk", "d", "causal", "dtype",
                          "route", "max_abs_err", "max_abs_ref"], **lap()})
+        emit({"phase": "kernels", "flash_partial_cases": fp_cases,
+              "fields": ["B", "Hq", "Hkv", "Sk", "d", "dtype", "route",
+                         "max_abs_err", "lse_err", "zero_rows"], **lap()})
         emit({"phase": "dequant_splits", **time_dequant_splits(torch, dev),
               **lap()})
         emit({"phase": "kernels", "gram_cases": gr_cases,
@@ -5073,6 +5264,14 @@ def main(argv=None) -> int:
                       "bound_by": tm["bound_by"],
                       "library_ms": tm["library_ms"],
                       "calls_timed": tm["calls"]})
+        if name == "flash_attention":
+            table[-1]["partial"] = {
+                "launches_seq_kv": ts["seq_kv"]["launches"][name],
+                "max_abs_err": fp["max_abs_err"],
+                "lse_max_abs_err": fp["lse_max_abs_err"],
+                **{k: fp_t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "calls",
+                                        "shard")}}
     emit({"kernels": table})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -65,6 +65,18 @@
 //    causal mask, at each row's own position: masked keys are never
 //    loaded, which gives the reference's exact zero weight for them.
 //
+// Partial mode (`lse` not null; the sequence-sharded decode, where a rank
+// holds only its own keys): `out` is written in f32, not q's type (the
+// ranks' partials are combined in f32 and rounded once, as the unsharded
+// kernel rounds its output once), each query row's log-sum-exp
+// m + log(l) over its valid keys beside it in f32, in the natural-log
+// units of the scaled logits q.k / sqrt(d) (the kernels scale q and take
+// expf: no log2 e is folded in), and lengths[b] may be 0.  A row with no
+// valid key gets out = 0 and lse = -inf: every partial then has m = -inf,
+// so the combine weighs each by 0 instead of exp(-inf - -inf) = NaN.
+// Every route writes it (the tiled one from its warp's running max and
+// sum, the split and mma ones from the cluster's combine, on rank 0).
+//
 // Inputs may be strided views (the decode cache is read through a
 // transpose); only the last dimension must be contiguous.
 #include <cuda_bf16.h>
@@ -94,6 +106,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
+// element i of the output: f32 in the partial mode, else the input type
+template <typename T>
+__device__ __forceinline__ void store_out(void* out, size_t i, float v, bool f32) {
+  if (f32)
+    static_cast<float*>(out)[i] = v;
+  else
+    static_cast<T*>(out)[i] = from_f32<T>(v);
+}
+
 struct Strides {
   long long b, h, s;
 };
@@ -118,7 +139,8 @@ template <typename T, int DPL>
 __global__ void __launch_bounds__(ROWS * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ lengths,
-             T* __restrict__ out, int Hq, int Hkv, int Sq, int Sk, int d,
+             void* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv,
+             int Sq, int Sk, int d,
              Strides sq, Strides sk, Strides sv, int heads_per_block, int bq,
              int causal, float scale, int vec) {
   constexpr int D = DPL * 32;
@@ -236,11 +258,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (!row_valid) return;
   const float inv = 1.f / fmaxf(l_run, 1e-30f);
-  T* orow = out + (((size_t)b * Hq + h) * Sq + qpos) * d;
+  if (lse != nullptr && lane == 0)
+    lse[((size_t)b * Hq + h) * Sq + qpos] = l_run > 0.f ? m_run + logf(l_run) : -INFINITY;
+  const size_t orow = (((size_t)b * Hq + h) * Sq + qpos) * d;
 #pragma unroll
   for (int i = 0; i < DPL; ++i) {
     const int e = lane + 32 * i;
-    if (e < d) orow[e] = from_f32<T>(acc[i] * inv);
+    if (e < d) store_out<T>(out, orow + e, acc[i] * inv, lse != nullptr);
   }
 }
 
@@ -311,11 +335,14 @@ template <int N> __device__ __forceinline__ void load_f32(const __nv_bfloat16* p
 // Every warp's partial (m, l, acc) of a query row lies in its block's
 // shared memory at part[(key group * hpb + row) * ps]: the cluster adds
 // them in rank order, then key-group order.  Block `rank` writes a
-// 1/splits share of the nrows x d outputs at `out`.
+// 1/splits share of the nrows x d outputs from element `o0` of `out`;
+// rank 0 writes each row's log-sum-exp M + log(L) at `lse` when it is not
+// null (the partial mode, whose `out` is f32).
 template <typename T>
 __device__ __forceinline__ void combine_partials(cg::cluster_group& cluster, float* part,
-                                                 float* wts, T* out, int rank, int splits,
-                                                 int kw, int hpb, int nrows, int d, int ps) {
+                                                 float* wts, void* out, size_t o0,
+                                                 float* lse, int rank, int splits, int kw,
+                                                 int hpb, int nrows, int d, int ps) {
   cluster.sync();
   // per query row: each partial's weight exp(m_i - M) and 1 / sum l_i w_i,
   // partials in rank order, then key-group order
@@ -336,11 +363,14 @@ __device__ __forceinline__ void combine_partials(cg::cluster_group& cluster, flo
     float L = 0.f;
 #pragma unroll
     for (int i = 0; i < MAX_PARTS; ++i) {
-      const float w = expf(m[i] - M);  // 0 for an empty partial
+      // 0 for an empty partial, and for every partial of a row with no
+      // valid key (M = -inf)
+      const float w = M == -INFINITY ? 0.f : expf(m[i] - M);
       wts[r * MAX_PARTS + i] = w;
       L = fmaf(l[i], w, L);
     }
     wts[ROWS * MAX_PARTS + r] = 1.f / fmaxf(L, 1e-30f);
+    if (lse != nullptr && rank == 0) lse[r] = L > 0.f ? M + logf(L) : -INFINITY;
   }
   __syncthreads();
   const int total = nrows * d;
@@ -357,7 +387,8 @@ __device__ __forceinline__ void combine_partials(cg::cluster_group& cluster, flo
     float acc_e = 0.f;
 #pragma unroll
     for (int j = 0; j < MAX_PARTS; ++j) acc_e = fmaf(a[j], wts[r * MAX_PARTS + j], acc_e);
-    out[(size_t)r * d + e] = from_f32<T>(acc_e * wts[ROWS * MAX_PARTS + r]);
+    store_out<T>(out, o0 + (size_t)r * d + e, acc_e * wts[ROWS * MAX_PARTS + r],
+                 lse != nullptr);
   }
   cluster.sync();  // no block leaves while another reads its partials
 }
@@ -368,7 +399,8 @@ template <typename T, int DPL>
 __global__ void __launch_bounds__(ROWS * 32)
 flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ lengths,
-                   T* __restrict__ out, int Hq, int Hkv, int Sk, int d,
+                   void* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv,
+                   int Sk, int d,
                    Strides sq, Strides sk, Strides sv, int hpb, int kw, int chunk,
                    int causal, float scale) {
   constexpr int D = DPL * 32;
@@ -509,8 +541,9 @@ flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < DPL; ++i) pp[4 + lane * DPL + i] = acc[i];
   }
-  combine_partials(cluster, part, wts, out + ((size_t)b * Hq + h0) * d, rank, splits,
-                   kw, hpb, nrows, d, PS);
+  combine_partials<T>(cluster, part, wts, out, ((size_t)b * Hq + h0) * d,
+                   lse == nullptr ? nullptr : lse + (size_t)b * Hq + h0, rank, splits, kw,
+                   hpb, nrows, d, PS);
 }
 
 // --- split route on the tensor cores: bf16, d of 64 or 128 -----------------
@@ -557,7 +590,8 @@ template <int D>
 __global__ void __launch_bounds__(4 * 32)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                 __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Sk, Strides sq,
+                 void* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv,
+                 int Sk, Strides sq,
                  Strides sk, Strides sv, int hpb, int chunk, int causal, float scale) {
   typedef __nv_bfloat16 bf16;
   constexpr int LDR = split_ldr(2, D);     // bf16 row stride: + 16 bytes
@@ -740,13 +774,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       pp[4 + n * 8 + 2 * t + 1] = o[n][2 * r + 1];
     }
   }
-  combine_partials(cluster, part, wts, out + ((size_t)b * Hq + h0) * D, rank, splits, 1,
+  combine_partials<bf16>(cluster, part, wts, out, ((size_t)b * Hq + h0) * D,
+                   lse == nullptr ? nullptr : lse + (size_t)b * Hq + h0, rank, splits, 1,
                    hpb, nrows, D, PS);
 }
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, const int* lengths, void* out,
-               int B, int Hq, int Hkv, int Sk, Strides sq, Strides sk, Strides sv,
+               float* lse, int B, int Hq, int Hkv, int Sk, Strides sq, Strides sk, Strides sv,
                int causal, float scale, int splits, int chunk, cudaStream_t stream) {
   const int rep = Hq / Hkv;
   const int hpb = rep < ROWS ? rep : ROWS;
@@ -778,13 +813,13 @@ int launch_mma(const void* q, const void* k, const void* v, const int* lengths, 
   typedef __nv_bfloat16 bf16;
   return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<const bf16*>(q),
                                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                                 lengths, static_cast<bf16*>(out), Hq, Hkv, Sk, sq, sk, sv,
+                                 lengths, out, lse, Hq, Hkv, Sk, sq, sk, sv,
                                  hpb, chunk, causal, scale);
 }
 
 template <typename T, int DPL>
 int launch_split(const void* q, const void* k, const void* v, const int* lengths,
-                 void* out, int B, int Hq, int Hkv, int Sk, int d, Strides sq,
+                 void* out, float* lse, int B, int Hq, int Hkv, int Sk, int d, Strides sq,
                  Strides sk, Strides sv, int causal, float scale, int splits,
                  int chunk, int kw, cudaStream_t stream) {
   const int rep = Hq / Hkv;
@@ -818,13 +853,13 @@ int launch_split(const void* q, const void* k, const void* v, const int* lengths
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
                                  static_cast<const T*>(k), static_cast<const T*>(v),
-                                 lengths, static_cast<T*>(out), Hq, Hkv, Sk, d, sq, sk,
+                                 lengths, out, lse, Hq, Hkv, Sk, d, sq, sk,
                                  sv, hpb, kw, chunk, causal, scale);
 }
 
 template <typename T, int DPL>
 void launch(const void* q, const void* k, const void* v, const int* lengths,
-            void* out, int B, int Hq, int Hkv, int Sq, int Sk, int d,
+            void* out, float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int d,
             Strides sq, Strides sk, Strides sv, int causal, float scale,
             int vec, cudaStream_t stream) {
   const int rep = Hq / Hkv;
@@ -837,17 +872,17 @@ void launch(const void* q, const void* k, const void* v, const int* lengths,
   const int threads = (warps < MIN_WARPS ? MIN_WARPS : warps) * 32;
   flash_kernel<T, DPL><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), Hq, Hkv, Sq,
+      static_cast<const T*>(v), lengths, out, lse, Hq, Hkv, Sq,
       Sk, d, sq, sk, sv, heads_per_block, bq, causal, scale, vec);
 }
 
 template <typename T, int DPL>
 int route(const void* q, const void* k, const void* v, const int* lengths, void* out,
-          int B, int Hq, int Hkv, int Sq, int Sk, int d, Strides sq, Strides sk,
+          float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int d, Strides sq, Strides sk,
           Strides sv, int causal, float scale, int vec, int splits, int chunk, int kw,
           int mma, cudaStream_t stream) {
   if (splits == 0) {
-    launch<T, DPL>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal,
+    launch<T, DPL>(q, k, v, lengths, out, lse, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal,
                    scale, vec, stream);
     return 0;
   }
@@ -855,22 +890,22 @@ int route(const void* q, const void* k, const void* v, const int* lengths, void*
   if (mma) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value && (DPL == 2 || DPL == 4)) {
       if (d != DPL * 32) return (int)cudaErrorInvalidValue;
-      return launch_mma<DPL * 32>(q, k, v, lengths, out, B, Hq, Hkv, Sk, sq, sk, sv, causal,
+      return launch_mma<DPL * 32>(q, k, v, lengths, out, lse, B, Hq, Hkv, Sk, sq, sk, sv, causal,
                                   scale, splits, chunk, stream);
     }
     return (int)cudaErrorInvalidValue;
   }
-  return launch_split<T, DPL>(q, k, v, lengths, out, B, Hq, Hkv, Sk, d, sq, sk, sv,
+  return launch_split<T, DPL>(q, k, v, lengths, out, lse, B, Hq, Hkv, Sk, d, sq, sk, sv,
                               causal, scale, splits, chunk, kw, stream);
 }
 
 template <typename T>
 int by_width(const void* q, const void* k, const void* v, const int* lengths,
-             void* out, int B, int Hq, int Hkv, int Sq, int Sk, int d,
+             void* out, float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int d,
              Strides sq, Strides sk, Strides sv, int causal, float scale,
              int vec, int splits, int chunk, int kw, int mma, cudaStream_t stream) {
 #define FA_ROUTE(DPL)                                                              \
-  return route<T, DPL>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, \
+  return route<T, DPL>(q, k, v, lengths, out, lse, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, \
                        causal, scale, vec, splits, chunk, kw, mma, stream)
   if (d <= 32) FA_ROUTE(1);
   if (d <= 64) FA_ROUTE(2);
@@ -884,7 +919,8 @@ int by_width(const void* q, const void* k, const void* v, const int* lengths,
 
 // q (B, Hq, Sq, d), k/v (B, Hkv, Sk, d) with element strides for the first
 // three dimensions and a contiguous last one; lengths (B,) int32 or null;
-// out (B, Hq, Sq, d) contiguous in q's type.  vec != 0 promises that k and
+// out (B, Hq, Sq, d) contiguous in q's type; lse (B, Hq, Sq) f32 or null
+// (the partial mode, where lengths may hold 0 and out is f32).  vec != 0 promises that k and
 // v are 16-byte aligned and d and their strides are multiples of 16 bytes.
 // splits == 0 takes the tiled route; splits >= 1 the split route (Sq = 1,
 // vec): clusters of `splits` blocks, `chunk` keys a block, `kw` key groups
@@ -893,7 +929,7 @@ int by_width(const void* q, const void* k, const void* v, const int* lengths,
 // cudaError_t.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths, void* out,
-    int B, int Hq, int Hkv, int Sq, int Sk, int d, long long sqb,
+    void* lse, int B, int Hq, int Hkv, int Sq, int Sk, int d, long long sqb,
     long long sqh, long long sqs, long long skb, long long skh, long long sks,
     long long svb, long long svh, long long svs, int causal, float scale,
     int vec, int is_bf16, int splits, int chunk, int kw, int mma, void* stream) {
@@ -901,10 +937,11 @@ extern "C" int flash_attention_launch(
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs};
   const int* lens = static_cast<const int*>(lengths);
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = is_bf16
-      ? by_width<__nv_bfloat16>(q, k, v, lens, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, splits, chunk, kw, mma, s)
-      : by_width<float>(q, k, v, lens, out, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, splits, chunk, kw, mma, s);
+      ? by_width<__nv_bfloat16>(q, k, v, lens, out, lse_f, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, splits, chunk, kw, mma, s)
+      : by_width<float>(q, k, v, lens, out, lse_f, B, Hq, Hkv, Sq, Sk, d, sq, sk, sv, causal, scale, vec, splits, chunk, kw, mma, s);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

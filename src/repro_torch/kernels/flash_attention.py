@@ -34,7 +34,7 @@ _SMEM_MAX, _MAX_PARTS = _C["SMEM_MAX"], _C["MAX_PARTS"]
 # a path went through it
 launches = 0
 
-_argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 6
              + [ctypes.c_void_p])
@@ -136,10 +136,18 @@ def _lib():
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True,
-                         lengths: Tensor | None = None) -> Tensor:
+                         lengths: Tensor | None = None,
+                         return_lse: bool = False):
     """Launch the kernel.  q (B, Hq, Sq, d), k/v (B, Hkv, Sk, d), all of one
     dtype (f32 or bf16) on one CUDA device; ``lengths`` (B,) int32 >= 1 or
-    None.  Returns (B, Hq, Sq, d) contiguous in q.dtype."""
+    None.  Returns (B, Hq, Sq, d) contiguous in q.dtype.
+
+    ``return_lse`` (the partial mode of the sequence-sharded decode):
+    ``(out, lse)``, ``out`` in f32 (the ranks' partials are combined in
+    f32 and rounded once) and each query row's log-sum-exp over its
+    valid keys, (B, Hq, Sq) f32 in the natural-log units of the scaled
+    logits, on the same route and in the same launch; ``lengths`` may
+    then hold 0, and such a row gives out 0 and lse -inf."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)) + (
             (("lengths", lengths),) if lengths is not None else ()):
@@ -170,11 +178,15 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
         if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,) or \
                 not lengths.is_contiguous():
             raise ValueError("flash_attention: lengths must be (B,) int32")
-    out = torch.empty((B, Hq, Sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Hq, Sq, d), device=q.device,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     plan = plan_for(q, k, v)
     fn = _lib()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lengths is None else lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Hq, Hkv, Sq, Sk, d,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -184,4 +196,4 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
             int(plan.route == "mma"), build.stream_handle(q.device))
     build.check(rc, "flash_attention launch")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -3,7 +3,8 @@
 The device decides: a CPU tensor goes to the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor goes to the hand-written
 kernel, for every shape, or the wrapper raises.  Nothing falls back from a
-CUDA tensor to the plain version.
+CUDA tensor to the plain version.  A meta tensor (the dry run,
+``launch/dryrun.py``) takes the plain version's shapes: nothing runs.
 
 ``dequant_matmul`` and ``dequant_matmul_lora`` are differentiable
 (``torch.autograd.Function``) when a gradient is asked for: the forward
@@ -85,7 +86,7 @@ def add_replayed(counts: dict[str, int]) -> None:
 def _plain(t: Tensor) -> bool:
     if build.is_cuda(t):
         return False
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"no kernel or plain version for device {t.device}")
     return True
 
@@ -223,9 +224,11 @@ def gram(x: Tensor) -> Tensor:
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    lengths: Tensor | None = None) -> Tensor:
+                    lengths: Tensor | None = None, return_lse: bool = False):
+    """``return_lse``: the partial mode, ``(out, lse)`` (lengths may be 0;
+    ``ref.flash_attention_ref``)."""
     if _plain(q):
         return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       lengths=lengths)
+                                       lengths=lengths, return_lse=return_lse)
     return _flash.flash_attention_cuda(q, k, v, causal=causal,
-                                       lengths=lengths)
+                                       lengths=lengths, return_lse=return_lse)

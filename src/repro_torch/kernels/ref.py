@@ -49,13 +49,19 @@ def gram_ref(x: Tensor) -> Tensor:
 
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
                         causal: bool = True,
-                        lengths: Tensor | None = None) -> Tensor:
+                        lengths: Tensor | None = None,
+                        return_lse: bool = False):
     """q (B, Hq, Sq, d); k/v (B, Hkv, Sk, d) -> (B, Hq, Sq, d) in q.dtype.
 
     GQA by head grouping (query head h reads KV head ``h // (Hq/Hkv)``),
     softmax in f32.  ``causal`` masks keys at ``kpos > qpos`` with query 0
     aligned to key 0; ``lengths`` (B,) masks keys at ``kpos >= lengths[b]``
-    (every length must be >= 1)."""
+    (every length must be >= 1).
+
+    ``return_lse`` (the partial mode): returns ``(out, lse)``, ``out`` in
+    f32 and ``lse`` (B, Hq, Sq) f32 the log-sum-exp of each row's valid
+    scaled logits ``q.k / sqrt(d)``; a length may be 0, and a row with no
+    valid key gives ``out`` 0 and ``lse`` -inf."""
     B, Hq, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     rep = Hq // Hkv
@@ -70,6 +76,14 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
     if lengths is not None:
         valid = kpos[None, :] < lengths.to(q.device)[:, None]      # (B, Sk)
         mask = mask & valid[:, None, None, :]
+    if return_lse:
+        masked = torch.where(mask, logits, -math.inf)
+        lse = torch.logsumexp(masked, dim=-1)                  # (B,Hq,Sq)
+        live = torch.isfinite(lse)
+        shift = torch.where(live, lse, 0.0)[..., None]
+        probs = torch.where(mask & live[..., None],
+                            torch.exp(masked - shift), 0.0)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, vv), lse
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vv).to(q.dtype)

@@ -16,9 +16,14 @@ choice and is checked here, not worked around:
   (the engine's collectives), so several ranks can share one card.  The
   gather of sharded leaves goes through the host under gloo
   (:func:`repro_torch.models.parallel.full_tensor`).
+* fake (torch's ``FakeProcessGroup``, one process standing in for rank r
+  of the whole group): only for the dry run (``launch/dryrun.py``), on
+  the meta device or the CPU, where no collective moves data.  It is no
+  fallback: a CUDA mesh over it raises.
 
-``make_production_mesh`` (256 devices) is not here: its dry run is not
-ported.
+:func:`make_production_mesh` is the (16, 16) / (2, 16, 16) mesh of the
+twin over the default group: NCCL on a pod, the fake group in the dry run
+(:func:`init_fake_group`).
 """
 from __future__ import annotations
 
@@ -63,9 +68,15 @@ def _check_backend(device_type: str, n_ranks: int) -> None:
                 f"nccl with {n_ranks} ranks on {torch.cuda.device_count()} "
                 "card(s): NCCL refuses two ranks on one device; use gloo "
                 "to share a card")
+    elif backend == "fake":
+        if device_type not in ("cpu", "meta"):
+            raise RuntimeError(
+                "the fake backend (the dry run's stand-in for a pod) moves "
+                f"no data: it takes a meta or cpu mesh, not {device_type}")
     elif backend != "gloo":
         raise RuntimeError(f"unsupported backend {backend!r} for a "
-                           f"{device_type} mesh (nccl or gloo)")
+                           f"{device_type} mesh (nccl, gloo, or fake for "
+                           "the dry run)")
 
 
 def make_local_mesh(n_data: int = 1, n_model: int = 1,
@@ -86,6 +97,42 @@ def make_local_mesh(n_data: int = 1, n_model: int = 1,
         raise ValueError(f"mesh {dict(zip(names, shape))} needs {n} ranks; "
                          f"the group has {dist.get_world_size()}")
     return init_device_mesh(dt, shape, mesh_dim_names=names)
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         device_type: str | None = None):
+    """The production mesh: (16, 16) over ("data", "model"), or (2, 16,
+    16) with "pod" first, over the default group (NCCL on a pod; torch's
+    fake group in the dry run, :func:`init_fake_group`, with
+    ``device_type="cpu"``), whose size must be 256 or 512.
+    ``device_type`` defaults to CUDA."""
+    shape, _ = PRODUCTION_SHAPES[bool(multi_pod)]
+    if len(shape) == 3:
+        return make_local_mesh(shape[1], shape[2], shape[0],
+                               device_type=device_type)
+    return make_local_mesh(*shape, device_type=device_type)
+
+
+def init_fake_group(world_size: int, rank: int = 0) -> None:
+    """Make the default group torch's fake one of ``world_size`` ranks,
+    this process being ``rank`` (the dry run: every collective returns at
+    once and moves nothing).  An initialized fake group of another size or
+    rank is replaced; any other initialized group raises."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()} group is initialized; the dry run "
+                "needs the fake one")
+        if dist.get_world_size() == world_size and dist.get_rank() == rank:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
 
 
 def make_model_mesh(n_model: int | None = None, *,

@@ -158,8 +158,8 @@ def _bdiv(b: int, mesh, dp) -> bool:
 def cache_specs(cfg, cache_tree, mesh, data_axes) -> dict:
     """Decode-cache layouts.  KV caches ``(L, B, T, Hkv, hd)``: the batch
     over the data axes; the heads over "model" where it divides them, else
-    the sequence (the distributed-softmax decode, which the port's decode
-    refuses: ``ROADMAP.md``).  SSM states shard heads over "model", conv
+    the sequence (decoded by a distributed softmax over the ranks' keys,
+    ``models.attention._decode_seq_sharded``).  SSM states shard heads over "model", conv
     windows their channels; batch-1 caches leave the data axes unused.  A
     layout names one axis a dim; several data axes become the tuple's
     entry as the twin's ``P((pod, data), ...)`` does."""

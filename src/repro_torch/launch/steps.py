@@ -1,6 +1,5 @@
-"""Step builders shared by the launchers.  Twin of the training and decode
-parts of ``repro.launch.steps`` (the dry-run builders are a later slice of
-the port).
+"""Step builders shared by the launchers and the dry run.  Twin of
+``repro.launch.steps``.
 
 ``make_train_step`` builds the LoRA fine-tuning step: frozen quantized base
 plus trainable adapters, AdamW and an LR schedule, with optional
@@ -24,6 +23,11 @@ be captured in a CUDA graph).
 decode step on the card: the step captured once as a CUDA graph and
 replayed, so that the host issues one launch a step instead of every
 operator's.
+
+The dry run's builders (``SHAPE_CELLS``, ``cell_applicable``,
+``batch_specs``, ``abstract_params``/``abstract_state``/``abstract_cache``)
+give trees of meta tensors: the twin's ``ShapeDtypeStruct`` trees, nothing
+allocated (``launch/dryrun.py`` runs a rank's step on them).
 """
 from __future__ import annotations
 
@@ -37,14 +41,32 @@ from repro_torch.launch.shardings import param_specs, to_named
 from repro_torch.models import parallel
 from repro_torch.models.parallel import LOCAL, PContext
 from repro_torch.models.transformer import (ModelConfig, check_family,
-                                            decode_step, loss_fn)
+                                            decode_step, forward,
+                                            init_decode_cache, init_params,
+                                            loss_fn)
 from repro_torch.optim import (OptConfig, adamw_init, adamw_update,
                                make_schedule, merge_params, partition_params,
                                trainable_mask, tree_leaves, tree_map)
 from repro_torch.utils import set_path, tree_paths
 
+SHAPE_CELLS = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
 # quantized/structural leaves never trained even in "all" mode
 _NEVER_TRAIN = ("qcodes", "scales", "zeros", "absmax")
+
+
+def cell_applicable(cfg: ModelConfig, cell: str) -> tuple[bool, str]:
+    """Whether the dry run lowers ``cell`` for ``cfg``, and why not (the
+    twin's reason, word for word)."""
+    if cell == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, ("full-attention arch: 500k decode needs sub-quadratic "
+                       "attention (skip per assignment; DESIGN.md §5)")
+    return True, ""
 
 
 def full_trainable_mask(params, mode: str):
@@ -81,10 +103,12 @@ def state_pspecs(state_shapes, mesh=None) -> dict:
                     "step": ()}}
 
 
-def batch_pspecs(cfg: ModelConfig, batch: dict, data_axes) -> dict:
-    """Layouts of a batch's leaves (tensors or shapes): the batch dim over
-    the data axes unless it is 1 (the twin's, for a batch instead of a
-    shape cell: ``SHAPE_CELLS`` comes with the dry run)."""
+def batch_pspecs(cfg: ModelConfig, batch, data_axes) -> dict:
+    """Layouts of a batch's leaves: the batch dim over the data axes unless
+    it is 1.  ``batch`` is a batch (tensors or shapes) or, as in the twin,
+    the name of a shape cell (:data:`SHAPE_CELLS`)."""
+    if isinstance(batch, str):
+        batch = batch_specs(cfg, batch)
     specs = make_batch_specs(data_kind(cfg), data_axes)
     out = {}
     for name, leaf in batch.items():
@@ -93,6 +117,61 @@ def batch_pspecs(cfg: ModelConfig, batch: dict, data_axes) -> dict:
             else None
         out[name] = (bspec,) + (None,) * (nd - 1)
     return out
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, cell: str) -> dict:
+    """One input batch of shape cell ``cell`` as meta tensors: int32
+    tokens (and labels for a train cell), an enc-dec model's f32
+    ``enc_embeds`` (a quarter of the sequence), a vision model's f32
+    ``prefix_embeds`` before its text tokens; a decode cell's (B, 1)
+    tokens."""
+    c = SHAPE_CELLS[cell]
+    B, S = c["batch"], c["seq"]
+    i32 = torch.int32
+    if c["kind"] == "decode":
+        return {"tokens": _meta((B, 1), i32)}
+    if cfg.family == "encdec":
+        batch = {"tokens": _meta((B, S), i32),
+                 "enc_embeds": _meta((B, S // 4, cfg.d_model),
+                                     torch.float32)}
+    elif cfg.frontend == "vision":
+        batch = {"tokens": _meta((B, S - cfg.n_prefix), i32),
+                 "prefix_embeds": _meta((B, cfg.n_prefix, cfg.d_model),
+                                        torch.float32)}
+    else:
+        batch = {"tokens": _meta((B, S), i32)}
+    if c["kind"] == "train":
+        batch["labels"] = _meta(tuple(batch["tokens"].shape), i32)
+    return batch
+
+
+def abstract_params(cfg: ModelConfig, recipe=None) -> dict:
+    """The param tree as meta tensors: dense when ``cfg.quant`` is unset,
+    else the quantized layout (``core.pipeline.quantized_param_shapes``),
+    per site when a ``QuantRecipe`` is given."""
+    from repro_torch.core.pipeline import quantized_param_shapes
+    if recipe is not None:
+        return quantized_param_shapes(cfg, recipe=recipe)
+    if cfg.quant is not None:
+        return quantized_param_shapes(cfg)
+    return init_params(cfg, device="meta")
+
+
+def abstract_state(cfg: ModelConfig, ocfg: OptConfig, recipe=None) -> dict:
+    """:func:`build_state` of :func:`abstract_params`: meta tensors."""
+    return build_state(abstract_params(cfg, recipe), ocfg)
+
+
+def abstract_cache(cfg: ModelConfig, cell: str, kv_dtype=None) -> dict:
+    """The decode cache of shape cell ``cell`` as meta tensors (its K/V in
+    ``kv_dtype`` when given)."""
+    c = SHAPE_CELLS[cell]
+    return init_decode_cache(cfg, c["batch"], c["seq"], dtype=kv_dtype,
+                             device="meta")
 
 
 def named(tree, mesh):
@@ -231,6 +310,33 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
     return train_step
 
 
+def make_prefill_step(cfg: ModelConfig, pctx: PContext = LOCAL,
+                      last_only: bool = False):
+    """prefill(params, batch) -> logits (B, S, V), or (B, 1, V) of the last
+    position with ``last_only`` (the (B, S, V) logits are waste when the
+    prefill feeds a decode loop).  Under ``pctx.mesh`` the params are
+    DTensors, ``batch`` the global batch, and the logits the rank's rows
+    over the whole vocab."""
+    check_family(cfg)
+
+    def prefill(params, batch):
+        if pctx.mesh is not None:
+            params = parallel.localize(params)
+        batch = _batch_rows(cfg, pctx, batch, _device_of(params))
+        if last_only:
+            from repro_torch.models.modules import lm_head_apply
+            from repro_torch.models.transformer import _whole_vocab
+            hidden, _ = forward(params, cfg, batch, pctx=pctx,
+                                return_hidden=True)
+            head = params.get("head", params["embed"])
+            return _whole_vocab(head, lm_head_apply(head,
+                                                    hidden[:, -1:, :]))
+        logits, _ = forward(params, cfg, batch, pctx=pctx)
+        return logits
+
+    return prefill
+
+
 def _cache_batch(cache: dict, pctx: PContext):
     """(the batch dim's layout entry, the device) of a sharded decode
     cache: read from its first leaf sharded over a data axis (None: the
@@ -243,7 +349,8 @@ def _cache_batch(cache: dict, pctx: PContext):
             continue
         for ax in parallel.spec_of_placements(leaf.placements,
                                               leaf.device_mesh, leaf.dim()):
-            if ax in data:
+            axes = parallel.entry_axes(ax)
+            if axes and all(a in data for a in axes):
                 return ax, parallel.local_of(leaf).device
     return None, dev
 

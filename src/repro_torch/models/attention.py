@@ -6,7 +6,11 @@ Shapes: x (B, S, D); heads laid out as (B, S, H, hd).  Softmax in f32.
 Under a mesh (leaves sharded over "model", ``models.parallel``) each rank
 attends with the heads its q/k/v column shards hold.  Where a layout
 splits a head or breaks the GQA grouping, the projection is gathered to
-whole heads, as GSPMD would compute it (:func:`_shard_heads`).
+whole heads, as GSPMD would compute it (:func:`_shard_heads`).  A decode
+cache sharded along its sequence (``launch.shardings.cache_specs`` where
+the model axis does not divide the KV heads) is decoded by a distributed
+softmax: every rank attends every head over its own keys and the ranks'
+partials are combined (:func:`_decode_seq_sharded`).
 """
 from __future__ import annotations
 
@@ -86,10 +90,13 @@ def _tp_group(p: dict):
                                  if k in p})
 
 
-def _shard_heads(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, group):
+def _shard_heads(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, group,
+                 whole: bool = False):
     """q, k, v projections (B, S, cols) as heads (B, S, h, hd) (k and v
     may have another S: cross-attention), and whether the heads differ
-    from rank to rank.  The rank keeps its q heads when
+    from rank to rank.  ``whole``: every projection gathered to all its
+    heads (the sequence-sharded decode).  Otherwise the rank keeps its q
+    heads when
     its q columns hold whole heads of a head count the axis divides; its
     k/v columns then serve them when they hold the matching whole KV
     heads, else k/v are gathered whole (their gradient reduce-scattered, or
@@ -101,7 +108,8 @@ def _shard_heads(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, group):
     heads = (lambda t: t.reshape(*t.shape[:2], -1, hd))
     if group is None or n == 1:
         return heads(q), heads(k), heads(v), False
-    if q.shape[-1] * n == Hq * hd and q.shape[-1] % hd == 0 and Hq % n == 0:
+    if not whole and q.shape[-1] * n == Hq * hd and q.shape[-1] % hd == 0 \
+            and Hq % n == 0:
         hq = q.shape[-1] // hd
         if k.shape[-1] * n == Hkv * hd and Hkv % n == 0 and \
                 (Hkv // n) * hd == k.shape[-1]:
@@ -126,10 +134,11 @@ def _shard_heads(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, group):
 
 
 def _project_qkv(p, cfg: AttnConfig, x: Tensor, positions: Tensor | None,
-                 qspec: QSpec | None, kv_src: Tensor | None = None):
+                 qspec: QSpec | None, kv_src: Tensor | None = None,
+                 whole: bool = False):
     """q from ``x``, k and v from ``kv_src`` (``x`` when None), as the
-    rank's heads (:func:`_shard_heads`), qk-normed and, given
-    ``positions``, roped."""
+    rank's heads (:func:`_shard_heads`; all heads with ``whole``),
+    qk-normed and, given ``positions``, roped."""
     kv_src = x if kv_src is None else kv_src
     with scope("q"):
         q = linear_apply(p["q"], x, qspec)
@@ -138,7 +147,7 @@ def _project_qkv(p, cfg: AttnConfig, x: Tensor, positions: Tensor | None,
     with scope("v"):
         v = linear_apply(p["v"], kv_src, qspec)
     group = _tp_group(p)
-    q, k, v, sharded = _shard_heads(cfg, q, k, v, group)
+    q, k, v, sharded = _shard_heads(cfg, q, k, v, group, whole)
     if cfg.qk_norm:
         qn, kn = p["q_norm"], p["k_norm"]
         if sharded:          # applied to the rank's heads: summed grads
@@ -223,21 +232,32 @@ def attn_decode(p, cfg: AttnConfig, x: Tensor, cache: dict, *,
     With ``qspec.use_kernel`` (full attention only) the masked softmax runs
     through the flash-attention kernel's per-sequence ``lengths`` operand
     (``idx + 1``) instead of the dense mask — same math.  With a sliding
-    window the cache is a ring buffer of size window."""
+    window the cache is a ring buffer of size window.
+
+    A cache tagged as sharded along T over "model" (a sequence-sharded
+    cache's layer, ``parallel.select_layer``) takes
+    :func:`_decode_seq_sharded`."""
     B, S, _ = x.shape
     if S != 1:
         raise ValueError("decode processes one token")
     idx = cache["idx"]
     vec = idx.dim() == 1
     positions = idx[:, None] if vec else idx.reshape(1, 1).expand(B, 1)
-    q, k, v = _project_qkv(p, cfg, x, positions, qspec)
     K, V = cache["k"], cache["v"]
+    seq = _seq_shard(K, cfg)
+    q, k, v = _project_qkv(p, cfg, x, positions, qspec,
+                           whole=seq is not None)
+    if seq is not None:
+        out = _decode_seq_sharded(q, k, v, K, V, idx, seq, qspec)
+        with scope("o"):
+            y = linear_apply(p["o"], out.reshape(B, 1, -1).to(x.dtype),
+                             qspec)
+        return y, {"k": K, "v": V, "idx": idx + 1}
     if k.shape[2] != K.shape[2]:
-        raise NotImplementedError(
+        raise ValueError(
             f"sharded decode: the rank's projections give {k.shape[2]} KV "
-            f"heads, its cache holds {K.shape[2]}; only KV heads sharded as "
-            "the k/v columns are (whole heads, a head count the model axis "
-            "divides) decode sharded (see ROADMAP.md)")
+            f"heads, its cache holds {K.shape[2]}: the cache is not laid "
+            "out by launch.shardings.cache_specs")
     T = K.shape[1]
     slot = torch.remainder(idx, T) if cfg.sliding_window else idx
     if vec:
@@ -268,6 +288,55 @@ def attn_decode(p, cfg: AttnConfig, x: Tensor, cache: dict, *,
     with scope("o"):
         y = linear_apply(p["o"], out.reshape(B, 1, -1).to(x.dtype), qspec)
     return y, {"k": K, "v": V, "idx": idx + 1}
+
+
+def _seq_shard(K: Tensor, cfg: AttnConfig):
+    """(group, rank, keys a rank) of a layer's cache ``K`` (B, T, Hkv, hd)
+    tagged as sharded along T over "model", else None."""
+    lay = parallel.layout_of(K)
+    if lay is None or lay.dim_of("model") != 1:
+        return None
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "a sliding-window KV cache sharded along its sequence (a ring "
+            "buffer split over the model axis) is not supported: no config "
+            "lays one out, since cache_specs shards a windowed cache's KV "
+            "heads, which the model axis divides in every config")
+    return (parallel.axis_group(lay.mesh, "model"),
+            parallel.axis_rank(lay.mesh, "model"), K.shape[1])
+
+
+def _decode_seq_sharded(q: Tensor, k: Tensor, v: Tensor, K: Tensor,
+                        V: Tensor, idx: Tensor, seq: tuple,
+                        qspec: QSpec | None) -> Tensor:
+    """One decode token over a cache sharded along T: rank r holds global
+    positions ``[r T_l, (r + 1) T_l)``.  q (B, 1, Hq, hd) and k/v
+    (B, 1, Hkv, hd) hold every head.  The new K/V row is written by mask,
+    not by a host branch: each rank writes ``where(in_shard, new, old)`` at
+    ``clamp(idx - r T_l, 0, T_l - 1)``, so a vector ``idx`` whose rows lie
+    in different shards writes each on its own rank, and meta tensors
+    pass.  Every q head attends the rank's ``clamp(idx + 1 - r T_l, 0,
+    T_l)`` valid keys by the partial flash attention (the kernel under
+    ``qspec.use_kernel``, else its plain version), and the ranks' partials
+    are combined over "model" (``parallel.combine_softmax``).  Returns
+    (B, 1, Hq, hd) f32, the same on every rank."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    group, r, T = seq
+    B = q.shape[0]
+    pos = idx if idx.dim() == 1 else idx.reshape(1).expand(B)
+    local = pos - r * T
+    inside = ((local >= 0) & (local < T))[:, None, None]
+    at = local.clamp(0, T - 1).long()
+    rows = torch.arange(B, device=q.device)
+    for C, new in ((K, k), (V, v)):
+        C[rows, at] = torch.where(inside, new[:, 0].to(C.dtype), C[rows, at])
+    lengths = (local + 1).clamp(0, T).to(torch.int32).contiguous()
+    attend = (kops.flash_attention if qspec is not None and qspec.use_kernel
+              else kref.flash_attention_ref)
+    o, lse = attend(q.transpose(1, 2), K.transpose(1, 2), V.transpose(1, 2),
+                    causal=False, lengths=lengths, return_lse=True)
+    return parallel.combine_softmax(o[:, :, 0], lse[:, :, 0], group)[:, None]
 
 
 def cross_attn_apply(p, cfg: AttnConfig, x: Tensor, kv_src: Tensor, *,

@@ -24,7 +24,9 @@ the gradient reduce-scattered or sliced), :func:`scatter_to` (the rank's
 slice, all-gather of the gradient) and :func:`reduce_scatter` (reduce-
 scatter, all-gather of the gradient), each counted in :data:`ALLREDUCE_STATS`,
 :data:`GATHER_STATS` or :data:`REDUCE_SCATTER_STATS`; :func:`rank_part` is
-a replicated tensor used on the rank's part (``copy_to``, then a slice).
+a replicated tensor used on the rank's part (``copy_to``, then a slice);
+:func:`combine_softmax` joins the ranks' partial softmaxes of the
+sequence-sharded decode (two counted all-reduces).
 Over a group of one rank each is the identity.  Under gloo a 16-bit float
 payload travels as f32, a CUDA all-gather through the host, and a
 reduce-scatter as an all-reduce and the rank's slice (transports, not
@@ -73,6 +75,20 @@ def axis_size(mesh, axis: str = "model") -> int:
     if mesh is None or axis not in names:
         return 1
     return int(mesh.size(names.index(axis)))
+
+
+def entry_axes(ax) -> tuple:
+    """The mesh axes of one layout entry: None, an axis name, or a tuple
+    of names (the dim split over them in order, the first outermost)."""
+    return () if ax is None else (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def entry_size(mesh, ax) -> int:
+    """The shards of a dim under layout entry ``ax``."""
+    n = 1
+    for a in entry_axes(ax):
+        n *= axis_size(mesh, a)
+    return n
 
 
 def axis_group(mesh, axis: str = "model"):
@@ -138,6 +154,27 @@ def all_reduce_sum(x: Tensor, group, op=None) -> Tensor:
 
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
+
+
+def combine_softmax(out: Tensor, lse: Tensor, group) -> Tensor:
+    """A softmax over keys split among the ranks of ``group``, from each
+    rank's partial: ``out`` (..., d) its rows normalised over the rank's
+    keys, ``lse`` (...) f32 their log-sum-exp (-inf where the rank holds no
+    valid key).  ``M`` = the ranks' max of ``lse`` (one MAX all-reduce),
+    ``w = exp(lse - M)``, and the result ``sum_r w out / sum_r w`` in f32
+    (one SUM all-reduce of ``w out`` and ``w`` packed together).  Some
+    rank must hold a valid key of every row, so that ``M`` is finite.
+    Over one rank: ``out`` in f32."""
+    if group_size(group) == 1:
+        return out.float()
+    lse = lse.float()
+    m = all_reduce_sum(lse.clone(), group, op=dist.ReduceOp.MAX)
+    w = torch.exp(lse - m)
+    n = out.numel()
+    packed = torch.cat([(w[..., None] * out.float()).reshape(-1),
+                        w.reshape(-1)])
+    all_reduce_sum(packed, group)
+    return packed[:n].view(out.shape) / packed[n:].view(w.shape)[..., None]
 
 
 def _gather_raw(x: Tensor, group, dim: int) -> Tensor:
@@ -327,7 +364,7 @@ class Layout:
         if axis_size(self.mesh, axis) == 1:
             return None
         for d, ax in enumerate(self.spec):
-            if ax == axis:
+            if axis in entry_axes(ax):
                 return d
         return None
 
@@ -346,11 +383,13 @@ def tag(t: Tensor, layout: Layout | None) -> Tensor:
 
 
 def spec_of_placements(pl, mesh, ndim: int) -> tuple:
-    """The layout tuple of DTensor placements ``pl`` on ``mesh``."""
-    spec = [None] * ndim
+    """The layout tuple of DTensor placements ``pl`` on ``mesh`` (a dim
+    sharded over several mesh dims gets the tuple of their names)."""
+    spec: list = [None] * ndim
     for name, p in zip(mesh.mesh_dim_names, pl):
         if p.is_shard():
-            spec[p.dim] = name
+            cur = spec[p.dim]
+            spec[p.dim] = name if cur is None else entry_axes(cur) + (name,)
     return tuple(spec)
 
 
@@ -411,11 +450,12 @@ def model_group(tree):
 
 def placements(spec: tuple, mesh) -> list:
     """DTensor placements of layout ``spec`` on ``mesh``: ``Shard(d)`` on
-    the mesh dim named at tensor dim ``d``, ``Replicate()`` elsewhere."""
+    each mesh dim named at tensor dim ``d`` (alone or in a tuple),
+    ``Replicate()`` elsewhere."""
     from torch.distributed.tensor import Replicate, Shard
     out = []
     for name in mesh.mesh_dim_names:
-        dims = [d for d, ax in enumerate(spec) if ax == name]
+        dims = [d for d, ax in enumerate(spec) if name in entry_axes(ax)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return out
 
@@ -427,9 +467,11 @@ def local_slice(full: Tensor, spec: tuple, mesh) -> Tensor:
     for d, ax in enumerate(spec):
         if ax is None:
             continue
-        k = axis_size(mesh, ax)
+        k, r = 1, 0
+        for a in entry_axes(ax):         # the first axis outermost
+            n = axis_size(mesh, a)
+            k, r = k * n, r * n + axis_rank(mesh, a)
         step = full.shape[d] // k
-        r = axis_rank(mesh, ax)
         out = out.narrow(d, r * step, step)
     return out
 

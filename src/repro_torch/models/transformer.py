@@ -665,8 +665,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
     Under ``pctx.mesh`` the caches are DTensors laid out by
     ``launch.shardings.cache_specs`` (batch over the data axes, KV heads,
     SSM state heads and ``conv_x`` channels over "model" where it divides
-    them), each rank allocating only its block; ``idx`` stays a plain
-    tensor."""
+    them, else a KV cache's sequence), each rank allocating only its
+    block; ``idx`` stays a plain tensor."""
     check_family(cfg)
     if pctx.mesh is not None:
         return _sharded_cache(cfg, batch, cache_len, dtype, device, pctx)
@@ -721,7 +721,8 @@ def _ssm_decode(params: dict, cfg: ModelConfig, cache: dict, x: Tensor,
         blk = _with_site_lora(shared["block"], shared["site_lora"], site)
         skv = cache["shared_kv"]
         y, _ = attn_decode(blk["attn"], acfg, rmsnorm_apply(blk["ln1"], x),
-                           {"k": skv["k"][site], "v": skv["v"][site],
+                           {"k": parallel.select_layer(skv["k"], site),
+                            "v": parallel.select_layer(skv["v"], site),
                             "idx": idx}, qspec=q)
         x = x + y
         x = x + swiglu_apply(blk["mlp"], rmsnorm_apply(blk["ln2"], x), q)
@@ -740,7 +741,7 @@ def _sharded_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
             return {k: alloc(v, spec[k]) for k, v in leaf.items()}
         if leaf.dim() == 0:
             return torch.zeros((), dtype=leaf.dtype, device=dev)
-        shape = [n // parallel.axis_size(pctx.mesh, ax) if ax else n
+        shape = [n // parallel.entry_size(pctx.mesh, ax)
                  for n, ax in zip(leaf.shape, spec)]
         return parallel.distribute_local(
             torch.zeros(shape, dtype=leaf.dtype, device=dev), spec,
@@ -759,19 +760,15 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
     (its K/V projected from all of it every step, as in the JAX twin),
     then the MLP.  Under a mesh ``tokens`` are the rank's rows of the
     cache's batch, the cache a :func:`init_decode_cache` ``(pctx=)`` one,
-    and the logits its rows' over the whole vocab; a cache sharded along
-    the sequence (``cache_specs``' fallback where the model axis does not
-    divide the KV heads) raises."""
+    and the logits its rows' over the whole vocab.  A cache sharded along
+    the sequence (``cache_specs``' layout where the model axis does not
+    divide the KV heads) decodes by a distributed softmax over the ranks'
+    keys (``attention._decode_seq_sharded``): each layer's cache keeps its
+    layout tag (``parallel.select_layer``)."""
     check_family(cfg)
     full = cache
     if pctx.mesh is not None:
         params, cache = parallel.localize(params), parallel.localize(cache)
-        lay = parallel.layout_of(cache.get("k"))
-        if lay is not None and lay.dim_of(pctx.model_axis) == 2:
-            raise NotImplementedError(
-                "the sequence-sharded KV cache (distributed-softmax decode, "
-                "cache_specs' layout where the model axis does not divide "
-                "the KV heads) is not ported yet (see ROADMAP.md)")
     x = embedding_apply(params["embed"], tokens).to(cfg.dtype)
     q = cfg.quant
     idx = cache["idx"]
@@ -785,9 +782,9 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor,
         for i, bp in _layers(blocks, cfg):
             li = int(i)
             h = rmsnorm_apply(bp["ln1"], x)
-            y, _ = attn_decode(bp["attn"], acfg, h,
-                               {"k": cache["k"][li], "v": cache["v"][li],
-                                "idx": idx}, qspec=q)
+            kv = {n: parallel.select_layer(cache[n], li) for n in "kv"}
+            y, _ = attn_decode(bp["attn"], acfg, h, dict(kv, idx=idx),
+                               qspec=q)
             x = x + y
             if encdec:
                 x = _cross_apply(cross[i], cfg, x, cache["enc_out"])

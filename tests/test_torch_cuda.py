@@ -418,6 +418,37 @@ def test_flash_attention_split_route(cuda, Sk, lens, dtype):
                                       lengths=lengths), **tol)
 
 
+@pytest.mark.parametrize("Sk,lens", [(8, (0, 1, 8, 5)),
+                                     (128, (0, 1, 128, 57)),
+                                     (2048, (2048, 0, 1, 1500))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_partial_mode(cuda, Sk, lens, dtype):
+    """The partial mode (``return_lse``) on both decode routes: ``out`` in
+    f32 within the reference tolerance, ``lse`` within 1e-4 of the plain
+    version's, a row of length 0 exactly (0, -inf)."""
+    from repro_torch.kernels.flash_attention import plan_for
+    B, Hq, Hkv, d = 4, 16, 8, 128
+    q = _decode_q(cuda, B, Hq, d, dtype)
+    k, v = _cache_kv(cuda, B, Sk, Hkv, d, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert plan_for(q, k, v).route == (
+        "mma" if dtype == torch.bfloat16 else "split")
+    o, lse = ops.flash_attention(q, k, v, causal=False, lengths=lengths,
+                                 return_lse=True)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=False,
+                                             lengths=lengths,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    assert o.dtype == lse.dtype == torch.float32
+    live, zero = lengths > 0, lengths == 0
+    tol = (dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    _close(o[live], o_ref[live], **tol)
+    _close(lse[live], lse_ref[live], rtol=0, atol=1e-4)
+    assert torch.equal(o[zero], torch.zeros_like(o[zero]))
+    assert torch.isneginf(lse[zero]).all()
+
+
 def test_flash_attention_split_route_is_one_launch(cuda):
     B, Hq, Hkv, d, Sk = 4, 16, 8, 128, 4096
     q = torch.randn(B, Hq, 1, d, device=cuda).to(torch.bfloat16)

@@ -121,16 +121,136 @@ def test_ops_dispatch_cpu_takes_plain_version():
     assert ops.launch_counts() == NO_LAUNCHES
 
 
+class _OnDevice:
+    """Stands in for a tensor on a device with no kernel and no plain
+    version (no such tensor can be made on this host)."""
+
+    def __init__(self, kind: str):
+        self.device = torch.device(kind)
+        self.requires_grad = False
+
+    def reshape(self, *shape):
+        return self
+
+    @property
+    def shape(self):
+        return (2, 64)
+
+
 def test_ops_rejects_other_devices():
-    x = torch.empty(2, 64, device="meta")
-    with pytest.raises(ValueError, match="device"):
-        ops.dequant_matmul(x, x, x, x, bits=4, group_size=16)
-    with pytest.raises(ValueError, match="device"):
-        ops.flash_attention(x, x, x)
-    with pytest.raises(ValueError, match="device"):
-        ops.gram(x)
-    with pytest.raises(ValueError, match="device"):
-        ops.dequant_matmul_lora(x, x, x, x, x, x, bits=4, group_size=16)
+    """A tensor on neither the CPU, a CUDA card nor the meta device (the
+    dry run's shapes) has no version to run: each wrapper raises."""
+    for kind in ("xla", "mps"):
+        x = _OnDevice(kind)
+        with pytest.raises(ValueError, match="device"):
+            ops.dequant_matmul(x, x, x, x, bits=4, group_size=16)
+        with pytest.raises(ValueError, match="device"):
+            ops.flash_attention(x, x, x)
+        with pytest.raises(ValueError, match="device"):
+            ops.gram(x)
+        with pytest.raises(ValueError, match="device"):
+            ops.dequant_matmul_lora(x, x, x, x, x, x, bits=4, group_size=16)
+
+
+def test_ops_meta_tensors_take_the_shape_path():
+    """Meta tensors (the dry run) take the plain versions' shapes and
+    dtypes through every wrapper, the partial mode's lse too; nothing is
+    launched or computed."""
+    m = dict(device="meta")
+    x = torch.empty(3, 64, **m)
+    packed = torch.empty(32, 48, dtype=torch.uint8, **m)
+    s = torch.empty(4, 48, **m)
+    ops.reset_launch_counts()
+    y = ops.dequant_matmul(x, packed, s, s, bits=4, group_size=16)
+    assert y.shape == (3, 48) and y.device.type == "meta"
+    a, b = torch.empty(64, 8, **m), torch.empty(48, 8, **m)
+    assert ops.dequant_matmul_lora(x, packed, s, s, a, b, bits=4,
+                                   group_size=16).shape == (3, 48)
+    assert ops.gram(x).shape == (64, 64)
+    q, k = torch.empty(2, 4, 1, 16, **m), torch.empty(2, 2, 8, 16, **m)
+    lengths = torch.empty(2, dtype=torch.int32, **m)
+    assert ops.flash_attention(q, k, k, causal=False,
+                               lengths=lengths).shape == (2, 4, 1, 16)
+    o, lse = ops.flash_attention(q, k, k, causal=False, lengths=lengths,
+                                 return_lse=True)
+    assert o.shape == (2, 4, 1, 16) and lse.shape == (2, 4, 1)
+    assert lse.dtype == torch.float32
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+# the partial mode's halves: (B, Hq, Hkv, Sk, d, lengths); a length of 0
+# in one half is a row whose keys all lie in the other
+PARTIAL_CASES = [
+    (4, 16, 8, 32, 16, (32, 17, 5, 1)),
+    (2, 4, 4, 64, 32, (64, 20)),
+    (3, 6, 2, 16, 12, (1, 16, 9)),
+]
+
+
+def _combine(parts):
+    """The distributed softmax's combine (``parallel.combine_softmax``)
+    of partials ``(out, lse)`` over one process: max, weights, sum."""
+    outs = torch.stack([o.float() for o, _ in parts])
+    lses = torch.stack([lse for _, lse in parts])
+    m = lses.max(0).values
+    w = torch.exp(lses - m)
+    return (w[..., None] * outs).sum(0) / w.sum(0)[..., None]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", PARTIAL_CASES)
+def test_flash_attention_partial_halves_match_jax(case, dtype):
+    """The plain partial version (``return_lse``) on each half of a key
+    range, combined by the distributed softmax, equals the JAX kernel
+    (Pallas in interpret mode) on the whole range: 1e-4 in f32, 5e-2 in
+    bf16.  The halves' lengths are each row's valid keys in them, 0 where
+    a row has none."""
+    B, Hq, Hkv, Sk, d, lens = case
+    q = RNG.normal(size=(B, Hq, 1, d)).astype(np.float32)
+    k = RNG.normal(size=(B, Hkv, Sk, d)).astype(np.float32)
+    v = RNG.normal(size=(B, Hkv, Sk, d)).astype(np.float32)
+    oj = jflash(*(jnp.asarray(a, _jdt(dtype)) for a in (q, k, v)),
+                causal=False, lengths=jnp.asarray(lens, jnp.int32),
+                interpret=True)
+    qt, kt, vt = (torch.from_numpy(a).to(_tdt(dtype)) for a in (q, k, v))
+    half = Sk // 2
+    lt = torch.tensor(lens, dtype=torch.int32)
+    parts = []
+    for lo in (0, half):
+        n = (lt - lo).clamp(0, half).to(torch.int32)
+        o, lse = ref.flash_attention_ref(
+            qt, kt[:, :, lo:lo + half], vt[:, :, lo:lo + half],
+            causal=False, lengths=n, return_lse=True)
+        assert o.dtype == lse.dtype == torch.float32
+        parts.append((o, lse))
+    got = _combine(parts)
+    tol = dict(rtol=5e-2, atol=5e-2) if dtype == "bf16" else \
+        dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), to_np(oj), **tol)
+    assert any(int(n) == 0 for n in (lt - half).clamp(0, half)) or \
+        any(int(n) == 0 for n in lt.clamp(0, half))
+
+
+def test_flash_attention_partial_zero_length_row():
+    """A row with no valid key gives out 0 and lse -inf (the plain version
+    and the ``ops`` wrapper on the CPU); the other rows are the full
+    mode's, with lse the log-sum-exp of their scaled logits."""
+    q = torch.randn(3, 4, 1, 8, dtype=torch.float64).float()
+    k = torch.randn(3, 2, 6, 8)
+    v = torch.randn(3, 2, 6, 8)
+    lengths = torch.tensor([0, 6, 2], dtype=torch.int32)
+    o, lse = ops.flash_attention(q, k, v, causal=False, lengths=lengths,
+                                 return_lse=True)
+    assert torch.equal(o[0], torch.zeros_like(o[0]))
+    assert torch.isneginf(lse[0]).all() and torch.isfinite(lse[1:]).all()
+    full = ref.flash_attention_ref(q[1:], k[1:], v[1:], causal=False,
+                                   lengths=lengths[1:])
+    torch.testing.assert_close(o[1:], full, rtol=1e-5, atol=1e-6)
+    kk = k.repeat_interleave(2, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk) / 8 ** 0.5
+    want = torch.stack([torch.logsumexp(logits[1, ..., :6], -1),
+                        torch.logsumexp(logits[2, ..., :2], -1)])
+    torch.testing.assert_close(lse[1:], want, rtol=1e-6, atol=1e-6)
 
 
 # gram: the JAX kernel's tolerances (tests/test_kernels.py::test_gram),

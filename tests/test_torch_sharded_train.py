@@ -73,6 +73,9 @@ from tests.util import SRC
 
 LR = 1e-3
 QSPEC = dict(bits=4, group_size=16, rank=8)
+# minicpm's smoke widths (72, 144) in groups whose count the model axis 4
+# divides, so its row linears shard their scales as the others do
+QSPEC_GROUP = {"minicpm-2b": 6}
 # the JAX test's model (tests/test_distributed.py:19-21)
 BASE = dict(name="t", family="dense", n_layers=2, d_model=64, vocab=128,
             n_heads=4, n_kv_heads=2, d_ff=128)
@@ -160,19 +163,20 @@ def _start_jax(code: str, n_devices: int) -> subprocess.Popen:
                             text=True)
 
 
-def _quantized():
-    """The qwen3 smoke model quantized by JAX's engine (CLoQ 4/16/8, f32),
-    carried into the port."""
-    cfg_j, cfg_t = configs()
+def _quantized(arch: str = "qwen3-1.7b"):
+    """A smoke model (qwen3's unless ``arch``) quantized by JAX's engine
+    (CLoQ 4/16/8, f32), carried into the port."""
+    cfg_j, cfg_t = jc.get_smoke_config(arch), tc.get_smoke_config(arch)
+    qspec = dict(QSPEC, group_size=QSPEC_GROUP.get(arch, QSPEC["group_size"]))
     pj = jt.init_params(jax.random.PRNGKey(0), cfg_j)
     calib = [_jb(TokenStream(DataConfig(vocab=cfg_j.vocab, seq_len=32,
                                         global_batch=2, seed=5)
                              ).next_batch())]
     qj, cfg_j, _ = jp.quantize_model(
         pj, cfg_j, calib,
-        recipe=QuantRecipe.single("cloq", jmod.QSpec(**QSPEC)),
+        recipe=QuantRecipe.single("cloq", jmod.QSpec(**qspec)),
         engine="sequential", policy=HealthPolicy(enabled=False))
-    cfg_t = dataclasses.replace(cfg_t, quant=tmod.QSpec(**QSPEC))
+    cfg_t = dataclasses.replace(cfg_t, quant=tmod.QSpec(**qspec))
     return qj, cfg_j, port_params(qj, cfg_t), cfg_t
 
 
@@ -227,6 +231,9 @@ def runs(tmp_path_factory):
         logits.append(np.asarray(lg))
         tokens = jnp.argmax(lg, -1)[:, None]
     ref["decode"] = logits
+    for name, arch, kernel in (("seq_qwen", "qwen3-1.7b", False),
+                               ("seq_minicpm", "minicpm-2b", True)):
+        inp[name], ref[name] = _seq_decode_case(arch, kernel)
     inp["moe"] = {"cfg": tt.MoEConfig(**MOE),
                   "params": jax.tree.map(
                       lambda a: torch.from_numpy(np.array(a)), pm),
@@ -249,6 +256,50 @@ def runs(tmp_path_factory):
     ref.update({"all_seq": ref["all"], "lora_seq": ref["lora"],
                 "cols4": ref["all"], "ef_g": g})
     return port, ref
+
+
+SEQ_CACHE = 16        # 4 keys a rank on the (1, 4) mesh
+SEQ_TOKENS = 12       # positions 0..11: rank 3's keys stay empty
+SEQ_VEC_IDX = (2, 5, 9, 14)   # one row in each rank's shard
+
+
+def _seq_decode_case(arch: str, kernel: bool) -> tuple[dict, dict]:
+    """A CLoQ smoke model whose KV heads the model axis 4 does not divide
+    (qwen3: 2 KV heads, half a head and one q head a rank; minicpm: 6 of
+    12 columns, 1.5 q heads a rank): JAX's unsharded greedy decode from
+    position 0 for ``SEQ_TOKENS`` steps, then one step at the vector
+    ``idx`` ``SEQ_VEC_IDX``, and the port's unsharded decode fed the same
+    tokens (the kernel wrappers with ``kernel``: the plain versions on the
+    CPU).  Returns (the ranks' inputs, the references)."""
+    qj, cfg_j, qt, cfg_t = _quantized(arch)
+    cfg_t = dataclasses.replace(cfg_t, quant=dataclasses.replace(
+        cfg_t.quant, use_kernel=kernel))
+    cache = jt.init_decode_cache(cfg_j, 4, SEQ_CACHE)
+    tok = jnp.asarray([[3], [5], [7], [11]])
+    tokens, logits = [], []
+    for _ in range(SEQ_TOKENS):
+        tokens.append(torch.from_numpy(np.array(tok)))
+        lg, cache = jt.decode_step(qj, cfg_j, cache, tok)
+        logits.append(np.asarray(lg))
+        tok = jnp.argmax(lg, -1)[:, None]
+    vec_idx = jnp.asarray(SEQ_VEC_IDX, jnp.int32)
+    vec_lg, _ = jt.decode_step(qj, cfg_j, dict(cache, idx=vec_idx), tok)
+    port = {"logits": []}
+    pc = tt.init_decode_cache(cfg_t, 4, SEQ_CACHE, device="cpu")
+    with torch.no_grad():
+        for t in tokens:
+            lg, pc = tt.decode_step(qt, cfg_t, pc, t)
+            port["logits"].append(to_np(lg))
+        pc = dict(pc, idx=torch.tensor(SEQ_VEC_IDX, dtype=torch.int32))
+        lg, _ = tt.decode_step(qt, cfg_t, pc, torch.from_numpy(
+            np.array(tok)))
+    port["vec_logits"] = to_np(lg)
+    inp = {"cfg": cfg_t, "params": qt, "cache_len": SEQ_CACHE,
+           "tokens": tokens,
+           "vec_idx": torch.tensor(SEQ_VEC_IDX, dtype=torch.int32),
+           "vec_token": torch.from_numpy(np.array(tok))}
+    return inp, {"logits": logits, "vec_logits": np.asarray(vec_lg),
+                 "port": port, "cfg": cfg_t}
 
 
 def _whole_scales_case(rng) -> dict:
@@ -502,3 +553,110 @@ def test_chip_smoke_predicts_the_collectives(runs, name):
     want = cs.predicted_collectives(cfg, name == "lora_seq")
     for step in port[name]["collectives"]:
         assert {k: v["calls"] for k, v in step.items()} == want
+
+
+@pytest.mark.parametrize("name", ["seq_qwen", "seq_minicpm"])
+def test_sequence_sharded_decode_matches_jax(runs, name):
+    """The decode on the (1, 4) mesh of a model whose KV heads the model
+    axis does not divide: ``cache_specs`` shards the cache's sequence (4
+    keys a rank), every rank attends every head over its keys by the
+    partial flash attention and the ranks' partials are combined.  Each of
+    12 greedy steps from position 0 (rank 3 never holds a valid key) and a
+    step at a vector ``idx`` with a row in each shard, against JAX's
+    unsharded ``decode_step`` within 1e-4 and the port's unsharded decode;
+    the logits the same on every rank."""
+    port, ref = runs
+    got, want = port[name], ref[name]
+    cfg = want["cfg"]
+    assert got["cache_layout"][2:] == ("model", None, None)
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    assert got["cache_local"] == [cfg.n_layers, 4, SEQ_CACHE // 4,
+                                  cfg.n_kv_heads, hd]
+    assert got["equal_on_ranks"]
+    for i, (g, w, p) in enumerate(zip(got["logits"], want["logits"],
+                                      want["port"]["logits"])):
+        np.testing.assert_allclose(g, w, atol=1e-4, err_msg=f"step {i}")
+        np.testing.assert_allclose(g, p, atol=1e-4, err_msg=f"step {i}")
+    np.testing.assert_allclose(got["vec_logits"], want["vec_logits"],
+                               atol=1e-4)
+    np.testing.assert_allclose(got["vec_logits"],
+                               want["port"]["vec_logits"], atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["seq_qwen", "seq_minicpm"])
+def test_chip_smoke_predicts_the_decode_collectives(runs, name):
+    """``chip_smoke.predicted_decode_collectives`` (the layout table's count
+    a step of the sequence-sharded decode, which the card's ``seq_kv``
+    case holds) equals the calls each rank made in every step: per layer
+    the q, k and v gathers to whole heads, the partials' MAX and SUM
+    all-reduces, o's and the MLP's all-reduce; once the embedding's
+    all-reduce and the head's vocab gather."""
+    port, ref = runs
+    _, _, cs = _chip_scripts()
+    want = cs.predicted_decode_collectives(ref[name]["cfg"])
+    for step in port[name]["collectives"]:
+        assert {k: v["calls"] for k, v in step.items()} == want
+
+
+def test_fault_check_plants_the_seqkv_fault(tmp_path):
+    """chip_fault_check.py's eighth plant (the partial softmaxes combined
+    without the rescale by the ranks' max log-sum-exp) changes one line of
+    ``models/parallel.py``, and the sequence-sharded decode of this file
+    fails on it: the ranks run on a copy of the package with the plant in
+    place, their logits far from JAX's."""
+    import shutil
+    root, fc, cs = _chip_scripts()
+    sound = (root / fc.SEQKV_SOURCE).read_text()
+    fault = fc.plant_seqkv_fault(sound)
+    changed = [(a, b) for a, b in zip(sound.splitlines(), fault.splitlines())
+               if a != b]
+    assert len(sound.splitlines()) == len(fault.splitlines())
+    assert changed == [(fc.SEQKV_SOUND, fc.SEQKV_FAULT)]
+    with pytest.raises(ValueError):
+        fc.plant_seqkv_fault(fault)
+    assert cs.SEQ_KV_MESH == (1, 8) and cs.SEQ_KV_DECODE == (4, 40, 64)
+    inp, ref = _seq_decode_case("qwen3-1.7b", False)
+    torch.save({"seq_qwen": inp}, tmp_path / "inputs.pt")
+    copy = tmp_path / "fault_src"
+    shutil.copytree(root / "src" / "repro_torch", copy / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (copy / fc.SEQKV_SOURCE.relative_to("src")).write_text(fault)
+    code = ("import sys; from tests import torch_sharded_worker as w; "
+            "from repro_torch.launch import mesh; "
+            "mesh.spawn_ranks(w.run_seq, 4, backend='gloo', device='cpu', "
+            "args=(sys.argv[1],), threads=1, store_dir=sys.argv[1])")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(copy), str(root), SRC]))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          env=env, capture_output=True, text=True,
+                          timeout=600, cwd=str(root))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(tmp_path / "outputs.pkl", "rb") as f:
+        got = pickle.load(f)["seq_qwen"]
+    err = max(float(np.abs(g - w).max())
+              for g, w in zip(got["logits"], ref["logits"]))
+    assert err > 1e-2, err
+
+
+def test_sliding_window_sequence_sharded_cache_raises():
+    """A sliding-window cache sharded along its sequence (a ring split
+    over the model axis) is laid out by no config: ``attn_decode`` raises,
+    naming it, before it computes anything."""
+    from repro_torch.models import attention, parallel
+
+    class _Mesh:
+        mesh_dim_names = ("model",)
+
+        def size(self, i=None):
+            return 2
+
+    acfg = tt.ModelConfig(**BASE, dtype=torch.float32).attn_cfg(window=8)
+    K = torch.zeros(2, 4, 2, 16)
+    parallel.tag(K, parallel.Layout((None, "model", None, None), _Mesh(),
+                                    (2, 8, 2, 16)))
+    p = attention.attn_init(torch.Generator().manual_seed(0), acfg,
+                            dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        attention.attn_decode(p, acfg, torch.zeros(2, 1, 64),
+                              {"k": K, "v": K.clone(),
+                               "idx": torch.tensor(3)})

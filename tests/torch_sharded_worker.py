@@ -5,11 +5,13 @@ mesh.spawn_ranks`` with 4 gloo ranks on the CPU.  Imports torch and
 
 ``run(rank, workdir)`` reads ``workdir/inputs.pt`` (written by the test),
 runs every scenario on a ``(data 2, model 2)`` mesh (and JAX's 4-column
-case on a ``(1, 4)`` one), gathers what it compares and rank 0 writes
-``workdir/outputs.pkl``: numpy arrays and plain data.
+case and the sequence-sharded decode on a ``(1, 4)`` one), gathers what it
+compares and rank 0 writes ``workdir/outputs.pkl``: numpy arrays and plain
+data.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import pickle
 
@@ -94,6 +96,37 @@ def decode(sc: dict, params, pctx, steps_n: int = 3) -> dict:
             "cache_local": list(parallel.local_of(cache["k"]).shape)}
 
 
+def seq_decode(sc: dict, mesh) -> dict:
+    """The decode of ``sc``'s model on ``mesh``, whose model axis does not
+    divide its KV heads, so that ``cache_specs`` shards the cache's
+    sequence: the given tokens from position 0, each step's logits and
+    collectives, then one step at the vector ``idx`` of ``sc`` (its rows
+    in different shards)."""
+    pctx = pcontext_for(mesh)
+    cfg = sc["cfg"]
+    params = distribute(sc["params"], mesh)
+    cache = init_decode_cache(cfg, 4, sc["cache_len"], device="cpu",
+                              pctx=pctx)
+    step = steps.make_decode_step(cfg, pctx)
+    out: dict = {"logits": [], "collectives": []}
+    with torch.no_grad():
+        for tok in sc["tokens"]:
+            parallel.reset_collective_stats()
+            lg, cache = step(params, cache, tok)
+            out["collectives"].append(parallel.collective_stats())
+            out["logits"].append(_np(lg))
+        lg, cache = step(params, dict(cache, idx=sc["vec_idx"]),
+                         sc["vec_token"])
+    out["vec_logits"] = _np(lg)
+    out["cache_local"] = list(parallel.local_of(cache["k"]).shape)
+    out["cache_layout"] = parallel.spec_of_placements(
+        cache["k"].placements, mesh, cache["k"].dim())
+    digest = hashlib.sha1(b"".join(a.tobytes() for a in out["logits"] +
+                                   [out["vec_logits"]])).hexdigest()
+    out["equal_on_ranks"] = _same_on_every_rank(digest)
+    return out
+
+
 def whole_scales_linear(sc: dict, mesh) -> dict:
     """A row linear whose group-scale rows the model axis does not divide
     (``param_specs`` leaves them whole beside the sharded codes): the
@@ -119,6 +152,17 @@ def whole_scales_linear(sc: dict, mesh) -> dict:
         res.append((y, ga, gx))
     out["err"] = [float((u - w).abs().max()) for u, w in zip(*res)]
     return out
+
+
+def run_seq(rank: int, workdir: str) -> None:
+    """The sequence-sharded decode cases of ``workdir/inputs.pt`` alone,
+    on a ``(1, 4)`` mesh; rank 0 writes ``workdir/outputs.pkl``."""
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    mesh4 = make_local_mesh(1, 4, device_type="cpu")
+    out = {name: seq_decode(sc, mesh4) for name, sc in inp.items()}
+    if rank == 0:
+        with open(os.path.join(workdir, "outputs.pkl"), "wb") as f:
+            pickle.dump(out, f)
 
 
 def run(rank: int, workdir: str) -> None:
@@ -186,6 +230,9 @@ def run(rank: int, workdir: str) -> None:
         state = distribute_state(steps.build_state(sc["params"],
                                                    sc["ocfg"]), mesh4)
         out[name] = train(sc, state, pcontext_for(mesh4))
+    # the sequence-sharded decode: KV heads the model axis does not divide
+    for name in ("seq_qwen", "seq_minicpm"):
+        out[name] = seq_decode(inp[name], mesh4)
     if rank == 0:
         with open(os.path.join(workdir, "outputs.pkl"), "wb") as f:
             pickle.dump(out, f)
