@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Planted-fault check of ``chip_smoke.py``'s bf16 decode attention cases,
 its gram cases, its kernel-vs-plain decode logits check, its fused LoRA
-kernel's precision check, its distributed and sharded-step checks and its
-sequence-sharded decode.
+kernel's precision check, its distributed and sharded-step checks, its
+sequence-sharded decode, and its analysis and compile_cache phases.
 
     python3 chip_fault_check.py
 
@@ -75,6 +75,18 @@ A seventh copy, ``build/fault_copy_seqkv/``, holds an eighth, in Python:
   (data 1, model 8) mesh, its cache sharded along the sequence), which
   must fail on its decode logits.
 
+The ninth plant takes two copies, one phase each:
+
+* ``build/fault_copy_cache/``, ``core/compile_cache.py``: no error marks a
+  stored kernel library corrupt (``CORRUPT = ()``), so the cache opens the
+  library as it finds it and never rebuilds it.  The case is
+  ``chip_smoke.py``'s ``compile_cache`` phase, whose second serve process
+  (the ``dequant_matmul`` library cut to half its bytes) must fail.
+* ``build/fault_copy_purity/``, ``analysis/rules_trace.py``: PURITY
+  ignores ``.item()``.  The case is the ``analysis`` phase, which must fail
+  on PURITY: the ``.item()`` step's capture raises on the card where the
+  rule no longer flags it.
+
 The attention and gram cases run on the real sources and on the first
 copy, the logits cases on the real sources and on the second, the
 precision cases on the real sources and on the third, the distributed
@@ -91,8 +103,9 @@ the logits check fails on the second copy in every case, the precision
 check on the third in every case, and the distributed check on the
 fourth for both methods on ``A @ B^T``, the sharded step's check on
 the fifth on the LoRA gradients, the Mamba families' sharded cases on
-the sixth, and the seq_kv case on the seventh on its logits; the last
-line says which.
+the sixth, the seq_kv case on the seventh on its logits, and the
+compile_cache and analysis phases on the ninth plant's two copies (the
+analysis phase on PURITY); the last line says which.
 """
 from __future__ import annotations
 
@@ -149,6 +162,17 @@ SEQKV_SOURCE = Path("src/repro_torch/models/parallel.py")
 # drops the rescale by the ranks' max of the log-sum-exp
 SEQKV_SOUND = "    w = torch.exp(lse - m)"
 SEQKV_FAULT = "    w = torch.isfinite(lse).float()"
+CACHE_COPY = ROOT / "build" / "fault_copy_cache"
+CACHE_SOURCE = Path("src/repro_torch/core/compile_cache.py")
+# what marks a stored library corrupt; the fault: nothing does
+CACHE_SOUND = "CORRUPT = (OSError, ValueError, KeyError, AttributeError)"
+CACHE_FAULT = "CORRUPT = ()"
+PURITY_COPY = ROOT / "build" / "fault_copy_purity"
+PURITY_SOURCE = Path("src/repro_torch/analysis/rules_trace.py")
+# PURITY's host-sync finding; the fault lets .item() through
+PURITY_SOUND = "        elif astlib.is_sync_call(node):"
+PURITY_FAULT = ("        elif astlib.is_sync_call(node) and "
+                "getattr(node.func, \"attr\", \"\") != \"item\":")
 LORA_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul_lora.cu")
 # the wgmma route's fold reads a group's scales; the fault rounds them to
 # bf16 first
@@ -209,6 +233,44 @@ def plant_seqkv_fault(text: str) -> str:
     """``models/parallel.py`` with the partial softmaxes combined without
     the rescale by the global max."""
     return _plant(text, SEQKV_SOUND, SEQKV_FAULT, SEQKV_SOURCE)
+
+
+def plant_cache_fault(text: str) -> str:
+    """``core/compile_cache.py`` with no error marking a library
+    corrupt."""
+    return _plant(text, CACHE_SOUND, CACHE_FAULT, CACHE_SOURCE)
+
+
+def plant_purity_fault(text: str) -> str:
+    """``analysis/rules_trace.py`` with PURITY blind to ``.item()``."""
+    return _plant(text, PURITY_SOUND, PURITY_FAULT, PURITY_SOURCE)
+
+
+def phase_cases(torch, cs, dev, phase: str) -> list[dict]:
+    """``chip_smoke.py``'s ``analysis`` or ``compile_cache`` phase on the
+    sources imported, its failure returned rather than raised."""
+    run = {"analysis": cs.analysis_phase,
+           "compile_cache": cs.compile_cache_phase}[phase]
+    try:
+        run(torch, dev)
+    except cs.Failed as e:
+        return [{"kernel": phase, "passes": False, "error": str(e)[:2000]}]
+    return [{"kernel": phase, "passes": True, "error": ""}]
+
+
+def purity_caught(rows: list) -> bool:
+    """Whether the purity copy's rows show the plant caught: the analysis
+    phase fails, on PURITY."""
+    return bool(rows) and all(not r["passes"] and "PURITY" in r["error"]
+                              for r in rows)
+
+
+def cache_caught(rows: list) -> bool:
+    """Whether the cache copy's rows show the plant caught: the
+    compile_cache phase fails."""
+    return bool(rows) and all(not r["passes"] and
+                              r["error"].startswith("compile_cache")
+                              for r in rows)
 
 
 def seqkv_caught(rows: list) -> bool:
@@ -383,6 +445,8 @@ def run_cases(tree: Path, which: str) -> list[dict]:
         return sharded_cases(torch, cs, dev, tree, "families")
     if which == "seqkv":
         return sharded_cases(torch, cs, dev, tree, "seq_kv")
+    if which in ("analysis", "compile_cache"):
+        return phase_cases(torch, cs, dev, which)
     return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
 
 
@@ -405,7 +469,8 @@ def main() -> int:
                                                DQ_KERNEL, LORA_KERNEL,
                                                DIST_SOURCE,
                                                SHARDED_SOURCE,
-                                               GATED_SOURCE, SEQKV_SOURCE)):
+                                               GATED_SOURCE, SEQKV_SOURCE,
+                                               CACHE_SOURCE, PURITY_SOURCE)):
         print(f"chip_fault_check: no {KERNEL}, {GRAM_KERNEL}, {DQ_KERNEL} "
               f"or {LORA_KERNEL} beside {__file__}", file=sys.stderr)
         return 1
@@ -431,9 +496,16 @@ def main() -> int:
     _copy(SEQKV_COPY)
     (SEQKV_COPY / SEQKV_SOURCE).write_text(
         plant_seqkv_fault((ROOT / SEQKV_SOURCE).read_text()))
+    _copy(CACHE_COPY)
+    (CACHE_COPY / CACHE_SOURCE).write_text(
+        plant_cache_fault((ROOT / CACHE_SOURCE).read_text()))
+    _copy(PURITY_COPY)
+    (PURITY_COPY / PURITY_SOURCE).write_text(
+        plant_purity_fault((ROOT / PURITY_SOURCE).read_text()))
     built = ROOT / "build" / "repro_torch"
     if built.is_dir():        # the same CUDA sources: reuse their build
-        for copy in (DIST_COPY, SHARDED_COPY, GATED_COPY, SEQKV_COPY):
+        for copy in (DIST_COPY, SHARDED_COPY, GATED_COPY, SEQKV_COPY,
+                     CACHE_COPY, PURITY_COPY):
             shutil.copytree(built, copy / "build" / "repro_torch")
     rows = {}
     for name, tree, which in (("sources", ROOT, "kernels"),
@@ -448,14 +520,20 @@ def main() -> int:
                               ("fault_sharded", SHARDED_COPY,
                                "sharded_families"),
                               ("fault_gated", GATED_COPY, "gated"),
-                              ("fault_seqkv", SEQKV_COPY, "seqkv")):
+                              ("fault_seqkv", SEQKV_COPY, "seqkv"),
+                              ("sources", ROOT, "analysis"),
+                              ("fault_purity", PURITY_COPY, "analysis"),
+                              ("sources", ROOT, "compile_cache"),
+                              ("fault_cache", CACHE_COPY, "compile_cache")):
         proc = subprocess.run(
             [sys.executable, __file__, "--tree", str(tree), which],
             capture_output=True, text=True, cwd=ROOT, timeout=900)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return 1
-        got = [json.loads(ln) for ln in proc.stdout.splitlines()]
+        # a case's row names its kernel; the phases' own lines do not
+        got = [r for r in map(json.loads, proc.stdout.splitlines())
+               if "kernel" in r]
         rows.setdefault(name, []).extend(got)
         for row in got:
             print(json.dumps({"tree": name, **row}), flush=True)
@@ -478,6 +556,8 @@ def main() -> int:
         for r in rows["fault_sharded"])
     gated_seen = gated_caught(rows["fault_gated"])
     seqkv_seen = seqkv_caught(rows["fault_seqkv"])
+    purity_seen = purity_caught(rows["fault_purity"])
+    cache_seen = cache_caught(rows["fault_cache"])
     print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
                       "gram_fault_caught": gram_seen,
                       "dequant_fault_caught_by_logits": dequant_seen,
@@ -485,10 +565,13 @@ def main() -> int:
                       "dist_fault_caught_on_lora_ab": dist_seen,
                       "sharded_fault_caught_on_grads": sharded_seen,
                       "gated_norm_fault_caught": gated_seen,
-                      "seqkv_combine_fault_caught_on_logits": seqkv_seen}))
+                      "seqkv_combine_fault_caught_on_logits": seqkv_seen,
+                      "purity_fault_caught_by_analysis": purity_seen,
+                      "cache_fault_caught_by_compile_cache": cache_seen}))
     return 0 if (sound and flash_seen and gram_seen and dequant_seen
                  and lora_seen and dist_seen and sharded_seen
-                 and gated_seen and seqkv_seen) else 1
+                 and gated_seen and seqkv_seen and purity_seen
+                 and cache_seen) else 1
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--layers L] [--moe-layers L] [--hybrid-layers L]
                           [--vlm-layers L]
-                          [--only kernels|configs|ssm|encdec|allocate|levers|
-                                  trace|distributed|train_sharded]
+                          [--only analysis|compile_cache|kernels|configs|ssm|
+                                  encdec|allocate|levers|trace|distributed|
+                                  train_sharded]
                           [--families A,B] [--family-dtype float32]
                           [--seq-kv-only]
 
@@ -13,8 +14,23 @@ one JSON line each:
 
 1. device  — the card's name and power limit (``nvidia-smi``).
 2. build   — the four CUDA kernels compiled from ``src/repro_torch/
-   kernels/csrc`` with ``nvcc`` (into the git-ignored ``build/``), with
-   seconds and the ``ptxas`` register and spill report.
+   kernels/csrc`` with ``nvcc`` (into the git-ignored compile cache
+   ``build/repro_torch``), with seconds and the ``ptxas`` register and
+   spill report.
+   analysis — the port's static gate (``repro_torch.analysis``): the lint
+   of ``src/repro_torch`` (gating: must be 0) and ``chip_*.py`` (report),
+   the 30-cell shape fleet against the JAX package's goldens (0 diffs),
+   then two rules held against the card: a ``CapturedStep`` whose step
+   calls ``.item()`` must raise at its capture where PURITY flags it, its
+   clean twin capture, replay and pass; a captured Qwen3-1.7B-smoke decode
+   replay timed by the host clock without a sync must be shorter than
+   with one, BENCH flagging the first source and passing the second.
+   compile_cache — two fresh serve processes (``CACHE_SERVE``) on the
+   build's cache directory, ``nvcc`` behind a shim that logs each call:
+   the warm one hits every library it loads, compiles nothing and counts
+   a capture a rank bucket as ``unportable``; the second, on a copy with
+   ``dequant_matmul``'s library cut to half its bytes, counts it corrupt,
+   warns, rebuilds it with one ``nvcc`` and gives the same tokens.
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes (Qwen3-1.7B's and every other ported
    config's, MoE expert slices and the SSM families' narrow outputs
@@ -59,7 +75,7 @@ one JSON line each:
    losses agree; and the fused op's backward (dx, dA, dB) agrees with
    autograd through the plain version at a training shape.
 6. engines — the quantization engines on qwen3-1.7b at full width,
-   ``ENGINE_LAYERS`` (2) deep, f32, CLoQ 4-bit, group 64, rank 64:
+   ``ENGINE_LAYERS`` (1) deep, f32, CLoQ 4-bit, group 64, rank 64:
    ``engine="sequential"`` then ``"batched"`` (4 buckets), every site
    compared in the terms of the reference's batched-vs-sequential oracle
    beside the sequential engine against itself with every Gram entry one
@@ -82,7 +98,8 @@ one JSON line each:
    raises ``QuantPreempted``; the rerun restores bucket 0 and its leaves
    are bit-identical to the uninterrupted run.  methods:
    ``repro_torch.launch.train`` with gptq, loftq, qlora and rtn at full
-   width, 2 layers, 2 steps (calibration 2 x 8 x 128): finite losses,
+   width, ``ENGINE_LAYERS`` deep, 2 steps (calibration 2 x 8 x 128):
+   finite losses,
    ``gram`` 7 a layer a calibration batch, ``dequant_matmul_lora`` 7 a
    layer a step (0 for NF4 ``qlora``), ``B == 0`` at init but for loftq.
 7. train   — ``repro_torch.launch.train`` on qwen3-1.7b at full width and
@@ -214,7 +231,7 @@ one JSON line each:
    policy's losses within 1e-5 of "none"'s, the chunked run's within
    1e-3, "full"'s peak below "none"'s, the launches ``fused_a_step``
    says (batch 4 for all when "none" does not fit).
-17. trace — Qwen3-1.7B at full width, 2 layers, CLoQ: the train CLI's
+17. trace — Qwen3-1.7B at full width, 1 layer, CLoQ: the train CLI's
    path with ``--trace-out``/``--metrics-out`` under
    ``REPRO_TRACE_SYNC=1`` (2 steps), again untraced, and the serve CLI's
    engine (2 tenants, captured decode) traced, then untraced on the same
@@ -261,7 +278,9 @@ summed, ``launches_encdec``; from the allocate phase's,
 ``launches_allocate``; from the levers phase's runs summed,
 ``launches_levers``; from the trace phase's, ``launches_trace``: the
 serve run's for the decode kernels, the traced train run's for the
-others; ``flash_attention``'s ``partial``: the partial mode's time,
+others; from the compile_cache phase's warm serve process,
+``launches_compile_cache``; ``flash_attention``'s ``partial``: the
+partial mode's time,
 bound, plain and library times at the production shard and its
 launches in ``seq_kv``), the ``nvidia-smi`` name and power limit
 line, and last
@@ -1553,9 +1572,9 @@ def train_parity(torch, dev) -> dict:
 # quantization engine phases (full width, ENGINE_LAYERS deep)
 # ---------------------------------------------------------------------------
 
-ENGINE_LAYERS = 2
+ENGINE_LAYERS = 1      # Qwen3-1.7B's 28 cut (the script's time)
 # slices a chunk in the engines phase's chunked run: one, so that each of
-# the 2-layer model's buckets (4, 4, 4 and 2 slices) runs in as many chunks
+# the 1-layer model's buckets (2, 2, 2 and 1 slices) runs in as many chunks
 ENGINE_CHUNK = 1
 ENGINE_TARGET = "blocks.0.attn.q"     # the site the health phase corrupts
 # the reference's batched-vs-sequential oracle (tests/test_batched.py)
@@ -1685,8 +1704,8 @@ def engines_phase(torch, dev) -> tuple[dict, dict]:
     flips within the flip budget or twice the nudge's flips there,
     whichever is larger; 4 buckets; both runs clean under the health
     guards.  Then ``chunked``: the batched engine once more with every
-    bucket cut into chunks of ``ENGINE_CHUNK`` slices (4, 4, 4 and 2
-    chunks), held to the same limits against the sequential engine, with
+    bucket cut into chunks of ``ENGINE_CHUNK`` slices (2 L chunks for the
+    q/o, k/v and gate/up buckets, L for down), held to the same limits against the sequential engine, with
     whether its bits equal the one-call batched run's."""
     from repro_torch.core.batched import task_key
     from repro_torch.core.pipeline import (_quantize_one,
@@ -1748,10 +1767,10 @@ def engines_phase(torch, dev) -> tuple[dict, dict]:
     if flips or any(worst[run][k] > REL_FRO for k in held
                     for run in ("batched", "chunked")) or \
             out["buckets"] != 4 or any(out["health"].values()) or \
-            out["checked"] != {"sequential": 14, "batched": 14,
-                               "chunked": 14} or \
-            sorted(out["chunked"]["buckets"]) != [[2, 2, 1], [4, 4, 1],
-                                                  [4, 4, 1], [4, 4, 1]]:
+            out["checked"] != dict.fromkeys(runs, 7 * ENGINE_LAYERS) or \
+            sorted(out["chunked"]["buckets"]) != sorted(
+                [[ENGINE_LAYERS] * 2 + [1]] + [[2 * ENGINE_LAYERS] * 2
+                                               + [1]] * 3):
         raise Failed(f"engines disagree or are unhealthy (code flips past "
                      f"the limit at {flips}): {out}")
     return out, {"model": model, "clean": flat_b, "store": store,
@@ -2274,20 +2293,23 @@ def _decode_profile_line(steps, wall, busy, top, step_s) -> dict:
 
 
 PROFILE_REQUESTS = 4     # cut from 8 (the script's time)
+PROFILE_TOKENS = 8       # a request's tokens, cut from 16 (the same)
 
 
 def profile_decode(torch, dev, res) -> dict:
     """Where a decode step's time goes, under ``torch.profiler``: the
-    fixed-slot loop (batch 4, ``PROFILE_REQUESTS`` requests x 16 tokens)
-    and the engine (the serve phase's tenants, ``PROFILE_REQUESTS``
-    requests x 16 tokens), each eager and
+    fixed-slot loop (batch 4, ``PROFILE_REQUESTS`` requests x
+    ``PROFILE_TOKENS`` tokens) and the engine (the serve phase's tenants,
+    ``PROFILE_REQUESTS`` requests x ``PROFILE_TOKENS`` tokens), each eager
+    and
     captured, each after a warm run of the same.  The captured fixed-slot
     run captures inside the window (its first step eager, the capture
     once); the engine's buckets were captured in its warm run."""
     from repro_torch.launch import serve
     from repro_torch.serve import ServeEngine
     params, cfg = res["params"], res["cfg"]
-    kw = dict(batch=4, cache_len=128, requests=PROFILE_REQUESTS, max_new=16,
+    kw = dict(batch=4, cache_len=128, requests=PROFILE_REQUESTS,
+              max_new=PROFILE_TOKENS,
               seed=1, device=dev)
     out = {}
     for graph in (False, True):
@@ -2308,13 +2330,14 @@ def profile_decode(torch, dev, res) -> dict:
                           max_len=128, bucket_capacity=4, use_kernel=True,
                           graph=graph)
         serve.serve_engine(eng, res["tenants"], requests=PROFILE_REQUESTS,
-                           max_new=16, seed=1)                       # warm
+                           max_new=PROFILE_TOKENS, seed=1)           # warm
         got = {}
 
         def run():
             got.update(serve.serve_engine(eng, res["tenants"],
                                           requests=PROFILE_REQUESTS,
-                                          max_new=16, seed=1))
+                                          max_new=PROFILE_TOKENS,
+                                          seed=1))
             return got["seconds"]
 
         wall, busy, top = _profiled(torch, run, cpu_events=False)
@@ -2329,7 +2352,7 @@ def profile_decode(torch, dev, res) -> dict:
     return out
 
 
-def profile_train(torch, dev, res, args, steps: int = 2) -> dict:
+def profile_train(torch, dev, res, args, steps: int = 1) -> dict:
     """Where a train step's time goes: the fine-tuned full-width model
     takes ``steps`` more LoRA steps (after one warm step) under
     ``torch.profiler``, each ended by a device synchronize."""
@@ -2362,7 +2385,7 @@ def profile_train(torch, dev, res, args, steps: int = 2) -> dict:
 # slice 8: the MoE family and the other dense configs at full width
 # ---------------------------------------------------------------------------
 
-MOE_LAYERS = 2          # OLMoE-1B-7B's 16 cut so that the script fits
+MOE_LAYERS = 1          # OLMoE-1B-7B's 16 cut so that the script fits
 MOE_STEPS = 3
 # the kernels the MoE path runs on its attention sites (the expert
 # products are plain einsums, as the JAX package's)
@@ -2767,7 +2790,7 @@ def configs_phase(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 HYBRID_LAYERS = 12      # Zamba2-7B's 81 cut: 2 shared-block sites
-MAMBA_LAYERS = 12       # Mamba2-370M's 48 cut (the script's time)
+MAMBA_LAYERS = 6        # Mamba2-370M's 48 cut (the script's time)
 SSM_STEPS = 3
 SITE_SLACK = 1e-4       # own-Gram objective against the other site's adapter
 SITE_DIFF = 1e-2        # least relative difference of two sites' A @ B^T
@@ -3526,7 +3549,7 @@ def levers_phase(torch, dev) -> dict:
 # trace: span tracing and metrics through both CLIs
 # ---------------------------------------------------------------------------
 
-TRACE_LAYERS, TRACE_STEPS = 2, 2
+TRACE_LAYERS, TRACE_STEPS = 1, 2    # 1 layer: the script's time
 TRACE_DIR = ROOT / "build" / "chip_smoke"
 
 
@@ -4957,6 +4980,316 @@ def train_sharded_phase(torch, dev, work: Path = SHARDED_DIR,
     return out
 
 
+# -- the static gate and the compile cache (slice 17) -------------------------
+
+CACHE_DIR = ROOT / "build" / "chip_smoke" / "compile_cache"
+# the serve run of the compile_cache phase: fresh processes, smoke widths
+CACHE_SERVE = ("--arch", "qwen3-1.7b", "--smoke", "--requests", "2",
+               "--max-new", "8")
+# the library the phase cuts to half its bytes in a copy of the cache
+CACHE_CUT = "dequant_matmul.cu"
+# the kernels that serve run launches (dequant_matmul_lora: rows < 64)
+CACHE_PATH_KERNELS = ("gram", "dequant_matmul", "flash_attention")
+
+
+def purity_item_step():
+    """A captured step that reads a tensor to the host: PURITY's finding,
+    and a sync that the capturing stream refuses."""
+    from repro_torch.launch.steps import CapturedStep
+
+    def step(x):
+        return x * x.sum().item()
+    return CapturedStep(step)
+
+
+def purity_clean_step():
+    """The same step kept on the device: no finding, a capture that
+    replays."""
+    from repro_torch.launch.steps import CapturedStep
+
+    def step(x):
+        return x * x.sum()
+    return CapturedStep(step)
+
+
+def replay_unsynced(graph) -> float:
+    """Seconds of a graph replay by the host clock with no sync: the
+    launch only (BENCH's finding)."""
+    t0 = time.perf_counter()
+    graph.replay()
+    return time.perf_counter() - t0
+
+
+def replay_synced(torch, graph) -> float:
+    """Seconds of a graph replay by the host clock, synced before the stop
+    timestamp: the work."""
+    t0 = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _rules_flag(fn, rule: str) -> list:
+    """Lines (in ``fn``'s source) where the port's ``rule`` flags it."""
+    import inspect
+    import textwrap
+
+    from repro_torch import analysis
+    src = textwrap.dedent(inspect.getsource(fn))
+    return [f.line for f in analysis.lint_source(src, f"<{fn.__name__}>")
+            if f.rule == rule]
+
+
+def purity_capture() -> dict:
+    """The ``.item()`` step's capture (its second call) and the clean
+    twin's capture and replays, on the card.  Run in a process of its own
+    (:func:`_purity_process`): torch's ``capture_end`` raises before it
+    hands the graph's memory pool back, so the failed capture leaves the
+    caching allocator capturing, and the process later runs out of memory
+    with its cache reserved but unusable."""
+    import torch
+    x = torch.arange(1, 9, dtype=torch.float32, device="cuda")
+    good = purity_clean_step()
+    outs = [good(x).clone() for _ in range(3)]
+    want = x * x.sum()
+    bad = purity_item_step()
+    bad(x)                                   # the eager first call
+    try:
+        bad(x)                               # the capture
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:160]
+    return {"item_capture_raised": raised,
+            "clean_captured": good.graph is not None,
+            "clean_replays_equal": all(bool(torch.equal(o, want))
+                                       for o in outs)}
+
+
+def _purity_process(src: Path) -> subprocess.Popen:
+    """:func:`purity_capture` started in a fresh process on the package
+    under ``src``; its last line of output is the result as JSON."""
+    import os
+    return subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke as cs; "
+         "print(json.dumps(cs.purity_capture()))"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join([str(src),
+                                                         str(ROOT)])))
+
+
+def _bench_case(torch, dev, reps: int = 20) -> dict:
+    """One captured Qwen3-1.7B-smoke decode step timed by the host clock
+    without a sync and with one, and BENCH's verdicts on both sources."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import CapturedStep, make_decode_step
+    from repro_torch.models.parallel import LOCAL
+    from repro_torch.models.transformer import init_decode_cache, init_params
+    cfg = get_smoke_config("qwen3-1.7b")
+    params = init_params(cfg, seed=0, device=dev)
+    cache = init_decode_cache(cfg, 4, 64, device=dev)
+    decode = make_decode_step(cfg, LOCAL)
+
+    def step(inp):
+        logits, _ = decode(params, dict(cache, idx=inp[4]), inp[:4, None])
+        return logits
+
+    cap = CapturedStep(step)
+    inp = torch.tensor([1, 2, 3, 4, 0], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for _ in range(3):
+            cap(inp)
+    unsynced, synced = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        unsynced.append(replay_unsynced(cap.graph))
+        torch.cuda.synchronize()
+        synced.append(replay_synced(torch, cap.graph))
+    return {"unsynced_ms": 1e3 * _median(unsynced),
+            "synced_ms": 1e3 * _median(synced), "reps": reps,
+            "unsynced_flagged_lines": _rules_flag(replay_unsynced, "BENCH"),
+            "synced_flagged_lines": _rules_flag(replay_synced, "BENCH")}
+
+
+def analysis_phase(torch, dev) -> dict:
+    """The port's static gate on the card's checkout (the lint of
+    ``src/repro_torch`` at gating tier and ``chip_*.py`` at report tier,
+    the shape fleet against the JAX package's goldens), then PURITY and
+    BENCH held against the card.  Emits the lint and fleet lines; fails on
+    a gating finding, a fleet diff, or a rule that disagrees with what the
+    card does."""
+    import repro_torch
+    from repro_torch import analysis
+    from repro_torch.analysis import shapes
+    t_phase = time.perf_counter()
+    pkg = Path(repro_torch.__file__).resolve().parent
+    probe = _purity_process(pkg.parent)      # runs beside the lint
+    try:
+        t0 = time.perf_counter()
+        base = analysis.load_baseline(pkg / "analysis" / "baseline.json")
+        found = analysis.lint_paths([pkg], root=pkg.parents[1],
+                                    tier=analysis.TIER_ERROR, baseline=base)
+        gate = analysis.gating(found)
+        report = analysis.lint_paths(sorted(ROOT.glob("chip_*.py")),
+                                     root=ROOT, tier=analysis.TIER_REPORT)
+        emit({"phase": "analysis", "lint": {
+            "seconds": time.perf_counter() - t0, "files": len(list(
+                pkg.rglob("*.py"))), "gating": len(gate),
+            "findings": [f.render() for f in gate][:20],
+            "report": analysis.summarize(report)}})
+        t0 = time.perf_counter()
+        diffs = shapes.run_fleet(ROOT / "tests" / "golden" / "shapes")
+        emit({"phase": "analysis", "fleet": {
+            "seconds": time.perf_counter() - t0,
+            "cells": len(shapes.fleet_cells()), "diffs": len(diffs),
+            "first": diffs[:10]}})
+        ben = _bench_case(torch, dev)
+        out, err = probe.communicate(timeout=600)
+        if probe.returncode:
+            raise Failed(f"analysis: the PURITY capture's process exited "
+                         f"{probe.returncode}:\n{err[-3000:]}")
+        pur = {**json.loads(out.splitlines()[-1]),
+               "item_flagged_lines": _rules_flag(purity_item_step,
+                                                 "PURITY"),
+               "clean_flagged_lines": _rules_flag(purity_clean_step,
+                                                  "PURITY")}
+    finally:
+        if probe.poll() is None:
+            probe.kill()
+            probe.wait()
+    failed = []
+    if gate:
+        failed.append(f"{len(gate)} gating finding(s)")
+    if diffs or len(shapes.fleet_cells()) != 30:
+        failed.append(f"fleet: {len(diffs)} diff(s)")
+    if not (pur["item_capture_raised"] and pur["item_flagged_lines"]):
+        failed.append("PURITY: the .item() capture must raise and be "
+                      f"flagged ({pur})")
+    if not (pur["clean_captured"] and pur["clean_replays_equal"]) or \
+            pur["clean_flagged_lines"]:
+        failed.append(f"PURITY: the clean twin ({pur})")
+    if not ben["unsynced_ms"] < ben["synced_ms"]:
+        failed.append(f"BENCH: the unsynced replay is not the shorter "
+                      f"({ben})")
+    if not ben["unsynced_flagged_lines"] or ben["synced_flagged_lines"]:
+        failed.append(f"BENCH: verdicts ({ben})")
+    if failed:
+        raise Failed("analysis: " + "; ".join(failed))
+    return {"purity": pur, "bench": ben,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def _serve_fields(out: str) -> dict:
+    """The ``key=value`` fields of the serve CLI's ``[serve]`` lines."""
+    fields = {}
+    for ln in out.splitlines():
+        if ln.startswith("[serve] "):
+            for tok in ln.split()[1:]:
+                k, sep, v = tok.partition("=")
+                if sep:
+                    fields[k] = v
+    return fields
+
+
+def _cached_serve(src: Path, cache: Path, tokens: Path, shim: Path,
+                  log: Path) -> dict:
+    """One fresh process of the serve CLI on ``cache``, with ``nvcc``
+    behind a shim that logs each call.  Returns its fields, seconds,
+    tokens, compiles and standard error."""
+    import os
+    log.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(src),
+               PATH=f"{shim}{os.pathsep}{os.environ.get('PATH', '')}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *CACHE_SERVE,
+         "--compile-cache", str(cache), "--tokens-out", str(tokens)],
+        capture_output=True, text=True, env=env, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise Failed(f"compile_cache: serve exited {proc.returncode}:\n"
+                     + (proc.stdout + proc.stderr)[-3000:])
+    calls = log.read_text().splitlines() if log.exists() else []
+    f = _serve_fields(proc.stdout)
+    return {"seconds": secs,
+            "cache_hits": int(f["cache_hits"]),
+            "cache_misses": int(f["cache_misses"]),
+            "cache_corrupt": int(f["cache_corrupt"]),
+            "cache_unportable": int(f["cache_unportable"]),
+            "libraries": f["libraries"].split(","),
+            "launches": {k: int(n) for k, _, n in (
+                kn.partition(":") for kn in f["launches"].split(",")
+                if kn != "none")},
+            "rank_buckets": f["rank_buckets"].split(","),
+            "nvcc_compiles": sum("--version" not in c for c in calls),
+            "warned": "corrupt kernel library" in proc.stderr,
+            "tokens": json.loads(tokens.read_text())["outputs"]}
+
+
+def compile_cache_phase(torch, dev) -> dict:
+    """Two fresh serve processes on the build phase's cache directory: the
+    warm one loads every library from it (hits, no ``nvcc``, a capture a
+    rank bucket as ``unportable``); the second, on a copy with
+    ``CACHE_CUT``'s library cut to half its bytes, warns, rebuilds that one
+    library (one ``nvcc``) and gives the same tokens."""
+    import shutil
+
+    import repro_torch
+    from repro_torch.core import compile_cache
+    from repro_torch.kernels import build
+    t_phase = time.perf_counter()
+    src = Path(repro_torch.__file__).resolve().parents[1]
+    warm = build.build_dir()
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    shim = CACHE_DIR / "shim"
+    shim.mkdir(parents=True)
+    log = CACHE_DIR / "nvcc_calls.log"
+    (shim / "nvcc").write_text(
+        f"#!/bin/sh\necho \"$*\" >> '{log}'\n"
+        f"exec '{compile_cache.nvcc_path()}' \"$@\"\n")
+    (shim / "nvcc").chmod(0o755)
+    first = _cached_serve(src, warm, CACHE_DIR / "tokens_warm.json", shim,
+                          log)
+    cut = CACHE_DIR / "cut"
+    shutil.copytree(warm, cut, ignore=shutil.ignore_patterns("*.tmp*"))
+    lib = cut / build.use_cache().path(build.CSRC / CACHE_CUT,
+                                       build.NVCC_FLAGS).name
+    size = lib.stat().st_size
+    with open(lib, "r+b") as f:
+        f.truncate(size // 2)
+    second = _cached_serve(src, cut, CACHE_DIR / "tokens_cut.json", shim,
+                           log)
+    failed = []
+    if first["cache_misses"] or first["nvcc_compiles"] or \
+            first["cache_corrupt"]:
+        failed.append("warm: a library was rebuilt")
+    if first["cache_hits"] != len(first["libraries"]):
+        failed.append("warm: hits are not the libraries loaded")
+    if first["cache_unportable"] != len(first["rank_buckets"]):
+        failed.append("warm: unportable is not the rank buckets captured")
+    for run in (first, second):
+        if not all(run["launches"].get(k) for k in CACHE_PATH_KERNELS):
+            failed.append(f"a kernel of the serve path never launched: "
+                          f"{run['launches']}")
+    if (second["cache_corrupt"], second["cache_misses"],
+            second["nvcc_compiles"]) != (1, 1, 1):
+        failed.append("cut: not one corrupt library rebuilt by one nvcc")
+    if second["cache_hits"] != first["cache_hits"] - 1:
+        failed.append("cut: hits are not one fewer")
+    if not second["warned"]:
+        failed.append("cut: no warning")
+    if second["tokens"] != first["tokens"]:
+        failed.append("cut: tokens differ from the warm run's")
+    out = {"warm_dir": str(warm), "cut": {"library": lib.name,
+                                          "bytes": size, "kept": size // 2},
+           **{name: {k: v for k, v in run.items() if k != "tokens"}
+              for name, run in (("warm", first), ("rebuilt", second))},
+           "tokens_equal": second["tokens"] == first["tokens"],
+           "failed": failed, "phase_s": time.perf_counter() - t_phase}
+    if failed:
+        raise Failed(f"compile_cache: {'; '.join(failed)}: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -4978,7 +5311,8 @@ def main(argv=None) -> int:
                          f"({VLM_LAYERS}); any other depth runs the device "
                          "and build phases and Pixtral-12B alone by RTN "
                          "(the full-depth check: --vlm-layers 40)")
-    ap.add_argument("--only", choices=("kernels", "configs", "ssm", "encdec",
+    ap.add_argument("--only", choices=("analysis", "compile_cache", "kernels",
+                                       "configs", "ssm", "encdec",
                                        "allocate", "levers", "trace",
                                        "distributed", "train_sharded"),
                     help="run the device and build phases and this phase "
@@ -5046,7 +5380,9 @@ def main(argv=None) -> int:
 
         if a.only:
             phase = a.only
-            run = {"kernels": lambda: kernels_phase(torch, dev),
+            run = {"analysis": lambda: analysis_phase(torch, dev),
+                   "compile_cache": lambda: compile_cache_phase(torch, dev),
+                   "kernels": lambda: kernels_phase(torch, dev),
                    "configs": lambda: configs_phase(torch, dev),
                    "ssm": lambda: ssm_phase(torch, dev, a.hybrid_layers),
                    "encdec": lambda: encdec_phase(torch, dev, a.vlm_layers),
@@ -5090,6 +5426,12 @@ def main(argv=None) -> int:
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
                 "count": torch.cuda.device_count()}})
             return 0
+
+        phase = "analysis"
+        emit({"phase": "analysis", **analysis_phase(torch, dev), **lap()})
+        phase = "compile_cache"
+        cc = compile_cache_phase(torch, dev)
+        emit({"phase": "compile_cache", **cc, **lap()})
 
         phase = "kernels"
         dq, dq_cases = check_dequant(torch, dev)
@@ -5259,6 +5601,8 @@ def main(argv=None) -> int:
                       "launches_trace": tc_launches[name],
                       "launches_distributed": di["launches"][name],
                       "launches_train_sharded": ts["launches"][name],
+                      "launches_compile_cache":
+                          cc["warm"]["launches"].get(name, 0),
                       "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],
                       "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                       "bound_by": tm["bound_by"],

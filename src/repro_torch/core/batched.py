@@ -80,8 +80,9 @@ oracle on the card (``chip_smoke.py``, ``engines``).
     at a time, one stacked call each (:func:`run_bucket_eval`); sharded
     buckets all-reduce each slice's error (:func:`run_bucket_eval_sharded`).
 
-Not ported yet (``ROADMAP.md``): the compile cache (``compile_cache=``),
-which raises ``NotImplementedError``.  The reference has no chunks: it
+``compile_cache=`` names the directory this process's kernel libraries
+are built into and loaded from (``kernels.build.use_cache``); the buckets
+run eagerly, so nothing else is compiled.  The reference has no chunks: it
 sends a bucket that would not fit to its sequential path through the cost
 model (which the port also has); here a chunk is sized from the free
 memory of the rank's device, so ranks sharing one card each see the other's
@@ -103,6 +104,7 @@ from repro_torch.core.magr import magr_alpha, magr_preprocess
 from repro_torch.core.optq import optq_quantize_core, pick_block
 from repro_torch.core.quantizer import (QuantConfig, dequantize_int,
                                         pack_codes, quantize_int)
+from repro_torch.kernels import build
 from repro_torch.models import parallel
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
@@ -124,8 +126,6 @@ _RANDOM_A_METHODS = ("gptq", "qlora", "rtn")
 # stack is column-local given the Gram, the two full-width SVDs (CLoQ's
 # R dW, LoftQ's per-round W - Q) recovered exactly by the Gram trick
 _REPLICATED_METHODS: tuple[str, ...] = ()
-
-_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
 
 
 def bucket_axis_size(mesh, axis: str = "model") -> int:
@@ -685,7 +685,7 @@ def quantize_layer_batch(tasks: list[LayerTask], qspec=None,
     from repro_torch.core.costmodel import CostModel
 
     if compile_cache is not None:
-        raise NotImplementedError(f"compile_cache= {_NOT_PORTED}")
+        build.use_cache(compile_cache)
     cost_model = CostModel.coerce(cost_model)
     with obs_trace.span("quant.plan", tasks=len(tasks)) as sp:
         buckets = plan_buckets(tasks, qspec, method, base, mesh=mesh,

@@ -168,13 +168,13 @@ def _time_all_reduce(side: int, group, device: torch.device,
     ``group``, every rank fenced by a barrier first."""
     import torch.distributed as dist
     x = torch.zeros((side, side), dtype=torch.float32, device=device)
-    dist.all_reduce(x, group=group)                     # warm-up
+    dist.all_reduce(x, group=group)  # reprolint: disable=COLLECTIVE (calibration probe: warm-up)
     best = math.inf
     for _ in range(reps):
         _sync(device)
-        dist.barrier(group=group)
+        dist.barrier(group=group)  # reprolint: disable=COLLECTIVE (calibration probe)
         t0 = time.perf_counter()
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, group=group)  # reprolint: disable=COLLECTIVE (calibration probe)
         _sync(device)
         best = min(best, time.perf_counter() - t0)
     return best
@@ -240,10 +240,10 @@ def calibrate(mesh=None, *, path: str | None = None, force: bool = False,
         w_l = parallel.local_slice(w, (None, axis), mesh).contiguous()
 
         def sharded():
-            dist.barrier(group=group)
+            dist.barrier(group=group)  # reprolint: disable=COLLECTIVE (calibration probe)
             _ = w_l @ w_l.mT @ w_l
             _sync(dev)
-            dist.barrier(group=group)
+            dist.barrier(group=group)  # reprolint: disable=COLLECTIVE (calibration probe)
 
         sharded()
         t_sh = _best_wall(sharded, dev)
@@ -251,7 +251,7 @@ def calibrate(mesh=None, *, path: str | None = None, force: bool = False,
         if parallel.axis_rank(mesh, axis) == 0:
             _ = w @ w.mT @ w
             t_rep = _best_wall(lambda: w @ w.mT @ w, dev)
-        dist.barrier(group=group)
+        dist.barrier(group=group)  # reprolint: disable=COLLECTIVE (calibration probe)
         shard_efficiency = min(max(t_rep / max(t_sh, 1e-9), 1e-2),
                                float(n_devices))
 
@@ -265,7 +265,7 @@ def calibrate(mesh=None, *, path: str | None = None, force: bool = False,
     if multi:
         box = [cal]
         group = parallel.axis_group(mesh, axis)
-        dist.broadcast_object_list(
+        dist.broadcast_object_list(  # reprolint: disable=COLLECTIVE (the calibration to every rank, once)
             box, src=dist.get_global_rank(group, 0), group=group)
         cal = box[0]
         if parallel.axis_rank(mesh, axis) != 0:

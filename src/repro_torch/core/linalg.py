@@ -24,7 +24,8 @@ Tensor = torch.Tensor
 def trace(H: Tensor) -> Tensor:
     """Trace of each ``(m, m)`` slice of ``H``, shape ``H.shape[:-2]``."""
     d = torch.diagonal(H, dim1=-2, dim2=-1)
-    return d.sum(-1, dtype=torch.float64).to(H.dtype)
+    # f64 as torch.trace sums a 2-D f32 matrix on the CPU (docstring)
+    return d.sum(-1, dtype=torch.float64).to(H.dtype)  # reprolint: disable=DTYPE (m terms, once a site)
 
 
 def _nan_where(bad: Tensor, x: Tensor) -> Tensor:

@@ -58,8 +58,9 @@ with the same params and calibration) runs each bucket column-sharded over
 are DTensors of the rank's block, ``lora_a`` replicated
 (``models.parallel.gather_tree`` makes a tree whole).  ``cost_model=``
 chooses each bucket's path from predicted time
-(:mod:`repro_torch.core.costmodel`).  Not ported yet (``ROADMAP.md``): the
-compile cache; ``compile_cache=`` raises ``NotImplementedError``.
+(:mod:`repro_torch.core.costmodel`).  ``compile_cache=`` names the
+directory this process's kernel libraries are built into and loaded from
+(:mod:`repro_torch.core.compile_cache`, ``kernels.build.use_cache``).
 """
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ from repro_torch.core.batched import (GRAM_METHODS, LayerTask,
 from repro_torch.core.cloq import cloq_site_lora
 from repro_torch.core.quantizer import dequantize_int, unpack_codes
 from repro_torch.core.recipe import QuantRecipe, SiteSpec
+from repro_torch.kernels import build
 from repro_torch.models import parallel
 from repro_torch.models.modules import QSpec
 from repro_torch.models.transformer import (ModelConfig, forward,
@@ -97,8 +99,6 @@ _SKIP_SUFFIXES = ("embed.w", "head.w", "router.w")
 # containers stacked over layers when scan_layers, with their layer counts
 _STACK_KEYS = {"blocks": "n_layers", "enc_blocks": "n_enc_layers",
                "dec_blocks": "n_layers", "cross": "n_layers"}
-
-_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
 
 
 def to_eager_params(params: dict, cfg: ModelConfig) -> dict:
@@ -289,7 +289,7 @@ def _heal_site_pairs(As, Bs, Hs_raw, dW: Tensor, qspec: QSpec, policy,
     A_l, B_l = parallel.local_of(As), parallel.local_of(Bs)
     bad = torch.stack([(~torch.isfinite(A_l[s])).any() |
                        (~torch.isfinite(B_l[s])).any()
-                       for s in range(len(site_paths))]).double()
+                       for s in range(len(site_paths))]).float()
     if mesh is not None:
         bad = parallel.all_reduce_sum(bad, parallel.axis_group(mesh, axis))
     bad = [s for s, b in enumerate(bad.tolist()) if b]
@@ -589,7 +589,9 @@ def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
     ``lora_a`` replicated.  ``cost_model`` (batched engine only; a
     :class:`repro_torch.core.costmodel.CostModel`, a calibration or its
     file) chooses each bucket's path from predicted time.
-    ``compile_cache`` is not ported and raises.
+    ``compile_cache`` (a :class:`~repro_torch.core.compile_cache.
+    CompileCache` or a directory) is where this process's kernel libraries
+    are built and loaded (``kernels.build.use_cache``; on the CPU none is).
 
     Returns (new_params in the input (scan/eager) layout, new_cfg with
     ``quant=`` set to the recipe's default qspec, gram_store).  Skipped
@@ -598,7 +600,7 @@ def quantize_model(params: dict, cfg: ModelConfig, calib_batches: list[dict],
         raise ValueError(f"unknown engine {engine!r}; options "
                          f"{tuple(_ENGINES)}")
     if compile_cache is not None:
-        raise NotImplementedError(f"compile_cache= {_NOT_PORTED}")
+        build.use_cache(compile_cache)
     if mesh is not None and engine != "batched":
         # fail before the (expensive) calibration pass, not after
         raise ValueError("mesh sharding is only supported by the batched "

@@ -16,10 +16,10 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
-import hashlib
 import json
 import re
 
+from repro_torch.core.compile_cache import canonical_digest
 from repro_torch.models.modules import QSpec
 
 # method names a recipe may name (the port's engine implements "cloq"; see
@@ -117,15 +117,6 @@ class QuantRecipe:
         qspec = QSpec(**d.get("qspec", {}))
         return cls(rules=tuple(SiteRule(**r) for r in d.get("rules", ())),
                    method=d.get("method", "cloq"), qspec=qspec)
-
-
-def canonical_digest(obj) -> str:
-    """sha1 hex digest of an object's canonical JSON form (sorted keys,
-    compact separators, ``default=str``): the same bytes, so the same
-    digest, as the JAX package's ``compile_cache.canonical_digest``."""
-    blob = json.dumps(obj, sort_keys=True, default=str,
-                      separators=(",", ":"))
-    return hashlib.sha1(blob.encode()).hexdigest()
 
 
 def plan_fingerprint(plan: dict) -> str:

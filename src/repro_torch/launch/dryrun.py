@@ -281,7 +281,7 @@ def lower_cell(arch: str, cell: str, *, multi_pod: bool = False,
     with grad:
         with PeakBytes() as peak:
             out = step(*inputs)
-    t_run = time.time() - t0
+    t_run = time.time() - t0  # reprolint: disable=BENCH (meta tensors: no device work)
     out_bytes, alias = _out_bytes(out, arg_storages)
     colls = parallel.collective_stats()
     names = tuple(mesh.mesh_dim_names)

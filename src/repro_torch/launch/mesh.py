@@ -178,7 +178,7 @@ def _rank_main(rank: int, world: int, backend: str, store_path: str,
                             world_size=world)
     try:
         fn(rank, *args)
-        dist.barrier()
+        dist.barrier()  # reprolint: disable=COLLECTIVE (ranks leave together; outside any step)
     finally:
         dist.destroy_process_group()
 

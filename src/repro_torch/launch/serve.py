@@ -43,13 +43,21 @@ quantization's buckets, ``serve.step``, ``serve.admit``,
 ``serve.decode``) and ``--metrics-out FILE`` the metrics snapshot
 (``results/metrics-serve.json`` when only ``--trace-out`` is given), as
 the JAX CLI does (``repro_torch.obs``).  ``--cost-cal FILE`` plans the
-quantization buckets with the cost model.  The compile cache is not ported
-yet (``ROADMAP.md``); ``--compile-cache`` raises.
+quantization buckets with the cost model.  ``--compile-cache DIR`` is the
+directory the CUDA kernel libraries are built into and loaded from
+(``repro_torch.core.compile_cache``); with it the CLI prints the JAX CLI's
+``[serve] decode cache_hits=... cache_misses=...`` line, plus
+``cache_corrupt``, ``cache_unportable`` (the rank buckets' captured
+graphs), the kernel ``libraries`` loaded and each kernel's ``launches``
+(replays of captured graphs included).  ``--tokens-out FILE`` writes
+each request's tokens (the engine route) or each step's (the fixed-slot
+loop) as JSON.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 
@@ -60,22 +68,20 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.pipeline import quantize_model
 from repro_torch.core.recipe import QuantRecipe, load_plan
 from repro_torch.data import DataConfig, TokenStream, data_kind
+from repro_torch.kernels import build, ops
 from repro_torch.launch.steps import (CapturedStep, make_decode_step,
                                       resolve_graph)
 from repro_torch.models.modules import QSpec
 from repro_torch.models.parallel import LOCAL
 from repro_torch.models.transformer import init_decode_cache, init_params
 from repro_torch import obs
+from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import names as obs_names
 from repro_torch.serve import (AdapterRegistry, ServeEngine,
                                adapters_from_tree)
 from repro_torch.serve.registry import synthesize_adapters
 from repro_torch.utils import resolve_device
-
-# flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"compile_cache": ""}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
@@ -119,18 +125,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cost-model calibration JSON (repro_torch.core."
                         "costmodel.calibrate output) driving the bucket "
                         "planner's sharded/replicated/sequential choice")
-    # JAX CLI flag of a subsystem not ported yet (rejected unless default)
-    p.add_argument("--compile-cache", default="")
+    p.add_argument("--compile-cache", default="", metavar="DIR",
+                   help="directory the CUDA kernel libraries are built "
+                        "into and loaded from (default build/repro_torch; "
+                        "repro_torch.core.compile_cache)")
+    p.add_argument("--tokens-out", default="", metavar="FILE",
+                   help="write the generated tokens as JSON to FILE")
     return p
-
-
-def _check_ported(args) -> None:
-    given = [f"--{k.replace('_', '-')}" for k, default in _NOT_PORTED.items()
-             if getattr(args, k) != default]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the compile cache is not ported to "
-            "repro_torch yet (see ROADMAP.md)")
 
 
 def _sync(device: torch.device) -> None:
@@ -338,7 +339,8 @@ def run(args, cfg=None) -> dict:
     ("engine" or "fixed_slots"), the ``registry``, ``tenants`` and
     ``engine`` of the engine route and the ``serve`` summary of
     :func:`serve_engine` or :func:`serve_fixed_slots`."""
-    _check_ported(args)
+    if args.compile_cache:
+        build.use_cache(args.compile_cache)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = (get_smoke_config(args.arch) if args.smoke
@@ -362,7 +364,8 @@ def run(args, cfg=None) -> dict:
                                  page_size=args.page_size,
                                  max_len=args.cache_len,
                                  bucket_capacity=args.batch,
-                                 use_kernel=use_kernel)
+                                 use_kernel=use_kernel,
+                                 compile_cache=args.compile_cache or None)
             out.update(route="engine", registry=registry, tenants=tenants,
                        engine=engine)
             out["serve"] = serve_engine(engine, tenants,
@@ -381,9 +384,15 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     metrics_out = args.metrics_out or (
         obs.default_metrics_path("serve") if args.trace_out else "")
+    before = ops.launch_counts()
     with obs.session(args.trace_out or None, metrics_out or None):
         res = run(args)
     s = res["serve"]
+    if args.tokens_out:
+        with open(args.tokens_out, "w") as f:
+            json.dump({"route": res["route"],
+                       "outputs": [list(map(int, o)) for o in s["outputs"]]},
+                      f)
     if res["route"] == "engine":
         print(f"[serve] requests={s['requests_done']}/{args.requests} "
               f"steps={s['steps']} tokens={s['tokens']} "
@@ -391,12 +400,24 @@ def main(argv=None) -> int:
               f"tok_s={s['tok_s']:.4g} tenants={s['tenants']} "
               f"rank_buckets={','.join(map(str, s['rank_buckets']))} "
               f"p50_ms={s['p50_ms']:.4g}")
-        return 0 if s["requests_done"] == args.requests else 1
-    print(f"[serve] requests={s['requests_done']}/{args.requests} "
-          f"steps={s['steps']} slot_tokens={s['slot_tokens']} "
-          f"quantize_s={res['quantize_s']:.4g} s={s['seconds']:.4g} "
-          f"tok_s={s['tok_s']:.4g}")
-    return 0 if s["all_finite"] else 1
+        ok = s["requests_done"] == args.requests
+    else:
+        print(f"[serve] requests={s['requests_done']}/{args.requests} "
+              f"steps={s['steps']} slot_tokens={s['slot_tokens']} "
+              f"quantize_s={res['quantize_s']:.4g} s={s['seconds']:.4g} "
+              f"tok_s={s['tok_s']:.4g}")
+        ok = s["all_finite"]
+    if args.compile_cache:
+        cache = build.active_cache()
+        launched = ",".join(f"{k}:{n - before[k]}"
+                            for k, n in ops.launch_counts().items()
+                            if n > before[k])
+        obs_log.info("serve", "decode", cache_hits=cache.hits,
+                     cache_misses=cache.misses, cache_corrupt=cache.corrupt,
+                     cache_unportable=cache.unportable,
+                     libraries=",".join(build.loaded()) or "none",
+                     launches=launched or "none")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

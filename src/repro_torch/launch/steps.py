@@ -36,7 +36,7 @@ from typing import Callable
 import torch
 
 from repro_torch.data.pipeline import data_kind, make_batch_specs, shard_batch
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.launch.shardings import param_specs, to_named
 from repro_torch.models import parallel
 from repro_torch.models.parallel import LOCAL, PContext
@@ -416,7 +416,9 @@ class CapturedStep:
     call.  The kernels' launch counters count a replay as the launches
     captured in the graph (``ops.captured_launches``, ``ops.add_replayed``).
     A failed capture or replay raises; nothing falls back to the eager
-    step.  ``launches`` holds the captured launches once captured."""
+    step.  ``launches`` holds the captured launches once captured.  A
+    capture counts once as the compile cache's ``unportable``
+    (``kernels.build.active_cache``): a graph lives in its process."""
 
     def __init__(self, fn: Callable):
         self.fn = fn
@@ -468,3 +470,6 @@ class CapturedStep:
             with torch.cuda.graph(g, stream=self._stream):
                 self.outputs = self.fn(*self.inputs)
         self.graph, self.launches = g, launched
+        cache = build.active_cache()
+        if cache is not None:       # a graph is never written to the cache
+            cache.count_unportable()

@@ -60,8 +60,9 @@ the metrics snapshot (``results/metrics-train.json`` when only
 ``--trace-out`` is given), as the JAX CLI does (``repro_torch.obs``).
 Progress lines go through ``obs.log``.  ``--cost-cal FILE|auto`` plans the
 quantization buckets with the cost model (``repro_torch.core.costmodel``;
-``auto`` measures this host once and caches the table).  The compile cache
-is not ported yet (``ROADMAP.md``); ``--compile-cache`` raises.
+``auto`` measures this host once and caches the table).  ``--compile-cache
+DIR`` is the directory the CUDA kernel libraries are built into and loaded
+from (``repro_torch.core.compile_cache``; default ``build/repro_torch``).
 """
 from __future__ import annotations
 
@@ -84,6 +85,7 @@ from repro_torch.core.pipeline import (allocate_plan, quantization_manifest,
                                        quantize_model)
 from repro_torch.core.recipe import QuantRecipe, load_plan
 from repro_torch.data import DataConfig, TokenStream, data_kind
+from repro_torch.kernels import build
 from repro_torch.launch.steps import build_state, make_train_step
 from repro_torch.models.modules import QSpec
 from repro_torch.models.parallel import LOCAL
@@ -95,10 +97,6 @@ from repro_torch.obs import names as obs_names
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import OptConfig, merge_params
 from repro_torch.utils import resolve_device
-
-# flags of the JAX CLI whose subsystems are not ported: name -> default
-_NOT_PORTED = {"compile_cache": ""}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
@@ -155,18 +153,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "calibration JSON, or 'auto' to measure this host "
                         "once and cache the result "
                         "(repro_torch.core.costmodel.calibrate)")
-    # JAX CLI flag of a subsystem not ported yet (rejected unless default)
-    p.add_argument("--compile-cache", default="")
+    p.add_argument("--compile-cache", default="", metavar="DIR",
+                   help="directory the CUDA kernel libraries are built "
+                        "into and loaded from (default build/repro_torch; "
+                        "repro_torch.core.compile_cache)")
     return p
-
-
-def _check_ported(args) -> None:
-    given = [f"--{k.replace('_', '-')}" for k, default in _NOT_PORTED.items()
-             if getattr(args, k) != default]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the compile cache is not ported to "
-            "repro_torch yet (see ROADMAP.md)")
 
 
 def _check_allocation_flags(args) -> None:
@@ -218,8 +209,9 @@ def run(args, cfg=None) -> dict:
 
 
 def _run(args, cfg, stop: dict) -> dict:
-    _check_ported(args)
     _check_allocation_flags(args)
+    if args.compile_cache:
+        build.use_cache(args.compile_cache)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = (get_smoke_config(args.arch) if args.smoke

@@ -33,8 +33,9 @@ oracle holds for ``dense`` only, as in the JAX twin; the MoE dispatch
 reads nothing on the host, so its step is captured as well.  Each
 :meth:`ServeEngine.step` is a ``serve.step`` span and each bucket's
 decode a ``serve.decode`` span inside it (``repro_torch.obs.trace``, as
-in the JAX twin).  The persisted compile cache of the JAX twin is not
-ported yet (``ROADMAP.md``).
+in the JAX twin).  ``compile_cache=`` is the kernel libraries' store
+(:mod:`repro_torch.core.compile_cache`); the JAX twin's persisted decode
+executable has no counterpart: a CUDA graph lives in its process.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.launch.steps import CapturedStep, resolve_graph
 from repro_torch.models.parallel import LOCAL
 from repro_torch.models.transformer import decode_step
@@ -155,17 +157,19 @@ class ServeEngine:
     """``use_kernel`` sets ``cfg.quant.use_kernel`` as in the JAX twin.
     ``graph``: capture each rank bucket's decode step as a CUDA graph
     (None: on a CUDA device, not on the CPU; True on the CPU raises).
-    ``compile_cache`` is not ported (raises)."""
+    ``compile_cache`` (a :class:`~repro_torch.core.compile_cache.
+    CompileCache` or a directory): where this process's kernel libraries
+    are built and loaded (``kernels.build.use_cache``), kept as
+    ``self.compile_cache``; each rank bucket's captured decode counts once
+    as its ``unportable``."""
 
     def __init__(self, params: dict, cfg, registry: AdapterRegistry, *,
                  page_size: int = 8, n_pages: int | None = None,
                  max_len: int = 64, bucket_capacity: int = 4,
                  use_kernel: bool = False, compile_cache=None,
                  graph: bool | None = None):
-        if compile_cache is not None:
-            raise NotImplementedError(
-                "compile_cache: the persisted compile cache is not ported "
-                "to repro_torch yet (see ROADMAP.md)")
+        self.compile_cache = (None if compile_cache is None
+                              else build.use_cache(compile_cache))
         if cfg.family not in ("dense", "moe"):
             raise ValueError(
                 f"ServeEngine serves attention-cache families (dense/moe); "

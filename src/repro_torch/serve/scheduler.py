@@ -1,5 +1,5 @@
 """Iteration-level (continuous-batching) scheduler.  Twin of
-``repro.serve.scheduler`` (without its trace spans, not ported yet).
+``repro.serve.scheduler`` (its ``serve.admit`` instants included).
 
 Model-free: the scheduler only knows rank **buckets** (each bucket = one
 compiled decode executable with a fixed slot capacity), a shared

@@ -197,15 +197,21 @@ def test_missing_gram_raises_for_calibrated_methods(method, raises):
         assert tuple(out[0]["qcodes"].shape) == (16 // 2, 8)
 
 
-def test_unported_options_raise():
-    """The compile cache is not ported and raises; a cost-model path with
-    no calibration behind it raises as the JAX twin's; a mesh without a
-    model axis plans the bucket replicated, the meshless leaves bit for
-    bit (the sharded engine: tests/test_torch_distributed.py)."""
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """Nothing is refused any more: ``compile_cache`` names the kernel
+    libraries' directory (on the CPU none is loaded, the leaves are the
+    uncached ones bit for bit); a cost-model path with no calibration
+    behind it raises as the JAX twin's; a mesh without a model axis plans
+    the bucket replicated, the meshless leaves bit for bit (the sharded
+    engine: tests/test_torch_distributed.py)."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "_cache", None)
     qspec = tmod.QSpec(bits=4, group_size=16, rank=4)
     tasks = _tasks(*_layers(1, 16, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.quantize_layer_batch(tasks, qspec, "cloq", compile_cache="dir")
+    cached = tb.quantize_layer_batch(tasks, qspec, "cloq",
+                                     compile_cache=str(tmp_path / "dir"))
+    assert build.active_cache().directory == tmp_path / "dir"
+    assert build.active_cache().summary() == "cache hits=0 misses=0"
     with pytest.raises(FileNotFoundError, match="calibrat"):
         tb.quantize_layer_batch(tasks, qspec, "cloq",
                                 cost_model="no-such-calibration.json")
@@ -213,6 +219,7 @@ def test_unported_options_raise():
     want = tb.quantize_layer_batch(tasks, qspec, "cloq")
     for k in want[0]:
         assert torch.equal(got[0][k], want[0][k]), k
+        assert torch.equal(cached[0][k], want[0][k]), k
 
 
 def _smoke(seed=3):

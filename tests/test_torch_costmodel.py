@@ -338,7 +338,7 @@ def test_train_and_serve_clis_take_cost_cal(tmp_path, monkeypatch, capsys):
     """``--cost-cal FILE`` plans the train CLI's and the serve CLI's
     quantization with the cost model; ``--cost-cal auto`` measures the
     host once into ``REPRO_COSTCAL`` and the next run loads it;
-    ``--compile-cache`` still raises."""
+    ``--compile-cache`` is taken beside it."""
     monkeypatch.chdir(tmp_path)
     cal = tcm.CostCalibration(**CALS[1]).save(str(tmp_path / "cal.json"))
     rc = ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
@@ -359,6 +359,10 @@ def test_train_and_serve_clis_take_cost_cal(tmp_path, monkeypatch, capsys):
                       "--requests", "4", "--max-new", "4",
                       "--cost-cal", cal])
     assert rc == 0 and "[serve] requests=4/4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
-                     "--compile-cache", "x", "--cost-cal", cal])
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "_cache", None)
+    assert ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                        "--steps", "1", "--batch", "2", "--seq-len", "16",
+                        "--calib-batches", "1", "--compile-cache", "x",
+                        "--cost-cal", cal]) == 0
+    assert build.active_cache().directory == tmp_path / "x"

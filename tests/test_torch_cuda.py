@@ -10,6 +10,8 @@ its fused LoRA variant 2e-4 in f32 and 2e-2 in bf16
 in bf16 (``tests/test_kernels.py:85-98``), gram rtol 1e-4 / atol 1e-2 in
 f32 and 2e-2 / 2e-1 in bf16 (``tests/test_kernels.py::test_gram``).
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -1159,3 +1161,42 @@ def test_sharded_cloq_bucket_on_two_ranks_matches_unsharded(cuda, tmp_path):
         assert d["lora_ab"] <= max(5e-3, 2 * nd["lora_ab"]), (d, nd)
         for k in ("scales", "zeros", "gram_error"):
             assert d[k] <= 1e-3, (k, d)
+
+
+# -- the compile cache of the kernel libraries -------------------------------
+
+
+def test_kernel_library_cache_hit_miss_and_corrupt(cuda, tmp_path,
+                                                   monkeypatch):
+    """The real build of ``gram.cu`` through a cache of its own: a miss
+    (one ``nvcc``), a hit in a second instance, then a copy of the stored
+    library cut to half its bytes is warned about, deleted, rebuilt and
+    launches.  The process's own cache (``kernels.build``) is untouched."""
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.kernels import build
+    src = build.CSRC / "gram.cu"
+    syms = build.entry_symbols("gram.cu")
+    first = CompileCache(tmp_path / "cache")
+    lib = first.load(src, build.NVCC_FLAGS, syms)
+    assert (first.hits, first.misses, first.corrupt) == (0, 1, 0)
+    assert first.env["capability"] == list(
+        torch.cuda.get_device_capability())
+    assert "release" in first.env["nvcc"]
+    again = CompileCache(tmp_path / "cache")
+    assert again.load(src, build.NVCC_FLAGS, syms).gram_launch
+    assert (again.hits, again.misses) == (1, 0)
+    # the cut goes to a copy: the stored file is mapped into this process
+    shutil.copytree(tmp_path / "cache", tmp_path / "cut")
+    stored = first.path(src, build.NVCC_FLAGS)
+    cut = tmp_path / "cut" / stored.name
+    with open(cut, "r+b") as f:
+        f.truncate(cut.stat().st_size // 2)
+    third = CompileCache(tmp_path / "cut")
+    with pytest.warns(RuntimeWarning, match="corrupt kernel library"):
+        rebuilt = third.load(src, build.NVCC_FLAGS, syms)
+    assert (third.hits, third.misses, third.corrupt) == (0, 1, 1)
+    third._check_record(cut)
+    assert lib.gram_launch
+    monkeypatch.setattr(build, "load", lambda source: rebuilt)
+    x = torch.randn((256, 128), device=cuda)
+    _close(ops.gram(x), ref.gram_ref(x), rtol=1e-4, atol=1e-2)

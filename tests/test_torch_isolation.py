@@ -18,6 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core import compile_cache
 from repro_torch.kernels import build, ops
 from tests import torch_parity  # noqa: F401  (sets torch's threads)
 
@@ -147,11 +148,12 @@ def test_cuda_branch_raises_when_build_fails(as_if_cuda, monkeypatch,
                                              tmp_path):
     monkeypatch.setattr(build, "build_root", lambda: tmp_path)
     monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_cache", None)
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
 
-    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(compile_cache, "nvcc_path", no_nvcc)
     dq, fa = _operands()
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.dequant_matmul(*dq, bits=4, group_size=16)

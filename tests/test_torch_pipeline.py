@@ -246,15 +246,16 @@ def test_quantize_model_sequential_matches_jax():
         np.testing.assert_array_equal(lt[path], lj[path])
 
 
-def test_quantize_model_rejects_unported():
-    """What is still not ported raises before calibration: the compile
-    cache; the mesh, the cost model and a journal need the batched engine,
-    as in the JAX twin.  A recipe that skips every site leaves the model
-    dense."""
+def test_quantize_model_rejects_unported(tmp_path, monkeypatch):
+    """What the engines cannot do raises before calibration: the mesh, the
+    cost model and a journal need the batched engine, as in the JAX twin.
+    The compile cache is ported: ``compile_cache`` names the kernel
+    libraries' directory (none is loaded on the CPU).  A recipe that skips
+    every site leaves the model dense."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "_cache", None)
     cfg_j, cfg_t, pj, pt = _model()
     _, ct = _calib(cfg_t.vocab)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.quantize_model(pt, cfg_t, ct, compile_cache="cache")
     for kw in (dict(mesh=object()), dict(cost_model="auto")):
         with pytest.raises(ValueError, match="batched"):
             tp.quantize_model(pt, cfg_t, ct, engine="sequential", **kw)
@@ -264,8 +265,11 @@ def test_quantize_model_rejects_unported():
     with pytest.raises(ValueError, match="engine"):
         tp.quantize_model(pt, cfg_t, ct, engine="bogus")
     skip_all = tr.QuantRecipe(rules=(tr.SiteRule("*", skip=True),))
-    qt, _, _ = tp.quantize_model(pt, cfg_t, ct, recipe=skip_all)
+    qt, _, _ = tp.quantize_model(pt, cfg_t, ct, recipe=skip_all,
+                                 compile_cache=str(tmp_path / "cache"))
     assert not any(p.endswith("qcodes") for p in tpaths(qt))
+    assert build.active_cache().directory == tmp_path / "cache"
+    assert build.active_cache().summary() == "cache hits=0 misses=0"
 
 
 def test_stacked_expert_sites_are_quantization_sites():

@@ -9,6 +9,7 @@ tolerance), and if its tokens differ the two runs are fed different inputs
 from there on, so the comparison ends at that step.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -122,23 +123,36 @@ def test_serve_cli_on_cpu(capsys):
         capsys.readouterr().out
 
 
-def test_serve_rejects_what_is_not_ported(tmp_path, monkeypatch):
+def test_serve_rejects_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """Every flag of the JAX CLI is ported: ``--compile-cache`` is taken
+    beside the others and the CLI prints the JAX CLI's cache fields, plus
+    ``cache_corrupt``, ``cache_unportable`` and the libraries loaded
+    (none on the CPU); bad arguments still raise."""
+    from repro_torch.kernels import build
     monkeypatch.chdir(tmp_path)     # a trace, if asked for, lands here
+    monkeypatch.setattr(build, "_cache", None)
     for flag in (["--compile-cache", "x"],
-                 ["--cost-cal", "c.json", "--compile-cache", "x"],
+                 ["--cost-cal", "c.json", "--method", "none",
+                  "--compile-cache", "x"],
                  ["--compile-cache", "x", "--trace-out", "t.json"],
                  ["--cost-cal", "c.json", "--metrics-out", "m.json",
-                  "--compile-cache", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
-                        "--tenants", "2", *flag])
-        # --cost-cal is ported: only the compile cache is named
-        assert str(e.value).split(":")[0] == "--compile-cache"
-    ported = serve.build_parser().parse_args(
-        ["--arch", "qwen3-1.7b", "--tenants", "2", "--ranks", "8,4",
-         "--adapter", "a=d", "--page-size", "4", "--trace-out", "t.json",
-         "--metrics-out", "m.json"])
-    serve._check_ported(ported)
+                  "--method", "none", "--compile-cache", "x"]):
+        assert serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device",
+                           "cpu", "--tenants", "2", "--requests", "2",
+                           "--max-new", "2", "--tokens-out", "tok.json",
+                           *flag]) == 0
+        out = capsys.readouterr().out
+        assert "[serve] decode cache_hits=0 cache_misses=0 cache_corrupt=0 " \
+            "cache_unportable=0 libraries=none launches=none" in out
+        assert build.active_cache().directory == tmp_path / "x"
+        toks = json.loads((tmp_path / "tok.json").read_text())
+        assert toks["route"] == ("fixed_slots" if "none" in flag
+                                 else "engine")
+        assert len(toks["outputs"]) == 2        # requests, or steps
+    assert not (tmp_path / "x").exists(), "nothing built on the CPU"
+    serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                "--requests", "2", "--max-new", "2"])
+    assert "cache_hits" not in capsys.readouterr().out
     with pytest.raises(KeyError, match="unknown arch"):
         serve.main(["--arch", "no-such-arch", "--smoke", "--device", "cpu"])
     with pytest.raises(ValueError, match="cache-len"):

@@ -416,11 +416,17 @@ def test_page_reuse_and_base_untouched(model):
     assert run_workload(seq, reqs, sequential=True) == out
 
 
-def test_engine_refuses_what_it_cannot_do(model):
+def test_engine_refuses_what_it_cannot_do(model, tmp_path, monkeypatch):
+    """A graph off CUDA and unstacked params raise; ``compile_cache`` is
+    accepted and kept (the kernel libraries' directory)."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "_cache", None)
     _, _, qt, cfg_t = model
     reg = AdapterRegistry.from_model(qt, capacity=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(qt, cfg_t, reg, compile_cache="x")
+    eng = ServeEngine(qt, cfg_t, reg, compile_cache=str(tmp_path / "x"))
+    assert eng.compile_cache is build.active_cache()
+    assert eng.compile_cache.directory == tmp_path / "x"
+    assert ServeEngine(qt, cfg_t, reg).compile_cache is None
     with pytest.raises(ValueError, match="CUDA"):
         ServeEngine(qt, cfg_t, reg, graph=True)
     with pytest.raises(ValueError, match="scan"):

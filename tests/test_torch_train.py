@@ -362,20 +362,27 @@ def test_train_cli_full_finetune_without_quantization():
     ["--compile-cache", "x", "--trace-out", "t.json"],
     ["--compile-cache", "x", "--cost-cal", "auto", "--metrics-out", "m"]])
 def test_train_rejects_what_is_not_ported(flag, tmp_path, monkeypatch):
-    """The flag of a subsystem not ported raises, also beside the ported
-    checkpoint, journal, allocation, tracing and cost-model flags, and
-    names only the unported flag (``--cost-cal`` is ported)."""
+    """Every flag of the JAX CLI is ported: ``--compile-cache DIR`` is
+    taken beside the checkpoint, journal, allocation, tracing and
+    cost-model flags, and names the directory the kernel libraries are
+    built into and loaded from, before the model is built."""
+    from repro_torch.kernels import build
     monkeypatch.chdir(tmp_path)     # a trace, if asked for, lands here
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+    monkeypatch.setattr(build, "_cache", None)
+
+    class Built(Exception):
+        pass
+
+    def init_params(*a, **kw):
+        raise Built
+
+    monkeypatch.setattr(ttrain, "init_params", init_params)
+    with pytest.raises(Built):
         ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                      *flag])
-    named = str(e.value).split(":")[0].split(", ")
-    assert named == ["--compile-cache"]
-    assert "allocation" not in str(e.value)
-    ttrain._check_ported(ttrain.build_parser().parse_args(
-        ["--arch", "qwen3-1.7b", "--ckpt-dir", "y", "--resume",
-         "--ckpt-every", "3", "--resume-quant", "q", "--trace-out", "t",
-         "--metrics-out", "m"]))
+    want = flag[flag.index("--compile-cache") + 1]
+    assert build.active_cache().directory == tmp_path / want
+    assert not (tmp_path / want).exists()
 
 
 def test_train_rejects_unported_methods_and_needs_cuda(monkeypatch):
