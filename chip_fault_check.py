@@ -13,7 +13,9 @@ plants two faults in the copy:
 * ``flash_attention.cu``: the cluster's combine leaves out the last rank's
   partial softmax.  The bf16 decode cases of ``check_flash``
   (``chip_smoke.FLASH_DECODE``, keys split over a cluster) run at q scale
-  1 and at ``chip_smoke.FLASH_Q_PEAK``.
+  1 and at ``chip_smoke.FLASH_Q_PEAK``, and the partial mode at
+  decode_32k's shard (``chip_smoke.FLASH_PARTIAL``'s bf16 2048-key case,
+  q at ``FLASH_Q_PEAK``) is held on ``out`` and ``lse``.
 * ``gram.cu``: the tensor-core route loads the last token stage of every
   tile from the stage before it, so the last 64 tokens are lost and the
   64 before them count twice.  The bf16 cases of ``check_gram`` that take
@@ -97,7 +99,8 @@ kernel, shape, the plan's split or route, whether the checks pass, the
 error and the reference's largest value (for the logits, the limit).
 
 Exits 0 when every case passes on the real sources, the attention check
-fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases, the gram
+fails on the copy at ``FLASH_Q_PEAK`` in both 4096-key cases and at
+decode_32k's partial shard, the gram
 check fails on the copy in every case with more than one token stage,
 the logits check fails on the second copy in every case, the precision
 check on the third in every case, and the distributed check on the
@@ -318,6 +321,43 @@ def flash_cases(torch, cs, dev) -> list[dict]:
     return out
 
 
+def flash_partial_case(torch, cs, dev) -> dict:
+    """The partial mode at decode_32k's shard on the sources imported:
+    ``out`` within the JAX bf16 tolerance and ``lse`` within
+    ``chip_smoke.FLASH_LSE_TOL`` over the rows with a valid key."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     plan_for)
+    B, Hq, Hkv, T, d, dname, lens = next(
+        c for c in cs.FLASH_PARTIAL if c[3] == 2048 and c[5] == "bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    q = (torch.randn((B, Hq, 1, d), generator=gen, device=dev)
+         * cs.FLASH_Q_PEAK).to(torch.bfloat16)
+    k, v = (torch.randn((B, T, Hkv, d), generator=gen, device=dev)
+            .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    o, lse = flash_attention_cuda(q, k, v, causal=False, lengths=lengths,
+                                  return_lse=True)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=False,
+                                             lengths=lengths, return_lse=True)
+    live = lengths > 0
+    ok, err = cs.within(o[live], o_ref[live], cs.TOL_ATTN[dname])
+    lse_err = float((lse[live] - lse_ref[live]).abs().max())
+    return {"kernel": "flash_partial", "q_scale": cs.FLASH_Q_PEAK, "Sk": T,
+            "lengths": list(lens), "splits": plan_for(q, k, v).splits,
+            "passes": ok and lse_err <= cs.FLASH_LSE_TOL[dname],
+            "max_abs_err": err, "lse_err": lse_err,
+            "max_abs_ref": float(o_ref.abs().max())}
+
+
+def partial_caught(rows: list) -> bool:
+    """Whether the first copy's rows show the plant caught at decode_32k's
+    partial shard: its case fails (on ``out`` or ``lse``)."""
+    got = [r for r in rows if r["kernel"] == "flash_partial"]
+    return bool(got) and all(not r["passes"] for r in got)
+
+
 def gram_cases(torch, cs, dev) -> list[dict]:
     """The bf16 gram cases of the tensor-core route on the sources
     imported."""
@@ -447,7 +487,8 @@ def run_cases(tree: Path, which: str) -> list[dict]:
         return sharded_cases(torch, cs, dev, tree, "seq_kv")
     if which in ("analysis", "compile_cache"):
         return phase_cases(torch, cs, dev, which)
-    return flash_cases(torch, cs, dev) + gram_cases(torch, cs, dev)
+    return (flash_cases(torch, cs, dev) + [flash_partial_case(torch, cs, dev)]
+            + gram_cases(torch, cs, dev))
 
 
 def _copy(dst: Path) -> None:
@@ -543,6 +584,7 @@ def main() -> int:
     flash_seen = all(not r["passes"] for r in rows["fault"]
                      if r["kernel"] == "flash_attention"
                      and r["q_scale"] == cs.FLASH_Q_PEAK and r["Sk"] == 4096)
+    partial_seen = partial_caught(rows["fault"])
     gram_seen = all(not r["passes"] for r in rows["fault"]
                     if r["kernel"] == "gram" and r["T"] > 64)
     dequant_seen = bool(rows["fault_dequant"]) and all(
@@ -559,6 +601,7 @@ def main() -> int:
     purity_seen = purity_caught(rows["fault_purity"])
     cache_seen = cache_caught(rows["fault_cache"])
     print(json.dumps({"sources_pass": sound, "fault_caught_at_4096": flash_seen,
+                      "fault_caught_at_partial_shard": partial_seen,
                       "gram_fault_caught": gram_seen,
                       "dequant_fault_caught_by_logits": dequant_seen,
                       "lora_fault_caught_by_precision": lora_seen,
@@ -568,8 +611,8 @@ def main() -> int:
                       "seqkv_combine_fault_caught_on_logits": seqkv_seen,
                       "purity_fault_caught_by_analysis": purity_seen,
                       "cache_fault_caught_by_compile_cache": cache_seen}))
-    return 0 if (sound and flash_seen and gram_seen and dequant_seen
-                 and lora_seen and dist_seen and sharded_seen
+    return 0 if (sound and flash_seen and partial_seen and gram_seen
+                 and dequant_seen and lora_seen and dist_seen and sharded_seen
                  and gated_seen and seqkv_seen and purity_seen
                  and cache_seen) else 1
 

@@ -21,8 +21,11 @@ one JSON line each:
    of ``src/repro_torch`` (gating: must be 0) and ``chip_*.py`` (report),
    the 30-cell shape fleet against the JAX package's goldens (0 diffs),
    then two rules held against the card: a ``CapturedStep`` whose step
-   calls ``.item()`` must raise at its capture where PURITY flags it, its
-   clean twin capture, replay and pass; a captured Qwen3-1.7B-smoke decode
+   calls ``.item()`` must raise at its capture where PURITY flags it and
+   hand back the caller's stream and the allocator
+   (``allocator_recovered``: 80% of the free memory allocates after
+   it), its clean twin capture, replay and pass; a captured
+   Qwen3-1.7B-smoke decode
    replay timed by the host clock without a sync must be shorter than
    with one, BENCH flagging the first source and passing the second.
    compile_cache — two fresh serve processes (``CACHE_SERVE``) on the
@@ -42,10 +45,13 @@ one JSON line each:
    cases must also meet the f32 tolerance (exact products).
    ``flash_attention``'s partial mode (``return_lse``, the
    sequence-sharded decode's softmax over a rank's keys) on both decode
-   routes, zero-length rows included, on a ``flash_partial_cases`` line
-   (:data:`FLASH_PARTIAL`), and timed at decode_32k's production shard
-   (``flash_attention_partial``).  Then the kernel, the plain version and one
-   PyTorch library call timed over one step's worth of calls (CUDA graphs
+   routes, zero-length rows and a ragged shard included, on a
+   ``flash_partial_cases`` line (:data:`FLASH_PARTIAL`), and timed at
+   decode_32k's production shard (``flash_attention_partial``, with the
+   bulk route's splits and rings beside the plan's: ``by_plan``; the
+   decode step's times carry ``by_splits``).  Then the kernel, the plain
+   version and one PyTorch library call timed over one step's worth of
+   calls (CUDA graphs
    replayed between CUDA events), the least time the card could take for
    the same work and, for the decode kernels, the bytes/s reached and
    their share of 3.35 TB/s.  ``dequant_matmul`` and ``flash_attention``
@@ -279,11 +285,11 @@ summed, ``launches_encdec``; from the allocate phase's,
 ``launches_levers``; from the trace phase's, ``launches_trace``: the
 serve run's for the decode kernels, the traced train run's for the
 others; from the compile_cache phase's warm serve process,
-``launches_compile_cache``; ``flash_attention``'s ``partial``: the
-partial mode's time,
-bound, plain and library times at the production shard and its
-launches in ``seq_kv``), the ``nvidia-smi`` name and power limit
-line, and last
+``launches_compile_cache``; ``flash_attention``'s ``plan_route``: the
+bf16 decode's route, ``cache_4096``: its times at a 4096-key cache, and
+``partial``: the partial mode's route, split, time, bound, plain and
+library times at the production shard and its launches in ``seq_kv``),
+the ``nvidia-smi`` name and power limit line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without the ``ok`` line, as does a host without CUDA or a directory
 without the repository's ``src/repro_torch``.
@@ -625,8 +631,9 @@ def time_dequant_splits(torch, dev, calls: int = 28) -> dict:
 
 # check_flash's decode cases at the path's widths (B 4, Hq 16, Hkv 8,
 # d 128, one query row, through the cache's transpose): caches of 1 to 4096
-# keys, lengths of 1 and of the cache, and lengths on the split boundaries
-# (flash_plan's chunks: 32 keys up to a 128-key cache, 1024 at 4096)
+# keys, lengths of 1 and of the cache, and lengths on the tile and split
+# boundaries (flash_plan's bulk chunks: 64 keys at a 128-key cache, 1024
+# at 4096; tiles of 32 keys)
 FLASH_DECODE = ((1, (1, 1, 1, 1)), (127, (127, 1, 64, 96)),
                 (128, (128, 32, 64, 1)), (128, (33, 31, 96, 97)),
                 (4096, (4096, 3072, 1024, 1)), (4096, (2048, 1025, 1023, 4095)))
@@ -641,7 +648,7 @@ FLASH_Q_PEAK = 4.0
 
 def check_flash(torch, dev) -> tuple[dict, list]:
     """The kernel against its plain version: the path's case, prefill and
-    odd shapes (the tiled route), then the decode cases in bf16 (the mma
+    odd shapes (the tiled route), then the decode cases in bf16 (the bulk
     route, q scaled by ``FLASH_Q_PEAK``) and f32 (the split route), at
     Qwen3-1.7B's heads and at the other configs', each run twice for
     equal bits.  Returns the summary and one ``[B, Hq, Hkv,
@@ -699,7 +706,7 @@ def check_flash(torch, dev) -> tuple[dict, list]:
         if not ok:
             raise Failed(f"{what}: max err {err}")
         if Sq == 1 and cached:
-            if route not in ("mma", "split"):
+            if route not in ("bulk", "split"):
                 raise Failed(f"{what}: keys not split over a cluster")
             again = flash_attention_cuda(q, k, v, causal=causal,
                                          lengths=lengths)
@@ -711,7 +718,7 @@ def check_flash(torch, dev) -> tuple[dict, list]:
         routes[route] = routes.get(route, 0) + 1
         out.append([B, Hq, Hkv, Sq, Sk, d, causal, dname, route, err,
                     float(o_ref.float().abs().max())])
-    if set(routes) != {"mma", "split", "tiled"}:
+    if set(routes) != {"bulk", "split", "tiled"}:
         raise Failed(f"flash_attention cases missed a route: {routes}")
     return ({"cases": len(cases), "routes": routes, "max_abs_err": main_err,
              "deterministic": True}, out)
@@ -720,11 +727,12 @@ def check_flash(torch, dev) -> tuple[dict, list]:
 # the partial mode's cases (the sequence-sharded decode's softmax over a
 # rank's keys): (B, Hq, Hkv, keys a rank, d, dtype, lengths), one query
 # row through the cache's transpose.  Lengths 0 (a rank whose shard lies
-# past idx), 1 and the shard's whole T.  bf16 d 128 and 64 take the "mma"
+# past idx), 1 and the shard's whole T.  bf16 d 128 and 64 take the "bulk"
 # route, f32 the "split" one; seq_kv's shard (Qwen3-30B-A3B on model 8:
-# every q head, 4 KV heads, 8 keys) and decode_32k's production shard
+# every q head, 4 KV heads, 8 keys), decode_32k's production shard
 # (Qwen3-1.7B on one rank of 16 x 16: 8 rows, 16 q heads after the
-# gather, 8 KV heads, 2048 keys)
+# gather, 8 KV heads, 2048 keys) and a ragged one (1000 keys: each
+# block's last tile of 32 keys is short, as are most rows' last tiles)
 FLASH_PARTIAL = (
     (4, 16, 8, 128, 128, "bfloat16", (0, 1, 128, 57)),
     (4, 16, 8, 128, 128, "float32", (0, 1, 128, 33)),
@@ -733,10 +741,11 @@ FLASH_PARTIAL = (
     (8, 16, 8, 2048, 128, "bfloat16",
      (2048, 0, 1, 1500, 2048, 2047, 640, 33)),
     (8, 16, 8, 2048, 128, "float32", (2048, 0, 1, 1500, 2048, 2047, 640, 33)),
+    (8, 16, 8, 1000, 128, "bfloat16", (1000, 0, 999, 1, 513, 33, 967, 32)),
 )
 # the log-sum-exp against the plain version's, absolute, over rows with a
 # valid key: f32 as the issue's bound; bf16 from the prediction written
-# before its first run (PERF.md): the mma route's scores are exact
+# before its first run (PERF.md): the bulk route's scores are exact
 # products of bf16 operands summed in f32, so only the summation order
 # differs from the plain f32 einsum, ~1e-6 of logits of O(10)
 FLASH_LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
@@ -790,7 +799,7 @@ def check_flash_partial(torch, dev) -> tuple[dict, list]:
                          "lse -inf")
         if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
             raise Failed(f"{what}: two runs differ")
-        want = "mma" if dt == torch.bfloat16 and d in (64, 128) else "split"
+        want = "bulk" if dt == torch.bfloat16 and d in (64, 128) else "split"
         if route != want:
             raise Failed(f"{what}: route {route}, not {want}")
         routes[route] = routes.get(route, 0) + 1
@@ -803,14 +812,29 @@ def check_flash_partial(torch, dev) -> tuple[dict, list]:
              "zero_rows_exact": True, "deterministic": True}, out)
 
 
-def time_flash_partial(torch, dev, layers: int = 28) -> dict:
+# the plans time_flash_partial also times at the production shard, (splits,
+# stages) of the bulk route: 1, 2, 4 and 8 blocks a cluster with the
+# plan's ring, and 4 stages at the plan's split (the data behind
+# flash_plan's bulk split and ring)
+FLASH_PARTIAL_PLANS = ((1, None), (2, None), (4, None), (8, None), (None, 4))
+# the rows' lengths it also times the plan at: no key (a call's fixed
+# cost), one tile, half and all of the shard (the stream's marginal rate)
+FLASH_PARTIAL_LENGTHS = (0, 32, 1024, 2048)
+
+
+def time_flash_partial(torch, dev, layers: int = 28,
+                       sweep: bool = True) -> dict:
     """The partial mode at decode_32k's production shard of Qwen3-1.7B
     (one rank of 16 x 16: 8 rows, 16 q heads after the gather, 8 KV heads,
     2048 keys a rank, d 128, bf16, the shard's every key valid), one call
     a layer over ``layers`` layers, each on its own cache shard read
     through the decode path's transpose.  Bytes: the keys and values, q,
     the output and the lse; operations 4 a key, q head and dim.  Library:
-    SDPA on the same shard (no lse)."""
+    SDPA on the same shard (no lse).  ``by_plan`` (``sweep``): the same
+    calls on each of :data:`FLASH_PARTIAL_PLANS` ("splits x stages");
+    ``us_by_length``: µs a call with every row at each of
+    :data:`FLASH_PARTIAL_LENGTHS`, and ``marginal_gb_per_s``: the bytes
+    of the shard's second half over the time they add."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      plan_for)
@@ -829,10 +853,10 @@ def time_flash_partial(torch, dev, layers: int = 28) -> dict:
                        + B * Hq * 4 + B * 4)
     flops = layers * 4 * B * T * Hq * d
 
-    def kernel():
+    def kernel(lengths=lengths, **plan):
         for q, k, v in sets:
             flash_attention_cuda(q, k, v, causal=False, lengths=lengths,
-                                 return_lse=True)
+                                 return_lse=True, **plan)
 
     def plain():
         for q, k, v in sets:
@@ -847,11 +871,25 @@ def time_flash_partial(torch, dev, layers: int = 28) -> dict:
     plain_ms = time_graph(torch, plain)
     library_ms = time_graph(torch, library)
     plan = plan_for(*sets[0])
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "scaled_dot_product_attention on the same shard",
-            **bound(nbytes, flops, BF16_FLOPS), **_rate(nbytes, ms),
-            "calls": layers, "shard": [B, Hq, Hkv, T, d],
-            "route": plan.route, "splits": plan.splits}
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "scaled_dot_product_attention on the same shard",
+           **bound(nbytes, flops, BF16_FLOPS), **_rate(nbytes, ms),
+           "calls": layers, "shard": [B, Hq, Hkv, T, d],
+           "route": plan.route, "splits": plan.splits}
+    if sweep:
+        out["stages"] = plan.stages
+        out["by_plan"] = {}
+        for splits, stages in FLASH_PARTIAL_PLANS:
+            p = plan_for(*sets[0], splits=splits, stages=stages)
+            out["by_plan"][f"{p.splits}x{p.stages}"] = time_graph(
+                torch, functools.partial(kernel, plan=p))
+        us = {n: 1e3 * time_graph(torch, functools.partial(
+            kernel, torch.full((B,), n, dtype=torch.int32, device=dev)))
+            / layers for n in FLASH_PARTIAL_LENGTHS}
+        out["us_by_length"] = us
+        half = 2 * B * (T // 2) * Hkv * d * 2
+        out["marginal_gb_per_s"] = half / (us[T] - us[T // 2]) / 1e3
+    return out
 
 
 def _sdpa(torch, q, k, v, mask):
@@ -867,13 +905,16 @@ def _sdpa(torch, q, k, v, mask):
 
 
 def time_flash(torch, dev, layers: int = 28, T: int = 128,
-               lens: tuple = (128, 97, 40, 1)) -> dict:
+               lens: tuple = (128, 97, 40, 1), sweep: bool = True) -> dict:
     """One decode step's attention calls: ``layers`` calls at B = 4, Hq = 16,
     Hkv = 8, Sq = 1, a cache of ``T`` keys, d = 128, bf16, mixed lengths,
     each on its own KV cache read through the decode path's transpose.
-    Bytes are the keys and values the lengths reach, q and the output."""
+    Bytes are the keys and values the lengths reach, q and the output.
+    ``by_splits`` (``sweep``): the same calls at 1, 2, 4 and 8 blocks a
+    cluster ("splits x stages")."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     plan_for)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     B, Hq, Hkv, d = 4, 16, 8, 128
@@ -908,7 +949,22 @@ def time_flash(torch, dev, layers: int = 28, T: int = 128,
     ms = time_graph(torch, kernel)
     plain_ms = time_graph(torch, plain)
     library_ms = time_graph(torch, library)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    plan = plan_for(*sets[0])
+
+    def planned(p):
+        for q, k, v in sets:
+            flash_attention_cuda(q, k, v, causal=False, lengths=lengths,
+                                 plan=p)
+
+    out = {"route": plan.route, "splits": plan.splits}
+    if sweep:
+        out["stages"] = plan.stages
+        out["by_splits"] = {}
+        for n in (1, 2, 4, 8):
+            p = plan_for(*sets[0], splits=n)
+            out["by_splits"][f"{p.splits}x{p.stages}"] = time_graph(
+                torch, functools.partial(planned, p))
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **out,
             "library": "scaled_dot_product_attention with the same mask",
             **bound(nbytes, flops, BF16_FLOPS), **_rate(nbytes, ms),
             "calls": len(sets), "cache": T, "lengths": list(lens),
@@ -5040,13 +5096,33 @@ def _rules_flag(fn, rule: str) -> list:
             if f.rule == rule]
 
 
+def allocator_recovers(torch, free: int) -> bool:
+    """Whether the caching allocator still frees and reuses memory: a
+    block of 40% of ``free`` (the card's free bytes before a failed
+    capture) is freed with a use on a side stream, then one allocation of
+    80% of ``free`` must succeed.  While a capture is left underway the
+    allocator defers such a block's end-of-life event for ever, so the
+    80% cannot fit beside it."""
+    held = torch.empty(int(0.4 * free), dtype=torch.uint8, device="cuda")
+    held.record_stream(torch.cuda.Stream())
+    del held
+    try:
+        big = torch.empty(int(0.8 * free), dtype=torch.uint8, device="cuda")
+    except RuntimeError:            # out of memory
+        return False
+    del big
+    torch.cuda.empty_cache()
+    return True
+
+
 def purity_capture() -> dict:
     """The ``.item()`` step's capture (its second call) and the clean
-    twin's capture and replays, on the card.  Run in a process of its own
-    (:func:`_purity_process`): torch's ``capture_end`` raises before it
-    hands the graph's memory pool back, so the failed capture leaves the
-    caching allocator capturing, and the process later runs out of memory
-    with its cache reserved but unusable."""
+    twin's capture and replays, on the card, then whether the failed
+    capture gave back the caller's stream and the allocator
+    (:func:`allocator_recovers`; ``CapturedStep`` hands back the graph's
+    pool, which torch's ``capture_end`` leaves capturing when it raises).
+    Run in a process of its own (:func:`_purity_process`), which that
+    check needs the card's memory for."""
     import torch
     x = torch.arange(1, 9, dtype=torch.float32, device="cuda")
     good = purity_clean_step()
@@ -5054,15 +5130,22 @@ def purity_capture() -> dict:
     want = x * x.sum()
     bad = purity_item_step()
     bad(x)                                   # the eager first call
+    caller = torch.cuda.current_stream()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
     try:
         bad(x)                               # the capture
         raised = ""
     except RuntimeError as e:
         raised = str(e).splitlines()[0][:160]
+    stream_back = torch.cuda.current_stream() == caller
     return {"item_capture_raised": raised,
             "clean_captured": good.graph is not None,
             "clean_replays_equal": all(bool(torch.equal(o, want))
-                                       for o in outs)}
+                                       for o in outs),
+            "stream_restored": stream_back,
+            "allocator_recovered": stream_back and allocator_recovers(
+                torch, free)}
 
 
 def _purity_process(src: Path) -> subprocess.Popen:
@@ -5167,6 +5250,9 @@ def analysis_phase(torch, dev) -> dict:
     if not (pur["clean_captured"] and pur["clean_replays_equal"]) or \
             pur["clean_flagged_lines"]:
         failed.append(f"PURITY: the clean twin ({pur})")
+    if not pur["allocator_recovered"]:
+        failed.append("the failed capture did not hand back the caller's "
+                      f"stream and the allocator ({pur})")
     if not ben["unsynced_ms"] < ben["synced_ms"]:
         failed.append(f"BENCH: the unsynced replay is not the shorter "
                       f"({ben})")
@@ -5609,13 +5695,18 @@ def main(argv=None) -> int:
                       "library_ms": tm["library_ms"],
                       "calls_timed": tm["calls"]})
         if name == "flash_attention":
+            table[-1]["plan_route"] = fa_t["route"]
+            table[-1]["cache_4096"] = {k: fa_long[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "route")}
             table[-1]["partial"] = {
                 "launches_seq_kv": ts["seq_kv"]["launches"][name],
                 "max_abs_err": fp["max_abs_err"],
                 "lse_max_abs_err": fp["lse_max_abs_err"],
+                "plan_route": fp_t["route"],
                 **{k: fp_t[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms", "calls",
-                                        "shard")}}
+                                        "shard", "splits", "stages")}}
     emit({"kernels": table})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

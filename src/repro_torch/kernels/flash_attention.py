@@ -21,14 +21,23 @@ Tensor = torch.Tensor
 
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 256
-# the kernel's query rows (warps) a block at most, the split route's cluster
-# size at most (portable), keys a warp scores per tile, ring stages, the
-# shared memory a block may use and the partials a query row combines at
-# most (splits x key groups)
+# the kernel's query rows (warps) a block at most, the cluster size at most
+# (portable), keys a tile, the split route's ring stages, the shared
+# memory a block may use and the partials a query row combines at most on
+# the split route (splits x key groups); the bulk route's consumer warps a
+# block and ring stages at most
 _C = build.constants(SOURCE)
 _ROWS, _MAX_SPLITS, _SPLIT_KEYS, _STAGES = (
     _C["ROWS"], _C["MAX_SPLITS"], _C["SPLIT_KEYS"], _C["STAGES"])
 _SMEM_MAX, _MAX_PARTS = _C["SMEM_MAX"], _C["MAX_PARTS"]
+_CONSUMERS, _MAX_STAGES = _C["CONSUMERS"], _C["MAX_STAGES"]
+# shared memory an SM holds for its blocks (each block's 1 KB reserve
+# included): the H100's 228 KB
+_SM_SMEM = 233472
+# tiles a bulk-route block at least: on an H100 at a 128-key cache, 2
+# blocks a cluster of 2 tiles were faster than 4 of 1 tile and 1 of 4
+# (chip_smoke.py's time_flash, by_splits)
+_BULK_MIN_TILES = 2
 
 # launches of the CUDA kernel; reset and read by callers that need to show
 # a path went through it
@@ -36,16 +45,17 @@ launches = 0
 
 _argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
-             + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 6
+             + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
 
 
 @dataclass(frozen=True)
 class FlashPlan:
-    """How the kernel runs one call: ``route`` "mma" or "split" (Sq = 1:
+    """How the kernel runs one call: ``route`` "bulk" or "split" (Sq = 1:
     the keys of each (batch, KV head) split over a cluster of ``splits``
-    blocks, ``chunk`` keys each, ``kw`` key groups of warps a block; "mma"
-    scores and sums on the tensor cores, "split" on the CUDA cores) or
+    blocks, ``chunk`` keys each; "bulk" scores and sums on the tensor
+    cores from a ring of ``stages`` tiles that a producer fills with TMA,
+    "split" on the CUDA cores with ``kw`` key groups of warps a block) or
     "tiled" (one block per (batch, KV head, query tile)); ``blocks`` in
     the grid.  Every route is one launch."""
     route: str
@@ -53,6 +63,7 @@ class FlashPlan:
     splits: int = 0
     chunk: int = 0
     kw: int = 0
+    stages: int = 0
     launches: int = 1
 
 
@@ -61,11 +72,26 @@ def _split_smem(elem: int, d: int, hpb: int, kw: int) -> int:
     D = max(32, 1 << (d - 1).bit_length())
     ldr = D + 16 // elem
     return (_STAGES * _SPLIT_KEYS * kw * 2 * ldr * elem + hpb * D * 4
-            + kw * hpb * (D + 4) * 4 + _ROWS * (_MAX_PARTS + 1) * 4)
+            + kw * hpb * (D + 4) * 4)
+
+
+def tile_tx_bytes(d: int) -> int:
+    """csrc: tile_tx_bytes, the bytes a bulk-route tile loads (whole TMA
+    boxes of 32 keys of K and of V, ``d`` bf16 a key; keys past Sk arrive
+    as zeros and count): what its full barrier expects, ragged or not."""
+    return 2 * _SPLIT_KEYS * d * 2
+
+
+def bulk_smem(d: int, hpb: int, stages: int) -> int:
+    """csrc: bulk_smem, the bulk route's shared memory a block (bf16, d of
+    64 or 128, ``hpb`` query rows, a ring of ``stages`` tiles)."""
+    return (1024 + stages * tile_tx_bytes(d) + _ROWS * (d + 8) * 2
+            + (_CONSUMERS + 1) * hpb * (d + 4) * 4 + stages * 2 * 8)
 
 
 def flash_plan(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, d: int, *,
-               elem: int, vec: bool, n_sm: int) -> FlashPlan:
+               elem: int, vec: bool, n_sm: int, splits: int | None = None,
+               stages: int | None = None) -> FlashPlan:
     """The route and split of :func:`flash_attention_cuda` for these
     shapes, ``elem``-byte elements and ``vec`` (16-byte loads possible,
     :func:`_vector_loads`) on a card of ``n_sm`` SMs.
@@ -73,14 +99,21 @@ def flash_plan(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, d: int, *,
     A single query row (decode) with 16-byte loads splits each (batch, KV
     head)'s keys over a cluster of ``splits`` blocks, ``chunk`` keys each
     (a multiple of 32), never from ``lengths``.  bf16 with d of 64 or 128
-    takes the mma route: one warp a block holds every query row of the KV
-    head on the tensor cores, three more load, and the split aims at two
-    blocks an SM.  The rest takes the split route: a warp a query row on
+    takes the bulk route: a producer thread streams 32-key tiles into a
+    ring of ``stages`` with TMA, and four consumer warps hold every query
+    row of the KV head on the tensor cores.  Its split aims at one block
+    an SM of at least two tiles, and its ring at as many of the block's
+    tiles as the blocks an SM must hold leave room for, up to 8 (4 or 8
+    when a block has more tiles than stages).  On an H100 that split was
+    the fastest of 1, 2, 4 and 8 blocks a cluster at 128- and 4096-key
+    caches and at decode_32k's 2048-key shard (``chip_smoke.py``'s
+    ``by_splits`` and ``by_plan``); ``splits`` and ``stages`` ask for
+    those instead.  The rest takes the split route: a warp a query row on
     the CUDA cores, ``kw`` key groups of warps sharing each tile (one per
     32 keys of the range, up to 4, within 16 partials a query row and
-    shared memory), about one block an SM.  On an H100 these were the
-    fastest of 4 or 8 splits and 1, 2 or 4 key groups at 128- and
-    4096-key caches.  Everything else takes the tiled route."""
+    shared memory), about one block an SM; on an H100 the fastest of 4 or
+    8 splits and 1, 2 or 4 key groups at 128- and 4096-key caches.
+    Everything else takes the tiled route."""
     rep = Hq // Hkv
     hpb = min(rep, _ROWS)
     groups = B * Hkv * -(-rep // hpb)
@@ -88,16 +121,28 @@ def flash_plan(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, d: int, *,
     if Sq != 1 or not vec or d % (D // 32):
         bq = min(_ROWS // hpb, Sq)
         return FlashPlan("tiled", -(-Sq // bq) * groups)
-    mma = elem == 2 and d in (64, 128)
-    # about one block an SM (two on the mma route, whose blocks are small)
-    want = max(1, min(_MAX_SPLITS, (2 if mma else 1) * n_sm // groups,
-                      -(-Sk // _SPLIT_KEYS)))
+    bulk = elem == 2 and d in (64, 128)
+    # about one block an SM; a bulk block at least two tiles, so that two
+    # of its consumer warps work
+    want = splits or max(1, min(
+        _MAX_SPLITS, n_sm // groups,
+        -(-Sk // (_SPLIT_KEYS * (_BULK_MIN_TILES if bulk else 1)))))
     chunk = -(-(-(-Sk // want)) // _SPLIT_KEYS) * _SPLIT_KEYS
     splits = -(-Sk // chunk)
-    if mma:
-        # tensor cores: one warp takes every query row of the KV head and
-        # every tile; three more only load
-        return FlashPlan("mma", splits * groups, splits, chunk, 1)
+    if bulk:
+        # the ring: the block's tiles up to 8, as deep as the blocks an SM
+        # must hold at once leave shared memory for; a ring that a block
+        # goes round more than once holds a whole number of tiles a
+        # consumer warp (csrc: flash_bulk_kernel)
+        tiles = chunk // _SPLIT_KEYS
+        per_sm = -(-splits * groups // n_sm)
+        room = min(_SMEM_MAX, _SM_SMEM // per_sm - 1024)
+        depth = stages or min(_MAX_STAGES, tiles)
+        while depth > 1 and bulk_smem(d, hpb, depth) > room:
+            depth -= 1
+        if depth < tiles:
+            depth = max(_CONSUMERS, depth - depth % _CONSUMERS)
+        return FlashPlan("bulk", splits * groups, splits, chunk, 0, depth)
     # CUDA cores: a warp a query row; key groups: one per 32 keys of a
     # block's range, up to 8 warps a block, 16 partials a query row and
     # what shared memory holds
@@ -109,12 +154,13 @@ def flash_plan(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, d: int, *,
     return FlashPlan("split", splits * groups, splits, chunk, kw)
 
 
-def plan_for(q: Tensor, k: Tensor, v: Tensor) -> FlashPlan:
-    """:func:`flash_plan` for these operands on their card."""
+def plan_for(q: Tensor, k: Tensor, v: Tensor, **kw) -> FlashPlan:
+    """:func:`flash_plan` for these operands on their card (``kw``: its
+    ``splits`` and ``stages``)."""
     B, Hq, Sq, d = q.shape
     return flash_plan(B, Hq, k.shape[1], Sq, k.shape[2], d,
                       elem=q.element_size(), vec=_vector_loads(k, v),
-                      n_sm=build.sm_count(q.device))
+                      n_sm=build.sm_count(q.device), **kw)
 
 
 def _vector_loads(k: Tensor, v: Tensor) -> bool:
@@ -137,7 +183,8 @@ def _lib():
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True,
                          lengths: Tensor | None = None,
-                         return_lse: bool = False):
+                         return_lse: bool = False,
+                         plan: FlashPlan | None = None):
     """Launch the kernel.  q (B, Hq, Sq, d), k/v (B, Hkv, Sk, d), all of one
     dtype (f32 or bf16) on one CUDA device; ``lengths`` (B,) int32 >= 1 or
     None.  Returns (B, Hq, Sq, d) contiguous in q.dtype.
@@ -147,7 +194,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     f32 and rounded once) and each query row's log-sum-exp over its
     valid keys, (B, Hq, Sq) f32 in the natural-log units of the scaled
     logits, on the same route and in the same launch; ``lengths`` may
-    then hold 0, and such a row gives out 0 and lse -inf."""
+    then hold 0, and such a row gives out 0 and lse -inf.  ``plan``
+    (:func:`plan_for` with its overrides) replaces the plan's choice."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)) + (
             (("lengths", lengths),) if lengths is not None else ()):
@@ -182,7 +230,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                       dtype=torch.float32 if return_lse else q.dtype)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    plan = plan_for(q, k, v)
+    if plan is None:
+        plan = plan_for(q, k, v)
     fn = _lib()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lengths is None else lengths.data_ptr(), out.data_ptr(),
@@ -193,7 +242,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
             v.stride(0), v.stride(1), v.stride(2),
             int(causal), 1.0 / d ** 0.5, int(_vector_loads(k, v)),
             int(q.dtype == torch.bfloat16), plan.splits, plan.chunk, plan.kw,
-            int(plan.route == "mma"), build.stream_handle(q.device))
+            int(plan.route == "bulk"), plan.stages,
+            build.stream_handle(q.device))
     build.check(rc, "flash_attention launch")
     launches += 1
     return (out, lse) if return_lse else out

@@ -416,9 +416,12 @@ class CapturedStep:
     call.  The kernels' launch counters count a replay as the launches
     captured in the graph (``ops.captured_launches``, ``ops.add_replayed``).
     A failed capture or replay raises; nothing falls back to the eager
-    step.  ``launches`` holds the captured launches once captured.  A
-    capture counts once as the compile cache's ``unportable``
-    (``kernels.build.active_cache``): a graph lives in its process."""
+    step.  A failed capture first hands its memory pool back to the
+    caching allocator and the caller's stream back to the caller
+    (:meth:`_abandon`).  ``launches`` holds the captured launches once
+    captured.  A capture counts once as the compile cache's
+    ``unportable`` (``kernels.build.active_cache``): a graph lives in its
+    process."""
 
     def __init__(self, fn: Callable):
         self.fn = fn
@@ -466,10 +469,41 @@ class CapturedStep:
     def _capture(self, inputs: tuple[torch.Tensor, ...]) -> None:
         self.inputs = tuple(t.clone() for t in inputs)
         g = torch.cuda.CUDAGraph()
-        with ops.captured_launches() as launched:
-            with torch.cuda.graph(g, stream=self._stream):
-                self.outputs = self.fn(*self.inputs)
+        # the graph's memory pool, named here: a graph whose capture failed
+        # will not tell its own (CUDAGraph.pool raises)
+        pool = torch.cuda.graph_pool_handle()
+        capture = torch.cuda.graph(g, pool=pool, stream=self._stream)
+        try:
+            with ops.captured_launches() as launched:
+                with capture:
+                    self.outputs = self.fn(*self.inputs)
+        except BaseException:
+            self.outputs = None
+            # torch.cuda.graph's exit ends the capture before it leaves its
+            # stream: when ending it raised, the caller's stream is still
+            # ours, and the allocator still sends this stream's blocks to
+            # the graph's pool, which nothing would ever free
+            if torch.cuda.current_stream(self._stream.device) == self._stream:
+                self._abandon(pool, capture, self._stream.device.index)
+            raise
         self.graph, self.launches = g, launched
         cache = build.active_cache()
         if cache is not None:       # a graph is never written to the cache
             cache.count_unportable()
+
+    @staticmethod
+    def _abandon(pool, capture, device: int) -> None:
+        """What a failed ``capture_end`` leaves undone: the graph's private
+        memory ``pool`` ended and released (torch's private API; a torch
+        without it raises), and the stream context that ``capture`` (a
+        ``torch.cuda.graph``) entered left."""
+        try:
+            for name in ("_cuda_endAllocateToPool", "_cuda_releasePool"):
+                if not hasattr(torch._C, name):
+                    raise RuntimeError(
+                        f"CapturedStep: this torch has no torch._C.{name}, so "
+                        "a failed capture cannot hand back its memory pool")
+            torch._C._cuda_endAllocateToPool(device, pool)
+            torch._C._cuda_releasePool(device, pool)
+        finally:
+            capture.stream_ctx.__exit__(None, None, None)

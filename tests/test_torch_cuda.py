@@ -408,7 +408,7 @@ def test_flash_attention_split_route(cuda, Sk, lens, dtype):
     k, v = _cache_kv(cuda, B, Sk, Hkv, d, dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     plan = plan_for(q, k, v)
-    assert plan.route == ("mma" if dtype == torch.bfloat16 else "split")
+    assert plan.route == ("bulk" if dtype == torch.bfloat16 else "split")
     assert plan.splits * plan.chunk >= Sk
     o = ops.flash_attention(q, k, v, causal=False, lengths=lengths)
     o2 = ops.flash_attention(q, k, v, causal=False, lengths=lengths)
@@ -420,28 +420,39 @@ def test_flash_attention_split_route(cuda, Sk, lens, dtype):
                                       lengths=lengths), **tol)
 
 
-@pytest.mark.parametrize("Sk,lens", [(8, (0, 1, 8, 5)),
-                                     (128, (0, 1, 128, 57)),
-                                     (2048, (2048, 0, 1, 1500))])
+# (keys, lengths, d): seq_kv's shard, a 128-key cache, decode_32k's
+# production shard (8 rows, 2048 keys), a ragged one (1000 keys: blocks of
+# 512, so each block's last tile holds 8 keys, and rows end mid-tile) and
+# d 64
+@pytest.mark.parametrize("Sk,lens,d", [
+    (8, (0, 1, 8, 5), 128), (128, (0, 1, 128, 57), 128),
+    (2048, (2048, 0, 1, 1500), 128),
+    (2048, (2048, 0, 1, 1500, 2048, 2047, 640, 33), 128),
+    (1000, (1000, 0, 999, 1, 513, 33, 967, 32), 128),
+    (2048, (2048, 0, 1, 1500, 2048, 2047, 640, 33), 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_partial_mode(cuda, Sk, lens, dtype):
+def test_flash_attention_partial_mode(cuda, Sk, lens, d, dtype):
     """The partial mode (``return_lse``) on both decode routes: ``out`` in
     f32 within the reference tolerance, ``lse`` within 1e-4 of the plain
-    version's, a row of length 0 exactly (0, -inf)."""
+    version's, a row of length 0 exactly (0, -inf), the same bits on two
+    runs."""
     from repro_torch.kernels.flash_attention import plan_for
-    B, Hq, Hkv, d = 4, 16, 8, 128
+    B, Hq, Hkv = len(lens), 16, 8
     q = _decode_q(cuda, B, Hq, d, dtype)
     k, v = _cache_kv(cuda, B, Sk, Hkv, d, dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     assert plan_for(q, k, v).route == (
-        "mma" if dtype == torch.bfloat16 else "split")
+        "bulk" if dtype == torch.bfloat16 else "split")
     o, lse = ops.flash_attention(q, k, v, causal=False, lengths=lengths,
                                  return_lse=True)
+    o2, lse2 = ops.flash_attention(q, k, v, causal=False, lengths=lengths,
+                                   return_lse=True)
     o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=False,
                                              lengths=lengths,
                                              return_lse=True)
     torch.cuda.synchronize()
     assert o.dtype == lse.dtype == torch.float32
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     live, zero = lengths > 0, lengths == 0
     tol = (dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16
            else dict(rtol=1e-4, atol=1e-4))
@@ -451,19 +462,36 @@ def test_flash_attention_partial_mode(cuda, Sk, lens, dtype):
     assert torch.isneginf(lse[zero]).all()
 
 
+def _flash_kernels(call, calls):
+    """``calls`` runs of ``call`` through the profiler (up to three times:
+    it has dropped some events of a run): the flash kernels by name."""
+    for _ in range(3):
+        counts = _device_kernels(call, calls)
+        kernels = {k: n for k, n in counts.items() if "flash" in k}
+        if sum(kernels.values()) == calls:
+            break
+    return kernels
+
+
 def test_flash_attention_split_route_is_one_launch(cuda):
+    """One launch of the bulk kernel a bf16 decode call, in both modes: a
+    4096-key cache, and the partial mode at decode_32k's shard."""
     B, Hq, Hkv, d, Sk = 4, 16, 8, 128, 4096
     q = torch.randn(B, Hq, 1, d, device=cuda).to(torch.bfloat16)
     k, v = _cache_kv(cuda, B, Sk, Hkv, d, torch.bfloat16)
     lengths = torch.tensor((4096, 3072, 1024, 1), dtype=torch.int32,
                            device=cuda)
-    for _ in range(3):  # the profiler has dropped some events of a run
-        counts = _device_kernels(lambda: ops.flash_attention(
-            q, k, v, causal=False, lengths=lengths), 5)
-        kernels = {k: n for k, n in counts.items() if "flash" in k}
-        if sum(kernels.values()) == 5:
-            break
-    assert len(kernels) == 1 and "mma" in next(iter(kernels)), counts
+    kernels = _flash_kernels(lambda: ops.flash_attention(
+        q, k, v, causal=False, lengths=lengths), 5)
+    assert len(kernels) == 1 and "bulk" in next(iter(kernels)), kernels
+    assert next(iter(kernels.values())) == 5
+    B, Sk = 8, 2048
+    q = _decode_q(cuda, B, Hq, d, torch.bfloat16)
+    k, v = _cache_kv(cuda, B, Sk, Hkv, d, torch.bfloat16)
+    lengths = torch.full((B,), Sk, dtype=torch.int32, device=cuda)
+    kernels = _flash_kernels(lambda: ops.flash_attention(
+        q, k, v, causal=False, lengths=lengths, return_lse=True), 5)
+    assert len(kernels) == 1 and "bulk" in next(iter(kernels)), kernels
     assert next(iter(kernels.values())) == 5
 
 
@@ -483,7 +511,7 @@ def test_flash_attention_split_route_head_layouts(cuda, case, dtype):
     k, v = _cache_kv(cuda, B, Sk, Hkv, d, dtype)
     lengths = (None if lens is None
                else torch.tensor(lens, dtype=torch.int32, device=cuda))
-    assert plan_for(q, k, v).route == ("mma" if dtype == torch.bfloat16
+    assert plan_for(q, k, v).route == ("bulk" if dtype == torch.bfloat16
                                        else "split")
     o = ops.flash_attention(q, k, v, causal=causal, lengths=lengths)
     torch.cuda.synchronize()
@@ -686,25 +714,51 @@ def test_replay_adds_the_captured_launches(cuda):
 def test_capture_failure_raises(cuda):
     """A step that cannot be captured (it synchronizes the host) raises at
     capture, takes back the launches it recorded, and never runs
-    eagerly in its place."""
+    eagerly in its place.  It hands back what torch's failed
+    ``capture_end`` keeps: the caller's stream, and the graph's memory
+    pool (the step allocates 30% of the free memory inside the capture),
+    so that the allocator frees its cache again and a block freed with a
+    use on a side stream is not held for ever: one allocation of 80% of
+    the free memory then succeeds in the same process."""
+    import gc
     from repro_torch.launch.steps import CapturedStep
     x, packed, s, z = _dq_operands(cuda, 4, 256, 128, 4, 64)
     calls = []
 
     def fn(xin):
         calls.append(1)
+        buf = torch.empty(work, dtype=torch.uint8, device=cuda)
         y = ops.dequant_matmul(xin, packed, s, z, bits=4, group_size=64)
-        return y * float(y.abs().max())       # a host sync
+        return y * float(y.abs().max()) + buf[0]  # a host sync
 
+    torch.cuda.empty_cache()
+    work = int(0.3 * torch.cuda.mem_get_info()[0])
     step = CapturedStep(fn)
     step(x)
     ops.reset_launch_counts()
+    caller = torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    free = torch.cuda.mem_get_info()[0]
     with pytest.raises(RuntimeError):
         step(x)
     assert step.graph is None
     assert ops.launch_counts()["dequant_matmul"] == 0
     assert len(calls) == 2
+    assert torch.cuda.current_stream() == caller
     torch.cuda.synchronize()
+    gc.collect()
+    held = torch.empty(int(0.4 * free), dtype=torch.uint8, device=cuda)
+    held.record_stream(torch.cuda.Stream())
+    del held
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= reserved + (64 << 20)
+    big = torch.empty(int(0.8 * free), dtype=torch.uint8, device=cuda)
+    assert big.numel() == int(0.8 * free)
+    del big
+    torch.cuda.empty_cache()
 
 
 def _rel_fro(a, b) -> float:
@@ -850,12 +904,12 @@ def test_new_config_linears_on_the_decode_and_train_routes(gen, K, N):
                                       (32, 8, 128)])
 def test_new_config_decode_attention(gen, Hq, Hkv, d):
     """Decode attention at the new configs' heads (MHA, GQA group 8, head
-    dim 64) through the cache's transpose: the mma route in bf16 (q scaled
+    dim 64) through the cache's transpose: the bulk route in bf16 (q scaled
     by 4, as chip_smoke's decode cases), the split route in f32."""
     from repro_torch.kernels.flash_attention import plan_for
     lengths = torch.tensor([128, 97, 40, 1], dtype=torch.int32,
                            device=gen.device)
-    for dtype, route, tol in ((torch.bfloat16, "mma", 5e-2),
+    for dtype, route, tol in ((torch.bfloat16, "bulk", 5e-2),
                               (torch.float32, "split", 1e-4)):
         q = (_randn(gen, 4, 1, Hq, d) * 4).to(dtype)
         k = _randn(gen, 4, 128, Hkv, d).to(dtype)

@@ -479,6 +479,11 @@ def test_plan_constants_come_from_the_sources():
     assert c["UNIT"] == c["NWARP"] * c["KS"]
     assert (fa._ROWS, fa._MAX_SPLITS, fa._SPLIT_KEYS, fa._STAGES,
             fa._SMEM_MAX, fa._MAX_PARTS) == (16, 8, 32, 3, 232448, 16)
+    f = build.constants("flash_attention.cu")
+    assert (fa._CONSUMERS, fa._MAX_STAGES) == (f["CONSUMERS"],
+                                               f["MAX_STAGES"]) == (4, 8)
+    assert f["BULK_THREADS"] == 32 * (fa._CONSUMERS + 1)
+    assert f["BOX_BYTES"] == 32 * f["BOX_DIMS"] * 2 == 4096
 
 
 @pytest.mark.parametrize("M,K,N,g,bf16,aligned", [
@@ -501,8 +506,8 @@ def test_dqmm_plan_other_shapes_take_fma(M, K, N, g, bf16, aligned):
 
 
 # flash_attention at decode (B 4, Hq 16, Hkv 8, d 128, one query row): the
-# keys of each (batch, KV head) split over a cluster of 4, 128 blocks of an
-# H100's 132; chunks of 32 keys or more; bf16 on the tensor cores, f32 on
+# keys of each (batch, KV head) split over a cluster; chunks of 32 keys or
+# more; bf16 on the tensor cores from a TMA ring (the bulk route), f32 on
 # the CUDA cores
 @pytest.mark.parametrize("Sk", [1, 127, 128, 4096])
 @pytest.mark.parametrize("elem", [2, 4])
@@ -510,18 +515,76 @@ def test_flash_plan_decode_splits_keys_over_a_cluster(Sk, elem):
     from repro_torch.kernels.flash_attention import flash_plan
     p = flash_plan(4, 16, 8, 1, Sk, 128, elem=elem, vec=True,
                    n_sm=H100_SMS)
-    assert p.route == ("mma" if elem == 2 else "split") and p.launches == 1
+    assert p.route == ("bulk" if elem == 2 else "split") and p.launches == 1
     assert 1 <= p.splits <= 8 and p.chunk % 32 == 0
     assert p.splits * p.chunk >= Sk > (p.splits - 1) * p.chunk
-    assert p.splits * p.kw <= 16
-    # a split per 32-key chunk up to 4 blocks an (batch, KV head), 128 of
-    # 132 SMs; at 4096 keys the mma route's small blocks go to 8 (two an
-    # SM), the CUDA-core route's stay at 4 with 2 key groups (4 in bf16 is
-    # too much shared memory for f32)
-    assert p.splits == min(8 if (elem == 2 and Sk > 128) else 4,
-                           -(-Sk // 32))
     assert p.blocks == 32 * p.splits
-    assert p.kw == (1 if elem == 2 or Sk <= 128 else 2)
+    if elem == 4:
+        # a split per 32-key chunk up to 4 blocks a (batch, KV head), 128
+        # of 132 SMs; 2 key groups at 4096 keys (4 in bf16 is too much
+        # shared memory for f32)
+        assert p.splits * p.kw <= 16
+        assert p.splits == min(4, -(-Sk // 32))
+        assert p.kw == (1 if Sk <= 128 else 2) and p.stages == 0
+    else:
+        # a block of at least two tiles up to 4 blocks a (batch, KV head);
+        # the ring as deep as the block's tiles, up to 8
+        assert p.splits == min(4, -(-Sk // 64)) and p.kw == 0
+        assert p.stages == min(8, p.chunk // 32)
+
+
+# the bulk route at the sequence-sharded decode's shards, one rank each:
+# decode_32k's production shard (Qwen3-1.7B on one rank of 16 x 16: 8
+# rows, 16 q heads, 8 KV heads, 2048 keys, d 128), seq_kv's (Qwen3-30B-A3B
+# on model 8: 4 rows, 32 q heads, 4 KV heads, 8 keys), a ragged shard
+# (1000 keys) and d 64: (B, Hq, Hkv, Sk, d), then route, splits, chunk,
+# stages, blocks
+@pytest.mark.parametrize("shape,want", [
+    ((8, 16, 8, 2048, 128), (2, 1024, 8, 128)),
+    ((4, 32, 4, 8, 128), (1, 32, 1, 16)),
+    ((8, 16, 8, 1000, 128), (2, 512, 8, 128)),
+    ((8, 16, 8, 2048, 64), (2, 1024, 8, 128)),
+])
+def test_flash_plan_bulk_route_at_the_shards(shape, want):
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, Sk, d = shape
+    p = fa.flash_plan(B, Hq, Hkv, 1, Sk, d, elem=2, vec=True,
+                      n_sm=H100_SMS)
+    assert p.route == "bulk" and p.launches == 1
+    assert (p.splits, p.chunk, p.stages, p.blocks) == want
+    # the cluster within the portable 8, the block within shared memory
+    assert p.splits <= fa._MAX_SPLITS == 8
+    hpb = min(Hq // Hkv, 16)
+    assert fa.bulk_smem(d, hpb, p.stages) <= fa._SMEM_MAX
+    # one block an SM at most: 128 of 132
+    assert p.blocks <= H100_SMS
+    # a ring a block goes round holds whole tiles a consumer warp
+    assert p.stages % fa._CONSUMERS == 0 or p.stages >= p.chunk // 32
+    # every tile, the ragged last one too, expects whole boxes: 32 keys of
+    # K and of V (rows past Sk arrive as zeros, rows past the range are
+    # zeroed); the last tile starts on a whole tile of the last block
+    assert fa.tile_tx_bytes(d) == 2 * 32 * d * 2 == 2 * fa._C["BOX_BYTES"] \
+        * (d // fa._C["BOX_DIMS"])
+    start = (Sk - 1) // 32 * 32
+    assert Sk - start == {2048: 32, 8: 8, 1000: 8}[Sk]
+    assert start >= (p.splits - 1) * p.chunk and p.chunk % 32 == 0
+
+
+def test_flash_plan_bulk_ring_fits_the_blocks_an_sm_holds():
+    """More (batch, KV head) blocks than SMs: the ring shrinks so that the
+    blocks an SM must hold fit its shared memory, and stays a multiple of
+    the consumer warps when a block goes round it; ``splits`` and
+    ``stages`` override the plan (chip_smoke.py's sweeps)."""
+    from repro_torch.kernels import flash_attention as fa
+    p = fa.flash_plan(32, 16, 8, 1, 4096, 128, elem=2, vec=True,
+                      n_sm=H100_SMS)
+    assert (p.route, p.splits, p.chunk, p.blocks) == ("bulk", 1, 4096, 256)
+    assert p.stages == 4 and 2 * (fa.bulk_smem(128, 2, 4) + 1024) <= 233472
+    q = fa.flash_plan(8, 16, 8, 1, 2048, 128, elem=2, vec=True,
+                      n_sm=H100_SMS, splits=8, stages=6)
+    assert (q.splits, q.chunk, q.stages) == (8, 256, 4)
+    assert fa.flash_plan(8, 16, 8, 1, 2048, 128, elem=2, vec=True,
+                         n_sm=H100_SMS, splits=1).stages == 8
 
 
 @pytest.mark.parametrize("shape,vec", [
@@ -609,6 +672,17 @@ def test_fault_check_plants_one_fault():
     assert len(changed) == 1 and fc.FAULT in changed[0][1]
     with pytest.raises(ValueError):
         fc.plant_fault(fault)
+    # the line is the cluster combine's, which the bulk route (the bf16
+    # decode's, partial mode included) ends in, and the split route too
+    combine = sound[sound.index("void combine_partials("):]
+    assert fc.SOUND in combine[:combine.index("\n}\n")]
+    bulk = sound[sound.index("flash_bulk_kernel("):]
+    assert "combine_partials<bf16>(" in bulk[:bulk.index("\n}\n")]
+    # the decode_32k partial case counts as caught only when it fails
+    row = {"kernel": "flash_partial", "passes": False}
+    assert fc.partial_caught([row, {"kernel": "gram", "passes": True}])
+    assert not fc.partial_caught([{**row, "passes": True}])
+    assert not fc.partial_caught([{"kernel": "gram", "passes": False}])
 
 
 def test_fault_check_plants_the_gram_fault():

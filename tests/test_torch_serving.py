@@ -532,6 +532,81 @@ def test_captured_step_takes_cuda_tensors_only():
     assert step.graph is None and step.calls == 0
 
 
+class _FakeCapture:
+    """``torch.cuda.graph`` as the card's torch runs it: enter the capture
+    stream, then begin; on exit end the capture (``capture_end``) and only
+    then leave the stream.  ``end_raises``: ``capture_end`` raises, as it
+    does on an invalidated capture, and the stream is never left."""
+
+    def __init__(self, current: list, end_raises: bool):
+        self.current, self.end_raises = current, end_raises
+        outer = self
+
+        class _Ctx:
+            def __exit__(self, *exc):
+                outer.current[0] = "caller"
+                outer.current.append("left")
+
+        self.stream_ctx = _Ctx()
+
+    def __enter__(self):
+        self.current[0] = "capture"
+
+    def __exit__(self, *exc):
+        if self.end_raises:
+            raise RuntimeError("CUDA error: operation failed due to a "
+                               "previous error during capture")
+        self.stream_ctx.__exit__(*exc)
+
+
+@pytest.mark.parametrize("case", ["end_raises", "body_raises", "no_api"])
+def test_failed_capture_hands_back_pool_and_stream(monkeypatch, case):
+    """A capture whose end raises (torch's ``capture_end`` raises before it
+    ends the allocator's pool, and ``torch.cuda.graph`` never leaves its
+    stream): ``CapturedStep`` ends and releases the graph's pool, leaves
+    the stream context, takes back the launches recorded and re-raises;
+    the pool is the handle it named for the capture (a failed capture's
+    ``CUDAGraph.pool`` raises).
+    A body that raises while the capture stays valid (``capture_end``
+    succeeds and the graph keeps its pool) touches neither; a torch
+    without the private calls raises, naming the call, and still leaves
+    the stream."""
+    current, pool_calls = ["caller"], []
+    side = type("Stream", (), {"device": torch.device("cuda", 3)})()
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 5))
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool, stream: (
+        _FakeCapture(current, end_raises=case != "body_raises")))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: (
+        side if current[0] == "capture" else "caller"))
+    for name in ("_cuda_endAllocateToPool", "_cuda_releasePool"):
+        monkeypatch.setattr(torch._C, name, lambda dev, pool, name=name:
+                            pool_calls.append((name, dev, pool)),
+                            raising=False)
+    if case == "no_api":
+        monkeypatch.delattr(torch._C, "_cuda_releasePool")
+
+    def body(x):
+        ops._flash.launches += 1          # a launch recorded into the graph
+        raise ValueError("the body")
+
+    step = CapturedStep(body)
+    step._stream = side
+    ops.reset_launch_counts()
+    want = {"end_raises": "previous error during capture",
+            "body_raises": "the body",
+            "no_api": "no torch._C._cuda_releasePool"}[case]
+    with pytest.raises((RuntimeError, ValueError), match=want):
+        step._capture((torch.zeros(3),))
+    assert current == ["caller", "left"]
+    assert step.graph is None and step.outputs is None
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert pool_calls == {
+        "end_raises": [("_cuda_endAllocateToPool", 3, (0, 5)),
+                       ("_cuda_releasePool", 3, (0, 5))],
+        "body_raises": [], "no_api": []}[case]
+
+
 def test_fixed_slots_graph_needs_cuda(model):
     _, _, qt, cfg_t = model
     with pytest.raises(ValueError, match="CUDA"):
