@@ -33,9 +33,9 @@ A second copy, ``build/fault_copy_dequant/``, holds a third fault alone:
 
 A third copy, ``build/fault_copy_lora/``, holds a fourth:
 
-* ``dequant_matmul_lora.cu``: the wgmma route folds each group's sums
-  with its scale rounded to bf16 (the kind of rounding the kernel exists
-  to avoid).  The cases are ``chip_smoke.lora_precision``'s (K = 14336,
+* ``dequant_matmul_lora.cu``: the wgmma route folds each stage's sums
+  with its group's scale rounded to bf16 (the kind of rounding the kernel
+  exists to avoid).  The cases are ``chip_smoke.lora_precision``'s (K = 14336,
   weights of std 0.02 and K^-0.5), held to the exact product within
   ``LORA_EXACT_RTOL * |exact| + LORA_EXACT_ATOL`` and to the plain
   version within the JAX bf16 tolerance.
@@ -177,12 +177,11 @@ PURITY_SOUND = "        elif astlib.is_sync_call(node):"
 PURITY_FAULT = ("        elif astlib.is_sync_call(node) and "
                 "getattr(node.func, \"attr\", \"\") != \"item\":")
 LORA_KERNEL = Path("src/repro_torch/kernels/csrc/dequant_matmul_lora.cu")
-# the wgmma route's fold reads a group's scales; the fault rounds them to
-# bf16 first
-LORA_SOUND = ("const float2 s2 = *reinterpret_cast<const float2*>"
-              "(szp + 8 * jn + 2 * cq);")
-LORA_FAULT = ("const float2 s2 = __bfloat1622float2(__float22bfloat162_rn("
-              "*reinterpret_cast<const float2*>(szp + 8 * jn + 2 * cq)));")
+# the wgmma route's fold takes each stage's scales (its group's) for a
+# thread's two columns from this line; the fault rounds them to bf16 first
+LORA_SOUND = "sv[b] = *reinterpret_cast<const float2*>(slot + L::SC + 4 * na);"
+LORA_FAULT = ("sv[b] = __bfloat1622float2(__float22bfloat162_rn("
+              "*reinterpret_cast<const float2*>(slot + L::SC + 4 * na)));")
 
 
 def _plant(text: str, sound: str, fault: str, where: Path) -> str:

@@ -12,7 +12,8 @@ built into its own ``build/``) and times, twice, with this checkout's
 ``chip_smoke.py`` (CUDA graphs replayed between CUDA events):
 ``--timing lora`` (the default) ``chip_smoke.time_lora``, one Qwen3-1.7B
 training forward's fused calls (7 linears x 28 layers at 1024 rows, bf16,
-4-bit, group 64, rank 64); ``--timing flash`` ``flash_attention``'s bf16
+4-bit, group 64, rank 64), and each distinct linear shape's calls alone
+(``lora:KxN``); ``--timing flash`` ``flash_attention``'s bf16
 decode as the ``kernels`` phase times it: the partial mode at decode_32k's
 shard (``time_flash_partial``) and a 28-layer decode step at a 128- and a
 4096-key cache (``time_flash``), each on the tree's own plan.  The order
@@ -57,7 +58,12 @@ def time_tree(tree: Path, timing: str) -> dict:
             "ms": {n: [r["ms"] for r in rs] for n, rs in got.items()},
             "library_ms": {n: [r["library_ms"] for r in rs]
                            for n, rs in got.items()},
-            "bound_ms": {n: rs[0]["bound_ms"] for n, rs in got.items()}}
+            "bound_ms": {n: rs[0]["bound_ms"] for n, rs in got.items()},
+            "by_shape": {n: [{k: v["ms"] for k, v in r["by_shape"].items()}
+                             for r in rs]
+                         for n, rs in got.items() if "by_shape" in rs[0]},
+            "plans": {n: rs[0]["plans"] for n, rs in got.items()
+                      if "plans" in rs[0]}}
 
 
 def main(argv=None) -> int:
@@ -95,6 +101,11 @@ def main(argv=None) -> int:
             for timing, ms in row["ms"].items():
                 times.setdefault(timing, {"parent": [], "change": []})
                 times[timing][name] += ms
+            for timing, runs in row["by_shape"].items():
+                for shape in runs[0]:
+                    t = times.setdefault(f"{timing}:{shape}",
+                                         {"parent": [], "change": []})
+                    t[name] += [run[shape] for run in runs]
             print(json.dumps({"run": name, **row}), flush=True)
     print(json.dumps({"ms": times, "change_over_parent": {
         timing: statistics.median(t["change"])

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--layers L] [--moe-layers L] [--hybrid-layers L]
                           [--vlm-layers L]
-                          [--only analysis|compile_cache|kernels|configs|ssm|
-                                  encdec|allocate|levers|trace|distributed|
+                          [--only analysis|compile_cache|kernels|lora|configs|
+                                  ssm|encdec|allocate|levers|trace|distributed|
                                   train_sharded]
                           [--families A,B] [--family-dtype float32]
                           [--seq-kv-only]
@@ -16,7 +16,8 @@ one JSON line each:
 2. build   — the four CUDA kernels compiled from ``src/repro_torch/
    kernels/csrc`` with ``nvcc`` (into the git-ignored compile cache
    ``build/repro_torch``), with seconds and the ``ptxas`` register and
-   spill report.
+   spill report (and any warning that names ``wgmma``: a serialized
+   pipeline).
    analysis — the port's static gate (``repro_torch.analysis``): the lint
    of ``src/repro_torch`` (gating: must be 0) and ``chip_*.py`` (report),
    the 30-cell shape fleet against the JAX package's goldens (0 diffs),
@@ -1052,6 +1053,17 @@ def kernels_phase(torch, dev) -> dict:
                                         and tuple(c[1:3]) in shards]}}
 
 
+def lora_phase(torch, dev) -> dict:
+    """The fused kernel alone, as the default run checks and times it: its
+    cases on every route, ``lora_precision``, the training forward's
+    timing by shape (``time_lora``) and the fused-or-unfused sweep behind
+    ``ops.FUSED_LORA_MIN_ROWS`` (``time_lora_routes``)."""
+    summary, _ = check_lora(torch, dev)
+    return {"dequant_matmul_lora": {**summary, **time_lora(torch, dev)},
+            "lora_precision": lora_precision(torch, dev),
+            "lora_route": time_lora_routes(torch, dev)}
+
+
 # check_gram's cases for the tensor-core route beyond the main ones: T
 # ragged around the 64-token stage and past it, D cut inside a 128-column
 # tile (136, 2056: 8 columns into the last one; 8: one tile mostly past D)
@@ -1231,8 +1243,9 @@ def time_gram_tiles(torch, dev, calls: int = 28) -> dict:
 
 
 def _lora_operands(torch, M, K, N, bits, g, r, dt, dev, gen,
-                   w_std: float = 0.02):
-    packed, s, z = _quantized(torch, K, N, bits, g, dev, gen, w_std=w_std)
+                   w_std: float = 0.02, any_zero: bool = False):
+    packed, s, z = _quantized(torch, K, N, bits, g, dev, gen,
+                              any_zero=any_zero, w_std=w_std)
     x = torch.randn((M, K), generator=gen, device=dev).to(dt)
     a = (torch.randn((K, r), generator=gen, device=dev) / K ** 0.5).to(dt)
     b = (torch.randn((N, r), generator=gen, device=dev) * 0.1).to(dt)
@@ -1315,17 +1328,21 @@ def check_lora(torch, dev) -> tuple[dict, list]:
 
 # lora_precision's cases: Pixtral's down projection at its training rows and
 # Zamba2's at 1024 (K = 14336), at the sweep's weight std and at the
-# model's (``init_params``: K ** -0.5)
+# model's (``init_params``: K ** -0.5), 4-bit with the quantizer's zeros;
+# then Zamba2's at every bits with zeros that are not whole and some past
+# the codes' range (``_quantized(any_zero=True)``): the wgmma route's
+# zero fraction, -s (z - round(z)), carried on the tensor cores
 LORA_PRECISION = ((VLM_ROWS, 14336, 5120), (TRAIN_TOKENS, 14336, 3584))
+LORA_PRECISION_ANY_ZERO = (TRAIN_TOKENS, 14336, 3584)
 # the kernel against the exact product: one bf16 rounding of its output
 # (2^-8 relative covers it with room) and its f32 sums' error
 LORA_EXACT_RTOL, LORA_EXACT_ATOL = 2.0 ** -8, 1e-3
 
 
 def lora_precision_rows(torch, dev) -> list:
-    """One row a ``LORA_PRECISION`` case and weight std (see
-    :func:`lora_precision`), ``holds`` saying whether it meets both
-    bounds on the wgmma route."""
+    """One row a ``LORA_PRECISION`` case and weight std, and one a bits and
+    weight std of ``LORA_PRECISION_ANY_ZERO`` (see :func:`lora_precision`),
+    ``holds`` saying whether it meets both bounds on the wgmma route."""
     from repro_torch.core.quantizer import dequantize_int, unpack_codes
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_matmul import (dequant_matmul_lora_cuda,
@@ -1334,34 +1351,40 @@ def lora_precision_rows(torch, dev) -> list:
     gen.manual_seed(9)
     out = []
     f64 = torch.float64
-    for M, K, N in LORA_PRECISION:
-        for w_std in (0.02, K ** -0.5):
-            x, packed, s, z, a, b = _lora_operands(
-                torch, M, K, N, 4, 64, 64, torch.bfloat16, dev, gen, w_std)
-            route = lora_plan_for(x, packed, s, z, a, b, 64).route
-            y = dequant_matmul_lora_cuda(x, packed, s, z, a, b, bits=4,
-                                         group_size=64).to(f64)
-            y_ref = ref.dequant_matmul_lora_ref(x, packed, s, z, a, b,
-                                                bits=4, group_size=64).to(f64)
-            W = dequantize_int(unpack_codes(packed, 4, K), s, z, 64,
-                               dtype=f64)
-            exact = x.to(f64) @ W + (x.to(f64) @ a.to(f64)) @ b.to(f64).T
-            del W
-            rtol, atol = TOL["bfloat16"]
-            outside = (y - y_ref).abs() > atol + rtol * y_ref.abs()
-            err = (y - exact).abs()
-            beyond = err > LORA_EXACT_RTOL * exact.abs() + LORA_EXACT_ATOL
-            row = {"M": M, "K": K, "N": N, "w_std": w_std, "route": route,
-                   "out_std": float(exact.std()),
-                   "kernel_vs_exact": float(err.max()),
-                   "plain_vs_exact": float((y_ref - exact).abs().max()),
-                   "beyond_exact_bound": int(beyond.sum()),
-                   "outside_jax_tol_vs_plain": int(outside.sum())}
-            row["holds"] = route == "wgmma" and not (
-                row["beyond_exact_bound"] or row["outside_jax_tol_vs_plain"])
-            out.append(row)
-            del x, packed, s, z, a, b, y, y_ref, exact, err, beyond, outside
-            torch.cuda.empty_cache()
+    cases = [(M, K, N, 4, w_std, False) for M, K, N in LORA_PRECISION
+             for w_std in (0.02, K ** -0.5)]
+    M, K, N = LORA_PRECISION_ANY_ZERO
+    cases += [(M, K, N, bits, w_std, True) for bits in (2, 4, 8)
+              for w_std in (0.02, K ** -0.5)]
+    for M, K, N, bits, w_std, any_zero in cases:
+        x, packed, s, z, a, b = _lora_operands(
+            torch, M, K, N, bits, 64, 64, torch.bfloat16, dev, gen, w_std,
+            any_zero=any_zero)
+        route = lora_plan_for(x, packed, s, z, a, b, 64).route
+        y = dequant_matmul_lora_cuda(x, packed, s, z, a, b, bits=bits,
+                                     group_size=64).to(f64)
+        y_ref = ref.dequant_matmul_lora_ref(x, packed, s, z, a, b,
+                                            bits=bits, group_size=64).to(f64)
+        W = dequantize_int(unpack_codes(packed, bits, K), s, z, 64,
+                           dtype=f64)
+        exact = x.to(f64) @ W + (x.to(f64) @ a.to(f64)) @ b.to(f64).T
+        del W
+        rtol, atol = TOL["bfloat16"]
+        outside = (y - y_ref).abs() > atol + rtol * y_ref.abs()
+        err = (y - exact).abs()
+        beyond = err > LORA_EXACT_RTOL * exact.abs() + LORA_EXACT_ATOL
+        row = {"M": M, "K": K, "N": N, "bits": bits, "w_std": w_std,
+               "any_zero": any_zero, "route": route,
+               "out_std": float(exact.std()),
+               "kernel_vs_exact": float(err.max()),
+               "plain_vs_exact": float((y_ref - exact).abs().max()),
+               "beyond_exact_bound": int(beyond.sum()),
+               "outside_jax_tol_vs_plain": int(outside.sum())}
+        row["holds"] = route == "wgmma" and not (
+            row["beyond_exact_bound"] or row["outside_jax_tol_vs_plain"])
+        out.append(row)
+        del x, packed, s, z, a, b, y, y_ref, exact, err, beyond, outside
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1372,7 +1395,9 @@ def lora_precision(torch, dev) -> dict:
     its f32 scale and zero, so it is held to the exact product (f64) within
     ``LORA_EXACT_RTOL * |exact| + LORA_EXACT_ATOL``, and against the plain
     version to the JAX bf16 tolerance (no element outside), at both weight
-    stds.  Reported beside: kernel and plain version against the exact
+    stds, and with zeros that are not whole or lie past the codes' range
+    at bits 2, 4 and 8 (the route keeps about 16 bits of the zero's
+    fraction: bf16 halves on the tensor cores).  Reported beside: kernel and plain version against the exact
     product, and the outputs' std (0.02 sqrt(K), 2.4 here, at std 0.02; 1
     at the model's)."""
     rows = lora_precision_rows(torch, dev)
@@ -1385,7 +1410,9 @@ def lora_precision(torch, dev) -> dict:
 def time_lora(torch, dev, layers: int = 28) -> dict:
     """One training forward's fused calls: 7 linears x ``layers`` at
     M = 1024, bf16, 4-bit, group 64, rank 64, each on its own weights;
-    with each shape's route and tiling (``plans``)."""
+    with each shape's route and tiling (``plans``), and ``by_shape``: each
+    distinct (K, N) of ``QWEN_LINEARS`` timed alone, its calls over the
+    ``layers`` (kernel, bound and library ms, its plan)."""
     import dataclasses
     from repro_torch.core.quantizer import dequantize_int, unpack_codes
     from repro_torch.kernels import ref
@@ -1397,7 +1424,7 @@ def time_lora(torch, dev, layers: int = 28) -> dict:
     bf = torch.bfloat16
     xs = {K: torch.randn((M, K), generator=gen, device=dev).to(bf)
           for K in {K for K, _ in QWEN_LINEARS}}
-    sets, nbytes, flops, lora_flops, plans = [], 0, 0, 0, {}
+    sets, plans, work = [], {}, {}
     for _ in range(layers):
         for K, N in QWEN_LINEARS:
             packed = torch.randint(0, 256, (K // 2, N), generator=gen,
@@ -1410,41 +1437,64 @@ def time_lora(torch, dev, layers: int = 28) -> dict:
             b = (torch.randn((N, r), generator=gen, device=dev)
                  * 0.1).to(bf)
             sets.append((xs[K], packed, s, z, a, b))
-            plans.setdefault(f"{K}x{N}", dataclasses.asdict(
+            key = f"{K}x{N}"
+            plans.setdefault(key, dataclasses.asdict(
                 lora_plan_for(xs[K], packed, s, z, a, b, g)))
-            nbytes += (M * K * 2 + K * N // 2 + 2 * (K // g) * N * 4
-                       + (K + N) * r * 2 + M * N * 2)
-            flops += 2 * M * K * N + 2 * M * r * (K + N)
+            w = work.setdefault(key, [0, 0, 0, 0])
+            w[0] += 1
+            w[1] += (M * K * 2 + K * N // 2 + 2 * (K // g) * N * 4
+                     + (K + N) * r * 2 + M * N * 2)
+            w[2] += 2 * M * K * N + 2 * M * r * (K + N)
             # the wgmma route runs (x @ A) @ B^T as [hi | lo] @ [B^T; B^T]
             # (2 * M * N * r more products, left out of the bound)
-            lora_flops += 2 * M * N * r
+            w[3] += 2 * M * N * r
     dense = [dequantize_int(unpack_codes(p, bits, x.shape[1]), s, z, g,
                             dtype=bf) for x, p, s, z, _, _ in sets]
 
-    def kernel():
-        for x, p, s, z, a, b in sets:
-            dequant_matmul_lora_cuda(x, p, s, z, a, b, bits=bits,
-                                     group_size=g)
+    def kernel(calls):
+        def run():
+            for x, p, s, z, a, b in calls:
+                dequant_matmul_lora_cuda(x, p, s, z, a, b, bits=bits,
+                                         group_size=g)
+        return run
 
     def plain():
         for x, p, s, z, a, b in sets:
             ref.dequant_matmul_lora_ref(x, p, s, z, a, b, bits=bits,
                                         group_size=g)
 
-    def library():
-        for (x, _, _, _, a, b), w in zip(sets, dense):
-            torch.matmul(x, w) + torch.matmul(torch.matmul(x, a), b.T)
+    def library(calls):
+        def run():
+            for (x, _, _, _, a, b), w in calls:
+                torch.matmul(x, w) + torch.matmul(torch.matmul(x, a), b.T)
+        return run
 
-    ms = time_graph(torch, kernel, reps=5)
+    ms = time_graph(torch, kernel(sets), reps=5)
     plain_ms = time_graph(torch, plain, reps=5)
-    library_ms = time_graph(torch, library, reps=5)
+    library_ms = time_graph(torch, library(list(zip(sets, dense))), reps=5)
+    nbytes, flops, lora_flops = (sum(w[i] for w in work.values())
+                                 for i in (1, 2, 3))
     b = bound(nbytes, flops, BF16_FLOPS)
+    shapes = {}
+    for key, (calls, nb, fl, _) in work.items():
+        mine = [i for i, (x, p, *_) in enumerate(sets)
+                if f"{x.shape[1]}x{p.shape[1]}" == key]
+        k_ms = time_graph(torch, kernel([sets[i] for i in mine]), reps=5)
+        l_ms = time_graph(torch, library(
+            [(sets[i], dense[i]) for i in mine]), reps=5)
+        sb = bound(nb, fl, BF16_FLOPS)
+        shapes[key] = {"calls": calls, "ms": k_ms,
+                       "bound_ms": sb["bound_ms"],
+                       "bound_by": sb["bound_by"], "library_ms": l_ms,
+                       "bound_share": sb["bound_ms"] / k_ms,
+                       "us_a_call": 1e3 * k_ms / calls,
+                       "plan": plans[key]}
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "cuBLAS bf16 on the weight pre-dequantized to bf16: "
                        "x@W + (x@A)@B^T",
             **b, "calls": len(sets), "tflops": flops / ms / 1e9,
             "bound_share": b["bound_ms"] / ms, "hi_lo_extra_flops": lora_flops,
-            "plans": plans}
+            "plans": plans, "by_shape": shapes}
 
 
 
@@ -5398,7 +5448,7 @@ def main(argv=None) -> int:
                          "and build phases and Pixtral-12B alone by RTN "
                          "(the full-depth check: --vlm-layers 40)")
     ap.add_argument("--only", choices=("analysis", "compile_cache", "kernels",
-                                       "configs", "ssm", "encdec",
+                                       "lora", "configs", "ssm", "encdec",
                                        "allocate", "levers", "trace",
                                        "distributed", "train_sharded"),
                     help="run the device and build phases and this phase "
@@ -5458,7 +5508,8 @@ def main(argv=None) -> int:
         logs = build.build_all()
         ptxas = {src: [ln.split(":", 1)[-1].strip()
                        for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln]
+                       if "registers" in ln or "spill" in ln
+                       or "wgmma" in ln]
                  for src, log in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "dir": str(build.build_dir().relative_to(ROOT)),
@@ -5469,6 +5520,7 @@ def main(argv=None) -> int:
             run = {"analysis": lambda: analysis_phase(torch, dev),
                    "compile_cache": lambda: compile_cache_phase(torch, dev),
                    "kernels": lambda: kernels_phase(torch, dev),
+                   "lora": lambda: lora_phase(torch, dev),
                    "configs": lambda: configs_phase(torch, dev),
                    "ssm": lambda: ssm_phase(torch, dev, a.hybrid_layers),
                    "encdec": lambda: encdec_phase(torch, dev, a.vlm_layers),

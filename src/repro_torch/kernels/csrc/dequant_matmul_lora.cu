@@ -16,46 +16,67 @@
 // rounded to bf16: at K = 14336 a bf16 weight puts outputs where base and
 // LoRA terms cancel outside the bf16 tolerance.  The tensor-core routes
 // take the codes exactly in bf16 (128 + code at 2 and 4 bits, the code at
-// 8 bits), so every product is exact in the f32 sums, sum each group
-// apart, and fold each group in with one f32 FMA a column:
-// acc += s * (part - (z + off) * sum(x over the group)), any f32 zero.
+// 8 bits), so every product is exact in the f32 sums, and sum each group
+// (or stage) apart before it is folded in with its f32 scale and zero
+// (mma: acc += s * (part - (z + off) * sum(x over the group)), any f32
+// zero; wgmma: the zero split below).
 //
 //  * wgmma: bf16 x, and every base and row stride TMA can address (K % 8,
 //    N % 16, r % 8, 16-byte aligned bases), a group that is a multiple of
-//    64 (a group a stage or more).  The training path.
-//    - x @ A once per row, not once per column tile: a prologue
-//      (`xa_kernel`, mma.sync, bf16 products exact in f32 sums) splits K
-//      over a cluster of up to 8 blocks, adds the partial sums in block
-//      order through distributed shared memory, and writes xa as
-//      hi = bf16(xa) and lo = bf16(xa - hi).  The main kernel is launched
-//      programmatically dependent on it and waits only before its first
-//      LoRA stage, so its launch and first weight stages overlap the
-//      prologue's tail.
-//    - The LoRA term on the tensor cores: [hi | lo] (M x 2r) is appended to
-//      x's K sweep against [B^T; B^T] (B is bf16 and K-major already), so it
-//      lands in the tile's sums unscaled; xa keeps about 16 bits.
-//    - Persistent blocks, one per SM, walking 128 x BN output tiles
-//      (BN = 128, or 64 where 128 would leave SMs idle), K in stages of 64.
-//      Warp 12 keeps a ring of x tiles (128 x 64, 128-byte swizzle; for the
-//      LoRA stages [hi | lo]) in flight with TMA; warp 13 a deeper ring of
-//      packed codes with their scale and zero rows, and each tile's B.
-//    - wgmma reads B from shared memory in bf16, so a staging warpgroup
-//      (warps 8-11) turns each stage's codes into a swizzled bf16 tile of
-//      exact codes (two codes a 32-bit word in two instructions at 2 and 4
-//      bits: no multiply, no rounding) in a ring of 4, with the group's
-//      scale and z + off beside it, while two warpgroups (warps 0-7) run
-//      wgmma m64n(BN+8)k16 on 64 rows each into a group's sums, wait for
-//      them at the group's end and fold them into the tile's.  The B tile's
-//      8 extra rows hold ones, so the same wgmmas give each row's sum of x
-//      over the group (8 more columns, no second read of x).  A second
-//      64 x (BN+8) accumulator a consumer thread is 68 more registers at
-//      BN 128: the loading and staging warpgroups give registers up with
-//      setmaxnreg, the consumers take them.
+//    64 (a stage or more).  The training path.
+//    - A prologue (`xa_kernel`, mma.sync, bf16 products exact in f32 sums)
+//      splits K over a cluster of up to 8 blocks and writes, for every row
+//      of x, each 64-row stage's sum of x as bf16 hi and lo (16 stages a
+//      64-column block), and x @ A once per row, not once per column tile:
+//      the cluster adds its partial sums in block order through
+//      distributed shared memory and writes hi = bf16(xa),
+//      lo = bf16(xa - hi).  The main kernel is launched programmatically
+//      dependent on it; only its loads of the sums and of [hi | lo] wait.
+//    - The tile is computed transposed, y^T = W^T x^T, so that the codes
+//      are wgmma's A and come from registers: each consumer thread builds
+//      its fragments straight from the TMA-loaded packed bytes (two
+//      columns' codes in one 16-bit load; no staged bf16 weight tile in
+//      shared memory), and x is B, read by the wgmmas from a ring of TMA
+//      tiles (128-byte swizzle).
+//    - The zero is split, z = round(z) + zf: the fragments hold code -
+//      round(z), exact in bf16, so a stage's sums fold into the tile's
+//      with one f32 FMA an element, acc += s * part, and no sum of x is
+//      read in the K loop; -s * zf against the stages' sums of x runs on
+//      the tensor cores every 16 stages as one more stage of bf16 halves
+//      of both: about 16 bits of zf's term, not f32's 24 (small beside
+//      the sums where z lies in the codes' range, |zf| <= 1/2; as large
+//      as they where z lies past round(z)'s clamp, as at 8 bits, z < 0).
+//    - Persistent blocks, one per SM, walking tiles of 128 output columns
+//      by BT rows of x (BT = 128, or 64 where 128 would leave SMs idle).
+//      Two warpgroups each own 64 columns (the 64 rows of their wgmmas), a
+//      thread two adjacent columns, whose scales it keeps in registers, and
+//      split the BT rows into two chunks (m64n(BT/2)k16).  A stage: its
+//      eight wgmmas (and any correction's) issued at once, the next
+//      stage's packed words, scales and zeros loaded, the wait, the folds,
+//      the next stage's fragments built.
+//    - What holds this route back (PERF.md §6): a wgmma with A in
+//      registers holds its SM sub-partition's warps until the tensor cores
+//      take it, so the fragments and the fold (CUDA cores) do not overlap
+//      the tensor cores; staging the codes in shared memory for SS wgmmas
+//      instead cost more in stores and proxy fences.
+//    - Not reached: a wgmma_wait<1> ahead of each fold, one stage's
+//      wgmmas in flight while the stage before is folded.  Every stage
+//      waits with wgmma_wait<0>: a second pair of stage sums (64 f32 a
+//      thread at BT 128) does not fit beside the 168 registers a consumer
+//      thread holds under REG_MMA's 232, and the fold could not run under
+//      the next stage's register-A wgmmas anyway (the sub-partition is
+//      held).
+//    - Slower at k/v (N 1024) than the staged-code design it replaced
+//      (1.033x on an H100 80GB HBM3 at 700 W, PERF.md §6): its 64-row
+//      tiles (128 of them, where 128-row tiles fill 64 SMs) convert each
+//      stage's codes for 64 rows of x, not 128: twice the conversion a
+//      product.
+//      Lever: 128-row tiles with K split over two blocks, the halves
+//      summed in a fixed order (no atomics).
+//    - The LoRA term on the tensor cores: [hi | lo] (M x 2r) against
+//      [B^T; B^T] as more stages (A = B's rows, by ldmatrix), added
+//      unscaled into the tile's sums; xa keeps about 16 bits.
 //    - The sums leave through shared memory in coalesced 16-byte stores.
-//    - What held the bf16-weight design back was shared memory: per stage
-//      the wgmmas read the x tile and (once per warpgroup) the B tile, TMA
-//      writes x and the codes, the staging writes B.  The fold adds a wait
-//      a group (the other warpgroup's wgmmas run meanwhile).
 //  * mma: bf16 x that the wgmma route does not take, group % 8 == 0.
 //    64 x 128 tiles of 256 threads, mma.sync m16n8k16 on exact codes (k8
 //    halves where the group is not a multiple of 16), the group's sum of x
@@ -752,31 +773,41 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
 
-// xa for 64 rows of x: block y of a cluster of gridDim.y blocks sums the
-// K rows [y * chunk, + chunk), warp w rows 16w..16w+15 at all 16 * RT
-// ranks; the cluster then adds its partial sums through distributed
-// shared memory in block order (block y reduces an eighth of the rows) and
-// writes hl (2M, r) bf16: rows [0, M) hi = bf16(xa), rows [M, 2M)
-// lo = bf16(xa - hi).
+// xa and the stages' sums for 64 rows of x: block y of a cluster of
+// gridDim.y blocks sums the K rows [y * chunk, + chunk), warp w rows
+// 16w..16w+15 at all 16 * RT ranks, and each 64-row stage's sum of every
+// row of x (one more mma against ones: exact products, f32 sums), written
+// as hi = bf16(sum) and lo = bf16(sum - hi) into gz (M, gzw) bf16: stage s
+// of correction block b = s / 16 at columns 64 b + s % 16 + {0, 16, 32, 48}
+// as hi, lo, hi, lo (the main kernel's B for the block's correction; the
+// last block's columns past the last stage zero).  The
+// cluster then adds its partial xa sums through distributed shared memory
+// in block order (block y reduces an eighth of the rows) and writes hl
+// (2M, r) bf16: rows [0, M) hi = bf16(xa), rows [M, 2M) lo = bf16(xa - hi).
+// RT = 0 (rank 0): the group sums alone.
 template <int RT>
 __global__ void __launch_bounds__(XA_THREADS)
 xa_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
-          bf16* __restrict__ hl, int M, int K, int r, int chunk) {
+          bf16* __restrict__ hl, bf16* __restrict__ gz, int M, int K, int r, int chunk,
+          int gzw) {
   constexpr int RP = 16 * RT;
   constexpr int AS = xa_a_stride(RT);
+  constexpr int NJ = RT > 0 ? 2 * RT : 1;
   extern __shared__ __align__(16) unsigned char xa_raw[];
   bf16* sm = reinterpret_cast<bf16*>(xa_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, cq = lane & 3;
   const int m0 = blockIdx.x * XA_BM;
   const int kbeg = blockIdx.y * chunk;
   const int kend = min(K, kbeg + chunk);
-  // the main kernel may start now; it waits for this grid's xa itself
+  // the main kernel may start now; it waits for this grid's sums itself
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int nk = (kend - kbeg + XA_BK - 1) / XA_BK;
+  const uint32_t ones[2] = {BF16_ONES, BF16_ONES};
 
-  float acc[2 * RT][4];
+  float acc[NJ][4];
 #pragma unroll
-  for (int j = 0; j < 2 * RT; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -808,10 +839,12 @@ xa_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
     cp_async_commit();
     const bf16* xs = sm + (c % XA_STAGES) * xa_stage_elems(RT);
     const bf16* as = xs + XA_BM * XA_XS;
+    float gs[4] = {0.f, 0.f, 0.f, 0.f};  // the stage's sums of rows g, g + 8
 #pragma unroll
     for (int kk = 0; kk < XA_BK; kk += 16) {
       uint32_t af[4];
       ldsm_x4(af, xs + (16 * warp + (lane & 15)) * XA_XS + kk + (lane >> 4) * 8);
+      mma_bf16(gs, af, ones);
 #pragma unroll
       for (int j = 0; j < RT; ++j) {
         uint32_t bfr[4];
@@ -820,33 +853,48 @@ xa_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
         mma_bf16(acc[2 * j + 1], af, bfr + 2);
       }
     }
+    // chunk c is one stage of the main kernel (chunk and K are multiples of
+    // 64); lanes cq = 0, 1 write rows g and g + 8 (and past the last stage,
+    // the last block's zeros)
+    const int st = (kbeg + c * XA_BK) / XA_BK, kt = K / XA_BK;
+    const int m = m0 + 16 * warp + g + 8 * (cq & 1);
+    if (cq < 2 && m < M) {
+      const float v = gs[2 * (cq & 1)];
+      const bf16 h = __float2bfloat16(v), l = __float2bfloat16(v - __bfloat162float(h));
+      bf16* row = gz + (size_t)m * gzw + 64 * (st / 16);
+      for (int u = st % 16; u < (st + 1 == kt ? 16 : st % 16 + 1); ++u) {
+        const bool live = u == st % 16;
+        row[u] = row[32 + u] = live ? h : __float2bfloat16(0.f);
+        row[16 + u] = row[48 + u] = live ? l : __float2bfloat16(0.f);
+      }
+    }
   }
-
-  // this block's partial sums, [64][RP] f32, over its staging buffers
   cp_async_wait<0>();
-  __syncthreads();
-  float* part = reinterpret_cast<float*>(xa_raw);
-  const int g = lane >> 2, cq = lane & 3;
+  if constexpr (RT > 0) {
+    // this block's partial sums, [64][RP] f32, over its staging buffers
+    __syncthreads();
+    float* part = reinterpret_cast<float*>(xa_raw);
 #pragma unroll
-  for (int j = 0; j < 2 * RT; ++j)
+    for (int j = 0; j < 2 * RT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      part[(16 * warp + g + 8 * (e >> 1)) * RP + 8 * j + 2 * cq + (e & 1)] = acc[j][e];
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int splits = gridDim.y;
-  const int rows = (XA_BM + splits - 1) / splits;
-  const int mlo = blockIdx.y * rows;
-  for (int e = tid; e < rows * r; e += XA_THREADS) {
-    const int m = mlo + e / r, rr = e % r;
-    if (m >= XA_BM || m0 + m >= M) continue;
-    float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += cluster.map_shared_rank(part, s)[m * RP + rr];
-    const bf16 h = __float2bfloat16(v);
-    hl[(size_t)(m0 + m) * r + rr] = h;
-    hl[(size_t)(M + m0 + m) * r + rr] = __float2bfloat16(v - __bfloat162float(h));
+      for (int e = 0; e < 4; ++e)
+        part[(16 * warp + g + 8 * (e >> 1)) * RP + 8 * j + 2 * cq + (e & 1)] = acc[j][e];
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int splits = gridDim.y;
+    const int rows = (XA_BM + splits - 1) / splits;
+    const int mlo = blockIdx.y * rows;
+    for (int e = tid; e < rows * r; e += XA_THREADS) {
+      const int m = mlo + e / r, rr = e % r;
+      if (m >= XA_BM || m0 + m >= M) continue;
+      float v = 0.f;
+      for (int s = 0; s < splits; ++s) v += cluster.map_shared_rank(part, s)[m * RP + rr];
+      const bf16 h = __float2bfloat16(v);
+      hl[(size_t)(m0 + m) * r + rr] = h;
+      hl[(size_t)(M + m0 + m) * r + rr] = __float2bfloat16(v - __bfloat162float(h));
+    }
+    cluster.sync();  // no block leaves while another reads its partial sums
   }
-  cluster.sync();  // no block leaves while another reads its partial sums
 }
 
 // --- TMA, mbarrier and wgmma ------------------------------------------------
@@ -859,22 +907,29 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
+// arrive where `on` (one lane of a warp): a predicated arrive, no branch
+// (ptxas serializes the wgmmas in flight across a divergent branch)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool on) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+               "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+               :: "r"(smem_u32(bar)), "r"((int)on) : "memory");
 }
-// spin until the barrier's phase of this parity completes; a wait that
-// outlasts any real stage by far traps rather than hang the card
+// spin until the barrier's phase of this parity completes, the loop inside
+// the asm (no branch of the program's own); a wait that outlasts any real
+// stage by far traps rather than hang the card
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    if (spins == (1u << 26)) asm volatile("trap;\n");
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.eq.u32 p, n, 67108864;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 // the box of `map` at (c0 inner, c1 outer) into shared memory at dst
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -885,9 +940,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(smem_u32(bar))
       : "memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 __device__ __forceinline__ void mma_warpgroups_sync() {  // warps 0-7
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -906,6 +958,12 @@ template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
+// keep a wgmma's A registers alive (unmoved, unreused) until here: after
+// the wait that retires the wgmmas reading them
+template <int R> __device__ __forceinline__ void fence_frag(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
 
 // descriptor of a K-major bf16 tile in shared memory, rows of 64 values
 // (128 bytes) under the 128-byte swizzle, 8-row groups 1024 bytes apart;
@@ -915,270 +973,231 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          (1ull << 62);
 }
 
-// d = a (64 x 16) @ b (16 x 128) + (scale_d ? d : 0), both K-major in shared memory (128-byte
-// swizzle), bf16 operands, f32 sums in the warpgroup's registers
-__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+// d (64 x N, f32) = a (64 x 16) @ b (16 x N) + (scale_d ? d : 0), a in
+// registers (the thread's fragment: rows g and g + 8 of its warp's 16, as
+// mma.sync's), b K-major in shared memory (128-byte swizzle), bf16 operands
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d = a (64 x 16) @ b (16 x 64) + (scale_d ? d : 0), both K-major in shared memory (128-byte
-// swizzle), bf16 operands, f32 sums in the warpgroup's registers
-__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
+      "setp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// d = a (64 x 16) @ b (16 x BN+8) + (scale_d ? d : 0): a weight stage's
-// product with the B tile's 8 extra columns of ones, whose sums are the
-// rows' sums of x (both K-major in shared memory, 128-byte swizzle)
-__device__ __forceinline__ void wgmma_n136(float* d, uint64_t da, uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %70, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67"
-      "}, %68, %69, p, 1, 1, 0, 0;\n}\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
-      : "l"(da), "l"(db), "r"(scale_d));
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_n72(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35"
-      "}, %36, %37, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-      : "l"(da), "l"(db), "r"(scale_d));
+template <int CT>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  if constexpr (CT == 64) wgmma_rs_n64(d, a, db, scale_d);
+  else wgmma_rs_n32(d, a, db, scale_d);
 }
-
-template <int BN>
-__device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db, int scale_d);
-template <>
-__device__ __forceinline__ void wgmma_bn<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
-  wgmma_n128(d, da, db, scale_d);
-}
-template <>
-__device__ __forceinline__ void wgmma_bn<64>(float* d, uint64_t da, uint64_t db, int scale_d) {
-  wgmma_n64(d, da, db, scale_d);
-}
-template <int BN>
-__device__ __forceinline__ void wgmma_part(float* d, uint64_t da, uint64_t db, int scale_d);
-template <>
-__device__ __forceinline__ void wgmma_part<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
-  wgmma_n136(d, da, db, scale_d);
-}
-template <>
-__device__ __forceinline__ void wgmma_part<64>(float* d, uint64_t da, uint64_t db, int scale_d) {
-  wgmma_n72(d, da, db, scale_d);
-}
-
 // --- the main kernel --------------------------------------------------------
 
-constexpr int WG_BM = 128;          // rows of x a tile: two warpgroups of 64
-constexpr int WG_BK = 64;           // K rows a stage: one swizzled 128-byte row
+constexpr int WG_BN = 128;          // output columns a tile: two warpgroups of 64
+constexpr int WG_BK = 64;           // K rows a stage: one swizzled 128-byte row of x
+constexpr int WG_CB = 16;           // stages a zero-correction block
+static_assert(WG_CB == 16, "the prologue (xa_kernel) lays out 16 stages a block");
 constexpr int WG_CONSUMERS = 256;   // two warpgroups run the wgmmas,
-constexpr int WG_DEQUANT = 128;     // one stages the codes,
-constexpr int WG_THREADS = WG_CONSUMERS + WG_DEQUANT + 128;  // one loads (two warps of it)
-constexpr int X_BYTES = WG_BM * WG_BK * 2;     // an x (or [hi | lo]) tile
-constexpr int WG_DQ = 4;            // staged B tiles
+constexpr int WG_THREADS = WG_CONSUMERS + 128;  // one loads (two of its warps)
+constexpr int WG_WS = 6;            // code slots
+constexpr int CZ_STRIDE = 80;       // bytes a row of the correction table (padded)
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block can have
 // registers a thread after setmaxnreg: the loading warpgroup gives its
-// registers up, the code-staging one keeps what it needs, and the two
-// consumers, which hold the tile's sums and one group's sums (2 x 64 f32
-// at BN 128), take the rest: 128 x (40 + 72) + 256 x 200 = 65536
-constexpr int REG_LOAD = 40, REG_STAGE = 72, REG_MMA = 200;
+// registers up, the two consumers (the tile's sums, two chunks' stage
+// sums, two stages' A fragments: 168 at BT 128) take them:
+// 128 x 40 + 256 x 232 = 64512 of 65536
+constexpr int REG_LOAD = 40, REG_MMA = 232;
 
-// The shared memory of one (BITS, BN) instance, from 1024-byte alignment:
-// the x ring (XS tiles), the weight ring (WS slots of codes, scales and
-// zeros), the ring of WG_DQ staged B tiles (BN rows of codes, then 8 rows
-// of ones, written once), the tile's LoRA B (two 64-rank chunks; the
-// epilogue's staging after the LoRA stages), the scales and offset zeros
-// of each staged B tile, then the barriers.  x and B tiles
-// come back when the wgmmas that read them are done; weight slots as soon
-// as they are staged, so that ring runs further ahead.
-template <int BITS, int BN> struct WgLayout {
+// The shared memory of one (BITS, BT) instance, from 1024-byte alignment:
+// the x ring (XS tiles of BT rows of 64 values, 128-byte swizzle: x's
+// stages, each correction block's sums of x, then [hi | lo]'s), the code
+// ring (WG_WS slots: a stage's packed codes for the tile's 128 columns,
+// 128-byte rows under the 128-byte swizzle, then its group's scale and zero
+// rows), the tile's LoRA B (two 64-rank chunks of 128 rows, 128-byte
+// swizzle; the epilogue's staging after the LoRA stages), the correction
+// table (a block's -s * (z - round(z)) of every column, hi and lo bf16),
+// the barriers.  x tiles come back when the wgmmas that read them are
+// done, code slots as soon as their fragments are in registers.
+template <int BITS, int BT> struct WgLayout {
   static constexpr int PER = BITS == 2 ? 4 : (BITS == 4 ? 2 : 1);
-  static constexpr int B_BYTES = BN * WG_BK * 2;            // a LoRA B tile
-  static constexpr int DQ_BYTES = B_BYTES + 8 * WG_BK * 2;  // a staged B tile
-  static constexpr int CODE_BYTES = BN * WG_BK / PER;
-  static constexpr int SC = CODE_BYTES;                     // the scale row in a slot
-  static constexpr int ZR = SC + BN * 4;                    // the zero row
-  static constexpr int W_BYTES = (ZR + BN * 4 + 1023) / 1024 * 1024;
-  static constexpr int SZ_BYTES = 2 * BN * 4;               // a B tile's s and z + off
-  static constexpr int XS = BN == 128 ? 4 : 8;
-  static constexpr int FIXED =
-      1024 + 512 + XS * X_BYTES + WG_DQ * DQ_BYTES + 2 * B_BYTES + WG_DQ * SZ_BYTES;
-  static constexpr int WS_FIT = (SMEM_LIMIT - FIXED) / W_BYTES;
-  static constexpr int WS = WS_FIT < 8 ? WS_FIT : 8;
+  static constexpr int X_BYTES = BT * WG_BK * 2;              // x (or [hi | lo]) tile
+  static constexpr int CODE_BYTES = WG_BK / PER * WG_BN;
+  static constexpr int SC = CODE_BYTES;                       // the scale row in a slot
+  static constexpr int ZR = SC + WG_BN * 4;                   // the zero row
+  static constexpr int W_BYTES = (ZR + WG_BN * 4 + 1023) / 1024 * 1024;
+  static constexpr int B_BYTES = WG_BN * WG_BK * 2;           // a LoRA B chunk
+  static constexpr int CZ_BYTES = WG_BN * CZ_STRIDE;          // the correction table
+  static constexpr int FIXED = 1024 + 512 + WG_WS * W_BYTES + 2 * B_BYTES + CZ_BYTES;
+  static constexpr int XS_FIT = (SMEM_LIMIT - FIXED) / X_BYTES;
+  static constexpr int XS = XS_FIT < 8 ? XS_FIT : 8;
   static constexpr int X_OFF = 0;
   static constexpr int W_OFF = X_OFF + XS * X_BYTES;
-  static constexpr int DQ_OFF = W_OFF + WS * W_BYTES;
-  static constexpr int LB_OFF = DQ_OFF + WG_DQ * DQ_BYTES;
-  static constexpr int SZ_OFF = LB_OFF + 2 * B_BYTES;
-  static constexpr int BAR_OFF = SZ_OFF + WG_DQ * SZ_BYTES;
+  static constexpr int LB_OFF = W_OFF + WG_WS * W_BYTES;
+  static constexpr int CZ_OFF = LB_OFF + 2 * B_BYTES;
+  static constexpr int BAR_OFF = CZ_OFF + CZ_BYTES;
   static constexpr int SMEM = 1024 + BAR_OFF + 512;
-  static_assert(WS >= 3 && SMEM <= SMEM_LIMIT, "shared memory");
+  static_assert(XS >= 4 && SMEM <= SMEM_LIMIT, "shared memory");
+  static_assert(BT * 128 <= B_BYTES, "a warpgroup's output staging fits a LoRA B chunk");
 };
 
-// one stage's packed codes (64 K rows x BN columns, scales and zeros
-// beside) staged as the K-major swizzled bf16 tile wgmma reads as B, in
-// 256 units of CPT = BN/32 columns by 8 K rows; this thread takes units
-// u0 + k * (256 / U), k < U, all loads first.  Unit u (w = u / 32,
-// l = u % 32) takes columns l*CPT .. +CPT and K rows 8kg .. 8kg+7,
-// kg = (w + l/2) % 8, so each quarter-warp's 16-byte stores land in 8
-// distinct bank groups and its code loads in distinct banks.  Each code is
-// staged exactly (code_pair: two codes a word in two instructions at 2 and
-// 4 bits); the stage's scale and zero + off (its group's: groups are
-// multiples of 64) go beside the tile in f32 for the consumers' fold.
-template <int BITS, int BN, int U>
-__device__ __forceinline__ void dequant_stage(const unsigned char* slot, unsigned char* dq,
-                                              float* sz, int u0) {
-  using L = WgLayout<BITS, BN>;
-  constexpr int PER = L::PER;
+// One stage's A fragments (64 K rows: four k16 steps) for this thread's
+// columns col and col + 1 (col even) of the 16-column group `chunk` of the
+// tile, from a slot of packed codes (row p of 128 bytes holds K rows
+// p * PER ..; its 16-byte chunk c lies at chunk c ^ (p % 8): the 128-byte
+// swizzle): both columns' bytes in one 16-bit load.  Each code is taken
+// exactly in bf16 (code_pair: 128 + code at 2 and 4 bits, the code at 8)
+// and zz[h], the column's 128 + round(z) (round(z) at 8 bits), taken off
+// in bf16, exactly: the fragments hold code - round(z), an integer of at
+// most 255 in size.  a[4 kk + 2 q + h] holds column col + h at K rows
+// 16 kk + 8 q + 2 cq and the next: the A fragment of a m64nNk16 whose rows
+// g and g + 8 are columns col and col + 1 (K columns 2 cq, 2 cq + 1, then
+// + 8).
+template <int BITS> struct CodeWords {
+  static constexpr uint32_t PER = BITS == 2 ? 4 : (BITS == 4 ? 2 : 1);
+  uint32_t w[PER == 1 ? 16 : 8];
+};
+
+// One stage's packed bytes for this thread's columns col and col + 1 (col
+// even) of the 16-column group `chunk` of the tile: a slot's row p of 128
+// bytes holds K rows p * PER ..; its 16-byte chunk c lies at chunk
+// c ^ (p % 8) (the 128-byte swizzle); both columns' bytes in one 16-bit
+// load, the rows that hold K rows 16 kk + 8 q + 2 cq and the next.
+template <int BITS>
+__device__ __forceinline__ void code_words(CodeWords<BITS>& cw, const unsigned char* slot,
+                                           uint32_t chunk, uint32_t col, uint32_t cq) {
+  constexpr uint32_t PER = CodeWords<BITS>::PER;
+  auto word = [&](uint32_t p) {
+    return (uint32_t)*reinterpret_cast<const uint16_t*>(
+        slot + p * 128 + (((chunk ^ (p & 7)) << 4) | col));
+  };
+#pragma unroll
+  for (uint32_t kq = 0; kq < 8; ++kq) {  // kq = 2 kk + q: K rows 8 kq + 2 cq, + 1
+    const uint32_t p = (8 * kq) / PER + (2 * cq) / PER;
+    cw.w[PER == 1 ? 2 * kq : kq] = word(p);
+    if constexpr (PER == 1) cw.w[2 * kq + 1] = word(p + 1);
+  }
+}
+
+// The A fragments of those words: each code exact in bf16 (code_pair: 128 +
+// code at 2 and 4 bits, the code at 8) and zz[h], the column's 128 +
+// round(z) (round(z) at 8 bits), taken off in bf16, exactly: code -
+// round(z), an integer of at most 255 in size.  a[4 kk + 2 q + h] holds
+// column col + h at K rows 16 kk + 8 q + 2 cq and the next: the A fragment
+// of a m64nNk16 whose rows g and g + 8 are columns col and col + 1 (K
+// columns 2 cq, 2 cq + 1, then + 8).
+template <int BITS>
+__device__ __forceinline__ void code_frags(uint32_t (&a)[16], const CodeWords<BITS>& cw,
+                                           uint32_t cq, const __nv_bfloat162 (&zz)[2]) {
+  constexpr uint32_t PER = CodeWords<BITS>::PER;
   constexpr uint32_t MASK = BITS == 8 ? 0xFFu : ((1u << BITS) - 1u);
-  constexpr int CPT = BN / 32;
-  constexpr int ROWS = 8 / PER;  // packed rows that hold 8 K rows
-  uint32_t w[U][ROWS];
-  int kg[U], n0[U];
+  const uint32_t sh = BITS * ((2 * cq) % PER);
 #pragma unroll
-  for (int k = 0; k < U; ++k) {
-    const int u = u0 + k * (256 / U);
-    const int lane = u & 31, warp = u >> 5;
-    kg[k] = (warp + (lane >> 1)) & 7;
-    n0[k] = lane * CPT;
+  for (uint32_t kq = 0; kq < 8; ++kq) {
+    const uint32_t w0 = cw.w[PER == 1 ? 2 * kq : kq];
+    const uint32_t w1 = PER == 1 ? cw.w[2 * kq + 1] : w0;
 #pragma unroll
-    for (int p = 0; p < ROWS; ++p) {
-      if constexpr (CPT == 4)
-        w[k][p] = *reinterpret_cast<const uint32_t*>(slot + (kg[k] * ROWS + p) * BN + n0[k]);
-      else
-        w[k][p] = *reinterpret_cast<const uint16_t*>(slot + (kg[k] * ROWS + p) * BN + n0[k]);
-    }
-  }
-  if (u0 < BN) {
-    sz[u0] = reinterpret_cast<const float*>(slot + L::SC)[u0];
-    sz[BN + u0] = reinterpret_cast<const float*>(slot + L::ZR)[u0] + (BITS < 8 ? CODE_OFF : 0.f);
-  }
-#pragma unroll
-  for (int k = 0; k < U; ++k) {
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      uint32_t v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k0 = 2 * q, k1 = 2 * q + 1;
-        const uint32_t c0 = (w[k][k0 / PER] >> (8 * c + BITS * (k0 % PER))) & MASK;
-        const uint32_t c1 = (w[k][k1 / PER] >> (8 * c + BITS * (k1 % PER))) & MASK;
-        v[q] = code_pair<BITS>(c0, c1);
-      }
-      const int n = n0[k] + c;
-      *reinterpret_cast<uint4*>(dq + n * 128 + ((kg[k] ^ (n & 7)) << 4)) =
-          make_uint4(v[0], v[1], v[2], v[3]);
+    for (uint32_t h = 0; h < 2; ++h) {
+      uint32_t v = code_pair<BITS>((w0 >> (8 * h + sh)) & MASK,
+                                   (w1 >> (8 * h + sh + (PER == 1 ? 0 : BITS))) & MASK);
+      const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), zz[h]);
+      a[2 * kq + h] = *reinterpret_cast<const uint32_t*>(&d);
     }
   }
 }
 
-// Persistent: block b walks tiles b, b + gridDim.x, ... of 128 x BN
-// (row tile fastest, so the blocks in flight share weight tiles in L2).
-// Each tile is a sweep of kt = K/64 weight stages and 2 * ceil(r/64) LoRA
-// stages ([hi | lo] against [B^T; B^T]); the stage counters run on across
-// tiles, so every ring does too.  Warps 0-7 run the wgmmas, 8-11 stage the
-// codes, 12 loads the x ring, 13 the weight ring and each tile's LoRA B
-// (14 and 15 only give their registers up).
+// Persistent: block b walks tiles b, b + gridDim.x, ... (token tile
+// fastest, so the blocks in flight share code tiles in L2).  A tile is
+// 128 output columns by BT rows of x, computed transposed: y^T = W^T x^T.
+// Warpgroup wg (warps 4 wg .. 4 wg + 3) owns the tile's columns
+// 64 wg .. 64 wg + 63 as the 64 rows of its wgmmas (warp w's thread (g, cq)
+// the columns 16 w + 2 g and the next as its rows g and g + 8: one 16-bit
+// load of packed codes holds both), and splits the BT rows of x into
+// two chunks of CT = BT / 2 as the wgmmas' N.  Warps 8 and 9 load (one
+// thread each): the x ring, the code ring with each tile's LoRA B.
 //
-// A weight stage's wgmmas (m64n(BN+8)k16) sum x @ (codes + off) into
-// `part`, exact products in f32 sums, one group (group / 64 stages) at a
-// time, and in its last 8 columns, against the B tile's rows of ones, the
-// group's sum of each row of x (sx); at the group's end the warpgroup
-// waits for them and folds them into the tile's sums in f32:
-// acc += s * (part - (z + off) * sx).  So the weight is the reference's
-// f32 (c - z) * s, never rounded to bf16.  The LoRA stages add unscaled
-// into acc.  Every wgmma and every read of the accumulators stays out of
-// divergent code (ptxas serializes the wgmmas otherwise).
-template <int BITS, int BN>
+// The zero is split: z = zi + zf, zi = round(z) (clamped so that the codes
+// stay exact), zf the rest.  A weight stage (64 K rows) is, for each chunk,
+// four wgmmas m64nCTk16 with A from registers (code - zi, exact in bf16,
+// built from the slot by code_frags) and B the x tile from shared memory,
+// into the chunk's `part`: x @ (codes - zi) in f32 sums of exact products.
+// Each chunk is folded into the tile's sums `acc` with the stage's scale,
+// one f32 FMA an element: acc += s * part.  What zf leaves out,
+// sum over stages of -s * zf * sum(x over the stage), is a product of rank
+// K / 64: every WG_CB stages it runs on the tensor cores as one more stage
+// of four k16 steps, A = [c_hi | c_hi | c_lo | c_lo] of c = -s * zf (each
+// thread's columns, written to the correction table as it loads each
+// stage's scale and zero, read back by ldmatrix) against B = [g_hi | g_lo
+// | g_hi | g_lo] of the block's sums of x (the prologue's, by TMA through
+// the x ring), into acc: bf16 products of 16-bit halves, so the
+// correction, small beside the sums (|zf| <= 1/2 where z is in range),
+// keeps about 16 bits.  The weight is the reference's f32 (c - z) * s; no
+// bf16 weight ever forms.  A stage issues both chunks' wgmmas (and, at a
+// correction block's last stage, the correction's) at once, loads the
+// next stage's packed words, scales and zeros, waits, folds both chunks and
+// builds the next stage's fragments: a wgmma with A in registers holds its
+// SM sub-partition's warps until the tensor cores take it, so a fold does
+// not overlap the other chunk's wgmmas anyway (PERF.md §6).  The LoRA
+// stages (LoRA B's rows as A, by ldmatrix from its TMA tile in the same
+// column order; [hi | lo] as B) add unscaled into acc.
+// Every wgmma and every read of the accumulators stays out of divergent
+// code (ptxas serializes the wgmmas otherwise): arrives are predicated,
+// barrier waits spin inside their asm.
+template <int BITS, int BT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_p,
                        const __grid_constant__ CUtensorMap tm_s,
                        const __grid_constant__ CUtensorMap tm_z,
+                       const __grid_constant__ CUtensorMap tm_gz,
                        const __grid_constant__ CUtensorMap tm_xa,
                        const __grid_constant__ CUtensorMap tm_b,
                        bf16* __restrict__ out, int M, int K, int N, int group, int r) {
-  using L = WgLayout<BITS, BN>;
-  constexpr int XS = L::XS, WS = L::WS;
-  constexpr int NACC = BN / 2;  // m64nBN f32 accumulators a thread
-  constexpr int NPART = NACC + 4;  // and m64n(BN+8): a group's sums and sx
-  constexpr int MMA_WARPS = WG_CONSUMERS / 32, DQ_WARPS = WG_DEQUANT / 32;
+  using L = WgLayout<BITS, BT>;
+  constexpr int XS = L::XS, WS = WG_WS;
+  constexpr int CT = BT / 2;      // rows of x a chunk: the wgmmas' N
+  constexpr int NA = CT / 2;      // f32 accumulators a thread a chunk
+  constexpr float OFF = BITS < 8 ? CODE_OFF : 0.f;
+  // round(z) is clamped so that OFF + zi and code - zi are exact in bf16
+  constexpr float ZI_LO = BITS < 8 ? -128.f : 0.f, ZI_HI = BITS < 8 ? 128.f : 255.f;
+  constexpr int MMA_WARPS = WG_CONSUMERS / 32;
   extern __shared__ __align__(1024) unsigned char wg_raw[];
   unsigned char* base = wg_raw + ((1024 - (smem_u32(wg_raw) & 1023)) & 1023);
   uint64_t* xfull = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
   uint64_t* xempty = xfull + XS;
   uint64_t* wfull = xempty + XS;
   uint64_t* wempty = wfull + WS;
-  uint64_t* dqfull = wempty + WS;
-  uint64_t* dqempty = dqfull + WG_DQ;
-  uint64_t* lbfull = dqempty + WG_DQ;
+  uint64_t* lbfull = wempty + WS;
   uint64_t* lbempty = lbfull + 1;
-  auto x_tile = [&](int i) { return base + L::X_OFF + (i % XS) * X_BYTES; };
+  auto x_tile = [&](int i) { return base + L::X_OFF + (i % XS) * L::X_BYTES; };
   auto w_slot = [&](int j) { return base + L::W_OFF + (j % WS) * L::W_BYTES; };
-  auto dq_tile = [&](int j) { return base + L::DQ_OFF + (j % WG_DQ) * L::DQ_BYTES; };
-  auto sz_row = [&](int j) {
-    return reinterpret_cast<float*>(base + L::SZ_OFF + (j % WG_DQ) * L::SZ_BYTES);
-  };
   unsigned char* lb = base + L::LB_OFF;
+  unsigned char* cz = base + L::CZ_OFF;
 
   const int kt = K / WG_BK;
   const int gst = group / WG_BK;  // stages a group
   const int rt = (r + WG_BK - 1) / WG_BK;
-  const int tiles_m = (M + WG_BM - 1) / WG_BM;
-  const int tiles = tiles_m * ((N + BN - 1) / BN);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles_m = (M + BT - 1) / BT;
+  const int tiles = tiles_m * ((N + WG_BN - 1) / WG_BN);
+  // the warp (uniform across its lanes, as the compiler can see)
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < XS; ++s) {
@@ -1187,51 +1206,53 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     }
     for (int s = 0; s < WS; ++s) {
       mbar_init(&wfull[s], 1);
-      mbar_init(&wempty[s], DQ_WARPS);
-    }
-    for (int s = 0; s < WG_DQ; ++s) {
-      mbar_init(&dqfull[s], DQ_WARPS);
-      mbar_init(&dqempty[s], MMA_WARPS);
+      mbar_init(&wempty[s], MMA_WARPS);
     }
     mbar_init(lbfull, 1);
     mbar_init(lbempty, MMA_WARPS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // each staged B tile's 8 rows of ones after its BN rows of codes (the
-  // staging warpgroup never writes them), seen by the wgmmas' proxy
-  for (int i = threadIdx.x; i < WG_DQ * 8 * WG_BK / 2; i += WG_THREADS) {
-    const int s = i / (8 * WG_BK / 2), w = i % (8 * WG_BK / 2);
-    reinterpret_cast<uint32_t*>(dq_tile(s) + L::B_BYTES)[w] = BF16_ONES;
-  }
-  fence_proxy_async();
+  // the correction table starts at zero: a tile's last block may hold
+  // fewer than WG_CB stages, whose sums of x the prologue wrote as zero
+  for (int e = threadIdx.x; e < L::CZ_BYTES / 4; e += WG_THREADS)
+    reinterpret_cast<uint32_t*>(cz)[e] = 0u;
   __syncthreads();
 
-  if (warp >= MMA_WARPS + DQ_WARPS) {  // loaders: one thread of warps 12 and 13
+  if (warp >= MMA_WARPS) {  // loaders: one thread of warps 8 and 9
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REG_LOAD));
-    if (lane != 0 || warp > MMA_WARPS + DQ_WARPS + 1) return;
-    const bool x_loader = warp == MMA_WARPS + DQ_WARPS;
-    int i = 0, j = 0, q = 0;  // stages, weight stages, tiles issued
+    if (lane != 0 || warp > MMA_WARPS + 1) return;
+    int i = 0, j = 0, q = 0;  // x stages, weight stages, tiles issued
+    bool waited = false;      // for the prologue's grid
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++q) {
-      const int m0 = (t % tiles_m) * WG_BM, n0 = (t / tiles_m) * BN;
-      if (x_loader) {  // x tiles, then [hi | lo]: hi rank chunks, then lo
-        for (int ks = 0; ks < kt + 2 * rt; ++ks, ++i) {
+      const int m0 = (t % tiles_m) * BT, n0 = (t / tiles_m) * WG_BN;
+      if (warp == MMA_WARPS) {
+        // x tiles, each correction block's sums of x after its last stage,
+        // then [hi | lo]: hi rank chunks, then lo
+        auto next = [&]() -> uint64_t* {
           uint64_t* bar = &xfull[i % XS];
           if (i >= XS) mbar_wait(&xempty[i % XS], ((i / XS) - 1) & 1);
-          mbar_expect_tx(bar, X_BYTES);
-          if (ks < kt) {
-            tma_load(x_tile(i), &tm_x, bar, ks * WG_BK, m0);
-          } else {
-            const int l = ks - kt;
-            // the first [hi | lo] load waits for the x @ A prologue's grid
-            if (l == 0 && q == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
-            tma_load(x_tile(i), &tm_xa, bar, (l % rt) * WG_BK, (l / rt) * M + m0);
+          mbar_expect_tx(bar, L::X_BYTES);
+          return bar;
+        };
+        for (int ks = 0; ks < kt; ++ks) {
+          uint64_t* bar = next();
+          tma_load(x_tile(i++), &tm_x, bar, ks * WG_BK, m0);
+          if (ks % WG_CB == WG_CB - 1 || ks + 1 == kt) {
+            bar = next();
+            if (!waited) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+            waited = true;
+            tma_load(x_tile(i++), &tm_gz, bar, (ks / WG_CB) * 64, m0);
           }
         }
-      } else {  // codes, scales and zeros; then the tile's LoRA B
+        for (int l = 0; l < 2 * rt; ++l) {
+          uint64_t* bar = next();
+          tma_load(x_tile(i++), &tm_xa, bar, (l % rt) * WG_BK, (l / rt) * M + m0);
+        }
+      } else {  // codes, scales and zeros; the tile's LoRA B
         for (int ks = 0; ks < kt; ++ks, ++j) {
           uint64_t* bar = &wfull[j % WS];
           if (j >= WS) mbar_wait(&wempty[j % WS], ((j / WS) - 1) & 1);
-          mbar_expect_tx(bar, L::CODE_BYTES + 2 * BN * 4);
+          mbar_expect_tx(bar, L::CODE_BYTES + 2 * WG_BN * 4);
           const int srow = ks / gst;
           tma_load(w_slot(j), &tm_p, bar, n0, ks * WG_BK / L::PER);
           tma_load(w_slot(j) + L::SC, &tm_s, bar, n0, srow);
@@ -1248,134 +1269,191 @@ dqmm_lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     return;
   }
 
-  if (warp >= MMA_WARPS) {  // the code-staging warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REG_STAGE));
-    const int dt = threadIdx.x - WG_CONSUMERS;
-    const int stages = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * kt;
-    for (int j = 0; j < stages; ++j) {
-      mbar_wait(&wfull[j % WS], (j / WS) & 1);
-      if (j >= WG_DQ) mbar_wait(&dqempty[j % WG_DQ], ((j / WG_DQ) - 1) & 1);
-      dequant_stage<BITS, BN, 256 / WG_DEQUANT>(w_slot(j), dq_tile(j), sz_row(j), dt);
-      fence_proxy_async();
+  // the two wgmma warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REG_MMA));
+  const int wg = warp >> 2;
+  const int g = lane >> 2, cq = lane & 3;
+  // the thread's accumulator rows g and g + 8 are the tile's columns na
+  // and na + 1
+  const int na = 64 * wg + 16 * (warp & 3) + 2 * g;
+  // ldmatrix of a 16 x 16 A block in this column order: lane l reads row
+  // n(l) of matrix l / 8 (h its bit 0, the K half its bit 1)
+  const int ln = 64 * wg + 16 * (warp & 3) + 2 * (lane & 7) + ((lane >> 3) & 1);
+  const int lk = lane >> 4;
+  float acc[2][NA], part[2][NA];
+  uint32_t frag[2][16];   // two stages' A fragments
+  uint32_t cfr[8];        // a correction's A fragments: c_hi, c_lo
+  float2 sv[2];           // their scales at columns na, na + 1
+
+  // weight stage j (stage ks of its tile) into buffer b, in two steps:
+  // fetch (the slot's packed words, scales and zeros into registers; the
+  // slot back) before the wait for the stage before's wgmmas, convert (zi
+  // and zf of the thread's columns, the fragments of code - zi, -s * zf as
+  // hi and lo bf16 into the correction table) after its folds
+  CodeWords<BITS> cw;
+  float2 z2;
+  auto fetch = [&](auto bc, int j) {
+    constexpr int b = decltype(bc)::value;
+    const unsigned char* slot = w_slot(j);
+    mbar_wait(&wfull[j % WS], (j / WS) & 1);
+    sv[b] = *reinterpret_cast<const float2*>(slot + L::SC + 4 * na);
+    z2 = *reinterpret_cast<const float2*>(slot + L::ZR + 4 * na);
+    code_words<BITS>(cw, slot, na >> 4, na & 15, cq);
+    __syncwarp();
+    mbar_arrive_if(&wempty[j % WS], lane == 0);
+  };
+  auto convert = [&](auto bc, int ks) {
+    constexpr int b = decltype(bc)::value;
+    const float zi0 = fminf(fmaxf(rintf(z2.x), ZI_LO), ZI_HI);
+    const float zi1 = fminf(fmaxf(rintf(z2.y), ZI_LO), ZI_HI);
+    const __nv_bfloat162 zz[2] = {__float2bfloat162_rn(OFF + zi0),
+                                  __float2bfloat162_rn(OFF + zi1)};
+    code_frags<BITS>(frag[b], cw, cq, zz);
+    const float c0 = -sv[b].x * (z2.x - zi0), c1 = -sv[b].y * (z2.y - zi1);
+    const bf16 h0 = __float2bfloat16(c0), h1 = __float2bfloat16(c1);
+    const int u = ks % WG_CB;
+    bf16* row = reinterpret_cast<bf16*>(cz + na * CZ_STRIDE);
+    row[u] = h0;
+    row[WG_CB + u] = __float2bfloat16(c0 - __bfloat162float(h0));
+    row[CZ_STRIDE / 2 + u] = h1;
+    row[CZ_STRIDE / 2 + WG_CB + u] = __float2bfloat16(c1 - __bfloat162float(h1));
+  };
+  // a chunk's stage sums into acc: columns na (e < 2) and na + 1
+  auto fold = [&](float (&a)[NA], float (&p)[NA], float2 s) {
+#pragma unroll
+    for (int e = 0; e < NA; ++e) a[e] = fmaf((e & 3) < 2 ? s.x : s.y, p[e], a[e]);
+  };
+
+  int i = 0, j = 0, q = 0;  // x stages, weight stages, tiles
+  int rel = 0;              // the first x stage not yet handed back
+  // hand back every x stage before `upto` (predicated: no branch)
+  auto release = [&](int upto) {
+    for (; rel < upto; ++rel) mbar_arrive_if(&xempty[rel % XS], lane == 0);
+  };
+  // weight stage ks of the tile (x stage i, weight stage j), its fragments
+  // in buffer b = ks % 2 (built a stage before): its wgmmas, both chunks
+  // into `part` (and, at a correction block's last stage, the correction
+  // into acc: A from the table by ldmatrix, k16 steps c_hi, c_hi, c_lo,
+  // c_lo against the next x stage, g_hi, g_lo, g_hi, g_lo); the next
+  // stage's words; the wait; the folds; the next stage's fragments
+  auto stage = [&](auto bc, int ks) {
+    constexpr int b = decltype(bc)::value;
+    const bool corr = ks % WG_CB == WG_CB - 1 || ks + 1 == kt;
+    mbar_wait(&xfull[i % XS], (i / XS) & 1);
+    const uint64_t dx = sw128_desc(x_tile(i++));
+    uint64_t dg = 0;
+    if (corr) {
+      mbar_wait(&xfull[i % XS], (i / XS) & 1);
+      dg = sw128_desc(x_tile(i++));
       __syncwarp();
-      if (lane == 0) {
-        mbar_arrive(&dqfull[j % WG_DQ]);
-        mbar_arrive(&wempty[j % WS]);
+      const unsigned char* tab = cz + ln * CZ_STRIDE;
+      ldsm_x4(cfr, tab + lk * 16);
+      ldsm_x4(cfr + 4, tab + 32 + lk * 16);
+    }
+    fence_acc(part[0]);
+    fence_acc(part[1]);
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {  // a stage's first product overwrites
+      wgmma_rs<CT>(part[0], frag[b] + 4 * kk, dx + 2 * kk, kk > 0);
+      wgmma_rs<CT>(part[1], frag[b] + 4 * kk, dx + CT * 8 + 2 * kk, kk > 0);
+    }
+    if (corr) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<CT>(acc[0], cfr + 4 * (kk >> 1), dg + 2 * kk, 1);
+        wgmma_rs<CT>(acc[1], cfr + 4 * (kk >> 1), dg + CT * 8 + 2 * kk, 1);
       }
     }
-    return;
-  }
+    wgmma_commit();
+    if (ks + 1 < kt) fetch(std::integral_constant<int, b ^ 1>{}, j + 1);
+    wgmma_wait<0>();
+    fence_acc(part[0]);
+    fence_acc(part[1]);
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    fence_frag(frag[b]);
+    fence_frag(cfr);
+    fold(acc[0], part[0], sv[b]);
+    fold(acc[1], part[1], sv[b]);
+    release(i);
+    if (ks + 1 < kt) convert(std::integral_constant<int, b ^ 1>{}, ks + 1);
+    ++j;
+  };
 
-  // wgmma warpgroups: wg owns rows 64 wg .. 64 wg + 63 of the tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REG_MMA));
-  const int wg = threadIdx.x >> 7;
-  const int g = lane >> 2, cq = lane & 3;
-  const int r0 = (warp & 3) * 16 + g;  // the thread's rows r0 and r0 + 8 of its 64
-  float acc[NACC], part[NPART];
-#pragma unroll
-  for (int e = 0; e < NPART; ++e) part[e] = 0.f;
-  int i = 0, j = 0, q = 0;  // stages, weight stages, tiles
   for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++q) {
-    const int m0 = (t % tiles_m) * WG_BM + wg * 64, n0 = (t / tiles_m) * BN;
+    const int m0 = (t % tiles_m) * BT, n0 = (t / tiles_m) * WG_BN;
 #pragma unroll
-    for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
-    for (int ks = 0; ks < kt; ks += gst) {  // one group
-      for (int s = 0; s < gst; ++s, ++i, ++j) {
-        mbar_wait(&xfull[i % XS], (i / XS) & 1);
-        mbar_wait(&dqfull[j % WG_DQ], (j / WG_DQ) & 1);
-        const uint64_t da = sw128_desc(x_tile(i) + wg * (X_BYTES / 2));
-        const uint64_t db = sw128_desc(dq_tile(j));
-        fence_acc(part);
-        wgmma_fence();
+    for (int c = 0; c < 2; ++c)
 #pragma unroll
-        for (int kk = 0; kk < WG_BK / 16; ++kk)  // a group's first product overwrites
-          wgmma_part<BN>(part, da + 2 * kk, db + 2 * kk, s > 0 || kk > 0);
-        wgmma_commit();
-        fence_acc(part);
-        if (s + 1 < gst) {  // the stage before is done: hand its tiles back
-          wgmma_wait<1>();
-          fence_acc(part);
-          if (lane == 0 && s > 0) {
-            mbar_arrive(&xempty[(i - 1) % XS]);
-            mbar_arrive(&dqempty[(j - 1) % WG_DQ]);
-          }
-        }
-      }
-      wgmma_wait<0>();
-      fence_acc(part);
-      // the fold, with the group's s and z + off from its last B tile and
-      // the rows' sums of x from the ones columns (rows r0, r0 + 8)
-      const float* szp = sz_row(j - 1);
-      const float sx0 = part[NACC], sx1 = part[NACC + 2];
-#pragma unroll
-      for (int jn = 0; jn < BN / 8; ++jn) {
-        const float2 s2 = *reinterpret_cast<const float2*>(szp + 8 * jn + 2 * cq);
-        const float2 z2 = *reinterpret_cast<const float2*>(szp + BN + 8 * jn + 2 * cq);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float sxh = h ? sx1 : sx0;
-          float* a2 = acc + 4 * jn + 2 * h;
-          const float* p2 = part + 4 * jn + 2 * h;
-          a2[0] = fmaf(s2.x, fmaf(-z2.x, sxh, p2[0]), a2[0]);
-          a2[1] = fmaf(s2.y, fmaf(-z2.y, sxh, p2[1]), a2[1]);
-        }
-      }
-      if (lane == 0) {  // the group's last stage (and the one before, if any)
-        if (gst > 1) {
-          mbar_arrive(&xempty[(i - 2) % XS]);
-          mbar_arrive(&dqempty[(j - 2) % WG_DQ]);
-        }
-        mbar_arrive(&xempty[(i - 1) % XS]);
-        mbar_arrive(&dqempty[(j - 1) % WG_DQ]);
-      }
+      for (int e = 0; e < NA; ++e) acc[c][e] = 0.f;
+    fetch(std::integral_constant<int, 0>{}, j);
+    convert(std::integral_constant<int, 0>{}, 0);
+    for (int ks = 0; ks < kt; ks += 2) {
+      stage(std::integral_constant<int, 0>{}, ks);
+      if (ks + 1 < kt) stage(std::integral_constant<int, 1>{}, ks + 1);
     }
     if (rt > 0) {  // the LoRA stages, unscaled, into the tile's sums
-      mbar_wait(lbfull, q & 1);
-      for (int l = 0; l < 2 * rt; ++l, ++i) {
+      auto lora_stage = [&](auto bc, int l) {
+        constexpr int b = decltype(bc)::value;
         mbar_wait(&xfull[i % XS], (i / XS) & 1);
-        const uint64_t da = sw128_desc(x_tile(i) + wg * (X_BYTES / 2));
-        const uint64_t db = sw128_desc(lb + (l % rt) * L::B_BYTES);
-        fence_acc(acc);
-        wgmma_fence();
+        const unsigned char* bt = lb + (l % rt) * L::B_BYTES + ln * 128;
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 16; ++kk)
-          wgmma_bn<BN>(acc, da + 2 * kk, db + 2 * kk, 1);
+          ldsm_x4(frag[b] + 4 * kk, bt + (((2 * kk + lk) ^ (ln & 7)) << 4));
+        const uint64_t db = sw128_desc(x_tile(i++));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          wgmma_rs<CT>(acc[0], frag[b] + 4 * kk, db + 2 * kk, 1);
+          wgmma_rs<CT>(acc[1], frag[b] + 4 * kk, db + CT * 8 + 2 * kk, 1);
+        }
         wgmma_commit();
-        fence_acc(acc);
-        wgmma_wait<1>();
-        fence_acc(acc);
-        if (lane == 0 && l > 0) mbar_arrive(&xempty[(i - 1) % XS]);
+        wgmma_wait<0>();
+        fence_frag(frag[b]);
+        release(i);
+      };
+      mbar_wait(lbfull, q & 1);
+      for (int l = 0; l < 2 * rt; l += 2) {
+        lora_stage(std::integral_constant<int, 0>{}, l);
+        lora_stage(std::integral_constant<int, 1>{}, l + 1);
       }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (lane == 0) mbar_arrive(&xempty[(i - 1) % XS]);
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
     }
-    // the sums in bf16 through the LoRA B tiles, once both warpgroups'
-    // wgmmas are done with them (one per warpgroup, 16-byte chunks
-    // XOR-swizzled by row), then out in coalesced 16-byte stores
+    // the sums in bf16 through the LoRA B chunks, once both warpgroups'
+    // wgmmas are done with them: warpgroup wg's 64 columns as BT rows of
+    // 128 bytes, 16-byte chunks XOR-swizzled by row; then out in
+    // coalesced 16-byte stores
     mma_warpgroups_sync();
-    unsigned char* stage = lb + wg * L::B_BYTES;
+    unsigned char* stage_out = lb + wg * L::B_BYTES;
+    const int cl = na - 64 * wg;  // the thread's columns in the warpgroup's 64
 #pragma unroll
-    for (int jn = 0; jn < BN / 8; ++jn)
+    for (int c = 0; c < 2; ++c)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + 8 * h;
-        *reinterpret_cast<__nv_bfloat162*>(stage + row * (BN * 2) +
-                                           ((jn ^ (row & 7)) << 4) + cq * 4) =
-            __floats2bfloat162_rn(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
-      }
+      for (int jj = 0; jj < CT / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // row 8 jj + 2 cq + e: columns cl, cl + 1
+          const int row = c * CT + 8 * jj + 2 * cq + e;
+          *reinterpret_cast<__nv_bfloat162*>(stage_out + row * 128 +
+                                             (((cl >> 3) ^ (row & 7)) << 4) + (cl & 7) * 2) =
+              __floats2bfloat162_rn(acc[c][4 * jj + e], acc[c][4 * jj + 2 + e]);
+        }
     asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
-    for (int c = threadIdx.x & 127; c < 64 * (BN / 8); c += 128) {
-      const int row = c / (BN / 8), ch = c % (BN / 8);
-      const uint4 v = *reinterpret_cast<const uint4*>(stage + row * (BN * 2) +
+    for (int c = threadIdx.x & 127; c < BT * 8; c += 128) {
+      const int row = c >> 3, ch = c & 7;
+      const uint4 v = *reinterpret_cast<const uint4*>(stage_out + row * 128 +
                                                       ((ch ^ (row & 7)) << 4));
-      if (m0 + row < M && n0 + 8 * ch < N)
-        *reinterpret_cast<uint4*>(out + (size_t)(m0 + row) * N + n0 + 8 * ch) = v;
+      const int col = n0 + 64 * wg + 8 * ch;
+      if (m0 + row < M && col < N)
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + row) * N + col) = v;
     }
     // the staging is read; the next tile's LoRA B may land there (and the
     // next tile's sums are staged only after its own LoRA stages)
     asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
-    if (rt > 0 && lane == 0) mbar_arrive(lbempty);
+    mbar_arrive_if(lbempty, rt > 0 && lane == 0);
   }
 }
 
@@ -1420,8 +1498,8 @@ int make_map(CUtensorMap* m, CUtensorMapDataType dt, const void* ptr, uint64_t i
 }
 
 template <int RT>
-int launch_xa(const void* x, const void* a, void* hl, int M, int K, int r, int splits,
-              int chunk, cudaStream_t s) {
+int launch_xa(const void* x, const void* a, void* hl, void* gz, int M, int K, int r,
+              int splits, int chunk, int gzw, cudaStream_t s) {
   const int bytes = XA_STAGES * xa_stage_elems(RT) * 2;
   auto kern = xa_kernel<RT>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1440,35 +1518,37 @@ int launch_xa(const void* x, const void* a, void* hl, int M, int K, int r, int s
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<const bf16*>(x),
-                                 static_cast<const bf16*>(a), static_cast<bf16*>(hl), M,
-                                 K, r, chunk);
+                                 static_cast<const bf16*>(a), static_cast<bf16*>(hl),
+                                 static_cast<bf16*>(gz), M, K, r, chunk, gzw);
 }
 
-template <int BITS, int BN>
+template <int BITS, int BT>
 int launch_wgmma(const void* x, const void* packed, const void* scales, const void* zeros,
-                 const void* b, const void* hl, void* out, int M, int K, int N, int group,
-                 int r, int grid, cudaStream_t s) {
+                 const void* b, const void* hl, const void* gz, void* out, int M, int K,
+                 int N, int group, int r, int gzw, int grid, cudaStream_t s) {
   constexpr int PER = BITS == 2 ? 4 : (BITS == 4 ? 2 : 1);
-  CUtensorMap mx, mp, ms, mz, mxa, mb;
+  CUtensorMap mx, mp_, ms, mz, mg, mxa, mb;
   memset(&mxa, 0, sizeof(mxa));
   memset(&mb, 0, sizeof(mb));
-  int rc = make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2ull * K, WG_BK, WG_BM,
+  int rc = make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2ull * K, WG_BK, BT,
                     CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!rc) rc = make_map(&mp, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, N, K / PER, N, BN,
-                         WG_BK / PER, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!rc) rc = make_map(&mp_, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, N, K / PER, N, WG_BN,
+                         WG_BK / PER, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!rc) rc = make_map(&ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, N, K / group,
-                         4ull * N, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+                         4ull * N, WG_BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!rc) rc = make_map(&mz, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, zeros, N, K / group,
-                         4ull * N, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+                         4ull * N, WG_BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!rc) rc = make_map(&mg, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, gz, gzw, M, 2ull * gzw,
+                         64, BT, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!rc && r > 0)
     rc = make_map(&mxa, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, hl, r, 2ull * M, 2ull * r,
-                  WG_BK, WG_BM, CU_TENSOR_MAP_SWIZZLE_128B);
+                  WG_BK, BT, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!rc && r > 0)
-    rc = make_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, r, N, 2ull * r, WG_BK, BN,
+    rc = make_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, r, N, 2ull * r, WG_BK, WG_BN,
                   CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc) return rc;
-  auto kern = dqmm_lora_wgmma_kernel<BITS, BN>;
-  constexpr int smem = WgLayout<BITS, BN>::SMEM;
+  auto kern = dqmm_lora_wgmma_kernel<BITS, BT>;
+  constexpr int smem = WgLayout<BITS, BT>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem);
   if (e != cudaSuccess) return (int)e;
@@ -1479,20 +1559,21 @@ int launch_wgmma(const void* x, const void* packed, const void* scales, const vo
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;  // overlap the
-  attr[0].val.programmaticStreamSerializationAllowed = r > 0;          // prologue's tail
+  attr[0].val.programmaticStreamSerializationAllowed = 1;            // prologue's tail
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, mx, mp, ms, mz, mxa, mb, static_cast<bf16*>(out),
-                                 M, K, N, group, r);
+  return (int)cudaLaunchKernelEx(&cfg, kern, mx, mp_, ms, mz, mg, mxa, mb,
+                                 static_cast<bf16*>(out), M, K, N, group, r);
 }
 
-int wgmma_by_bits(int bits, int bn, const void* x, const void* packed, const void* scales,
-                  const void* zeros, const void* b, const void* hl, void* out, int M, int K,
-                  int N, int group, int r, int grid, cudaStream_t s) {
-#define DQ_WG(B, T)                                                                  \
-  if (bits == B && bn == T)                                                          \
-    return launch_wgmma<B, T>(x, packed, scales, zeros, b, hl, out, M, K, N, group, r, \
-                              grid, s);
+int wgmma_by_bits(int bits, int bt, const void* x, const void* packed, const void* scales,
+                  const void* zeros, const void* b, const void* hl, const void* gz,
+                  void* out, int M, int K, int N, int group, int r, int gzw, int grid,
+                  cudaStream_t s) {
+#define DQ_WG(B, T)                                                                   \
+  if (bits == B && bt == T)                                                           \
+    return launch_wgmma<B, T>(x, packed, scales, zeros, b, hl, gz, out, M, K, N, group, \
+                              r, gzw, grid, s);
   DQ_WG(2, 128) DQ_WG(4, 128) DQ_WG(8, 128) DQ_WG(2, 64) DQ_WG(4, 64) DQ_WG(8, 64)
 #undef DQ_WG
   return (int)cudaErrorInvalidValue;
@@ -1508,13 +1589,14 @@ bool wgmma_ok(const void* x, const void* packed, const void* scales, const void*
          aligned16(scales) && aligned16(zeros) && (r == 0 || (aligned16(a) && aligned16(b)));
 }
 
-int xa_by_rank(int rt, const void* x, const void* a, void* hl, int M, int K, int r,
-               int splits, int chunk, cudaStream_t s) {
+int xa_by_rank(int rt, const void* x, const void* a, void* hl, void* gz, int M, int K,
+               int r, int splits, int chunk, int gzw, cudaStream_t s) {
   switch (rt) {
-    case 1: return launch_xa<1>(x, a, hl, M, K, r, splits, chunk, s);
-    case 2: return launch_xa<2>(x, a, hl, M, K, r, splits, chunk, s);
-    case 4: return launch_xa<4>(x, a, hl, M, K, r, splits, chunk, s);
-    case 8: return launch_xa<8>(x, a, hl, M, K, r, splits, chunk, s);
+    case 0: return launch_xa<0>(x, a, hl, gz, M, K, r, splits, chunk, gzw, s);
+    case 1: return launch_xa<1>(x, a, hl, gz, M, K, r, splits, chunk, gzw, s);
+    case 2: return launch_xa<2>(x, a, hl, gz, M, K, r, splits, chunk, gzw, s);
+    case 4: return launch_xa<4>(x, a, hl, gz, M, K, r, splits, chunk, gzw, s);
+    case 8: return launch_xa<8>(x, a, hl, gz, M, K, r, splits, chunk, gzw, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1528,18 +1610,20 @@ int xa_by_rank(int rt, const void* x, const void* a, void* hl, int M, int K, int
 //   0 fma:   CUDA-core f32 FMAs on the f32 weight, 64 x 128 tiles (f32 x,
 //            and bf16 x whose group is not a multiple of 8);
 //   1 mma:   bf16, mma.sync on exact codes, 64 x 128 tiles, group % 8 == 0;
-//   2 wgmma: bf16, the x @ A prologue (r > 0), K cut into xa_splits <= 8
-//            ranges of xa_chunk rows summed by a cluster, into xa_hl (2M, r)
-//            bf16; then `grid` persistent blocks over 128 x bn tiles (bn 64
-//            or 128).  The shapes and pointers must pass wgmma_ok (group %
-//            64 == 0 among them).
+//   2 wgmma: bf16, the prologue (K cut into xa_splits <= 8 ranges of
+//            xa_chunk rows summed by a cluster): each 64-row stage's sums
+//            of x as hi and lo into xa_g (M, 64 ceil(K / 1024)) bf16, and
+//            x @ A into xa_hl (2M, r) bf16 when r > 0; then `grid` persistent blocks
+//            over tiles of bm rows of x (64 or 128) by 128 output columns.
+//            The shapes and pointers must pass wgmma_ok (group % 64 == 0
+//            among them).
 // Returns 0, a cudaError_t code, or 10000 + the CUresult of a tensor map
 // that could not be encoded.
 extern "C" int dqmm_lora_launch(const void* x, const void* packed, const void* scales,
                                 const void* zeros, const void* lora_a,
-                                const void* lora_b, void* out, void* xa_hl,
+                                const void* lora_b, void* out, void* xa_hl, void* xa_g,
                                 int M, int K, int N, int bits, int group, int r,
-                                int route, int is_bf16, int bn, int grid, int xa_splits,
+                                int route, int is_bf16, int bm, int grid, int xa_splits,
                                 int xa_chunk, void* stream) {
   const int per = bits == 2 ? 4 : (bits == 4 ? 2 : 1);
   if (M < 1 || K < 1 || N < 1 || group < 1 || K % group || K % per || r < 0 ||
@@ -1549,15 +1633,17 @@ extern "C" int dqmm_lora_launch(const void* x, const void* packed, const void* s
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (route == 2) {
+    const int gzw = (K / WG_BK + WG_CB - 1) / WG_CB * 4 * WG_CB;  // bf16 a row of xa_g
     if (!wgmma_ok(x, packed, scales, zeros, lora_a, lora_b, K, N, group, r) || grid < 1 ||
-        (r > 0 && (!xa_hl || !aligned16(xa_hl) || xa_splits < 1 || xa_splits > 8 ||
-                   xa_chunk < 1 || xa_chunk % XA_BK ||
-                   (long long)xa_splits * xa_chunk < K)))
+        (bm != 64 && bm != 128) || !xa_g || !aligned16(xa_g) || xa_splits < 1 ||
+        xa_splits > 8 || xa_chunk < 1 || xa_chunk % XA_BK ||
+        (long long)xa_splits * xa_chunk < K || (r > 0 && (!xa_hl || !aligned16(xa_hl))))
       return (int)cudaErrorInvalidValue;
-    rc = r > 0 ? xa_by_rank(need, x, lora_a, xa_hl, M, K, r, xa_splits, xa_chunk, s) : 0;
+    rc = xa_by_rank(r > 0 ? need : 0, x, lora_a, xa_hl, xa_g, M, K, r, xa_splits, xa_chunk,
+                    gzw, s);
     if (!rc)
-      rc = wgmma_by_bits(bits, bn, x, packed, scales, zeros, lora_b, xa_hl, out, M, K, N,
-                         group, r, grid, s);
+      rc = wgmma_by_bits(bits, bm, x, packed, scales, zeros, lora_b, xa_hl, xa_g, out, M, K,
+                         N, group, r, gzw, grid, s);
   } else if (route == 0 || route == 1) {
     if ((M + BM - 1) / BM > 65535 || (route == 1 && group % 8)) return (int)cudaErrorInvalidValue;
     if (route == 1)

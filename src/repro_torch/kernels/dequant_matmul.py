@@ -35,11 +35,14 @@ _MMA_GRID_SHARE = 0.625  # the mma route's grid: about this share of the SMs
 DQMM_ROUTES = {"fma": 0, "mma": 1}     # csrc: route
 MAX_LORA_RANK = 128  # csrc/dequant_matmul_lora.cu: 16 * MAX_RPT
 # csrc/dequant_matmul_lora.cu: the fma and mma kernels' 64 x 128 tiles (BM,
-# BN; one grid row of blocks per 64 rows of x), the wgmma kernel's 128-row
-# tiles and 64-row K stages (WG_BM, WG_BK), the x @ A prologue's 64-row
-# blocks (XA_BM)
-_SYNC_TILE = (64, 128)
-_WG_BM, _WG_BK, _XA_BM = 128, 64, 64
+# BN; one grid row of blocks per 64 rows of x), the wgmma kernel's tiles of
+# 128 output columns (WG_BN) by 128 or 64 rows of x, its 64-row K stages
+# (WG_BK), the x @ A prologue's 64-row blocks (XA_BM)
+_LC = build.constants(LORA_SOURCE)
+_SYNC_TILE = (_LC["BM"], _LC["BN"])
+_WG_BN, _WG_BK, _XA_BM = _LC["WG_BN"], _LC["WG_BK"], _LC["XA_BM"]
+_WG_CB = _LC["WG_CB"]  # stages a zero-correction block
+_WG_ROWS = (128, 64)  # the wgmma kernel's instances: rows of x a tile
 _XA_MAX_SPLITS = 8   # the prologue's cluster: at most 8 blocks (portable)
 _MAX_GRID_ROWS = 65535
 LORA_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}   # csrc: route
@@ -50,7 +53,7 @@ launches = 0
 lora_launches = 0
 
 _argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-_lora_argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+_lora_argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                   + [ctypes.c_void_p])
 
 
@@ -187,11 +190,12 @@ def lora_plan(M: int, K: int, N: int, r: int, group: int, *, bf16: bool,
     route folds each group's sums after a k16 step or a k8 half), else
     fma (CUDA cores on the f32 weight; no model config has such a
     group).  The wgmma tiles
-    are 128 x 128, or 128 x 64 where that fills clearly more of the
-    ``n_sm`` SMs (Qwen3-1.7B's k/v projections at 1024 rows: 128 tiles,
-    not 64); one persistent block per SM.  The x @ A prologue splits K
-    over a cluster of up to 8 blocks, so that about one block an SM
-    runs."""
+    are 128 output columns by 128 rows of x, or by 64 where that fills
+    clearly more of the ``n_sm`` SMs (Qwen3-1.7B's k/v projections at 1024
+    rows: 128 tiles, not 64) or x has at most 64 rows; one persistent
+    block per SM.  The prologue (x @ A and each 64-row stage's sums of x)
+    splits K over a cluster of up to 8 blocks, so that about one block an
+    SM runs."""
     if not bf16 or not tma_addressable(K, N, r, group, aligned):
         route = "mma" if bf16 and group % 8 == 0 else "fma"
         bm, bn = _SYNC_TILE
@@ -201,14 +205,15 @@ def lora_plan(M: int, K: int, N: int, r: int, group: int, *, bf16: bool,
                              f"many for the {route} route's grid")
         tiles = rows * -(-N // bn)
         return LoraPlan(route, bm, bn, tiles, tiles)
-    rows = -(-M // _WG_BM)
-    bn = 64 if (_fill(rows * -(-N // 64), n_sm)
-                > _fill(rows * -(-N // 128), n_sm) + 0.1) else 128
-    tiles = rows * -(-N // bn)
+    cols = -(-N // _WG_BN)
+    big, small = _WG_ROWS
+    bm = small if (M <= small or _fill(-(-M // small) * cols, n_sm)
+                   > _fill(-(-M // big) * cols, n_sm) + 0.1) else big
+    tiles = -(-M // bm) * cols
     chunks = -(-K // _WG_BK)
     want = max(1, min(chunks, _XA_MAX_SPLITS, -(-n_sm // -(-M // _XA_BM))))
     per = -(-chunks // want)
-    return LoraPlan("wgmma", _WG_BM, bn, tiles, min(tiles, n_sm),
+    return LoraPlan("wgmma", bm, _WG_BN, tiles, min(tiles, n_sm),
                     -(-chunks // per), per * _WG_BK)
 
 
@@ -345,14 +350,20 @@ def dequant_matmul_lora_cuda(x: Tensor, packed: Tensor, scales: Tensor,
     if M == 0:
         return out.reshape(*lead, N)
     plan = lora_plan_for(x2, packed, scales, zeros, lora_a, lora_b, g)
-    hl = None
-    if plan.route == "wgmma" and r:     # the prologue's x @ A as hi / lo
-        hl = torch.empty((2 * M, r), dtype=torch.bfloat16, device=x.device)
+    hl = gz = None
+    if plan.route == "wgmma":   # the prologue's outputs: x @ A as hi / lo,
+        # and each 64-row stage's sums of x as hi / lo, hi, lo: 4 * _WG_CB
+        # columns a correction block of _WG_CB stages
+        if r:
+            hl = torch.empty((2 * M, r), dtype=torch.bfloat16, device=x.device)
+        gz = torch.empty((M, -(-K // (_WG_BK * _WG_CB)) * 4 * _WG_CB),
+                         dtype=torch.bfloat16, device=x.device)
     rc = _lora_lib()(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                      zeros.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
                      out.data_ptr(), None if hl is None else hl.data_ptr(),
+                     None if gz is None else gz.data_ptr(),
                      M, K, N, bits, g, r, LORA_ROUTES[plan.route],
-                     int(x.dtype == torch.bfloat16), plan.bn, plan.grid,
+                     int(x.dtype == torch.bfloat16), plan.bm, plan.grid,
                      plan.xa_splits, plan.xa_chunk,
                      build.stream_handle(x.device))
     build.check(rc, f"{what} launch")

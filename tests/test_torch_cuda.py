@@ -163,8 +163,11 @@ def test_gram_wgmma_route(cuda, T, D):
     _close(h, hr, rtol=1e-4, atol=1e-2)
 
 
-def _lora_case(cuda, M, K, N, g, bits, r, dtype):
+def _lora_case(cuda, M, K, N, g, bits, r, dtype, any_zero=False):
     codes, s, z = quantize_int(torch.randn(K, N, device=cuda) * 0.02, bits, g)
+    if any_zero:    # shift each zero by U(-0.5, 0.5), some by -2^bits
+        z = z + torch.rand_like(z) - 0.5
+        z = z - (1 << bits) * (torch.rand_like(z) < 0.25)
     x = torch.randn(M, K, device=cuda).to(dtype)
     a = (torch.randn(K, r, device=cuda) / K ** 0.5).to(dtype)
     b = (torch.randn(N, r, device=cuda) * 0.1).to(dtype)
@@ -225,6 +228,52 @@ def test_dequant_matmul_lora_route_and_same_bits(cuda, case):
     want = ref.dequant_matmul_lora_ref(x, packed, s, z, a, b, bits=4,
                                        group_size=g)
     _close(y, want, **_tol(torch.bfloat16))
+
+
+# the wgmma route (the training path) against its plain version: every
+# bits, ranks 0 to 128, groups of one stage, two stages and all of K, rows
+# of 1, 63 (one 64-row tile) and 1000 (ragged 128-row tiles), N not a
+# multiple of the 128-column tile (1040, 200 + 8 = 208), and Pixtral's
+# K = 14336; then zeros that are not whole numbers and some past the
+# codes' range (the zero's fraction, -s (z - round(z)), non-zero on the
+# tensor cores; at 8 bits past the clamp of round(z)) at every bits,
+# groups 64 and 128, with a last correction block of fewer than 16 stages
+# (K 2112: 33 stages; K 1088: 17; K 512: 8) and at K = 14336;
+# (M, K, N, g, r, bits)
+WGMMA_CASES = [(1000, 2048, 1040, 64, 64, 2), (1000, 2048, 1040, 64, 64, 4),
+               (1000, 2048, 1040, 64, 64, 8), (1000, 2048, 1040, 64, 0, 4),
+               (1000, 2048, 1040, 64, 8, 4), (1000, 2048, 1040, 64, 128, 4),
+               (1000, 2048, 1040, 128, 64, 4), (1000, 2048, 1040, 2048, 64, 4),
+               (1, 2048, 1040, 64, 64, 4), (63, 2048, 1040, 64, 64, 4),
+               (1000, 6144, 208, 64, 128, 2), (63, 512, 208, 512, 0, 8),
+               (1024, 2048, 1024, 64, 64, 4), (200, 14336, 512, 64, 64, 4)]
+WGMMA_ANY_ZERO = [(1000, 2112, 1040, 64, 64, 2), (1000, 2112, 1040, 64, 64, 4),
+                  (1000, 2112, 1040, 64, 64, 8), (63, 1088, 208, 64, 8, 8),
+                  (1000, 2048, 1040, 128, 128, 8), (1, 512, 208, 64, 0, 4),
+                  (1024, 2048, 1024, 64, 64, 8), (200, 14336, 512, 64, 64, 2),
+                  (200, 14336, 512, 64, 64, 4), (200, 14336, 512, 64, 64, 8)]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES + [
+    (*c, True) for c in WGMMA_ANY_ZERO])
+def test_dequant_matmul_lora_wgmma_route_matches_plain(cuda, case):
+    """bf16 operands TMA can address take the wgmma route at every one of
+    these shapes, agree with the plain version at the JAX bf16 tolerance,
+    and give the same bits on a second run."""
+    from repro_torch.kernels.dequant_matmul import lora_plan_for
+    M, K, N, g, r, bits, *flag = case
+    x, packed, s, z, a, b = _lora_case(cuda, M, K, N, g, bits, r,
+                                       torch.bfloat16, any_zero=bool(flag))
+    assert lora_plan_for(x, packed, s, z, a, b, g).route == "wgmma"
+    y = ops.dequant_matmul_lora(x, packed, s, z, a, b, bits=bits,
+                                group_size=g)
+    y2 = ops.dequant_matmul_lora(x, packed, s, z, a, b, bits=bits,
+                                 group_size=g)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    _close(y, ref.dequant_matmul_lora_ref(x, packed, s, z, a, b, bits=bits,
+                                          group_size=g),
+           **_tol(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

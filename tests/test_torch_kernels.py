@@ -386,16 +386,130 @@ H100_SMS = 132
 @pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 1024), (2048, 6144),
                                  (6144, 2048)])
 def test_lora_plan_qwen_linears_take_wgmma(K, N):
+    """Qwen3-1.7B's linears at 1024 rows take the wgmma route: tiles of 128
+    output columns by 128 rows of x, or by 64 rows for the k/v
+    projections (N 1024: 64 tiles of 128 rows would leave half the SMs
+    idle)."""
     from repro_torch.kernels.dequant_matmul import lora_plan
     p = lora_plan(1024, K, N, 64, 64, bf16=True, aligned=True,
                   n_sm=H100_SMS)
-    assert p.route == "wgmma" and p.bm == 128 and p.bn in (64, 128)
+    assert p.route == "wgmma" and p.bn == 128
+    assert p.bm == (64 if N == 1024 else 128)
     assert p.tiles == -(-1024 // p.bm) * -(-N // p.bn)
     assert p.grid == min(p.tiles, H100_SMS)     # persistent: one a SM
     assert p.tiles >= 128                       # 97% of the SMs or more
     assert p.xa_splits * p.xa_chunk >= K > (p.xa_splits - 1) * p.xa_chunk
     assert p.xa_chunk % 64 == 0
     assert p.xa_splits == 8             # 16 x 8 prologue blocks
+
+
+@pytest.mark.parametrize("M,N,bm", [(1, 2048, 64), (63, 2048, 64),
+                                    (64, 6144, 64), (65, 2048, 64),
+                                    (200, 6144, 128),
+                                    (1000, 2048, 128), (1000, 1024, 64),
+                                    (4096, 1024, 128), (1024, 1040, 128)])
+def test_lora_plan_wgmma_rows_a_tile(M, N, bm):
+    """The wgmma route's tiles have 128 rows of x, or 64 where x has at
+    most 64 rows or 64-row tiles fill clearly more SMs; the prologue's K
+    split is whole 64-row stages over at most 8 blocks, for any rank."""
+    from repro_torch.kernels.dequant_matmul import lora_plan
+    for r in (0, 8, 128):
+        p = lora_plan(M, 2048, N, r, 64, bf16=True, aligned=True,
+                      n_sm=H100_SMS)
+        assert (p.route, p.bm, p.bn) == ("wgmma", bm, 128)
+        assert p.tiles == -(-M // bm) * -(-N // 128)
+        assert p.grid == min(p.tiles, H100_SMS)
+        assert p.xa_chunk % 64 == 0 and 1 <= p.xa_splits <= 8
+        assert p.xa_splits * p.xa_chunk >= 2048
+
+
+def _bf16_split(v):
+    """v (f32) as hi = bf16(v) and lo = bf16(v - hi), both widened to f32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _wgmma_route_emulated(x, packed, s, z, a, b, bits, g):
+    """The wgmma route's arithmetic in plain PyTorch on the CPU: the zero
+    split into zi = round(z) (clamped to the range where the codes stay
+    exact) and zf = z - zi; each 64-row stage's sums x @ (codes - zi) of
+    exact bf16 values in f32, folded with the stage's group's f32 scale;
+    the rest, the sum over stages of -s * zf * sum(x), as bf16 hi/lo
+    halves of both factors (the correction blocks); the LoRA term as
+    [hi | lo] @ [B^T; B^T], hi = bf16(x @ A), lo = bf16(x @ A - hi); the
+    output in bf16."""
+    from repro_torch.core.quantizer import unpack_codes
+    M, K = x.shape
+    lo, hi = (-128.0, 128.0) if bits < 8 else (0.0, 255.0)
+    codes = unpack_codes(packed, bits, K).float()
+    xf = x.float()
+    acc = torch.zeros((M, packed.shape[1]))
+    for k0 in range(0, K, 64):
+        sg, zg = s[k0 // g], z[k0 // g]
+        zi = torch.round(zg).clamp(lo, hi)
+        part = xf[:, k0:k0 + 64] @ (codes[k0:k0 + 64] - zi)
+        acc += sg * part
+        c_hi, c_lo = _bf16_split(-sg * (zg - zi))
+        g_hi, g_lo = _bf16_split(xf[:, k0:k0 + 64].sum(-1, keepdim=True))
+        acc += (g_hi * c_hi + g_lo * c_hi) + (g_hi * c_lo + g_lo * c_lo)
+    if a.shape[1]:
+        xa = xf @ a.float()
+        xa_hi, xa_lo = _bf16_split(xa)
+        acc += (xa_hi + xa_lo) @ b.float().T
+    return acc.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("g,r", [(64, 0), (64, 8), (128, 64), (256, 128)])
+def test_wgmma_route_fold_matches_jax(bits, g, r):
+    """The sums the wgmma route computes (per-stage sums of exact codes less
+    the zero's whole part, folded with the group's f32 scale; the zero's
+    fraction against the prologue's per-stage sums of x as bf16 halves;
+    LoRA as hi/lo) against the JAX package's fused kernel (interpret mode)
+    at its bf16 tolerance, with zeros that are not whole numbers."""
+    M, K, N = 20, 256, 48
+    packed, s, z = _packed(K, N, bits, g)
+    z = z + RNG.uniform(-0.5, 0.5, size=z.shape).astype(np.float32)
+    x = RNG.normal(size=(M, K)).astype(np.float32)
+    a = (RNG.normal(size=(K, r)) / K ** 0.5).astype(np.float32)
+    b = (RNG.normal(size=(N, r)) * 0.1).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    yj = jops.dequant_matmul(xb, jnp.asarray(packed), jnp.asarray(s),
+                             jnp.asarray(z), bits=bits, group_size=g,
+                             lora_a=jnp.asarray(a, jnp.bfloat16) if r else None,
+                             lora_b=jnp.asarray(b, jnp.bfloat16) if r else None)
+    t = [torch.from_numpy(v) for v in (packed, s, z)]
+    yt = _wgmma_route_emulated(torch.from_numpy(x).to(torch.bfloat16), *t,
+                               torch.from_numpy(a).to(torch.bfloat16),
+                               torch.from_numpy(b).to(torch.bfloat16), bits, g)
+    np.testing.assert_allclose(to_np(yt), to_np(yj), **TOL_BF16)
+
+
+def test_wgmma_route_fold_exact_at_k14336():
+    """At K = 14336 the route keeps the weight the reference's f32
+    (c - z) * s: the emulated route, with zeros that are not whole numbers,
+    stays within ``chip_smoke``'s ``lora_precision`` bound of the exact
+    (f64) product, 2^-8 |exact| + 1e-3, where a bf16 weight would not."""
+    from repro_torch.core.quantizer import dequantize_int, unpack_codes
+    M, K, N, g = 4, 14336, 64, 64
+    packed, s, z = _packed(K, N, 4, g)
+    z = z + RNG.uniform(-0.5, 0.5, size=z.shape).astype(np.float32)
+    x = torch.from_numpy(RNG.normal(size=(M, K)).astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    a = torch.from_numpy((RNG.normal(size=(K, 64)) / K ** 0.5)
+                         .astype(np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy((RNG.normal(size=(N, 64)) * 0.1)
+                         .astype(np.float32)).to(torch.bfloat16)
+    t = [torch.from_numpy(v) for v in (packed, s, z)]
+    y = _wgmma_route_emulated(xb, *t, a, b, 4, g).double()
+    W = dequantize_int(unpack_codes(t[0], 4, K), t[1], t[2], g,
+                       dtype=torch.float64)
+    x64 = xb.double()
+    exact = x64 @ W + (x64 @ a.double()) @ b.double().T
+    assert ((y - exact).abs() <= 2.0 ** -8 * exact.abs() + 1e-3).all()
+    wb = W.to(torch.bfloat16).double()      # the weight rounded to bf16
+    rounded = (x64 @ wb + (x64 @ a.double()) @ b.double().T)
+    assert ((rounded - exact).abs() > 2.0 ** -8 * exact.abs() + 1e-3).any()
 
 
 @pytest.mark.parametrize("M,K,N,r,g,aligned", [
@@ -761,7 +875,29 @@ def test_fault_check_plants_the_lora_fault():
     import chip_smoke as cs
     assert cs.LORA_EXACT_RTOL == 2.0 ** -8 and cs.LORA_EXACT_ATOL == 1e-3
     assert [K for _, K, _ in cs.LORA_PRECISION] == [14336, 14336]
+    assert cs.LORA_PRECISION_ANY_ZERO[1] == 14336
 
+
+@pytest.mark.parametrize("variant", [0, 1, 2, 4, 8, 15])
+def test_lora_probe_edits_apply(variant):
+    """chip_lora_probe.py's probe builds are text edits of a copy of
+    ``dequant_matmul_lora.cu``: each finds its one place in the source as
+    it stands, variant 0 is the source itself, and the source the port
+    builds holds none of the probe's code."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "chip_lora_probe", root / "chip_lora_probe.py")
+    pr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pr)
+    text = pr.SRC.read_text()
+    assert "dq_trace" not in text and "trace(" not in text
+    probe = pr.probe_source(text, variant)
+    assert (probe == text) == (variant == 0)
+    assert ("dq_probe_read" in probe) == bool(variant & 8)
+    assert probe.count("trace(") == (7 if variant & 8 else 0)   # 7 events
+    assert ("if (false)" in probe) == bool(variant & 4)
 
 
 def test_fault_check_plants_the_dist_fault():
